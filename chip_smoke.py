@@ -1,0 +1,779 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. device: the card's name, capability, and nvidia-smi's name and
+     power limit;
+  2. build: every CUDA kernel of the port from ``src/repro_torch/csrc``,
+     and the SASS instruction count of one Threefry block (cuobjdump of
+     a probe built with the kernels' flags), which the bounds use;
+  3. kernels: each kernel held bit-exact against its plain PyTorch
+     version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
+     gather/scatter), at n = 2^20 and n = 1,000,003;
+  4. paper problem: LT-ADMM-CC on the paper's logistic task (ring N=10,
+     n=5, m=100, SAGA) for qbit8, qbit4 and the Fig.-1 RandK settings,
+     through the kernels, against the reference's rounds-to-tolerance
+     and wire bytes, and against the same run on the CPU;
+  5. main path at real width: the same solver at n = 2^20 for 20 rounds
+     per compressor, launch counters zeroed just before each compressor's
+     rounds and read just after, then each kernel timed at the shapes of
+     that run (wrapper and bare launch) beside its bound, its plain
+     version and the PyTorch library call where one exists;
+  6. profile: torch.profiler over three n = 2^20 qbit8 rounds: device
+     time by kernel and operator, and the device's idle share.
+The last two lines are a JSON object of per-kernel results and
+``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
+and the standard library.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12  # non-tensor fp32, NVIDIA data sheet
+# 32-bit integer instructions: the data sheet gives no rate.  An SM issues
+# at most one warp instruction per clock in each of its 4 partitions, 128
+# thread-instructions per clock in all; the least time takes that rate on
+# 132 SMs at the 1.98 GHz boost clock.
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# SASS instructions of one Threefry-2x32-20 block as K1 draws it (counter
+# word 1 zero, seed fixed per thread, only word 0 kept): counted by
+# ``phase_sass`` from cuobjdump of a probe built with the kernels' flags.
+TF_OPS = None
+IDX_OPS = 3  # int32 ops of one affine index: multiply, add, remainder
+
+# One and two Threefry blocks per loop step, as K1's loop draws them; the
+# difference of their SASS instruction counts, less the xor that joins the
+# two, is the instruction count of one block.
+SASS_PROBE = r"""
+#include "threefry.cuh"
+
+extern "C" __global__ void one_block(uint32_t s0, uint32_t s1, uint32_t* out,
+                                     int n) {
+  const repro::Pair es{s0, s1};
+#pragma unroll 1
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    out[j] = repro::random_bits(es, static_cast<uint32_t>(j));
+  }
+}
+
+extern "C" __global__ void two_blocks(uint32_t s0, uint32_t s1, uint32_t* out,
+                                      int n) {
+  const repro::Pair es{s0, s1};
+#pragma unroll 1
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    out[j] = repro::random_bits(es, static_cast<uint32_t>(j)) ^
+             repro::random_bits(es, static_cast<uint32_t>(j) + 0x9E3779B9u);
+  }
+}
+"""
+
+WIDE_N = 2 ** 20
+ODD_N = 1_000_003
+PAPER_ROUNDS, WIDE_ROUNDS = 600, 20
+DEV = "cuda"
+ERRS: dict = {}  # kernel -> max |kernel - plain| over phase 3
+
+
+def sync():
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn()`` by CUDA events over ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, int_ops=0, fp_ops=0):
+    """Least time for the work: bytes over HBM rate vs operations over
+    their type's peak rate; returns (ms, "bytes" | "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1-2
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name} capability {torch.cuda.get_device_capability(0)} "
+        f"count {torch.cuda.device_count()} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    return name, smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    report = _build.build()
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall, "
+        f"{len(report)} sources compiled into {_build.BUILD_DIR}")
+    for stem, (secs, ptxas) in sorted(report.items()):
+        log(f"[build] {stem}.cu {secs:.2f} s")
+        for line in ptxas.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                log(f"[ptxas] {line.strip()}")
+
+
+def sass_counts(cubin):
+    """{kernel: {opcode: count}} of a cubin's SASS (NOPs left out)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = counts.setdefault(head.group(1), {})
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                       line)
+        if fn is not None and ins and ins.group(1) != "NOP":
+            fn[ins.group(1)] = fn.get(ins.group(1), 0) + 1
+    return counts
+
+
+def phase_sass():
+    """Count the SASS instructions of one Threefry block (sets TF_OPS)."""
+    global TF_OPS
+    from repro_torch.kernels import _build
+
+    src = _build.BUILD_DIR / "threefry_probe.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(SASS_PROBE)
+    subprocess.run([_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-cubin", f"-I{_build._CSRC}", "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    counts = sass_counts(cubin)
+    one, two = counts["one_block"], counts["two_blocks"]
+    delta = {op: two.get(op, 0) - one.get(op, 0)
+             for op in sorted(set(one) | set(two))}
+    TF_OPS = sum(two.values()) - sum(one.values()) - 1  # the joining xor
+    log(f"[sass] one Threefry block as K1 draws it: {TF_OPS} instructions "
+        f"(two_blocks {sum(two.values())} - one_block {sum(one.values())}"
+        f" - 1 xor); by opcode {({k: v for k, v in delta.items() if v})}")
+    if not 20 <= TF_OPS <= 120:
+        raise AssertionError(f"implausible Threefry count {TF_OPS}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions, bit-exact
+# ---------------------------------------------------------------------------
+
+
+def note_err(kernel, got, want):
+    err = float((got.double() - want.double()).abs().max()) if got.numel() \
+        else 0.0
+    ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+
+
+def z_plane_ids(device):
+    """Sender/receiver ids of the z-plane of a 10-agent ring."""
+    import torch
+
+    from repro_torch.core.topology import Ring
+
+    nbr = torch.as_tensor(Ring(10).neighbor_table(), device=device)
+    sid = torch.arange(10, device=device)[:, None].expand(10, 2)
+    return sid.reshape(-1).to(torch.int32), nbr.reshape(-1).to(torch.int32)
+
+
+def plane_cases(device):
+    """(sids, rids) of the main path's planes: the z-plane (20 per-edge
+    messages) and the x-plane (10 broadcasts, rids None)."""
+    import torch
+
+    return (z_plane_ids(device),
+            (torch.arange(10, device=device, dtype=torch.int32), None))
+
+
+def check_k0(seed, dev):
+    import torch
+
+    from repro_torch.kernels import prng
+
+    # int32 tensors carry the uint32 bit patterns
+    sids = prng.u32([0, 1, 9, 2 ** 31, 2 ** 31 + 7, 2 ** 32 - 1, 12345,
+                     3_000_000_000], dev).to(torch.int32)
+    rids = prng.u32([1, 0, prng.BROADCAST, 5, 2 ** 31 + 1, 3, 2 ** 32 - 2,
+                     4_000_000_000], dev).to(torch.int32)
+    c = WIDE_N
+    ctr = ((torch.arange(c, device=dev, dtype=torch.int64) * 4099
+            + 2 ** 31 - 100) & prng.MASK).to(torch.int32)
+    got = prng.threefry_bits(seed, sids, rids, ctr, n=ODD_N, n_strides=64)
+    sync()
+    want = prng._threefry_bits_ref(seed, sids, rids, ctr, ODD_N, 64)
+    for g, w, what in zip(got, want, ("bits", "offset", "slot")):
+        note_err("K0", g, w)
+        if not torch.equal(g, w):
+            raise AssertionError(f"K0 {what}: {(g != w).sum()} mismatches")
+    log(f"[kernels] K0 threefry_bits: {sids.numel()} seeds x {c} counters "
+        "(ids and counters >= 2^31) bit-equal")
+    return {"sids": sids, "rids": rids, "ctr": ctr}
+
+
+def plant_saturation(x, seed, sids, rids, levels):
+    """Put each row's max |x| (a power of two, so levels*|x|/scale is
+    exactly ``levels``) at the first element whose kappa lifts it to
+    ``levels + 1``; returns the planted (row, col) pairs."""
+    import torch
+
+    from repro_torch.kernels import prng
+
+    n = x.shape[1]
+    es = prng.fold(seed, prng.u32(sids), prng.u32(rids))
+    ctr = torch.arange(n, device=x.device, dtype=torch.int64)
+    kappa = prng.uniform01(prng.random_bits((es[0][:, None],
+                                             es[1][:, None]), ctr[None, :]))
+    hit = (torch.tensor(float(levels), device=x.device) + kappa) == levels + 1
+    rows = torch.nonzero(hit.any(dim=1)).reshape(-1)
+    cols = torch.argmax(hit.to(torch.int8), dim=1)[rows]
+    big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+    x[rows, cols] = big
+    return rows, cols
+
+
+def check_k1(seed, dev):
+    import torch
+
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.quantize import ops, ref
+
+    (zs, zr), (xs, _) = plane_cases(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for n, sid, rid in ((WIDE_N, zs, zr), (ODD_N, zs, zr), (WIDE_N, xs, None)):
+        for bits in (8, 4):
+            x = torch.randn((sid.numel(), n), generator=g, device=dev)
+            levels = 2 ** (bits - 1) - 1
+            rows, cols = plant_saturation(
+                x, seed, sid, prng.BROADCAST if rid is None else rid, levels)
+            q, sc = ops.quantize_plane(seed, sid, rid, x, bits=bits)
+            sync()
+            qw, scw = ref.quantize_plane_ref(seed, sid, rid, x, bits=bits)
+            note_err("K1", q, qw)
+            note_err("K1", sc, scw)
+            if not (torch.equal(q, qw) and torch.equal(sc, scw)):
+                raise AssertionError(
+                    f"K1 n={n} b={bits}: {(q != qw).sum()} q mismatches")
+            if rows.numel():
+                pre = ref.quantize_values(x[rows, cols], sc[rows], 1.0,
+                                          levels)
+                if not bool((pre == levels + 1).all()):
+                    raise AssertionError("K1 saturation plant missed")
+            log(f"[kernels] K1 quantize_plane [{sid.numel()}, {n}] b={bits}"
+                f"{' broadcast' if rid is None else ''}: bit-equal,"
+                f" {rows.numel()} rows with a planted saturating element")
+
+
+def check_k23(seed, dev):
+    import torch
+
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.sparse_gather import ops, ref
+
+    (zs, zr), (xs, _) = plane_cases(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for n, frac, sid, rid in ((WIDE_N, 0.25, zs, zr), (ODD_N, 0.25, zs, zr),
+                              (WIDE_N, 0.6, zs, zr), (WIDE_N, 0.6, xs, None)):
+        k = max(1, round(frac * n))
+        x = torch.randn((sid.numel(), n), generator=g, device=dev)
+        for sampler in ("block", "stride"):
+            strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+            v = ops.randk_gather_plane(seed, sid, rid, x, k=k,
+                                       strides=strides)
+            sync()
+            vw = ref.randk_gather_plane_ref(seed, sid, rid, x, k=k,
+                                            strides=strides)
+            note_err("K2", v, vw)
+            if not torch.equal(v, vw):
+                raise AssertionError(f"K2 n={n} {sampler}: mismatch")
+            out = ops.randk_scatter_plane(seed, sid, rid, v, n=n, gain=n / k,
+                                          strides=strides)
+            sync()
+            ow = ref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
+                                             gain=n / k, strides=strides)
+            note_err("K3", out, ow)
+            if not torch.equal(out, ow):
+                raise AssertionError(f"K3 n={n} {sampler}: mismatch")
+            es = prng.fold(seed, prng.u32(sid),
+                           prng.BROADCAST if rid is None else prng.u32(rid))
+            idx = prng.affine_indices(es, n, k, strides)
+            exact = ((prng.derive_offset(es, n)[:, None]
+                      + torch.arange(k, device=dev)
+                      * torch.as_tensor(strides, device=dev)[
+                          prng.derive_stride_slot(es, len(strides))][:, None])
+                     % n)
+            wrapped = int((idx != exact).any(dim=1).sum())
+            dup = int(sum(k - torch.unique(r).numel() for r in idx))
+            log(f"[kernels] K2/K3 randk [{sid.numel()}, {n}] k={k} {sampler}"
+                f"{' broadcast' if rid is None else ''}: bit-equal;"
+                f" {wrapped} rows hit the int32 wrap, {dup} repeated indices")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the paper's problem through the kernels
+# ---------------------------------------------------------------------------
+
+PAPER_SPECS = (
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", 36, ("quantize_plane",)),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4", 28, ("quantize_plane",)),
+    ("randk-stride",
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", 48,
+     ("randk_gather_plane", "randk_scatter_plane")),
+    ("randk-block",
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=block", 48,
+     ("randk_gather_plane", "randk_scatter_plane")),
+)
+
+
+def kernel_counters():
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.sparse_gather import ops as sgops
+
+    return {"threefry_bits": prng.threefry_bits,
+            "quantize_plane": qops.quantize_plane,
+            "randk_gather_plane": sgops.randk_gather_plane,
+            "randk_scatter_plane": sgops.randk_scatter_plane}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def phase_paper(rounds):
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import rounds_to_tol, run_solver
+    from repro_torch.core import vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    data = prob.make_data(0)
+    graph, ex = build_graph("ring", prob.n_agents)
+    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+    for label, spec, wire, used in PAPER_SPECS:
+        # impl=auto picks the kernels on the card; the CPU rehearsal asks
+        # for the kernel route (the plain versions) explicitly
+        solver = make_solver(spec + (",impl=kernel" if DEV == "cpu" else ""),
+                             graph, ex, est, device=DEV)
+        reset_counts()
+        t0 = time.perf_counter()
+        idx, gns, st = run_solver(prob, data, solver, rounds,
+                                  metric_every=10, return_state=True)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        r2t = rounds_to_tol(idx, gns, 1e-8)
+        wb = solver.wire_bytes({"x": np.zeros(prob.n, np.float32)})
+        log(f"[paper] {label}: rounds_to_tol={r2t} final={gns[-1]:.3e} "
+            f"wire_bytes_per_round={wb} launches={counts} "
+            f"host_s_per_round={secs / rounds:.5f}")
+        if r2t is None or r2t > 125:
+            raise AssertionError(f"{label}: rounds_to_tol {r2t} > 125")
+        if wb != wire:
+            raise AssertionError(f"{label}: wire bytes {wb} != {wire}")
+        if DEV == "cuda" and not all(counts[u] > 0 for u in used):
+            raise AssertionError(f"{label}: kernels {used} not launched")
+        # the same route on the CPU (the kernels' plain versions)
+        cpu = make_solver(spec + ",impl=kernel", graph, ex, est,
+                          device="cpu")
+        _, g_cpu, st_cpu = run_solver(prob, data, cpu, 20, metric_every=10,
+                                      return_state=True)
+        _, g_gpu, st_gpu = run_solver(prob, data, solver, 20,
+                                      metric_every=10, return_state=True)
+        dx = float((st_gpu.x.cpu() - st_cpu.x).abs().max())
+        log(f"[paper] {label}: card vs CPU after 20 rounds: max |dx| = "
+            f"{dx:.3e}, ||gradF||^2 {g_gpu[-1]:.3e} vs {g_cpu[-1]:.3e}")
+        # same kernel arithmetic; matmul rounding differs and can flip a
+        # rounding decision, which error feedback then absorbs
+        if not dx < 1e-2:
+            raise AssertionError(f"{label}: card and CPU runs disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at real width, then kernel timings
+# ---------------------------------------------------------------------------
+
+WIDE_SPECS = (
+    ("qbit8", "ltadmm:compressor=qbit:bits=8"),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4"),
+    ("randk-stride",
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride"),
+)
+
+
+def wide_data(prob, dev):
+    """LIBSVM-style rows: Gaussian, scaled to unit norm."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((prob.n_agents, prob.m, prob.n), generator=g, device=dev)
+    a /= torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    u = torch.rand((prob.n_agents, prob.m), generator=g, device=dev)
+    return {"a": a, "b": torch.where(u < 0.5, 1.0, -1.0)}
+
+
+def phase_wide(rounds, warm=2):
+    import torch
+
+    from repro_torch.core import jaxrand, vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem(n=WIDE_N)
+    dev = torch.device(DEV)
+    data = wide_data(prob, dev)
+    graph, ex = build_graph("ring", prob.n_agents)
+    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counts = {}  # per compressor: launches over its main-path rounds
+    for label, spec in WIDE_SPECS:
+        solver = make_solver(spec, graph, ex, est, device=DEV)
+        reset_counts()  # this compressor's main-path run starts here
+        st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev))
+        base = jaxrand.key(12345)
+        gns, times = [], []
+        for i in range(rounds):
+            sync()
+            t0 = time.perf_counter()
+            st = solver.step(st, data, jaxrand.fold_in(base, i))
+            sync()
+            times.append(time.perf_counter() - t0)
+            if i in (0, rounds - 1):
+                xbar = torch.mean(solver.consensus_params(st), dim=0)
+                gns.append(float(prob.global_grad_norm_sq(xbar, data)))
+        counts[label] = read_counts()  # ... and ends here
+        mean_s = sum(times[warm:]) / len(times[warm:])
+        log(f"[wide] {label}: n={prob.n} rounds={rounds} "
+            f"mean_round_ms={mean_s * 1e3:.3f} (host clock, after {warm} "
+            f"warm-up rounds) gradF^2 first={gns[0]:.6e} last={gns[-1]:.6e}"
+            f" launches={counts[label]}")
+        if not (math.isfinite(gns[-1]) and gns[-1] < gns[0]):
+            raise AssertionError(f"wide {label}: ||gradF||^2 did not fall")
+        del st, solver
+    if DEV == "cuda":
+        log(f"[wide] max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del data
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_profile(rounds=3):
+    """torch.profiler over ``rounds`` qbit8 rounds of the wide run (after
+    two warm-up rounds): device time by operator, and the device's idle
+    share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import jaxrand, vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem(n=WIDE_N)
+    data = wide_data(prob, torch.device("cuda"))
+    graph, ex = build_graph("ring", prob.n_agents)
+    solver = make_solver(WIDE_SPECS[0][1], graph, ex,
+                         vr.SagaTable(sample_grads=prob.sample_grads,
+                                      m=prob.m))
+    st = solver.init(torch.zeros((prob.n_agents, prob.n)))
+    base = jaxrand.key(12345)
+    for i in range(2):
+        st = solver.step(st, data, jaxrand.fold_in(base, i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, 2 + rounds):
+            st = solver.step(st, data, jaxrand.fold_in(base, i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0]
+    # top-level operators only: a kernel's time also counts under its
+    # aten op, so sum the CUDA kernels (device type) for the busy time
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    log(f"[profile] {rounds} rounds qbit8 n={WIDE_N}: wall {wall * 1e3:.3f} "
+        f"ms, device busy {busy * 1e3:.3f} ms, idle share "
+        f"{1 - busy / wall:.3f}")
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"[profile] kernel {ms / rounds:9.4f} ms/round "
+            f"{ms / 1e3 / busy:6.1%}  {name[:110]}")
+    ops = sorted(events, key=lambda e: -e.device_time_total)[:15]
+    for e in ops:
+        log(f"[profile] op {e.device_time_total / 1e3 / rounds:9.4f} ms/round"
+            f" calls/round {e.count // rounds:4d}  {e.key[:80]}")
+
+
+def time_kernels(seed, k0_inputs, counts):
+    """Each kernel at the main path's shapes (the z-plane [20, 2^20] of
+    the wide run; RandK at fraction 0.6): the wrapper (``ms``), the bare
+    launch on inputs the wrapper would have prepared (``kernel_ms``), the
+    plain version, the library call, and the bound.  ``counts`` holds the
+    launches of each compressor's main-path run."""
+    import torch
+
+    from repro_torch.kernels import _build, prng
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.kernels.sparse_gather import ops as sgops
+    from repro_torch.kernels.sparse_gather import ref as sgref
+
+    if TF_OPS is None:
+        phase_sass()
+    dev = torch.device("cuda")
+    sid, rid = z_plane_ids(dev)
+    m, n = 20, WIDE_N
+    x = torch.randn((m, n), device=dev)
+    k = round(0.6 * n)
+    strides = prng.coprime_strides(n)
+    rows = []
+
+    def bare(entry, *args):
+        return cuda_ms(lambda: _build.launch(entry, *args))
+
+    def row(name, source, replaces, launches, ms, kernel_ms, plain_ms,
+            nbytes, int_ops, fp_ops, library_ms, rounds=WIDE_ROUNDS,
+            **extra):
+        b, by = bound_ms(nbytes, int_ops, fp_ops)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches,
+                     "launches_per_round": launches / rounds,
+                     "max_abs_err": ERRS[name.split()[0]], "ms": ms,
+                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+                     **extra})
+        log(f"[time] {name}: wrapper {ms:.4f} ms, bare launch "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms "
+            f"({by}), library "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"launches {launches} in {rounds} rounds")
+
+    # K0 at its test shape: 8 seeds x 2^20 counters; it has no launch of
+    # its own on the main path, so its launches are those of K1-K3
+    s, r, c = k0_inputs["sids"], k0_inputs["rids"], k0_inputs["ctr"]
+    nb, nc = s.numel(), c.numel()
+    out = [torch.empty(shape, dtype=torch.int32, device=dev)
+           for shape in ((nb, nc), (nb,), (nb,))]
+    row("K0 threefry (threefry_bits entry)", "src/repro_torch/csrc/threefry.cuh",
+        "src/repro/kernels/prng.py:65",
+        sum(cnt[kk] for cnt in counts.values()
+            for kk in ("quantize_plane", "randk_gather_plane",
+                       "randk_scatter_plane")),
+        cuda_ms(lambda: prng.threefry_bits(seed, s, r, c, n=ODD_N,
+                                           n_strides=64)),
+        bare("threefry_bits", seed[0], seed[1], s.data_ptr(), r.data_ptr(),
+             c.data_ptr(), nb, nc, ODD_N, 64, *(t.data_ptr() for t in out)),
+        cuda_ms(lambda: prng._threefry_bits_ref(seed, s, r, c, ODD_N, 64),
+                iters=3, warmup=1),
+        4 * nc + 8 * nb + 4 * nb * nc + 8 * nb,
+        TF_OPS * (nb * nc + 3 * nb), 0, None,
+        rounds=WIDE_ROUNDS * len(counts), launches_of="K1-K3, which inline K0 (all three compressors)")
+
+    sid32, rid32 = qops._plane_ids(sid, (m,)), qops._plane_ids(rid, (m,))
+    scale = qref.row_scale(x)
+    for bits, label in ((8, "qbit8"), (4, "qbit4")):
+        wire = qops.wire_len(n, bits)
+        q = torch.empty((m, wire), device=dev,
+                        dtype=torch.int8 if bits == 8 else torch.uint8)
+        row(f"K1 quantize_plane b={bits} [20, 2^20]",
+            "src/repro_torch/csrc/quantize_plane.cu",
+            "src/repro/kernels/quantize/kernel.py:148",
+            counts[label]["quantize_plane"],
+            cuda_ms(lambda: qops.quantize_plane(seed, sid, rid, x, bits=bits)),
+            bare("quantize_plane", x.data_ptr(), m, n, bits, seed[0], seed[1],
+                 sid32.data_ptr(), rid32.data_ptr(), scale.data_ptr(),
+                 q.data_ptr(), wire),
+            cuda_ms(lambda: qref.quantize_plane_ref(seed, sid, rid, x,
+                                                    bits=bits),
+                    iters=3, warmup=1),
+            m * n * 4 + m * wire + 8 * m, TF_OPS * (m * n + 2 * m),
+            6 * m * n, None)
+
+    v = sgops.randk_gather_plane(seed, sid, rid, x, k=k, strides=strides)
+    es = prng.fold(seed, prng.u32(sid), prng.u32(rid))
+    idx = prng.affine_indices(es, n, k, strides)
+    vout = torch.empty((m, k), device=dev)
+    row(f"K2 randk_gather_plane stride [20, 2^20] k={k}",
+        "src/repro_torch/csrc/randk_plane.cu",
+        "src/repro/kernels/sparse_gather/kernel.py:173",
+        counts["randk-stride"]["randk_gather_plane"],
+        cuda_ms(lambda: sgops.randk_gather_plane(seed, sid, rid, x, k=k,
+                                                 strides=strides)),
+        bare("randk_gather_plane", x.data_ptr(), m, n, k, seed[0], seed[1],
+             sid32.data_ptr(), rid32.data_ptr(), _build.stride_table(strides),
+             len(strides), vout.data_ptr()),
+        cuda_ms(lambda: sgref.randk_gather_plane_ref(seed, sid, rid, x, k=k,
+                                                     strides=strides),
+                iters=3, warmup=1),
+        2 * m * k * 4, IDX_OPS * m * k + 3 * TF_OPS * m, 0,
+        cuda_ms(lambda: torch.gather(x, 1, idx)))
+
+    gain = n / k
+    vg = torch.tensor(gain, dtype=torch.float32, device=dev) * v
+    zeros = torch.zeros((m, n), device=dev)
+    plane = torch.zeros((m, n), device=dev)
+    assert sgops.indices_unique(n, k, strides)  # no claim pass at 2^20
+    row(f"K3 randk_scatter_plane stride [20, 2^20] k={k}",
+        "src/repro_torch/csrc/randk_plane.cu",
+        "src/repro/kernels/sparse_gather/kernel.py:222",
+        counts["randk-stride"]["randk_scatter_plane"],
+        cuda_ms(lambda: sgops.randk_scatter_plane(seed, sid, rid, v, n=n,
+                                                  gain=gain,
+                                                  strides=strides)),
+        # onto a plane zeroed once: the wrapper's zero fill left out
+        bare("randk_scatter_plane", v.data_ptr(), m, n, k, float(gain),
+             seed[0], seed[1], sid32.data_ptr(), rid32.data_ptr(),
+             _build.stride_table(strides), len(strides), None,
+             plane.data_ptr()),
+        cuda_ms(lambda: sgref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
+                                                      gain=gain,
+                                                      strides=strides),
+                iters=3, warmup=1),
+        m * k * 4 + m * n * 4, IDX_OPS * m * k + 3 * TF_OPS * m, m * k,
+        cuda_ms(lambda: torch.scatter(zeros, 1, idx, vg)))
+    return rows
+
+
+def rehearse():
+    """Every phase but device, build and timing on the CPU at a tiny
+    size, the kernels replaced by their plain versions; prints no
+    result."""
+    global WIDE_N, ODD_N, PAPER_ROUNDS, WIDE_ROUNDS, DEV
+    WIDE_N, ODD_N, PAPER_ROUNDS, WIDE_ROUNDS, DEV = 4096, 4099, 150, 4, "cpu"
+    from repro_torch.core import jaxrand
+
+    seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
+    check_k0(seed, "cpu")
+    check_k1(seed, "cpu")
+    check_k23(seed, "cpu")
+    phase_paper(PAPER_ROUNDS)
+    phase_wide(WIDE_ROUNDS)
+    log("[rehearse] done on the CPU; no result")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases",
+                    default="device,build,kernels,paper,wide,profile",
+                    help="comma-separated subset of the phases, for bring-up")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="run the phases on the CPU at a tiny size (exits 3)")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if args.rehearse:
+        rehearse()
+        return 3
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.core import jaxrand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, _ = phase_device()
+    if "build" in phases:
+        phase_build()
+        phase_sass()
+    seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
+    k0 = None
+    if "kernels" in phases:
+        k0 = check_k0(seed, torch.device("cuda"))
+        check_k1(seed, torch.device("cuda"))
+        check_k23(seed, torch.device("cuda"))
+    if "paper" in phases:
+        phase_paper(PAPER_ROUNDS)
+    rows = None
+    if "wide" in phases:
+        counts = phase_wide(WIDE_ROUNDS)
+        missing = [kk for kk in ("quantize_plane", "randk_gather_plane",
+                                 "randk_scatter_plane")
+                   if not any(c[kk] for c in counts.values())]
+        if missing:
+            raise AssertionError(f"main path never launched {missing}")
+        if k0 is not None:
+            rows = time_kernels(seed, k0, counts)
+    if "profile" in phases:
+        phase_profile()
+    if rows is not None:
+        print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""The few tree helpers the main path needs.  A tree is a tensor, or a
+mapping (a dict or a ``Payload``), list or tuple of trees; mapping keys
+are taken in sorted order, as jax flattens them."""
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import torch
+
+
+def tree_flatten(tree, is_leaf=None):
+    """-> (leaves, rebuild) with ``rebuild(leaves)`` the inverse.
+    ``is_leaf(node)`` True stops the descent at ``node``."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, Mapping):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k], is_leaf) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(t, is_leaf) for t in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(p[0]) for p in parts]
+    leaves = [leaf for p in parts for leaf in p[0]]
+
+    def rebuild(flat):
+        out, i = [], 0
+        for (_, fn), n in zip(parts, sizes):
+            out.append(fn(flat[i:i + n]))
+            i += n
+        if keys is not None:
+            items = dict(zip(keys, out))
+            return items if isinstance(tree, dict) else type(tree)(**items)
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def tree_map(fn, tree, *rest):
+    leaves, rebuild = tree_flatten(tree)
+    others = [tree_flatten(t)[0] for t in rest]
+    return rebuild([fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_lerp(a, b, eta):
+    """(1 - eta) * a + eta * b."""
+    return tree_map(lambda x, y: (1.0 - eta) * x + eta * y, a, b)
+
+
+def consensus_mean(params):
+    """Mean over the leading agent axis of stacked ``[A, ...]`` params."""
+    return tree_map(lambda x: torch.mean(x, dim=0), params)
+
+
+def consensus_error(params):
+    """Total squared deviation from the agent mean."""
+    sq = tree_map(lambda x: torch.sum((x - torch.mean(x, dim=0)) ** 2),
+                  params)
+    return sum(tree_flatten(sq)[0])

@@ -1,0 +1,495 @@
+"""Compression operators (paper §II-B): the main-path part of
+``repro/core/compression.py``.
+
+A compressor's ``compress`` returns the wire representation (a
+``Payload`` of named tensors) and ``decompress`` rebuilds the dense
+message.  Implemented: ``Identity``, ``BBitQuantizer`` (the paper's C1,
+``qbit``), ``RandK`` (C2, seed-synchronised: only the k values travel)
+and ``TopK`` (biased, values plus indices).
+
+Batching: where the reference ``vmap``s a per-message compressor, the
+port passes a batch.  ``compress(keys, x)`` takes keys ``[..., 2]``
+(``core.jaxrand``) and flat messages ``[..., n]``; ``decompress(keys,
+payload, n)`` returns ``[..., n]``.  Random draws are bit-exact with the
+reference's ``jax.random`` draws.
+
+Backends: every compressor takes ``impl={auto,torch,kernel}``.
+``torch`` is the counterpart of the reference's ``jnp`` (the per-message
+route); ``kernel`` of ``pallas`` (the fused plane route: one hand-written
+CUDA launch compresses a whole round's messages, with the randomness
+derived in the kernel); ``auto`` is ``kernel`` for CUDA tensors and
+``torch`` otherwise.  On a CPU tensor the kernel route's wrappers run
+their plain versions, as Pallas runs in interpret mode off the TPU.  A
+kernel route that needs a kernel not ported yet raises; it never runs the
+torch route instead.  As in the reference, the two qbit routes draw
+different rounding bits (``jax.random.uniform`` vs the counter cipher).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+
+import torch
+
+from repro_torch.common.trees import tree_flatten
+from repro_torch.core import jaxrand
+from repro_torch.kernels import prng
+from repro_torch.kernels.quantize import ops as qops
+from repro_torch.kernels.quantize import ref as qref
+from repro_torch.kernels.sparse_gather import ops as sgops
+from repro_torch.kernels.sparse_gather.ref import scatter_last
+
+IMPLS = ("auto", "torch", "kernel")
+
+
+def resolve_impl(impl: str, device) -> str:
+    """``auto`` -> ``kernel`` on a CUDA device, ``torch`` otherwise;
+    explicit ``torch``/``kernel`` always win."""
+    _check_impl(impl)
+    if impl == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "torch"
+    return impl
+
+
+def _check_impl(impl: str):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _unported(what: str, kernels: str):
+    return NotImplementedError(
+        f"{what} under impl=kernel needs {kernels}, not ported yet: "
+        "ROADMAP Queue 2")
+
+
+class Payload(Mapping):
+    """Wire representation of a batch of messages: named tensors, plus the
+    byte count of the leaves as stored."""
+
+    __slots__ = ("_leaves",)
+
+    def __init__(self, **leaves):
+        self._leaves = dict(sorted(leaves.items()))
+
+    def __getitem__(self, k):
+        return self._leaves[k]
+
+    def __iter__(self):
+        return iter(self._leaves)
+
+    def __len__(self):
+        return len(self._leaves)
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}={v!r}" for k, v in self._leaves.items())
+        return f"Payload({inner})"
+
+    @property
+    def wire_bytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in self._leaves.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Shape and dtype of one message (the reference's ShapeDtypeStruct)."""
+
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Leaf-level compressors (batched over leading message dims)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity:
+    impl: str = "auto"
+    name: str = "identity"
+    unbiased: bool = True
+
+    def __post_init__(self):
+        _check_impl(self.impl)
+
+    def compress(self, keys, x) -> Payload:
+        return Payload(v=x)
+
+    def decompress(self, keys, payload, n: int):
+        return payload["v"]
+
+    def variance_p(self, shape) -> float:
+        return 1.0
+
+    def wire_bytes(self, shape, dtype) -> int:
+        return math.prod(shape) * dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class BBitQuantizer:
+    """The paper's C1: C(x) = (||x||_inf / s) sign(x) floor(s |x| /
+    ||x||_inf + kappa), s = 2^(b-1) - 1, kappa ~ U[0, 1)^n."""
+
+    bits: int = 8
+    impl: str = "auto"
+    name: str = "qbit"
+    unbiased: bool = True
+
+    def __post_init__(self):
+        _check_impl(self.impl)
+        if self.bits not in (4, 8):
+            raise ValueError(
+                f"wire packing implemented for bits in (4, 8), got {self.bits}")
+
+    @property
+    def levels(self) -> int:
+        return 2 ** (self.bits - 1) - 1
+
+    def compress(self, keys, x) -> Payload:
+        if resolve_impl(self.impl, x.device) == "kernel":
+            raise _unported("the per-message qbit quantizer",
+                            "K4 quantize (kernels/quantize/kernel.py:73)")
+        xf = x.to(torch.float32)
+        scale = qref.row_scale(xf)
+        kappa = jaxrand.uniform(keys.to(x.device), xf.shape[-1:])
+        q = qref.to_int8(qref.quantize_values(xf, scale[..., None], kappa,
+                                              self.levels))
+        if self.bits == 4:
+            q = qref.pack4(q)
+        return Payload(q=q, scale=scale)
+
+    def decompress(self, keys, payload, n: int):
+        if resolve_impl(self.impl, payload["q"].device) == "kernel":
+            raise _unported("the per-message qbit dequantizer",
+                            "K5 dequantize (kernels/quantize/kernel.py:188)")
+        q = payload["q"]
+        if self.bits == 4:
+            q = qref.unpack4(q, n)
+        return payload["scale"][..., None] * q.to(torch.float32) / self.levels
+
+    # -- fused plane route: one launch for all [A, S, N] messages --
+
+    def plane_ready(self) -> bool:
+        return True
+
+    def compress_plane(self, seed, sids, rids, x) -> Payload:
+        q, scale = qops.quantize_plane(seed, sids, rids, x, bits=self.bits)
+        return Payload(q=q, scale=scale)
+
+    def decompress_plane(self, seed, sids, rids, payload, n: int):
+        return qops.dequantize_plane(payload["q"], payload["scale"], n=n,
+                                     bits=self.bits)
+
+    def variance_p(self, shape) -> float:
+        return 1.0 + math.prod(shape) / (4.0 * self.levels ** 2)
+
+    def wire_bytes(self, shape, dtype) -> int:
+        return (math.prod(shape) * self.bits + 7) // 8 + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK:
+    """The paper's C2, seed-synchronised so no index travels.  k =
+    max(1, round(fraction * n)); samplers ``uniform`` (permutation),
+    ``block`` (cyclic window at a random offset) and ``stride`` (seeded
+    affine set with a stride from a static coprime table)."""
+
+    fraction: float = 0.25
+    sampler: str = "uniform"
+    impl: str = "auto"
+    name: str = "randk"
+    unbiased: bool = True
+
+    def __post_init__(self):
+        _check_impl(self.impl)
+        if self.sampler not in ("uniform", "block", "stride"):
+            raise ValueError(
+                "sampler must be one of ('uniform', 'block', 'stride'), "
+                f"got {self.sampler!r}")
+
+    def _k(self, n: int) -> int:
+        return max(1, int(round(self.fraction * n)))
+
+    def _strides(self, n: int) -> tuple:
+        return (1,) if self.sampler == "block" else prng.coprime_strides(n)
+
+    def _indices(self, keys, n: int):
+        k = self._k(n)
+        if self.sampler == "uniform":
+            return jaxrand.permutation(keys, n)[..., :k]
+        if self.sampler == "stride":
+            return prng.affine_indices((keys[..., 0], keys[..., 1]), n, k,
+                                       self._strides(n))
+        off = jaxrand.randint(keys, (), 0, n)
+        return (off[..., None] + torch.arange(k, device=keys.device)) % n
+
+    def _check_route(self, device):
+        if resolve_impl(self.impl, device) == "kernel":
+            kern = ("K8/K9 cyclic_gather/cyclic_scatter "
+                    "(kernels/sparse_gather/kernel.py:110, :257)"
+                    if self.sampler == "block" else
+                    "K6/K7 gather/scatter (kernels/sparse_gather/kernel.py"
+                    ":47, :75)")
+            raise _unported(f"the per-message RandK sampler={self.sampler}",
+                            kern)
+
+    def compress(self, keys, x) -> Payload:
+        self._check_route(x.device)
+        idx = self._indices(keys.to(x.device), x.shape[-1])
+        return Payload(v=torch.gather(x, -1, idx))
+
+    def decompress(self, keys, payload, n: int):
+        v = payload["v"]
+        self._check_route(v.device)
+        idx = self._indices(keys.to(v.device), n)
+        gain = torch.tensor(n / self._k(n), dtype=v.dtype, device=v.device)
+        lead = tuple(v.shape[:-1])
+        out = scatter_last(idx.reshape(-1, idx.shape[-1]),
+                           (gain * v).reshape(-1, v.shape[-1]), n)
+        return out.reshape(lead + (n,))
+
+    # -- fused plane route: index sets derived in the kernel --
+
+    def plane_ready(self) -> bool:
+        return self.sampler in ("block", "stride")
+
+    def compress_plane(self, seed, sids, rids, x) -> Payload:
+        n = x.shape[-1]
+        return Payload(v=sgops.randk_gather_plane(
+            seed, sids, rids, x, k=self._k(n), strides=self._strides(n)))
+
+    def decompress_plane(self, seed, sids, rids, payload, n: int):
+        return sgops.randk_scatter_plane(
+            seed, sids, rids, payload["v"], n=n, gain=n / self._k(n),
+            strides=self._strides(n))
+
+    def variance_p(self, shape) -> float:
+        n = math.prod(shape)
+        return n / self._k(n)
+
+    def wire_bytes(self, shape, dtype) -> int:
+        return self._k(math.prod(shape)) * dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class TopK:
+    """Biased magnitude top-k: values plus int32 indices on the wire."""
+
+    fraction: float = 0.25
+    impl: str = "auto"
+    name: str = "topk"
+    unbiased: bool = False
+
+    def __post_init__(self):
+        _check_impl(self.impl)
+
+    def _k(self, n: int) -> int:
+        return max(1, int(round(self.fraction * n)))
+
+    def _check_route(self, device):
+        if resolve_impl(self.impl, device) == "kernel":
+            raise _unported("TopK", "K6/K7 gather/scatter "
+                            "(kernels/sparse_gather/kernel.py:47, :75)")
+
+    def compress(self, keys, x) -> Payload:
+        self._check_route(x.device)
+        k = self._k(x.shape[-1])
+        # lax.top_k order: descending, ties by lower index first
+        idx = torch.sort(x.abs(), dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+        return Payload(v=torch.gather(x, -1, idx), idx=idx.to(torch.int32))
+
+    def decompress(self, keys, payload, n: int):
+        v = payload["v"]
+        self._check_route(v.device)
+        lead = tuple(v.shape[:-1])
+        out = scatter_last(payload["idx"].reshape(-1, v.shape[-1]).long(),
+                           v.reshape(-1, v.shape[-1]), n)
+        return out.reshape(lead + (n,))
+
+    def variance_p(self, shape) -> float:
+        n = math.prod(shape)
+        return float(n) / self._k(n)
+
+    def wire_bytes(self, shape, dtype) -> int:
+        return self._k(math.prod(shape)) * (dtype.itemsize + 4)
+
+
+# ---------------------------------------------------------------------------
+# Tree-level wrappers: every leaf with its own split key
+# ---------------------------------------------------------------------------
+
+
+def compress_tree(comp, keys, tree, nd: int):
+    """Compress every leaf of a tree whose leaves carry ``nd`` lead
+    (message) dims; ``keys`` is ``[*lead, 2]``.  Leaf i uses
+    ``split(key, n_leaves)[i]``, as the reference does."""
+    leaves, rebuild = tree_flatten(tree)
+    lk = jaxrand.split(keys, len(leaves))
+    out = []
+    for i, x in enumerate(leaves):
+        lead = tuple(x.shape[:nd])
+        out.append(comp.compress(lk[..., i, :], x.reshape(lead + (-1,))))
+    return rebuild(out)
+
+
+def decompress_tree(comp, keys, payload_tree, like_tree, nd: int):
+    """Inverse of ``compress_tree``; ``like_tree`` holds one ``Spec`` per
+    leaf (the per-message shape)."""
+    likes, rebuild = tree_flatten(like_tree)
+    payloads, _ = tree_flatten(payload_tree,
+                               is_leaf=lambda t: isinstance(t, Payload))
+    lk = jaxrand.split(keys, len(likes))
+    outs = []
+    for i, (p, like) in enumerate(zip(payloads, likes)):
+        n = math.prod(like.shape)
+        d = comp.decompress(lk[..., i, :], p, n)
+        outs.append(d.reshape(tuple(d.shape[:nd]) + tuple(like.shape))
+                    .to(like.dtype))
+    return rebuild(outs)
+
+
+def tree_wire_bytes(comp, tree) -> int:
+    return sum(comp.wire_bytes(tuple(x.shape), x.dtype)
+               for x in tree_flatten(tree)[0])
+
+
+# ---------------------------------------------------------------------------
+# Plane-level helpers: a whole round's [..., N] messages
+# ---------------------------------------------------------------------------
+
+
+def use_fused(comp, device) -> bool:
+    ready = getattr(comp, "plane_ready", None)
+    return (ready is not None and ready()
+            and resolve_impl(comp.impl, device) == "kernel")
+
+
+def plane_compress(comp, keys_fn, base_key, sids, rids, delta, like):
+    """Compress every message of a plane ``delta [..., N]`` and return
+    ``(payload, reconstruction)``.
+
+    Fused route (kernel impl and a plane-capable compressor): one launch
+    for the plane, randomness derived in the kernel from
+    ``(key_seed(base_key), sender, receiver)``; ``sids``/``rids`` are the
+    per-message ids (int32 tensors on the plane's device, ``rids=None``
+    for one-to-all messages).  Otherwise the per-message route with keys
+    ``keys_fn()`` (``[..., 2]``), bit-identical to the reference's
+    vmapped ``compress_tree``."""
+    if use_fused(comp, delta.device):
+        seed = jaxrand.key_seed(base_key)
+        n = math.prod(like.shape)
+        p = comp.compress_plane(seed, sids, rids, delta)
+        return p, comp.decompress_plane(seed, sids, rids, p, n)
+    nd = delta.dim() - len(like.shape)
+    keys = keys_fn()
+    p = compress_tree(comp, keys, delta, nd)
+    return p, decompress_tree(comp, keys, p, like, nd)
+
+
+def plane_decompress(comp, keys_fn, base_key, sids, rids, payload, like,
+                     nd: int):
+    """Receiver-side reconstruction of a payload plane with ``nd`` batch
+    dims: the same per-message randomness as ``plane_compress``."""
+    some = next(iter(payload.values()))
+    if use_fused(comp, some.device):
+        seed = jaxrand.key_seed(base_key)
+        return comp.decompress_plane(seed, sids, rids, payload,
+                                     math.prod(like.shape))
+    return decompress_tree(comp, keys_fn(), payload, like, nd)
+
+
+# ---------------------------------------------------------------------------
+# Registry + spec parsing (same grammar and messages as the reference)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressorEntry:
+    name: str
+    cls: type
+    params: frozenset
+    doc: str = ""
+
+
+def _entry(cls, doc: str) -> CompressorEntry:
+    name = cls.__dataclass_fields__["name"].default
+    params = frozenset(f.name for f in dataclasses.fields(cls)
+                       if f.init and f.name not in ("name", "unbiased"))
+    return CompressorEntry(name=name, cls=cls, params=params, doc=doc)
+
+
+COMPRESSORS: dict[str, CompressorEntry] = {
+    e.name: e
+    for e in (
+        _entry(Identity, "no compression (exact LT-ADMM)"),
+        _entry(BBitQuantizer, "unbiased stochastic b-bit quantizer (C1)"),
+        _entry(RandK, "seed-synchronized rand-k, zero index bytes (C2)"),
+        _entry(TopK, "biased magnitude top-k (values + indices, needs EF)"),
+    )
+}
+
+
+def compressor_entry(name: str) -> CompressorEntry:
+    try:
+        return COMPRESSORS[name]
+    except KeyError:
+        raise ValueError(f"unknown compressor {name!r}; choose from "
+                         f"{sorted(COMPRESSORS)}") from None
+
+
+def coerce_param(v):
+    """Spec-string value -> int, then float, then bool literal, else the
+    string itself."""
+    if not isinstance(v, str):
+        return v
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    return v
+
+
+def _parse_spec(spec: str):
+    name, _, rest = spec.partition(":")
+    entry = compressor_entry(name)
+    params = {}
+    for item in rest.replace("|", ",").split(","):
+        if not item:
+            continue
+        k, eq, v = item.partition("=")
+        if not eq:
+            raise ValueError(f"malformed compressor param {item!r} in spec "
+                             f"{spec!r} (expected k=v)")
+        params[k.strip()] = coerce_param(v.strip())
+    return entry, params
+
+
+def _construct(entry: CompressorEntry, params: dict):
+    unknown = sorted(set(params) - entry.params)
+    if unknown:
+        raise ValueError(
+            f"compressor {entry.name!r} got unknown param(s) {unknown}; "
+            f"valid params: {sorted(entry.params)}")
+    try:
+        return entry.cls(**params)
+    except TypeError as e:
+        raise ValueError(
+            f"bad params for compressor {entry.name!r}: {e}") from None
+
+
+def validate_spec(spec: str) -> None:
+    """Parse-time validation of a compressor spec; raises what
+    ``get_compressor`` would."""
+    _construct(*_parse_spec(spec))
+
+
+def get_compressor(spec: str, **kw):
+    """Compressor from a spec string ``name[:k=v,...]`` (``|`` may stand
+    for ``,`` when nested in a solver spec)."""
+    entry, params = _parse_spec(spec)
+    params.update(kw)
+    return _construct(entry, params)

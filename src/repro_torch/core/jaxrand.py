@@ -1,0 +1,116 @@
+"""Bit-exact counterparts of the ``jax.random`` functions the main path
+draws from, so that the port follows the reference's random draws.
+
+Mode: the threefry implementation with ``jax_threefry_partitionable =
+True`` (the default from jax 0.5 on, and the mode of the reference runs
+this port is held to).  In that mode every draw hashes a flat 64-bit
+element counter split into two uint32 words; ``split(key, n)[i]`` equals
+``fold_in(key, i)``, and 32-bit ``bits`` are the XOR of the two output
+words.
+
+A key is an int64 tensor ``[..., 2]`` holding the two uint32 words of
+``jax.random.key_data``; every function broadcasts over the leading
+dims, so a batch of keys (the vmapped per-agent or per-message keys of
+the reference) is one call.  Results lie on the key's device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.prng import MASK, threefry2x32, u32, wrap_i32
+
+
+def key(seed: int, device="cpu") -> torch.Tensor:
+    """``jax.random.key(seed)``: a 64-bit seed as its two uint32 words (a
+    negative int32 seed is its two's complement in the low word)."""
+    seed = int(seed)
+    hi = (seed >> 32) & MASK if seed >= 0 else 0
+    return torch.tensor([hi, seed & MASK], dtype=torch.int64, device=device)
+
+
+def key_data(k):
+    return k
+
+
+def key_seed(k):
+    """Key -> the ``(u32, u32)`` pair of Python ints the fused kernels
+    take as their round seed (``prng.key_seed`` of the reference)."""
+    w = k.tolist()
+    return int(w[0]), int(w[1])
+
+
+def _hash(k, c0, c1):
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], c0, c1)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(k, data):
+    """``jax.random.fold_in``: hash the counter ``(0, data)`` under the
+    key.  ``data`` (int or int tensor) broadcasts against the key's lead
+    dims."""
+    return _hash(k, 0, u32(data, k.device))
+
+
+def split(k, num: int = 2):
+    """``jax.random.split``: ``[..., num, 2]``; key i hashes ``(0, i)``."""
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    return _hash(k[..., None, :], 0, i)
+
+
+def _counters(shape, device):
+    size = math.prod(shape)
+    flat = torch.arange(size, dtype=torch.int64, device=device)
+    return (flat >> 32).reshape(shape), (flat & MASK).reshape(shape)
+
+
+def bits(k, shape):
+    """``jax.random.bits`` (uint32, in int64): ``[..., *shape]``."""
+    shape = tuple(shape)
+    hi, lo = _counters(shape, k.device)
+    pad = (None,) * len(shape)
+    y0, y1 = threefry2x32(k[..., 0][(...,) + pad], k[..., 1][(...,) + pad],
+                          hi, lo)
+    return y0 ^ y1
+
+
+def uniform(k, shape):
+    """``jax.random.uniform`` in f32 on [0, 1): 23 random mantissa bits
+    under exponent 0, minus one."""
+    b = bits(k, shape)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return f.clamp_min(0.0)
+
+
+def randint(k, shape, minval: int, maxval: int):
+    """``jax.random.randint`` into int32 (returned as int64 values): two
+    32-bit draws combined modulo the span with uint32 wrap-around."""
+    if not all(-2 ** 31 <= v < 2 ** 31 for v in (minval, maxval)):
+        raise ValueError("randint bounds must lie in the int32 range")
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    ks = split(k, 2)
+    higher, lower = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+    mult = (((2 ** 16 % span) ** 2) & MASK) % span  # uint32 product wraps
+    off = (((higher % span) * mult) & MASK) + lower % span
+    return wrap_i32(minval + (off & MASK) % span)
+
+
+def bernoulli(k, p: float, shape):
+    """``jax.random.bernoulli``: ``uniform < p`` with p in f32."""
+    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+def permutation(k, n: int):
+    """``jax.random.permutation(key, n)``: stable sorts of ``arange(n)``
+    by fresh 32-bit keys, as many rounds as jax's static criterion asks.
+    Batched keys give ``[..., n]``."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(2 ** 32 - 1))
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    x = x.expand(k.shape[:-1] + (n,))
+    for _ in range(rounds):
+        ks = split(k, 2)
+        k, sub = ks[..., 0, :], ks[..., 1, :]
+        order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

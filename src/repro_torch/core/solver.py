@@ -1,0 +1,212 @@
+"""The ``ltadmm:`` solver behind the reference's ``Solver`` protocol and
+spec-string registry (port of the main-path part of
+``repro/core/solver.py``).
+
+    solver = make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, est)
+    state = solver.init(x0)                 # stacked [A, ...] params
+    state = solver.step(state, data, key)   # data leaves [A, m, ...]
+    x = solver.consensus_params(state)
+
+``make_solver`` takes ``device=`` (default the card) and raises without
+CUDA unless ``device="cpu"``.  The gossip baselines and ``dada:`` keep
+their names in the grammar but are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.common.trees import consensus_error as _consensus_error
+from repro_torch.common.trees import consensus_mean as _consensus_mean
+from repro_torch.common.trees import tree_flatten, tree_map
+from repro_torch.core import admm, compression, packing
+from repro_torch.core.admm import LTADMMConfig
+from repro_torch.core.topology import Exchange
+from repro_torch.device import resolve_device
+
+consensus_mean = _consensus_mean
+consensus_error = _consensus_error
+
+
+def _as_tensor(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.asarray(leaf))
+
+
+@dataclasses.dataclass(frozen=True)
+class LTADMMSolver:
+    """Paper Algorithm 1 on the packed ``[A, N]`` plane, on ``device``."""
+
+    graph: Any
+    exchange: Exchange
+    grad_est: Any
+    cfg: LTADMMConfig = LTADMMConfig()
+    device: torch.device = torch.device("cpu")
+    name: str = "ltadmm"
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    estimator = "vr"
+
+    def _layout(self, state) -> packing.PackedLayout:
+        lay = self._cache.get("layout")
+        if lay is None:
+            lay = packing.layout_of(state.x[0])
+            self._cache["layout"] = lay
+        return lay
+
+    def _ids(self, x) -> admm.RoundIds:
+        ids = self._cache.get(("ids", x.device))
+        if ids is None:
+            ids = admm.RoundIds.build(self.graph, x.device, x.dtype)
+            self._cache[("ids", x.device)] = ids
+        return ids
+
+    def init(self, x0):
+        """x0: stacked ``[A, ...]`` params (tensors or numpy arrays)."""
+        x0 = tree_map(lambda t: _as_tensor(t).to(self.device), x0)
+        lay = packing.layout_of_stacked(x0)
+        self._cache["layout"] = lay
+        return admm.init(self.cfg, self.graph, self.exchange,
+                         packing.pack(lay, x0))
+
+    def step(self, state, data, key):
+        est = packing.PackedEstimator(self.grad_est, self._layout(state))
+        return admm.step(self.cfg, self.graph, self.exchange, est, state,
+                         data, key, ids=self._ids(state.x))
+
+    def consensus_params(self, state):
+        return packing.unpack(self._layout(state), state.x)
+
+    def wire_bytes(self, params, t: int | None = None) -> int:
+        """Busiest-agent TX bytes per round; a message is ONE compressed
+        plane of all the parameters."""
+        leaves, _ = tree_flatten(params)
+        plane = compression.Spec(
+            (sum(int(np.prod(leaf.shape)) for leaf in leaves),),
+            _as_tensor(leaves[0]).dtype)
+        if t is not None:
+            return admm.wire_bytes_at(self.cfg, self.graph, plane, t)
+        return admm.wire_bytes_per_round(self.cfg, self.graph, plane)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverEntry:
+    name: str
+    factory: Callable
+    params: frozenset
+    nested: frozenset
+    estimator: str
+    doc: str = ""
+
+
+SOLVERS: dict[str, SolverEntry] = {}
+
+# registered in the reference, not ported yet: name -> ROADMAP item
+UNPORTED = {"dsgd": 10, "choco": 10, "lead": 10, "cold": 10, "cedas": 10,
+            "dpdc": 10, "dada": 13}
+
+
+def register_solver(name, factory, params, nested=(), estimator="sgd",
+                    doc=""):
+    SOLVERS[name] = SolverEntry(name=name, factory=factory,
+                                params=frozenset(params),
+                                nested=frozenset(nested),
+                                estimator=estimator, doc=doc)
+
+
+def solver_entry(spec: str) -> SolverEntry:
+    name = spec.partition(":")[0]
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"solver {name!r} is not ported yet: ROADMAP Queue 1 item "
+            f"{UNPORTED[name]}")
+    if name not in SOLVERS:
+        raise ValueError(
+            f"unknown solver {name!r}; choose from {sorted(SOLVERS)}")
+    return SOLVERS[name]
+
+
+def parse_solver_spec(spec: str):
+    """``name[:k=v,...]`` -> (entry, params).  A ``k=v`` item whose key
+    the solver does not know, right after a nested compressor key, is
+    folded into that compressor spec; any other unknown key raises."""
+    entry = solver_entry(spec)
+    kw: dict = {}
+    last_nested = None
+    for item in spec.partition(":")[2].split(","):
+        item = item.strip()
+        if not item:
+            continue
+        k, eq, v = item.partition("=")
+        k = k.strip()
+        if k in entry.params and eq:
+            kw[k] = v.strip()
+            last_nested = k if k in entry.nested else None
+        elif last_nested is not None:
+            kw[last_nested] += "," + item
+        else:
+            raise ValueError(
+                f"solver {entry.name!r} got unknown param {item!r} "
+                f"(accepted: {sorted(entry.params)})")
+    if "faults" in kw:
+        raise NotImplementedError(
+            "fault injection is not ported yet: ROADMAP Queue 1 item 11")
+    for k in entry.nested & kw.keys():
+        compression.validate_spec(kw[k])
+    return entry, kw
+
+
+def make_solver(spec: str, graph, exchange=None, grad_est=None,
+                defaults=None, device=None):
+    """Solver from a registry spec string, on ``device`` (default the
+    card; raises without CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    entry, kw = parse_solver_spec(spec)
+    merged = {k: v for k, v in (defaults or {}).items() if k in entry.params}
+    merged.update(kw)
+    if exchange is None:
+        exchange = Exchange(graph)
+    return entry.factory(graph, exchange, grad_est, device=dev, **merged)
+
+
+def _as_compressor(v):
+    return compression.get_compressor(v) if isinstance(v, str) else v
+
+
+_LTADMM_CFG_FIELDS = tuple(f.name for f in dataclasses.fields(LTADMMConfig)
+                           if not f.name.startswith("compressor"))
+
+
+def _make_ltadmm(graph, exchange, grad_est, device, **kw):
+    comp = kw.pop("compressor", None)
+    if not compression.coerce_param(kw.pop("packed", True)):
+        raise NotImplementedError(
+            "the pytree (packed=false) path is not ported yet: ROADMAP "
+            "Queue 1 item 14")
+    if comp is not None:
+        comp = _as_compressor(comp)
+        kw.setdefault("compressor_x", comp)
+        kw.setdefault("compressor_z", comp)
+    for key in ("compressor_x", "compressor_z"):
+        if key in kw:
+            kw[key] = _as_compressor(kw[key])
+    cfg = LTADMMConfig(
+        **{k: compression.coerce_param(v) for k, v in kw.items()})
+    return LTADMMSolver(graph=graph, exchange=exchange, grad_est=grad_est,
+                        cfg=cfg, device=device)
+
+
+register_solver(
+    "ltadmm", _make_ltadmm,
+    params=_LTADMM_CFG_FIELDS + ("compressor", "compressor_x",
+                                 "compressor_z", "packed"),
+    nested=("compressor", "compressor_x", "compressor_z", "faults"),
+    estimator="vr",
+    doc="LT-ADMM-CC (paper Alg. 1): local VR training + compressed x/z "
+        "exchanges on the packed plane",
+)

@@ -1,0 +1,78 @@
+"""Plain PyTorch version of the fused plane quantizer (K1) and the
+quantizer arithmetic shared with the per-message route of
+``core/compression.py``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import prng
+
+TINY = torch.finfo(torch.float32).tiny
+
+
+def plane_ids(ids, lead, fill, device):
+    """Per-message ids as an int64 ``[M]`` vector of uint32 values
+    (``None`` -> ``fill`` for every message)."""
+    m = 1
+    for d in lead:
+        m *= d
+    if ids is None:
+        return torch.full((max(m, 1),), fill, dtype=torch.int64, device=device)
+    return prng.u32(torch.as_tensor(ids, device=device)
+                    .broadcast_to(lead).reshape(-1))
+
+
+def row_scale(xf):
+    """Per-row inf-norm scale, floored at the f32 tiny (``[M]``)."""
+    return torch.amax(xf.abs(), dim=-1).clamp_min(TINY)
+
+
+def quantize_values(x, scale, kappa, levels: int):
+    """``sign(x) * floor(levels * |x| / scale + kappa)`` in f32, in the
+    reference's operation order."""
+    q = torch.floor(levels * x.abs() / scale + kappa)
+    return torch.sign(x) * q
+
+
+def to_int8(q):
+    """f32 -> int8 as XLA converts: saturating, NaN to 0.  A plain cast
+    would turn 128.0 (127 + a kappa that rounds to 1.0) into -128."""
+    q = torch.where(torch.isnan(q), 0.0, q)
+    return q.clamp(-128.0, 127.0).to(torch.int8)
+
+
+def pack4(q):
+    """f32 levels in [-8, 8] -> offset-8 nibbles, two per byte (even
+    element in the high nibble; an odd tail pads with nibble 8).  Packed
+    in int32 and truncated to uint8, as the reference does."""
+    qi = torch.where(torch.isnan(q), 0.0, q).to(torch.int32) + 8
+    if qi.shape[-1] % 2:
+        qi = torch.cat([qi, torch.full_like(qi[..., :1], 8)], dim=-1)
+    return (((qi[..., 0::2] << 4) | qi[..., 1::2]) & 0xFF).to(torch.uint8)
+
+
+def unpack4(packed, n: int):
+    """Inverse of ``pack4``: ``[..., ceil(n/2)]`` uint8 -> ``[..., n]``
+    int32 levels."""
+    p = packed.to(torch.int32)
+    q = torch.stack([(p >> 4) & 0xF, p & 0xF], dim=-1)
+    return q.reshape(packed.shape[:-1] + (-1,))[..., :n] - 8
+
+
+def quantize_plane_ref(seed, sids, rids, x, *, bits=8):
+    """K1's plain version: the counter-PRNG kappas materialised as a
+    ``[M, n]`` tensor.  Returns ``(q [..., wire_len], scale [...])``."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    xf = x.reshape(-1, n).to(torch.float32)
+    s = plane_ids(sids, lead, 0, x.device)
+    r = plane_ids(rids, lead, prng.BROADCAST, x.device)
+    scale = row_scale(xf)
+    es = prng.fold(seed, s, r)
+    ctr = torch.arange(n, dtype=torch.int64, device=x.device)
+    kappa = prng.uniform01(
+        prng.random_bits((es[0][:, None], es[1][:, None]), ctr[None, :])
+    )
+    levels = 2 ** (bits - 1) - 1
+    q = quantize_values(xf, scale[:, None], kappa, levels)
+    q = to_int8(q) if bits == 8 else pack4(q)
+    return q.reshape(lead + (q.shape[-1],)), scale.reshape(lead)

@@ -1,0 +1,270 @@
+"""Compression in the port against the reference, bit for bit.
+
+* the plain versions of the plane kernels (K1 quantize_plane, K2/K3 RandK
+  gather/scatter) against the reference's Pallas kernels in interpret
+  mode: b = 4 and 8, odd n and n not a multiple of 1024, block and
+  stride samplers, a row whose max |x| meets a kappa that rounds the
+  level up (int8 saturation, nibble wrap), and the int32 wrap of the
+  affine index set (with the repeated indices it causes);
+* the per-message route of every compressor spec against ``impl=jnp``;
+* wire bytes and the spec parser's error messages.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import admm as jadmm  # noqa: E402
+from repro.core import compression as jcomp  # noqa: E402
+from repro.kernels import prng as jprng  # noqa: E402
+from repro.kernels.quantize import ops as jq  # noqa: E402
+from repro.kernels.sparse_gather import ops as jsg  # noqa: E402
+from repro_torch.core import admm  # noqa: E402
+from repro_torch.core import compression as comp  # noqa: E402
+from repro_torch.core import jaxrand  # noqa: E402
+from repro_torch.kernels import prng  # noqa: E402
+from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
+from repro_torch.kernels.sparse_gather import ops as sg_ops  # noqa: E402
+
+JSEED = jprng.key_seed(jax.random.key(7))
+SEED = tuple(int(w) for w in JSEED)
+A, S = 3, 2
+
+
+def _ids(a=A, s=S):
+    sids = np.broadcast_to(np.arange(a, dtype=np.uint32)[:, None], (a, s))
+    rids = np.broadcast_to(np.arange(s, dtype=np.uint32)[None, :] + 1, (a, s))
+    return sids, rids
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)) \
+        .to(torch.int32)
+
+
+def _x(shape, salt=0):
+    return np.random.RandomState(salt).standard_normal(shape).astype(
+        np.float32)
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,bits,receivers", [
+    (3000, 8, "edge"), (3000, 4, "broadcast"), (1025, 4, "edge"),
+    (1025, 8, "broadcast"), (2048, 8, "edge")])
+def test_quantize_plane_matches_reference(n, bits, receivers):
+    sids, rids = _ids()
+    rids = None if receivers == "broadcast" else rids
+    x = _x((A, S, n), n)
+    q, sc = q_ops.quantize_plane(SEED, _t(sids),
+                                 None if rids is None else _t(rids),
+                                 torch.from_numpy(x), bits=bits)
+    jq_, jsc = jq.quantize_plane(JSEED, jnp.asarray(sids),
+                                 None if rids is None else jnp.asarray(rids),
+                                 jnp.asarray(x), bits=bits, interpret=True)
+    _eq(q.numpy(), jq_)
+    _eq(sc.numpy(), jsc)
+    n_dq = q_ops.dequantize_plane(q, sc, n=n, bits=bits)
+    _eq(n_dq.numpy(), jq.dequantize_plane(jq_, jsc, n=n, bits=bits))
+
+
+def _saturating_rows(levels, n, want, rid=1):
+    """(sid, j) pairs whose kappa lifts ``levels`` to ``levels + 1``."""
+    found = []
+    for start in range(0, 1 << 16, 1024):
+        sids = torch.arange(start, start + 1024)
+        es = prng.fold(SEED, sids, rid)
+        bits = prng.random_bits((es[0][:, None], es[1][:, None]),
+                                torch.arange(n)[None, :])
+        hit = (torch.tensor(float(levels)) + prng.uniform01(bits)) \
+            == levels + 1
+        for r in torch.nonzero(hit.any(dim=1)).reshape(-1).tolist():
+            found.append((start + r, int(torch.argmax(hit[r].to(torch.int8)))))
+        if len(found) >= want:
+            return found[:want]
+    raise AssertionError("no saturating element found")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_plane_saturation_matches_reference(bits):
+    levels, n = 2 ** (bits - 1) - 1, 1031
+    rows = _saturating_rows(levels, n, want=2 if bits == 8 else 1)
+    sids = np.array([s for s, _ in rows] + [0, 5], dtype=np.uint32)
+    rids = np.ones_like(sids)
+    x = _x((len(sids), n), bits)
+    for r, (_, j) in enumerate(rows):
+        sign = -1.0 if r % 2 else 1.0
+        x[r, j] = sign * 2.0 ** math.ceil(math.log2(2 * np.abs(x[r]).max()))
+    q, sc = q_ops.quantize_plane(SEED, _t(sids), _t(rids),
+                                 torch.from_numpy(x), bits=bits)
+    jq_, jsc = jq.quantize_plane(JSEED, jnp.asarray(sids), jnp.asarray(rids),
+                                 jnp.asarray(x), bits=bits, interpret=True)
+    _eq(q.numpy(), jq_)
+    _eq(sc.numpy(), jsc)
+    for r, (_, j) in enumerate(rows):
+        if bits == 8:  # 128 saturates to 127 (not -128); -128 stays
+            assert int(q[r, j]) == (127 if r % 2 == 0 else -128)
+        else:  # level 8 is nibble 16: its own 4 bits are 0
+            byte = int(q[r, j // 2])
+            assert (byte >> 4 if j % 2 == 0 else byte) & 0xF == 0
+
+
+@pytest.mark.parametrize("n,k,receivers", [(3000, 1100, "edge"),
+                                           (2048, 512, "broadcast")])
+@pytest.mark.parametrize("sampler", ["block", "stride"])
+def test_randk_plane_matches_reference(n, k, sampler, receivers):
+    strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+    sids, rids = _ids()
+    rids = None if receivers == "broadcast" else rids
+    x = _x((A, S, n), k)
+    v = sg_ops.randk_gather_plane(SEED, _t(sids),
+                                  None if rids is None else _t(rids),
+                                  torch.from_numpy(x), k=k, strides=strides)
+    jv = jsg.randk_gather_plane(JSEED, jnp.asarray(sids),
+                                None if rids is None else jnp.asarray(rids),
+                                jnp.asarray(x), k=k, strides=strides,
+                                interpret=True)
+    _eq(v.numpy(), jv)
+    out = sg_ops.randk_scatter_plane(SEED, _t(sids),
+                                     None if rids is None else _t(rids), v,
+                                     n=n, gain=n / k, strides=strides)
+    jout = jsg.randk_scatter_plane(JSEED, jnp.asarray(sids),
+                                   None if rids is None else jnp.asarray(rids),
+                                   jv, n=n, gain=n / k, strides=strides,
+                                   interpret=True)
+    _eq(out.numpy(), jout)
+
+
+def test_randk_plane_int32_wrap_and_repeated_indices_match_reference():
+    n = 100_003
+    k = n // 4
+    strides = prng.coprime_strides(n)
+    sids = np.arange(6, dtype=np.uint32)
+    rids = np.ones(6, dtype=np.uint32)
+    jseed = jprng.key_seed(jax.random.key(5))
+    seed = tuple(int(w) for w in jseed)
+    idx = prng.affine_indices(prng.fold(seed, torch.from_numpy(
+        sids.astype(np.int64)), 1), n, k, strides)
+    repeats = sum(k - torch.unique(r).numel() for r in idx)
+    assert repeats > 0  # the wrap repeats indices in some row
+    assert not sg_ops.indices_unique(n, k, strides)
+    x = _x((6, n), 1)
+    v = sg_ops.randk_gather_plane(seed, _t(sids), _t(rids),
+                                  torch.from_numpy(x), k=k, strides=strides)
+    jv = jsg.randk_gather_plane(jseed, jnp.asarray(sids), jnp.asarray(rids),
+                                jnp.asarray(x), k=k, strides=strides,
+                                interpret=True)
+    _eq(v.numpy(), jv)
+    vv = torch.from_numpy(_x((6, k), 2))
+    out = sg_ops.randk_scatter_plane(seed, _t(sids), _t(rids), vv, n=n,
+                                     gain=n / k, strides=strides)
+    jout = jsg.randk_scatter_plane(jseed, jnp.asarray(sids),
+                                   jnp.asarray(rids), jnp.asarray(vv.numpy()),
+                                   n=n, gain=n / k, strides=strides,
+                                   interpret=True)
+    _eq(out.numpy(), jout)
+
+
+def test_indices_unique_rule():
+    assert sg_ops.indices_unique(2 ** 20, 629_146, prng.coprime_strides(2 ** 20))
+    assert sg_ops.indices_unique(5, 3, prng.coprime_strides(5))
+    assert not sg_ops.indices_unique(1_000_003, 250_001,
+                                     prng.coprime_strides(1_000_003))
+    assert sg_ops.indices_unique(1_000_003, 250_001, (1,))
+
+
+SPECS = ["identity", "qbit:bits=8", "qbit:bits=4",
+         "randk:fraction=0.4,sampler=uniform",
+         "randk:fraction=0.4,sampler=block",
+         "randk:fraction=0.4,sampler=stride", "topk:fraction=0.3"]
+
+
+def _impl(spec, impl):
+    return spec + ("," if ":" in spec else ":") + f"impl={impl}"
+
+
+@pytest.mark.parametrize("spec,n", [(s, 37) for s in SPECS]
+                         + [("qbit:bits=4", 1), ("randk:sampler=stride", 1)])
+def test_torch_route_payloads_match_jnp(spec, n):
+    jc = jcomp.get_compressor(_impl(spec, "jnp"))
+    tc = comp.get_compressor(_impl(spec, "torch"))
+    sids, rids = _ids()
+    x = _x((A, S, n), n + 3)
+    rk = jax.random.key(11)
+    tk = jaxrand.key(11)
+    jp, jrec = jcomp.plane_compress(
+        jc, lambda s, r: jadmm._key_z(rk, s, r), jax.random.fold_in(rk, 13),
+        jnp.asarray(sids.astype(np.int32)), jnp.asarray(rids.astype(np.int32)),
+        jnp.asarray(x), jax.ShapeDtypeStruct((n,), jnp.float32))
+    sh, rh = (torch.from_numpy(a.astype(np.int64)) for a in (sids, rids))
+    tp, trec = comp.plane_compress(
+        tc, lambda: admm._key_z(tk, sh, rh), jaxrand.fold_in(tk, 13),
+        None, None, torch.from_numpy(x), comp.Spec((n,)))
+    assert sorted(tp) == sorted(jp)
+    for name in tp:
+        _eq(tp[name].numpy(), jp[name])
+    _eq(trec.numpy(), jrec)
+    # the receiver rebuilds the same message from the payload alone
+    back = comp.plane_decompress(tc, lambda: admm._key_z(tk, sh, rh),
+                                 jaxrand.fold_in(tk, 13), None, None, tp,
+                                 comp.Spec((n,)), nd=2)
+    _eq(back.numpy(), trec.numpy())
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_wire_bytes_match(spec):
+    jc, tc = jcomp.get_compressor(spec), comp.get_compressor(spec)
+    for shape in [(5,), (3, 4), (1,), (2 ** 20,)]:
+        assert tc.wire_bytes(shape, torch.float32) == jc.wire_bytes(
+            shape, jnp.float32)
+        assert tc.variance_p(shape) == jc.variance_p(shape)
+
+
+@pytest.mark.parametrize("bad", [
+    "qbit:bit=4", "randk:fractoin=0.1", "topk:x", "foo:bits=4",
+    "identity:bits=4", "randk:sampler=bogus", "qbit:bits=3",
+    "qbit:bits", "randk:fraction=0.2,bits=8",
+])
+def test_spec_errors_match(bad):
+    with pytest.raises(ValueError) as jerr:
+        jcomp.validate_spec(bad)
+    with pytest.raises(ValueError) as terr:
+        comp.validate_spec(bad)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_kernel_route_without_a_ported_kernel_raises():
+    x = torch.zeros((2, 8))
+    keys = jaxrand.split(jaxrand.key(0), 2)
+    for spec, fused in [("randk:sampler=uniform,impl=kernel", False),
+                        ("topk:impl=kernel", False),
+                        ("qbit:bits=8,impl=kernel", True),
+                        ("randk:sampler=block,impl=kernel", True)]:
+        c = comp.get_compressor(spec)
+        assert comp.use_fused(c, "cpu") == fused
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+            c.compress(keys, x)
+    # identity has nothing to fuse and no kernel to miss
+    assert comp.get_compressor("identity:impl=kernel").compress(
+        keys, x)["v"] is x
+
+
+def test_impl_resolution():
+    c = comp.get_compressor("qbit:bits=8")
+    assert comp.resolve_impl(c.impl, "cpu") == "torch"
+    assert comp.resolve_impl(c.impl, "cuda") == "kernel"
+    assert comp.resolve_impl("torch", "cuda") == "torch"
+
+
+def test_kernel_param_is_not_a_second_spelling_of_impl():
+    # the reference's deprecated kernel=true|false has no users here
+    with pytest.raises(ValueError, match=r"unknown param\(s\) \['kernel'\]; "
+                       r"valid params: \['bits', 'impl'\]"):
+        comp.get_compressor("qbit:kernel=true")

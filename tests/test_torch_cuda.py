@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, bit for bit, and the paper problem through them.  These tests need
+an sm_90 card and nvcc; elsewhere they skip (decided in the ``h100``
+fixture, so every pytest worker collects the same tests).  On the card
+(``--noconftest``: the suite's conftest imports JAX, which the port's
+machine need not have):
+
+    PYTHONPATH=src python -m pytest -q -m needs_h100 --noconftest \
+        tests/test_torch_cuda.py
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import jaxrand  # noqa: E402
+from repro_torch.kernels import prng  # noqa: E402
+from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
+from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
+from repro_torch.kernels.sparse_gather import ops as sg_ops  # noqa: E402
+from repro_torch.kernels.sparse_gather import ref as sg_ref  # noqa: E402
+
+pytestmark = pytest.mark.needs_h100
+
+SEED = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
+
+
+@pytest.fixture(scope="module")
+def h100():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs an sm_90 card")
+    from repro_torch.kernels import _build
+
+    try:
+        _build.nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    _build.build()
+    return torch.device("cuda")
+
+
+def _ids(dev, a=10, s=2):
+    sid = torch.arange(a, device=dev)[:, None].expand(a, s).reshape(-1)
+    rid = (sid + 1 + torch.arange(s, device=dev).repeat(a)) % a
+    return sid.to(torch.int32), rid.to(torch.int32)
+
+
+def test_threefry_bits(h100):
+    sids = prng.u32([0, 2 ** 31, 2 ** 32 - 1, 77], h100).to(torch.int32)
+    rids = prng.u32([prng.BROADCAST, 1, 2 ** 31 + 9, 3], h100).to(torch.int32)
+    ctr = ((torch.arange(65536, device=h100) * 7919 + 2 ** 31)
+           & prng.MASK).to(torch.int32)
+    got = prng.threefry_bits(SEED, sids, rids, ctr, n=1_000_003, n_strides=64)
+    want = prng._threefry_bits_ref(SEED, sids, rids, ctr, 1_000_003, 64)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [4096, 1_000_003])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_plane(h100, n, bits):
+    sid, rid = _ids(h100)
+    x = torch.randn((20, n), generator=torch.Generator(h100).manual_seed(n),
+                    device=h100)
+    levels = 2 ** (bits - 1) - 1
+    es = prng.fold(SEED, prng.u32(sid), prng.u32(rid))
+    kappa = prng.uniform01(prng.random_bits(
+        (es[0][:, None], es[1][:, None]), torch.arange(n, device=h100)[None]))
+    hit = (torch.tensor(float(levels), device=h100) + kappa) == levels + 1
+    rows = torch.nonzero(hit.any(dim=1)).reshape(-1)
+    cols = torch.argmax(hit.to(torch.int8), dim=1)[rows]
+    x[rows, cols] = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+    q, sc = q_ops.quantize_plane(SEED, sid, rid, x, bits=bits)
+    qw, scw = q_ref.quantize_plane_ref(SEED, sid, rid, x, bits=bits)
+    assert torch.equal(q, qw) and torch.equal(sc, scw)
+    qb, _ = q_ops.quantize_plane(SEED, sid, None, x, bits=bits)
+    assert torch.equal(qb, q_ref.quantize_plane_ref(SEED, sid, None, x,
+                                                    bits=bits)[0])
+
+
+@pytest.mark.parametrize("n", [2 ** 20, 100_003])
+@pytest.mark.parametrize("sampler", ["block", "stride"])
+def test_randk_plane(h100, n, sampler):
+    sid, rid = _ids(h100)
+    k = n // 4
+    strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+    x = torch.randn((20, n), device=h100)
+    v = sg_ops.randk_gather_plane(SEED, sid, rid, x, k=k, strides=strides)
+    assert torch.equal(v, sg_ref.randk_gather_plane_ref(
+        SEED, sid, rid, x, k=k, strides=strides))
+    out = sg_ops.randk_scatter_plane(SEED, sid, rid, v, n=n, gain=n / k,
+                                     strides=strides)
+    assert torch.equal(out, sg_ref.randk_scatter_plane_ref(
+        SEED, sid, rid, v, n=n, gain=n / k, strides=strides))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(h100):
+    sid, rid = _ids(h100)
+    x = torch.randn((20, 64), device=h100)
+    with pytest.raises(TypeError):
+        q_ops.quantize_plane(SEED, sid, rid, x.double())
+    with pytest.raises(ValueError):
+        sg_ops.randk_gather_plane(SEED, sid[:3], rid, x, k=8, strides=(1,))
+    with pytest.raises(ValueError):
+        sg_ops.randk_scatter_plane(SEED, sid, rid, x[:, ::2], n=64, gain=2.0,
+                                   strides=(1,))
+
+
+def test_paper_problem_through_the_kernels(h100):
+    from repro_torch.bench import rounds_to_tol, run_solver
+    from repro_torch.core import vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    graph, ex = build_graph("ring", prob.n_agents)
+    solver = make_solver("ltadmm:compressor=qbit:bits=8", graph, ex,
+                         vr.SagaTable(sample_grads=prob.sample_grads,
+                                      m=prob.m))
+    q_ops.quantize_plane.launches = 0
+    idx, gns = run_solver(prob, prob.make_data(0), solver, 150)
+    assert q_ops.quantize_plane.launches == 300
+    assert rounds_to_tol(idx, gns, 1e-8) <= 125
+    assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 36

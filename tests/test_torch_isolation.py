@@ -1,0 +1,103 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
+and importing them all pulls neither in."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _sources():
+    for dirpath, dirs, files in os.walk(PORT):
+        dirs.sort()  # the same order in every pytest worker
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _modules():
+    for path in _sources():
+        rel = os.path.relpath(path, os.path.join(ROOT, "src"))
+        if rel.startswith(".."):
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        yield mod[:-len(".__init__")] if mod.endswith(".__init__") else mod
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", list(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax_and_no_reference(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(_modules())
+    code = (
+        "import sys, importlib\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    import shutil
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the failure on a machine without CUDA")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in ((ROOT, os.path.join(ROOT, "chip_smoke.py")),
+                        (tmp_path, shutil.copy(
+                            os.path.join(ROOT, "chip_smoke.py"), tmp_path))):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=300,
+                             env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_rehearses_on_the_cpu():
+    """Every phase of chip_smoke.py but the card's own (build, timing,
+    profile) runs on the CPU at a tiny size with the kernels' plain
+    versions; it prints no result and exits 3 by design."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                          "--rehearse"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600, env=env)
+    assert out.returncode == 3, out.stderr[-2000:]
+    assert '"ok"' not in out.stdout
+    assert "[rehearse] done" in out.stdout
+    assert out.stdout.count("bit-equal") == 15
