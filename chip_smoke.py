@@ -11,16 +11,24 @@ Phases (any failure exits non-zero):
      a probe built with the kernels' flags), which the bounds use;
   3. kernels: each kernel held bit-exact against its plain PyTorch
      version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
+     gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
      gather/scatter), at n = 2^20 and n = 1,000,003;
   4. paper problem: LT-ADMM-CC on the paper's logistic task (ring N=10,
      n=5, m=100, SAGA) for qbit8, qbit4 and the Fig.-1 RandK settings,
      through the kernels, against the reference's rounds-to-tolerance
      and wire bytes, and against the same run on the CPU;
-  5. main path at real width: the same solver at n = 2^20 for 20 rounds
-     per compressor, launch counters zeroed just before each compressor's
-     rounds and read just after, then each kernel timed at the shapes of
-     that run (wrapper and bare launch) beside its bound, its plain
-     version and the PyTorch library call where one exists;
+  fig2. the paper's Fig.-2 comparison (``repro_torch.paper_fig2``): its
+     seven methods at the paper's size through the kernels (the gossip
+     baselines' qbit messages through K4/K5), counters zeroed and read
+     around each method, wire bytes against the reference's, time to
+     1e-8 and floor beside the reference's own run, and each method
+     against the same run on the CPU;
+  5. main path at real width: the solvers at n = 2^20 for 20 rounds per
+     spec (LT-ADMM-CC with qbit8, qbit4, RandK stride and RandK uniform,
+     LEAD qbit8, CHOCO TopK), launch counters zeroed just before each
+     spec's rounds and read just after, then each kernel timed at the
+     shapes of those runs (wrapper and bare launch) beside its bound,
+     its plain version and the PyTorch library call where one exists;
   6. profile: torch.profiler over three n = 2^20 qbit8 rounds: device
      time by kernel and operator, and the device's idle share.
 The last two lines are a JSON object of per-kernel results and
@@ -51,6 +59,9 @@ INT32_OPS_PER_S = 128 * 132 * 1.98e9
 # word 1 zero, seed fixed per thread, only word 0 kept): counted by
 # ``phase_sass`` from cuobjdump of a probe built with the kernels' flags.
 TF_OPS = None
+# the same for one jax.random.bits word as K4 draws it (counter (0, j),
+# both output words XORed)
+TF_LEAF_OPS = None
 IDX_OPS = 3  # int32 ops of one affine index: multiply, add, remainder
 
 # One and two Threefry blocks per loop step, as K1's loop draws them; the
@@ -77,6 +88,26 @@ extern "C" __global__ void two_blocks(uint32_t s0, uint32_t s1, uint32_t* out,
        j += gridDim.x * blockDim.x) {
     out[j] = repro::random_bits(es, static_cast<uint32_t>(j)) ^
              repro::random_bits(es, static_cast<uint32_t>(j) + 0x9E3779B9u);
+  }
+}
+
+// the same for K4's draw: jax.random.bits, both words of counter (0, j)
+extern "C" __global__ void one_leaf(uint32_t k0, uint32_t k1, uint32_t* out,
+                                    int n) {
+#pragma unroll 1
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    out[j] = repro::jax_bits(k0, k1, static_cast<uint32_t>(j));
+  }
+}
+
+extern "C" __global__ void two_leaf(uint32_t k0, uint32_t k1, uint32_t* out,
+                                    int n) {
+#pragma unroll 1
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    out[j] = repro::jax_bits(k0, k1, static_cast<uint32_t>(j)) ^
+             repro::jax_bits(k0, k1, static_cast<uint32_t>(j) + 0x9E3779B9u);
   }
 }
 """
@@ -185,8 +216,9 @@ def sass_counts(cubin):
 
 
 def phase_sass():
-    """Count the SASS instructions of one Threefry block (sets TF_OPS)."""
-    global TF_OPS
+    """Count the SASS instructions of one Threefry block as K1 and as K4
+    draw it (sets TF_OPS and TF_LEAF_OPS)."""
+    global TF_OPS, TF_LEAF_OPS
     from repro_torch.kernels import _build
 
     src = _build.BUILD_DIR / "threefry_probe.cu"
@@ -205,6 +237,13 @@ def phase_sass():
         f" - 1 xor); by opcode {({k: v for k, v in delta.items() if v})}")
     if not 20 <= TF_OPS <= 120:
         raise AssertionError(f"implausible Threefry count {TF_OPS}")
+    one, two = counts["one_leaf"], counts["two_leaf"]
+    TF_LEAF_OPS = sum(two.values()) - sum(one.values()) - 1
+    log(f"[sass] one jax.random.bits word as K4 draws it: {TF_LEAF_OPS} "
+        f"instructions (two_leaf {sum(two.values())} - one_leaf "
+        f"{sum(one.values())} - 1 xor)")
+    if not 20 <= TF_LEAF_OPS <= 120:
+        raise AssertionError(f"implausible Threefry count {TF_LEAF_OPS}")
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +400,107 @@ def check_k23(seed, dev):
                 f" {wrapped} rows hit the int32 wrap, {dup} repeated indices")
 
 
+# (k0, k1, j): raw keys whose jax.random.bits word at element j is >=
+# 2^32 - 128, so that K4's kappa rounds to 1.0 there (as in
+# tests/test_torch_compression.py)
+SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
+                   (781517975, 2568259190, 493), (1025103629, 3342442247, 743))
+
+
+def check_k45(dev, m=10):
+    """K4/K5 on [10, n] messages (the baselines' x-plane), random keys and
+    four rows keyed by SATURATING_KEYS with their max |x| planted at the
+    element whose kappa is 1.0."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.quantize import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for n in (WIDE_N, ODD_N):
+        for bits in (8, 4):
+            keys = torch.randint(0, 2 ** 32, (m, 2), generator=g,
+                                 device=dev, dtype=torch.int64)
+            x = torch.randn((m, n), generator=g, device=dev)
+            levels = 2 ** (bits - 1) - 1
+            big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+            for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
+                keys[r] = torch.tensor([k0, k1], device=dev)
+                x[r, j] = big if r % 2 == 0 else -big
+            q, sc = ops.quantize_tensor(keys, x, bits=bits)
+            sync()
+            qw, scw = ref.quantize_tensor_ref(keys, x, bits=bits)
+            note_err("K4", q, qw)
+            note_err("K4", sc, scw)
+            if not (torch.equal(q, qw) and torch.equal(sc, scw)):
+                raise AssertionError(
+                    f"K4 n={n} b={bits}: {(q != qw).sum()} q mismatches")
+            out = ops.dequantize_tensor(q, sc, n=n, bits=bits)
+            sync()
+            ow = ref.dequantize_tensor_ref(q, sc, n=n, bits=bits)
+            note_err("K5", out, ow)
+            if not torch.equal(out, ow):
+                raise AssertionError(f"K5 n={n} b={bits}: mismatch")
+            for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
+                kap = prng.uniform01(jaxrand.bits(keys[r], (j + 1,)))[j]
+                pre = ref.quantize_values(x[r, j], sc[r], kap, levels)
+                if float(pre.abs()) != levels + 1:
+                    raise AssertionError("K4 saturation plant missed")
+            log(f"[kernels] K4/K5 quantize/dequantize_tensor [{m}, {n}] "
+                f"b={bits}: bit-equal, {len(SATURATING_KEYS)} rows with a "
+                "planted saturating element")
+
+
+def check_k67(dev):
+    """K6/K7 on the index sets of the per-message route: RandK uniform on
+    the LT-ADMM z-plane [20, n], TopK on [10, n], and RandK stride at n =
+    1,000,003, where the int32 wrap repeats indices and K7 runs its claim
+    pass."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.sparse_gather import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    # the stride case keeps n = 1,000,003 in the rehearsal too: a smaller
+    # n never wraps
+    for n, kind, m in ((WIDE_N, "uniform", 20), (ODD_N, "uniform", 20),
+                       (WIDE_N, "topk", 10), (1_000_003, "stride", 20)):
+        k = max(1, round(0.25 * n))
+        x = torch.randn((m, n), generator=g, device=dev)
+        keys = jaxrand.split(jaxrand.key(n), m).to(dev)
+        strides = prng.coprime_strides(n)
+        if kind == "uniform":
+            idx = jaxrand.permutation(keys, n)[..., :k]
+        elif kind == "topk":
+            idx = torch.sort(x.abs(), dim=-1, descending=True,
+                             stable=True).indices[..., :k]
+        else:
+            idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k, strides)
+        gain = 1.0 if kind == "topk" else n / k
+        unique = kind != "stride" or ops.indices_unique(n, k, strides)
+        v = ops.sparse_gather(x, idx)
+        sync()
+        vw = ref.sparse_gather_ref(x, idx)
+        note_err("K6", v, vw)
+        if not torch.equal(v, vw):
+            raise AssertionError(f"K6 n={n} {kind}: mismatch")
+        out = ops.sparse_scatter(v, idx, n, gain, unique=unique)
+        sync()
+        ow = ref.sparse_scatter_ref(v, idx, n, gain)
+        note_err("K7", out, ow)
+        if not torch.equal(out, ow):
+            raise AssertionError(f"K7 n={n} {kind}: mismatch")
+        dup = int(sum(k - torch.unique(r).numel() for r in idx))
+        log(f"[kernels] K6/K7 gather/scatter [{m}, {n}] k={k} {kind}: "
+            f"bit-equal; claim pass {'off' if unique else 'on'}, {dup} "
+            "repeated indices")
+        if kind == "stride" and not (dup > 0 and not unique):
+            raise AssertionError("K7 stride case missed the int32 wrap")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the paper's problem through the kernels
 # ---------------------------------------------------------------------------
@@ -385,7 +525,11 @@ def kernel_counters():
     return {"threefry_bits": prng.threefry_bits,
             "quantize_plane": qops.quantize_plane,
             "randk_gather_plane": sgops.randk_gather_plane,
-            "randk_scatter_plane": sgops.randk_scatter_plane}
+            "randk_scatter_plane": sgops.randk_scatter_plane,
+            "quantize_tensor": qops.quantize_tensor,
+            "dequantize_tensor": qops.dequantize_tensor,
+            "sparse_gather": sgops.sparse_gather,
+            "sparse_scatter": sgops.sparse_scatter}
 
 
 def reset_counts():
@@ -451,14 +595,111 @@ def phase_paper(rounds):
 
 
 # ---------------------------------------------------------------------------
+# phase fig2: the paper's Fig.-2 comparison through the kernels
+# ---------------------------------------------------------------------------
+
+# The reference's own numbers for ``benchmarks/paper_fig2.py``: each
+# method's ``solver.wire_bytes`` at n = 5 and ``run()``'s (time to 1e-8,
+# floor), computed with jax 0.9.0 on a CPU (the reference's data, which the
+# port's seeded torch data differ from, so only the wire bytes must agree).
+FIG2_REFERENCE = {
+    "lt-admm-cc": (36, 12400.0, 3.35e-17),
+    "lead+sgd": (18, math.inf, 2.43e-03),
+    "cedas+sgd": (36, math.inf, 2.37e-03),
+    "cold+sgd": (18, math.inf, 2.43e-03),
+    "dpdc+sgd": (18, math.inf, 2.13e-03),
+    "cold+full": (18, 16500.0, 1.27e-09),
+    "dpdc+full": (18, 16500.0, 5.71e-15),
+}
+FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS = 1200, 6000  # the reference's budget
+
+
+def phase_fig2(admm_rounds, baseline_iters):
+    """Every Fig.-2 method through ``paper_fig2.run_method`` (the
+    runner's own per-method step), counters zeroed just before and read
+    just after each; then 20 iterations of each against the CPU."""
+    import numpy as np
+
+    from repro_torch import paper_fig2
+    from repro_torch.bench import run_solver
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    data = prob.make_data(0)
+    graph, ex = build_graph("ring", prob.n_agents)
+    cm = CostModel(t_g=1.0, t_c=10.0)
+    counts = {}
+    for name, (spec, kind) in paper_fig2.METHODS.items():
+        est = paper_fig2._estimator(kind, prob)
+        # impl=auto picks the kernels on the card; the CPU rehearsal asks
+        # for the kernel route (the plain versions) explicitly
+        solver = make_solver(spec + (",impl=kernel" if DEV == "cpu" else ""),
+                             graph, ex, est, device=DEV)
+        reset_counts()  # this method's run starts here
+        t0 = time.perf_counter()
+        _, ttt, floor = paper_fig2.run_method(name, prob, data, solver, cm,
+                                              admm_rounds, baseline_iters)
+        sync()
+        secs = time.perf_counter() - t0
+        counts[name] = read_counts()  # ... and ends here
+        wire = solver.wire_bytes({"x": np.zeros(prob.n, np.float32)})
+        ref_wire, ref_ttt, ref_floor = FIG2_REFERENCE[name]
+        iters = admm_rounds if solver.name == "ltadmm" else baseline_iters
+        log(f"[fig2] {name}: time_to_1e-8={ttt} floor={floor:.3e} "
+            f"(reference {ref_ttt}, {ref_floor:.2e}) wire_bytes={wire} "
+            f"iterations={iters} host_s={secs:.3f} "
+            f"launches={ {k: v for k, v in counts[name].items() if v} }")
+        if wire != ref_wire:
+            raise AssertionError(f"{name}: wire bytes {wire} != {ref_wire}")
+        if not math.isfinite(floor):
+            raise AssertionError(f"{name}: floor {floor} is not finite")
+        used = (("quantize_plane",) if solver.name == "ltadmm" else
+                ("quantize_tensor", "dequantize_tensor"))
+        if DEV == "cuda" and not all(counts[name][u] > 0 for u in used):
+            raise AssertionError(f"{name}: kernels {used} not launched")
+        if name == "lt-admm-cc" and not ttt < math.inf:
+            raise AssertionError("LT-ADMM-CC did not reach 1e-8")
+        # the same route on the CPU (the kernels' plain versions)
+        cpu = make_solver(spec + ",impl=kernel", graph, ex, est, device="cpu")
+        seed = 12345 if solver.name == "ltadmm" else 999
+        _, g_cpu, st_cpu = run_solver(prob, data, cpu, 20, metric_every=10,
+                                      seed=seed, return_state=True)
+        _, g_dev, st_dev = run_solver(prob, data, solver, 20,
+                                      metric_every=10, seed=seed,
+                                      return_state=True)
+        x_dev = solver.consensus_params(st_dev).cpu()
+        dx = float((x_dev - cpu.consensus_params(st_cpu)).abs().max())
+        log(f"[fig2] {name}: card vs CPU after 20 iterations: max |dx| = "
+            f"{dx:.3e}, ||gradF||^2 {g_dev[-1]:.3e} vs {g_cpu[-1]:.3e}")
+        if not dx < 1e-2:
+            raise AssertionError(f"{name}: card and CPU runs disagree")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at real width, then kernel timings
 # ---------------------------------------------------------------------------
 
+# label -> (spec, estimator kind, kernels the run must launch)
 WIDE_SPECS = (
-    ("qbit8", "ltadmm:compressor=qbit:bits=8"),
-    ("qbit4", "ltadmm:compressor=qbit:bits=4"),
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga", ("quantize_plane",)),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga", ("quantize_plane",)),
     ("randk-stride",
-     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride"),
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", "saga",
+     ("randk_gather_plane", "randk_scatter_plane")),
+    ("lead-qbit8", "lead:lr=0.1,compressor=qbit:bits=8", "sgd",
+     ("quantize_tensor", "dequantize_tensor")),
+    ("choco-topk", "choco:compressor=topk:fraction=0.25", "sgd",
+     ("sparse_gather", "sparse_scatter")),
+    # Fig. 1's RandK setting with the uniform sampler: at eta = 1 and
+    # fraction 0.25 LT-ADMM-CC diverges on this problem, in the reference
+    # too
+    ("randk-uniform",
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=uniform", "saga",
+     ("sparse_gather", "sparse_scatter")),
 )
 
 
@@ -476,22 +717,23 @@ def wide_data(prob, dev):
 def phase_wide(rounds, warm=2):
     import torch
 
-    from repro_torch.core import jaxrand, vr
+    from repro_torch.core import jaxrand
     from repro_torch.core.schedule import build_graph
     from repro_torch.core.solver import make_solver
+    from repro_torch.paper_fig2 import _estimator
     from repro_torch.problems.logistic import LogisticProblem
 
     prob = LogisticProblem(n=WIDE_N)
     dev = torch.device(DEV)
     data = wide_data(prob, dev)
     graph, ex = build_graph("ring", prob.n_agents)
-    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    counts = {}  # per compressor: launches over its main-path rounds
-    for label, spec in WIDE_SPECS:
-        solver = make_solver(spec, graph, ex, est, device=DEV)
-        reset_counts()  # this compressor's main-path run starts here
+    counts = {}  # per spec: launches over its main-path rounds
+    for label, spec, kind, used in WIDE_SPECS:
+        solver = make_solver(spec, graph, ex, _estimator(kind, prob),
+                             device=DEV)
+        reset_counts()  # this spec's main-path run starts here
         st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev))
         base = jaxrand.key(12345)
         gns, times = [], []
@@ -512,6 +754,8 @@ def phase_wide(rounds, warm=2):
             f" launches={counts[label]}")
         if not (math.isfinite(gns[-1]) and gns[-1] < gns[0]):
             raise AssertionError(f"wide {label}: ||gradF||^2 did not fall")
+        if DEV == "cuda" and not all(counts[label][u] > 0 for u in used):
+            raise AssertionError(f"wide {label}: kernels {used} not launched")
         del st, solver
     if DEV == "cuda":
         log(f"[wide] max_memory_allocated="
@@ -582,6 +826,7 @@ def time_kernels(seed, k0_inputs, counts):
     launches of each compressor's main-path run."""
     import torch
 
+    from repro_torch.core import jaxrand
     from repro_torch.kernels import _build, prng
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
@@ -619,7 +864,7 @@ def time_kernels(seed, k0_inputs, counts):
             f"launches {launches} in {rounds} rounds")
 
     # K0 at its test shape: 8 seeds x 2^20 counters; it has no launch of
-    # its own on the main path, so its launches are those of K1-K3
+    # its own on the main path, so its launches are those of K1-K4
     s, r, c = k0_inputs["sids"], k0_inputs["rids"], k0_inputs["ctr"]
     nb, nc = s.numel(), c.numel()
     out = [torch.empty(shape, dtype=torch.int32, device=dev)
@@ -628,7 +873,7 @@ def time_kernels(seed, k0_inputs, counts):
         "src/repro/kernels/prng.py:65",
         sum(cnt[kk] for cnt in counts.values()
             for kk in ("quantize_plane", "randk_gather_plane",
-                       "randk_scatter_plane")),
+                       "randk_scatter_plane", "quantize_tensor")),
         cuda_ms(lambda: prng.threefry_bits(seed, s, r, c, n=ODD_N,
                                            n_strides=64)),
         bare("threefry_bits", seed[0], seed[1], s.data_ptr(), r.data_ptr(),
@@ -637,7 +882,8 @@ def time_kernels(seed, k0_inputs, counts):
                 iters=3, warmup=1),
         4 * nc + 8 * nb + 4 * nb * nc + 8 * nb,
         TF_OPS * (nb * nc + 3 * nb), 0, None,
-        rounds=WIDE_ROUNDS * len(counts), launches_of="K1-K3, which inline K0 (all three compressors)")
+        rounds=WIDE_ROUNDS * len(counts),
+        launches_of="K1-K4, which inline K0 (all wide runs)")
 
     sid32, rid32 = qops._plane_ids(sid, (m,)), qops._plane_ids(rid, (m,))
     scale = qref.row_scale(x)
@@ -701,6 +947,74 @@ def time_kernels(seed, k0_inputs, counts):
                 iters=3, warmup=1),
         m * k * 4 + m * n * 4, IDX_OPS * m * k + 3 * TF_OPS * m, m * k,
         cuda_ms(lambda: torch.scatter(zeros, 1, idx, vg)))
+
+    # K4/K5 on the baselines' x messages [10, 2^20] (LEAD qbit8)
+    ma = 10
+    xa = x[:ma].contiguous()
+    keys = jaxrand.split(jaxrand.key(5), ma)
+    kd = qops._key_words(keys, (ma,), dev)
+    sca = qref.row_scale(xa)
+    qa = torch.empty((ma, n), device=dev, dtype=torch.int8)
+    row("K4 quantize_tensor b=8 [10, 2^20]",
+        "src/repro_torch/csrc/quantize_leaf.cu",
+        "src/repro/kernels/quantize/kernel.py:73",
+        counts["lead-qbit8"]["quantize_tensor"],
+        cuda_ms(lambda: qops.quantize_tensor(keys, xa, bits=8)),
+        bare("quantize_leaf", xa.data_ptr(), ma, n, 8, kd.data_ptr(),
+             sca.data_ptr(), qa.data_ptr(), n),
+        cuda_ms(lambda: qref.quantize_tensor_ref(keys, xa, bits=8),
+                iters=3, warmup=1),
+        ma * n * 4 + ma * n + 8 * ma + 4 * ma, TF_LEAF_OPS * ma * n,
+        6 * ma * n, None)
+    qa, sca = qops.quantize_tensor(keys, xa, bits=8)
+    outa = torch.empty((ma, n), device=dev)
+    row("K5 dequantize_tensor b=8 [10, 2^20]",
+        "src/repro_torch/csrc/quantize_leaf.cu",
+        "src/repro/kernels/quantize/kernel.py:188",
+        counts["lead-qbit8"]["dequantize_tensor"],
+        cuda_ms(lambda: qops.dequantize_tensor(qa, sca, n=n, bits=8)),
+        bare("dequantize_leaf", qa.data_ptr(), ma, n, 8, sca.data_ptr(),
+             outa.data_ptr(), n),
+        cuda_ms(lambda: qref.dequantize_tensor_ref(qa, sca, n=n, bits=8),
+                iters=3, warmup=1),
+        ma * n + 4 * ma + ma * n * 4, 0, 2 * ma * n, None)
+
+    # K6/K7 on the LT-ADMM z-plane [20, 2^20], RandK uniform at 0.6
+    ku = round(0.6 * n)
+    zkeys = jaxrand.split(jaxrand.key(6), m).to(dev)
+    uidx = jaxrand.permutation(zkeys, n)[..., :ku]
+    uidx32 = uidx.to(torch.int32).contiguous()
+    by_run = {lab: counts[lab]["sparse_gather"]
+              for lab in ("randk-uniform", "choco-topk")}
+    gout = torch.empty((m, ku), device=dev)
+    row(f"K6 sparse_gather uniform [20, 2^20] k={ku}",
+        "src/repro_torch/csrc/gather_scatter.cu",
+        "src/repro/kernels/sparse_gather/kernel.py:47",
+        sum(by_run.values()),
+        cuda_ms(lambda: sgops.sparse_gather(x, uidx)),
+        bare("sparse_gather", x.data_ptr(), m, n, uidx32.data_ptr(), ku,
+             gout.data_ptr()),
+        cuda_ms(lambda: sgref.sparse_gather_ref(x, uidx), iters=3, warmup=1),
+        3 * m * ku * 4, 0, 0, cuda_ms(lambda: torch.gather(x, 1, uidx)),
+        rounds=2 * WIDE_ROUNDS, launches_by_run=by_run)
+    vu = sgops.sparse_gather(x, uidx)
+    gain = n / ku
+    vug = torch.tensor(gain, dtype=torch.float32, device=dev) * vu
+    by_run = {lab: counts[lab]["sparse_scatter"]
+              for lab in ("randk-uniform", "choco-topk")}
+    row(f"K7 sparse_scatter uniform [20, 2^20] k={ku}",
+        "src/repro_torch/csrc/gather_scatter.cu",
+        "src/repro/kernels/sparse_gather/kernel.py:75",
+        sum(by_run.values()),
+        cuda_ms(lambda: sgops.sparse_scatter(vu, uidx, n, gain, unique=True)),
+        # onto a plane zeroed once: the wrapper's zero fill left out
+        bare("sparse_scatter", vu.data_ptr(), uidx32.data_ptr(), m, n, ku,
+             float(gain), None, plane.data_ptr()),
+        cuda_ms(lambda: sgref.sparse_scatter_ref(vu, uidx, n, gain),
+                iters=3, warmup=1),
+        2 * m * ku * 4 + m * n * 4, 0, m * ku,
+        cuda_ms(lambda: torch.scatter(zeros, 1, uidx, vug)),
+        rounds=2 * WIDE_ROUNDS, launches_by_run=by_run)
     return rows
 
 
@@ -716,7 +1030,10 @@ def rehearse():
     check_k0(seed, "cpu")
     check_k1(seed, "cpu")
     check_k23(seed, "cpu")
+    check_k45("cpu")
+    check_k67("cpu")
     phase_paper(PAPER_ROUNDS)
+    phase_fig2(100, 250)  # LT-ADMM-CC reaches 1e-8 at round 90
     phase_wide(WIDE_ROUNDS)
     log("[rehearse] done on the CPU; no result")
 
@@ -724,7 +1041,7 @@ def rehearse():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,paper,wide,profile",
+                    default="device,build,kernels,paper,fig2,wide,profile",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -753,13 +1070,19 @@ def main(argv=None):
         k0 = check_k0(seed, torch.device("cuda"))
         check_k1(seed, torch.device("cuda"))
         check_k23(seed, torch.device("cuda"))
+        check_k45(torch.device("cuda"))
+        check_k67(torch.device("cuda"))
     if "paper" in phases:
         phase_paper(PAPER_ROUNDS)
+    if "fig2" in phases:
+        phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
     rows = None
     if "wide" in phases:
         counts = phase_wide(WIDE_ROUNDS)
         missing = [kk for kk in ("quantize_plane", "randk_gather_plane",
-                                 "randk_scatter_plane")
+                                 "randk_scatter_plane", "quantize_tensor",
+                                 "dequantize_tensor", "sparse_gather",
+                                 "sparse_scatter")
                    if not any(c[kk] for c in counts.values())]
         if missing:
             raise AssertionError(f"main path never launched {missing}")

@@ -1,10 +1,10 @@
-"""Carry the reference's LT-ADMM state and data across to the port.
+"""Carry the reference's solver state and data across to the port.
 
 The reference's state arrives as numpy leaves: either the state itself
-after ``tree_map(np.asarray, state)`` (a named tuple), or the arrays of
-a reference checkpoint (``arrays.npz`` read with numpy, keys like ``x``
-or ``.x``, with ``manifest.json`` read with json for the round counter).
-No JAX is needed to read either.
+after ``tree_map(np.asarray, state)`` (LT-ADMM's named tuple, or a gossip
+baseline's dict), or the arrays of a reference checkpoint (``arrays.npz``
+read with numpy, keys like ``x`` or ``.x``, with ``manifest.json`` read
+with json for the round counter).  No JAX is needed to read either.
 """
 from __future__ import annotations
 
@@ -50,6 +50,24 @@ def state_from_numpy(arrays, cfg: LTADMMConfig, device=None,
 
     k = int(np.asarray(by["k"])) if step is None else int(step)
     return LTADMMState(**{f: tensor(f) for f in _FIELDS if f != "k"}, k=k)
+
+
+def baseline_state_from_numpy(arrays, solver, device=None,
+                              step: int | None = None) -> dict:
+    """A gossip baseline's packed state (``x``, ``xhat``, ``h``, ``d``, ...
+    as the solver's ``state_fields`` name them, and ``k``) as the port's
+    state dict on ``device``; ``step`` overrides the round counter."""
+    dev = resolve_device(device)
+    by = _by_field(arrays)
+    want = tuple(solver.state_fields) + (("k",) if step is None else ())
+    missing = [f for f in want if f not in by]
+    if missing:
+        raise KeyError(f"reference {solver.name} state lacks fields "
+                       f"{missing}")
+    st = {f: torch.as_tensor(np.array(by[f]), device=dev)
+          for f in solver.state_fields}
+    st["k"] = int(np.asarray(by["k"])) if step is None else int(step)
+    return st
 
 
 def data_from_numpy(data, device=None) -> dict:

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 
 
@@ -35,6 +36,13 @@ def tree_flatten(tree, is_leaf=None):
         return type(tree)(out)
 
     return leaves, rebuild
+
+
+def as_tensor(leaf):
+    """A tensor as it is; anything else (a numpy array) as a tensor."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(np.asarray(leaf))
 
 
 def tree_map(fn, tree, *rest):

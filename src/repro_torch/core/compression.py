@@ -14,15 +14,20 @@ payload, n)`` returns ``[..., n]``.  Random draws are bit-exact with the
 reference's ``jax.random`` draws.
 
 Backends: every compressor takes ``impl={auto,torch,kernel}``.
-``torch`` is the counterpart of the reference's ``jnp`` (the per-message
-route); ``kernel`` of ``pallas`` (the fused plane route: one hand-written
-CUDA launch compresses a whole round's messages, with the randomness
-derived in the kernel); ``auto`` is ``kernel`` for CUDA tensors and
-``torch`` otherwise.  On a CPU tensor the kernel route's wrappers run
-their plain versions, as Pallas runs in interpret mode off the TPU.  A
-kernel route that needs a kernel not ported yet raises; it never runs the
-torch route instead.  As in the reference, the two qbit routes draw
-different rounding bits (``jax.random.uniform`` vs the counter cipher).
+``torch`` is the counterpart of the reference's ``jnp``; ``kernel`` of
+``pallas``: hand-written CUDA kernels, on two routes.  The fused plane
+route (qbit, RandK block/stride on the packed LT-ADMM round) compresses a
+whole round's messages in one launch with the randomness derived in the
+kernel (K1-K3).  The per-message route (every other case: the gossip
+baselines, RandK uniform, TopK) launches the per-message kernels once
+for a batch of messages: qbit K4/K5, RandK and TopK K6/K7 with their
+indices computed outside the kernel, as in the reference.  ``auto`` is
+``kernel`` for CUDA tensors and ``torch`` otherwise.  On a CPU tensor
+the kernel wrappers run their plain versions, as Pallas runs in
+interpret mode off the TPU.  A kernel route that needs a kernel not
+ported yet raises; it never runs the torch route instead.  As in the
+reference, the torch and kernel qbit routes draw different rounding bits
+(``jax.random.uniform`` vs raw ``jax.random.bits`` or the counter cipher).
 """
 from __future__ import annotations
 
@@ -147,8 +152,9 @@ class BBitQuantizer:
 
     def compress(self, keys, x) -> Payload:
         if resolve_impl(self.impl, x.device) == "kernel":
-            raise _unported("the per-message qbit quantizer",
-                            "K4 quantize (kernels/quantize/kernel.py:73)")
+            q, scale = qops.quantize_tensor(keys, x.to(torch.float32),
+                                            bits=self.bits)
+            return Payload(q=q, scale=scale)
         xf = x.to(torch.float32)
         scale = qref.row_scale(xf)
         kappa = jaxrand.uniform(keys.to(x.device), xf.shape[-1:])
@@ -160,8 +166,8 @@ class BBitQuantizer:
 
     def decompress(self, keys, payload, n: int):
         if resolve_impl(self.impl, payload["q"].device) == "kernel":
-            raise _unported("the per-message qbit dequantizer",
-                            "K5 dequantize (kernels/quantize/kernel.py:188)")
+            return qops.dequantize_tensor(payload["q"], payload["scale"],
+                                          n=n, bits=self.bits)
         q = payload["q"]
         if self.bits == 4:
             q = qref.unpack4(q, n)
@@ -223,25 +229,35 @@ class RandK:
         off = jaxrand.randint(keys, (), 0, n)
         return (off[..., None] + torch.arange(k, device=keys.device)) % n
 
-    def _check_route(self, device):
-        if resolve_impl(self.impl, device) == "kernel":
-            kern = ("K8/K9 cyclic_gather/cyclic_scatter "
-                    "(kernels/sparse_gather/kernel.py:110, :257)"
-                    if self.sampler == "block" else
-                    "K6/K7 gather/scatter (kernels/sparse_gather/kernel.py"
-                    ":47, :75)")
-            raise _unported(f"the per-message RandK sampler={self.sampler}",
-                            kern)
+    def _kernel(self, device) -> bool:
+        """True on the per-message kernel route (K6/K7); the block sampler
+        there needs K8/K9, not ported yet."""
+        if resolve_impl(self.impl, device) != "kernel":
+            return False
+        if self.sampler == "block":
+            raise _unported("the per-message RandK sampler=block",
+                            "K8/K9 cyclic_gather/cyclic_scatter "
+                            "(kernels/sparse_gather/kernel.py:110, :257)")
+        return True
 
     def compress(self, keys, x) -> Payload:
-        self._check_route(x.device)
+        kernel = self._kernel(x.device)
         idx = self._indices(keys.to(x.device), x.shape[-1])
+        if kernel:
+            return Payload(v=sgops.sparse_gather(x, idx))
         return Payload(v=torch.gather(x, -1, idx))
 
     def decompress(self, keys, payload, n: int):
         v = payload["v"]
-        self._check_route(v.device)
+        kernel = self._kernel(v.device)
         idx = self._indices(keys.to(v.device), n)
+        if kernel:
+            # permutation rows are unique; the stride set only while
+            # its int32 sum cannot wrap onto an earlier index
+            unique = (self.sampler == "uniform" or sgops.indices_unique(
+                n, self._k(n), self._strides(n)))
+            return sgops.sparse_scatter(v, idx, n, n / self._k(n),
+                                        unique=unique)
         gain = torch.tensor(n / self._k(n), dtype=v.dtype, device=v.device)
         lead = tuple(v.shape[:-1])
         out = scatter_last(idx.reshape(-1, idx.shape[-1]),
@@ -286,22 +302,23 @@ class TopK:
     def _k(self, n: int) -> int:
         return max(1, int(round(self.fraction * n)))
 
-    def _check_route(self, device):
-        if resolve_impl(self.impl, device) == "kernel":
-            raise _unported("TopK", "K6/K7 gather/scatter "
-                            "(kernels/sparse_gather/kernel.py:47, :75)")
-
     def compress(self, keys, x) -> Payload:
-        self._check_route(x.device)
         k = self._k(x.shape[-1])
-        # lax.top_k order: descending, ties by lower index first
+        # lax.top_k order: descending, ties by lower index first (the
+        # sort stays a library call: the reference sorts outside Pallas)
         idx = torch.sort(x.abs(), dim=-1, descending=True,
                          stable=True).indices[..., :k]
-        return Payload(v=torch.gather(x, -1, idx), idx=idx.to(torch.int32))
+        if resolve_impl(self.impl, x.device) == "kernel":
+            v = sgops.sparse_gather(x, idx)
+        else:
+            v = torch.gather(x, -1, idx)
+        return Payload(v=v, idx=idx.to(torch.int32))
 
     def decompress(self, keys, payload, n: int):
         v = payload["v"]
-        self._check_route(v.device)
+        if resolve_impl(self.impl, v.device) == "kernel":
+            # a top-k index set is unique by construction
+            return sgops.sparse_scatter(v, payload["idx"], n, unique=True)
         lead = tuple(v.shape[:-1])
         out = scatter_last(payload["idx"].reshape(-1, v.shape[-1]).long(),
                            v.reshape(-1, v.shape[-1]), n)

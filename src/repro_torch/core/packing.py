@@ -14,7 +14,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.common.trees import tree_flatten
+from repro_torch.common.trees import as_tensor, tree_flatten, tree_map
+from repro_torch.core.compression import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +59,13 @@ def layout_of(tree, dtype=None) -> PackedLayout:
         off += size
     return PackedLayout(slots=tuple(slots), size=off, dtype=dtype,
                         rebuild=rebuild)
+
+
+def abstract_plane(params) -> Spec:
+    """One whole-plane message of a per-agent tree (tensors or numpy
+    arrays): what the packed solvers' wire accounting charges per edge."""
+    lay = layout_of(tree_map(as_tensor, params))
+    return Spec((lay.size,), lay.dtype)
 
 
 def layout_of_stacked(x0) -> PackedLayout:

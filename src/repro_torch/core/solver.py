@@ -1,40 +1,36 @@
-"""The ``ltadmm:`` solver behind the reference's ``Solver`` protocol and
-spec-string registry (port of the main-path part of
-``repro/core/solver.py``).
+"""The solvers behind the reference's ``Solver`` protocol and spec-string
+registry (port of ``repro/core/solver.py``): ``ltadmm:`` and the six
+gossip baselines of ``core.baselines``.
 
     solver = make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, est)
+    solver = make_solver("lead:lr=0.1,compressor=qbit:bits=8", graph, ex,
+                         est)
     state = solver.init(x0)                 # stacked [A, ...] params
     state = solver.step(state, data, key)   # data leaves [A, m, ...]
     x = solver.consensus_params(state)
 
 ``make_solver`` takes ``device=`` (default the card) and raises without
-CUDA unless ``device="cpu"``.  The gossip baselines and ``dada:`` keep
-their names in the grammar but are not ported yet and raise.
+CUDA unless ``device="cpu"``.  ``dada:`` keeps its name in the grammar
+but is not ported yet and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
+from repro_torch.common.trees import as_tensor
 from repro_torch.common.trees import consensus_error as _consensus_error
 from repro_torch.common.trees import consensus_mean as _consensus_mean
-from repro_torch.common.trees import tree_flatten, tree_map
-from repro_torch.core import admm, compression, packing
+from repro_torch.common.trees import tree_map
+from repro_torch.core import admm, baselines, compression, packing
 from repro_torch.core.admm import LTADMMConfig
 from repro_torch.core.topology import Exchange
 from repro_torch.device import resolve_device
 
 consensus_mean = _consensus_mean
 consensus_error = _consensus_error
-
-
-def _as_tensor(leaf):
-    if isinstance(leaf, torch.Tensor):
-        return leaf
-    return torch.from_numpy(np.asarray(leaf))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +64,7 @@ class LTADMMSolver:
 
     def init(self, x0):
         """x0: stacked ``[A, ...]`` params (tensors or numpy arrays)."""
-        x0 = tree_map(lambda t: _as_tensor(t).to(self.device), x0)
+        x0 = tree_map(lambda t: as_tensor(t).to(self.device), x0)
         lay = packing.layout_of_stacked(x0)
         self._cache["layout"] = lay
         return admm.init(self.cfg, self.graph, self.exchange,
@@ -85,13 +81,14 @@ class LTADMMSolver:
     def wire_bytes(self, params, t: int | None = None) -> int:
         """Busiest-agent TX bytes per round; a message is ONE compressed
         plane of all the parameters."""
-        leaves, _ = tree_flatten(params)
-        plane = compression.Spec(
-            (sum(int(np.prod(leaf.shape)) for leaf in leaves),),
-            _as_tensor(leaves[0]).dtype)
+        plane = packing.abstract_plane(params)
         if t is not None:
             return admm.wire_bytes_at(self.cfg, self.graph, plane, t)
         return admm.wire_bytes_per_round(self.cfg, self.graph, plane)
+
+    def round_cost(self, cost_model, m: int) -> float:
+        """(t_g, t_c) cost of one outer round, Table I's last row."""
+        return cost_model.lt_admm_cc(m, self.cfg.tau)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +104,7 @@ class SolverEntry:
 SOLVERS: dict[str, SolverEntry] = {}
 
 # registered in the reference, not ported yet: name -> ROADMAP item
-UNPORTED = {"dsgd": 10, "choco": 10, "lead": 10, "cold": 10, "cedas": 10,
-            "dpdc": 10, "dada": 13}
+UNPORTED = {"dada": 13}
 
 
 def register_solver(name, factory, params, nested=(), estimator="sgd",
@@ -210,3 +206,39 @@ register_solver(
     doc="LT-ADMM-CC (paper Alg. 1): local VR training + compressed x/z "
         "exchanges on the packed plane",
 )
+
+
+# ---- gossip baselines -----------------------------------------------------
+
+_BASELINE_DOCS = {
+    "dsgd": "decentralized SGD with uncompressed gossip averaging",
+    "choco": "CHOCO-SGD: compressed gossip with error feedback",
+    "lead": "LEAD: primal-dual, compressed y-innovations",
+    "cold": "COLD: LEAD skeleton, innovation state (alpha = 1)",
+    "cedas": "CEDAS: exact diffusion + compressed gossip",
+    "dpdc": "DPDC: primal-dual with compressed copies",
+}
+# dataclass fields that are not spec params: the reference's three, and
+# the port's device and per-instance cache
+_NOT_PARAMS = ("topo", "grad_est", "name", "device", "_cache")
+
+
+def _baseline_factory(cls):
+    def factory(graph, exchange, grad_est, device, **kw):
+        del exchange  # baselines gossip through a dense mixing matrix
+        if "compressor" in kw:
+            kw["compressor"] = _as_compressor(kw["compressor"])
+        kw = {k: compression.coerce_param(v) for k, v in kw.items()}
+        return cls(topo=graph, grad_est=grad_est, device=device, **kw)
+
+    return factory
+
+
+for _name, _cls in baselines.ALL_BASELINES.items():
+    _fields = tuple(f.name for f in dataclasses.fields(_cls)
+                    if f.name not in _NOT_PARAMS)
+    register_solver(
+        _name, _baseline_factory(_cls), params=_fields,
+        nested=tuple(k for k in ("compressor", "faults") if k in _fields),
+        estimator="sgd", doc=_BASELINE_DOCS[_name],
+    )

@@ -22,32 +22,20 @@
 // loads and stores are coalesced (thread t of a block touches element
 // base + t in each of its 32 steps).
 //
-// Arithmetic: the explicit _rn intrinsics stop nvcc from contracting to
-// FMA and keep the division correctly rounded, which is what the
-// reference's IEEE ops give; the int8 payload bits depend on it.
+// Arithmetic: quantize.cuh, shared with the per-message kernel K4.
 #include <cuda_runtime.h>
 
+#include "quantize.cuh"
 #include "threefry.cuh"
 
 namespace {
 
+using repro::quantize_one;
+using repro::to_int_sat;
+
 constexpr int kThreads = 256;
 constexpr int kPerThread = 32;
 constexpr int kTile = kThreads * kPerThread;
-
-__device__ __forceinline__ float quantize_one(float x, float levels,
-                                              float scale, float kappa) {
-  const float y =
-      __fadd_rn(__fdiv_rn(__fmul_rn(levels, fabsf(x)), scale), kappa);
-  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : x);  // jnp.sign
-  return __fmul_rn(s, floorf(y));
-}
-
-// float -> int as XLA converts: saturating, NaN to 0
-__device__ __forceinline__ int to_int_sat(float q, float lo, float hi) {
-  if (q != q) return 0;
-  return static_cast<int>(fminf(fmaxf(q, lo), hi));
-}
 
 __global__ void quantize8_kernel(const float* __restrict__ x, int n,
                                  uint32_t s0, uint32_t s1,
@@ -100,7 +88,7 @@ __global__ void quantize4_kernel(const float* __restrict__ x, int n, int wire,
           const float kappa = repro::uniform01(repro::random_bits(es, static_cast<uint32_t>(j)));
           v = quantize_one(xr[j], 7.f, sc, kappa);
         }
-        nib[h] = (v != v ? 0 : static_cast<int>(v)) + 8;  // |v| <= 8
+        nib[h] = repro::nibble(v);  // |v| <= 8
       }
       qr[p] = static_cast<uint8_t>((nib[0] << 4) | nib[1]);
     }

@@ -1,6 +1,7 @@
 // K0: Threefry-2x32-20 and the seed/offset/stride derivations, as device
 // functions inlined into the plane kernels (quantize_plane.cu,
-// randk_plane.cu) and the threefry_bits test entry.
+// randk_plane.cu), the per-message quantizer (quantize_leaf.cu) and the
+// threefry_bits test entry.
 //
 // Replaces: src/repro/kernels/prng.py (threefry2x32 :65, fold :83,
 // random_bits :107, uniform01 :114, derive_offset :119,
@@ -68,6 +69,17 @@ __device__ __forceinline__ Pair message_seed(uint32_t s0, uint32_t s1,
 
 __device__ __forceinline__ uint32_t random_bits(Pair es, uint32_t ctr) {
   return threefry2x32(es.x0, es.x1, ctr, 0u).x0;
+}
+
+// jax.random.bits(key, shape) in the partitionable threefry mode, at flat
+// element j < 2^32: the block at counter (0, j) under the raw key, its two
+// words XORed (src/repro_torch/core/jaxrand.py:bits).  Not the same draw
+// as random_bits, which keeps word 0 of counter (j, stream).  The
+// per-message quantizer (K4) draws its kappas from it.
+__device__ __forceinline__ uint32_t jax_bits(uint32_t k0, uint32_t k1,
+                                             uint32_t j) {
+  const Pair y = threefry2x32(k0, k1, 0u, j);
+  return y.x0 ^ y.x1;
 }
 
 __device__ __forceinline__ float uniform01(uint32_t bits) {

@@ -44,6 +44,10 @@ ENTRIES = {
     "randk_scatter_plane": ("randk_plane",
                             (_P, _I, _I, _I, _F, _U, _U, _P, _P, _P, _I,
                              _P, _P)),
+    "quantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _P, _I)),
+    "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I)),
+    "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _P)),
+    "sparse_scatter": ("gather_scatter", (_P, _P, _I, _I, _I, _F, _P, _P)),
 }
 SOURCES = tuple(sorted({stem for stem, _ in ENTRIES.values()}))
 
@@ -129,6 +133,15 @@ def check_tensor(name, t, dtype, device, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def rows(t, name, dtype):
+    """``t [..., w]`` as contiguous ``[M, w]`` rows of ``dtype`` on its CUDA
+    device (raises otherwise): ``(lead shape, w, rows)``."""
+    lead, w = tuple(t.shape[:-1]), t.shape[-1]
+    tf = t.reshape(-1, w)
+    check_tensor(name, tf, dtype, t.device)
+    return lead, w, tf
 
 
 def id_ptr(ids, m: int, device) -> int | None:

@@ -1,13 +1,16 @@
-"""Plain PyTorch version of the fused plane quantizer (K1) and the
-quantizer arithmetic shared with the per-message route of
+"""Plain PyTorch versions of the fused plane quantizer (K1) and of the
+per-message quantize/dequantize kernels (K4, K5), and the quantizer
+arithmetic shared with the per-message torch route of
 ``core/compression.py``."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import jaxrand
 from repro_torch.kernels import prng
 
 TINY = torch.finfo(torch.float32).tiny
+BLOCK = 1024  # the reference kernels' tile: the per-message wrappers pad to it
 
 
 def plane_ids(ids, lead, fill, device):
@@ -76,3 +79,51 @@ def quantize_plane_ref(seed, sids, rids, x, *, bits=8):
     q = quantize_values(xf, scale[:, None], kappa, levels)
     q = to_int8(q) if bits == 8 else pack4(q)
     return q.reshape(lead + (q.shape[-1],)), scale.reshape(lead)
+
+
+def _pad_last(t, size: int, fill):
+    pad = size - t.shape[-1]
+    if not pad:
+        return t
+    return torch.cat([t, torch.full(t.shape[:-1] + (pad,), fill,
+                                    dtype=t.dtype, device=t.device)], dim=-1)
+
+
+def quantize_tensor_ref(keys, x, *, bits=8):
+    """K4's plain version with its wrapper, as the reference runs them per
+    message (``quantize/ops.py:86``): rows padded with zeros to a multiple
+    of BLOCK, kappa from the materialised ``jax.random.bits(key, (n_pad,))``
+    stream, the output sliced to the wire length.  ``keys [..., 2]``,
+    ``x [..., n]``; returns ``(q [..., wire], scale [...])``."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    xf = x.reshape(-1, n).to(torch.float32)
+    scale = row_scale(xf)
+    n_pad = -(-n // BLOCK) * BLOCK
+    rnd = jaxrand.bits(keys.to(x.device).reshape(-1, 2), (n_pad,))
+    levels = 2 ** (bits - 1) - 1
+    q = quantize_values(_pad_last(xf, n_pad, 0.0), scale[:, None],
+                        prng.uniform01(rnd), levels)
+    q = to_int8(q) if bits == 8 else pack4(q)
+    wire = n if bits == 8 else -(-n // 2)
+    return q[:, :wire].reshape(lead + (wire,)), scale.reshape(lead)
+
+
+def dequantize_tensor_ref(q, scale, *, n, bits=8):
+    """K5's plain version with its wrapper (``quantize/ops.py:104``): the
+    wire bytes padded back to BLOCK (zeros at b=8, ``0x88`` nibble pairs at
+    b=4), ``(scale * q) * f32(1 / levels)``, sliced to n.  The reference
+    writes ``scale * q / levels``; XLA compiles the division by a constant
+    into that multiply by its f32 reciprocal, so its kernel's bits are
+    these.  ``q [..., wire]``, ``scale [...]``; returns ``[..., n]``
+    f32."""
+    lead, wire = tuple(q.shape[:-1]), q.shape[-1]
+    qf = q.reshape(-1, wire)
+    if bits == 8:
+        qf = _pad_last(qf, -(-wire // BLOCK) * BLOCK, 0).to(torch.float32)
+    else:
+        half = BLOCK // 2
+        qp = _pad_last(qf, -(-wire // half) * half, 0x88)
+        qf = unpack4(qp, 2 * qp.shape[-1]).to(torch.float32)
+    inv = torch.tensor(1.0, dtype=torch.float32) / (2 ** (bits - 1) - 1)
+    out = scale.reshape(-1, 1).to(torch.float32) * qf * inv.to(q.device)
+    return out[:, :n].reshape(lead + (n,))

@@ -1,5 +1,6 @@
 """Wrappers of the fused RandK plane kernels (K2 gather, K3 scatter;
-``csrc/randk_plane.cu``).
+``csrc/randk_plane.cu``) and of the arbitrary-index gather/scatter
+kernels (K6, K7; ``csrc/gather_scatter.cu``).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
 runs the plain version (``ref.py``), as the reference runs Pallas in
@@ -8,6 +9,8 @@ in the kernel from ``(seed, sender, receiver)``: ``seed`` is the round's
 pair of uint32 ints, ``sids``/``rids`` are per-message ids (int32 tensors
 holding uint32 bit patterns; ``rids=None`` marks one-to-all messages) and
 ``strides`` the static stride table (``(1,)`` for the block sampler).
+K6/K7 take index rows computed outside the kernel, as the reference
+does (a permutation, a top-k sort or the affine stride set).
 """
 from __future__ import annotations
 
@@ -27,19 +30,12 @@ def indices_unique(n: int, k: int, strides: tuple) -> bool:
     return n & (n - 1) == 0 or (n - 1) + (k - 1) * max(strides) < 2 ** 31
 
 
-def _rows(t, name):
-    lead, w = tuple(t.shape[:-1]), t.shape[-1]
-    tf = t.reshape(-1, w)
-    _build.check_tensor(name, tf, torch.float32, t.device)
-    return lead, w, tf
-
-
 def randk_gather_plane(seed, sids, rids, x, *, k, strides):
     """RandK compress of every message of ``x [..., n]``: ``[..., k]``."""
     if x.device.type == "cpu":
         return ref.randk_gather_plane_ref(seed, sids, rids, x, k=k,
                                           strides=strides)
-    lead, n, xf = _rows(x, "x")
+    lead, n, xf = _build.rows(x, "x", torch.float32)
     m = xf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
@@ -61,7 +57,7 @@ def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
     if v.device.type == "cpu":
         return ref.randk_scatter_plane_ref(seed, sids, rids, v, n=n,
                                            gain=gain, strides=strides)
-    lead, k, vf = _rows(v, "v")
+    lead, k, vf = _build.rows(v, "v", torch.float32)
     m = vf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
     out = torch.zeros((m, n), dtype=torch.float32, device=v.device)
@@ -79,3 +75,57 @@ def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
 
 
 randk_scatter_plane.launches = 0
+
+
+def _index_rows(idx, lead, k, device):
+    if tuple(idx.shape) != lead + (k,):
+        raise ValueError(f"idx of shape {tuple(idx.shape)} != "
+                         f"{lead + (k,)}")
+    return idx.reshape(-1, k).to(device=device, dtype=torch.int32) \
+        .contiguous()
+
+
+def sparse_gather(x, idx):
+    """``out[..., j] = x[..., idx[..., j]]`` for in-range indices: every
+    message of ``x [..., n]`` in one launch; returns ``[..., k]``."""
+    if x.device.type == "cpu":
+        return ref.sparse_gather_ref(x, idx)
+    _, n, xf = _build.rows(x, "x", torch.float32)
+    lead, k = tuple(idx.shape[:-1]), idx.shape[-1]
+    if tuple(x.shape[:-1]) != lead:
+        raise ValueError(f"x lead shape {tuple(x.shape[:-1])} != idx lead "
+                         f"shape {lead}")
+    m = xf.shape[0]
+    ix = _index_rows(idx, lead, k, x.device)
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    _build.launch("sparse_gather", xf.data_ptr(), m, n, ix.data_ptr(), k,
+                  out.data_ptr())
+    sparse_gather.launches += 1
+    return out.reshape(lead + (k,))
+
+
+sparse_gather.launches = 0
+
+
+def sparse_scatter(v, idx, n: int, gain=1.0, *, unique: bool):
+    """``zeros(n).at[idx].set(gain * v)`` per message in one launch;
+    ``v``/``idx [..., k]``, returns ``[..., n]``.  ``unique=False`` (the
+    caller cannot prove each row's indices distinct) runs the claim pass,
+    so that a repeated index keeps the last j, as the reference's scatter
+    does."""
+    if v.device.type == "cpu":
+        return ref.sparse_scatter_ref(v, idx, n, gain)
+    lead, k, vf = _build.rows(v, "v", torch.float32)
+    m = vf.shape[0]
+    ix = _index_rows(idx, lead, k, v.device)
+    out = torch.zeros((m, n), dtype=torch.float32, device=v.device)
+    winner = (None if unique else
+              torch.full((m, n), -1, dtype=torch.int32, device=v.device))
+    _build.launch("sparse_scatter", vf.data_ptr(), ix.data_ptr(), m, n, k,
+                  float(gain), None if winner is None else winner.data_ptr(),
+                  out.data_ptr())
+    sparse_scatter.launches += 1
+    return out.reshape(lead + (n,))
+
+
+sparse_scatter.launches = 0

@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the fused RandK plane kernels (K2, K3) and
-the last-writer scatter shared with the per-message route."""
+"""Plain PyTorch versions of the fused RandK plane kernels (K2, K3), of
+the arbitrary-index gather/scatter kernels (K6, K7), and the last-writer
+scatter shared with the per-message torch route."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import prng
-from repro_torch.kernels.quantize.ref import plane_ids
+from repro_torch.kernels.quantize.ref import BLOCK, _pad_last, plane_ids
 
 
 def scatter_last(idx, vals, n: int):
@@ -44,3 +45,25 @@ def randk_scatter_plane_ref(seed, sids, rids, v, *, n, gain, strides):
     g = torch.tensor(gain, dtype=torch.float32, device=v.device)
     out = scatter_last(idx, g * v.reshape(-1, k).to(torch.float32), n)
     return out.to(v.dtype).reshape(lead + (n,))
+
+
+def sparse_gather_ref(x, idx):
+    """K6's plain version with its wrapper (``sparse_gather/ops.py:33``):
+    the index rows padded with 0 to a multiple of BLOCK, gathered, sliced
+    to k.  ``x [..., n]``, ``idx [..., k]``; returns ``[..., k]``."""
+    lead, n, k = tuple(idx.shape[:-1]), x.shape[-1], idx.shape[-1]
+    ip = _pad_last(idx.reshape(-1, k).to(torch.int64),
+                   -(-k // BLOCK) * BLOCK, 0)
+    out = torch.gather(x.reshape(-1, n), 1, ip)[:, :k]
+    return out.reshape(lead + (k,))
+
+
+def sparse_scatter_ref(v, idx, n: int, gain=1.0):
+    """K7's plain version (``sparse_gather/ops.py:43``): ``zeros(n).at[idx]
+    .set(gain * v)`` per row, the last j winning where an index repeats.
+    ``v``/``idx [..., k]``; returns ``[..., n]``."""
+    lead, k = tuple(v.shape[:-1]), v.shape[-1]
+    g = torch.tensor(gain, dtype=v.dtype, device=v.device)
+    out = scatter_last(idx.reshape(-1, k).to(torch.int64),
+                       (g * v).reshape(-1, k), n)
+    return out.reshape(lead + (n,))

@@ -2,10 +2,14 @@
 
 LT-ADMM-CC on the logistic task (ring N=10, n=5, m=100, |B|=1, SAGA,
 8-bit compressed messages): ||grad F(x̄_k)||² falls linearly to float32
-precision.  Runs on the card by default:
+precision.  ``--solver`` takes any registered solver; LT-ADMM-CC gets the
+paper's SAGA estimator, the gossip baselines plain SGD (their noise
+floor), as in the reference's quickstart.  Runs on the card by default:
 
     PYTHONPATH=src python -m repro_torch.quickstart
     PYTHONPATH=src python -m repro_torch.quickstart --device cpu
+    PYTHONPATH=src python -m repro_torch.quickstart \
+        --solver 'lead:lr=0.1,compressor=qbit:bits=8'
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from repro_torch.core import jaxrand, vr
 from repro_torch.core.schedule import build_graph
-from repro_torch.core.solver import consensus_error, make_solver
+from repro_torch.core.solver import consensus_error, make_solver, solver_entry
 from repro_torch.problems.logistic import LogisticProblem
 
 
@@ -30,8 +34,10 @@ def main(argv=None):
 
     prob = LogisticProblem()
     graph, ex = build_graph(args.topology, prob.n_agents)
-    saga = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
-    solver = make_solver(args.solver, graph, ex, saga, device=args.device)
+    est = (vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+           if solver_entry(args.solver).estimator == "vr"
+           else vr.PlainSgd(batch_grad=prob.batch_grad))
+    solver = make_solver(args.solver, graph, ex, est, device=args.device)
     data = prob.make_data(0, device=solver.device)
     state = solver.init(torch.zeros((prob.n_agents, prob.n)))
 

@@ -7,7 +7,9 @@
   rounds_to_tol 100 at tol 1e-8, 36 B/round, and log10 ||grad F||² within
   0.05 of the live reference at every sample where it is >= 1e-12;
 * the kernel route (plain versions on the CPU) against ``impl=pallas``
-  (interpret mode) over 20 rounds;
+  (interpret mode) over 20 rounds: the fused plane route (qbit8, RandK
+  block) and the packed fallback's per-message route (TopK, RandK
+  uniform);
 * topology tables, the device rule, and the paths not ported yet.
 """
 import json
@@ -129,19 +131,24 @@ def test_q8_saga_run_matches_reference_trajectory():
     assert row["wire_bytes_per_round"] == 36
 
 
-@pytest.mark.parametrize("compressor,wire", [
-    ("qbit:bits=8", 36), ("randk:fraction=0.6,sampler=block", 48)])
-def test_kernel_route_matches_pallas_interpret(compressor, wire):
-    eta = "" if compressor.startswith("qbit") else "eta=0.5,"
-    idx, g = jrun_solver(JPROB, JDATA, _ref_solver(
-        f"ltadmm:{eta}compressor={compressor},impl=pallas"), 20,
-        metric_every=5)
-    ts = _port_solver(f"ltadmm:{eta}compressor={compressor},impl=kernel")
+@pytest.mark.parametrize("spec,wire", [
+    ("compressor=qbit:bits=8", 36),
+    ("eta=0.5,compressor=randk:fraction=0.6,sampler=block", 48),
+    # not plane-ready: the packed fallback's per-message route (K6/K7)
+    ("compressor=topk:fraction=0.25", 32),
+    ("compressor=randk:fraction=0.25", 16)],
+    ids=["qbit:bits=8-36", "randk:fraction=0.6,sampler=block-48",
+         "topk:fraction=0.25-32", "randk:fraction=0.25-16"])
+def test_kernel_route_matches_pallas_interpret(spec, wire):
+    js = _ref_solver(f"ltadmm:{spec},impl=pallas")
+    idx, g = jrun_solver(JPROB, JDATA, js, 20, metric_every=5)
+    ts = _port_solver(f"ltadmm:{spec},impl=kernel")
     tidx, tg = run_solver(PROB, DATA_NP, ts, 20, metric_every=5)
     np.testing.assert_array_equal(tidx, np.asarray(idx))
     np.testing.assert_allclose(np.log10(tg), np.log10(np.asarray(g)),
                                atol=0.05)
-    assert ts.wire_bytes({"x": np.zeros(5, np.float32)}) == wire
+    params = {"x": np.zeros(5, np.float32)}
+    assert ts.wire_bytes(params) == wire == js.wire_bytes(params)
 
 
 @pytest.mark.parametrize("spec", [
@@ -180,7 +187,7 @@ def test_make_solver_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("spec,err", [
-    ("dsgd", "item 10"), ("dada:lr=0.1", "item 13"),
+    ("dsgd:faults=faults:drop=0.1", "item 11"), ("dada:lr=0.1", "item 13"),
     ("ltadmm:packed=false", "item 14"),
     ("ltadmm:faults=faults:drop=0.1", "item 11")])
 def test_unported_solver_paths_raise(spec, err):

@@ -6,7 +6,12 @@
   stride samplers, a row whose max |x| meets a kappa that rounds the
   level up (int8 saturation, nibble wrap), and the int32 wrap of the
   affine index set (with the repeated indices it causes);
-* the per-message route of every compressor spec against ``impl=jnp``;
+* the plain versions of the per-message kernels (K4/K5 quantize and
+  dequantize, K6/K7 gather and scatter) against the reference's kernels
+  in interpret mode, the same way: n = 5, 1000, 1024 and 4099, keys
+  whose bits round kappa to 1.0, TopK and RandK uniform and stride;
+* the per-message torch route of every compressor spec against
+  ``impl=jnp``, and the per-message kernel route against ``impl=pallas``;
 * wire bytes and the spec parser's error messages.
 """
 import math
@@ -240,17 +245,131 @@ def test_spec_errors_match(bad):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_kernel_route_without_a_ported_kernel_raises():
-    x = torch.zeros((2, 8))
+# (k0, k1, j): raw keys whose jax.random.bits word at element j is
+# >= 2^32 - 128, so that kappa rounds to 1.0 there (found by a numpy
+# search over random keys; checked against jax in the test)
+SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
+                   (781517975, 2568259190, 493), (1025103629, 3342442247, 743))
+
+
+def _jkey(words):
+    return jax.random.wrap_key_data(jnp.asarray(np.asarray(words, np.uint32)))
+
+
+@pytest.mark.parametrize("n", [5, 1000, 1024, 4099])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_tensor_matches_reference(n, bits):
+    """K4/K5's plain versions against ``quantize_tensor`` /
+    ``dequantize_tensor`` in interpret mode: q, scale and the dequantized
+    message bit-equal.  Where n allows, rows keyed by SATURATING_KEYS hold
+    their max |x| (a power of two) at the element whose kappa is 1.0."""
+    levels = 2 ** (bits - 1) - 1
+    rs = np.random.RandomState(n + bits)
+    plants = [kk for kk in SATURATING_KEYS if kk[2] < n]
+    words = [tuple(int(w) for w in rs.randint(0, 2 ** 32, 2, np.uint64))
+             for _ in range(2)] + [kk[:2] for kk in plants]
+    x = _x((len(words), n), n)
+    for r, (_, _, j) in enumerate(plants, start=2):
+        sign = -1.0 if r % 2 else 1.0
+        x[r, j] = sign * 2.0 ** math.ceil(math.log2(2 * np.abs(x[r]).max()))
+    keys = torch.tensor(words, dtype=torch.int64)
+    q, sc = q_ops.quantize_tensor(keys, torch.from_numpy(x), bits=bits)
+    out = q_ops.dequantize_tensor(q, sc, n=n, bits=bits)
+    for r, w in enumerate(words):
+        want = jq.quantize_tensor(_jkey(w), jnp.asarray(x[r]), bits=bits,
+                                  interpret=True)
+        _eq(q[r].numpy(), want["q"])
+        _eq(sc[r].numpy(), want["scale"])
+        _eq(out[r].numpy(), jq.dequantize_tensor(want, (n,), bits=bits,
+                                                 interpret=True))
+    for r, (k0, k1, j) in enumerate(plants, start=2):
+        n_pad = -(-n // 1024) * 1024
+        assert int(jax.random.bits(_jkey((k0, k1)), (n_pad,),
+                                   jnp.uint32)[j]) >= 2 ** 32 - 128
+        if bits == 8:  # 128 saturates to 127 (not -128); -128 stays
+            assert int(q[r, j]) == (127 if r % 2 == 0 else -128)
+        else:  # level 8 is nibble 16: its own 4 bits are 0
+            byte = int(q[r, j // 2])
+            assert (byte >> 4 if j % 2 == 0 else byte) & 0xF == 0
+        assert levels + 1 == float(q_ops.ref.quantize_values(
+            torch.tensor(x[r, j]), sc[r], 1.0, levels).abs())
+
+
+PER_MESSAGE_SPECS = ["qbit:bits=8", "qbit:bits=4", "topk:fraction=0.3",
+                     "randk:fraction=0.25,sampler=uniform",
+                     "randk:fraction=0.25,sampler=stride"]
+
+
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("spec", PER_MESSAGE_SPECS)
+def test_kernel_route_per_message_matches_pallas(spec, n):
+    """The per-message kernel route (K4/K5, K6/K7 plain versions on the
+    CPU) against the reference's ``impl=pallas`` leaf path in interpret
+    mode, message by message: payloads and reconstructions bit-equal."""
+    jc = jcomp.get_compressor(_impl(spec, "pallas"))
+    tc = comp.get_compressor(_impl(spec, "kernel"))
+    x = _x((3, n), n + 1)
+    tkeys = jaxrand.split(jaxrand.key(n), 3)
+    tp = comp.compress_tree(tc, tkeys, torch.from_numpy(x), nd=1)
+    trec = comp.decompress_tree(tc, tkeys, tp, comp.Spec((n,)), nd=1)
+    for r in range(3):
+        jk = _jkey(tkeys[r].numpy())
+        jp = jcomp.compress_tree(jc, jk, jnp.asarray(x[r]))
+        assert sorted(tp) == sorted(jp)
+        for name in tp:
+            _eq(tp[name][r].numpy(), jp[name])
+        _eq(trec[r].numpy(), jcomp.decompress_tree(
+            jc, jk, jp, jax.ShapeDtypeStruct((n,), jnp.float32)))
+
+
+def test_sparse_scatter_repeated_indices_match_reference():
+    """The stride sampler's int32 wrap repeats indices at n = 100,003:
+    K7's plain version (the claim pass's rule) keeps the last j, as the
+    reference's scatter kernel does in interpret mode; K6 gathers them."""
+    n = 100_003
+    k = n // 4
+    strides = prng.coprime_strides(n)
+    assert not sg_ops.indices_unique(n, k, strides)
+    keys = jaxrand.split(jaxrand.key(5), 64)
+    idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k, strides)
+    repeats = torch.tensor([k - torch.unique(r).numel() for r in idx])
+    # three rows whose index set repeats, one whose set does not
+    rows = torch.cat([torch.nonzero(repeats).reshape(-1)[:3],
+                      torch.nonzero(repeats == 0).reshape(-1)[:1]])
+    idx = idx[rows]
+    assert int((repeats[rows] > 0).sum()) == 3
+    x, v = _x((4, n), 3), _x((4, k), 4)
+    got_v = sg_ops.sparse_gather(torch.from_numpy(x), idx)
+    got = sg_ops.sparse_scatter(torch.from_numpy(v), idx, n, n / k,
+                                unique=False)
+    for r in range(4):
+        ji = jnp.asarray(idx[r].numpy().astype(np.int32))
+        _eq(got_v[r].numpy(), jsg.sparse_gather(jnp.asarray(x[r]), ji,
+                                                interpret=True))
+        _eq(got[r].numpy(), jsg.sparse_scatter(jnp.asarray(v[r]), ji, n,
+                                               gain=n / k, interpret=True))
+
+
+@pytest.mark.parametrize("spec,fused", [
+    ("randk:sampler=uniform,impl=kernel", False),
+    ("randk:sampler=stride,impl=kernel", True),
+    ("topk:impl=kernel", False),
+    ("qbit:bits=8,impl=kernel", True),
+    ("randk:sampler=block,impl=kernel", True)])
+def test_kernel_route_without_a_ported_kernel_raises(spec, fused):
+    """Only the per-message RandK block sampler still lacks its kernels
+    (K8/K9) and raises; every other per-message kernel route runs."""
+    x = torch.from_numpy(_x((2, 8)))
     keys = jaxrand.split(jaxrand.key(0), 2)
-    for spec, fused in [("randk:sampler=uniform,impl=kernel", False),
-                        ("topk:impl=kernel", False),
-                        ("qbit:bits=8,impl=kernel", True),
-                        ("randk:sampler=block,impl=kernel", True)]:
-        c = comp.get_compressor(spec)
-        assert comp.use_fused(c, "cpu") == fused
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+    c = comp.get_compressor(spec)
+    assert comp.use_fused(c, "cpu") == fused
+    if "block" in spec:
+        with pytest.raises(NotImplementedError, match="K8/K9"):
             c.compress(keys, x)
+        return
+    p = c.compress(keys, x)
+    assert p.wire_bytes == 2 * c.wire_bytes((8,), torch.float32)
+    assert c.decompress(keys, p, 8).shape == (2, 8)
     # identity has nothing to fuse and no kernel to miss
     assert comp.get_compressor("identity:impl=kernel").compress(
         keys, x)["v"] is x

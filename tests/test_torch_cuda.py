@@ -98,6 +98,61 @@ def test_randk_plane(h100, n, sampler):
         SEED, sid, rid, v, n=n, gain=n / k, strides=strides))
 
 
+# raw keys whose jax.random.bits word at element j rounds kappa to 1.0
+SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
+                   (781517975, 2568259190, 493), (1025103629, 3342442247, 743))
+
+
+@pytest.mark.parametrize("n", [2 ** 20, 1_000_003])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_tensor(h100, n, bits):
+    """K4/K5 on [10, n] messages bit-equal to their plain versions, with
+    saturating elements planted where kappa is 1.0."""
+    g = torch.Generator(h100).manual_seed(n + bits)
+    keys = torch.randint(0, 2 ** 32, (10, 2), generator=g, device=h100)
+    x = torch.randn((10, n), generator=g, device=h100)
+    big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+    for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
+        keys[r] = torch.tensor([k0, k1], device=h100)
+        x[r, j] = big if r % 2 == 0 else -big
+    q, sc = q_ops.quantize_tensor(keys, x, bits=bits)
+    qw, scw = q_ref.quantize_tensor_ref(keys, x, bits=bits)
+    assert torch.equal(q, qw) and torch.equal(sc, scw)
+    for r, (_, _, j) in enumerate(SATURATING_KEYS):
+        if bits == 8:
+            assert int(q[r, j]) == (127 if r % 2 == 0 else -128)
+    out = q_ops.dequantize_tensor(q, sc, n=n, bits=bits)
+    assert torch.equal(out, q_ref.dequantize_tensor_ref(q, sc, n=n,
+                                                        bits=bits))
+
+
+@pytest.mark.parametrize("n,kind", [(2 ** 20, "uniform"), (2 ** 20, "topk"),
+                                    (1_000_003, "uniform"),
+                                    (1_000_003, "stride")])
+def test_sparse_gather_scatter(h100, n, kind):
+    """K6/K7 on [10, n] messages at k = n / 4 bit-equal to their plain
+    versions; the stride case at n = 1,000,003 repeats indices through the
+    int32 wrap and runs K7's claim pass."""
+    k = n // 4
+    x = torch.randn((10, n), device=h100)
+    keys = jaxrand.split(jaxrand.key(n), 10).to(h100)
+    strides = prng.coprime_strides(n)
+    if kind == "uniform":
+        idx = jaxrand.permutation(keys, n)[..., :k]
+    elif kind == "topk":
+        idx = torch.sort(x.abs(), dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    else:
+        idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k, strides)
+        assert not sg_ops.indices_unique(n, k, strides)
+        assert sum(k - torch.unique(r).numel() for r in idx) > 0
+    v = sg_ops.sparse_gather(x, idx)
+    assert torch.equal(v, sg_ref.sparse_gather_ref(x, idx))
+    unique = kind != "stride"
+    out = sg_ops.sparse_scatter(v, idx, n, n / k, unique=unique)
+    assert torch.equal(out, sg_ref.sparse_scatter_ref(v, idx, n, n / k))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     sid, rid = _ids(h100)
     x = torch.randn((20, 64), device=h100)
@@ -108,6 +163,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     with pytest.raises(ValueError):
         sg_ops.randk_scatter_plane(SEED, sid, rid, x[:, ::2], n=64, gain=2.0,
                                    strides=(1,))
+    keys = jaxrand.split(jaxrand.key(0), 20)
+    with pytest.raises(TypeError):
+        q_ops.quantize_tensor(keys, x.double())
+    with pytest.raises(ValueError):
+        q_ops.quantize_tensor(keys[:3], x)
+    q, sc = q_ops.quantize_tensor(keys, x)
+    with pytest.raises(ValueError):
+        q_ops.dequantize_tensor(q, sc, n=65)
+    with pytest.raises(ValueError):
+        sg_ops.sparse_gather(x, torch.zeros((3, 8), dtype=torch.int64,
+                                            device=h100))
 
 
 def test_paper_problem_through_the_kernels(h100):
@@ -127,3 +193,25 @@ def test_paper_problem_through_the_kernels(h100):
     assert q_ops.quantize_plane.launches == 300
     assert rounds_to_tol(idx, gns, 1e-8) <= 125
     assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 36
+
+
+def test_baseline_through_the_kernels(h100):
+    """LEAD with qbit8 on the paper problem: every iteration launches K4
+    and K5 once, and the stochastic run settles at its noise floor."""
+    from repro_torch.bench import run_solver
+    from repro_torch.core import vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    graph, ex = build_graph("ring", prob.n_agents)
+    solver = make_solver("lead:lr=0.1,compressor=qbit:bits=8", graph, ex,
+                         vr.PlainSgd(batch_grad=prob.batch_grad))
+    q_ops.quantize_tensor.launches = q_ops.dequantize_tensor.launches = 0
+    idx, gns = run_solver(prob, prob.make_data(0), solver, 300,
+                          metric_every=50)
+    assert q_ops.quantize_tensor.launches == 300
+    assert q_ops.dequantize_tensor.launches == 300
+    assert np.all(np.isfinite(gns)) and gns[-1] < 1e-2
+    assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 18

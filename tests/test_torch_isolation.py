@@ -100,4 +100,4 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
-    assert out.stdout.count("bit-equal") == 15
+    assert out.stdout.count("bit-equal") == 23
