@@ -12,11 +12,14 @@ Phases (any failure exits non-zero):
   3. kernels: each kernel held bit-exact against its plain PyTorch
      version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
      gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
-     gather/scatter), at n = 2^20 and n = 1,000,003;
+     gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
+     n = 1,000,003;
   4. paper problem: LT-ADMM-CC on the paper's logistic task (ring N=10,
      n=5, m=100, SAGA) for qbit8, qbit4 and the Fig.-1 RandK settings,
-     through the kernels, against the reference's rounds-to-tolerance
-     and wire bytes, and against the same run on the CPU;
+     and the reference's two schedule rows (q8 + SAGA on drop0.3 and
+     churn0.2 over the complete graph, packed and packed=false), through
+     the kernels, against the reference's rounds-to-tolerance and wire
+     bytes, and against the same run on the CPU;
   fig2. the paper's Fig.-2 comparison (``repro_torch.paper_fig2``): its
      seven methods at the paper's size through the kernels (the gossip
      baselines' qbit messages through K4/K5), counters zeroed and read
@@ -25,12 +28,19 @@ Phases (any failure exits non-zero):
      against the same run on the CPU;
   5. main path at real width: the solvers at n = 2^20 for 20 rounds per
      spec (LT-ADMM-CC with qbit8, qbit4, RandK stride and RandK uniform,
-     LEAD qbit8, CHOCO TopK), launch counters zeroed just before each
-     spec's rounds and read just after, then each kernel timed at the
-     shapes of those runs (wrapper and bare launch) beside its bound,
-     its plain version and the PyTorch library call where one exists;
-  6. profile: torch.profiler over three n = 2^20 qbit8 rounds: device
-     time by kernel and operator, and the device's idle share.
+     LEAD qbit8, CHOCO TopK on the ring; LT-ADMM-CC qbit8 on drop0.3,
+     RandK block with packed=false on churn0.2, qbit8 with packed=false
+     on the ring, CHOCO RandK block on drop0.3), launch counters zeroed
+     just before each spec's rounds and read just after, every kernel
+     call of each spec's second round held bit for bit against its plain
+     version on the same inputs, then each kernel timed at the shapes of
+     those runs (wrapper and bare launch)
+     beside its bound, its plain version and the PyTorch library call
+     where one exists;
+  6. profile: torch.profiler over three n = 2^20 rounds of the static
+     qbit8 round, the drop0.3 schedule round, the churn0.2 tree round
+     and CHOCO's drop0.3 iteration: device time by kernel and operator,
+     and the device's idle share.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -277,6 +287,25 @@ def plane_cases(device):
             (torch.arange(10, device=device, dtype=torch.int32), None))
 
 
+def edge_ids(gspec, device):
+    """(sids, rids) of the per-edge messages of graph ``gspec`` on 10
+    agents, [A, S] flattened over the slots of its union topology, as
+    ``core.admm.RoundIds`` builds them (the complete graph's union has
+    S = 15 slots)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.schedule import build_graph, union_topology
+
+    topo = union_topology(build_graph(gspec, 10)[0])
+    nbr = torch.as_tensor(np.asarray(topo.neighbor_table(), np.int64),
+                          device=device)
+    sids = torch.arange(topo.n_agents, device=device)[:, None].expand(
+        nbr.shape)
+    return (sids.reshape(-1).to(torch.int32),
+            nbr.reshape(-1).to(torch.int32))
+
+
 def check_k0(seed, dev):
     import torch
 
@@ -330,8 +359,10 @@ def check_k1(seed, dev):
     from repro_torch.kernels.quantize import ops, ref
 
     (zs, zr), (xs, _) = plane_cases(dev)
+    es, er = edge_ids(DROP_SPEC, dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    for n, sid, rid in ((WIDE_N, zs, zr), (ODD_N, zs, zr), (WIDE_N, xs, None)):
+    for n, sid, rid in ((WIDE_N, zs, zr), (ODD_N, zs, zr), (WIDE_N, xs, None),
+                        (WIDE_N, es, er)):
         for bits in (8, 4):
             x = torch.randn((sid.numel(), n), generator=g, device=dev)
             levels = 2 ** (bits - 1) - 1
@@ -407,10 +438,12 @@ SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
                    (781517975, 2568259190, 493), (1025103629, 3342442247, 743))
 
 
-def check_k45(dev, m=10):
-    """K4/K5 on [10, n] messages (the baselines' x-plane), random keys and
-    four rows keyed by SATURATING_KEYS with their max |x| planted at the
-    element whose kappa is 1.0."""
+def check_k45(dev):
+    """K4/K5 on [10, n] messages (the baselines' x-plane) and on the ring
+    tree round's per-leaf x and z messages, [10 or 20, WIDE_SPLIT] and
+    [10 or 20, n - WIDE_SPLIT]: random keys and four rows keyed by
+    SATURATING_KEYS with their max |x| planted at the element whose
+    kappa is 1.0."""
     import torch
 
     from repro_torch.core import jaxrand
@@ -418,7 +451,9 @@ def check_k45(dev, m=10):
     from repro_torch.kernels.quantize import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(3)
-    for n in (WIDE_N, ODD_N):
+    for m, n in ((10, WIDE_N), (10, ODD_N), (10, WIDE_SPLIT),
+                 (20, WIDE_SPLIT), (10, WIDE_N - WIDE_SPLIT),
+                 (20, WIDE_N - WIDE_SPLIT)):
         for bits in (8, 4):
             keys = torch.randint(0, 2 ** 32, (m, 2), generator=g,
                                  device=dev, dtype=torch.int64)
@@ -435,13 +470,14 @@ def check_k45(dev, m=10):
             note_err("K4", sc, scw)
             if not (torch.equal(q, qw) and torch.equal(sc, scw)):
                 raise AssertionError(
-                    f"K4 n={n} b={bits}: {(q != qw).sum()} q mismatches")
+                    f"K4 [{m}, {n}] b={bits}: {(q != qw).sum()} q "
+                    "mismatches")
             out = ops.dequantize_tensor(q, sc, n=n, bits=bits)
             sync()
             ow = ref.dequantize_tensor_ref(q, sc, n=n, bits=bits)
             note_err("K5", out, ow)
             if not torch.equal(out, ow):
-                raise AssertionError(f"K5 n={n} b={bits}: mismatch")
+                raise AssertionError(f"K5 [{m}, {n}] b={bits}: mismatch")
             for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
                 kap = prng.uniform01(jaxrand.bits(keys[r], (j + 1,)))[j]
                 pre = ref.quantize_values(x[r, j], sc[r], kap, levels)
@@ -501,6 +537,61 @@ def check_k67(dev):
             raise AssertionError("K7 stride case missed the int32 wrap")
 
 
+def check_k89(dev):
+    """K8/K9 on [20, n] messages at k = 1, 0.6 * 2^20 and n, and at the
+    wide runs' own shapes, k = 1, RandK's k at fraction 0.6 and n: the
+    churn0.2 tree round's per-edge leaves [150, WIDE_SPLIT] and [150, n -
+    WIDE_SPLIT] (150 = 10 agents x 15 slots), CHOCO's [10, n] on
+    drop0.3.  Offsets 0 and n - 1
+    planted, one row of -0.0 values (K9 returns +0.0 there, as the
+    reference's kernel does); compared as bit patterns."""
+    import torch
+
+    from repro_torch.kernels.sparse_gather import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = [(20, n, k) for n in (WIDE_N, ODD_N)
+             for k in (1, round(0.6 * WIDE_N), n)]
+    edges = edge_ids(CHURN_SPEC, dev)[0].numel()
+    cases += [(m, n, k) for m, n in ((edges, WIDE_SPLIT),
+                                     (edges, WIDE_N - WIDE_SPLIT),
+                                     (10, WIDE_N))
+              for k in (1, max(1, round(0.6 * n)), n)]
+    for m, n, k in cases:
+        x = torch.randn((m, n), generator=g, device=dev)
+        v = torch.randn((m, k), generator=g, device=dev)
+        v[2] = -0.0
+        off = torch.randint(0, n, (m,), generator=g, device=dev)
+        off[:2] = torch.tensor([0, n - 1], device=dev)
+        got = ops.cyclic_gather(x, off, k)
+        sync()
+        want = ref.cyclic_gather_ref(x, off, k)
+        note_err("K8", got, want)
+        if not same_bits(got, want):
+            raise AssertionError(f"K8 [{m}, {n}] k={k}: mismatch")
+        out = ops.cyclic_scatter(v, off, n, n / k)
+        sync()
+        want = ref.cyclic_scatter_ref(v, off, n, n / k)
+        note_err("K9", out, want)
+        if not same_bits(out, want):
+            raise AssertionError(f"K9 [{m}, {n}] k={k}: mismatch")
+        if bool(torch.signbit(out[2]).any()):
+            raise AssertionError("K9 kept a -0.0")
+        log(f"[kernels] K8/K9 cyclic gather/scatter [{m}, {n}] k={k}: "
+            "bit-equal (offsets 0 and n - 1, a -0.0 row out as +0.0)")
+
+
+def same_bits(a, b):
+    """Equal shapes, types and bit patterns (so -0.0 != +0.0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = (t.contiguous().view(torch.int32) for t in (a, b))
+    return torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the paper's problem through the kernels
 # ---------------------------------------------------------------------------
@@ -518,18 +609,24 @@ PAPER_SPECS = (
 
 
 def kernel_counters():
+    """Counter name -> the wrapper that holds the count (while a
+    ``MainPathTap`` is installed, its stand-in, which the wrapper's own
+    ``launches += 1`` then reaches)."""
     from repro_torch.kernels import prng
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.sparse_gather import ops as sgops
 
-    return {"threefry_bits": prng.threefry_bits,
+    fns = {"threefry_bits": prng.threefry_bits,
             "quantize_plane": qops.quantize_plane,
             "randk_gather_plane": sgops.randk_gather_plane,
             "randk_scatter_plane": sgops.randk_scatter_plane,
             "quantize_tensor": qops.quantize_tensor,
             "dequantize_tensor": qops.dequantize_tensor,
             "sparse_gather": sgops.sparse_gather,
-            "sparse_scatter": sgops.sparse_scatter}
+            "sparse_scatter": sgops.sparse_scatter,
+            "cyclic_gather": sgops.cyclic_gather,
+            "cyclic_scatter": sgops.cyclic_scatter}
+    return fns
 
 
 def reset_counts():
@@ -594,14 +691,157 @@ def phase_paper(rounds):
             raise AssertionError(f"{label}: card and CPU runs disagree")
 
 
+# The reference's CI rows on schedules (benchmarks/BENCH_BASELINE.json,
+# admm/drop0.3:complete/q8+saga and admm/churn0.2:complete/q8+saga):
+# rounds_to_tol 20 and these wire bytes; its gate allows 1.25 x 20.
+# label -> (graph spec, packed, wire bytes, kernels the run must launch)
+SCHEDULE_ROWS = (
+    ("drop0.3", "drop:p=0.3,base=complete", True, 118, ("quantize_plane",)),
+    ("drop0.3-tree", "drop:p=0.3,base=complete", False, 118,
+     ("quantize_tensor", "dequantize_tensor")),
+    ("churn0.2", "churn:p=0.2,base=complete", True, 126,
+     ("quantize_plane",)),
+    ("churn0.2-tree", "churn:p=0.2,base=complete", False, 126,
+     ("quantize_tensor", "dequantize_tensor")),
+)
+
+
+def tree_estimator(prob, split):
+    """SAGA on the two-leaf tree ``{"w1": [.., split], "w2": [..,
+    n - split]}`` (one leaf ``{"w": ..}`` when ``split`` is None): the
+    problem's gradient of the joined vector, split as the leaves."""
+    import torch
+
+    from repro_torch.core import vr
+
+    def grads(p, b):
+        if split is None:
+            return {"w": prob.sample_grads(p["w"], b)}
+        full = prob.sample_grads(torch.cat([p["w1"], p["w2"]], -1), b)
+        return {"w1": full[..., :split], "w2": full[..., split:]}
+
+    return vr.SagaTable(sample_grads=grads, m=prob.m)
+
+
+def tree_x0(prob, split, dev):
+    import torch
+
+    if split is None:
+        return {"w": torch.zeros((prob.n_agents, prob.n), device=dev)}
+    return {"w1": torch.zeros((prob.n_agents, split), device=dev),
+            "w2": torch.zeros((prob.n_agents, prob.n - split), device=dev)}
+
+
+def flat_params(params):
+    import torch
+
+    from repro_torch.common.trees import tree_flatten
+
+    return torch.cat([p.reshape(p.shape[0], -1)
+                      for p in tree_flatten(params)[0]], dim=1)
+
+
+def phase_paper_schedules(rounds, kind_rounds=30):
+    """The two schedule rows, packed and with packed=false, through the
+    kernels, counters zeroed and read around each run, then 20 rounds of
+    each against the CPU; then ``kind_rounds`` rounds of every schedule
+    kind, plane and pytree."""
+    import numpy as np
+
+    from repro_torch.bench import rounds_to_tol, run_solver
+    from repro_torch.core import vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    data = prob.make_data(0)
+    for label, gspec, packed, wire, used in SCHEDULE_ROWS:
+        graph, ex = build_graph(gspec, prob.n_agents)
+        if packed:
+            est, params = (vr.SagaTable(sample_grads=prob.sample_grads,
+                                        m=prob.m),
+                           {"x": np.zeros(prob.n, np.float32)})
+        else:
+            est, params = (tree_estimator(prob, None),
+                           {"w": np.zeros(prob.n, np.float32)})
+        spec = (f"ltadmm:packed={str(packed).lower()},compressor=qbit:bits=8"
+                + (",impl=kernel" if DEV == "cpu" else ""))
+
+        def run(device, n_rounds):
+            solver = make_solver(spec, graph, ex, est, device=device)
+            x0 = None if packed else tree_x0(prob, None, device)
+            return solver, run_solver(prob, data, solver, n_rounds,
+                                      return_state=True, x0=x0)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        solver, (idx, gns, _) = run(DEV, rounds)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        r2t = rounds_to_tol(idx, gns, 1e-8)
+        wb = solver.wire_bytes(params)
+        log(f"[paper] {label}: rounds_to_tol={r2t} (reference 20) final="
+            f"{gns[-1]:.3e} wire_bytes_per_round={wb} (reference {wire}) "
+            f"launches={ {k: v for k, v in counts.items() if v} } "
+            f"host_s_per_round={secs / rounds:.5f}")
+        if r2t is None or r2t > 25:
+            raise AssertionError(f"{label}: rounds_to_tol {r2t} > 25")
+        if wb != wire:
+            raise AssertionError(f"{label}: wire bytes {wb} != {wire}")
+        if DEV == "cuda" and not all(counts[u] > 0 for u in used):
+            raise AssertionError(f"{label}: kernels {used} not launched")
+        cpu, (_, g_cpu, st_cpu) = run("cpu", 20)
+        dev, (_, g_dev, st_dev) = run(DEV, 20)
+        dx = float((flat_params(dev.consensus_params(st_dev)).cpu()
+                    - flat_params(cpu.consensus_params(st_cpu))).abs().max())
+        log(f"[paper] {label}: card vs CPU after 20 rounds: max |dx| = "
+            f"{dx:.3e}, ||gradF||^2 {g_dev[-1]:.3e} vs {g_cpu[-1]:.3e}")
+        # the whole round (masks, selects, exchange) against the CPU: the
+        # card's runs came within 7.9e-6 (PERF.md, Findings)
+        if not dx < 1e-4:
+            raise AssertionError(f"{label}: card and CPU runs disagree")
+    # every schedule kind of make_schedule, plane and pytree, through the
+    # kernels: kind_rounds rounds each must launch them and lower
+    # ||grad F||²
+    for gspec in ("cycle:ring|star", "gossip:edges=2,base=ring",
+                  "burst:fail=0.2,recover=0.5",
+                  "sample:frac=0.5,base=complete", "drop:p=0.3,base=ring",
+                  "churn:p=0.3,base=complete,seed=1,period=8"):
+        graph, ex = build_graph(gspec, prob.n_agents)
+        for packed in (True, False):
+            est = (vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+                   if packed else tree_estimator(prob, 2))
+            solver = make_solver(
+                f"ltadmm:packed={str(packed).lower()},compressor=qbit:bits=8"
+                + (",impl=kernel" if DEV == "cpu" else ""), graph, ex, est,
+                device=DEV)
+            reset_counts()
+            _, gns = run_solver(prob, data, solver, kind_rounds,
+                                x0=None if packed else tree_x0(prob, 2, DEV))
+            counts = read_counts()
+            used = (("quantize_plane",) if packed
+                    else ("quantize_tensor", "dequantize_tensor"))
+            log(f"[paper] {gspec} packed={packed}: ||gradF||^2 "
+                f"{gns[0]:.3e} -> {gns[-1]:.3e} in {kind_rounds} rounds, "
+                f"launches="
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if not (np.isfinite(gns[-1]) and gns[-1] < gns[0]):
+                raise AssertionError(f"{gspec}: ||gradF||^2 did not fall")
+            if DEV == "cuda" and not all(counts[u] > 0 for u in used):
+                raise AssertionError(f"{gspec}: kernels {used} not launched")
+
+
 # ---------------------------------------------------------------------------
 # phase fig2: the paper's Fig.-2 comparison through the kernels
 # ---------------------------------------------------------------------------
 
 # The reference's own numbers for ``benchmarks/paper_fig2.py``: each
 # method's ``solver.wire_bytes`` at n = 5 and ``run()``'s (time to 1e-8,
-# floor), computed with jax 0.9.0 on a CPU (the reference's data, which the
-# port's seeded torch data differ from, so only the wire bytes must agree).
+# floor), computed with jax 0.9.0 on a CPU.  The port draws the same data;
+# its time and floor are printed beside these, and only the wire bytes
+# must agree.
 FIG2_REFERENCE = {
     "lt-admm-cc": (36, 12400.0, 3.35e-17),
     "lead+sgd": (18, math.inf, 2.43e-03),
@@ -683,23 +923,48 @@ def phase_fig2(admm_rounds, baseline_iters):
 # phase 5: the main path at real width, then kernel timings
 # ---------------------------------------------------------------------------
 
-# label -> (spec, estimator kind, kernels the run must launch)
+# label -> (spec, estimator kind, kernels the run must launch, graph,
+# whether x0 is the two-leaf tree {"w1": [10, WIDE_SPLIT], "w2": [10,
+# n - WIDE_SPLIT]} (else the packed plane), launches per round the run
+# must show exactly (None: any))
+WIDE_SPLIT = 4096
+DROP_SPEC = "drop:p=0.3,base=complete,seed=0"
+CHURN_SPEC = "churn:p=0.2,base=complete,seed=0"
 WIDE_SPECS = (
-    ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga", ("quantize_plane",)),
-    ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga", ("quantize_plane",)),
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga", ("quantize_plane",),
+     "ring", False, None),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga", ("quantize_plane",),
+     "ring", False, None),
     ("randk-stride",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", "saga",
-     ("randk_gather_plane", "randk_scatter_plane")),
+     ("randk_gather_plane", "randk_scatter_plane"), "ring", False, None),
     ("lead-qbit8", "lead:lr=0.1,compressor=qbit:bits=8", "sgd",
-     ("quantize_tensor", "dequantize_tensor")),
+     ("quantize_tensor", "dequantize_tensor"), "ring", False, None),
     ("choco-topk", "choco:compressor=topk:fraction=0.25", "sgd",
-     ("sparse_gather", "sparse_scatter")),
+     ("sparse_gather", "sparse_scatter"), "ring", False, None),
     # Fig. 1's RandK setting with the uniform sampler: at eta = 1 and
     # fraction 0.25 LT-ADMM-CC diverges on this problem, in the reference
     # too
     ("randk-uniform",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=uniform", "saga",
-     ("sparse_gather", "sparse_scatter")),
+     ("sparse_gather", "sparse_scatter"), "ring", False, None),
+    # the packed schedule round: K1 on [10, 15, 2^20] x- and z-planes
+    ("drop-qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
+     ("quantize_plane",), DROP_SPEC, False, {"quantize_plane": 2}),
+    # the tree schedule round: per leaf 2 K8 and 4 K9
+    ("churn-tree-randk-block",
+     "ltadmm:eta=0.5,packed=false,compressor=randk:fraction=0.6,"
+     "sampler=block", "saga", ("cyclic_gather", "cyclic_scatter"),
+     CHURN_SPEC, True, {"cyclic_gather": 4, "cyclic_scatter": 8}),
+    # the static tree round: per leaf 2 K4 and 4 K5
+    ("ring-tree-qbit8", "ltadmm:packed=false,compressor=qbit:bits=8",
+     "saga", ("quantize_tensor", "dequantize_tensor"), "ring", True,
+     {"quantize_tensor": 4, "dequantize_tensor": 8}),
+    # the baselines' schedule gossip: 1 K8 and 1 K9 per iteration
+    ("choco-drop-randk-block",
+     "choco:compressor=randk:fraction=0.6,sampler=block", "sgd",
+     ("cyclic_gather", "cyclic_scatter"), DROP_SPEC, False,
+     {"cyclic_gather": 1, "cyclic_scatter": 1}),
 )
 
 
@@ -714,76 +979,200 @@ def wide_data(prob, dev):
     return {"a": a, "b": torch.where(u < 0.5, 1.0, -1.0)}
 
 
-def phase_wide(rounds, warm=2):
+def wide_solver(label, prob, dev):
+    """``(solver, x0, graph spec, kernels, launches per round)`` of the
+    wide spec ``label``."""
     import torch
 
-    from repro_torch.core import jaxrand
     from repro_torch.core.schedule import build_graph
     from repro_torch.core.solver import make_solver
     from repro_torch.paper_fig2 import _estimator
+
+    _, spec, kind, used, gspec, tree, per_round = next(
+        w for w in WIDE_SPECS if w[0] == label)
+    graph, ex = build_graph(gspec, prob.n_agents)
+    if tree:
+        est, x0 = (tree_estimator(prob, WIDE_SPLIT),
+                   tree_x0(prob, WIDE_SPLIT, dev))
+    else:
+        est, x0 = (_estimator(kind, prob),
+                   torch.zeros((prob.n_agents, prob.n), device=dev))
+    # the CPU rehearsal asks for the kernel route (the plain versions)
+    spec += ",impl=kernel" if DEV == "cpu" else ""
+    return (make_solver(spec, graph, ex, est, device=DEV), x0, gspec, used,
+            per_round)
+
+
+# counter name -> (kernel id, the module holding the wrapper, its plain
+# version's name in the module's ``ref``)
+MAIN_PATH_WRAPPERS = {
+    "quantize_plane": ("K1", "quantize", "quantize_plane_ref"),
+    "randk_gather_plane": ("K2", "sparse_gather", "randk_gather_plane_ref"),
+    "randk_scatter_plane": ("K3", "sparse_gather", "randk_scatter_plane_ref"),
+    "quantize_tensor": ("K4", "quantize", "quantize_tensor_ref"),
+    "dequantize_tensor": ("K5", "quantize", "dequantize_tensor_ref"),
+    "sparse_gather": ("K6", "sparse_gather", "sparse_gather_ref"),
+    "sparse_scatter": ("K7", "sparse_gather", "sparse_scatter_ref"),
+    "cyclic_gather": ("K8", "sparse_gather", "cyclic_gather_ref"),
+    "cyclic_scatter": ("K9", "sparse_gather", "cyclic_scatter_ref"),
+}
+
+
+def _shape_key(args, kwargs):
+    """A call's tensor arguments' shapes and int arguments, in order."""
+    import torch
+
+    return tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                 for a in (*args, *kwargs.values())
+                 if isinstance(a, torch.Tensor)
+                 or (isinstance(a, int) and not isinstance(a, bool)))
+
+
+def _show(key):
+    return str([list(a) if isinstance(a, tuple) else a for a in key])
+
+
+class MainPathTap:
+    """Installed around a main-path run, each wrapper of
+    ``MAIN_PATH_WRAPPERS`` is called through a stand-in: the wrapper runs
+    and counts its launch as always, and ``by_shape`` counts the calls
+    per shape.  While ``checking`` is set, each call's result is held bit
+    for bit against its plain version on the same inputs; the plain
+    version's own launches, if any, are taken back off the counters."""
+
+    def __init__(self):
+        import importlib
+
+        self.saved = []
+        self.by_shape = {}  # (name, shapes) -> calls
+        self.checked = {}  # (name, shapes) -> calls held bit for bit
+        self.checking = False
+        for name, (kid, pkg, ref_name) in MAIN_PATH_WRAPPERS.items():
+            ops = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+            ref = importlib.import_module(f"repro_torch.kernels.{pkg}.ref")
+            fn = getattr(ops, name)
+            self.saved.append((ops, name, fn))
+            setattr(ops, name, self._wrap(name, kid, fn,
+                                          getattr(ref, ref_name)))
+
+    def _wrap(self, name, kid, fn, plain):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            key = (name, _shape_key(args, kwargs))
+            self.by_shape[key] = self.by_shape.get(key, 0) + 1
+            if self.checking:
+                before = read_counts()
+                kw = {k: v for k, v in kwargs.items() if k != "unique"}
+                want = plain(*args, **kw)
+                sync()
+                for fn_, n in zip(kernel_counters().values(),
+                                  before.values()):
+                    fn_.launches = n
+                for g, w in zip(*(o if isinstance(o, tuple) else (o,)
+                                  for o in (out, want))):
+                    note_err(kid, g, w)
+                    if not same_bits(g, w):
+                        raise AssertionError(
+                            f"{kid} {name} at {key[1]} on the main path: "
+                            f"differs from its plain version")
+                self.checked[key] = self.checked.get(key, 0) + 1
+            return out
+
+        # the wrapper counts through its module's name, which now holds
+        # ``call``: the count lives here until ``close`` hands it back
+        call.launches = fn.launches
+        return call
+
+    def close(self):
+        for ops, name, fn in self.saved:
+            fn.launches = getattr(ops, name).launches
+            setattr(ops, name, fn)
+
+
+def phase_wide(rounds, warm=2, check_round=1):
+    import torch
+
+    from repro_torch.core import jaxrand
     from repro_torch.problems.logistic import LogisticProblem
 
     prob = LogisticProblem(n=WIDE_N)
     dev = torch.device(DEV)
     data = wide_data(prob, dev)
-    graph, ex = build_graph("ring", prob.n_agents)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     counts = {}  # per spec: launches over its main-path rounds
-    for label, spec, kind, used in WIDE_SPECS:
-        solver = make_solver(spec, graph, ex, _estimator(kind, prob),
-                             device=DEV)
-        reset_counts()  # this spec's main-path run starts here
-        st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev))
-        base = jaxrand.key(12345)
-        gns, times = [], []
-        for i in range(rounds):
-            sync()
-            t0 = time.perf_counter()
-            st = solver.step(st, data, jaxrand.fold_in(base, i))
-            sync()
-            times.append(time.perf_counter() - t0)
-            if i in (0, rounds - 1):
-                xbar = torch.mean(solver.consensus_params(st), dim=0)
-                gns.append(float(prob.global_grad_norm_sq(xbar, data)))
-        counts[label] = read_counts()  # ... and ends here
+    shapes = {}  # per spec: (wrapper, shapes) -> calls
+    for label, *_ in WIDE_SPECS:
+        solver, x0, gspec, used, per_round = wide_solver(label, prob, dev)
+        tap = MainPathTap()
+        try:
+            reset_counts()  # this spec's main-path run starts here
+            st = solver.init(x0)
+            base = jaxrand.key(12345)
+            gns, times = [], []
+            for i in range(rounds):
+                # round 0 starts from zero messages: hold round 1's
+                tap.checking = i == check_round
+                sync()
+                t0 = time.perf_counter()
+                st = solver.step(st, data, jaxrand.fold_in(base, i))
+                sync()
+                times.append(time.perf_counter() - t0)
+                if i in (0, rounds - 1):
+                    xbar = torch.mean(
+                        flat_params(solver.consensus_params(st)), dim=0)
+                    gns.append(float(prob.global_grad_norm_sq(xbar, data)))
+            counts[label] = read_counts()  # ... and ends here
+        finally:
+            tap.close()
+        shapes[label] = tap.by_shape
         mean_s = sum(times[warm:]) / len(times[warm:])
-        log(f"[wide] {label}: n={prob.n} rounds={rounds} "
+        log(f"[wide] {label} on {gspec}: n={prob.n} rounds={rounds} "
             f"mean_round_ms={mean_s * 1e3:.3f} (host clock, after {warm} "
             f"warm-up rounds) gradF^2 first={gns[0]:.6e} last={gns[-1]:.6e}"
-            f" launches={counts[label]}")
+            f" launches={ {k: v for k, v in counts[label].items() if v} }")
+        if tap.by_shape:
+            log(f"[wide] {label}: round {check_round}'s kernel calls "
+                "bit-equal to their plain versions on the same inputs: "
+                + ", ".join(f"{MAIN_PATH_WRAPPERS[nm][0]} {nm} "
+                            f"{_show(sh)} x{c}"
+                            for (nm, sh), c in tap.checked.items()))
+        unchecked = set(tap.by_shape) - set(tap.checked)
+        if unchecked:
+            raise AssertionError(f"wide {label}: calls at {unchecked} were "
+                                 f"not in round {check_round}")
         if not (math.isfinite(gns[-1]) and gns[-1] < gns[0]):
             raise AssertionError(f"wide {label}: ||gradF||^2 did not fall")
         if DEV == "cuda" and not all(counts[label][u] > 0 for u in used):
             raise AssertionError(f"wide {label}: kernels {used} not launched")
+        for kname, per in (per_round or {}).items():
+            if DEV == "cuda" and counts[label][kname] != per * rounds:
+                raise AssertionError(
+                    f"wide {label}: {counts[label][kname]} {kname} "
+                    f"launches, expected {per} per round")
         del st, solver
     if DEV == "cuda":
         log(f"[wide] max_memory_allocated="
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del data
         torch.cuda.empty_cache()
-    return counts
+    return counts, shapes
 
 
-def phase_profile(rounds=3):
-    """torch.profiler over ``rounds`` qbit8 rounds of the wide run (after
-    two warm-up rounds): device time by operator, and the device's idle
-    share of the window's wall time."""
+def phase_profile(label, rounds=3):
+    """torch.profiler over ``rounds`` rounds of the wide run of spec
+    ``label`` (after two warm-up rounds): device time by operator, and
+    the device's idle share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import jaxrand, vr
-    from repro_torch.core.schedule import build_graph
-    from repro_torch.core.solver import make_solver
+    from repro_torch.core import jaxrand
     from repro_torch.problems.logistic import LogisticProblem
 
     prob = LogisticProblem(n=WIDE_N)
     data = wide_data(prob, torch.device("cuda"))
-    graph, ex = build_graph("ring", prob.n_agents)
-    solver = make_solver(WIDE_SPECS[0][1], graph, ex,
-                         vr.SagaTable(sample_grads=prob.sample_grads,
-                                      m=prob.m))
-    st = solver.init(torch.zeros((prob.n_agents, prob.n)))
+    solver, x0, gspec, _, _ = wide_solver(label, prob, torch.device("cuda"))
+    st = solver.init(x0)
     base = jaxrand.key(12345)
     for i in range(2):
         st = solver.step(st, data, jaxrand.fold_in(base, i))
@@ -802,7 +1191,8 @@ def phase_profile(rounds=3):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    log(f"[profile] {rounds} rounds qbit8 n={WIDE_N}: wall {wall * 1e3:.3f} "
+    log(f"[profile] {label}: {rounds} rounds on {gspec} n={WIDE_N}: wall "
+        f"{wall * 1e3:.3f} "
         f"ms, device busy {busy * 1e3:.3f} ms, idle share "
         f"{1 - busy / wall:.3f}")
     by_kernel = {}
@@ -818,12 +1208,13 @@ def phase_profile(rounds=3):
             f" calls/round {e.count // rounds:4d}  {e.key[:80]}")
 
 
-def time_kernels(seed, k0_inputs, counts):
+def time_kernels(seed, k0_inputs, counts, shapes):
     """Each kernel at the main path's shapes (the z-plane [20, 2^20] of
-    the wide run; RandK at fraction 0.6): the wrapper (``ms``), the bare
-    launch on inputs the wrapper would have prepared (``kernel_ms``), the
-    plain version, the library call, and the bound.  ``counts`` holds the
-    launches of each compressor's main-path run."""
+    the wide run; RandK at fraction 0.6; K8/K9 also at each shape the
+    wide runs gave them): the wrapper (``ms``), the bare launch on inputs
+    the wrapper would have prepared (``kernel_ms``), the plain version,
+    the library call, and the bound.  ``counts`` holds the launches of
+    each compressor's main-path run, ``shapes`` its calls per shape."""
     import torch
 
     from repro_torch.core import jaxrand
@@ -1015,15 +1406,86 @@ def time_kernels(seed, k0_inputs, counts):
         2 * m * ku * 4 + m * n * 4, 0, m * ku,
         cuda_ms(lambda: torch.scatter(zeros, 1, uidx, vug)),
         rounds=2 * WIDE_ROUNDS, launches_by_run=by_run)
+
+    # K8/K9 (RandK block's per-message route) on [20, 2^20] at k = 0.6 n,
+    # the shape of the K2/K3 and K6/K7 rows, with the launches of every
+    # shape; then at each shape the wide runs gave them, with the
+    # launches at that shape.  The library calls take the window as
+    # prebuilt index rows.
+    runs = ("churn-tree-randk-block", "choco-drop-randk-block")
+    # kernel -> (m, n, k) -> {run: launches at that shape}; a K8 call's
+    # key is (x [..., n], off, k), a K9 call's (v [..., k], off, n)
+    main = {"cyclic_gather": {}, "cyclic_scatter": {}}
+    for lab in runs:
+        for (nm, sh), c in shapes[lab].items():
+            if nm in main:
+                m_, last = math.prod(sh[0][:-1]), sh[0][-1]
+                mnk = ((m_, last, sh[2]) if nm == "cyclic_gather"
+                       else (m_, sh[2], last))
+                main[nm].setdefault(mnk, {})[lab] = c
+    at = sorted(set(main["cyclic_gather"]) | set(main["cyclic_scatter"]))
+    for mc, nc, kb, at_shape in ([(m, n, round(0.6 * n), False)]
+                                 + [(*mnk, True) for mnk in at]):
+        where = "this shape" if at_shape else "all shapes"
+        xc = torch.randn((mc, nc), device=dev)
+        offs = jaxrand.randint(jaxrand.split(jaxrand.key(mc), mc), (), 0,
+                               nc).to(dev)
+        widx = (offs[:, None] + torch.arange(kb, device=dev)) % nc
+        cout = torch.empty((mc, kb), device=dev)
+        for kname, kid, line in (("cyclic_gather", "K8", 110),
+                                 ("cyclic_scatter", "K9", 257)):
+            by_run = (dict(main[kname].get((mc, nc, kb), {})) if at_shape
+                      else {lab: counts[lab][kname] for lab in runs})
+            extra = {"launches_of": where, "launches_by_run": by_run}
+            if not at_shape:
+                extra["launches_by_shape"] = {
+                    f"{list(mnk)}": sum(r.values())
+                    for mnk, r in main[kname].items()}
+            if kname == "cyclic_gather":
+                fn = (lambda: sgops.cyclic_gather(xc, offs, kb),
+                      lambda: _build.launch("cyclic_gather", xc.data_ptr(),
+                                            offs.data_ptr(), mc, nc, kb,
+                                            cout.data_ptr()),
+                      lambda: sgref.cyclic_gather_ref(xc, offs, kb),
+                      lambda: torch.gather(xc, 1, widx))
+                nbytes, iops, fops = 2 * mc * kb * 4 + 8 * mc, 2 * mc * kb, 0
+            else:
+                vb = sgops.cyclic_gather(xc, offs, kb)
+                gain = nc / kb
+                vbg = torch.tensor(gain, dtype=torch.float32,
+                                   device=dev) * vb
+                zc = torch.zeros((mc, nc), device=dev)
+                pc = torch.empty((mc, nc), device=dev)
+                fn = (lambda: sgops.cyclic_scatter(vb, offs, nc, gain),
+                      lambda: _build.launch("cyclic_scatter", vb.data_ptr(),
+                                            offs.data_ptr(), mc, nc, kb,
+                                            float(gain), pc.data_ptr()),
+                      lambda: sgref.cyclic_scatter_ref(vb, offs, nc, gain),
+                      lambda: torch.scatter(zc, 1, widx, vbg))
+                nbytes = mc * kb * 4 + mc * nc * 4 + 8 * mc
+                iops, fops = 2 * mc * nc, 2 * mc * kb
+            row(f"{kid} {kname} [{mc}, {nc}] k={kb}",
+                "src/repro_torch/csrc/cyclic.cu",
+                f"src/repro/kernels/sparse_gather/kernel.py:{line}",
+                sum(by_run.values()), cuda_ms(fn[0]), cuda_ms(fn[1]),
+                cuda_ms(fn[2], iters=3, warmup=1), nbytes, iops, fops,
+                cuda_ms(fn[3]), rounds=WIDE_ROUNDS * max(1, len(by_run)),
+                **extra)
+        del xc, widx, cout
     return rows
 
 
 def rehearse():
     """Every phase but device, build and timing on the CPU at a tiny
-    size, the kernels replaced by their plain versions; prints no
-    result."""
-    global WIDE_N, ODD_N, PAPER_ROUNDS, WIDE_ROUNDS, DEV
+    size, the kernels replaced by their plain versions, on one CPU thread
+    (the sizes gain nothing from more, and the test suite's workers share
+    the cores); prints no result."""
+    global WIDE_N, ODD_N, PAPER_ROUNDS, WIDE_ROUNDS, DEV, WIDE_SPLIT
     WIDE_N, ODD_N, PAPER_ROUNDS, WIDE_ROUNDS, DEV = 4096, 4099, 150, 4, "cpu"
+    WIDE_SPLIT = 1024
+    import torch
+
+    torch.set_num_threads(1)
     from repro_torch.core import jaxrand
 
     seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
@@ -1032,8 +1494,10 @@ def rehearse():
     check_k23(seed, "cpu")
     check_k45("cpu")
     check_k67("cpu")
+    check_k89("cpu")
     phase_paper(PAPER_ROUNDS)
-    phase_fig2(100, 250)  # LT-ADMM-CC reaches 1e-8 at round 90
+    phase_paper_schedules(30, kind_rounds=11)  # rounds_to_tol 20 in 30
+    phase_fig2(110, 250)  # LT-ADMM-CC reaches 1e-8 at round 100
     phase_wide(WIDE_ROUNDS)
     log("[rehearse] done on the CPU; no result")
 
@@ -1072,24 +1536,29 @@ def main(argv=None):
         check_k23(seed, torch.device("cuda"))
         check_k45(torch.device("cuda"))
         check_k67(torch.device("cuda"))
+        check_k89(torch.device("cuda"))
     if "paper" in phases:
         phase_paper(PAPER_ROUNDS)
+        phase_paper_schedules(PAPER_ROUNDS)
     if "fig2" in phases:
         phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
     rows = None
     if "wide" in phases:
-        counts = phase_wide(WIDE_ROUNDS)
+        counts, shapes = phase_wide(WIDE_ROUNDS)
         missing = [kk for kk in ("quantize_plane", "randk_gather_plane",
                                  "randk_scatter_plane", "quantize_tensor",
                                  "dequantize_tensor", "sparse_gather",
-                                 "sparse_scatter")
+                                 "sparse_scatter", "cyclic_gather",
+                                 "cyclic_scatter")
                    if not any(c[kk] for c in counts.values())]
         if missing:
             raise AssertionError(f"main path never launched {missing}")
         if k0 is not None:
-            rows = time_kernels(seed, k0, counts)
+            rows = time_kernels(seed, k0, counts, shapes)
     if "profile" in phases:
-        phase_profile()
+        for label in ("qbit8", "drop-qbit8", "churn-tree-randk-block",
+                      "choco-drop-randk-block"):
+            phase_profile(label)
     if rows is not None:
         print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

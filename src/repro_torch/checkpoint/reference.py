@@ -1,10 +1,12 @@
 """Carry the reference's solver state and data across to the port.
 
 The reference's state arrives as numpy leaves: either the state itself
-after ``tree_map(np.asarray, state)`` (LT-ADMM's named tuple, or a gossip
-baseline's dict), or the arrays of a reference checkpoint (``arrays.npz``
-read with numpy, keys like ``x`` or ``.x``, with ``manifest.json`` read
-with json for the round counter).  No JAX is needed to read either.
+after ``tree_map(np.asarray, state)`` (LT-ADMM's named tuple, static or
+time-varying, or a gossip baseline's dict), or the arrays of a reference
+checkpoint (``arrays.npz`` read with numpy, keys like ``x`` or ``.x``,
+and ``x/w1`` or ``.x/w1`` for the leaves of pytree parameters, with
+``manifest.json`` read with json for the round counter).  No JAX is
+needed to read either.
 """
 from __future__ import annotations
 
@@ -13,50 +15,60 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.admm import LTADMMConfig, LTADMMState
+from repro_torch.common.trees import tree_map
+from repro_torch.core.admm import (LTADMMConfig, LTADMMScheduleState,
+                                   LTADMMState)
 from repro_torch.device import resolve_device
-
-_FIELDS = LTADMMState._fields
 
 
 def _by_field(arrays):
-    if isinstance(arrays, Mapping):
-        out = {}
-        for key, val in arrays.items():
-            name = str(key).rsplit("/", 1)[-1].lstrip(".")
-            out[name] = val
-        return out
-    return {f: getattr(arrays, f) for f in _FIELDS}
+    """State fields by name; a checkpoint key ``x/w1`` (or ``.x/w1``)
+    nests leaf ``w1`` under field ``x``."""
+    if not isinstance(arrays, Mapping):
+        return arrays._asdict()
+    out = {}
+    for key, val in arrays.items():
+        field, *path = (p.lstrip(".") for p in str(key).split("/"))
+        if not path:
+            out[field] = val
+            continue
+        node = out.setdefault(field, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = val
+    return out
+
+
+def _tensors(tree, dev):
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=dev), tree)
 
 
 def state_from_numpy(arrays, cfg: LTADMMConfig, device=None,
-                     step: int | None = None) -> LTADMMState:
-    """The reference's packed LT-ADMM state as the port's
-    ``LTADMMState`` on ``device``.  ``u``/``u_nbr`` stay None in lean
-    mode (eta == 1); ``step`` overrides the round counter (the
-    checkpoint manifest's ``step``)."""
+                     step: int | None = None):
+    """The reference's LT-ADMM state (a plane or pytree leaves) as the
+    port's ``LTADMMState``, or ``LTADMMScheduleState`` when it carries
+    ``x_hat_edge``, on ``device``.  ``u``/``u_nbr`` (``u_edge``) stay
+    None in lean mode (eta == 1); ``step`` overrides the round counter
+    (the checkpoint manifest's ``step``)."""
     dev = resolve_device(device)
     by = _by_field(arrays)
-    optional = ({"u", "u_nbr"} if cfg.lean else set()) | (
-        {"k"} if step is not None else set())
-    missing = [f for f in _FIELDS if f not in by and f not in optional]
+    cls = LTADMMScheduleState if "x_hat_edge" in by else LTADMMState
+    lean_fields = {"u", "u_edge", "u_nbr"} if cfg.lean else set()
+    optional = lean_fields | ({"k"} if step is not None else set())
+    missing = [f for f in cls._fields if f not in by and f not in optional]
     if missing:
         raise KeyError(f"reference state lacks fields {missing}")
-
-    def tensor(f):
-        if cfg.lean and f in ("u", "u_nbr"):
-            return None
-        return torch.as_tensor(np.array(by[f]), device=dev)
-
     k = int(np.asarray(by["k"])) if step is None else int(step)
-    return LTADMMState(**{f: tensor(f) for f in _FIELDS if f != "k"}, k=k)
+    return cls(**{f: None if f in lean_fields else _tensors(by[f], dev)
+                  for f in cls._fields if f != "k"}, k=k)
 
 
 def baseline_state_from_numpy(arrays, solver, device=None,
                               step: int | None = None) -> dict:
-    """A gossip baseline's packed state (``x``, ``xhat``, ``h``, ``d``, ...
-    as the solver's ``state_fields`` name them, and ``k``) as the port's
-    state dict on ``device``; ``step`` overrides the round counter."""
+    """A gossip baseline's state (``x``, ``xhat``, ``h``, ``d``, ... as
+    the solver's ``state_fields`` name them, each a plane or pytree
+    leaves, and ``k``) as the port's state dict on ``device``; ``step``
+    overrides the round counter."""
     dev = resolve_device(device)
     by = _by_field(arrays)
     want = tuple(solver.state_fields) + (("k",) if step is None else ())
@@ -64,8 +76,7 @@ def baseline_state_from_numpy(arrays, solver, device=None,
     if missing:
         raise KeyError(f"reference {solver.name} state lacks fields "
                        f"{missing}")
-    st = {f: torch.as_tensor(np.array(by[f]), device=dev)
-          for f in solver.state_fields}
+    st = {f: _tensors(by[f], dev) for f in solver.state_fields}
     st["k"] = int(np.asarray(by["k"])) if step is None else int(step)
     return st
 

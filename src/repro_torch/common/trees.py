@@ -51,6 +51,32 @@ def tree_map(fn, tree, *rest):
     return rebuild([fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def first_leaf(tree):
+    return tree_flatten(tree)[0][0]
+
+
+def tree_select(mask, on_tree, off_tree):
+    """Per-row select: ``on_tree`` where ``mask`` (``[A]`` or ``[A, S]``,
+    broadcast over each leaf's trailing dims), ``off_tree`` elsewhere."""
+    def one(a, b):
+        m = mask.reshape(tuple(mask.shape) + (1,) * (a.dim() - mask.dim()))
+        return torch.where(m, a, b)
+
+    return tree_map(one, on_tree, off_tree)
+
+
 def tree_lerp(a, b, eta):
     """(1 - eta) * a + eta * b."""
     return tree_map(lambda x, y: (1.0 - eta) * x + eta * y, a, b)

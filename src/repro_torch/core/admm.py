@@ -1,10 +1,12 @@
-"""LT-ADMM-CC (paper Algorithm 1) on the packed plane: port of the static
-packed path of ``repro/core/admm.py``.
+"""LT-ADMM-CC (paper Algorithm 1): port of ``repro/core/admm.py``, the
+static and the time-varying round, on the packed plane and on pytrees.
 
 State at the top of round k (per agent i, slot s naming edge {i, j}):
 x = x_i, x_hat = x̂_i, u = u_i, z[:, s] = z_ij, s_[:, s] = s_ij,
 s_tilde = mirror of s_ji, x_hat_nbr = x̂_j, u_nbr = mirror of u_j.  Agent
-state is ``[A, N]``, edge state ``[A, S, N]``.
+state is ``[A, ...]``, edge state ``[A, S, ...]``: single tensors on the
+packed plane (``[A, N]``, ``[A, S, N]``), or trees of such leaves on the
+pytree path (``packed=false``).
 
 Round k (see the reference's module docstring for the audit against the
 paper):
@@ -15,11 +17,24 @@ paper):
   7. receiver mirrors of u, x̂, ẑ_ji, s̃
   8. z_{k+1} = ½(ẑ_ij - ẑ_ji) + rρ x_{k+1} - rρ (x̂_i - x̂_j)
 
+One implementation serves both state kinds: every update is a
+``tree_map`` (a tensor is a one-leaf tree), and every message class is
+ONE compression call batched over all its senders and slots, where the
+reference loops over slots in Python.  Every message's key derives from
+(round key, sender, receiver), so batching changes no draw.  A single
+plane may take the fused plane kernels (K1-K3); a pytree takes the
+per-message route leaf by leaf (K4/K5, K6-K9), as the reference's tree
+path does.
+
+Time-varying graphs (``schedule.TopologySchedule``): round k activates
+the union-graph slots of ``round_mask(k)``; inactive edges hold all edge
+state, inactive nodes freeze x, and x̂ (and u) are kept per edge, as in
+the reference's asynchronous-ADMM round.
+
 Every random draw folds the reference's salts into the round key with
 ``core.jaxrand``, so the port follows the reference's draws.  Round keys
-and all key derivation live on the host; the plane compression runs on
-the state's device.  Not ported yet: the pytree path (ROADMAP Queue 1
-item 14), time-varying schedules (item 9), faults (item 11) and
+and all key derivation live on the host; compression runs on the
+state's device.  Not ported yet: faults (ROADMAP Queue 1 item 11) and
 telemetry taps (item 12).
 """
 from __future__ import annotations
@@ -31,9 +46,10 @@ import numpy as np
 import torch
 
 from repro_torch.common.trees import consensus_error as _consensus_error
-from repro_torch.common.trees import tree_lerp
+from repro_torch.common.trees import (first_leaf, tree_add, tree_lerp,
+                                      tree_map, tree_select, tree_sub,
+                                      tree_zeros_like)
 from repro_torch.core import compression, jaxrand
-from repro_torch.core.compression import Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,14 +78,30 @@ class LTADMMConfig:
 
 
 class LTADMMState(NamedTuple):
-    x: Any  # [A, N]
-    x_hat: Any  # [A, N]
-    u: Any  # [A, N] | None (lean)
-    z: Any  # [A, S, N]
-    s: Any  # [A, S, N]
-    s_tilde: Any  # [A, S, N]
-    x_hat_nbr: Any  # [A, S, N]
-    u_nbr: Any  # [A, S, N] | None (lean)
+    x: Any  # [A, ...]
+    x_hat: Any  # [A, ...]
+    u: Any  # [A, ...] | None (lean)
+    z: Any  # [A, S, ...]
+    s: Any  # [A, S, ...]
+    s_tilde: Any  # [A, S, ...]
+    x_hat_nbr: Any  # [A, S, ...]
+    u_nbr: Any  # [A, S, ...] | None (lean)
+    k: int
+
+
+class LTADMMScheduleState(NamedTuple):
+    """State of the time-varying round: x̂ and u are kept per edge
+    (``x_hat_edge[:, s]`` is the sender-side estimate that the slot-s
+    neighbor mirrors), advanced only on rounds the edge is active."""
+
+    x: Any  # [A, ...]
+    x_hat_edge: Any  # [A, S, ...]
+    u_edge: Any  # [A, S, ...] | None (lean)
+    z: Any  # [A, S, ...]
+    s: Any  # [A, S, ...]
+    s_tilde: Any  # [A, S, ...]
+    x_hat_nbr: Any  # [A, S, ...] mirror of the neighbor's x_hat_edge
+    u_nbr: Any  # [A, S, ...] | None (lean)
     k: int
 
 
@@ -77,8 +109,8 @@ class LTADMMState(NamedTuple):
 class RoundIds:
     """The round's constant per-message ids: host int64 tensors for key
     derivation, device int32 copies for the kernels, the per-agent
-    degrees and the ``[A, S, 1]`` slot mask (None when every slot is
-    active)."""
+    degrees and the ``[A, S]`` slot mask (None when every slot is
+    active) of a static topology (a schedule's union)."""
 
     agent: torch.Tensor  # [A] host
     aid2: torch.Tensor  # [A, S] host
@@ -87,7 +119,7 @@ class RoundIds:
     aid2_d: torch.Tensor  # [A, S] device int32
     nbr_d: torch.Tensor  # [A, S] device int32
     degrees: torch.Tensor  # [A] device, state dtype
-    mask3: torch.Tensor | None  # [A, S, 1] device bool
+    mask: torch.Tensor | None  # [A, S] device bool
 
     @classmethod
     def build(cls, topo, device, dtype=torch.float32):
@@ -103,21 +135,50 @@ class RoundIds:
             nbr_d=nbr.to(device, torch.int32),
             degrees=torch.as_tensor(topo.degrees(), dtype=dtype,
                                     device=device),
-            mask3=None if mask.all() else
-            torch.as_tensor(mask, device=device)[:, :, None],
+            mask=None if mask.all() else torch.as_tensor(mask, device=device),
         )
 
 
+# ---------------------------------------------------------------------------
+# Tree helpers: leaves carry the agent (and slot) axes in front
+# ---------------------------------------------------------------------------
+
+
+def _select_agents(node_mask, on_tree, off_tree):
+    """Per-agent select: agent i advances where ``node_mask[i]``, holds
+    otherwise; ``node_mask is None`` (no node layer) keeps ``on_tree``."""
+    if node_mask is None:
+        return on_tree
+    return tree_select(node_mask, on_tree, off_tree)
+
+
+def _masked(tree, mask):
+    """Zero the edge state of inactive slots (``mask`` None: all
+    active)."""
+    if mask is None:
+        return tree
+    return tree_map(lambda t: torch.where(
+        mask.reshape(mask.shape + (1,) * (t.dim() - 2)), t, 0.0), tree)
+
+
+def _per_edge(tree, n_slots):
+    """``[A, ...]`` leaves seen as ``[A, S, ...]`` (a view, no copy)."""
+    return tree_map(
+        lambda x: x[:, None].expand((x.shape[0], n_slots) + x.shape[1:]),
+        tree)
+
+
+def _zeros_edge(tree, n_slots):
+    return tree_zeros_like(_per_edge(tree, n_slots))
+
+
 def init(cfg: LTADMMConfig, topo, exchange, x0):
-    """x0: packed ``[A, N]`` plane on its device.  u_0 = x̂_0 = x_0,
-    z = s = s̃ = 0."""
+    """x0: ``[A, ...]`` params (a plane or a tree) on their device.  u_0 =
+    x̂_0 = x_0, z = s = s̃ = 0.  A ``schedule.TopologySchedule`` as
+    ``topo`` gives the time-varying state (``init_schedule``)."""
     if hasattr(topo, "round_mask"):
-        raise NotImplementedError(
-            "time-varying schedules are not ported yet: ROADMAP Queue 1 "
-            "item 9")
-    _check_packed(x0)
-    zeros_edge = torch.zeros((x0.shape[0], topo.n_slots) + x0.shape[1:],
-                             dtype=x0.dtype, device=x0.device)
+        return init_schedule(cfg, topo, exchange, x0)
+    zeros_edge = _zeros_edge(x0, topo.n_slots)
     x_hat_nbr = exchange.gather_batched(x0)
     return LTADMMState(
         x=x0, x_hat=x0, u=None if cfg.lean else x0,
@@ -126,11 +187,17 @@ def init(cfg: LTADMMConfig, topo, exchange, x0):
     )
 
 
-def _check_packed(x):
-    if not isinstance(x, torch.Tensor) or x.dim() != 2:
-        raise NotImplementedError(
-            "only the packed [A, N] plane is ported; the pytree path is "
-            "ROADMAP Queue 1 item 14")
+def init_schedule(cfg: LTADMMConfig, sched, exchange, x0):
+    """The time-varying state: x̂ and u per edge start at x_0."""
+    s = sched.n_slots
+    zeros_edge = _zeros_edge(x0, s)
+    x_edge = _per_edge(x0, s)
+    x_hat_nbr = exchange.gather_batched(x0)
+    return LTADMMScheduleState(
+        x=x0, x_hat_edge=x_edge, u_edge=None if cfg.lean else x_edge,
+        z=zeros_edge, s=zeros_edge, s_tilde=zeros_edge,
+        x_hat_nbr=x_hat_nbr, u_nbr=None if cfg.lean else x_hat_nbr, k=0,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +219,12 @@ def _key_batch(round_key, agent, t):
     return jaxrand.fold_in(jaxrand.fold_in(k, agent), t)
 
 
+def _key_xe(round_key, sender, receiver):
+    """Per-edge x-message key of the time-varying round (salt 17)."""
+    k = jaxrand.fold_in(round_key, 17)
+    return jaxrand.fold_in(jaxrand.fold_in(k, sender), receiver)
+
+
 def batch_indices(cfg: LTADMMConfig, round_key, n_agents: int, m: int):
     """Every local step's minibatch indices, ``[A, tau, batch_size]``
     (host int64): ``randint(_key_batch(round_key, agent, t), (bs,), 0,
@@ -164,44 +237,45 @@ def batch_indices(cfg: LTADMMConfig, round_key, n_agents: int, m: int):
 
 def local_phase(cfg: LTADMMConfig, ids: RoundIds, vr_est, x, z, data,
                 round_key):
-    """Lines 2-8: tau variance-reduced steps per agent -> x_{k+1}."""
+    """Lines 2-8: tau variance-reduced steps per agent -> x_{k+1}.  The
+    degrees are the (union) topology's; ``z`` is zero on masked slots."""
     m = next(iter(data.values())).shape[1]
-    d = ids.degrees[:, None]
-    corr = cfg.beta * (cfg.r ** 2 * cfg.rho * d * x
-                       - cfg.r * torch.sum(z, dim=1))
-    idx = batch_indices(cfg, round_key, x.shape[0], m).to(x.device)
+    x0 = first_leaf(x)
+    corr = tree_map(
+        lambda xs, zs: cfg.beta * (cfg.r ** 2 * cfg.rho
+                                   * ids.degrees.reshape(
+                                       (-1,) + (1,) * (xs.dim() - 1)) * xs
+                                   - cfg.r * torch.sum(zs, dim=1)), x, z)
+    idx = batch_indices(cfg, round_key, x0.shape[0], m).to(x0.device)
     vr_state = vr_est.reset(x, data)
     phi = x
     for t in range(cfg.tau):
         g, vr_state = vr_est.estimate(vr_state, phi, data, idx[:, t])
-        phi = phi - cfg.gamma * g - corr
+        phi = tree_map(lambda p, gg, c: p - cfg.gamma * gg - c, phi, g, corr)
     return phi
-
-
-def _masked(arr, mask3):
-    return arr if mask3 is None else torch.where(mask3, arr, 0.0)
 
 
 def step(cfg: LTADMMConfig, topo, exchange, vr_est, state: LTADMMState,
          data, round_key, ids: RoundIds | None = None):
     """One outer round.  ``data`` leaves ``[A, m, ...]`` on the state's
     device; ``round_key`` a host key (``core.jaxrand``); ``ids`` the
-    cached ``RoundIds`` (built here when not given)."""
+    cached ``RoundIds`` of the (union) topology (built here when not
+    given).  A schedule as ``topo`` runs ``step_schedule``."""
     if hasattr(topo, "round_mask"):
-        raise NotImplementedError(
-            "time-varying schedules are not ported yet: ROADMAP Queue 1 "
-            "item 9")
-    _check_packed(state.x)
+        return step_schedule(cfg, topo, exchange, vr_est, state, data,
+                             round_key, ids)
     if ids is None:
-        ids = RoundIds.build(topo, state.x.device, state.x.dtype)
-    return _step_packed(cfg, exchange, vr_est, state, data, round_key, ids)
+        x0 = first_leaf(state.x)
+        ids = RoundIds.build(topo, x0.device, x0.dtype)
+    return _step_static(cfg, exchange, vr_est, state, data, round_key, ids)
 
 
-def _step_packed(cfg, exchange, vr_est, state, data, round_key, ids):
-    """Slot-batched round on the packed plane (``admm.py:466``)."""
-    like = Spec(tuple(state.x.shape[1:]), state.x.dtype)
+def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
+    """The static round (reference ``_step_packed`` :466 on a plane,
+    ``_step_tree`` :318 on a tree), slot-batched."""
+    like = compression.like_per_message(state.x)
     cx, cz = cfg.compressor_x, cfg.compressor_z
-    mask3 = ids.mask3
+    mask = ids.mask
     # fused-route base seeds: the salts of _key_x/_key_z, folded once here
     # and per (sender, receiver) inside the kernels
     bx = jaxrand.fold_in(round_key, 11)
@@ -215,14 +289,14 @@ def _step_packed(cfg, exchange, vr_est, state, data, round_key, ids):
              else tree_lerp(state.u, state.x_hat, cfg.eta))
     m_x, dx = compression.plane_compress(
         cx, lambda: _key_x(round_key, ids.agent), bx,
-        ids.agent_d, None, x_new - u_new, like)
-    x_hat_new = u_new + dx
+        ids.agent_d, None, tree_sub(x_new, u_new), like)
+    x_hat_new = tree_add(u_new, dx)
 
     # ---- 5-6. sender-side error feedback for z (all slots at once)
     m_z, rec_z = compression.plane_compress(
         cz, lambda: _key_z(round_key, ids.aid2, ids.nbr), bz,
-        ids.aid2_d, ids.nbr_d, state.z - state.s, like)
-    z_hat_own = _masked(state.s + rec_z, mask3)
+        ids.aid2_d, ids.nbr_d, tree_sub(state.z, state.s), like)
+    z_hat_own = _masked(tree_add(state.s, rec_z), mask)
 
     # ---- the only cross-agent communication
     recv_x = exchange.gather_batched(m_x)
@@ -231,22 +305,16 @@ def _step_packed(cfg, exchange, vr_est, state, data, round_key, ids):
     # ---- 7. receiver-side mirrors
     u_nbr_new = (state.x_hat_nbr if cfg.lean
                  else tree_lerp(state.u_nbr, state.x_hat_nbr, cfg.eta))
-    x_hat_nbr_new = u_nbr_new + compression.plane_decompress(
+    x_hat_nbr_new = tree_add(u_nbr_new, compression.plane_decompress(
         cx, lambda: _key_x(round_key, ids.nbr), bx,
-        ids.nbr_d, None, recv_x, like, nd=2)
-    z_hat_nbr = _masked(
-        state.s_tilde + compression.plane_decompress(
-            cz, lambda: _key_z(round_key, ids.nbr, ids.aid2), bz,
-            ids.nbr_d, ids.aid2_d, recv_z, like, nd=2),
-        mask3)
+        ids.nbr_d, None, recv_x, like))
+    z_hat_nbr = _masked(tree_add(state.s_tilde, compression.plane_decompress(
+        cz, lambda: _key_z(round_key, ids.nbr, ids.aid2), bz,
+        ids.nbr_d, ids.aid2_d, recv_z, like)), mask)
 
     # ---- 8. z update, eq. (4)
-    rrho = cfg.r * cfg.rho
-    z_new = _masked(
-        0.5 * (z_hat_own - z_hat_nbr)
-        + rrho * x_new[:, None]
-        - rrho * (x_hat_new[:, None] - x_hat_nbr_new),
-        mask3)
+    z_new = _masked(_eq4(cfg, z_hat_own, z_hat_nbr, x_new, x_hat_new,
+                         x_hat_nbr_new, x_hat_per_agent=True), mask)
 
     return LTADMMState(
         x=x_new, x_hat=x_hat_new, u=None if cfg.lean else u_new,
@@ -256,16 +324,106 @@ def _step_packed(cfg, exchange, vr_est, state, data, round_key, ids):
     )
 
 
+def _eq4(cfg, z_hat_own, z_hat_nbr, x_new, x_hat, x_hat_nbr,
+         x_hat_per_agent):
+    """z_{k+1} = ½(ẑ_ij - ẑ_ji) + rρ x_{k+1} - rρ (x̂_i - x̂_j), with
+    x̂_i per agent (static round) or per edge (time-varying round)."""
+    rrho = cfg.r * cfg.rho
+
+    def one(zo, zn, xn, xh, xhj):
+        if x_hat_per_agent:
+            xh = xh[:, None]
+        return 0.5 * (zo - zn) + rrho * xn[:, None] - rrho * (xh - xhj)
+
+    return tree_map(one, z_hat_own, z_hat_nbr, x_new, x_hat, x_hat_nbr)
+
+
+# ---------------------------------------------------------------------------
+# Time-varying topologies (schedule.TopologySchedule)
+# ---------------------------------------------------------------------------
+
+
+def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
+                  state: LTADMMScheduleState, data, round_key,
+                  ids: RoundIds | None = None):
+    """One outer round over a time-varying topology (reference
+    ``_step_schedule_packed`` :818 on a plane, ``_step_schedule_tree``
+    :670 on a tree).  Every union slot moves a payload; round k's
+    ``[A, S]`` mask (read from the stack kept on the device) selects
+    per agent and slot whether the advanced or the held state is kept,
+    and the node mask freezes the x of inactive agents."""
+    x0 = first_leaf(state.x)
+    if ids is None:
+        ids = RoundIds.build(sched.union, x0.device, x0.dtype)
+    like = compression.like_per_message(state.x)
+    cx, cz = cfg.compressor_x, cfg.compressor_z
+    act = sched.round_mask(state.k, x0.device)  # [A, S]
+    node_k = sched.round_node_mask(state.k, x0.device)  # [A] | None
+    # fused-route base seeds (salts of _key_xe/_key_z)
+    bxe = jaxrand.fold_in(round_key, 17)
+    bz = jaxrand.fold_in(round_key, 13)
+
+    # ---- 1. local training: union degrees + the full held dual sum;
+    # an inactive node freezes its x
+    x_new = local_phase(cfg, ids, vr_est, state.x, state.z, data, round_key)
+    x_new = _select_agents(node_k, x_new, state.x)
+
+    # ---- 2-4. per-edge sender-side error feedback for x
+    xh = state.x_hat_edge
+    u_adv = xh if cfg.lean else tree_lerp(state.u_edge, xh, cfg.eta)
+    m_x, rec_x = compression.plane_compress(
+        cx, lambda: _key_xe(round_key, ids.aid2, ids.nbr), bxe,
+        ids.aid2_d, ids.nbr_d,
+        tree_map(lambda xn, u: xn[:, None] - u, x_new, u_adv), like)
+
+    # ---- 5-6. sender-side error feedback for z (gated below)
+    m_z, rec_z = compression.plane_compress(
+        cz, lambda: _key_z(round_key, ids.aid2, ids.nbr), bz,
+        ids.aid2_d, ids.nbr_d, tree_sub(state.z, state.s), like)
+    z_hat_own = tree_add(state.s, rec_z)
+
+    # ---- the only cross-agent communication (all slots, every round)
+    recv_x = exchange.exchange_batched(m_x)
+    recv_z = exchange.exchange_batched(m_z)
+    x_hat_edge_new = tree_select(act, tree_add(u_adv, rec_x), xh)
+    u_edge_new = (None if cfg.lean
+                  else tree_select(act, u_adv, state.u_edge))
+
+    # ---- 7. receiver-side mirrors, gated by the same mask
+    xhn = state.x_hat_nbr
+    un_adv = xhn if cfg.lean else tree_lerp(state.u_nbr, xhn, cfg.eta)
+    xhn_adv = tree_add(un_adv, compression.plane_decompress(
+        cx, lambda: _key_xe(round_key, ids.nbr, ids.aid2), bxe,
+        ids.nbr_d, ids.aid2_d, recv_x, like))
+    x_hat_nbr_new = tree_select(act, xhn_adv, xhn)
+    u_nbr_new = (None if cfg.lean
+                 else tree_select(act, un_adv, state.u_nbr))
+    z_hat_nbr = tree_add(state.s_tilde, compression.plane_decompress(
+        cz, lambda: _key_z(round_key, ids.nbr, ids.aid2), bz,
+        ids.nbr_d, ids.aid2_d, recv_z, like))
+
+    # ---- 8. z / s / s̃ advance on active edges only (held elsewhere)
+    z_eq4 = _eq4(cfg, z_hat_own, z_hat_nbr, x_new, x_hat_edge_new,
+                 x_hat_nbr_new, x_hat_per_agent=False)
+    return LTADMMScheduleState(
+        x=x_new, x_hat_edge=x_hat_edge_new, u_edge=u_edge_new,
+        z=tree_select(act, z_eq4, state.z),
+        s=tree_select(act, z_hat_own, state.s),
+        s_tilde=tree_select(act, z_hat_nbr, state.s_tilde),
+        x_hat_nbr=x_hat_nbr_new, u_nbr=u_nbr_new, k=state.k + 1,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Diagnostics and wire accounting
 # ---------------------------------------------------------------------------
 
 
-def consensus_mean(state: LTADMMState):
-    return torch.mean(state.x, dim=0)
+def consensus_mean(state):
+    return tree_map(lambda x: torch.mean(x, dim=0), state.x)
 
 
-def consensus_error(state: LTADMMState):
+def consensus_error(state):
     return _consensus_error(state.x)
 
 
@@ -276,7 +434,8 @@ def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:
 
 def wire_bytes_per_round(cfg: LTADMMConfig, topo, params) -> int:
     """Bytes the busiest agent transmits per round: an x-message to every
-    neighbor and a z-message per incident edge."""
+    neighbor and a z-message per incident edge.  On a schedule,
+    ``degrees()`` is the period-mean active degree."""
     return int(round(float(np.max(topo.degrees()))
                      * _edge_payload_bytes(cfg, params)))
 
@@ -287,8 +446,9 @@ def wire_bytes_total(cfg: LTADMMConfig, topo, params) -> int:
                      * _edge_payload_bytes(cfg, params)))
 
 
-def wire_bytes_at(cfg: LTADMMConfig, topo, params, t: int) -> int:
-    """Exact busiest-agent bytes at round ``t`` (constant on a static
-    graph)."""
-    del t
-    return int(np.max(topo.degrees())) * _edge_payload_bytes(cfg, params)
+def wire_bytes_at(cfg: LTADMMConfig, graph, params, t: int) -> int:
+    """Exact busiest-agent bytes at round ``t``: only the links active
+    that round carry payloads (constant on a static graph)."""
+    deg = (graph.round_degrees(t) if hasattr(graph, "round_degrees")
+           else graph.degrees())
+    return int(np.max(deg)) * _edge_payload_bytes(cfg, params)

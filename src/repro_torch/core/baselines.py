@@ -1,12 +1,17 @@
 """The gossip baselines of the paper's Fig. 2 (port of
 ``repro/core/baselines.py``): DSGD, CHOCO-SGD, and the reconstructions of
-LEAD, COLD, CEDAS and DPDC, on the packed ``[A, N]`` plane.
+LEAD, COLD, CEDAS and DPDC, on the packed ``[A, N]`` plane or, with
+``packed=false``, on the parameter pytree leaf by leaf.
 
 Every baseline mixes with the Metropolis-Hastings matrix W of the same
-static ``Topology`` LT-ADMM-CC runs on (``W @ x``, one f32 matrix product
-over the agent axis), and compresses through the per-message route of
+graph LT-ADMM-CC runs on (``W @ x``, one f32 matrix product over the
+agent axis per leaf), and compresses through the per-message route of
 ``core.compression``: on the card qbit launches K4/K5 once per
-compression for all A messages, RandK (uniform, stride) and TopK K6/K7.
+compression (per leaf) for all A messages, RandK's block sampler K8/K9,
+RandK uniform/stride and TopK K6/K7.  On a ``TopologySchedule`` round k
+mixes with that round's Metropolis weights, and an agent that does not
+participate in round k (a node schedule's ``round_node_mask``) skips its
+step and holds all its state.
 
     state = solver.init(x0)                # x0: [A, ...] stacked params
     state = solver.step(state, data, key)  # data leaves: [A, m, ...]
@@ -16,8 +21,8 @@ indices ``randint(fold_in(key, aid), (B,), 0, m)``, compression keys
 ``fold_in(fold_in(key, 1), aid)`` then the per-leaf ``split``.  The
 update formulas keep the reference's expression order (``a - lr * (b +
 c)``, ``gamma_mix / (2 * lr)``) so that results stay bit-close.  Not
-ported yet: time-varying schedules (ROADMAP Queue 1 item 9), faults
-(item 11), telemetry taps (item 12) and the pytree path (item 14).
+ported yet: faults (ROADMAP Queue 1 item 11) and telemetry taps (item
+12).
 """
 from __future__ import annotations
 
@@ -27,20 +32,18 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.common.trees import as_tensor, tree_map
+from repro_torch.common.trees import (as_tensor, first_leaf, tree_add,
+                                      tree_map, tree_select, tree_sub,
+                                      tree_zeros_like)
 from repro_torch.core import compression, jaxrand, packing, vr
+from repro_torch.core.schedule import TopologySchedule, metropolis_schedule
 from repro_torch.core.topology import metropolis_weights
-
-
-def _like(x) -> compression.Spec:
-    """One agent's message: the plane without its agent axis."""
-    return compression.Spec(tuple(x.shape[1:]), x.dtype)
 
 
 def _compress_stacked(comp, key, x, like):
     """Compress and decompress every agent's message (the EF-style
     reconstruction); agent i's key is ``fold_in(key, i)``."""
-    keys = jaxrand.fold_in(key, torch.arange(x.shape[0]))
+    keys = jaxrand.fold_in(key, torch.arange(first_leaf(x).shape[0]))
     p = compression.compress_tree(comp, keys, x, nd=1)
     return compression.decompress_tree(comp, keys, p, like, nd=1)
 
@@ -48,17 +51,18 @@ def _compress_stacked(comp, key, x, like):
 def _sample_grads(est, x, data, key, batch_size):
     """Every agent's stochastic gradient through the bound estimator."""
     m = next(iter(data.values())).shape[1]
-    keys = jaxrand.fold_in(key, torch.arange(x.shape[0]))
-    idx = jaxrand.randint(keys, (batch_size,), 0, m).to(x.device)
+    x0 = first_leaf(x)
+    keys = jaxrand.fold_in(key, torch.arange(x0.shape[0]))
+    idx = jaxrand.randint(keys, (batch_size,), 0, m).to(x0.device)
     g, _ = est.estimate((), x, data, idx)
     return g
 
 
 class GossipSolverMixin:
     """``Solver``-protocol behaviour shared by the gossip baselines.
-    Subclasses declare ``state_fields`` (the plane-shaped entries of their
-    state dict, ``"x"`` first) and ``comm_rounds`` (communication rounds
-    per iteration, for the wire and cost accounting)."""
+    Subclasses declare ``state_fields`` (the parameter-shaped entries of
+    their state dict, ``"x"`` first) and ``comm_rounds`` (communication
+    rounds per iteration, for the wire and cost accounting)."""
 
     state_fields: tuple = ("x",)
     comm_rounds: int = 1
@@ -68,14 +72,6 @@ class GossipSolverMixin:
         if self.faults is not None:
             raise NotImplementedError(
                 "fault injection is not ported yet: ROADMAP Queue 1 item 11")
-        if not self.packed:
-            raise NotImplementedError(
-                "the pytree (packed=false) path is not ported yet: ROADMAP "
-                "Queue 1 item 14")
-        if hasattr(self.topo, "round_mask"):
-            raise NotImplementedError(
-                "time-varying schedules are not ported yet: ROADMAP Queue 1 "
-                "item 9")
 
     @property
     def graph(self):
@@ -88,25 +84,37 @@ class GossipSolverMixin:
             self._cache["layout"] = lay
         return lay
 
-    def _mix(self, x):
-        """Gossip: ``W @ x`` over the agent axis of ``x [A, N]``, W the
-        Metropolis-Hastings weights of the graph in f32 (as the
-        reference's ``jnp.asarray`` of them), kept per device.  A plain
-        f32 product: PyTorch's default matmul precision ("highest", no
-        TF32) keeps it so on the card."""
-        W = self._cache.get(("W", x.device))
+    def _weights(self, k: int, device):
+        """Round k's f32 Metropolis-Hastings matrix on ``device`` (as the
+        reference's ``jnp.asarray`` of the float64 weights); the static
+        matrix, or the schedule's ``[T, A, A]`` stack, is kept per
+        device."""
+        W = self._cache.get(("W", device))
         if W is None:
-            W = torch.as_tensor(metropolis_weights(self.topo),
-                                dtype=x.dtype, device=x.device)
-            self._cache[("W", x.device)] = W
-        return torch.matmul(W, x)
+            w = (metropolis_schedule(self.topo)
+                 if isinstance(self.topo, TopologySchedule)
+                 else metropolis_weights(self.topo))
+            W = torch.as_tensor(w, dtype=torch.float32, device=device)
+            self._cache[("W", device)] = W
+        return W[k % self.topo.period] if W.dim() == 3 else W
+
+    def _mix(self, x, k: int):
+        """Gossip: ``W @ x`` over the agent axis of every ``[A, ...]``
+        leaf.  A plain f32 product: PyTorch's default matmul precision
+        ("highest", no TF32) keeps it so on the card."""
+        W = self._weights(k, first_leaf(x).device)
+        return tree_map(
+            lambda t: torch.matmul(W, t.reshape(t.shape[0], -1))
+            .reshape(t.shape), x)
 
     def init(self, x0):
         """x0: stacked ``[A, ...]`` params (tensors or numpy arrays)."""
         x0 = tree_map(lambda t: as_tensor(t).to(self.device), x0)
-        lay = packing.layout_of_stacked(x0)
-        self._cache["layout"] = lay
-        st = self._init(packing.pack(lay, x0))
+        if self.packed:
+            lay = packing.layout_of_stacked(x0)
+            self._cache["layout"] = lay
+            x0 = packing.pack(lay, x0)
+        st = self._init(x0)
         st["k"] = 0
         return st
 
@@ -115,14 +123,25 @@ class GossipSolverMixin:
             raise ValueError(
                 f"{self.name}: bind a gradient estimator at construction "
                 "(make_solver(..., grad_est=...))")
-        est = packing.PackedEstimator(self.grad_est, self._layout(state))
+        est = (packing.PackedEstimator(self.grad_est, self._layout(state))
+               if self.packed else self.grad_est)
+        k = state["k"]
         st = self._step({f: state[f] for f in self.state_fields}, data, key,
-                        est)
-        st["k"] = state["k"] + 1
+                        k, est)
+        if isinstance(self.topo, TopologySchedule):
+            # an agent out of round k skips its step and holds its state
+            nm = self.topo.round_node_mask(
+                k, first_leaf(state["x"]).device)
+            if nm is not None:
+                st = {f: tree_select(nm, st[f], state[f])
+                      for f in self.state_fields}
+        st["k"] = k + 1
         return st
 
     def consensus_params(self, state):
-        return packing.unpack(self._layout(state), state["x"])
+        if self.packed:
+            return packing.unpack(self._layout(state), state["x"])
+        return state["x"]
 
     def _wire_compressor(self):
         """What moves per neighbour message: the configured compressor,
@@ -130,14 +149,19 @@ class GossipSolverMixin:
         return getattr(self, "compressor", None) or compression.Identity()
 
     def wire_bytes(self, params, t: int | None = None) -> int:
-        """Bytes the busiest agent transmits per iteration: one whole-plane
-        message per incident edge per communication round (constant on a
-        static graph, so ``t`` changes nothing)."""
+        """Bytes the busiest agent transmits per iteration: one message
+        (one per leaf when not packed) per incident edge per
+        communication round; the period-mean active degree of a schedule,
+        or round ``t``'s exact degree."""
+        if self.packed:
+            params = packing.abstract_plane(params)
         per_edge = compression.tree_wire_bytes(
-            self._wire_compressor(), packing.abstract_plane(params)
-        ) * self.comm_rounds
+            self._wire_compressor(), params) * self.comm_rounds
         if t is not None:
-            return int(np.max(self.topo.degrees())) * per_edge
+            deg = (self.topo.round_degrees(t)
+                   if hasattr(self.topo, "round_degrees")
+                   else self.topo.degrees())
+            return int(np.max(deg)) * per_edge
         return int(round(float(np.max(self.topo.degrees())) * per_edge))
 
     def round_cost(self, cost_model, m: int) -> float:
@@ -169,10 +193,10 @@ class DSGD(GossipSolverMixin):
     def _init(self, x0):
         return {"x": x0}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         g = _sample_grads(est, state["x"], data, key, self.batch_size)
-        x = self._mix(state["x"])
-        return {"x": x - self.lr * g}
+        x = self._mix(state["x"], k)
+        return {"x": tree_map(lambda a, b: a - self.lr * b, x, g)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,17 +219,18 @@ class ChocoSGD(GossipSolverMixin):
     state_fields = ("x", "xhat")
 
     def _init(self, x0):
-        return {"x": x0, "xhat": torch.zeros_like(x0)}
+        return {"x": x0, "xhat": tree_zeros_like(x0)}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         x, xhat = state["x"], state["xhat"]
         g = _sample_grads(est, x, data, key, self.batch_size)
-        x = x - self.lr * g
+        x = tree_map(lambda a, b: a - self.lr * b, x, g)
         q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              x - xhat, _like(x))
-        xhat = xhat + q
-        mix = self._mix(xhat) - xhat
-        return {"x": x + self.gossip_lr * mix, "xhat": xhat}
+                              tree_sub(x, xhat), compression.like_per_message(x))
+        xhat = tree_add(xhat, q)
+        mix = tree_sub(self._mix(xhat, k), xhat)
+        x = tree_map(lambda a, b: a + self.gossip_lr * b, x, mix)
+        return {"x": x, "xhat": xhat}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,19 +253,22 @@ class LEAD(GossipSolverMixin):
     state_fields = ("x", "h", "d")
 
     def _init(self, x0):
-        return {"x": x0, "h": torch.zeros_like(x0), "d": torch.zeros_like(x0)}
+        return {"x": x0, "h": tree_zeros_like(x0), "d": tree_zeros_like(x0)}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         x, h, d = state["x"], state["h"], state["d"]
         g = _sample_grads(est, x, data, key, self.batch_size)
-        y = x - self.lr * (g + d)
+        y = tree_map(lambda a, b, c: a - self.lr * (b + c), x, g, d)
         q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              y - h, _like(x))
-        yhat = h + q
-        diff = yhat - self._mix(yhat)
-        h = (1 - self.alpha) * h + self.alpha * yhat
-        d = d + self.gamma_mix / (2 * self.lr) * diff
-        return {"x": y - self.gamma_mix / 2 * diff, "h": h, "d": d}
+                              tree_sub(y, h), compression.like_per_message(x))
+        yhat = tree_add(h, q)
+        diff = tree_sub(yhat, self._mix(yhat, k))
+        h = tree_map(lambda a, b: (1 - self.alpha) * a + self.alpha * b,
+                     h, yhat)
+        d = tree_map(lambda a, b: a + self.gamma_mix / (2 * self.lr) * b,
+                     d, diff)
+        x = tree_map(lambda a, b: a - self.gamma_mix / 2 * b, y, diff)
+        return {"x": x, "h": h, "d": d}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,18 +291,20 @@ class COLD(GossipSolverMixin):
     state_fields = ("x", "h", "d")
 
     def _init(self, x0):
-        return {"x": x0, "h": torch.zeros_like(x0), "d": torch.zeros_like(x0)}
+        return {"x": x0, "h": tree_zeros_like(x0), "d": tree_zeros_like(x0)}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         x, h, d = state["x"], state["h"], state["d"]
         g = _sample_grads(est, x, data, key, self.batch_size)
-        y = x - self.lr * (g + d)
+        y = tree_map(lambda a, b, c: a - self.lr * (b + c), x, g, d)
         q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              y - h, _like(x))
-        yhat = h + q
-        diff = yhat - self._mix(yhat)
-        d = d + self.gamma_mix / (2 * self.lr) * diff
-        return {"x": y - self.gamma_mix / 2 * diff, "h": yhat, "d": d}
+                              tree_sub(y, h), compression.like_per_message(x))
+        yhat = tree_add(h, q)  # innovation state: h <- yhat
+        diff = tree_sub(yhat, self._mix(yhat, k))
+        d = tree_map(lambda a, b: a + self.gamma_mix / (2 * self.lr) * b,
+                     d, diff)
+        x = tree_map(lambda a, b: a - self.gamma_mix / 2 * b, y, diff)
+        return {"x": x, "h": yhat, "d": d}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,19 +328,21 @@ class CEDAS(GossipSolverMixin):
     comm_rounds = 2
 
     def _init(self, x0):
-        return {"x": x0, "psi_prev": x0, "xhat": torch.zeros_like(x0)}
+        return {"x": x0, "psi_prev": x0, "xhat": tree_zeros_like(x0)}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         x, psi_prev, xhat = state["x"], state["psi_prev"], state["xhat"]
         g = _sample_grads(est, x, data, key, self.batch_size)
-        psi = x - self.lr * g
-        mix_in = psi + x - psi_prev
+        psi = tree_map(lambda a, b: a - self.lr * b, x, g)
+        mix_in = tree_map(lambda p, a, pp: p + a - pp, psi, x, psi_prev)
         q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              mix_in - xhat, _like(x))
-        xhat = xhat + q
+                              tree_sub(mix_in, xhat), compression.like_per_message(x))
+        xhat = tree_add(xhat, q)
         # (I + W) / 2 mixing applied through the tracked copies
-        half_mix = 0.5 * (xhat + self._mix(xhat))
-        x = mix_in + self.gossip_lr * (half_mix - xhat)
+        half_mix = tree_map(lambda a, b: 0.5 * (a + b), xhat,
+                            self._mix(xhat, k))
+        x = tree_map(lambda mi, hm, xh: mi + self.gossip_lr * (hm - xh),
+                     mix_in, half_mix, xhat)
         return {"x": x, "psi_prev": psi, "xhat": xhat}
 
 
@@ -335,18 +367,20 @@ class DPDC(GossipSolverMixin):
     state_fields = ("x", "v", "xhat")
 
     def _init(self, x0):
-        return {"x": x0, "v": torch.zeros_like(x0),
-                "xhat": torch.zeros_like(x0)}
+        return {"x": x0, "v": tree_zeros_like(x0),
+                "xhat": tree_zeros_like(x0)}
 
-    def _step(self, state, data, key, est):
+    def _step(self, state, data, key, k, est):
         x, v, xhat = state["x"], state["v"], state["xhat"]
         g = _sample_grads(est, x, data, key, self.batch_size)
         q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              x - xhat, _like(x))
-        xhat = xhat + q
-        lap = xhat - self._mix(xhat)  # (I - W) x̂
-        v_new = v + self.dual_lr * lap
-        x = x - self.lr * (g + v_new + self.penalty * lap)
+                              tree_sub(x, xhat), compression.like_per_message(x))
+        xhat = tree_add(xhat, q)
+        lap = tree_sub(xhat, self._mix(xhat, k))  # (I - W) x̂
+        v_new = tree_map(lambda a, b: a + self.dual_lr * b, v, lap)
+        x = tree_map(lambda a, gg, vv, ll: a
+                     - self.lr * (gg + vv + self.penalty * ll),
+                     x, g, v_new, lap)
         return {"x": x, "v": v_new, "xhat": xhat}
 
 

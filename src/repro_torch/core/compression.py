@@ -19,13 +19,15 @@ Backends: every compressor takes ``impl={auto,torch,kernel}``.
 route (qbit, RandK block/stride on the packed LT-ADMM round) compresses a
 whole round's messages in one launch with the randomness derived in the
 kernel (K1-K3).  The per-message route (every other case: the gossip
-baselines, RandK uniform, TopK) launches the per-message kernels once
-for a batch of messages: qbit K4/K5, RandK and TopK K6/K7 with their
-indices computed outside the kernel, as in the reference.  ``auto`` is
+baselines, the pytree round, RandK uniform, TopK) launches the
+per-message kernels once for a batch of messages: qbit K4/K5, RandK's
+block sampler K8/K9 (one offset per message, the window computed in the
+kernel), RandK uniform/stride and TopK K6/K7 with their indices computed
+outside the kernel, as in the reference.  ``auto`` is
 ``kernel`` for CUDA tensors and ``torch`` otherwise.  On a CPU tensor
 the kernel wrappers run their plain versions, as Pallas runs in
-interpret mode off the TPU.  A kernel route that needs a kernel not
-ported yet raises; it never runs the torch route instead.  As in the
+interpret mode off the TPU.  The kernel route never runs the torch
+route instead of a kernel.  As in the
 reference, the torch and kernel qbit routes draw different rounding bits
 (``jax.random.uniform`` vs raw ``jax.random.bits`` or the counter cipher).
 """
@@ -37,7 +39,7 @@ from collections.abc import Mapping
 
 import torch
 
-from repro_torch.common.trees import tree_flatten
+from repro_torch.common.trees import tree_flatten, tree_map
 from repro_torch.core import jaxrand
 from repro_torch.kernels import prng
 from repro_torch.kernels.quantize import ops as qops
@@ -60,12 +62,6 @@ def resolve_impl(impl: str, device) -> str:
 def _check_impl(impl: str):
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-
-
-def _unported(what: str, kernels: str):
-    return NotImplementedError(
-        f"{what} under impl=kernel needs {kernels}, not ported yet: "
-        "ROADMAP Queue 2")
 
 
 class Payload(Mapping):
@@ -219,6 +215,10 @@ class RandK:
     def _strides(self, n: int) -> tuple:
         return (1,) if self.sampler == "block" else prng.coprime_strides(n)
 
+    def _offset(self, keys, n: int):
+        """The block sampler's per-message window offset."""
+        return jaxrand.randint(keys, (), 0, n)
+
     def _indices(self, keys, n: int):
         k = self._k(n)
         if self.sampler == "uniform":
@@ -226,39 +226,38 @@ class RandK:
         if self.sampler == "stride":
             return prng.affine_indices((keys[..., 0], keys[..., 1]), n, k,
                                        self._strides(n))
-        off = jaxrand.randint(keys, (), 0, n)
+        off = self._offset(keys, n)
         return (off[..., None] + torch.arange(k, device=keys.device)) % n
 
-    def _kernel(self, device) -> bool:
-        """True on the per-message kernel route (K6/K7); the block sampler
-        there needs K8/K9, not ported yet."""
-        if resolve_impl(self.impl, device) != "kernel":
-            return False
-        if self.sampler == "block":
-            raise _unported("the per-message RandK sampler=block",
-                            "K8/K9 cyclic_gather/cyclic_scatter "
-                            "(kernels/sparse_gather/kernel.py:110, :257)")
-        return True
+    def _block_kernel(self, device) -> bool:
+        """The block sampler on the kernel route (K8/K9): one offset per
+        message, drawn where the keys are (the host, in the solvers), so
+        that no index row and no per-offset device op exists."""
+        return (self.sampler == "block"
+                and resolve_impl(self.impl, device) == "kernel")
 
     def compress(self, keys, x) -> Payload:
-        kernel = self._kernel(x.device)
-        idx = self._indices(keys.to(x.device), x.shape[-1])
-        if kernel:
+        n = x.shape[-1]
+        if self._block_kernel(x.device):
+            return Payload(v=sgops.cyclic_gather(x, self._offset(keys, n),
+                                                 self._k(n)))
+        idx = self._indices(keys.to(x.device), n)
+        if resolve_impl(self.impl, x.device) == "kernel":
             return Payload(v=sgops.sparse_gather(x, idx))
         return Payload(v=torch.gather(x, -1, idx))
 
     def decompress(self, keys, payload, n: int):
-        v = payload["v"]
-        kernel = self._kernel(v.device)
+        v, k = payload["v"], self._k(n)
+        if self._block_kernel(v.device):
+            return sgops.cyclic_scatter(v, self._offset(keys, n), n, n / k)
         idx = self._indices(keys.to(v.device), n)
-        if kernel:
+        if resolve_impl(self.impl, v.device) == "kernel":
             # permutation rows are unique; the stride set only while
             # its int32 sum cannot wrap onto an earlier index
             unique = (self.sampler == "uniform" or sgops.indices_unique(
-                n, self._k(n), self._strides(n)))
-            return sgops.sparse_scatter(v, idx, n, n / self._k(n),
-                                        unique=unique)
-        gain = torch.tensor(n / self._k(n), dtype=v.dtype, device=v.device)
+                n, k, self._strides(n)))
+            return sgops.sparse_scatter(v, idx, n, n / k, unique=unique)
+        gain = torch.tensor(n / k, dtype=v.dtype, device=v.device)
         lead = tuple(v.shape[:-1])
         out = scatter_last(idx.reshape(-1, idx.shape[-1]),
                            (gain * v).reshape(-1, v.shape[-1]), n)
@@ -366,6 +365,12 @@ def decompress_tree(comp, keys, payload_tree, like_tree, nd: int):
     return rebuild(outs)
 
 
+def like_per_message(stacked, nd: int = 1):
+    """Tree of ``[*lead, ...]`` leaves (``nd`` lead dims) -> the tree of
+    one message's ``Spec``s."""
+    return tree_map(lambda x: Spec(tuple(x.shape[nd:]), x.dtype), stacked)
+
+
 def tree_wire_bytes(comp, tree) -> int:
     return sum(comp.wire_bytes(tuple(x.shape), x.dtype)
                for x in tree_flatten(tree)[0])
@@ -382,38 +387,49 @@ def use_fused(comp, device) -> bool:
             and resolve_impl(comp.impl, device) == "kernel")
 
 
-def plane_compress(comp, keys_fn, base_key, sids, rids, delta, like):
-    """Compress every message of a plane ``delta [..., N]`` and return
-    ``(payload, reconstruction)``.
+def _lead_dims(tree, like) -> int:
+    """Message dims of ``tree`` before its per-message shape ``like`` (a
+    payload's leaves hold each message flat)."""
+    x = tree_flatten(tree, is_leaf=lambda t: isinstance(t, Payload))[0][0]
+    if isinstance(x, Payload):
+        return next(iter(x.values())).dim() - 1
+    return x.dim() - len(tree_flatten(like)[0][0].shape)
 
-    Fused route (kernel impl and a plane-capable compressor): one launch
-    for the plane, randomness derived in the kernel from
-    ``(key_seed(base_key), sender, receiver)``; ``sids``/``rids`` are the
-    per-message ids (int32 tensors on the plane's device, ``rids=None``
-    for one-to-all messages).  Otherwise the per-message route with keys
-    ``keys_fn()`` (``[..., 2]``), bit-identical to the reference's
-    vmapped ``compress_tree``."""
-    if use_fused(comp, delta.device):
+
+def plane_compress(comp, keys_fn, base_key, sids, rids, delta, like):
+    """Compress every message of ``delta`` (a plane ``[..., N]`` or a tree
+    of ``[..., *shape]`` leaves; ``like`` the per-message ``Spec`` or tree
+    of them) and return ``(payload, reconstruction)``.
+
+    Fused route (a single plane, kernel impl and a plane-capable
+    compressor): one launch for the plane, randomness derived in the
+    kernel from ``(key_seed(base_key), sender, receiver)``; ``sids``/
+    ``rids`` are the per-message ids (int32 tensors on the plane's
+    device, ``rids=None`` for one-to-all messages).  Otherwise (a tree
+    always) the per-message route leaf by leaf with keys ``keys_fn()``
+    (``[..., 2]``), bit-identical to the reference's vmapped
+    ``compress_tree``."""
+    if isinstance(delta, torch.Tensor) and use_fused(comp, delta.device):
         seed = jaxrand.key_seed(base_key)
         n = math.prod(like.shape)
         p = comp.compress_plane(seed, sids, rids, delta)
         return p, comp.decompress_plane(seed, sids, rids, p, n)
-    nd = delta.dim() - len(like.shape)
+    nd = _lead_dims(delta, like)
     keys = keys_fn()
     p = compress_tree(comp, keys, delta, nd)
     return p, decompress_tree(comp, keys, p, like, nd)
 
 
-def plane_decompress(comp, keys_fn, base_key, sids, rids, payload, like,
-                     nd: int):
-    """Receiver-side reconstruction of a payload plane with ``nd`` batch
-    dims: the same per-message randomness as ``plane_compress``."""
-    some = next(iter(payload.values()))
-    if use_fused(comp, some.device):
+def plane_decompress(comp, keys_fn, base_key, sids, rids, payload, like):
+    """Receiver-side reconstruction of a payload plane (or tree of
+    payloads): the same per-message randomness as ``plane_compress``."""
+    if isinstance(payload, Payload) and use_fused(
+            comp, next(iter(payload.values())).device):
         seed = jaxrand.key_seed(base_key)
         return comp.decompress_plane(seed, sids, rids, payload,
                                      math.prod(like.shape))
-    return decompress_tree(comp, keys_fn(), payload, like, nd)
+    return decompress_tree(comp, keys_fn(), payload, like,
+                           _lead_dims(payload, like))
 
 
 # ---------------------------------------------------------------------------

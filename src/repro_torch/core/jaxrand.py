@@ -83,6 +83,39 @@ def uniform(k, shape):
     return f.clamp_min(0.0)
 
 
+# XLA's single-precision erf_inv (Giles' approximation): polynomial
+# coefficients for w = -log1p(-x^2) below 5 and at or above 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x):
+    """erf^-1 on f32 as XLA computes it (|x| < 1)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.zeros_like(x)
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        p = torch.where(lt, a, b) + p * w
+    return p * x
+
+
+def normal(k, shape):
+    """``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)``, u the
+    uniform draw on [nextafter(-1, 0), 1).  The uniform draw is
+    bit-exact; XLA's erf_inv polynomial is repeated, but XLA may contract
+    its multiply-adds, so values agree to a few ulp."""
+    lo = torch.tensor(-0.99999994, dtype=torch.float32)  # nextafter(-1, 0)
+    b = bits(k, shape)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.maximum(lo, f * (1.0 - lo) + lo)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32) * _erf_inv(u)
+
+
 def randint(k, shape, minval: int, maxval: int):
     """``jax.random.randint`` into int32 (returned as int64 values): two
     32-bit draws combined modulo the span with uint32 wrap-around."""

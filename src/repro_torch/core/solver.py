@@ -9,9 +9,13 @@ gossip baselines of ``core.baselines``.
     state = solver.step(state, data, key)   # data leaves [A, m, ...]
     x = solver.consensus_params(state)
 
-``make_solver`` takes ``device=`` (default the card) and raises without
-CUDA unless ``device="cpu"``.  ``dada:`` keeps its name in the grammar
-but is not ported yet and raises.
+``graph`` is a static ``Topology`` or a ``schedule.TopologySchedule``
+(``build_graph`` gives either from a spec string).  ``packed`` (default
+true) runs on the packed ``[A, N]`` plane; ``packed=false`` keeps the
+parameters a pytree, compressed leaf by leaf.  ``make_solver`` takes
+``device=`` (default the card) and raises without CUDA unless
+``device="cpu"``.  ``dada:`` keeps its name in the grammar but is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -20,12 +24,13 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.common.trees import as_tensor
+from repro_torch.common.trees import as_tensor, first_leaf
 from repro_torch.common.trees import consensus_error as _consensus_error
 from repro_torch.common.trees import consensus_mean as _consensus_mean
 from repro_torch.common.trees import tree_map
 from repro_torch.core import admm, baselines, compression, packing
 from repro_torch.core.admm import LTADMMConfig
+from repro_torch.core.schedule import TopologySchedule, union_topology
 from repro_torch.core.topology import Exchange
 from repro_torch.device import resolve_device
 
@@ -35,18 +40,25 @@ consensus_error = _consensus_error
 
 @dataclasses.dataclass(frozen=True)
 class LTADMMSolver:
-    """Paper Algorithm 1 on the packed ``[A, N]`` plane, on ``device``."""
+    """Paper Algorithm 1 on ``device``: on the packed ``[A, N]`` plane, or
+    on the parameter pytree when ``packed`` is False; over a static graph
+    or a ``TopologySchedule``."""
 
     graph: Any
     exchange: Exchange
     grad_est: Any
     cfg: LTADMMConfig = LTADMMConfig()
+    packed: bool = True
     device: torch.device = torch.device("cpu")
     name: str = "ltadmm"
     _cache: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
     estimator = "vr"
+
+    @property
+    def is_schedule(self) -> bool:
+        return isinstance(self.graph, TopologySchedule)
 
     def _layout(self, state) -> packing.PackedLayout:
         lay = self._cache.get("layout")
@@ -56,35 +68,48 @@ class LTADMMSolver:
         return lay
 
     def _ids(self, x) -> admm.RoundIds:
+        x = first_leaf(x)
         ids = self._cache.get(("ids", x.device))
         if ids is None:
-            ids = admm.RoundIds.build(self.graph, x.device, x.dtype)
+            ids = admm.RoundIds.build(union_topology(self.graph), x.device,
+                                      x.dtype)
             self._cache[("ids", x.device)] = ids
         return ids
 
     def init(self, x0):
         """x0: stacked ``[A, ...]`` params (tensors or numpy arrays)."""
         x0 = tree_map(lambda t: as_tensor(t).to(self.device), x0)
-        lay = packing.layout_of_stacked(x0)
-        self._cache["layout"] = lay
-        return admm.init(self.cfg, self.graph, self.exchange,
-                         packing.pack(lay, x0))
+        if self.packed:
+            lay = packing.layout_of_stacked(x0)
+            self._cache["layout"] = lay
+            x0 = packing.pack(lay, x0)
+        if self.is_schedule:
+            return admm.init_schedule(self.cfg, self.graph, self.exchange, x0)
+        return admm.init(self.cfg, self.graph, self.exchange, x0)
 
     def step(self, state, data, key):
-        est = packing.PackedEstimator(self.grad_est, self._layout(state))
-        return admm.step(self.cfg, self.graph, self.exchange, est, state,
-                         data, key, ids=self._ids(state.x))
+        est = self.grad_est
+        if self.packed:
+            est = packing.PackedEstimator(est, self._layout(state))
+        run = admm.step_schedule if self.is_schedule else admm.step
+        return run(self.cfg, self.graph, self.exchange, est, state, data,
+                   key, ids=self._ids(state.x))
 
     def consensus_params(self, state):
-        return packing.unpack(self._layout(state), state.x)
+        if self.packed:
+            return packing.unpack(self._layout(state), state.x)
+        return state.x
 
     def wire_bytes(self, params, t: int | None = None) -> int:
-        """Busiest-agent TX bytes per round; a message is ONE compressed
-        plane of all the parameters."""
-        plane = packing.abstract_plane(params)
+        """Busiest-agent TX bytes per round (the period-mean active degree
+        of a schedule; an explicit ``t`` charges that round exactly).  On
+        the packed plane a message is ONE compressed plane of all the
+        parameters, on the pytree path one per leaf."""
+        if self.packed:
+            params = packing.abstract_plane(params)
         if t is not None:
-            return admm.wire_bytes_at(self.cfg, self.graph, plane, t)
-        return admm.wire_bytes_per_round(self.cfg, self.graph, plane)
+            return admm.wire_bytes_at(self.cfg, self.graph, params, t)
+        return admm.wire_bytes_per_round(self.cfg, self.graph, params)
 
     def round_cost(self, cost_model, m: int) -> float:
         """(t_g, t_c) cost of one outer round, Table I's last row."""
@@ -166,7 +191,7 @@ def make_solver(spec: str, graph, exchange=None, grad_est=None,
     merged = {k: v for k, v in (defaults or {}).items() if k in entry.params}
     merged.update(kw)
     if exchange is None:
-        exchange = Exchange(graph)
+        exchange = Exchange(union_topology(graph))
     return entry.factory(graph, exchange, grad_est, device=dev, **merged)
 
 
@@ -180,10 +205,7 @@ _LTADMM_CFG_FIELDS = tuple(f.name for f in dataclasses.fields(LTADMMConfig)
 
 def _make_ltadmm(graph, exchange, grad_est, device, **kw):
     comp = kw.pop("compressor", None)
-    if not compression.coerce_param(kw.pop("packed", True)):
-        raise NotImplementedError(
-            "the pytree (packed=false) path is not ported yet: ROADMAP "
-            "Queue 1 item 14")
+    packed = compression.coerce_param(kw.pop("packed", True))
     if comp is not None:
         comp = _as_compressor(comp)
         kw.setdefault("compressor_x", comp)
@@ -194,7 +216,7 @@ def _make_ltadmm(graph, exchange, grad_est, device, **kw):
     cfg = LTADMMConfig(
         **{k: compression.coerce_param(v) for k, v in kw.items()})
     return LTADMMSolver(graph=graph, exchange=exchange, grad_est=grad_est,
-                        cfg=cfg, device=device)
+                        cfg=cfg, packed=packed, device=device)
 
 
 register_solver(
@@ -203,8 +225,9 @@ register_solver(
                                  "compressor_z", "packed"),
     nested=("compressor", "compressor_x", "compressor_z", "faults"),
     estimator="vr",
-    doc="LT-ADMM-CC (paper Alg. 1): local VR training + compressed x/z "
-        "exchanges on the packed plane",
+    doc="LT-ADMM-CC (paper Alg. 1): local VR training + compressed "
+        "x/z exchanges; exact convergence (Theorem 1); packed=false "
+        "restores the per-leaf pytree path",
 )
 
 

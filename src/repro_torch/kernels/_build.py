@@ -48,6 +48,8 @@ ENTRIES = {
     "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I)),
     "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _P)),
     "sparse_scatter": ("gather_scatter", (_P, _P, _I, _I, _I, _F, _P, _P)),
+    "cyclic_gather": ("cyclic", (_P, _P, _I, _I, _I, _P)),
+    "cyclic_scatter": ("cyclic", (_P, _P, _I, _I, _I, _F, _P)),
 }
 SOURCES = tuple(sorted({stem for stem, _ in ENTRIES.values()}))
 

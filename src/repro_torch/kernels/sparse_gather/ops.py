@@ -1,6 +1,7 @@
 """Wrappers of the fused RandK plane kernels (K2 gather, K3 scatter;
-``csrc/randk_plane.cu``) and of the arbitrary-index gather/scatter
-kernels (K6, K7; ``csrc/gather_scatter.cu``).
+``csrc/randk_plane.cu``), of the arbitrary-index gather/scatter kernels
+(K6, K7; ``csrc/gather_scatter.cu``) and of the cyclic-window
+gather/scatter kernels (K8, K9; ``csrc/cyclic.cu``).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
 runs the plain version (``ref.py``), as the reference runs Pallas in
@@ -10,7 +11,9 @@ pair of uint32 ints, ``sids``/``rids`` are per-message ids (int32 tensors
 holding uint32 bit patterns; ``rids=None`` marks one-to-all messages) and
 ``strides`` the static stride table (``(1,)`` for the block sampler).
 K6/K7 take index rows computed outside the kernel, as the reference
-does (a permutation, a top-k sort or the affine stride set).
+does (a permutation, a top-k sort or the affine stride set); K8/K9 take
+one offset per message (RandK's block sampler) and compute the window in
+the kernel.
 """
 from __future__ import annotations
 
@@ -129,3 +132,58 @@ def sparse_scatter(v, idx, n: int, gain=1.0, *, unique: bool):
 
 
 sparse_scatter.launches = 0
+
+
+def _offsets(off, lead, device):
+    """Per-message offsets as contiguous int64 ``[M]`` on ``device`` (the
+    kernels reduce them mod n)."""
+    if tuple(off.shape) != lead:
+        raise ValueError(f"off of shape {tuple(off.shape)} != {lead}")
+    return off.reshape(-1).to(device=device, dtype=torch.int64).contiguous()
+
+
+def _check_window(n: int, k: int):
+    if not 1 <= k <= n < 2 ** 30:
+        raise ValueError(f"cyclic window needs 1 <= k <= n < 2^30, got "
+                         f"k={k}, n={n}")
+
+
+def cyclic_gather(x, off, k: int):
+    """``out[..., j] = x[..., (off + j) mod n]`` for j < k: every message
+    of ``x [..., n]`` (offsets ``off [...]``) in one launch; returns
+    ``[..., k]``."""
+    if x.device.type == "cpu":
+        return ref.cyclic_gather_ref(x, off, k)
+    lead, n, xf = _build.rows(x, "x", torch.float32)
+    _check_window(n, k)
+    m = xf.shape[0]
+    o = _offsets(off, lead, x.device)
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    _build.launch("cyclic_gather", xf.data_ptr(), o.data_ptr(), m, n, k,
+                  out.data_ptr())
+    cyclic_gather.launches += 1
+    return out.reshape(lead + (k,))
+
+
+cyclic_gather.launches = 0
+
+
+def cyclic_scatter(v, off, n: int, gain=1.0):
+    """``gain * v [..., k]`` written at each message's window ``(off + j)
+    mod n`` of an ``[..., n]`` plane, zero elsewhere, in one launch.  As
+    the reference's kernel does, a -0.0 value comes out as +0.0.  The
+    kernel writes every element, so the plane is not zero-filled first."""
+    if v.device.type == "cpu":
+        return ref.cyclic_scatter_ref(v, off, n, gain)
+    lead, k, vf = _build.rows(v, "v", torch.float32)
+    _check_window(n, k)
+    m = vf.shape[0]
+    o = _offsets(off, lead, v.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=v.device)
+    _build.launch("cyclic_scatter", vf.data_ptr(), o.data_ptr(), m, n, k,
+                  float(gain), out.data_ptr())
+    cyclic_scatter.launches += 1
+    return out.reshape(lead + (n,))
+
+
+cyclic_scatter.launches = 0

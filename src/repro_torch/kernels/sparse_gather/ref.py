@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the fused RandK plane kernels (K2, K3), of
-the arbitrary-index gather/scatter kernels (K6, K7), and the last-writer
-scatter shared with the per-message torch route."""
+the arbitrary-index gather/scatter kernels (K6, K7), of the cyclic-window
+gather/scatter kernels (K8, K9), and the last-writer scatter shared with
+the per-message torch route."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -67,3 +70,34 @@ def sparse_scatter_ref(v, idx, n: int, gain=1.0):
     out = scatter_last(idx.reshape(-1, k).to(torch.int64),
                        (g * v).reshape(-1, k), n)
     return out.reshape(lead + (n,))
+
+
+def _window(off, lead, n, k, device):
+    """Each message's cyclic window ``(off mod n + j) mod n``, ``[M, k]``."""
+    o = torch.remainder(off.reshape(-1).to(device=device,
+                                             dtype=torch.int64), n)
+    if o.numel() != math.prod(lead):
+        raise ValueError(f"off of shape {tuple(off.shape)} != {lead}")
+    return (o[:, None] + torch.arange(k, device=device)) % n
+
+
+def cyclic_gather_ref(x, off, k: int):
+    """K8's plain version: ``out[..., j] = x[..., (off + j) mod n]`` for
+    j < k.  ``x [..., n]``, ``off [...]``; returns ``[..., k]``."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    idx = _window(off, lead, n, k, x.device)
+    return torch.gather(x.reshape(-1, n), 1, idx).reshape(lead + (k,))
+
+
+def cyclic_scatter_ref(v, off, n: int, gain=1.0):
+    """K9's plain version: ``gain * v`` (gain rounded to f32) written at
+    each message's window on a zero plane, then ``+ 0.0``: the reference's
+    kernel folds two halves of a doubled plane, which turns a -0.0 value
+    into +0.0 (its jnp route keeps -0.0).  ``v [..., k]``, ``off [...]``;
+    returns ``[..., n]``."""
+    lead, k = tuple(v.shape[:-1]), v.shape[-1]
+    idx = _window(off, lead, n, k, v.device)
+    g = torch.tensor(gain, dtype=torch.float32, device=v.device)
+    out = torch.zeros((idx.shape[0], n), dtype=torch.float32, device=v.device)
+    out.scatter_(1, idx, g * v.reshape(-1, k).to(torch.float32))
+    return (out + 0.0).reshape(lead + (n,))

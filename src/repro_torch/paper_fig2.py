@@ -11,9 +11,9 @@ in time units.  Runs on the card by default:
     PYTHONPATH=src python -m repro_torch.paper_fig2
     PYTHONPATH=src python -m repro_torch.paper_fig2 --device cpu
 
-The data come from ``LogisticProblem.make_data(0)`` (a seeded torch
-generator), not from the reference's ``jax.random`` draw, so the numbers
-sit beside the reference's rather than equal to them.
+The data come from ``LogisticProblem.make_data(0)``, the reference's
+``jax.random`` draw (features within a few ulp), so both packages solve
+the same problem.
 """
 from __future__ import annotations
 

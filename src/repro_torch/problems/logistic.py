@@ -7,15 +7,18 @@ m = 100, |B| = 1.
 
 Port of ``repro/problems/logistic.py``.  The gradients follow the
 operation order of the reference's autodiff: with u = -b <a, x>,
-df/du = exp(u - logaddexp(0, u)).  ``make_data`` draws from a
-``torch.Generator`` and cannot reproduce ``jax.random.normal``; parity
-runs feed both packages the same numpy data instead.
+df/du = exp(u - logaddexp(0, u)).  ``make_data`` draws the reference's
+``make_data(jax.random.key(seed))`` with ``core.jaxrand`` (labels bit
+for bit, features within a few ulp), so both packages train on the
+same problem.  Parity tests feed both packages the same numpy data.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.core import jaxrand
 
 
 def _dloss(u):
@@ -32,13 +35,14 @@ class LogisticProblem:
     eps: float = 0.1
 
     def make_data(self, seed: int = 0, device=None):
-        """``{"a": [A, m, n], "b": [A, m]}`` from a seeded CPU generator,
-        moved to ``device`` (kept on the CPU when None), so every device
-        gets the same data."""
-        g = torch.Generator().manual_seed(seed)
-        a = torch.randn((self.n_agents, self.m, self.n), generator=g)
-        u = torch.rand((self.n_agents, self.m), generator=g)
-        b = torch.where(u < 0.5, 1.0, -1.0)
+        """``{"a": [A, m, n], "b": [A, m]}``: the reference's
+        ``make_data(jax.random.key(seed))``, drawn on the CPU with the
+        port's ``jax.random`` counterparts and moved to ``device`` (kept on
+        the CPU when None), so every device gets the same data."""
+        ka, kb = jaxrand.split(jaxrand.key(seed), 2)
+        a = jaxrand.normal(ka, (self.n_agents, self.m, self.n))
+        b = torch.where(jaxrand.bernoulli(kb, 0.5, (self.n_agents, self.m)),
+                        1.0, -1.0)
         return {"a": a.to(device), "b": b.to(device)}
 
     # ---- batched per-agent gradients: x [A, n], samples [A, B, ...] ------

@@ -10,6 +10,10 @@ floor), as in the reference's quickstart.  Runs on the card by default:
     PYTHONPATH=src python -m repro_torch.quickstart --device cpu
     PYTHONPATH=src python -m repro_torch.quickstart \
         --solver 'lead:lr=0.1,compressor=qbit:bits=8'
+    PYTHONPATH=src python -m repro_torch.quickstart --device cpu \
+        --topology drop:p=0.3,base=complete
+    PYTHONPATH=src python -m repro_torch.quickstart --device cpu \
+        --solver 'ltadmm:packed=false,compressor=qbit:bits=8'
 """
 from __future__ import annotations
 
@@ -26,14 +30,19 @@ from repro_torch.problems.logistic import LogisticProblem
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver", default="ltadmm:compressor=qbit:bits=8")
-    ap.add_argument("--topology", default="ring")
+    ap.add_argument("--topology", default="ring",
+                    help="static topology or time-varying schedule spec")
+    ap.add_argument("--topology-schedule", default=None,
+                    help="time-varying graph spec (cycle:..., drop:..., "
+                         "gossip:...); overrides --topology")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--rounds", type=int, default=1001)
     args = ap.parse_args(argv)
 
     prob = LogisticProblem()
-    graph, ex = build_graph(args.topology, prob.n_agents)
+    graph, ex = build_graph(args.topology_schedule or args.topology,
+                            prob.n_agents)
     est = (vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
            if solver_entry(args.solver).estimator == "vr"
            else vr.PlainSgd(batch_grad=prob.batch_grad))

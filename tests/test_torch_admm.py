@@ -10,7 +10,8 @@
   (interpret mode) over 20 rounds: the fused plane route (qbit8, RandK
   block) and the packed fallback's per-message route (TopK, RandK
   uniform);
-* topology tables, the device rule, and the paths not ported yet.
+* topology tables, the device rule, and the paths not ported yet
+  (faults, dada, the mesh exchange).
 """
 import json
 import os
@@ -33,7 +34,8 @@ from repro_torch.bench import rounds_to_tol, run_solver  # noqa: E402
 from repro_torch.checkpoint.reference import (  # noqa: E402
     data_from_numpy, state_from_numpy)
 from repro_torch.core import jaxrand, topology, vr  # noqa: E402
-from repro_torch.core.schedule import build_graph  # noqa: E402
+from repro_torch.core.schedule import (  # noqa: E402
+    TopologySchedule, build_graph)
 from repro_torch.core.solver import make_solver  # noqa: E402
 from repro_torch.problems.logistic import LogisticProblem  # noqa: E402
 
@@ -188,7 +190,6 @@ def test_make_solver_defaults_to_the_card():
 
 @pytest.mark.parametrize("spec,err", [
     ("dsgd:faults=faults:drop=0.1", "item 11"), ("dada:lr=0.1", "item 13"),
-    ("ltadmm:packed=false", "item 14"),
     ("ltadmm:faults=faults:drop=0.1", "item 11")])
 def test_unported_solver_paths_raise(spec, err):
     graph, ex = build_graph("ring", 10)
@@ -196,8 +197,21 @@ def test_unported_solver_paths_raise(spec, err):
         make_solver(spec, graph, ex, None, device="cpu")
 
 
+def test_faults_on_a_schedule_raise():
+    graph, ex = build_graph("drop:p=0.3,base=complete,seed=0", 10)
+    for spec in ("ltadmm:faults=faults:drop=0.1",
+                 "ltadmm:packed=false,faults=faults:crash=0.01",
+                 "choco:faults=faults:drop=0.1"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            make_solver(spec, graph, ex, None, device="cpu")
+
+
 def test_unported_graph_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_graph("drop:p=0.2,base=complete", 10)
+    """Schedules are ported (item 9): ``build_graph`` gives one with the
+    exchange over its union graph.  The mesh exchange (item 15) still
+    raises."""
+    graph, ex = build_graph("drop:p=0.2,base=complete", 10)
+    assert isinstance(graph, TopologySchedule)
+    assert ex.topo is graph.union and graph.period == 16
     with pytest.raises(NotImplementedError, match="item 15"):
         topology.Exchange(topology.Ring(4), axis="data")

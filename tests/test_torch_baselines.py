@@ -38,7 +38,7 @@ from repro_torch import paper_fig2  # noqa: E402
 from repro_torch.bench import run_solver  # noqa: E402
 from repro_torch.checkpoint.reference import (  # noqa: E402
     baseline_state_from_numpy, data_from_numpy)
-from repro_torch.core import costmodel, jaxrand, solver, topology, vr  # noqa: E402
+from repro_torch.core import costmodel, jaxrand, solver, topology  # noqa: E402
 from repro_torch.core.baselines import ALL_BASELINES  # noqa: E402
 from repro_torch.core.schedule import build_graph  # noqa: E402
 from repro_torch.problems.logistic import LogisticProblem  # noqa: E402
@@ -189,12 +189,13 @@ def test_fig2_runner_matches_reference():
     assert paper_fig2.time_to_threshold(times, gns) == \
         jfig2.time_to_threshold(times, gns) == 22.0
     assert paper_fig2.time_to_threshold(times, [1.0] * 6) == float("inf")
-    rows = paper_fig2.run(print_rows=False, device="cpu", admm_rounds=100,
+    rows = paper_fig2.run(print_rows=False, device="cpu", admm_rounds=110,
                           baseline_iters=100)
     assert [r[0] for r in rows] == [f"fig2/{m}" for m in jfig2.METHODS]
     assert all(np.isfinite(r[2]) for r in rows)
-    # within 100 rounds only LT-ADMM-CC reaches 1e-8 (round 90, t = 124)
-    assert rows[0][1] == 90 * 124.0
+    # on the reference's data only LT-ADMM-CC reaches 1e-8 here, at round
+    # 100 (t = 124 a round): the reference's own time, 12400
+    assert rows[0][1] == 100 * 124.0
     assert all(r[1] == float("inf") for r in rows[1:])
 
 
@@ -210,19 +211,8 @@ def test_make_solver_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("spec,err", [
-    ("lead:packed=false", "item 14"),
     ("choco:faults=faults:drop=0.1", "item 11")])
 def test_unported_baseline_paths_raise(spec, err):
     graph, ex = build_graph("ring", 10)
     with pytest.raises(NotImplementedError, match=err):
         solver.make_solver(spec, graph, ex, None, device="cpu")
-
-
-def test_block_sampler_on_the_per_message_route_raises():
-    graph, ex = build_graph("ring", 10)
-    s = solver.make_solver(
-        "choco:compressor=randk:sampler=block,impl=kernel", graph, ex,
-        vr.PlainSgd(batch_grad=PROB.batch_grad), device="cpu")
-    st = s.init(torch.zeros((10, 5)))
-    with pytest.raises(NotImplementedError, match="K8/K9"):
-        s.step(st, data_from_numpy(DATA_NP, "cpu"), jaxrand.key(0))

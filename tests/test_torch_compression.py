@@ -7,9 +7,12 @@
   level up (int8 saturation, nibble wrap), and the int32 wrap of the
   affine index set (with the repeated indices it causes);
 * the plain versions of the per-message kernels (K4/K5 quantize and
-  dequantize, K6/K7 gather and scatter) against the reference's kernels
-  in interpret mode, the same way: n = 5, 1000, 1024 and 4099, keys
-  whose bits round kappa to 1.0, TopK and RandK uniform and stride;
+  dequantize, K6/K7 gather and scatter, K8/K9 cyclic gather and
+  scatter) against the reference's kernels in interpret mode, the same
+  way: n = 5, 1000, 1024 and 4099, keys whose bits round kappa to 1.0,
+  TopK and RandK uniform, stride and block; for K8/K9 k = 1 and k = n,
+  offsets 0, n - 1 and beyond [0, n), and a row of -0.0 values, which
+  the reference's K9 returns as +0.0;
 * the per-message torch route of every compressor spec against
   ``impl=jnp``, and the per-message kernel route against ``impl=pallas``;
 * wire bytes and the spec parser's error messages.
@@ -219,7 +222,7 @@ def test_torch_route_payloads_match_jnp(spec, n):
     # the receiver rebuilds the same message from the payload alone
     back = comp.plane_decompress(tc, lambda: admm._key_z(tk, sh, rh),
                                  jaxrand.fold_in(tk, 13), None, None, tp,
-                                 comp.Spec((n,)), nd=2)
+                                 comp.Spec((n,)))
     _eq(back.numpy(), trec.numpy())
 
 
@@ -297,14 +300,15 @@ def test_quantize_tensor_matches_reference(n, bits):
 
 PER_MESSAGE_SPECS = ["qbit:bits=8", "qbit:bits=4", "topk:fraction=0.3",
                      "randk:fraction=0.25,sampler=uniform",
-                     "randk:fraction=0.25,sampler=stride"]
+                     "randk:fraction=0.25,sampler=stride",
+                     "randk:fraction=0.25,sampler=block"]
 
 
 @pytest.mark.parametrize("n", [1000, 4099])
 @pytest.mark.parametrize("spec", PER_MESSAGE_SPECS)
 def test_kernel_route_per_message_matches_pallas(spec, n):
-    """The per-message kernel route (K4/K5, K6/K7 plain versions on the
-    CPU) against the reference's ``impl=pallas`` leaf path in interpret
+    """The per-message kernel route (K4/K5, K6/K7, K8/K9 plain versions on
+    the CPU) against the reference's ``impl=pallas`` leaf path in interpret
     mode, message by message: payloads and reconstructions bit-equal."""
     jc = jcomp.get_compressor(_impl(spec, "pallas"))
     tc = comp.get_compressor(_impl(spec, "kernel"))
@@ -320,6 +324,45 @@ def test_kernel_route_per_message_matches_pallas(spec, n):
             _eq(tp[name][r].numpy(), jp[name])
         _eq(trec[r].numpy(), jcomp.decompress_tree(
             jc, jk, jp, jax.ShapeDtypeStruct((n,), jnp.float32)))
+
+
+def _bits(a):
+    """Float32 array as its bit patterns: tells -0.0 from +0.0."""
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+@pytest.mark.parametrize("n,k", [(5, 1), (5, 5), (1024, 700), (3000, 1),
+                                 (3000, 1800), (3000, 3000), (4099, 2459)])
+def test_cyclic_window_matches_reference(n, k):
+    """K8/K9's plain versions against ``cyclic_gather``/``cyclic_scatter``
+    in interpret mode, bit for bit (signs of zero included), one message
+    per offset: 0, n - 1, an inner one, and two outside [0, n) that both
+    reduce mod n.  The last message's values are all -0.0: the
+    reference's K9 returns them as +0.0, its jnp version keeps -0.0."""
+    offs = [0, n - 1, n // 3, 2 * n + 5, -3]
+    x = _x((len(offs), n), n + k)
+    v = _x((len(offs), k), n - k)
+    v[-1] = -0.0
+    gain = n / k
+    t_off = torch.tensor(offs, dtype=torch.int64)
+    got_v = sg_ops.cyclic_gather(torch.from_numpy(x), t_off, k)
+    got = sg_ops.cyclic_scatter(torch.from_numpy(v), t_off, n, gain)
+    assert got_v.shape == (len(offs), k) and got.shape == (len(offs), n)
+    for r, off in enumerate(offs):
+        jo = jnp.asarray(off, jnp.int32)
+        np.testing.assert_array_equal(
+            _bits(got_v[r].numpy()),
+            _bits(jsg.cyclic_gather(jnp.asarray(x[r]), jo, k,
+                                    interpret=True)))
+        np.testing.assert_array_equal(
+            _bits(got[r].numpy()),
+            _bits(jsg.cyclic_scatter(jnp.asarray(v[r]), jo, n, gain=gain,
+                                     interpret=True)))
+    assert not np.signbit(got[-1].numpy()).any()
+    from repro.kernels.sparse_gather import ref as jsg_ref
+
+    assert np.signbit(np.asarray(jsg_ref.cyclic_scatter_ref(
+        jnp.asarray(v[-1]), offs[-1] % n, n, gain))).sum() == k
 
 
 def test_sparse_scatter_repeated_indices_match_reference():
@@ -357,16 +400,12 @@ def test_sparse_scatter_repeated_indices_match_reference():
     ("qbit:bits=8,impl=kernel", True),
     ("randk:sampler=block,impl=kernel", True)])
 def test_kernel_route_without_a_ported_kernel_raises(spec, fused):
-    """Only the per-message RandK block sampler still lacks its kernels
-    (K8/K9) and raises; every other per-message kernel route runs."""
+    """Every per-message kernel route runs, the RandK block sampler's
+    (K8/K9) included: no kernel of the route is left unported."""
     x = torch.from_numpy(_x((2, 8)))
     keys = jaxrand.split(jaxrand.key(0), 2)
     c = comp.get_compressor(spec)
     assert comp.use_fused(c, "cpu") == fused
-    if "block" in spec:
-        with pytest.raises(NotImplementedError, match="K8/K9"):
-            c.compress(keys, x)
-        return
     p = c.compress(keys, x)
     assert p.wire_bytes == 2 * c.wire_bytes((8,), torch.float32)
     assert c.decompress(keys, p, 8).shape == (2, 8)

@@ -153,6 +153,28 @@ def test_sparse_gather_scatter(h100, n, kind):
     assert torch.equal(out, sg_ref.sparse_scatter_ref(v, idx, n, n / k))
 
 
+@pytest.mark.parametrize("n", [2 ** 20, 1_000_003])
+def test_cyclic_gather_scatter(h100, n):
+    """K8/K9 on [20, n] messages bit-equal to their plain versions (signs
+    of zero included) for k = 1, 0.6 n and n, with offsets 0, n - 1 and
+    outside [0, n) planted, and one row of -0.0 values."""
+    g = torch.Generator(h100).manual_seed(n)
+    for k in (1, round(0.6 * n), n):
+        x = torch.randn((20, n), generator=g, device=h100)
+        v = torch.randn((20, k), generator=g, device=h100)
+        v[4] = -0.0
+        off = torch.randint(0, n, (20,), generator=g, device=h100)
+        off[:4] = torch.tensor([0, n - 1, -3, 3 * n + 1], device=h100)
+        got = sg_ops.cyclic_gather(x, off, k)
+        assert torch.equal(got.view(torch.int32),
+                           sg_ref.cyclic_gather_ref(x, off, k)
+                           .view(torch.int32))
+        out = sg_ops.cyclic_scatter(v, off, n, n / k)
+        want = sg_ref.cyclic_scatter_ref(v, off, n, n / k)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        assert not bool(torch.signbit(out[4]).any())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     sid, rid = _ids(h100)
     x = torch.randn((20, 64), device=h100)
@@ -174,6 +196,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     with pytest.raises(ValueError):
         sg_ops.sparse_gather(x, torch.zeros((3, 8), dtype=torch.int64,
                                             device=h100))
+    off = torch.zeros((20,), dtype=torch.int64, device=h100)
+    with pytest.raises(ValueError):
+        sg_ops.cyclic_gather(x, off[:3], 8)
+    with pytest.raises(ValueError):
+        sg_ops.cyclic_gather(x, off, 65)
+    with pytest.raises(ValueError):
+        sg_ops.cyclic_scatter(x[:, :8], off, 4)
+    with pytest.raises(TypeError):
+        sg_ops.cyclic_scatter(x.double(), off, 64)
 
 
 def test_paper_problem_through_the_kernels(h100):
@@ -215,3 +246,34 @@ def test_baseline_through_the_kernels(h100):
     assert q_ops.dequantize_tensor.launches == 300
     assert np.all(np.isfinite(gns)) and gns[-1] < 1e-2
     assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 18
+
+
+def test_tree_schedule_round_through_the_kernels(h100):
+    """LT-ADMM with packed=false and RandK block on a churn schedule,
+    two-leaf parameters: each round and leaf launches K8 twice and K9
+    four times, and the run lowers ||grad F||²."""
+    from repro_torch.bench import run_solver
+    from repro_torch.core import vr
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = LogisticProblem()
+    graph, ex = build_graph("churn:p=0.2,base=complete,seed=0",
+                            prob.n_agents)
+
+    def split(p, b):
+        full = prob.sample_grads(torch.cat([p["w1"], p["w2"]], -1), b)
+        return {"w1": full[..., :3], "w2": full[..., 3:]}
+
+    solver = make_solver(
+        "ltadmm:eta=0.5,packed=false,compressor=randk:fraction=0.6,"
+        "sampler=block", graph, ex, vr.SagaTable(sample_grads=split,
+                                                 m=prob.m))
+    sg_ops.cyclic_gather.launches = sg_ops.cyclic_scatter.launches = 0
+    x0 = {"w1": torch.zeros((10, 3), device=h100),
+          "w2": torch.zeros((10, 2), device=h100)}
+    idx, gns = run_solver(prob, prob.make_data(0), solver, 40, x0=x0)
+    assert sg_ops.cyclic_gather.launches == 40 * 2 * 2
+    assert sg_ops.cyclic_scatter.launches == 40 * 2 * 4
+    assert np.all(np.isfinite(gns)) and gns[-1] < gns[0]

@@ -100,4 +100,7 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
-    assert out.stdout.count("bit-equal") == 23
+    # 48 kernel checks, and one line per wide spec holding its second
+    # round's kernel calls against the plain versions
+    assert out.stdout.count("bit-equal") == 48 + 10
+    assert out.stdout.count("round 1's kernel calls bit-equal") == 10

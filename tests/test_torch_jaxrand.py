@@ -89,3 +89,19 @@ def test_batched_keys_match_vmap():
     np.testing.assert_array_equal(
         jr.split(tks, 3).numpy(),
         _kd(jax.vmap(lambda k: jax.random.split(k, 3))(ks)))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_normal_within_a_few_ulp(seed):
+    """``normal``'s uniform draw is bit-exact; XLA's erf_inv polynomial is
+    repeated, and XLA may contract its multiply-adds: at most 8 ulp
+    apart, most values equal."""
+    shape = (10, 100, 5)
+    want = np.asarray(jax.random.normal(jax.random.key(seed), shape,
+                                        jnp.float32))
+    got = jr.normal(jr.key(seed), shape).numpy()
+    assert got.dtype == np.float32 and got.shape == shape
+    ulp = np.abs(got.view(np.int32).astype(np.int64)
+                 - want.view(np.int32).astype(np.int64))
+    assert ulp.max() <= 8
+    assert (ulp == 0).mean() > 0.9

@@ -101,3 +101,12 @@ def test_pack_unpack_match_reference():
         np.testing.assert_array_equal(back[k].numpy(), tree[k])
     np.testing.assert_array_equal(back["c"][0].numpy(), tree["c"][0])
     assert packing.layout_of(torch.zeros(7)).is_trivial
+
+
+def test_make_data_matches():
+    """``make_data`` is the reference's ``make_data``: labels bit for
+    bit, features within 1e-6 (``jaxrand.normal``'s few ulp)."""
+    got = PROB.make_data(0)
+    np.testing.assert_array_equal(got["b"].numpy(), np.asarray(JDATA["b"]))
+    np.testing.assert_allclose(got["a"].numpy(), np.asarray(JDATA["a"]),
+                               rtol=0, atol=1e-6)
