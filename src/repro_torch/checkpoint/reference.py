@@ -1,4 +1,5 @@
-"""Carry the reference's solver state and data across to the port.
+"""Carry the reference's solver state, data and model weights across to
+the port.
 
 The reference's state arrives as numpy leaves: either the state itself
 after ``tree_map(np.asarray, state)`` (LT-ADMM's named tuple, static or
@@ -19,6 +20,7 @@ from repro_torch.common.trees import tree_map
 from repro_torch.core.admm import (LTADMMConfig, LTADMMScheduleState,
                                    LTADMMState)
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tr
 
 
 def _by_field(arrays):
@@ -39,8 +41,17 @@ def _by_field(arrays):
     return out
 
 
+def _tensor(a, dev):
+    """A numpy array (bf16 ones as ml_dtypes' bfloat16) as a tensor."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            dev)
+    return torch.as_tensor(a, device=dev)
+
+
 def _tensors(tree, dev):
-    return tree_map(lambda a: torch.as_tensor(np.array(a), device=dev), tree)
+    return tree_map(lambda a: _tensor(a, dev), tree)
 
 
 def state_from_numpy(arrays, cfg: LTADMMConfig, device=None,
@@ -84,5 +95,12 @@ def baseline_state_from_numpy(arrays, solver, device=None,
 def data_from_numpy(data, device=None) -> dict:
     """The reference's data dict (numpy leaves) as tensors on ``device``."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(v), device=dev)
-            for k, v in data.items()}
+    return {k: _tensor(v, dev) for k, v in data.items()}
+
+
+def model_params_from_reference(np_tree, cfg, device=None):
+    """The reference's model parameters (its ``init_params`` pytree after
+    ``tree_map(np.asarray, params)``: nested dicts, the units stacked
+    along a leading axis) as the port's modules on ``device``
+    (``models.transformer.model_params``)."""
+    return tr.model_params(cfg, _tensors(np_tree, resolve_device(device)))

@@ -1,0 +1,194 @@
+"""The ten assigned architectures as selectable configs (``--arch <id>``),
+the counterpart of ``src/repro/configs/archs.py``.
+
+Every entry cites its source.  ``make(shape)`` returns the FULL config,
+``make_smoke()`` a reduced same-family variant that runs a real forward
+on the CPU.  The six archs whose blocks the port serves (attn,
+shared_attn, mamba) are here; the other four ids stay in ``ARCHS`` and
+raise ``NotImplementedError`` when made, until ROADMAP item 16 ports
+their blocks.
+
+Full-attention architectures get ``sliding_window=LONG_CONTEXT_WINDOW``
+when instantiated for the ``long_500k`` shape (ring-buffer KV cache).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models.attention import AttnConfig
+from repro_torch.models.mamba import SSMConfig
+from repro_torch.models.transformer import ModelConfig
+
+LONG_CONTEXT_WINDOW = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchDef:
+    arch_id: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    kind: str  # lm | encdec
+    source: str
+    make: Callable  # (shape_name | None) -> config
+    make_smoke: Callable  # () -> config
+    notes: str = ""
+
+
+def _sw(shape):
+    """Sliding window for full-attention archs on the 500k decode shape."""
+    return LONG_CONTEXT_WINDOW if shape == "long_500k" else None
+
+
+def qwen3_0_6b(shape=None):
+    return ModelConfig(
+        name="qwen3-0.6b", n_layers=28, d_model=1024, vocab=151936,
+        d_ff=3072,
+        attn=AttnConfig(1024, 16, 8, 128, qk_norm=True, rope_theta=1e6,
+                        sliding_window=_sw(shape)),
+        tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def qwen3_smoke():
+    return ModelConfig(
+        name="qwen3-smoke", n_layers=2, d_model=128, vocab=512, d_ff=256,
+        attn=AttnConfig(128, 4, 2, 32, qk_norm=True),
+    )
+
+
+def qwen2_1_5b(shape=None):
+    return ModelConfig(
+        name="qwen2-1.5b", n_layers=28, d_model=1536, vocab=151936,
+        d_ff=8960,
+        attn=AttnConfig(1536, 12, 2, 128, qkv_bias=True, rope_theta=1e6,
+                        sliding_window=_sw(shape)),
+        tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def qwen2_smoke():
+    return ModelConfig(
+        name="qwen2-smoke", n_layers=2, d_model=96, vocab=512, d_ff=192,
+        attn=AttnConfig(96, 6, 2, 16, qkv_bias=True),
+    )
+
+
+def olmo_1b(shape=None):
+    return ModelConfig(
+        name="olmo-1b", n_layers=16, d_model=2048, vocab=50304, d_ff=8192,
+        attn=AttnConfig(2048, 16, 16, 128, sliding_window=_sw(shape)),
+        norm="nonparam_ln", tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def olmo_smoke():
+    return ModelConfig(
+        name="olmo-smoke", n_layers=2, d_model=128, vocab=512, d_ff=512,
+        attn=AttnConfig(128, 4, 4, 32), norm="nonparam_ln",
+    )
+
+
+def command_r_plus_104b(shape=None):
+    return ModelConfig(
+        name="command-r-plus-104b", n_layers=64, d_model=12288,
+        vocab=256000, d_ff=33792,
+        attn=AttnConfig(12288, 96, 8, 128, rope_theta=75e6,
+                        sliding_window=_sw(shape)),
+        parallel_block=True, tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def command_r_smoke():
+    return ModelConfig(
+        name="command-r-smoke", n_layers=2, d_model=256, vocab=512,
+        d_ff=704, attn=AttnConfig(256, 8, 2, 32), parallel_block=True,
+    )
+
+
+def pixtral_12b(shape=None):
+    # Pixtral-12B text backbone = Mistral-Nemo-12B style decoder; the
+    # pixtral-ViT frontend is a stub (patch embeddings as inputs).
+    return ModelConfig(
+        name="pixtral-12b", n_layers=40, d_model=5120, vocab=131072,
+        d_ff=14336,
+        attn=AttnConfig(5120, 32, 8, 128, rope_theta=1e6,
+                        sliding_window=_sw(shape)),
+        tie_embeddings=False, inputs_via_embeds=True, dtype=torch.bfloat16,
+    )
+
+
+def pixtral_smoke():
+    return ModelConfig(
+        name="pixtral-smoke", n_layers=2, d_model=128, vocab=512, d_ff=256,
+        attn=AttnConfig(128, 4, 2, 32), tie_embeddings=False,
+        inputs_via_embeds=True,
+    )
+
+
+def zamba2_2_7b(shape=None):
+    # 54 Mamba2 blocks + one SHARED attention block applied every 6 blocks
+    # (the reference's approximation of Zamba2's shared-block scheme).
+    return ModelConfig(
+        name="zamba2-2.7b", n_layers=54, d_model=2560, vocab=32000,
+        pattern=("mamba",) * 6, shared_attn=True, d_ff=10240,
+        attn=AttnConfig(2560, 32, 32, 80, sliding_window=_sw(shape)),
+        ssm=SSMConfig(2560, d_state=64, head_dim=64),
+        tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def zamba2_smoke():
+    return ModelConfig(
+        name="zamba2-smoke", n_layers=2, d_model=128, vocab=512,
+        pattern=("mamba",) * 2, shared_attn=True, d_ff=256,
+        attn=AttnConfig(128, 4, 4, 32),
+        ssm=SSMConfig(128, d_state=16, head_dim=32, chunk=32),
+    )
+
+
+def _waits(arch_id: str, blocks: str):
+    def make(shape=None):
+        raise NotImplementedError(
+            f"{arch_id} needs {blocks}, which wait for ROADMAP item 16 (the "
+            "rest of the model zoo)")
+    return make
+
+
+def _unported(arch_id, family, kind, source, blocks, notes):
+    make = _waits(arch_id, blocks)
+    return ArchDef(arch_id, family, kind, source, make, make, notes)
+
+
+ARCHS = {
+    a.arch_id: a
+    for a in [
+        _unported("seamless-m4t-medium", "audio", "encdec",
+                  "arXiv:2308.11596", "the encoder-decoder",
+                  "enc-dec; audio frontend stubbed (frame embeddings)"),
+        ArchDef("qwen3-0.6b", "dense", "lm", "hf:Qwen/Qwen3-8B",
+                qwen3_0_6b, qwen3_smoke, "qk-norm, GQA"),
+        ArchDef("olmo-1b", "dense", "lm", "arXiv:2402.00838",
+                olmo_1b, olmo_smoke, "non-parametric LN"),
+        ArchDef("pixtral-12b", "vlm", "lm", "hf:mistralai/Pixtral-12B-2409",
+                pixtral_12b, pixtral_smoke,
+                "ViT frontend stubbed (patch embeddings)"),
+        ArchDef("zamba2-2.7b", "hybrid", "lm", "arXiv:2411.15242",
+                zamba2_2_7b, zamba2_smoke, "Mamba2 + shared attention block"),
+        _unported("granite-moe-1b-a400m", "moe", "lm",
+                  "hf:ibm-granite/granite-3.0-1b-a400m-base", "MoE blocks",
+                  "32 experts top-8"),
+        _unported("deepseek-v2-lite-16b", "moe", "lm", "arXiv:2405.04434",
+                  "MLA and MoE blocks",
+                  "MLA kv_lora=512; 2 shared + 64 routed top-6"),
+        _unported("xlstm-125m", "ssm", "lm", "arXiv:2405.04517",
+                  "mLSTM and sLSTM blocks", "sLSTM + mLSTM blocks"),
+        ArchDef("qwen2-1.5b", "dense", "lm", "arXiv:2407.10671",
+                qwen2_1_5b, qwen2_smoke, "GQA kv=2, QKV bias"),
+        ArchDef("command-r-plus-104b", "dense", "lm",
+                "hf:CohereForAI/c4ai-command-r-v01",
+                command_r_plus_104b, command_r_smoke,
+                "96H GQA kv=8, no-bias, parallel block"),
+    ]
+}

@@ -1,0 +1,25 @@
+"""The four assigned input shapes (``src/repro/configs/shapes.py``).
+
+``train_*``   one LT-ADMM-CC outer round over the full sequence;
+``prefill_*`` a full-sequence forward (inference prefill);
+``decode_*``  ONE new token against a KV/SSM cache of ``seq_len``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32_768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524_288, 1),
+}

@@ -59,16 +59,19 @@ def split(k, num: int = 2):
     return _hash(k[..., None, :], 0, i)
 
 
-def _counters(shape, device):
+def _counters(shape, device, start=0):
     size = math.prod(shape)
-    flat = torch.arange(size, dtype=torch.int64, device=device)
+    flat = torch.arange(start, start + size, dtype=torch.int64, device=device)
     return (flat >> 32).reshape(shape), (flat & MASK).reshape(shape)
 
 
-def bits(k, shape):
-    """``jax.random.bits`` (uint32, in int64): ``[..., *shape]``."""
+def bits(k, shape, start: int = 0):
+    """``jax.random.bits`` (uint32, in int64): ``[..., *shape]``.  With
+    ``start``, the elements at flat positions ``start ..`` of a larger
+    draw from the same key (each element's bits depend only on its flat
+    counter), so a large draw can be taken in slices."""
     shape = tuple(shape)
-    hi, lo = _counters(shape, k.device)
+    hi, lo = _counters(shape, k.device, start)
     pad = (None,) * len(shape)
     y0, y1 = threefry2x32(k[..., 0][(...,) + pad], k[..., 1][(...,) + pad],
                           hi, lo)
@@ -104,13 +107,14 @@ def _erf_inv(x):
     return p * x
 
 
-def normal(k, shape):
+def normal(k, shape, start: int = 0):
     """``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)``, u the
     uniform draw on [nextafter(-1, 0), 1).  The uniform draw is
     bit-exact; XLA's erf_inv polynomial is repeated, but XLA may contract
-    its multiply-adds, so values agree to a few ulp."""
+    its multiply-adds, so values agree to a few ulp.  ``start`` as in
+    ``bits``."""
     lo = torch.tensor(-0.99999994, dtype=torch.float32)  # nextafter(-1, 0)
-    b = bits(k, shape)
+    b = bits(k, shape, start)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     u = torch.maximum(lo, f * (1.0 - lo) + lo)
     return torch.tensor(math.sqrt(2), dtype=torch.float32) * _erf_inv(u)

@@ -50,6 +50,9 @@ ENTRIES = {
     "sparse_scatter": ("gather_scatter", (_P, _P, _I, _I, _I, _F, _P, _P)),
     "cyclic_gather": ("cyclic", (_P, _P, _I, _I, _I, _P)),
     "cyclic_scatter": ("cyclic", (_P, _P, _I, _I, _I, _F, _P)),
+    "flash_attention": ("flash_attention",
+                        (_P, _P, _P, _P) + (_I,) * 8 + (_F, _I)),
+    "ssd_scan": ("ssd_scan", (_P,) * 6 + (_I,) * 10),
 }
 SOURCES = tuple(sorted({stem for stem, _ in ENTRIES.values()}))
 

@@ -1,0 +1,231 @@
+"""GQA attention (with qk-norm / QKV-bias / sliding-window options), the
+counterpart of the GQA half of ``src/repro/models/attention.py``.
+
+    gqa_specs(cfg)                             parameter ParamSpec tree
+    gqa_forward(params, cfg, x, positions)     full-sequence (prefill)
+    gqa_init_cache(cfg, batch, max_len, ...)   decode cache (zeros)
+    gqa_decode(params, cfg, cache, x, pos)     one-token decode
+
+Sliding-window decode uses a ring-buffer cache of length ``window`` with
+an absolute-position side array (slots with pos_id < 0 are invalid).
+Unlike the reference, which returns a new cache, the decode writes the
+new key and value into the cache in place (no copy of the cache per
+token).  MLA, cross-attention (encoder-decoder) and the sequence-sharded
+path wait for ROADMAP items 16 and 15.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None  # None = full causal
+    causal: bool = True  # False for encoder self-attention
+    seq_shard_axis: str | None = None
+
+    def __post_init__(self):
+        if self.seq_shard_axis is not None:
+            raise NotImplementedError(
+                "sequence-sharded attention (seq_shard_axis) needs the mesh "
+                "of ROADMAP item 15, not ported yet")
+
+
+def gqa_specs(cfg: AttnConfig):
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, h, dh), ("embed", "heads", "head")),
+        "wk": ParamSpec((d, kh, dh), ("embed", "kv_heads", "head")),
+        "wv": ParamSpec((d, kh, dh), ("embed", "kv_heads", "head")),
+        "wo": ParamSpec((h, dh, d), ("heads", "head", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h, dh), ("heads", "head"), init="zeros")
+        specs["bk"] = ParamSpec((kh, dh), ("kv_heads", "head"), init="zeros")
+        specs["bv"] = ParamSpec((kh, dh), ("kv_heads", "head"), init="zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((dh,), ("head",), init="ones")
+        specs["k_norm"] = ParamSpec((dh,), ("head",), init="ones")
+    return specs
+
+
+def _project_qkv(params, cfg: AttnConfig, x, positions):
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm({"scale": params["q_norm"]}, q)
+        k = rmsnorm({"scale": params["k_norm"]}, k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def sdpa(q, k, v, mask):
+    """Grouped scaled-dot-product attention.
+
+    q [B,T,H,Dh]; k,v [B,S,KH,Dh]; mask broadcastable to [B,1,1,T,S] or
+    None.
+    """
+    b, t, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, t, kh, g, dh)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k).float()
+    scores = scores / math.sqrt(dh)
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, t, h, dh)
+
+
+def sdpa_blockwise(q, k, v, *, causal=True, window=None,
+                   q_block=512, kv_block=1024):
+    """Flash-structured attention in plain PyTorch: online softmax over
+    KV blocks for each Q block, O(block^2) live memory instead of O(T*S).
+    With a sliding window only the KV blocks that hold a Q block's window
+    are touched; full-causal visits every KV block and masks.  (The
+    reference walks back ceil(window/kv_block)+1 blocks from the Q block's
+    own index, which skips or repeats KV blocks when q_block != kv_block.)"""
+    b, t, h, dh = q.shape
+    s, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kh
+    q_block, kv_block = min(q_block, t), min(kv_block, s)
+    if t % q_block or s % kv_block:
+        raise ValueError(f"T={t}, S={s} must be multiples of the blocks "
+                         f"({q_block}, {kv_block})")
+    nq, nk = t // q_block, s // kv_block
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        qc = q[:, iq * q_block:(iq + 1) * q_block].reshape(
+            b, q_block, kh, g, dh)
+        acc = torch.zeros((b, q_block, kh, g, dv), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, q_block, kh, g), -math.inf, device=dev)
+        lsum = torch.zeros((b, q_block, kh, g), device=dev)
+        qpos = iq * q_block + torch.arange(q_block, device=dev)
+        first, last = 0, nk - 1
+        if window is not None:
+            first = max(iq * q_block - window + 1, 0) // kv_block
+            if causal:
+                last = min(((iq + 1) * q_block - 1) // kv_block, last)
+        for ik in range(first, last + 1):
+            kc = k[:, ik * kv_block:(ik + 1) * kv_block]
+            vc = v[:, ik * kv_block:(ik + 1) * kv_block]
+            kpos = ik * kv_block + torch.arange(kv_block, device=dev)
+            sc = (torch.einsum("bqkgd,bskd->bqkgs", qc, kc) * scale).float()
+            msk = torch.ones((q_block, kv_block), dtype=torch.bool,
+                             device=dev)
+            if causal:
+                msk &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                msk &= (qpos[:, None] - kpos[None, :]) < window
+            msk5 = msk[None, :, None, None, :]
+            sc = torch.where(msk5, sc, _NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            p = torch.where(msk5, p, 0.0)
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgs,bskd->bqkgd", p.to(vc.dtype), vc).float()
+            m = m_new
+        out = acc / torch.clamp_min(lsum[..., None], 1e-30)
+        outs.append(out.to(q.dtype).reshape(b, q_block, h, dv))
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(t, s, window=None, offset=0, device=None):
+    """[1,1,1,t,s] boolean mask.  offset = (absolute pos of q_0) - (of k_0)."""
+    qi = torch.arange(t, device=device)[:, None] + offset
+    ki = torch.arange(s, device=device)[None, :]
+    m = qi >= ki
+    if window is not None:
+        m &= (qi - ki) < window
+    return m[None, None, None]
+
+
+BLOCKWISE_THRESHOLD = 2048  # switch to flash-structured attention above this
+
+
+def gqa_forward(params, cfg: AttnConfig, x, positions, *, use_flash=False):
+    """Full-sequence self-attention.  ``use_flash`` runs K10 where
+    ``flash_ops.supported`` admits the shapes, as the reference does;
+    otherwise blockwise attention when T is long, else dense."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    causal = cfg.causal
+    if use_flash:
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+
+        if flash_ops.supported(q, k, v, None):
+            out = flash_ops.flash_attention(
+                q, k, v, causal=causal, window=cfg.sliding_window)
+            return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    if max(q.shape[1], k.shape[1]) > BLOCKWISE_THRESHOLD:
+        out = sdpa_blockwise(q, k, v, causal=causal,
+                             window=cfg.sliding_window)
+    else:
+        mask = (causal_mask(q.shape[1], k.shape[1], cfg.sliding_window,
+                            device=q.device) if causal else None)
+        out = sdpa(q, k, v, mask)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Decode cache (full-length or sliding-window ring buffer)
+# ---------------------------------------------------------------------------
+
+
+def gqa_cache_len(cfg: AttnConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def gqa_init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    s = gqa_cache_len(cfg, max_len)
+    kh, dh = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, s, kh, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, s, kh, dh), dtype=dtype, device=device),
+        "pos_ids": torch.full((s,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def gqa_decode(params, cfg: AttnConfig, cache, x, pos: int):
+    """One-token decode.  x [B,1,d]; pos the (int) position of x.  Writes
+    the token's key and value into ``cache`` in place; returns
+    ``(y, cache)``."""
+    positions = torch.full((1, 1), pos, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    s = cache["k"].shape[1]
+    slot = pos % s  # == pos for full-length caches
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    cache["pos_ids"][slot] = pos
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids >= 0) & (pos_ids <= pos)
+    out = sdpa(q, cache["k"], cache["v"], valid[None, None, None, None, :])
+    return torch.einsum("bthk,hkd->btd", out, params["wo"]), cache

@@ -1,0 +1,295 @@
+"""Decoder-only language model assembler, the counterpart of
+``src/repro/models/transformer.py`` for the block kinds served so far.
+
+A model is a stack of *units*; each unit is a short pattern of blocks
+(``("attn",)`` for dense models, ``("mamba",)*6`` for Zamba2 with a shared
+attention block applied after each unit).  The reference stacks the
+units' parameters along a leading axis and runs them under ``lax.scan``;
+here ``model_params`` turns that stacked tree into a ``ModuleList`` of
+units (views into the stacked tensors: no copy) and ``forward`` loops
+over it.  Remat has no meaning at inference.
+
+Block kinds:
+    attn         pre-norm GQA attention + SwiGLU FFN (or parallel block)
+    shared_attn  (Zamba2) one attention+FFN block whose parameters are
+                 shared across all its invocations (after every unit)
+    mamba        pre-norm Mamba2 (SSD) block
+The kinds moe, mla, mla_dense, mlstm and slstm, and DeepSeek's leading
+dense layers, wait for ROADMAP item 16.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models.common import (
+    ParamSpec,
+    Params,
+    embed,
+    embedding_specs,
+    make_norm,
+    unembed,
+    unembed_head,
+    unembed_head_specs,
+)
+
+SERVED_KINDS = ("attn", "shared_attn", "mamba")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    vocab: int
+    pattern: tuple = ("attn",)  # repeating unit of block kinds
+    d_ff: int = 0  # dense FFN hidden size
+    attn: Any = None  # AttnConfig
+    ssm: Any = None  # SSMConfig
+    norm: str = "rms"
+    parallel_block: bool = False  # command-r style fused attn+ffn residual
+    shared_attn: bool = False  # Zamba2 shared block after each unit
+    first_dense: int = 0  # DeepSeek: leading dense layers (item 16)
+    tie_embeddings: bool = True
+    dtype: Any = torch.float32
+    use_flash: bool = False
+    # VLM / audio stubs feed embeddings, not token ids
+    inputs_via_embeds: bool = False
+
+    @property
+    def n_units(self) -> int:
+        n = (self.n_layers - self.first_dense) // len(self.pattern)
+        if n * len(self.pattern) + self.first_dense != self.n_layers:
+            raise ValueError(f"n_layers {self.n_layers} must be first_dense "
+                             f"+ k * len(pattern {self.pattern})")
+        return n
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} waits for ROADMAP item 16 (the rest of the model zoo); the "
+        f"port serves the block kinds {SERVED_KINDS}")
+
+
+def _check_kind(kind: str):
+    if kind not in SERVED_KINDS:
+        raise _unported(f"block kind {kind!r}")
+
+
+def _check_cfg(cfg: ModelConfig):
+    if cfg.first_dense:
+        raise _unported("first_dense (leading dense layers)")
+    for kind in cfg.pattern:
+        _check_kind(kind)
+
+
+# ---------------------------------------------------------------------------
+# Block specs / forward / decode
+# ---------------------------------------------------------------------------
+
+
+def _ffn_specs(d, d_ff):
+    return {
+        "wg": ParamSpec((d, d_ff), ("embed", "ffn")),
+        "wu": ParamSpec((d, d_ff), ("embed", "ffn")),
+        "wd": ParamSpec((d_ff, d), ("ffn", "embed")),
+    }
+
+
+def _ffn(params, x):
+    h = F.silu(torch.einsum("btd,df->btf", x, params["wg"]))
+    h = h * torch.einsum("btd,df->btf", x, params["wu"])
+    return torch.einsum("btf,fd->btd", h, params["wd"])
+
+
+def block_specs(cfg: ModelConfig, kind: str):
+    _check_kind(kind)
+    d = cfg.d_model
+    norm_specs, _ = make_norm(cfg.norm, d)
+    if kind == "mamba":
+        return {"ln": dict(norm_specs), "mamba": mamba_lib.mamba_specs(cfg.ssm)}
+    specs = {"ln1": dict(norm_specs), "attn": attn_lib.gqa_specs(cfg.attn)}
+    if not cfg.parallel_block:
+        specs["ln2"] = dict(norm_specs)
+    specs["ffn"] = _ffn_specs(d, cfg.d_ff)
+    return specs
+
+
+def block_forward(params, cfg: ModelConfig, kind: str, x, positions):
+    """Full-sequence block application."""
+    _check_kind(kind)
+    _, norm = make_norm(cfg.norm, cfg.d_model)
+    if kind == "mamba":
+        h = norm(params.get("ln", {}), x)
+        return x + params["mamba"](h)
+    h = norm(params.get("ln1", {}), x)
+    a = attn_lib.gqa_forward(params["attn"], cfg.attn, h, positions,
+                             use_flash=cfg.use_flash)
+    if cfg.parallel_block:
+        return x + a + _ffn(params["ffn"], h)
+    x = x + a
+    h = norm(params.get("ln2", {}), x)
+    return x + _ffn(params["ffn"], h)
+
+
+def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device=None):
+    _check_kind(kind)
+    if kind == "mamba":
+        return mamba_lib.mamba_init_cache(cfg.ssm, batch, cfg.dtype, device)
+    return attn_lib.gqa_init_cache(cfg.attn, batch, max_len, cfg.dtype,
+                                   device)
+
+
+def block_decode(params, cfg: ModelConfig, kind: str, cache, x, pos: int):
+    _check_kind(kind)
+    _, norm = make_norm(cfg.norm, cfg.d_model)
+    if kind == "mamba":
+        h = norm(params.get("ln", {}), x)
+        y, cache = mamba_lib.mamba_decode(params["mamba"], cfg.ssm, cache, h,
+                                          pos)
+        return x + y, cache
+    h = norm(params.get("ln1", {}), x)
+    a, cache = attn_lib.gqa_decode(params["attn"], cfg.attn, cache, h, pos)
+    if cfg.parallel_block:
+        return x + a + _ffn(params["ffn"], h), cache
+    x = x + a
+    h = norm(params.get("ln2", {}), x)
+    return x + _ffn(params["ffn"], h), cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-model specs / params / forward / decode
+# ---------------------------------------------------------------------------
+
+
+def _stack_specs(specs, n):
+    """Prepend a stacking axis of size n to every ParamSpec."""
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((n,) + specs.shape, ("layers",) + specs.axes,
+                         init=specs.init, scale=specs.scale)
+    return {k: _stack_specs(v, n) for k, v in specs.items()}
+
+
+def model_specs(cfg: ModelConfig):
+    _check_cfg(cfg)
+    unit = {f"{i}_{kind}": block_specs(cfg, kind)
+            for i, kind in enumerate(cfg.pattern)}
+    specs = {
+        "embed": embedding_specs(cfg.vocab, cfg.d_model),
+        "units": _stack_specs(unit, cfg.n_units),
+        "final_norm": make_norm(cfg.norm, cfg.d_model)[0],
+    }
+    if cfg.shared_attn:
+        specs["shared"] = block_specs(cfg, "shared_attn")
+    if not cfg.tie_embeddings:
+        specs["unembed"] = unembed_head_specs(cfg.vocab, cfg.d_model)
+    return specs
+
+
+def _block_module(cfg: ModelConfig, kind: str, tree) -> Params:
+    if kind == "mamba":
+        tree = {**tree, "mamba": mamba_lib.Mamba(cfg.ssm, tree["mamba"])}
+    return Params(tree)
+
+
+def _index(tree, u: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+def model_params(cfg: ModelConfig, tree) -> Params:
+    """The reference's parameter tree (nested dicts of tensors, the units
+    stacked along a leading axis, as ``model_specs`` lays it out and
+    ``common.init_params`` draws it) as the port's modules: ``units`` a
+    ``ModuleList`` with one ``Params`` per unit, whose parameters are
+    views of the stacked tensors."""
+    _check_cfg(cfg)
+    top = {k: v for k, v in tree.items() if k not in ("units", "shared")}
+    if cfg.shared_attn:
+        top["shared"] = _block_module(cfg, "shared_attn", tree["shared"])
+    params = Params(top)
+    params.add_module("units", nn.ModuleList(
+        Params({name: _block_module(cfg, name.split("_", 1)[1],
+                                    _index(blk, u))
+                for name, blk in tree["units"].items()})
+        for u in range(cfg.n_units)))
+    return params
+
+
+def _unit_forward(cfg: ModelConfig, unit_params, shared_params, x,
+                  positions):
+    for i, kind in enumerate(cfg.pattern):
+        x = block_forward(unit_params[f"{i}_{kind}"], cfg, kind, x, positions)
+    if cfg.shared_attn:
+        x = block_forward(shared_params, cfg, "shared_attn", x, positions)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x):
+    _, norm = make_norm(cfg.norm, cfg.d_model)
+    x = norm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x)
+    return unembed_head(params["unembed"], x)
+
+
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None):
+    """Prefill forward: logits [B, T, vocab]."""
+    _check_cfg(cfg)
+    if embeds is None:
+        x = embed(params["embed"], tokens).to(cfg.dtype)
+    else:
+        x = embeds.to(cfg.dtype)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    shared = params.get("shared")
+    for unit_p in params["units"]:
+        x = _unit_forward(cfg, unit_p, shared, x, positions)
+    return _logits(params, cfg, x)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Zero decode caches: ``{"units": [per unit {block: cache}],
+    "shared": [per unit shared-block cache] | None}``."""
+    _check_cfg(cfg)
+    n = cfg.n_units
+    return {
+        "units": [{f"{i}_{kind}": block_init_cache(cfg, kind, batch, max_len,
+                                                   device)
+                   for i, kind in enumerate(cfg.pattern)}
+                  for _ in range(n)],
+        "shared": ([block_init_cache(cfg, "shared_attn", batch, max_len,
+                                     device) for _ in range(n)]
+                   if cfg.shared_attn else None),
+    }
+
+
+def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
+                pos: int = 0):
+    """One-token decode.  token [B] int or embed_in [B,1,d]; pos the
+    (int) position.  Updates ``cache`` in place; returns (logits
+    [B, 1, vocab], cache)."""
+    _check_cfg(cfg)
+    if embed_in is None:
+        x = embed(params["embed"], token[:, None]).to(cfg.dtype)
+    else:
+        x = embed_in.to(cfg.dtype)
+    shared = params.get("shared")
+    for u, unit_p in enumerate(params["units"]):
+        c = cache["units"][u]
+        for i, kind in enumerate(cfg.pattern):
+            key = f"{i}_{kind}"
+            x, c[key] = block_decode(unit_p[key], cfg, kind, c[key], x, pos)
+        if cfg.shared_attn:
+            x, cache["shared"][u] = block_decode(
+                shared, cfg, "shared_attn", cache["shared"][u], x, pos)
+    return _logits(params, cfg, x), cache

@@ -21,6 +21,7 @@ from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
 from repro_torch.kernels.quantize import ref as q_ref  # noqa: E402
 from repro_torch.kernels.sparse_gather import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.sparse_gather import ref as sg_ref  # noqa: E402
+from repro_torch.kernels.tolerance import bf16_ulps  # noqa: E402
 
 pytestmark = pytest.mark.needs_h100
 
@@ -277,3 +278,91 @@ def test_tree_schedule_round_through_the_kernels(h100):
     assert sg_ops.cyclic_gather.launches == 40 * 2 * 2
     assert sg_ops.cyclic_scatter.launches == 40 * 2 * 4
     assert np.all(np.isfinite(gns)) and gns[-1] < gns[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kh,t,s,dh,causal,window", [
+    (2, 16, 8, 512, 512, 128, True, None),  # qwen3's heads
+    (1, 32, 32, 512, 464, 80, True, 128),  # zamba2's, windowed, ragged S
+    (1, 4, 2, 96, 300, 32, False, None),  # non-causal, T % 64 != 0
+    (1, 2, 1, 128, 128, 256, True, None),  # the widest head
+    (1, 6, 2, 64, 64, 16, True, 8),
+])
+def test_flash_attention(h100, b, h, kh, t, s, dh, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention import ref as fl_ref
+
+    g = torch.Generator(h100).manual_seed(t + s + dh)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=h100).to(dt)
+               for shape in ((b, t, h, dh), (b, s, kh, dh), (b, s, kh, dh)))
+    fl_ops.flash_attention.launches = 0
+    got = fl_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fl_ops.flash_attention.launches == 1
+    want = fl_ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == q.shape
+    if dt == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert bf16_ulps(got, want, 2e-5) <= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,nh,hd,ng,ds,chunk", [
+    (2, 512, 80, 64, 1, 64, 128),  # zamba2's SSD
+    (1, 256, 4, 32, 2, 16, 64),  # two groups
+    (2, 96, 3, 16, 1, 8, 32),
+])
+def test_ssd_scan(h100, b, t, nh, hd, ng, ds, chunk, dtype):
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    from repro_torch.models.mamba import SSMConfig
+
+    g = torch.Generator(h100).manual_seed(t + hd + ds)
+    dt = getattr(torch, dtype)
+    x = 0.5 * torch.randn((b, t, nh, hd), generator=g, device=h100)
+    alog = -0.2 * torch.randn((b, t, nh), generator=g, device=h100).abs()
+    # B and C as column slices of one tensor, as the Mamba block has them
+    xbc = 0.5 * torch.randn((b, t, 2 * ng * ds + 8), generator=g,
+                            device=h100).to(dt)
+    bm = xbc[..., 8:8 + ng * ds].reshape(b, t, ng, ds)
+    cm = xbc[..., 8 + ng * ds:].reshape(b, t, ng, ds)
+    x, alog = x.to(dt), alog.to(dt)
+    cfg = SSMConfig(64, chunk=chunk)
+    ssm_ops.ssd_chunked.launches = 0
+    y, h = ssm_ops.ssd_chunked(cfg, x, bm, cm, alog)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssd_chunked.launches == 1
+    yw, hw = ssm_ref.ssd_scan_plain(x, alog, bm, cm, chunk=chunk)
+    scale = float(yw.float().abs().max())
+    assert float((h - hw).abs().max()) <= 1e-5 * float(hw.abs().max())
+    if dt == torch.float32:
+        assert float((y - yw).abs().max()) <= 1e-5 * scale
+    else:
+        assert bf16_ulps(y, yw, 1e-5 * scale) <= 1
+
+
+def test_serving_wrappers_reject_what_the_kernels_do_not_take(h100):
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models.mamba import SSMConfig
+
+    q = torch.zeros((1, 128, 4, 64), device=h100)
+    with pytest.raises(TypeError):
+        fl_ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fl_ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        fl_ops.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        fl_ops.flash_attention(q, q[:, :, :3], q[:, :, :3])  # 4 % 3 heads
+    x = torch.zeros((1, 256, 2, 64), device=h100)
+    al = torch.zeros((1, 256, 2), device=h100)
+    bc = torch.zeros((1, 256, 1, 64), device=h100)
+    with pytest.raises(ValueError):
+        ssm_ops.ssd_chunked(SSMConfig(64, chunk=256), x, bc, bc, al)
+    with pytest.raises(ValueError):  # the chunk does not fit the card
+        ssm_ops.ssd_chunked(SSMConfig(64, chunk=128),
+                            torch.zeros((1, 256, 2, 256), device=h100), bc,
+                            bc, al)
