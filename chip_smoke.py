@@ -8,15 +8,22 @@ Phases (any failure exits non-zero):
      power limit;
   2. build: every CUDA kernel of the port from ``src/repro_torch/csrc``,
      and the SASS instruction count of one Threefry block (cuobjdump of
-     a probe built with the kernels' flags), which the bounds use;
+     a probe built with the kernels' flags), which the bounds use; the
+     tensor-core K10's SASS (wgmma, TMA and mbarrier instructions, which
+     every instantiation must have);
   3. kernels: each kernel held bit-exact against its plain PyTorch
      version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
      gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
      gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
      n = 1,000,003; K10 flash attention at the served models' prefill
-     shapes (causal, a 512 window, a ragged kv length; f32 within 2e-5,
-     bf16 within one ulp) and K11 the SSD scan at zamba2-2.7b's (within
-     1e-5 of the output's scale, one ulp for bf16 y);
+     shapes (causal, a 512 window, a ragged kv length; f32 through the
+     CUDA-core variant within 2e-5, bf16 through the tensor-core variant
+     and, at a misaligned base, through the CUDA-core one, within one
+     ulp), and in bf16 with scores scaled by 8, T = 96 with S = 300
+     non-causal, Dh 16, 32, 64 and 256 (tensor cores) and Dh 20 (CUDA
+     cores; each call's variant checked by its counter), and K11 the
+     SSD scan at zamba2-2.7b's (within 1e-5 of the output's scale, one
+     ulp for bf16 y);
   4. paper problem: LT-ADMM-CC on the paper's logistic task (ring N=10,
      n=5, m=100, SAGA) for qbit8, qbit4 and the Fig.-1 RandK settings,
      and the reference's two schedule rows (q8 + SAGA on drop0.3 and
@@ -47,14 +54,16 @@ Phases (any failure exits non-zero):
   serve. qwen3-0.6b and zamba2-2.7b at full width, bf16 weights from the
      port's init_params: the prefill step with use_flash (B = 4 / 2,
      T = 2048) with counters zeroed just before and read just after (28
-     / 9 K10 launches) and every K10 call held against its plain
-     version; zamba2's 54 Mamba blocks' prefill inputs (forward hooks)
+     / 9 launches of K10's tensor-core variant) and every K10 call held
+     against its plain version, then once more with the CUDA-core
+     variant forced (28 / 9 of its launches, each call held); zamba2's 54 Mamba blocks' prefill inputs (forward hooks)
      through mamba_forward(use_kernel=True): 54 K11 launches, each held;
-     the prefill without the kernel; qwen3's f32 prefill logits against
-     token-by-token decode_step at T = 256; the greedy server (ms per
-     decode step, tok/s) and profiles of a prefill and of decode steps;
-     then K10 and K11 timed beside their bounds, their plain versions
-     and (K10) scaled_dot_product_attention.
+     the prefill without the kernel; qwen3's f32 prefill logits (28
+     launches of K10's CUDA-core variant) against token-by-token
+     decode_step at T = 256; the greedy server (ms per decode step,
+     tok/s) and profiles of a prefill and of decode steps; then K10
+     (both variants) and K11 timed beside their bounds, their plain
+     versions and (K10) scaled_dot_product_attention.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -90,6 +99,12 @@ TF_OPS = None
 # both output words XORed)
 TF_LEAF_OPS = None
 IDX_OPS = 3  # int32 ops of one affine index: multiply, add, remainder
+# exps on the special-function units: 16 per SM per clock (4 per SM
+# sub-partition), 132 SMs at the 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# the tensor-core K10's SASS counts by instantiation (``k10_sass``)
+SASS_K10_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")
+K10_SASS: dict = {}
 
 # One and two Threefry blocks per loop step, as K1's loop draws them; the
 # difference of their SASS instruction counts, less the xor that joins the
@@ -144,6 +159,7 @@ ODD_N = 1_000_003
 PAPER_ROUNDS, WIDE_ROUNDS = 600, 20
 DEV = "cuda"
 ERRS: dict = {}  # kernel -> max |kernel - plain| over phase 3
+CARD = None  # nvidia-smi's name and power limit, beside every time
 
 
 def sync():
@@ -174,15 +190,16 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, int_ops=0, fp_ops=0, bf16_ops=0):
+def bound_ms(nbytes, int_ops=0, fp_ops=0, bf16_ops=0, sfu_ops=0):
     """Least time for the work: bytes over HBM rate vs operations over
     their type's peak rate (``fp_ops`` with an f32 operand on the CUDA
-    cores, ``bf16_ops`` of two bf16 operands on the tensor cores; each
-    type on its own units, so the slowest sets the time); returns
-    (ms, "bytes" | "operations")."""
+    cores, ``bf16_ops`` of two bf16 operands on the tensor cores,
+    ``sfu_ops`` exps on the special-function units; each type on its own
+    units, so the slowest sets the time); returns (ms, "bytes" |
+    "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S,
-                bf16_ops / BF16_OPS_PER_S)
+                bf16_ops / BF16_OPS_PER_S, sfu_ops / SFU_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -193,6 +210,7 @@ def bound_ms(nbytes, int_ops=0, fp_ops=0, bf16_ops=0):
 
 
 def phase_device():
+    global CARD
     import torch
 
     name = torch.cuda.get_device_name(0)
@@ -205,6 +223,7 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    CARD = smi
     return name, smi
 
 
@@ -275,6 +294,30 @@ def phase_sass():
         f"{sum(one.values())} - 1 xor)")
     if not 20 <= TF_LEAF_OPS <= 120:
         raise AssertionError(f"implausible Threefry count {TF_LEAF_OPS}")
+    k10_sass()
+
+
+def k10_sass():
+    """The tensor-core K10's SASS: per instantiation (head width kD, kv
+    tile kBK) the counts of wgmma (HGMMA), TMA loads and stores (UTMALDG,
+    UTMASTG) and mbarrier operations (SYNCS); raises unless every one has
+    HGMMA and UTMALDG (sets K10_SASS)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    counts = sass_counts(_build._lib_path("flash_attention_sm90"))
+    for fn, ops in sorted(counts.items()):
+        widths = re.search(r"ILi(\d+)ELi(\d+)E", fn)
+        if not widths:
+            continue
+        key = f"kD={widths.group(1)} kBK={widths.group(2)}"
+        K10_SASS[key] = {op: ops.get(op, 0) for op in SASS_K10_OPS}
+        log(f"[sass] K10 flash_kernel_sm90 {key}: {K10_SASS[key]}")
+        if not (ops.get("HGMMA") and ops.get("UTMALDG")):
+            raise AssertionError(f"K10 {key} has no wgmma or no TMA load")
+    if not K10_SASS:
+        raise AssertionError("no flash_kernel_sm90 in the K10 library")
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +653,23 @@ K10_CASES = (("qwen3", 4, 16, 8, 2048, 128), ("zamba2", 2, 32, 32, 2048, 80))
 K10_MASKS = (("causal", 0, None), ("window 512", 0, 512), ("S = T - 48", 48,
                                                            None))
 K10_F32_TOL = 2e-5  # the reference's own (tests/test_kernels.py:140)
+# bf16 cases that would expose a slip in the tensor-core design: (label,
+# B, H, KH, T, S, Dh, causal, window, q scale).  Scores scaled by 8 spread
+# p over many binades, so a dropped p_lo half shows; T = 96 leaves half of
+# the second warpgroup's rows past T, S = 300 a ragged last tile; Dh 16
+# and 32 run p.v narrower than a swizzle atom, Dh 64 one atom (its own
+# build), Dh 256 on 64-column tiles.  Dh 20 is a row TMA cannot address:
+# ``route`` sends it to the CUDA-core kernel
+K10_TC_CASES = (
+    ("qwen3 scores x8", 4, 16, 8, 2048, 2048, 128, True, None, 8.0),
+    ("zamba2 scores x8", 2, 32, 32, 2048, 2048, 80, True, None, 8.0),
+    ("T = 96 non-causal S = 300", 2, 8, 2, 96, 300, 128, False, None, 1.0),
+    ("Dh 16", 2, 8, 4, 512, 512, 16, True, None, 1.0),
+    ("Dh 32 window 128", 2, 8, 4, 512, 512, 32, True, 128, 1.0),
+    ("Dh 64", 2, 8, 4, 512, 512, 64, True, None, 1.0),
+    ("Dh 256 S = T - 64", 2, 8, 4, 512, 448, 256, True, None, 1.0),
+    ("Dh 20 H = 1", 1, 1, 1, 128, 128, 20, True, None, 1.0),
+)
 # K11 at zamba2-2.7b's SSD: (B, T, NH, HD, NG, DS, chunk)
 K11_CASE = (2, 2048, 80, 64, 1, 64, 128)
 K11_REL_TOL = 1e-5  # max |kernel - plain| over max |plain|, f32 outputs
@@ -622,14 +682,17 @@ def bit_share(got, want):
                   == want.contiguous().view(torch.int16)).float().mean())
 
 
-def hold_k10(got, want, label):
+def hold_k10(got, want, label, variant="tc"):
     """K10's limit against its plain version: 2e-5 in f32; in bf16 one
     ulp at each element's magnitude (or 2e-5), with the share of
-    bit-equal outputs.  Returns the reading."""
+    bit-equal outputs.  Returns the reading.  The error is noted under
+    the kernel that ran: "K10" the CUDA-core one in f32, "K10-cc" in bf16,
+    "K10-tc" the tensor-core one (``variant``, which ``k10_call`` and the
+    serving phase's counters check)."""
     import torch
 
-    note_err("K10", got, want)
     if got.dtype == torch.float32:
+        note_err("K10", got, want)
         err = float((got - want).abs().max())
         if not err <= K10_F32_TOL:
             raise AssertionError(f"K10 {label}: max |d| {err:.3e} > "
@@ -637,6 +700,7 @@ def hold_k10(got, want, label):
         return f"max |d| {err:.3e} <= {K10_F32_TOL}"
     from repro_torch.kernels.tolerance import bf16_ulps
 
+    note_err(f"K10-{variant}", got, want)
     ulps = bf16_ulps(got, want, K10_F32_TOL)
     if ulps > 1:
         raise AssertionError(f"K10 {label}: {ulps:.3f} bf16 ulps from its "
@@ -645,29 +709,75 @@ def hold_k10(got, want, label):
             "identical")
 
 
-def check_k10(dev, cases=K10_CASES):
-    """K10 against its plain version on unit-normal inputs at the served
-    models' shapes, f32 and bf16, causal, windowed and ragged S."""
+def misaligned(a):
+    """A copy of ``a`` one element past a 16-byte boundary: a base that
+    TMA cannot take, so ``route`` sends it to the CUDA-core kernel."""
     import torch
 
-    from repro_torch.kernels.flash_attention import ops, ref
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    return out
 
+
+def k10_call(q, k, v, causal, window, expect):
+    """K10 through its wrapper; on the card, raises unless ``route`` names
+    the variant ``expect`` ("tc" or "cc") and that variant's counter, and
+    no other, moved.  Returns (output, variant)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    before = read_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    sync()
+    after = read_counts()
+    if DEV == "cpu":
+        return got, "plain"
+    variant = ops.route(q, k, v)
+    moved = [n for n in ("tc", "cc") if after[f"flash_attention_{n}"]
+             != before[f"flash_attention_{n}"]]
+    if moved != [expect] or variant != expect:
+        raise AssertionError(f"K10 launched {moved}, route {variant}, "
+                             f"expected {expect}")
+    return got, variant
+
+
+def check_k10(dev, cases=K10_CASES, tc_cases=K10_TC_CASES):
+    """K10 against its plain version on unit-normal inputs at the served
+    models' shapes, f32 (the CUDA-core variant), bf16 (the tensor-core
+    one) and bf16 at a misaligned base (the CUDA-core one), causal,
+    windowed and ragged S; then the bf16 design cases, each on the
+    variant ``route`` gives its shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    bf = torch.bfloat16
+    served = ((torch.float32, False, "cc"), (bf, False, "tc"),
+              (bf, True, "cc"))
     g = torch.Generator(device=dev).manual_seed(10)
-    for label, b, h, kh, t, dh in cases:
-        for mask, short, window in K10_MASKS:
-            s = t - short
-            q = torch.randn((b, t, h, dh), generator=g, device=dev)
-            k = torch.randn((b, s, kh, dh), generator=g, device=dev)
-            v = torch.randn((b, s, kh, dh), generator=g, device=dev)
-            for dt in (torch.float32, torch.bfloat16):
-                args = [a.to(dt) for a in (q, k, v)]
-                got = ops.flash_attention(*args, causal=True, window=window)
-                sync()
-                want = ref.flash_attention_plain(*args, causal=True,
-                                                 window=window)
-                tag = f"{label} [{b}, {t}, {h}, {dh}] kv {kh}x{s} {mask} {dt}"
-                log(f"[kernels] K10 flash_attention {tag}: "
-                    f"{hold_k10(got, want, tag)}")
+    runs = [(label, b, h, kh, t, t - short, dh, True, window, 1.0, mask,
+             served)
+            for label, b, h, kh, t, dh in cases
+            for mask, short, window in K10_MASKS]
+    runs += [(*case, "", ((bf, False, "tc" if case[6] % 8 == 0 else "cc"),))
+             for case in tc_cases]
+    for label, b, h, kh, t, s, dh, causal, window, qs, mask, kinds in runs:
+        q = qs * torch.randn((b, t, h, dh), generator=g, device=dev)
+        k = torch.randn((b, s, kh, dh), generator=g, device=dev)
+        v = torch.randn((b, s, kh, dh), generator=g, device=dev)
+        for dt, shifted, expect in kinds:
+            args = [a.to(dt) for a in (q, k, v)]
+            if shifted:
+                args = [misaligned(a) for a in args]
+            got, variant = k10_call(*args, causal, window, expect)
+            want = ref.flash_attention_plain(*args, causal=causal,
+                                             window=window)
+            tag = (f"{label} [{b}, {t}, {h}, {dh}] kv {kh}x{s}"
+                   f"{'' if causal else ' non-causal'}"
+                   f"{' ' + mask if mask else ''} {dt}"
+                   f"{' misaligned' if shifted else ''}")
+            log(f"[kernels] K10 flash_attention ({variant}) {tag}: "
+                f"{hold_k10(got, want, tag, expect)}")
 
 
 def ssd_inputs(dev, b, t, nh, hd, ng, ds, dtype, seed=11):
@@ -785,13 +895,33 @@ def kernel_counters():
     return fns
 
 
+# a wrapper's launch counters: ``launches``, and K10's per variant
+# (``launches_tc`` the tensor-core kernel, ``launches_cc`` the CUDA-core
+# one; ``launches`` their sum)
+LAUNCH_ATTRS = ("launches", "launches_tc", "launches_cc")
+
+
+def _attrs(fn):
+    return [a for a in LAUNCH_ATTRS if hasattr(fn, a)]
+
+
 def reset_counts():
     for fn in kernel_counters().values():
-        fn.launches = 0
+        for a in _attrs(fn):
+            setattr(fn, a, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """{counter: launches}; K10's variants as flash_attention_tc and
+    flash_attention_cc beside flash_attention."""
+    return {name + a[len("launches"):]: getattr(fn, a)
+            for name, fn in kernel_counters().items() for a in _attrs(fn)}
+
+
+def set_counts(counts):
+    for name, fn in kernel_counters().items():
+        for a in _attrs(fn):
+            setattr(fn, a, counts[name + a[len("launches"):]])
 
 
 def phase_paper(rounds):
@@ -1231,9 +1361,7 @@ class MainPathTap:
                 kw = {k: v for k, v in kwargs.items() if k != "unique"}
                 want = plain(*args, **kw)
                 sync()
-                for fn_, n in zip(kernel_counters().values(),
-                                  before.values()):
-                    fn_.launches = n
+                set_counts(before)
                 if hold is not None:
                     self.readings.setdefault(name, []).append(
                         hold(out, want, f"{name} at {key[1]}"))
@@ -1250,13 +1378,15 @@ class MainPathTap:
             return out
 
         # the wrapper counts through its module's name, which now holds
-        # ``call``: the count lives here until ``close`` hands it back
-        call.launches = fn.launches
+        # ``call``: the counts live here until ``close`` hands them back
+        for a in _attrs(fn):
+            setattr(call, a, getattr(fn, a))
         return call
 
     def close(self):
         for ops, name, fn in self.saved:
-            fn.launches = getattr(ops, name).launches
+            for a in _attrs(fn):
+                setattr(fn, a, getattr(getattr(ops, name), a))
             setattr(ops, name, fn)
 
 
@@ -1431,15 +1561,75 @@ def profile_window(fn):
     return by_kernel, wall
 
 
+def prefill_ms(fn):
+    """Host-clock ms of the prefill ``fn`` with K10's tensor-core variant
+    (the wrapper's own route) and with its CUDA-core kernel in its place
+    (the route forced to "cc" for this comparison only), timed in
+    turns tc, cc, cc, tc on this card: {variant: [ms, ms]}."""
+    from repro_torch.kernels.flash_attention import ops
+
+    route, times = ops.route, {"tc": [], "cc": []}
+    try:
+        for variant in ("tc", "cc", "cc", "tc"):
+            ops.route = route if variant == "tc" else (lambda *a: "cc")
+            times[variant].append(host_ms(fn, 3))
+    finally:
+        ops.route = route
+    return times
+
+
+def held_cc_prefill(arch_id, fn, n_attn, last):
+    """The prefill ``fn`` once with ``route`` forced to "cc", as
+    ``prefill_ms`` times it, under a ``MainPathTap``: every K10 call held
+    within one bf16 ulp of its plain version and, on the card, exactly
+    ``n_attn`` launches of the CUDA-core kernel and none of the
+    tensor-core one.  Logs its last logits against ``last``, the
+    tensor-core prefill's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    kid, pkg, plain, _ = SERVE_WRAPPERS["flash_attention"]
+    before = read_counts()
+    tap = MainPathTap({"flash_attention": (
+        kid, pkg, plain, lambda g, w, lab: hold_k10(g, w, lab, "cc"))})
+    tap.checking = True
+    route = ops.route
+    try:
+        ops.route = lambda *a: "cc"
+        with torch.no_grad():
+            cc_last = fn()
+        sync()
+    finally:
+        ops.route = route
+        tap.close()
+    after = read_counts()
+    moved = {n: after[f"flash_attention_{n}"] - before[f"flash_attention_{n}"]
+             for n in ("tc", "cc")}
+    readings = tap.readings.get("flash_attention", [])
+    d = float((cc_last.float() - last.float()).abs().max())
+    log(f"[serve] {arch_id} prefill with the CUDA-core K10 forced: "
+        f"launches {moved}, {len(readings)} calls held against their plain "
+        f"version: {sorted(set(readings))[:4]}; last logits vs the "
+        f"tensor-core prefill's max |d| {d:.4e}")
+    if len(readings) != n_attn or (DEV == "cuda"
+                                   and moved != {"tc": 0, "cc": n_attn}):
+        raise AssertionError(f"{arch_id}: forced-cc prefill launched "
+                             f"{moved}, held {len(readings)}, expected "
+                             f"{n_attn} CUDA-core")
+
+
 def profile_prefill(label, fn, wall_ms):
     """One prefill under the profiler: device time by kernel, K10's share
-    of the device busy time and of the prefill's (unprofiled) wall time."""
+    of the device busy time and of the prefill's (unprofiled) wall time,
+    and the device's idle share of that wall time."""
     by_kernel, _ = profile_window(fn)
     busy = sum(by_kernel.values())
     k10 = sum(ms for name, ms in by_kernel.items() if "flash_kernel" in name)
     log(f"[serve] {label} prefill profile: device busy {busy:.3f} ms, K10 "
         f"{k10:.3f} ms = {k10 / busy:.1%} of the device time and "
-        f"{k10 / wall_ms:.1%} of the prefill's {wall_ms:.3f} ms")
+        f"{k10 / wall_ms:.1%} of the prefill's {wall_ms:.3f} ms; idle "
+        f"share {1 - busy / wall_ms:.3f}")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[serve] {label} kernel {ms:9.4f} ms {ms / busy:6.1%}  "
             f"{name[:100]}")
@@ -1507,7 +1697,9 @@ def phase_serve():
             with torch.no_grad():
                 last = prefill(params, {"tokens": tokens})
             sync()
-            n_k10 = read_counts()["flash_attention"]  # ... and ends here
+            after = read_counts()  # ... and ends here
+            n_k10, n_tc = (after["flash_attention"],
+                           after["flash_attention_tc"])
         finally:
             tap.close()
             for h in hooks:
@@ -1516,26 +1708,36 @@ def phase_serve():
                     if nm == "flash_attention")
         readings = tap.readings.get("flash_attention", [])
         log(f"[serve] {arch_id} prefill B={pb} T={pt}: K10 launches {n_k10}"
-            f", calls {calls} (attention blocks {n_attn}); every call held "
-            f"against its plain version: {sorted(set(readings))[:4]}")
+            f" ({n_tc} of the tensor-core variant), calls {calls} "
+            f"(attention blocks {n_attn}); every call held against its "
+            f"plain version: {sorted(set(readings))[:4]}")
         if calls != n_attn or len(readings) != n_attn:
             raise AssertionError(f"{arch_id}: {calls} K10 calls, "
                                  f"{len(readings)} held, {n_attn} blocks")
-        if DEV == "cuda" and n_k10 != n_attn:
-            raise AssertionError(f"{arch_id}: {n_k10} K10 launches in the "
-                                 f"prefill, expected {n_attn}")
+        if DEV == "cuda" and not n_k10 == n_tc == n_attn:
+            raise AssertionError(f"{arch_id}: {n_k10} K10 launches ({n_tc} "
+                                 f"tensor-core) in the prefill, expected "
+                                 f"{n_attn} tensor-core")
         if tuple(last.shape) != (pb, 1, cfg.vocab) or not bool(
                 torch.isfinite(last.float()).all()):
             raise AssertionError(f"{arch_id}: prefill logits bad")
-        counts[arch_id] = {"flash_attention": n_k10}
+        counts[arch_id] = {"flash_attention": n_tc}
+        held_cc_prefill(arch_id, lambda: prefill(params, {"tokens": tokens}),
+                        n_attn, last)
         with torch.no_grad():
             if DEV == "cuda":
-                ms = host_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+                times = prefill_ms(lambda: prefill(params,
+                                                   {"tokens": tokens}))
+                ms = sum(times["tc"]) / 2
+                cc = sum(times["cc"]) / 2
                 profile_prefill(
                     arch_id, lambda: prefill(params, {"tokens": tokens}), ms)
                 log(f"[serve] {arch_id} prefill: {ms:.3f} ms, "
                     f"{pb * pt / ms * 1e3:.1f} tok/s (host clock, after a "
-                    "warm-up)")
+                    f"warm-up); with the CUDA-core K10 in its place "
+                    f"{cc:.3f} ms, {pb * pt / cc * 1e3:.1f} tok/s (turns "
+                    f"tc {times['tc'][0]:.3f}, cc {times['cc'][0]:.3f}, cc "
+                    f"{times['cc'][1]:.3f}, tc {times['tc'][1]:.3f} ms)")
             # the same prefill without the kernel (dense sdpa)
             plain = build_prefill(arch, dataclasses.replace(
                 cfg, use_flash=False))(
@@ -1554,7 +1756,7 @@ def phase_serve():
             del mamba_in
             if arch_id == "qwen3-0.6b":
                 del params
-                consistency(arch_id)
+                counts["f32"] = consistency(arch_id)
                 _, _, params = serve_model(arch_id)
             prompt = jaxrand.randint(jaxrand.key(0, DEV), (gb, gp), 0,
                                      cfg.vocab)
@@ -1614,7 +1816,8 @@ def serve_k11(arch_id, cfg, mamba_in, n_mamba):
 def consistency(arch_id):
     """The f32 prefill's logits at every position against token-by-token
     ``decode_step`` logits (the reference's test_prefill_decode_consistency
-    at full width)."""
+    at full width).  Returns the f32 prefill's K10 launches, all of the
+    CUDA-core variant (counts zeroed just before it, read just after)."""
     import torch
 
     from repro_torch.core import jaxrand
@@ -1625,7 +1828,10 @@ def consistency(arch_id):
     t = 16 if SMOKE else CONSISTENCY_T
     tokens = jaxrand.randint(jaxrand.key(1, DEV), (1, t), 0, cfg.vocab)
     with torch.no_grad():
+        reset_counts()  # the f32 prefill starts here
         full = tr.forward(params, cfg, tokens=tokens)
+        sync()
+        after = read_counts()  # ... and ends here
         step, init_cache = build_serve(arch, cfg)
         cache = init_cache(1, t, tokens.device)
         worst = 0.0
@@ -1639,12 +1845,22 @@ def consistency(arch_id):
     if not worst <= CONSISTENCY_TOL:
         raise AssertionError(f"{arch_id}: prefill and decode disagree by "
                              f"{worst}")
+    n_attn = cfg.n_units * cfg.pattern.count("attn")
+    log(f"[serve] {arch_id} f32 prefill: K10 launches "
+        f"{after['flash_attention']} ({after['flash_attention_cc']} of the "
+        f"CUDA-core variant, attention blocks {n_attn})")
+    if DEV == "cuda" and not (after["flash_attention"]
+                              == after["flash_attention_cc"] == n_attn):
+        raise AssertionError(f"{arch_id}: f32 prefill K10 launches {after}")
+    return after["flash_attention_cc"]
 
 
 def time_serve_kernels(counts):
-    """K10 at each served model's prefill shape and K11 at zamba2's, bf16
-    as the prefill gives them: wrapper, bare launch, plain version, bound
-    and (K10) SDPA on the same tensors."""
+    """K10 at each served model's prefill shape, bf16 as the prefill gives
+    them (the tensor-core variant, with the CUDA-core kernel's bare time
+    on the same inputs beside it), and at the f32 prefill's shape
+    (the CUDA-core variant); K11 at zamba2's: wrapper, bare launch, plain
+    version, bound and (K10) SDPA on the same tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -1655,32 +1871,69 @@ def time_serve_kernels(counts):
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rows = []
-    for (label, b, h, kh, t, dh), arch_id in zip(K10_CASES, SERVE_MODELS):
-        q = torch.randn((b, t, h, dh), device=dev, dtype=bf)
-        k = torch.randn((b, t, kh, dh), device=dev, dtype=bf)
-        v = torch.randn((b, t, kh, dh), device=dev, dtype=bf)
+    f32_case = (("qwen3 f32 prefill", 1, 16, 8, CONSISTENCY_T, 128),
+                "f32", torch.float32)
+    for (label, b, h, kh, t, dh), arch_id, dt in (
+            *((case, arch_id, bf) for case, arch_id in zip(K10_CASES,
+                                                           SERVE_MODELS)),
+            f32_case):
+        q = torch.randn((b, t, h, dh), device=dev, dtype=dt)
+        k = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
+        v = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
         out = torch.empty_like(q)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        add_row(
-            rows, f"K10 flash_attention {label} [{b}, {t}, {h}, {dh}] kv "
-            f"{kh} causal bf16", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:84",
-            counts[arch_id]["flash_attention"],
-            cuda_ms(lambda: flops.flash_attention(q, k, v, causal=True)),
-            cuda_ms(lambda: _build.launch(
-                "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, t, t, h, kh, dh, 1, 0,
-                1.0 / math.sqrt(dh), 1)),
-            cuda_ms(lambda: k10_plain(q, k, v, causal=True), iters=3,
-                    warmup=1),
-            # the unmasked causal half: q.k^T of two bf16 operands, p.v
-            # with p in f32
-            2 * (2 * b * t * h * dh + 2 * b * t * kh * dh), 0,
-            2 * dh * b * h * t * (t + 1) // 2,
-            cuda_ms(lambda: F.scaled_dot_product_attention(
+        pairs = b * h * t * (t + 1) // 2  # the unmasked causal half
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, t, t, h, kh, dh, 1, 0, 1.0 / math.sqrt(dh))
+        # the timed inputs held too (each row's max_abs_err has a reading
+        # even when the kernels phase did not run), and in bf16 the
+        # CUDA-core kernel's bare launches timed beside the tensor-core one
+        want = k10_plain(q, k, v, causal=True)
+        got, variant = k10_call(q, k, v, True, None,
+                                "tc" if dt == bf else "cc")
+        log(f"[time] K10 ({variant}) {label}: "
+            f"{hold_k10(got, want, label, variant)}")
+        cc_ms = cuda_ms(lambda: _build.launch(
+            "flash_attention", *ptrs, int(dt == bf)))
+        if dt == bf:
+            log(f"[time] K10 (cc, bare) {label}: "
+                f"{hold_k10(out, want, label + ' cc', 'cc')}")
+        del got, want
+        common = dict(
+            ms=cuda_ms(lambda: flops.flash_attention(q, k, v, causal=True)),
+            plain_ms=cuda_ms(lambda: k10_plain(q, k, v, causal=True),
+                             iters=3, warmup=1),
+            nbytes=2 * q.element_size() * (b * t * h * dh + b * t * kh * dh),
+            int_ops=0,
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
-            bf16_ops=2 * dh * b * h * t * (t + 1) // 2,
-            launches_of=f"{arch_id} prefill B={b} T={t}")
+            launches_of=(f"{arch_id} prefill B={b} T={t}" if dt == bf else
+                         f"qwen3-0.6b f32 prefill B={b} T={t}"))
+        if dt == bf:
+            # q.k^T, p_hi.v and p_lo.v: three products of bf16 operands on
+            # the tensor cores, one exp per pair on the SFUs
+            add_row(
+                rows, f"K10-tc flash_attention_tc {label} [{b}, {t}, {h}, "
+                f"{dh}] kv {kh} causal bf16",
+                "src/repro_torch/csrc/flash_attention_sm90.cu",
+                "src/repro/kernels/flash_attention/kernel.py:84",
+                counts[arch_id]["flash_attention"],
+                kernel_ms=cuda_ms(lambda: _build.launch(
+                    "flash_attention_tc", *ptrs)),
+                fp_ops=0, bf16_ops=3 * 2 * dh * pairs, sfu_ops=pairs,
+                cc_kernel_ms=cc_ms,
+                sass=K10_SASS.get(f"kD={dh} kBK={128 if dh <= 128 else 64}"),
+                **common)
+        else:
+            # both products with an f32 operand on the CUDA cores
+            add_row(
+                rows, f"K10 flash_attention {label} [{b}, {t}, {h}, {dh}] "
+                f"kv {kh} causal f32",
+                "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:84",
+                counts["f32"], kernel_ms=cc_ms, fp_ops=2 * 2 * dh * pairs,
+                max_abs_err_bf16=ERRS.get("K10-cc"), **common)
+        del q, k, v, out, qt, kt, vt
     b, t, nh, hd, ng, ds, chunk = K11_CASE
     cfg = SSMConfig(nh * hd // 2, d_state=ds, head_dim=hd, n_groups=ng,
                     chunk=chunk)
@@ -1760,10 +2013,10 @@ def phase_profile(label, rounds=3):
 
 def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
             nbytes, int_ops, fp_ops, library_ms, rounds=None, bf16_ops=0,
-            **extra):
+            sfu_ops=0, **extra):
     """Append the ``kernels`` line's row of one kernel at one shape and log
     it; ``rounds`` (the wide runs') adds launches per round."""
-    b, by = bound_ms(nbytes, int_ops, fp_ops, bf16_ops)
+    b, by = bound_ms(nbytes, int_ops, fp_ops, bf16_ops, sfu_ops)
     per = {} if rounds is None else {"launches_per_round": launches / rounds}
     rows.append({"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches, **per,
@@ -1776,7 +2029,11 @@ def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
         f"({by}), library "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
         f"launches {launches}"
-        + ("" if rounds is None else f" in {rounds} rounds"))
+        + ("" if rounds is None else f" in {rounds} rounds")
+        + ("" if "cc_kernel_ms" not in extra else
+           f"; the CUDA-core kernel on the same inputs "
+           f"{extra['cc_kernel_ms']:.4f} ms")
+        + ("" if CARD is None else f" [{CARD}]"))
 
 
 def time_kernels(seed, k0_inputs, counts, shapes):
@@ -2060,7 +2317,9 @@ def rehearse():
     check_k67("cpu")
     check_k89("cpu")
     check_k10("cpu", [(lab, 1, h, kh, 256, dh)
-                      for lab, _, h, kh, _, dh in K10_CASES])
+                      for lab, _, h, kh, _, dh in K10_CASES],
+              [(lab, 1, h, kh, min(t, 256), s - t + min(t, 256), *rest)
+               for lab, _, h, kh, t, s, *rest in K10_TC_CASES])
     check_k11("cpu", (1, 256, 8, 64, 1, 64, 128))
     phase_paper(PAPER_ROUNDS)
     phase_paper_schedules(30, kind_rounds=11)  # rounds_to_tol 20 in 30

@@ -52,6 +52,8 @@ ENTRIES = {
     "cyclic_scatter": ("cyclic", (_P, _P, _I, _I, _I, _F, _P)),
     "flash_attention": ("flash_attention",
                         (_P, _P, _P, _P) + (_I,) * 8 + (_F, _I)),
+    "flash_attention_tc": ("flash_attention_sm90",
+                           (_P, _P, _P, _P) + (_I,) * 8 + (_F,)),
     "ssd_scan": ("ssd_scan", (_P,) * 6 + (_I,) * 10),
 }
 SOURCES = tuple(sorted({stem for stem, _ in ENTRIES.values()}))

@@ -1,11 +1,25 @@
-"""Wrapper of the flash-attention kernel (K10, ``csrc/flash_attention.cu``)
-in the model zoo's [B,T,H,Dh] layout, with the reference's support
-predicate (``src/repro/kernels/flash_attention/ops.py``).
+"""Wrapper of the flash-attention kernel (K10) in the model zoo's
+[B,T,H,Dh] layout, with the reference's support predicate
+(``src/repro/kernels/flash_attention/ops.py``).
 
-On a CUDA tensor ``flash_attention`` launches K10, which reads q, k and v
-in place (no transposes, no repeated kv heads, no padded copies); on a
-CPU tensor it runs the plain version (``ref.py``), as the reference runs
-Pallas in interpret mode off the TPU.
+On a CUDA tensor ``flash_attention`` launches one of K10's two variants,
+which read q, k and v in place (no transposes, no repeated kv heads, no
+padded copies), by the rule of ``route``:
+
+* ``"tc"`` (``csrc/flash_attention_sm90.cu``): bf16 on the tensor cores,
+  fed by TMA; for every bf16 shape ``supported`` admits whose rows TMA can
+  address as 4-D tensor maps: Dh a multiple of 8 (the maps' head stride,
+  Dh * 2 bytes, and every stride above it then a multiple of 16 bytes) and
+  q, k, v 16-byte aligned.  Columns of Dh not a multiple of 16 are padded
+  by TMA's zero fill.
+* ``"cc"`` (``csrc/flash_attention.cu``): f32 on the CUDA cores, and the
+  bf16 shapes TMA cannot take (Dh not a multiple of 8, or a misaligned
+  base).
+
+The rule is on the shape and the pointers, decided before the launch; a
+launch that the chosen kernel refuses raises.  On a CPU tensor the
+wrapper runs the plain version (``ref.py``), as the reference runs Pallas
+in interpret mode off the TPU.
 """
 from __future__ import annotations
 
@@ -29,9 +43,16 @@ def supported(q, k, v, mask) -> bool:
     return t % min(DEFAULT_Q_BLOCK, t) == 0 and dh <= MAX_HEAD_DIM
 
 
+def route(q, k, v) -> str:
+    """K10's variant for these CUDA tensors: "tc" or "cc" (module doc)."""
+    tma = q.shape[-1] % 8 == 0 and all(a.data_ptr() % 16 == 0
+                                       for a in (q, k, v))
+    return "tc" if q.dtype == torch.bfloat16 and tma else "cc"
+
+
 def flash_attention(q, k, v, mask=None, *, causal=True, window=None):
     """q [B,T,H,Dh]; k,v [B,S,KH,Dh] -> [B,T,H,Dh] in q's dtype (f32 or
-    bf16; the softmax and both products in f32)."""
+    bf16; the softmax and both products exact in f32, sums in f32)."""
     del mask
     if q.device.type == "cpu":
         return ref.flash_attention_plain(q, k, v, causal=causal,
@@ -49,12 +70,21 @@ def flash_attention(q, k, v, mask=None, *, causal=True, window=None):
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     out = torch.empty_like(q)
-    _build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, t, s, h, kh, dh,
-                  int(causal), 0 if window is None else int(window),
-                  1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t,
+            s, h, kh, dh, int(causal), 0 if window is None else int(window),
+            1.0 / math.sqrt(dh))
+    if route(q, k, v) == "tc":
+        _build.launch("flash_attention_tc", *args)
+        flash_attention.launches_tc += 1
+    else:
+        _build.launch("flash_attention", *args,
+                      int(q.dtype == torch.bfloat16))
+        flash_attention.launches_cc += 1
     flash_attention.launches += 1
     return out
 
 
+# launches of each variant; ``launches`` is their sum
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_cc = 0

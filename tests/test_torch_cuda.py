@@ -281,14 +281,23 @@ def test_tree_schedule_round_through_the_kernels(h100):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,kh,t,s,dh,causal,window", [
-    (2, 16, 8, 512, 512, 128, True, None),  # qwen3's heads
-    (1, 32, 32, 512, 464, 80, True, 128),  # zamba2's, windowed, ragged S
-    (1, 4, 2, 96, 300, 32, False, None),  # non-causal, T % 64 != 0
-    (1, 2, 1, 128, 128, 256, True, None),  # the widest head
-    (1, 6, 2, 64, 64, 16, True, 8),
+@pytest.mark.parametrize("b,h,kh,t,s,dh,causal,window,shifted", [
+    (2, 16, 8, 512, 512, 128, True, None, False),  # qwen3's heads
+    (1, 32, 32, 512, 464, 80, True, 128, False),  # zamba2's, windowed
+    (2, 8, 4, 512, 512, 64, True, None, False),  # one swizzle atom wide
+    (1, 4, 2, 96, 300, 32, False, None, False),  # non-causal, T % 64 != 0
+    (1, 2, 1, 128, 128, 256, True, None, False),  # the widest head
+    (1, 6, 2, 64, 64, 16, True, 8, False),
+    (1, 1, 1, 128, 128, 20, True, None, False),  # rows TMA cannot address
+    (2, 8, 4, 256, 208, 128, True, None, True),  # a base TMA cannot take
+    (2, 8, 4, 256, 208, 80, True, None, True),
 ])
-def test_flash_attention(h100, b, h, kh, t, s, dh, causal, window, dtype):
+def test_flash_attention(h100, b, h, kh, t, s, dh, causal, window, shifted,
+                         dtype):
+    """Each call takes the variant ``route`` states (bf16 with Dh a
+    multiple of 8 and 16-byte-aligned q, k, v: the tensor-core one; f32,
+    and bf16 at Dh 20 or one element past a 16-byte boundary: the
+    CUDA-core one) and stays within its limit of the plain version."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention import ref as fl_ref
 
@@ -296,10 +305,18 @@ def test_flash_attention(h100, b, h, kh, t, s, dh, causal, window, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=g, device=h100).to(dt)
                for shape in ((b, t, h, dh), (b, s, kh, dh), (b, s, kh, dh)))
-    fl_ops.flash_attention.launches = 0
+    if shifted:
+        q, k, v = (torch.empty(a.numel() + 1, device=h100, dtype=dt)[1:]
+                   .view(a.shape).copy_(a) for a in (q, k, v))
+    fn = fl_ops.flash_attention
+    fn.launches = fn.launches_tc = fn.launches_cc = 0
     got = fl_ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fl_ops.flash_attention.launches == 1
+    variant = ("tc" if dt == torch.bfloat16 and dh % 8 == 0 and not shifted
+               else "cc")
+    assert fl_ops.route(q, k, v) == variant
+    assert (fn.launches, fn.launches_tc, fn.launches_cc) == (
+        (1, 1, 0) if variant == "tc" else (1, 0, 1))
     want = fl_ref.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dt and got.shape == q.shape
     if dt == torch.float32:

@@ -9,7 +9,11 @@ interpret mode, on the same numpy-seeded inputs:
   within the reference's own tolerances (2e-5 in f32, 2e-2 in bf16);
 * the dense oracle ``attention_ref`` against the reference's;
 * ``supported`` against the reference's on the same shapes and masks;
-* the dense and blockwise attention paths of the model layer.
+* the dense and blockwise attention paths of the model layer;
+* the arithmetic of K10's tensor-core variant (``flash_attention_tc_plain``:
+  exp2, p split into bf16 halves p_hi + p_lo, each product in f32) against
+  the reference's Pallas kernel on bf16 inputs, within one bf16 ulp (the
+  limit the card holds the kernel to), before any run on the card.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro.kernels.flash_attention import ref as jflash_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.tolerance import bf16_ulps  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
 SHAPES = [
@@ -152,3 +157,26 @@ def test_gqa_forward_goes_blockwise_above_the_threshold(window, monkeypatch):
         np.testing.assert_allclose(
             got.numpy(), np.asarray(jattn.gqa_forward(*jargs, impl=impl)),
             atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("b,h,kh,t,s,dh,causal,window,q_scale", [
+    (1, 4, 2, 256, 256, 128, True, None, 1.0),  # qwen3's head width
+    (1, 4, 4, 256, 200, 80, True, 96, 1.0),  # zamba2's, windowed, S % 128
+    (1, 2, 1, 128, 300, 80, False, None, 1.0),  # non-causal, S > T, ragged
+    (1, 4, 2, 128, 128, 128, True, None, 8.0),  # p over many binades
+])
+def test_split_p_arithmetic_within_one_bf16_ulp_of_reference(
+        b, h, kh, t, s, dh, causal, window, q_scale):
+    """The tensor-core kernel's p_hi + p_lo split keeps p.v at the f32
+    reference within one bf16 ulp at each element (2e-5 floor), the limit
+    ``chip_smoke.py`` and the card tests hold the kernel to."""
+    q, k, v = _inputs(b, h, kh, t, s, dh, 7 * t + s + dh)
+    q = q * np.float32(q_scale)
+    want = jflash.flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, window=window)
+    got = flash_ref.flash_attention_tc_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, t, h, dh)
+    assert bf16_ulps(got, torch.tensor(_f32(want)), 2e-5) <= 1
