@@ -15,11 +15,13 @@ Phases (any failure exits non-zero):
      version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
      gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
      gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
-     n = 1,000,003; K10 flash attention at the served models' prefill
-     shapes (causal, a 512 window, a ragged kv length; f32 through the
-     CUDA-core variant within 2e-5, bf16 through the tensor-core variant
-     and, at a misaligned base, through the CUDA-core one, within one
-     ulp), and in bf16 with scores scaled by 8, T = 96 with S = 300
+     n = 1,000,003 (K2/K3: the pull variant, and the push variant where
+     the stride sampler's int32 sum wraps at 1,000,003, each case's
+     variant asserted by its counter); K10 flash attention at the
+     served models' prefill shapes (causal, a 512 window, a ragged
+     kv length; f32 through the CUDA-core variant within 2e-5, bf16
+     through the tensor-core variant and, at a misaligned base, through
+     the CUDA-core one, within one ulp), and in bf16 with scores scaled by 8, T = 96 with S = 300
      non-causal, Dh 16, 32, 64 and 256 (tensor cores) and Dh 20 (CUDA
      cores; each call's variant checked by its counter), and K11 the
      SSD scan at zamba2-2.7b's (within 1e-5 of the output's scale, one
@@ -44,13 +46,15 @@ Phases (any failure exits non-zero):
      just before each spec's rounds and read just after, every kernel
      call of each spec's second round held bit for bit against its plain
      version on the same inputs, then each kernel timed at the shapes of
-     those runs (wrapper and bare launch)
-     beside its bound, its plain version and the PyTorch library call
-     where one exists;
+     those runs (wrapper and bare launch) beside its bound, its plain
+     version and the PyTorch library call where one exists; K2/K3 also
+     with the push kernels forced on the same inputs, in turns, and
+     with the block sampler;
   6. profile: torch.profiler over three n = 2^20 rounds of the static
-     qbit8 round, the drop0.3 schedule round, the churn0.2 tree round
-     and CHOCO's drop0.3 iteration: device time by kernel and operator,
-     and the device's idle share;
+     qbit8 round, the RandK-stride round, the drop0.3 schedule round, the
+     churn0.2 tree round and CHOCO's drop0.3 iteration: device time by
+     kernel and operator, the device's idle share, and the share of the
+     port's plane kernels (K1-K3);
   serve. qwen3-0.6b and zamba2-2.7b at full width, bf16 weights from the
      port's init_params: the prefill step with use_flash (B = 4 / 2,
      T = 2048) with counters zeroed just before and read just after (28
@@ -71,6 +75,7 @@ and the standard library.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -451,6 +456,10 @@ def check_k1(seed, dev):
 
 
 def check_k23(seed, dev):
+    """K2/K3 bit for bit (-0.0 kept) at the main path's n = 2^20 and at
+    n = 1,000,003, both samplers; each case's variant asserted by its
+    counter: push only where the stride sampler's int32 sum wraps at
+    ODD_N, pull everywhere else."""
     import torch
 
     from repro_torch.kernels import prng
@@ -462,15 +471,21 @@ def check_k23(seed, dev):
                               (WIDE_N, 0.6, zs, zr), (WIDE_N, 0.6, xs, None)):
         k = max(1, round(frac * n))
         x = torch.randn((sid.numel(), n), generator=g, device=dev)
+        x[:, ::13] = -0.0
         for sampler in ("block", "stride"):
             strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+            kind = ops.variant(n, k, strides)
+            if DEV == "cuda" and kind != ("push" if (n, sampler) == (
+                    ODD_N, "stride") else "pull"):
+                raise AssertionError(f"K2/K3 n={n} {sampler}: variant {kind}")
+            before = read_counts()
             v = ops.randk_gather_plane(seed, sid, rid, x, k=k,
                                        strides=strides)
             sync()
             vw = ref.randk_gather_plane_ref(seed, sid, rid, x, k=k,
                                             strides=strides)
             note_err("K2", v, vw)
-            if not torch.equal(v, vw):
+            if not same_bits(v, vw):
                 raise AssertionError(f"K2 n={n} {sampler}: mismatch")
             out = ops.randk_scatter_plane(seed, sid, rid, v, n=n, gain=n / k,
                                           strides=strides)
@@ -478,8 +493,17 @@ def check_k23(seed, dev):
             ow = ref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
                                              gain=n / k, strides=strides)
             note_err("K3", out, ow)
-            if not torch.equal(out, ow):
+            if not same_bits(out, ow):
                 raise AssertionError(f"K3 n={n} {sampler}: mismatch")
+            after = read_counts()
+            ran = {c: after[c] - before[c] for c in after
+                   if c.startswith("randk_") and after[c] != before[c]}
+            if DEV == "cuda" and ran != {
+                    "randk_gather_plane": 1, f"randk_gather_plane_{kind}": 1,
+                    "randk_scatter_plane": 1,
+                    f"randk_scatter_plane_{kind}": 1}:
+                raise AssertionError(f"K2/K3 n={n} {sampler}: launches {ran}"
+                                     f", expected one {kind} each")
             es = prng.fold(seed, prng.u32(sid),
                            prng.BROADCAST if rid is None else prng.u32(rid))
             idx = prng.affine_indices(es, n, k, strides)
@@ -490,9 +514,11 @@ def check_k23(seed, dev):
                      % n)
             wrapped = int((idx != exact).any(dim=1).sum())
             dup = int(sum(k - torch.unique(r).numel() for r in idx))
+            neg0 = int(((out == 0) & torch.signbit(out)).sum())
             log(f"[kernels] K2/K3 randk [{sid.numel()}, {n}] k={k} {sampler}"
-                f"{' broadcast' if rid is None else ''}: bit-equal;"
-                f" {wrapped} rows hit the int32 wrap, {dup} repeated indices")
+                f"{' broadcast' if rid is None else ''}: {kind} variant, "
+                f"bit-equal; {wrapped} rows hit the int32 wrap, {dup} "
+                f"repeated indices, {neg0} -0.0 kept")
 
 
 # (k0, k1, j): raw keys whose jax.random.bits word at element j is >=
@@ -857,15 +883,20 @@ def same_bits(a, b):
 # card vs CPU after 20 rounds or iterations of the same run, max |dx|
 # (the ring rows and Fig. 2)
 PAPER_DX_TOL = 2e-4
+# (label, spec, wire bytes, kernels the run must launch, the reference's
+# rounds_to_tol where a test holds it: tests/test_torch_admm.py, q8 and
+# Fig. 1's RandK rows)
 PAPER_SPECS = (
-    ("qbit8", "ltadmm:compressor=qbit:bits=8", 36, ("quantize_plane",)),
-    ("qbit4", "ltadmm:compressor=qbit:bits=4", 28, ("quantize_plane",)),
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", 36, ("quantize_plane",), 100),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4", 28, ("quantize_plane",),
+     None),
+    # n = 5 passes K2/K3's pull rule (no int32 wrap)
     ("randk-stride",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", 48,
-     ("randk_gather_plane", "randk_scatter_plane")),
+     ("randk_gather_plane_pull", "randk_scatter_plane_pull"), 100),
     ("randk-block",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=block", 48,
-     ("randk_gather_plane", "randk_scatter_plane")),
+     ("randk_gather_plane_pull", "randk_scatter_plane_pull"), 100),
 )
 
 
@@ -895,10 +926,12 @@ def kernel_counters():
     return fns
 
 
-# a wrapper's launch counters: ``launches``, and K10's per variant
+# a wrapper's launch counters: ``launches``, and per variant K10's
 # (``launches_tc`` the tensor-core kernel, ``launches_cc`` the CUDA-core
-# one; ``launches`` their sum)
-LAUNCH_ATTRS = ("launches", "launches_tc", "launches_cc")
+# one) and K2/K3's (``launches_pull``, ``launches_push``); ``launches`` is
+# the sum of a wrapper's variants
+LAUNCH_ATTRS = ("launches", "launches_tc", "launches_cc", "launches_pull",
+                "launches_push")
 
 
 def _attrs(fn):
@@ -912,8 +945,9 @@ def reset_counts():
 
 
 def read_counts():
-    """{counter: launches}; K10's variants as flash_attention_tc and
-    flash_attention_cc beside flash_attention."""
+    """{counter: launches}; a variant's as its wrapper's name and the
+    variant (flash_attention_tc, randk_gather_plane_pull, ...) beside the
+    wrapper's sum."""
     return {name + a[len("launches"):]: getattr(fn, a)
             for name, fn in kernel_counters().items() for a in _attrs(fn)}
 
@@ -938,7 +972,7 @@ def phase_paper(rounds):
     data = prob.make_data(0)
     graph, ex = build_graph("ring", prob.n_agents)
     est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
-    for label, spec, wire, used in PAPER_SPECS:
+    for label, spec, wire, used, ref_r2t in PAPER_SPECS:
         # impl=auto picks the kernels on the card; the CPU rehearsal asks
         # for the kernel route (the plain versions) explicitly
         solver = make_solver(spec + (",impl=kernel" if DEV == "cpu" else ""),
@@ -952,11 +986,16 @@ def phase_paper(rounds):
         counts = read_counts()
         r2t = rounds_to_tol(idx, gns, 1e-8)
         wb = solver.wire_bytes({"x": np.zeros(prob.n, np.float32)})
-        log(f"[paper] {label}: rounds_to_tol={r2t} final={gns[-1]:.3e} "
-            f"wire_bytes_per_round={wb} launches={counts} "
+        log(f"[paper] {label}: rounds_to_tol={r2t} (reference "
+            f"{ref_r2t or 'not pinned'}) final={gns[-1]:.3e} "
+            f"wire_bytes_per_round={wb} launches="
+            f"{ {k: v for k, v in counts.items() if v} } "
             f"host_s_per_round={secs / rounds:.5f}")
         if r2t is None or r2t > 125:
             raise AssertionError(f"{label}: rounds_to_tol {r2t} > 125")
+        if ref_r2t is not None and r2t != ref_r2t:
+            raise AssertionError(f"{label}: rounds_to_tol {r2t} != the "
+                                 f"reference's {ref_r2t}")
         if wb != wire:
             raise AssertionError(f"{label}: wire bytes {wb} != {wire}")
         if DEV == "cuda" and not all(counts[u] > 0 for u in used):
@@ -1225,9 +1264,12 @@ WIDE_SPECS = (
      "ring", False, None),
     ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga", ("quantize_plane",),
      "ring", False, None),
+    # 2 K2 and 4 K3 a round, all through the pull variant (n = 2^20)
     ("randk-stride",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", "saga",
-     ("randk_gather_plane", "randk_scatter_plane"), "ring", False, None),
+     ("randk_gather_plane", "randk_scatter_plane"), "ring", False,
+     {"randk_gather_plane_pull": 2, "randk_scatter_plane_pull": 4,
+      "randk_gather_plane_push": 0, "randk_scatter_plane_push": 0}),
     ("lead-qbit8", "lead:lr=0.1,compressor=qbit:bits=8", "sgd",
      ("quantize_tensor", "dequantize_tensor"), "ring", False, None),
     ("choco-topk", "choco:compressor=topk:fraction=0.25", "sgd",
@@ -1962,6 +2004,12 @@ def time_serve_kernels(counts):
     return rows
 
 
+# kernel id -> the names of its CUDA kernels (csrc) in a profile
+PROFILED_KERNELS = (("K1", ("quantize8_kernel", "quantize4_kernel")),
+                    ("K2", ("randk_gather_",)),
+                    ("K3", ("randk_scatter_", "randk_claim")))
+
+
 def phase_profile(label, rounds=3):
     """torch.profiler over ``rounds`` rounds of the wide run of spec
     ``label`` (after two warm-up rounds): device time by operator, and
@@ -2005,6 +2053,17 @@ def phase_profile(label, rounds=3):
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         log(f"[profile] kernel {ms / rounds:9.4f} ms/round "
             f"{ms / 1e3 / busy:6.1%}  {name[:110]}")
+    # the port's own kernels by id (csrc kernel names), their share of the
+    # device's busy time
+    for kid, tags in PROFILED_KERNELS:
+        ms = sum(t for name, t in by_kernel.items()
+                 if any(tag in name for tag in tags))
+        calls = sum(1 for e in kernels if any(tag in e.name for tag in tags))
+        if calls:
+            log(f"[profile] {label}: {kid} {ms / rounds:.4f} "
+                f"ms/round in {calls // rounds} launches/round, "
+                f"{ms / 1e3 / busy:.1%} of device busy, round "
+                f"{wall * 1e3 / rounds:.3f} ms")
     ops = sorted(events, key=lambda e: -e.device_time_total)[:15]
     for e in ops:
         log(f"[profile] op {e.device_time_total / 1e3 / rounds:9.4f} ms/round"
@@ -2033,7 +2092,145 @@ def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
         + ("" if "cc_kernel_ms" not in extra else
            f"; the CUDA-core kernel on the same inputs "
            f"{extra['cc_kernel_ms']:.4f} ms")
+        + ("" if "push_ms" not in extra else
+           f"; {extra['variant']} variant, launches by variant "
+           f"{extra['launches_by_variant']}; the push kernels on the "
+           f"same inputs: wrapper {extra['push_ms']:.4f} ms, bare "
+           f"{extra['push_kernel_ms']:.4f} ms (turns {extra['ms_turns']} / "
+           f"{extra['push_ms_turns']}, bare {extra['kernel_ms_turns']} / "
+           f"{extra['push_kernel_ms_turns']}); block sampler wrapper "
+           f"{extra['block_ms']:.4f} ms, bare {extra['block_kernel_ms']:.4f}"
+           " ms")
         + ("" if CARD is None else f" [{CARD}]"))
+
+
+def turns(a, b):
+    """CUDA-event ms of ``a`` and ``b`` timed in turns a, b, b, a: each
+    one's mean and its two readings."""
+    ta, tb = [cuda_ms(a)], [cuda_ms(b)]
+    tb.append(cuda_ms(b))
+    ta.append(cuda_ms(a))
+    return sum(ta) / 2, sum(tb) / 2, ta, tb
+
+
+@contextlib.contextmanager
+def forced_push():
+    """Route K2/K3 to the push variant inside the block: the script swaps
+    ``variant`` in the wrapper module; the package has no such knob."""
+    from repro_torch.kernels.sparse_gather import ops
+
+    saved = ops.variant
+    ops.variant = lambda n, k, strides: "push"
+    try:
+        yield
+    finally:
+        ops.variant = saved
+
+
+def time_k23(seed, x, sid, rid, sid32, rid32, k, counts):
+    """K2/K3 rows at the z-plane [20, 2^20], k = 0.6 n, stride sampler:
+    the pull variant's wrapper and bare launch, the push kernels
+    forced on the same inputs (wrapper with its zero fill, bare onto a
+    plane zeroed once), both timed in turns; the block sampler's pull
+    kernels; the plain versions, ``torch.gather`` / ``torch.scatter`` on
+    the materialised index rows and the bound."""
+    import torch
+
+    from repro_torch.kernels import _build, prng
+    from repro_torch.kernels.sparse_gather import ops as sgops
+    from repro_torch.kernels.sparse_gather import ref as sgref
+
+    m, n = x.shape
+    dev = x.device
+    rows = []
+    by = {kname: {kind: counts["randk-stride"][f"{kname}_{kind}"]
+                  for kind in ("pull", "push")}
+          for kname in ("randk_gather_plane", "randk_scatter_plane")}
+    ids = (sid32.data_ptr(), rid32.data_ptr())
+    stride = prng.coprime_strides(n)
+    block = (1,)
+    gain = n / k
+    v = sgops.randk_gather_plane(seed, sid, rid, x, k=k, strides=stride)
+    es = prng.fold(seed, prng.u32(sid), prng.u32(rid))
+    idx = prng.affine_indices(es, n, k, stride)
+    vg = torch.tensor(gain, dtype=torch.float32, device=dev) * v
+    zeros = torch.zeros((m, n), device=dev)
+    plane = torch.zeros((m, n), device=dev)
+    vout = torch.empty((m, k), device=dev)
+    pout = torch.empty((m, n), device=dev)
+
+    def gather_bare(kind, strides):
+        return lambda: _build.launch(
+            f"randk_gather_{kind}", x.data_ptr(), m, n, k, seed[0], seed[1],
+            *ids, _build.stride_table(strides), len(strides),
+            vout.data_ptr())
+
+    def scatter_bare(kind, strides):
+        tables = (_build.stride_table(strides),) + (
+            (_build.stride_table(sgops.inverse_strides(n, strides)),)
+            if kind == "pull" else ())
+        tail = ((pout.data_ptr(),) if kind == "pull"
+                else (None, plane.data_ptr()))
+        return lambda: _build.launch(
+            f"randk_scatter_{kind}", v.data_ptr(), m, n, k, float(gain),
+            seed[0], seed[1], *ids, *tables, len(strides), *tail)
+
+    def gather(strides):
+        return lambda: sgops.randk_gather_plane(seed, sid, rid, x, k=k,
+                                                strides=strides)
+
+    def scatter(strides):
+        return lambda: sgops.randk_scatter_plane(seed, sid, rid, v, n=n,
+                                                 gain=gain, strides=strides)
+
+    def forced(fn):
+        def run():
+            with forced_push():
+                fn()
+        return run
+
+    # the bare launches' outputs, once, against the plain versions
+    for kind in ("pull", "push"):
+        gather_bare(kind, stride)()
+        scatter_bare(kind, stride)()
+        sync()
+        if not (same_bits(vout, v) and same_bits(
+                pout if kind == "pull" else plane,
+                sgref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
+                                              gain=gain, strides=stride))):
+            raise AssertionError(f"K2/K3 bare {kind} launch differs")
+    if {sgops.variant(n, k, st) for st in (stride, block)} != {"pull"}:
+        raise AssertionError("K2/K3 at the wide shape: not the pull variant")
+    for kid, kname, fns, plain, library, nbytes, fops, line in (
+            ("K2", "randk_gather_plane", (gather, gather_bare),
+             lambda: sgref.randk_gather_plane_ref(seed, sid, rid, x, k=k,
+                                                  strides=stride),
+             lambda: torch.gather(x, 1, idx), 2 * m * k * 4, 0, 173),
+            ("K3", "randk_scatter_plane", (scatter, scatter_bare),
+             lambda: sgref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
+                                                   gain=gain,
+                                                   strides=stride),
+             lambda: torch.scatter(zeros, 1, idx, vg),
+             m * k * 4 + m * n * 4, m * k, 222)):
+        wrap, bare = fns
+        ms, push_ms, ms_turns, push_turns = turns(
+            wrap(stride), forced(wrap(stride)))
+        kms, push_kms, kms_turns, push_kturns = turns(
+            bare("pull", stride), bare("push", stride))
+        add_row(
+            rows, f"{kid} {kname} stride [20, 2^20] k={k}",
+            "src/repro_torch/csrc/randk_plane.cu",
+            f"src/repro/kernels/sparse_gather/kernel.py:{line}",
+            counts["randk-stride"][kname], ms, kms,
+            cuda_ms(plain, iters=3, warmup=1), nbytes,
+            IDX_OPS * m * k + 3 * TF_OPS * m, fops, cuda_ms(library),
+            rounds=WIDE_ROUNDS, variant="pull", launches_by_variant=by[kname],
+            push_ms=push_ms, push_kernel_ms=push_kms,
+            ms_turns=ms_turns, push_ms_turns=push_turns,
+            kernel_ms_turns=kms_turns, push_kernel_ms_turns=push_kturns,
+            block_ms=cuda_ms(wrap(block)),
+            block_kernel_ms=cuda_ms(bare("pull", block)))
+    return rows
 
 
 def time_kernels(seed, k0_inputs, counts, shapes):
@@ -2059,7 +2256,6 @@ def time_kernels(seed, k0_inputs, counts, shapes):
     m, n = 20, WIDE_N
     x = torch.randn((m, n), device=dev)
     k = round(0.6 * n)
-    strides = prng.coprime_strides(n)
     rows = []
 
     def bare(entry, *args):
@@ -2110,50 +2306,11 @@ def time_kernels(seed, k0_inputs, counts, shapes):
             m * n * 4 + m * wire + 8 * m, TF_OPS * (m * n + 2 * m),
             6 * m * n, None, rounds=WIDE_ROUNDS)
 
-    v = sgops.randk_gather_plane(seed, sid, rid, x, k=k, strides=strides)
-    es = prng.fold(seed, prng.u32(sid), prng.u32(rid))
-    idx = prng.affine_indices(es, n, k, strides)
-    vout = torch.empty((m, k), device=dev)
-    add_row(
-        rows, f"K2 randk_gather_plane stride [20, 2^20] k={k}",
-        "src/repro_torch/csrc/randk_plane.cu",
-        "src/repro/kernels/sparse_gather/kernel.py:173",
-        counts["randk-stride"]["randk_gather_plane"],
-        cuda_ms(lambda: sgops.randk_gather_plane(seed, sid, rid, x, k=k,
-                                                 strides=strides)),
-        bare("randk_gather_plane", x.data_ptr(), m, n, k, seed[0], seed[1],
-             sid32.data_ptr(), rid32.data_ptr(), _build.stride_table(strides),
-             len(strides), vout.data_ptr()),
-        cuda_ms(lambda: sgref.randk_gather_plane_ref(seed, sid, rid, x, k=k,
-                                                     strides=strides),
-                iters=3, warmup=1),
-        2 * m * k * 4, IDX_OPS * m * k + 3 * TF_OPS * m, 0,
-        cuda_ms(lambda: torch.gather(x, 1, idx)), rounds=WIDE_ROUNDS)
-
-    gain = n / k
-    vg = torch.tensor(gain, dtype=torch.float32, device=dev) * v
+    # K2/K3: the pull variant the main path runs, and the push
+    # kernels forced on the same inputs in turns (pull, push, push, pull)
+    rows += time_k23(seed, x, sid, rid, sid32, rid32, k, counts)
     zeros = torch.zeros((m, n), device=dev)
     plane = torch.zeros((m, n), device=dev)
-    assert sgops.indices_unique(n, k, strides)  # no claim pass at 2^20
-    add_row(
-        rows, f"K3 randk_scatter_plane stride [20, 2^20] k={k}",
-        "src/repro_torch/csrc/randk_plane.cu",
-        "src/repro/kernels/sparse_gather/kernel.py:222",
-        counts["randk-stride"]["randk_scatter_plane"],
-        cuda_ms(lambda: sgops.randk_scatter_plane(seed, sid, rid, v, n=n,
-                                                  gain=gain,
-                                                  strides=strides)),
-        # onto a plane zeroed once: the wrapper's zero fill left out
-        bare("randk_scatter_plane", v.data_ptr(), m, n, k, float(gain),
-             seed[0], seed[1], sid32.data_ptr(), rid32.data_ptr(),
-             _build.stride_table(strides), len(strides), None,
-             plane.data_ptr()),
-        cuda_ms(lambda: sgref.randk_scatter_plane_ref(seed, sid, rid, v, n=n,
-                                                      gain=gain,
-                                                      strides=strides),
-                iters=3, warmup=1),
-        m * k * 4 + m * n * 4, IDX_OPS * m * k + 3 * TF_OPS * m, m * k,
-        cuda_ms(lambda: torch.scatter(zeros, 1, idx, vg)), rounds=WIDE_ROUNDS)
 
     # K4/K5 on the baselines' x messages [10, 2^20] (LEAD qbit8)
     ma = 10
@@ -2387,8 +2544,8 @@ def main(argv=None):
         if k0 is not None:
             rows = time_kernels(seed, k0, counts, shapes)
     if "profile" in phases:
-        for label in ("qbit8", "drop-qbit8", "churn-tree-randk-block",
-                      "choco-drop-randk-block"):
+        for label in ("qbit8", "randk-stride", "drop-qbit8",
+                      "churn-tree-randk-block", "choco-drop-randk-block"):
             phase_profile(label)
     if "serve" in phases:
         serve_counts = phase_serve()

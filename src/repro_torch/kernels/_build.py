@@ -15,6 +15,7 @@ tests import every module of the port on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,11 +40,16 @@ ENTRIES = {
                       (_U, _U, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "quantize_plane": ("quantize_plane",
                        (_P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _I)),
-    "randk_gather_plane": ("randk_plane",
-                           (_P, _I, _I, _I, _U, _U, _P, _P, _P, _I, _P)),
-    "randk_scatter_plane": ("randk_plane",
-                            (_P, _I, _I, _I, _F, _U, _U, _P, _P, _P, _I,
-                             _P, _P)),
+    "randk_gather_pull": ("randk_plane",
+                          (_P, _I, _I, _I, _U, _U, _P, _P, _P, _I, _P)),
+    "randk_gather_push": ("randk_plane",
+                          (_P, _I, _I, _I, _U, _U, _P, _P, _P, _I, _P)),
+    "randk_scatter_pull": ("randk_plane",
+                           (_P, _I, _I, _I, _F, _U, _U, _P, _P, _P, _P, _I,
+                            _P)),
+    "randk_scatter_push": ("randk_plane",
+                           (_P, _I, _I, _I, _F, _U, _U, _P, _P, _P, _I, _P,
+                            _P)),
     "quantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _P, _I)),
     "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I)),
     "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _P)),
@@ -161,9 +167,11 @@ def id_ptr(ids, m: int, device) -> int | None:
     return ids.data_ptr()
 
 
+@functools.lru_cache(maxsize=64)
 def stride_table(strides: tuple):
     """Host int32 array of the stride table (the C launcher copies it into
-    a kernel argument, so it never lives in device memory)."""
+    a kernel argument, so it never lives in device memory, and never
+    writes it: one array per static table serves every launch)."""
     if not 1 <= len(strides) <= 64:
         raise ValueError(f"stride table must hold 1..64 entries, got "
                          f"{len(strides)}")

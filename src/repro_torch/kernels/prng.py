@@ -19,6 +19,7 @@ the plain version below.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -140,8 +141,10 @@ def derive_stride_slot(seed, n_strides: int):
     return b1 % n_strides
 
 
+@functools.lru_cache(maxsize=64)
 def coprime_strides(n: int, size: int = 64) -> tuple:
-    """Static table of strides coprime to ``n``, spread across [1, n)."""
+    """Static table of strides coprime to ``n``, spread across [1, n).
+    Cached: every RandK stride message asks for its n's table."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     if n == 1:

@@ -14,8 +14,29 @@ K6/K7 take index rows computed outside the kernel, as the reference
 does (a permutation, a top-k sort or the affine stride set); K8/K9 take
 one offset per message (RandK's block sampler) and compute the window in
 the kernel.
+
+K2 and K3 have two variants each, chosen by ``variant`` before the
+launch, a rule on ``(n, k, strides)`` alone:
+
+* ``"pull"`` where ``indices_unique`` holds (every main-path shape: n a
+  power of two, or an int32 sum that never wraps, as at the paper's
+  n = 5): each kernel walks its output in order with 16-byte stores;
+  the gather steps ``idx_j`` from j to j + 1, the scatter inverts the
+  map, ``j = (i - off) * stride^-1 mod n``.  The scatter writes every
+  element of its plane, so its output is ``torch.empty``; the host
+  passes ``inverse_strides`` beside the strides.
+* ``"push"`` where a row may repeat an index (n not a power of two and
+  the int32 sum wraps): the gather walks j, the scatter writes onto a
+  ``torch.zeros`` plane after a claim pass that keeps the last j.
+
+A launch that the chosen kernel refuses raises; nothing gives way to the
+other variant or to the plain version.  ``launches_pull`` and
+``launches_push`` count each variant, ``launches`` their sum.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -25,12 +46,36 @@ from repro_torch.kernels.sparse_gather import ref
 
 
 def indices_unique(n: int, k: int, strides: tuple) -> bool:
-    """True when no row's index set can repeat an index: the int32 sum
-    ``off + j * stride`` never wraps, or n divides 2^32 (a power of two)
-    so the wrap leaves the residues mod n intact."""
-    if k > n:
+    """True when no row's index set can repeat an index: k <= n, every
+    stride coprime to n, and the int32 sum ``off + j * stride`` never
+    wraps, or n divides 2^32 (a power of two) so the wrap leaves the
+    residues mod n intact.  Then ``j -> (off + j * stride) mod n`` is a
+    bijection of Z_n, inverted by ``inverse_strides``."""
+    if k > n or any(math.gcd(s, n) != 1 for s in strides):
         return False
-    return n & (n - 1) == 0 or (n - 1) + (k - 1) * max(strides) < 2 ** 31
+    return (n & (n - 1) == 0
+            or (n - 1) + (k - 1) * max(abs(s) for s in strides) < 2 ** 31)
+
+
+@functools.lru_cache(maxsize=64)
+def inverse_strides(n: int, strides: tuple) -> tuple:
+    """``stride^-1 mod n`` of each stride of the static table (raises
+    ValueError for a stride not coprime to n).  Cached per table: the
+    pull scatter's second kernel-argument table."""
+    return tuple(pow(s % n, -1, n) for s in strides)
+
+
+@functools.lru_cache(maxsize=256)
+def variant(n: int, k: int, strides: tuple) -> str:
+    """K2/K3's variant for these shapes: "pull" or "push" (module doc).
+    Cached: a wrapper asks on every launch, for a few static tables."""
+    return "pull" if indices_unique(n, k, strides) else "push"
+
+
+def _count(wrapper, kind: str) -> None:
+    setattr(wrapper, f"launches_{kind}",
+            getattr(wrapper, f"launches_{kind}") + 1)
+    wrapper.launches += 1
 
 
 def randk_gather_plane(seed, sids, rids, x, *, k, strides):
@@ -41,43 +86,63 @@ def randk_gather_plane(seed, sids, rids, x, *, k, strides):
     lead, n, xf = _build.rows(x, "x", torch.float32)
     m = xf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
+    strides = tuple(strides)
+    kind = variant(n, k, strides)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     _build.launch(
-        "randk_gather_plane", xf.data_ptr(), m, n, k, seed[0], seed[1],
+        f"randk_gather_{kind}", xf.data_ptr(), m, n, k, seed[0], seed[1],
         _build.id_ptr(sid, m, x.device), _build.id_ptr(rid, m, x.device),
         _build.stride_table(strides), len(strides), out.data_ptr(),
     )
-    randk_gather_plane.launches += 1
+    _count(randk_gather_plane, kind)
     return out.reshape(lead + (k,))
 
 
+# launches of each variant; ``launches`` is their sum
 randk_gather_plane.launches = 0
+randk_gather_plane.launches_pull = 0
+randk_gather_plane.launches_push = 0
 
 
 def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
     """RandK decompress of ``v [..., k]``: ``gain * v`` written at each
-    message's index set on a zero ``[..., n]`` plane."""
+    message's index set of an ``[..., n]`` plane, +0.0 elsewhere.  The
+    pull variant writes every element of a ``torch.empty`` plane; the
+    push variant scatters onto ``torch.zeros``, after a claim pass where
+    an index may repeat."""
     if v.device.type == "cpu":
         return ref.randk_scatter_plane_ref(seed, sids, rids, v, n=n,
                                            gain=gain, strides=strides)
     lead, k, vf = _build.rows(v, "v", torch.float32)
     m = vf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
+    strides = tuple(strides)
+    ids = (_build.id_ptr(sid, m, v.device), _build.id_ptr(rid, m, v.device))
+    if variant(n, k, strides) == "pull":
+        out = torch.empty((m, n), dtype=torch.float32, device=v.device)
+        _build.launch(
+            "randk_scatter_pull", vf.data_ptr(), m, n, k, float(gain),
+            seed[0], seed[1], *ids, _build.stride_table(strides),
+            _build.stride_table(inverse_strides(n, strides)), len(strides),
+            out.data_ptr(),
+        )
+        _count(randk_scatter_plane, "pull")
+        return out.reshape(lead + (n,))
     out = torch.zeros((m, n), dtype=torch.float32, device=v.device)
     winner = (None if indices_unique(n, k, strides) else
               torch.full((m, n), -1, dtype=torch.int32, device=v.device))
     _build.launch(
-        "randk_scatter_plane", vf.data_ptr(), m, n, k, float(gain), seed[0],
-        seed[1], _build.id_ptr(sid, m, v.device),
-        _build.id_ptr(rid, m, v.device), _build.stride_table(strides),
-        len(strides), None if winner is None else winner.data_ptr(),
-        out.data_ptr(),
+        "randk_scatter_push", vf.data_ptr(), m, n, k, float(gain), seed[0],
+        seed[1], *ids, _build.stride_table(strides), len(strides),
+        None if winner is None else winner.data_ptr(), out.data_ptr(),
     )
-    randk_scatter_plane.launches += 1
+    _count(randk_scatter_plane, "push")
     return out.reshape(lead + (n,))
 
 
 randk_scatter_plane.launches = 0
+randk_scatter_plane.launches_pull = 0
+randk_scatter_plane.launches_push = 0
 
 
 def _index_rows(idx, lead, k, device):

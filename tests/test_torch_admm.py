@@ -103,6 +103,23 @@ def test_one_round_matches_reference(ref_spec, port_spec, tmp_path):
                                    err_msg=f)
 
 
+@pytest.mark.parametrize("sampler", ["stride", "block"])
+def test_fig1_randk_rows_match_reference(sampler):
+    """Fig. 1's RandK rows (eta 0.5, fraction 0.6) through the plane
+    route's kernels' plain versions: rounds_to_tol 100 at 48 B/round, as
+    the reference's Pallas route gives (chip_smoke.py holds the card to
+    these numbers)."""
+    spec = f"ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler={sampler}"
+    idx, g = jrun_solver(JPROB, JDATA, _ref_solver(spec + ",impl=pallas"),
+                         110)
+    ts = _port_solver(spec + ",impl=kernel")
+    tidx, tg = run_solver(PROB, DATA_NP, ts, 110)
+    np.testing.assert_array_equal(tidx, np.asarray(idx))
+    assert rounds_to_tol(tidx, tg, 1e-8) == 100 == rounds_to_tol(
+        idx, np.asarray(g), 1e-8)
+    assert ts.wire_bytes({"x": np.zeros(5, np.float32)}) == 48
+
+
 def test_state_from_numpy_takes_the_state_tuple():
     js = _ref_solver("ltadmm:eta=0.5,compressor=qbit:bits=8,impl=jnp")
     st = jax.tree.map(np.asarray, js.init(jnp.ones((PROB.n_agents, PROB.n))))

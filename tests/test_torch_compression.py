@@ -38,6 +38,7 @@ from repro_torch.core import jaxrand  # noqa: E402
 from repro_torch.kernels import prng  # noqa: E402
 from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
 from repro_torch.kernels.sparse_gather import ops as sg_ops  # noqa: E402
+from repro_torch.kernels.sparse_gather import ref as sg_ref  # noqa: E402
 
 JSEED = jprng.key_seed(jax.random.key(7))
 SEED = tuple(int(w) for w in JSEED)
@@ -186,6 +187,131 @@ def test_indices_unique_rule():
     assert not sg_ops.indices_unique(1_000_003, 250_001,
                                      prng.coprime_strides(1_000_003))
     assert sg_ops.indices_unique(1_000_003, 250_001, (1,))
+
+
+@pytest.mark.parametrize("n", [5, 3000, 2 ** 16, 100_003, 1_000_003])
+def test_inverse_strides(n):
+    for strides in (prng.coprime_strides(n), (1,)):
+        inv = sg_ops.inverse_strides(n, strides)
+        assert len(inv) == len(strides)
+        assert all(s * t % n == 1 and 0 <= t < n
+                   for s, t in zip(strides, inv))
+    with pytest.raises(ValueError):
+        sg_ops.inverse_strides(3000, (3,))
+
+
+# The pull kernels of csrc/randk_plane.cu, written out in int64 step for
+# step: a thread owns 4 consecutive outputs of a row, p0 = 4 g - lead
+# (lead: the row's start past a 16-byte boundary), clipped to the row.
+
+
+def _pull_groups(length, lead):
+    p0 = torch.arange((length + 3 + 3) // 4) * 4 - lead
+    return p0, p0.clamp_min(0)
+
+
+def _add_mod(t, d, n):
+    if n & (n - 1) == 0:
+        return (t + d) & (n - 1)
+    t = t + d
+    return torch.where(t >= n, t - n, t)
+
+
+def _pull_map(seed, sids, rids, n, strides):
+    es = prng.fold(seed, prng.u32(sids), prng.u32(rids))
+    slot = prng.derive_stride_slot(es, len(strides))
+    return (prng.derive_offset(es, n),
+            torch.as_tensor(strides, dtype=torch.int64)[slot],
+            torch.as_tensor(sg_ops.inverse_strides(n, strides),
+                            dtype=torch.int64)[slot])
+
+
+def _pull_gather_indices(seed, sids, rids, n, k, strides):
+    """idx_j as the pull gather walks it: the index at a thread's first j
+    (a mask for a power of two, else the unwrapped int32 sum's floor-mod),
+    then + stride mod n by a conditional subtract."""
+    off, stride, _ = _pull_map(seed, sids, rids, n, strides)
+    out = torch.full((len(off), k), -1, dtype=torch.int64)
+    for m in range(len(off)):
+        p0, first = _pull_groups(k, m * k % 4)
+        u = off[m] + first * stride[m]
+        idx = (u & prng.MASK & (n - 1) if n & (n - 1) == 0
+               else prng.wrap_i32(u) % n)
+        step = int(stride[m]) % n
+        for e in range(4):
+            pos = p0 + e
+            ok = (pos >= 0) & (pos < k)
+            out[m, pos[ok]] = idx[ok]
+            idx = torch.where(ok, _add_mod(idx, step, n), idx)
+    return out
+
+
+def _pull_scatter(seed, sids, rids, v, n, gain, strides):
+    """K3's pull kernel: j(i) = (i - off) * stride^-1 mod n once a thread
+    (uint32 and a mask for a power of two, else 64 bits), then
+    + stride^-1 mod n; out[i] = gain * v[j] where j < k, else +0.0."""
+    k = v.shape[-1]
+    off, _, inv = _pull_map(seed, sids, rids, n, strides)
+    g = torch.tensor(gain, dtype=torch.float32)
+    out = torch.full((len(off), n), float("nan"))
+    for m in range(len(off)):
+        p0, first = _pull_groups(n, m * n % 4)
+        if n & (n - 1) == 0:
+            j = ((first - off[m]) & prng.MASK) * inv[m] & prng.MASK & (n - 1)
+        else:
+            r = torch.where(first >= off[m], first - off[m],
+                            first + n - off[m])
+            j = r * inv[m] % n
+        for e in range(4):
+            pos = p0 + e
+            ok = (pos >= 0) & (pos < n)
+            val = torch.where(j < k, g * v[m, j.clamp(max=k - 1)],
+                              torch.tensor(0.0))
+            out[m, pos[ok]] = val[ok]
+            j = torch.where(ok, _add_mod(j, int(inv[m]), n), j)
+    return out
+
+
+@pytest.mark.parametrize("n,k,sampler", [
+    (2 ** 16, round(0.6 * 2 ** 16), "stride"),  # power of two, sum wraps
+    (3000, 1100, "stride"),  # no wrap
+    (3001, 1101, "stride"),  # rows start off 16-byte boundaries
+    (3000, 1100, "block")])
+def test_pull_kernels_step_for_step(n, k, sampler):
+    strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+    wraps = (n - 1) + (k - 1) * max(strides) >= 2 ** 31
+    assert wraps == (n == 2 ** 16)
+    assert sg_ops.variant(n, k, strides) == "pull"
+    sids, rids = (torch.from_numpy(a.reshape(-1).astype(np.int64))
+                  for a in _ids())
+    idx = _pull_gather_indices(SEED, sids, rids, n, k, strides)
+    es = prng.fold(SEED, prng.u32(sids), prng.u32(rids))
+    assert torch.equal(idx, prng.affine_indices(es, n, k, strides))
+    v = torch.from_numpy(_x((len(sids), k), n))
+    v[:, ::5] = -0.0
+    got = _pull_scatter(SEED, sids, rids, v, n, n / k, strides)
+    want = sg_ref.randk_scatter_plane_ref(SEED, sids, rids, v, n=n,
+                                          gain=n / k, strides=strides)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((torch.signbit(got) & (got == 0)).sum()) == \
+        len(sids) * len(range(0, k, 5))
+
+
+@pytest.mark.parametrize("n,k,strides,kind", [
+    (2 ** 16, round(0.6 * 2 ** 16), "stride", "pull"),
+    (2 ** 20, 629_146, "stride", "pull"),
+    (3000, 1100, "stride", "pull"),
+    (5, 3, "stride", "pull"),
+    (1_000_003, 250_001, "block", "pull"),
+    (100_003, 100_003 // 4, "stride", "push"),
+    (1_000_003, 250_001, "stride", "push"),
+    (3000, 1100, (3,), "push"),  # not coprime: the set repeats
+    (64, 65, "block", "push")])  # k > n
+def test_variant_rule(n, k, strides, kind):
+    strides = {"block": (1,), "stride": prng.coprime_strides(n)}.get(
+        strides, strides)
+    assert sg_ops.variant(n, k, strides) == kind
+    assert sg_ops.indices_unique(n, k, strides) == (kind == "pull")
 
 
 SPECS = ["identity", "qbit:bits=8", "qbit:bits=4",

@@ -86,17 +86,33 @@ def test_quantize_plane(h100, n, bits):
 @pytest.mark.parametrize("n", [2 ** 20, 100_003])
 @pytest.mark.parametrize("sampler", ["block", "stride"])
 def test_randk_plane(h100, n, sampler):
+    """K2/K3 bit for bit (-0.0 kept) against their plain versions: the
+    pull variant at 2^20 and for the block sampler, the push variant at
+    100,003 with the stride sampler, whose int32 sum wraps; each
+    variant's counter shows which ran."""
     sid, rid = _ids(h100)
     k = n // 4
     strides = (1,) if sampler == "block" else prng.coprime_strides(n)
+    kind = "push" if (n, sampler) == (100_003, "stride") else "pull"
+    assert sg_ops.variant(n, k, strides) == kind
     x = torch.randn((20, n), device=h100)
+    x[:, ::7] = -0.0
+    counts = {(f, a): getattr(f, a) for f in (sg_ops.randk_gather_plane,
+                                              sg_ops.randk_scatter_plane)
+              for a in ("launches", "launches_pull", "launches_push")}
     v = sg_ops.randk_gather_plane(SEED, sid, rid, x, k=k, strides=strides)
-    assert torch.equal(v, sg_ref.randk_gather_plane_ref(
-        SEED, sid, rid, x, k=k, strides=strides))
+    want_v = sg_ref.randk_gather_plane_ref(SEED, sid, rid, x, k=k,
+                                           strides=strides)
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+    assert bool(((v == 0) & torch.signbit(v)).any())  # -0.0 carried
     out = sg_ops.randk_scatter_plane(SEED, sid, rid, v, n=n, gain=n / k,
                                      strides=strides)
-    assert torch.equal(out, sg_ref.randk_scatter_plane_ref(
-        SEED, sid, rid, v, n=n, gain=n / k, strides=strides))
+    want = sg_ref.randk_scatter_plane_ref(SEED, sid, rid, v, n=n,
+                                          gain=n / k, strides=strides)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    for (f, a), c in counts.items():
+        ran = a == "launches" or a == f"launches_{kind}"
+        assert getattr(f, a) == c + ran, (f.__name__, a)
 
 
 # raw keys whose jax.random.bits word at element j rounds kappa to 1.0
@@ -186,6 +202,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     with pytest.raises(ValueError):
         sg_ops.randk_scatter_plane(SEED, sid, rid, x[:, ::2], n=64, gain=2.0,
                                    strides=(1,))
+    # the pull kernels refuse a plane whose index steps could be inexact
+    # (n not a power of two, the int32 sum wraps) or a wrong inverse
+    from repro_torch.kernels import _build
+
+    sid32, rid32 = sid.contiguous(), rid.contiguous()
+    odd = (3, 2 ** 30 + 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("randk_gather_pull", x.data_ptr(), 20, 63, 8, 1, 2,
+                      sid32.data_ptr(), rid32.data_ptr(),
+                      _build.stride_table(odd), 2, x.data_ptr())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("randk_scatter_pull", x.data_ptr(), 20, 64, 8, 1.0, 1,
+                      2, sid32.data_ptr(), rid32.data_ptr(),
+                      _build.stride_table((3,)), _build.stride_table((5,)),
+                      1, x.data_ptr())
     keys = jaxrand.split(jaxrand.key(0), 20)
     with pytest.raises(TypeError):
         q_ops.quantize_tensor(keys, x.double())
