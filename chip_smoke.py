@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero):
   1. device: the card's name, capability, and nvidia-smi's name and
      power limit;
-  2. build: every CUDA kernel of the port from ``src/repro_torch/csrc``,
-     and the SASS instruction count of one Threefry block (cuobjdump of
+  2. build: every CUDA kernel of the port from ``src/repro_torch/csrc``
+     and, beside them, the first K6/K7 designs (the yardstick, from
+     ``tools/gather_scatter_probe.py``), and the SASS instruction count,
+     by the pipes that may issue each, of one Threefry block (cuobjdump of
      a probe built with the kernels' flags), which the bounds use; the
      tensor-core K10's SASS (wgmma, TMA and mbarrier instructions, which
      every instantiation must have);
@@ -17,7 +19,11 @@ Phases (any failure exits non-zero):
      gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
      n = 1,000,003 (K2/K3: the pull variant, and the push variant where
      the stride sampler's int32 sum wraps at 1,000,003, each case's
-     variant asserted by its counter); K10 flash attention at the
+     variant asserted by its counter; K6/K7 on int64 rows read in place
+     and on int32 rows, at k = n / 4 and k = 1, with -0.0 values and one
+     index outside [0, n), through each K7 variant the rows allow and
+     the first designs, and at n = 2^26 + 5, which K7 scatters in
+     windows); K10 flash attention at the
      served models' prefill shapes (causal, a 512 window, a ragged
      kv length; f32 through the CUDA-core variant within 2e-5, bf16
      through the tensor-core variant and, at a misaligned base, through
@@ -49,12 +55,14 @@ Phases (any failure exits non-zero):
      those runs (wrapper and bare launch) beside its bound, its plain
      version and the PyTorch library call where one exists; K2/K3 also
      with the push kernels forced on the same inputs, in turns, and
-     with the block sampler;
+     with the block sampler; K6/K7 at the RandK-uniform and TopK shapes
+     beside the first designs, in turns; K1 also at drop0.3's
+     [150, 2^20];
   6. profile: torch.profiler over three n = 2^20 rounds of the static
-     qbit8 round, the RandK-stride round, the drop0.3 schedule round, the
-     churn0.2 tree round and CHOCO's drop0.3 iteration: device time by
-     kernel and operator, the device's idle share, and the share of the
-     port's plane kernels (K1-K3);
+     qbit8 round, the RandK-stride and RandK-uniform rounds, CHOCO TopK,
+     the drop0.3 schedule round, the churn0.2 tree round and CHOCO's
+     drop0.3 iteration: device time by kernel and operator, the device's
+     idle share, and the share of the port's kernels (K1-K3, K6/K7);
   serve. qwen3-0.6b and zamba2-2.7b at full width, bf16 weights from the
      port's init_params: the prefill step with use_flash (B = 4 / 2,
      T = 2048) with counters zeroed just before and read just after (28
@@ -91,19 +99,62 @@ FP32_OPS_PER_S = 67e12  # non-tensor fp32, NVIDIA data sheet
 # dense bf16 on the tensor cores (f32 accumulation), NVIDIA data sheet:
 # the rate of a product of two bf16 operands, exact in f32
 BF16_OPS_PER_S = 989e12
-# 32-bit integer instructions: the data sheet gives no rate.  An SM issues
-# at most one warp instruction per clock in each of its 4 partitions, 128
-# thread-instructions per clock in all; the least time takes that rate on
-# 132 SMs at the 1.98 GHz boost clock.
-INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# 32-bit integer instructions, counted by the pipes that can issue them.
+# NVIDIA's throughput table for compute capability 9.0 gives 64 a clock
+# per SM for 32-bit integer shift, compare and bitwise ops, which only the
+# ALU pipe issues (LOP3, SHF, ISETP, SEL, ...), and 64 for multiply-add,
+# which only the FMA pipe issues (IMAD with a real multiply).  An add or a
+# move may go to either pipe: ptxas writes one as IADD3 / VIADD / MOV on
+# the ALU pipe or as IMAD.IADD / IMAD.MOV / IMAD.SHL on the FMA pipe, so
+# both pipes together issue 128 a clock per SM.  The least time of some
+# work is then the largest of its ALU-only count over 64 a clock, its
+# FMA-only count over 64 and its whole count over 128, on 132 SMs at the
+# 1.98 GHz boost clock.  ``tools/gather_scatter_probe.py`` measures the
+# rates on the card: LOP3, SHF and IMAD chains at 63.5-64 a clock per SM,
+# a chain of adds (which ptxas splits between IADD3 and IMAD) and a
+# LOP3/IMAD mix at 123-124.
+INT_PIPE_OPS_PER_S = 64 * 132 * 1.98e9  # one pipe
+
+
+class Pipes(tuple):
+    """Integer instructions of some work by the pipes that may issue them,
+    ``(alu, fma, either)``: ALU-only, FMA-only, and adds and moves that
+    either pipe takes.  Scales by a count and adds, so a per-element count
+    times the elements is the work's count.  A plain number is all
+    ALU-only."""
+
+    def __new__(cls, alu, fma=0, either=0):
+        return super().__new__(cls, (alu, fma, either))
+
+    def __mul__(self, c):
+        return Pipes(*(a * c for a in self))
+
+    __rmul__ = __mul__
+
+    def __add__(self, other):
+        o = other if isinstance(other, Pipes) else Pipes(other)
+        return Pipes(*(a + b for a, b in zip(self, o)))
+
+    __radd__ = __add__
+
+    def seconds(self):
+        """The least time: the busier pipe, with the adds and moves spread
+        over both."""
+        alu, fma, either = self
+        return max(alu, fma, (alu + fma + either) / 2) / INT_PIPE_OPS_PER_S
+
+
 # SASS instructions of one Threefry-2x32-20 block as K1 draws it (counter
-# word 1 zero, seed fixed per thread, only word 0 kept): counted by
-# ``phase_sass`` from cuobjdump of a probe built with the kernels' flags.
+# word 1 zero, seed fixed per thread, only word 0 kept), by pipe: counted
+# by ``phase_sass`` from cuobjdump of a probe built with the kernels'
+# flags.
 TF_OPS = None
 # the same for one jax.random.bits word as K4 draws it (counter (0, j),
 # both output words XORed)
 TF_LEAF_OPS = None
-IDX_OPS = 3  # int32 ops of one affine index: multiply, add, remainder
+# the pull kernels' index step an element (K2/K3): an add (either pipe)
+# and a mask or a conditional subtract (ALU)
+IDX_OPS = Pipes(1, 0, 1)
 # exps on the special-function units: 16 per SM per clock (4 per SM
 # sub-partition), 132 SMs at the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
@@ -164,6 +215,8 @@ ODD_N = 1_000_003
 PAPER_ROUNDS, WIDE_ROUNDS = 600, 20
 DEV = "cuda"
 ERRS: dict = {}  # kernel -> max |kernel - plain| over phase 3
+# ``call(entry, *args)`` of the first K6/K7 designs' library (phase_build)
+YARDSTICK = None
 CARD = None  # nvidia-smi's name and power limit, beside every time
 
 
@@ -197,13 +250,15 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def bound_ms(nbytes, int_ops=0, fp_ops=0, bf16_ops=0, sfu_ops=0):
     """Least time for the work: bytes over HBM rate vs operations over
-    their type's peak rate (``fp_ops`` with an f32 operand on the CUDA
+    their type's peak rate (``int_ops`` a ``Pipes`` count, or a number of
+    ALU-only instructions; ``fp_ops`` with an f32 operand on the CUDA
     cores, ``bf16_ops`` of two bf16 operands on the tensor cores,
     ``sfu_ops`` exps on the special-function units; each type on its own
     units, so the slowest sets the time); returns (ms, "bytes" |
     "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S,
+    int_ops = int_ops if isinstance(int_ops, Pipes) else Pipes(int_ops)
+    t_ops = max(int_ops.seconds(), fp_ops / FP32_OPS_PER_S,
                 bf16_ops / BF16_OPS_PER_S, sfu_ops / SFU_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -232,13 +287,37 @@ def phase_device():
     return name, smi
 
 
+def load_tool(name):
+    """The module ``tools/<name>.py`` of this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_build():
+    """Every source of the package, one nvcc each, and beside them the
+    first K6/K7 designs (the yardstick, built by
+    ``tools/gather_scatter_probe.py``), all started together; sets
+    YARDSTICK."""
+    global YARDSTICK
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
+    probe = load_tool("gather_scatter_probe")
     t0 = time.perf_counter()
-    report = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        first = pool.submit(probe.build, str(_build.BUILD_DIR / "yardstick"),
+                            ("base",))
+        report = _build.build()
+        YARDSTICK = probe.caller(first.result()["base"])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall, "
-        f"{len(report)} sources compiled into {_build.BUILD_DIR}")
+        f"{len(report)} sources compiled into {_build.BUILD_DIR}, the "
+        "first K6/K7 designs beside them")
     for stem, (secs, ptxas) in sorted(report.items()):
         log(f"[build] {stem}.cu {secs:.2f} s")
         for line in ptxas.splitlines():
@@ -246,8 +325,9 @@ def phase_build():
                 log(f"[ptxas] {line.strip()}")
 
 
-def sass_counts(cubin):
-    """{kernel: {opcode: count}} of a cubin's SASS (NOPs left out)."""
+def sass_counts(cubin, suffixes=False):
+    """{kernel: {opcode: count}} of a cubin's SASS (NOPs left out); with
+    ``suffixes`` the opcodes keep theirs (``IMAD.MOV.U32``)."""
     import re
     from pathlib import Path
 
@@ -263,16 +343,66 @@ def sass_counts(cubin):
         if head:
             fn = counts.setdefault(head.group(1), {})
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
-                       line)
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)"
+                       + (r"((?:\.\w+)*)" if suffixes else ""), line)
         if fn is not None and ins and ins.group(1) != "NOP":
-            fn[ins.group(1)] = fn.get(ins.group(1), 0) + 1
+            op = ins.group(0).split()[-1] if suffixes else ins.group(1)
+            fn[op] = fn.get(op, 0) + 1
     return counts
+
+
+# SASS opcodes (with suffixes) by the pipe that issues them.  Adds and
+# moves go to either pipe (IMAD.IADD / .MOV / .SHL are an add, a move and a
+# shift by a constant written as a multiply-add); a real multiply-add and
+# the float ops only to the FMA pipe; the uniform datapath (U...: once a
+# warp, on its own pipe), branch control and constant loads to neither, so
+# they are left out of the count; every other opcode only to the ALU pipe.
+EITHER_PIPE = ("IADD3", "VIADD", "IADD", "MOV", "LEA", "IMAD.IADD", "IMAD.MOV",
+               "IMAD.SHL")
+FMA_PIPE = ("IMAD", "FFMA", "FMUL", "FADD")
+NO_INT_PIPE = ("BSSY", "BSYNC", "BRA", "EXIT", "LDC")
+
+
+def pipe_of(op):
+    """"either", "fma", "alu" or None (no integer pipe) for a SASS opcode
+    with its suffixes."""
+    base = op.split(".")[0]
+    if any(op == e or op.startswith(e + ".") for e in EITHER_PIPE):
+        return "either"
+    if base in FMA_PIPE:
+        return "fma"
+    if base.startswith("U") or base in NO_INT_PIPE:
+        return None
+    return "alu"
+
+
+def sass_pipes(one, two, what):
+    """The instructions of one block: ``two`` less ``one`` (a kernel's
+    opcode counts, with suffixes, with two blocks a loop step and with
+    one), less the xor that joins the two, as ``Pipes``."""
+    delta = {op: two.get(op, 0) - one.get(op, 0)
+             for op in sorted(set(one) | set(two))}
+    delta = {op: v for op, v in delta.items() if v}
+    xor = next(op for op in delta if op.startswith("LOP3"))
+    delta[xor] -= 1  # the joining xor
+    by = {"alu": 0, "fma": 0, "either": 0, None: 0}
+    for op, v in delta.items():
+        by[pipe_of(op)] += v
+    total = by["alu"] + by["fma"] + by["either"]
+    log(f"[sass] {what}: {total} integer-pipe instructions, {by['alu']} "
+        f"only on the ALU pipe, {by['fma']} only on the FMA pipe, "
+        f"{by['either']} adds and moves on either; {by[None]} left out "
+        f"(uniform datapath, branch control, constant loads) (two "
+        f"{sum(two.values())} - one {sum(one.values())} - 1 xor); by opcode "
+        f"{delta}")
+    if not 20 <= total <= 120:
+        raise AssertionError(f"implausible Threefry count {total}")
+    return Pipes(by["alu"], by["fma"], by["either"])
 
 
 def phase_sass():
     """Count the SASS instructions of one Threefry block as K1 and as K4
-    draw it (sets TF_OPS and TF_LEAF_OPS)."""
+    draw it, by pipe (sets TF_OPS and TF_LEAF_OPS)."""
     global TF_OPS, TF_LEAF_OPS
     from repro_torch.kernels import _build
 
@@ -282,23 +412,11 @@ def phase_sass():
     subprocess.run([_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
                     "-cubin", f"-I{_build._CSRC}", "-o", str(cubin), str(src)],
                    check=True, capture_output=True, timeout=300)
-    counts = sass_counts(cubin)
-    one, two = counts["one_block"], counts["two_blocks"]
-    delta = {op: two.get(op, 0) - one.get(op, 0)
-             for op in sorted(set(one) | set(two))}
-    TF_OPS = sum(two.values()) - sum(one.values()) - 1  # the joining xor
-    log(f"[sass] one Threefry block as K1 draws it: {TF_OPS} instructions "
-        f"(two_blocks {sum(two.values())} - one_block {sum(one.values())}"
-        f" - 1 xor); by opcode {({k: v for k, v in delta.items() if v})}")
-    if not 20 <= TF_OPS <= 120:
-        raise AssertionError(f"implausible Threefry count {TF_OPS}")
-    one, two = counts["one_leaf"], counts["two_leaf"]
-    TF_LEAF_OPS = sum(two.values()) - sum(one.values()) - 1
-    log(f"[sass] one jax.random.bits word as K4 draws it: {TF_LEAF_OPS} "
-        f"instructions (two_leaf {sum(two.values())} - one_leaf "
-        f"{sum(one.values())} - 1 xor)")
-    if not 20 <= TF_LEAF_OPS <= 120:
-        raise AssertionError(f"implausible Threefry count {TF_LEAF_OPS}")
+    counts = sass_counts(cubin, suffixes=True)
+    TF_OPS = sass_pipes(counts["one_block"], counts["two_blocks"],
+                        "one Threefry block as K1 draws it")
+    TF_LEAF_OPS = sass_pipes(counts["one_leaf"], counts["two_leaf"],
+                             "one jax.random.bits word as K4 draws it")
     k10_sass()
 
 
@@ -578,53 +696,142 @@ def check_k45(dev):
                 "planted saturating element")
 
 
+def hold_k67(x, rows, n, gain, variants, label):
+    """K6 and K7 (each variant of ``variants``, each asserted by its
+    counter) on index rows ``rows`` bit for bit against their plain
+    versions, with -0.0 planted in every third value; on the card also
+    the first designs on the same rows (int32, K7 onto a zeroed plane).
+    Returns K6's output."""
+    import torch
+
+    from repro_torch.kernels.sparse_gather import ops, ref
+
+    v = ops.sparse_gather(x, rows)
+    sync()
+    vw = ref.sparse_gather_ref(x, rows)
+    note_err("K6", v, vw)
+    if not same_bits(v, vw):
+        raise AssertionError(f"K6 {label}: mismatch")
+    vals = v.clone()
+    vals[:, ::3] = -0.0
+    want = ref.sparse_scatter_ref(vals, rows, n, gain)
+    for kind in variants:
+        before = read_counts()
+        out = ops.sparse_scatter(vals, rows, n, gain,
+                                 unique=kind == "unique")
+        sync()
+        ran = {c: read_counts()[c] - before[c] for c in before
+               if c.startswith("sparse_scatter")}
+        if DEV == "cuda" and ran != {"sparse_scatter": 1,
+                                     f"sparse_scatter_{kind}": 1,
+                                     **{f"sparse_scatter_{o}": 0
+                                        for o in ("unique", "claim")
+                                        if o != kind}}:
+            raise AssertionError(f"K7 {label}: launches {ran}, expected one "
+                                 f"{kind}")
+        note_err("K7", out, want)
+        if not same_bits(out, want):
+            raise AssertionError(f"K7 {label} {kind}: mismatch")
+    if DEV == "cuda":
+        m, k = vals.shape
+        r32 = rows.to(torch.int32).contiguous()
+        first = torch.empty((m, k), device=x.device)
+        YARDSTICK("sparse_gather_first", x.data_ptr(), m, n, r32.data_ptr(), k,
+                  first.data_ptr())()
+        plane = torch.zeros((m, n), device=x.device)
+        winner = (None if "unique" in variants else
+                  torch.full((m, n), -1, dtype=torch.int32, device=x.device))
+        YARDSTICK("sparse_scatter_first", vals.data_ptr(), r32.data_ptr(), m,
+                  n, k, float(gain),
+                  None if winner is None else winner.data_ptr(),
+                  plane.data_ptr())()
+        sync()
+        if not (same_bits(first, vw) and same_bits(plane, want)):
+            raise AssertionError(f"K6/K7 first designs {label}: mismatch")
+    return v
+
+
 def check_k67(dev):
     """K6/K7 on the index sets of the per-message route: RandK uniform on
-    the LT-ADMM z-plane [20, n], TopK on [10, n], and RandK stride at n =
-    1,000,003, where the int32 wrap repeats indices and K7 runs its claim
-    pass."""
+    the LT-ADMM z-plane [20, n] (n = 2^20 and ODD_N), TopK on [10, n],
+    and RandK stride at n = 1,000,003, where the int32 wrap repeats
+    indices and only K7's claim variant may run; each at k = n / 4 and
+    k = 1, the rows as the callers hold them (int64 prefixes of [..., n],
+    read in place) and as int32, and with one index outside [0, n) (K6
+    gives 0, K7 skips it).  K7 through each variant the rows allow, the
+    first designs beside them (``hold_k67``).  On the card also uniform
+    rows at n = 2^26 + 5, which K7 scatters in windows."""
     import torch
 
     from repro_torch.core import jaxrand
     from repro_torch.kernels import prng
-    from repro_torch.kernels.sparse_gather import ops, ref
+    from repro_torch.kernels.sparse_gather import ops
 
     g = torch.Generator(device=dev).manual_seed(4)
     # the stride case keeps n = 1,000,003 in the rehearsal too: a smaller
     # n never wraps
     for n, kind, m in ((WIDE_N, "uniform", 20), (ODD_N, "uniform", 20),
                        (WIDE_N, "topk", 10), (1_000_003, "stride", 20)):
-        k = max(1, round(0.25 * n))
         x = torch.randn((m, n), generator=g, device=dev)
+        x[:, ::11] = -0.0
         keys = jaxrand.split(jaxrand.key(n), m).to(dev)
         strides = prng.coprime_strides(n)
-        if kind == "uniform":
-            idx = jaxrand.permutation(keys, n)[..., :k]
-        elif kind == "topk":
-            idx = torch.sort(x.abs(), dim=-1, descending=True,
-                             stable=True).indices[..., :k]
-        else:
-            idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k, strides)
-        gain = 1.0 if kind == "topk" else n / k
-        unique = kind != "stride" or ops.indices_unique(n, k, strides)
-        v = ops.sparse_gather(x, idx)
-        sync()
-        vw = ref.sparse_gather_ref(x, idx)
-        note_err("K6", v, vw)
-        if not torch.equal(v, vw):
-            raise AssertionError(f"K6 n={n} {kind}: mismatch")
-        out = ops.sparse_scatter(v, idx, n, gain, unique=unique)
-        sync()
-        ow = ref.sparse_scatter_ref(v, idx, n, gain)
-        note_err("K7", out, ow)
-        if not torch.equal(out, ow):
-            raise AssertionError(f"K7 n={n} {kind}: mismatch")
-        dup = int(sum(k - torch.unique(r).numel() for r in idx))
-        log(f"[kernels] K6/K7 gather/scatter [{m}, {n}] k={k} {kind}: "
-            f"bit-equal; claim pass {'off' if unique else 'on'}, {dup} "
-            "repeated indices")
-        if kind == "stride" and not (dup > 0 and not unique):
-            raise AssertionError("K7 stride case missed the int32 wrap")
+        for k in (max(1, round(0.25 * n)), 1):
+            if kind == "uniform":
+                idx = jaxrand.permutation(keys, n)[..., :k]
+            elif kind == "topk":
+                idx = torch.sort(x.abs(), dim=-1, descending=True,
+                                 stable=True).indices[..., :k]
+            else:
+                idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k,
+                                          strides)
+            gain = 1.0 if kind == "topk" else n / k
+            unique = kind != "stride" or ops.indices_unique(n, k, strides)
+            variants = ("unique", "claim") if unique else ("claim",)
+            far = idx.clone()
+            far[1, k // 2] = n + 3 if k > 1 else -2
+            for rows, what in ((idx, f"{idx.dtype} prefix"),
+                               (idx.to(torch.int32), "int32"),
+                               (far, "an index outside [0, n)")):
+                v = hold_k67(x, rows, n, gain, variants,
+                             f"[{m}, {n}] k={k} {kind} {what}")
+            if float(v[1, k // 2]) != 0.0:
+                raise AssertionError("K6 read an index outside [0, n)")
+            dup = int(sum(k - torch.unique(r).numel() for r in idx))
+            log(f"[kernels] K6/K7 gather/scatter [{m}, {n}] k={k} {kind}: "
+                f"bit-equal on int64 rows in place, int32 rows and one "
+                f"index outside [0, n), -0.0 kept; K7 variants "
+                f"{'/'.join(variants)}"
+                f"{', first designs too' if DEV == 'cuda' else ''}; {dup} "
+                "repeated indices")
+            if kind == "stride" and k > 1 and not (dup > 0 and not unique):
+                raise AssertionError("K7 stride case missed the int32 wrap")
+    if DEV == "cuda":
+        # rows longer than one window of K7's bin (MAX_SEGS segments: 2^26
+        # elements unique, 2^25 claim), n odd, so that the last window holds
+        # 5 elements off a 16-byte boundary, with an index planted there;
+        # on the card only (the CPU route has no windows)
+        n = (ops.MAX_SEGS << ops.SEG_LOG["unique"]) + 5
+        m, k = 2, n // 8
+        x = torch.randn((m, n), generator=g, device=dev)
+        perm = jaxrand.permutation(jaxrand.split(jaxrand.key(n), m).to(dev), n)
+        for r in range(m):  # n - 1 into the prefix, a swap: still unique
+            at = int((perm[r] == n - 1).nonzero()[0])
+            perm[r, [0, at]] = perm[r, [at, 0]]
+        idx = perm[..., :k]
+        far = idx.clone()
+        far[1, k // 2] = n + 3
+        for rows, what in ((idx, "int64 prefix"), (idx.to(torch.int32),
+                                                   "int32"),
+                           (far, "an index outside [0, n)")):
+            hold_k67(x, rows, n, n / k, ("unique", "claim"),
+                     f"[{m}, {n}] k={k} uniform {what}")
+        windows = {kind: ops.bin_layout(m, n, k, kind)[1]
+                   for kind in ("unique", "claim")}
+        log(f"[kernels] K6/K7 gather/scatter [{m}, {n}] k={k} uniform: "
+            "bit-equal on int64 rows in place, int32 rows and one index "
+            f"outside [0, n), -0.0 kept; K7 in windows {windows}, first "
+            "designs too")
 
 
 def check_k89(dev):
@@ -928,10 +1135,11 @@ def kernel_counters():
 
 # a wrapper's launch counters: ``launches``, and per variant K10's
 # (``launches_tc`` the tensor-core kernel, ``launches_cc`` the CUDA-core
-# one) and K2/K3's (``launches_pull``, ``launches_push``); ``launches`` is
-# the sum of a wrapper's variants
+# one), K2/K3's (``launches_pull``, ``launches_push``) and K7's
+# (``launches_unique``, ``launches_claim``); ``launches`` is the sum of a
+# wrapper's variants
 LAUNCH_ATTRS = ("launches", "launches_tc", "launches_cc", "launches_pull",
-                "launches_push")
+                "launches_push", "launches_unique", "launches_claim")
 
 
 def _attrs(fn):
@@ -1272,14 +1480,20 @@ WIDE_SPECS = (
       "randk_gather_plane_push": 0, "randk_scatter_plane_push": 0}),
     ("lead-qbit8", "lead:lr=0.1,compressor=qbit:bits=8", "sgd",
      ("quantize_tensor", "dequantize_tensor"), "ring", False, None),
+    # 1 K6 and 1 K7 an iteration, K7 through its unique variant
     ("choco-topk", "choco:compressor=topk:fraction=0.25", "sgd",
-     ("sparse_gather", "sparse_scatter"), "ring", False, None),
+     ("sparse_gather", "sparse_scatter"), "ring", False,
+     {"sparse_gather": 1, "sparse_scatter_unique": 1,
+      "sparse_scatter_claim": 0}),
     # Fig. 1's RandK setting with the uniform sampler: at eta = 1 and
     # fraction 0.25 LT-ADMM-CC diverges on this problem, in the reference
     # too
+    # (2 K6 and 4 K7 a round, K7 through its unique variant)
     ("randk-uniform",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=uniform", "saga",
-     ("sparse_gather", "sparse_scatter"), "ring", False, None),
+     ("sparse_gather", "sparse_scatter"), "ring", False,
+     {"sparse_gather": 2, "sparse_scatter_unique": 4,
+      "sparse_scatter_claim": 0}),
     # the packed schedule round: K1 on [10, 15, 2^20] x- and z-planes
     ("drop-qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
      ("quantize_plane",), DROP_SPEC, False, {"quantize_plane": 2}),
@@ -2007,7 +2221,9 @@ def time_serve_kernels(counts):
 # kernel id -> the names of its CUDA kernels (csrc) in a profile
 PROFILED_KERNELS = (("K1", ("quantize8_kernel", "quantize4_kernel")),
                     ("K2", ("randk_gather_",)),
-                    ("K3", ("randk_scatter_", "randk_claim")))
+                    ("K3", ("randk_scatter_", "randk_claim")),
+                    ("K6", ("::gather_kernel<",)),
+                    ("K7", ("::bin_kernel<", "::fill_kernel<")))
 
 
 def phase_profile(label, rounds=3):
@@ -2092,6 +2308,17 @@ def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
         + ("" if "cc_kernel_ms" not in extra else
            f"; the CUDA-core kernel on the same inputs "
            f"{extra['cc_kernel_ms']:.4f} ms")
+        + ("" if "first_ms" not in extra else
+           f"; the first design on the same inputs: wrapper "
+           f"{extra['first_ms']:.4f} ms, bare {extra['first_kernel_ms']:.4f}"
+           " ms"
+           + ("" if "first_fill_kernel_ms" not in extra else
+              f", bare with its zero fill "
+              f"{extra['first_fill_kernel_ms']:.4f} ms")
+           + f" (turns {extra['ms_turns']} / {extra['first_ms_turns']})"
+           + ("" if "variant" not in extra else
+              f"; {extra['variant']} variant, launches by variant "
+              f"{extra['launches_by_variant']}"))
         + ("" if "push_ms" not in extra else
            f"; {extra['variant']} variant, launches by variant "
            f"{extra['launches_by_variant']}; the push kernels on the "
@@ -2233,6 +2460,141 @@ def time_k23(seed, x, sid, rid, sid32, rid32, k, counts):
     return rows
 
 
+def time_k67(x, counts):
+    """K6/K7 rows at the main path's two shapes: the RandK-uniform z-plane
+    [20, 2^20], k = 0.6 n (int64 rows, a ``jaxrand.permutation`` prefix,
+    for both kernels), and CHOCO TopK's [10, 2^20], k = n / 4 (K6 on the
+    int64 rows of a ``torch.sort`` prefix, K7 on the int32 rows of the
+    wire payload, as ``TopK.compress`` and ``decompress`` hand them); each
+    read in place.  The new kernels' wrapper and bare launch (K7 into
+    scratch allocated once), the first designs (``YARDSTICK``) on the
+    same inputs in turns: their wrapper (the int32 conversion, for K7 the
+    zero fill too, then the kernel) and bare launch (K7 onto a plane
+    zeroed once, and with the fill); the plain versions, ``torch.gather``
+    / ``torch.scatter`` on the same rows (int64: the library takes no
+    other), and the bound (the rows read once at their width, the values
+    read and written once; K7 writes the plane)."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sparse_gather import ops as sgops
+    from repro_torch.kernels.sparse_gather import ref as sgref
+
+    dev = x.device
+    n = x.shape[1]
+    rows = []
+    for run, m, frac in (("randk-uniform", 20, 0.6), ("choco-topk", 10, 0.25)):
+        k = round(frac * n)
+        xm = x[:m].contiguous()
+        if run == "randk-uniform":
+            keys = jaxrand.split(jaxrand.key(6), m).to(dev)
+            idx = jaxrand.permutation(keys, n)[..., :k]
+            idx7 = idx
+            gain, what = n / k, "uniform"
+        else:
+            idx = torch.sort(xm.abs(), dim=-1, descending=True,
+                             stable=True).indices[..., :k]
+            idx7 = idx.to(torch.int32)  # the wire payload
+            gain, what = 1.0, "topk"
+        ld, ld7 = idx.stride(0), idx7.stride(0)
+        wide7 = int(idx7.dtype == torch.int64)
+        r32 = idx.to(torch.int32).contiguous()
+        v = sgops.sparse_gather(xm, idx)
+        vg = torch.tensor(gain, dtype=torch.float32, device=dev) * v
+        gout = torch.empty((m, k), device=dev)
+        out = torch.empty((m, n), device=dev)
+        plane = torch.zeros((m, n), device=dev)
+        zeros = torch.zeros((m, n), device=dev)
+        *_, pw, sw = sgops.bin_layout(m, n, k, "unique")
+        scratch = torch.empty(pw + sw, dtype=torch.int32, device=dev)
+
+        def gather_first():
+            r = idx.to(torch.int32).contiguous()
+            o = torch.empty((m, k), device=dev)
+            YARDSTICK("sparse_gather_first", xm.data_ptr(), m, n,
+                      r.data_ptr(), k, o.data_ptr())()
+
+        def scatter_first():
+            r = idx7.to(torch.int32).contiguous()
+            o = torch.zeros((m, n), device=dev)
+            YARDSTICK("sparse_scatter_first", v.data_ptr(), r.data_ptr(), m,
+                      n, k, float(gain), None, o.data_ptr())()
+
+        scatter_first_bare = YARDSTICK(
+            "sparse_scatter_first", v.data_ptr(), r32.data_ptr(), m, n, k,
+            float(gain), None, plane.data_ptr())
+
+        def scatter_first_fill():
+            plane.zero_()
+            scatter_first_bare()
+
+        fns = {
+            "K6": (lambda: sgops.sparse_gather(xm, idx),
+                   lambda: _build.launch("sparse_gather", xm.data_ptr(), m, n,
+                                         idx.data_ptr(), 1, ld, k,
+                                         gout.data_ptr()),
+                   gather_first,
+                   YARDSTICK("sparse_gather_first", xm.data_ptr(), m, n,
+                             r32.data_ptr(), k, gout.data_ptr())),
+            "K7": (lambda: sgops.sparse_scatter(v, idx7, n, gain,
+                                                unique=True),
+                   lambda: _build.launch(
+                       "sparse_scatter", v.data_ptr(), idx7.data_ptr(), wide7,
+                       ld7, m, n, k, float(gain), 0, scratch.data_ptr(),
+                       scratch.data_ptr() + 4 * pw, out.data_ptr()),
+                   scatter_first, scatter_first_fill)}
+        # the bare launches' outputs, once, against the plain versions
+        fns["K6"][1]()
+        fns["K7"][1]()
+        scatter_first_fill()
+        sync()
+        want = sgref.sparse_scatter_ref(v, idx7, n, gain)
+        if not (same_bits(gout, sgref.sparse_gather_ref(xm, idx))
+                and same_bits(out, want) and same_bits(plane, want)):
+            raise AssertionError(f"K6/K7 bare launches at {run}: mismatch")
+        for kid, kname, line, plain, library, nbytes, fops in (
+                ("K6", "sparse_gather", 47,
+                 lambda: sgref.sparse_gather_ref(xm, idx),
+                 lambda: torch.gather(xm, 1, idx),
+                 m * k * (idx.element_size() + 4 + 4), 0),
+                ("K7", "sparse_scatter", 75,
+                 lambda: sgref.sparse_scatter_ref(v, idx7, n, gain),
+                 lambda: torch.scatter(zeros, 1, idx, vg),
+                 m * k * (idx7.element_size() + 4) + m * n * 4, m * k)):
+            wrap, bare, first, first_bare = fns[kid]
+            ms, first_ms, ms_turns, first_turns = turns(wrap, first)
+            kms, first_kms, kms_turns, first_kturns = turns(bare, first_bare)
+            extra = {"ms_turns": ms_turns, "first_ms": first_ms,
+                     "first_ms_turns": first_turns,
+                     "kernel_ms_turns": kms_turns,
+                     "first_kernel_ms": first_kms,
+                     "first_kernel_ms_turns": first_kturns,
+                     "index_dtype": str((idx if kid == "K6" else idx7).dtype)}
+            if kid == "K7":
+                # the first design's bare time as earlier tables gave it,
+                # without the fill
+                extra["first_kernel_ms"] = cuda_ms(scatter_first_bare)
+                extra["first_fill_kernel_ms"] = first_kms
+                extra["first_fill_kernel_ms_turns"] = first_kturns
+                del extra["first_kernel_ms_turns"]
+                extra["variant"] = "unique"
+                extra["launches_by_variant"] = {
+                    kind: counts[run][f"sparse_scatter_{kind}"]
+                    for kind in ("unique", "claim")}
+            add_row(
+                rows, f"{kid} {kname} {what} [{m}, 2^20] k={k} "
+                f"{extra['index_dtype'].replace('torch.', '')} rows",
+                "src/repro_torch/csrc/gather_scatter.cu",
+                f"src/repro/kernels/sparse_gather/kernel.py:{line}",
+                counts[run][kname], ms, kms,
+                cuda_ms(plain, iters=3, warmup=1), nbytes, 0, fops,
+                cuda_ms(library), rounds=WIDE_ROUNDS, launches_of=run,
+                **extra)
+        del xm, idx, idx7, r32, v, vg, gout, out, plane, zeros, scratch
+    return rows
+
+
 def time_kernels(seed, k0_inputs, counts, shapes):
     """Each kernel at the main path's shapes (the z-plane [20, 2^20] of
     the wide run; RandK at fraction 0.6; K8/K9 also at each shape the
@@ -2306,11 +2668,32 @@ def time_kernels(seed, k0_inputs, counts, shapes):
             m * n * 4 + m * wire + 8 * m, TF_OPS * (m * n + 2 * m),
             6 * m * n, None, rounds=WIDE_ROUNDS)
 
+    # K1 at drop0.3's x/z-plane [10, 15, 2^20] as [150, 2^20] rows
+    mb = 150
+    xb = torch.randn((mb, n), device=dev)
+    sidb = (torch.arange(mb, device=dev) // 15).to(torch.int32)
+    ridb = (torch.arange(mb, device=dev) % 15).to(torch.int32)
+    scb = qref.row_scale(xb)
+    wire = qops.wire_len(n, 8)
+    qb = torch.empty((mb, wire), device=dev, dtype=torch.int8)
+    add_row(
+        rows, "K1 quantize_plane b=8 [150, 2^20] (drop0.3)",
+        "src/repro_torch/csrc/quantize_plane.cu",
+        "src/repro/kernels/quantize/kernel.py:148",
+        counts["drop-qbit8"]["quantize_plane"],
+        cuda_ms(lambda: qops.quantize_plane(seed, sidb, ridb, xb, bits=8)),
+        bare("quantize_plane", xb.data_ptr(), mb, n, 8, seed[0], seed[1],
+             sidb.data_ptr(), ridb.data_ptr(), scb.data_ptr(), qb.data_ptr(),
+             wire),
+        cuda_ms(lambda: qref.quantize_plane_ref(seed, sidb, ridb, xb,
+                                                bits=8), iters=2, warmup=1),
+        mb * n * 4 + mb * wire + 8 * mb, TF_OPS * (mb * n + 2 * mb),
+        6 * mb * n, None, rounds=WIDE_ROUNDS)
+    del xb, qb
+
     # K2/K3: the pull variant the main path runs, and the push
     # kernels forced on the same inputs in turns (pull, push, push, pull)
     rows += time_k23(seed, x, sid, rid, sid32, rid32, k, counts)
-    zeros = torch.zeros((m, n), device=dev)
-    plane = torch.zeros((m, n), device=dev)
 
     # K4/K5 on the baselines' x messages [10, 2^20] (LEAD qbit8)
     ma = 10
@@ -2345,44 +2728,9 @@ def time_kernels(seed, k0_inputs, counts, shapes):
                 iters=3, warmup=1),
         ma * n + 4 * ma + ma * n * 4, 0, 2 * ma * n, None, rounds=WIDE_ROUNDS)
 
-    # K6/K7 on the LT-ADMM z-plane [20, 2^20], RandK uniform at 0.6
-    ku = round(0.6 * n)
-    zkeys = jaxrand.split(jaxrand.key(6), m).to(dev)
-    uidx = jaxrand.permutation(zkeys, n)[..., :ku]
-    uidx32 = uidx.to(torch.int32).contiguous()
-    by_run = {lab: counts[lab]["sparse_gather"]
-              for lab in ("randk-uniform", "choco-topk")}
-    gout = torch.empty((m, ku), device=dev)
-    add_row(
-        rows, f"K6 sparse_gather uniform [20, 2^20] k={ku}",
-        "src/repro_torch/csrc/gather_scatter.cu",
-        "src/repro/kernels/sparse_gather/kernel.py:47",
-        sum(by_run.values()),
-        cuda_ms(lambda: sgops.sparse_gather(x, uidx)),
-        bare("sparse_gather", x.data_ptr(), m, n, uidx32.data_ptr(), ku,
-             gout.data_ptr()),
-        cuda_ms(lambda: sgref.sparse_gather_ref(x, uidx), iters=3, warmup=1),
-        3 * m * ku * 4, 0, 0, cuda_ms(lambda: torch.gather(x, 1, uidx)),
-        rounds=2 * WIDE_ROUNDS, launches_by_run=by_run)
-    vu = sgops.sparse_gather(x, uidx)
-    gain = n / ku
-    vug = torch.tensor(gain, dtype=torch.float32, device=dev) * vu
-    by_run = {lab: counts[lab]["sparse_scatter"]
-              for lab in ("randk-uniform", "choco-topk")}
-    add_row(
-        rows, f"K7 sparse_scatter uniform [20, 2^20] k={ku}",
-        "src/repro_torch/csrc/gather_scatter.cu",
-        "src/repro/kernels/sparse_gather/kernel.py:75",
-        sum(by_run.values()),
-        cuda_ms(lambda: sgops.sparse_scatter(vu, uidx, n, gain, unique=True)),
-        # onto a plane zeroed once: the wrapper's zero fill left out
-        bare("sparse_scatter", vu.data_ptr(), uidx32.data_ptr(), m, n, ku,
-             float(gain), None, plane.data_ptr()),
-        cuda_ms(lambda: sgref.sparse_scatter_ref(vu, uidx, n, gain),
-                iters=3, warmup=1),
-        2 * m * ku * 4 + m * n * 4, 0, m * ku,
-        cuda_ms(lambda: torch.scatter(zeros, 1, uidx, vug)),
-        rounds=2 * WIDE_ROUNDS, launches_by_run=by_run)
+    # K6/K7 at the RandK-uniform z-plane and CHOCO TopK's x-plane, beside
+    # the first designs on the same inputs
+    rows += time_k67(x, counts)
 
     # K8/K9 (RandK block's per-message route) on [20, 2^20] at k = 0.6 n,
     # the shape of the K2/K3 and K6/K7 rows, with the launches of every
@@ -2544,8 +2892,9 @@ def main(argv=None):
         if k0 is not None:
             rows = time_kernels(seed, k0, counts, shapes)
     if "profile" in phases:
-        for label in ("qbit8", "randk-stride", "drop-qbit8",
-                      "churn-tree-randk-block", "choco-drop-randk-block"):
+        for label in ("qbit8", "randk-stride", "randk-uniform", "choco-topk",
+                      "drop-qbit8", "churn-tree-randk-block",
+                      "choco-drop-randk-block"):
             phase_profile(label)
     if "serve" in phases:
         serve_counts = phase_serve()

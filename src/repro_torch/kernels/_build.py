@@ -31,8 +31,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, \
-    ctypes.c_float
+_P, _I, _U, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, \
+    ctypes.c_float, ctypes.c_longlong
 
 # C entry point -> (source stem, argument types without the final stream)
 ENTRIES = {
@@ -52,8 +52,9 @@ ENTRIES = {
                             _P)),
     "quantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _P, _I)),
     "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I)),
-    "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _P)),
-    "sparse_scatter": ("gather_scatter", (_P, _P, _I, _I, _I, _F, _P, _P)),
+    "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _L, _I, _P)),
+    "sparse_scatter": ("gather_scatter",
+                       (_P, _P, _I, _L, _I, _I, _I, _F, _I, _P, _P, _P)),
     "cyclic_gather": ("cyclic", (_P, _P, _I, _I, _I, _P)),
     "cyclic_scatter": ("cyclic", (_P, _P, _I, _I, _I, _F, _P)),
     "flash_attention": ("flash_attention",

@@ -29,9 +29,16 @@ launch, a rule on ``(n, k, strides)`` alone:
   the int32 sum wraps): the gather walks j, the scatter writes onto a
   ``torch.zeros`` plane after a claim pass that keeps the last j.
 
+K7 (``sparse_scatter``) has two variants, chosen by ``scatter_variant``
+from the caller's ``unique``: "unique" and "claim" (the last j of a
+repeated index wins).  Both bin the (index, value) rows by plane segment
+and write each segment in order, so the plane is ``torch.empty``.  K6
+and K7 read the index rows in the dtype the caller holds (int32 or
+int64), in place: no conversion pass.
+
 A launch that the chosen kernel refuses raises; nothing gives way to the
-other variant or to the plain version.  ``launches_pull`` and
-``launches_push`` count each variant, ``launches`` their sum.
+other variant or to the plain version.  ``launches_<variant>`` counts
+each variant, ``launches`` their sum.
 """
 from __future__ import annotations
 
@@ -146,16 +153,29 @@ randk_scatter_plane.launches_push = 0
 
 
 def _index_rows(idx, lead, k, device):
+    """``idx [..., k]`` as ``[M, k]`` rows that the kernels read in place,
+    in the dtype the caller holds (int32 or int64): ``(rows, int64?, row
+    stride in elements)``.  The prefix ``[..., :k]`` of an ``[..., n]``
+    tensor (a permutation, a top-k sort) is a view with row stride n."""
     if tuple(idx.shape) != lead + (k,):
         raise ValueError(f"idx of shape {tuple(idx.shape)} != "
                          f"{lead + (k,)}")
-    return idx.reshape(-1, k).to(device=device, dtype=torch.int32) \
-        .contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+    if idx.device != device:
+        raise ValueError(f"idx must be on {device}, got {idx.device}")
+    rows = idx.reshape(-1, k)
+    ld = rows.stride(0) if rows.shape[0] > 1 else k
+    if (k > 1 and rows.stride(1) != 1) or ld < k:
+        raise ValueError(f"idx rows must be unit-stride and apart by >= k, "
+                         f"got strides {rows.stride()}")
+    return rows, rows.dtype == torch.int64, ld
 
 
 def sparse_gather(x, idx):
-    """``out[..., j] = x[..., idx[..., j]]`` for in-range indices: every
-    message of ``x [..., n]`` in one launch; returns ``[..., k]``."""
+    """``out[..., j] = x[..., idx[..., j]]`` (0 for an index outside
+    [0, n)): every message of ``x [..., n]`` in one launch; ``idx`` int32
+    or int64, read in place; returns ``[..., k]``."""
     if x.device.type == "cpu":
         return ref.sparse_gather_ref(x, idx)
     _, n, xf = _build.rows(x, "x", torch.float32)
@@ -164,39 +184,78 @@ def sparse_gather(x, idx):
         raise ValueError(f"x lead shape {tuple(x.shape[:-1])} != idx lead "
                          f"shape {lead}")
     m = xf.shape[0]
-    ix = _index_rows(idx, lead, k, x.device)
+    ix, wide, ld = _index_rows(idx, lead, k, x.device)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    _build.launch("sparse_gather", xf.data_ptr(), m, n, ix.data_ptr(), k,
-                  out.data_ptr())
+    _build.launch("sparse_gather", xf.data_ptr(), m, n, ix.data_ptr(),
+                  int(wide), ld, k, out.data_ptr())
     sparse_gather.launches += 1
     return out.reshape(lead + (k,))
 
 
 sparse_gather.launches = 0
 
+# The sizes of csrc/gather_scatter.cu (a CPU test holds them equal): K6's
+# scattered loads a thread; K7's j per bin tile, segments per window at
+# most, and each variant's segment length (log2; the claim variant keeps
+# 8 bytes an element in shared memory, so half as many)
+GATHER_PER = 2
+BIN_TILE = 4096
+MAX_SEGS = 4096
+SEG_LOG = {"unique": 14, "claim": 13}
+
+
+def scatter_variant(unique: bool) -> str:
+    """K7's variant: "unique" where the caller proves every row's indices
+    distinct (a float a plane element in shared memory), else "claim"
+    (a 64-bit word an element, (j + 1, value) by atomicMax: the last j of
+    a repeated index wins)."""
+    return "unique" if unique else "claim"
+
+
+def bin_layout(m: int, n: int, k: int, kind: str) -> tuple:
+    """The binned scatter's segments a window (a row of more than MAX_SEGS
+    segments is scattered window by window), windows a row, tiles a row,
+    and the int32 words of its scratch, which every window reuses: the
+    pairs ``[m, tiles, BIN_TILE]`` (the claim variant's (offset | position
+    << 16, value) in 2 words each; the unique variant's values, then its
+    16-bit offsets: 1.5 words each), then the run starts ``[m, segments +
+    1, tiles]``."""
+    segs = (n + (1 << SEG_LOG[kind]) - 1) >> SEG_LOG[kind]
+    nseg, windows = min(segs, MAX_SEGS), -(-segs // MAX_SEGS)
+    tiles = -(-k // BIN_TILE)
+    pair_words = (4 if kind == "claim" else 3) * m * tiles * BIN_TILE // 2
+    return nseg, windows, tiles, pair_words, m * (nseg + 1) * tiles
+
 
 def sparse_scatter(v, idx, n: int, gain=1.0, *, unique: bool):
-    """``zeros(n).at[idx].set(gain * v)`` per message in one launch;
-    ``v``/``idx [..., k]``, returns ``[..., n]``.  ``unique=False`` (the
-    caller cannot prove each row's indices distinct) runs the claim pass,
-    so that a repeated index keeps the last j, as the reference's scatter
-    does."""
+    """``zeros(n).at[idx].set(gain * v)`` per message (two launches: bin,
+    fill); ``v``/``idx [..., k]``, idx int32 or int64 read in place,
+    returns ``[..., n]``.  Every element of the plane is written, so
+    nothing is zero-filled; ``unique=False`` (the caller cannot prove each
+    row's indices distinct) takes the claim variant, so that a repeated
+    index keeps the last j, as the reference's scatter does."""
     if v.device.type == "cpu":
         return ref.sparse_scatter_ref(v, idx, n, gain)
     lead, k, vf = _build.rows(v, "v", torch.float32)
     m = vf.shape[0]
-    ix = _index_rows(idx, lead, k, v.device)
-    out = torch.zeros((m, n), dtype=torch.float32, device=v.device)
-    winner = (None if unique else
-              torch.full((m, n), -1, dtype=torch.int32, device=v.device))
-    _build.launch("sparse_scatter", vf.data_ptr(), ix.data_ptr(), m, n, k,
-                  float(gain), None if winner is None else winner.data_ptr(),
-                  out.data_ptr())
-    sparse_scatter.launches += 1
+    ix, wide, ld = _index_rows(idx, lead, k, v.device)
+    kind = scatter_variant(unique)
+    *_, pair_words, start_words = bin_layout(m, n, k, kind)
+    scratch = torch.empty(pair_words + start_words, dtype=torch.int32,
+                          device=v.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=v.device)
+    _build.launch("sparse_scatter", vf.data_ptr(), ix.data_ptr(), int(wide),
+                  ld, m, n, k, float(gain), int(kind == "claim"),
+                  scratch.data_ptr(),
+                  scratch.data_ptr() + 4 * pair_words, out.data_ptr())
+    _count(sparse_scatter, kind)
     return out.reshape(lead + (n,))
 
 
+# launches of each variant; ``launches`` is their sum
 sparse_scatter.launches = 0
+sparse_scatter.launches_unique = 0
+sparse_scatter.launches_claim = 0
 
 
 def _offsets(off, lead, device):

@@ -15,12 +15,14 @@ from repro_torch.kernels.quantize.ref import BLOCK, _pad_last, plane_ids
 def scatter_last(idx, vals, n: int):
     """``zeros(n).at[idx].set(vals)`` per row, keeping the LAST j where an
     index repeats, as the reference's scatter does (the int32 wrap of the
-    affine index set can repeat indices).  ``idx``/``vals`` are
-    ``[M, k]``; returns ``[M, n]``."""
+    affine index set can repeat indices).  An index outside [0, n) is
+    skipped, as K7 skips it.  ``idx``/``vals`` are ``[M, k]``; returns
+    ``[M, n]``."""
     m, k = idx.shape
-    j = torch.arange(k, device=idx.device).expand(m, k)
+    ok = (idx >= 0) & (idx < n)
+    j = torch.where(ok, torch.arange(k, device=idx.device), -1)
     win = torch.full((m, n), -1, dtype=torch.int64, device=idx.device)
-    win.scatter_reduce_(1, idx, j, reduce="amax")
+    win.scatter_reduce_(1, torch.where(ok, idx, 0), j, reduce="amax")
     hit = win >= 0
     out = torch.zeros((m, n), dtype=vals.dtype, device=vals.device)
     out[hit] = torch.gather(vals, 1, win.clamp_min(0))[hit]
@@ -53,11 +55,15 @@ def randk_scatter_plane_ref(seed, sids, rids, v, *, n, gain, strides):
 def sparse_gather_ref(x, idx):
     """K6's plain version with its wrapper (``sparse_gather/ops.py:33``):
     the index rows padded with 0 to a multiple of BLOCK, gathered, sliced
-    to k.  ``x [..., n]``, ``idx [..., k]``; returns ``[..., k]``."""
+    to k; 0 for an index outside [0, n), as K6 gives.  ``x [..., n]``,
+    ``idx [..., k]`` (int32 or int64); returns ``[..., k]``."""
     lead, n, k = tuple(idx.shape[:-1]), x.shape[-1], idx.shape[-1]
     ip = _pad_last(idx.reshape(-1, k).to(torch.int64),
                    -(-k // BLOCK) * BLOCK, 0)
-    out = torch.gather(x.reshape(-1, n), 1, ip)[:, :k]
+    ok = (ip >= 0) & (ip < n)
+    out = torch.gather(x.reshape(-1, n), 1, torch.where(ok, ip, 0))
+    out = torch.where(ok, out, torch.zeros((), dtype=out.dtype,
+                                           device=out.device))[:, :k]
     return out.reshape(lead + (k,))
 
 

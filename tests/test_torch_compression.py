@@ -18,6 +18,7 @@
 * wire bytes and the spec parser's error messages.
 """
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -312,6 +313,278 @@ def test_variant_rule(n, k, strides, kind):
         strides, strides)
     assert sg_ops.variant(n, k, strides) == kind
     assert sg_ops.indices_unique(n, k, strides) == (kind == "pull")
+
+
+# The K6/K7 kernels of csrc/gather_scatter.cu, written out in int64 step
+# for step.  K6: a block takes 256 threads x GATHER_PER j, j = base + i *
+# 256; an index outside [0, n) (one unsigned compare) gives 0.  K7's two
+# launches, for each window of at most MAX_SEGS segments of the row: bin
+# sorts each tile of j by segment of the window, keeping the indices that
+# land in it (the runs' starts per (segment, tile)); fill takes its
+# segment's run of every tile into a cleared segment (the claim variant: a
+# 64-bit max of (j + 1) << 32 | value bits, 0 reading +0.0), then writes
+# it out as scalars up to the row's first 16-byte boundary, 16-byte groups
+# and a scalar tail.
+
+
+def _f32_bits(a):
+    return a.contiguous().view(torch.int32).to(torch.int64) & prng.MASK
+
+
+def _bits_f32(b):
+    return prng.wrap_i32(b).to(torch.int32).view(torch.float32)
+
+
+def _gather_kernel(x, idx, threads=256, per=sg_ops.GATHER_PER):
+    m, k = idx.shape
+    n = x.shape[-1]
+    out = torch.full((m, k), float("nan"))
+    tile = threads * per
+    for b in range(-(-k // tile)):
+        for i in range(per):
+            j = b * tile + i * threads + torch.arange(threads)
+            j = j[j < k]
+            s = idx[:, j].to(torch.int64)
+            ok = (s >= 0) & (s < n)  # the unsigned compare
+            got = torch.gather(x, 1, torch.where(ok, s, 0))
+            assert bool(out[:, j].isnan().all())  # each j once
+            out[:, j] = torch.where(ok, got, torch.zeros(()))
+    return out
+
+
+def _bin(idx, bits, base, nw, seg_log, tile):
+    """bin over the window [base, base + nw): per row and tile, the runs
+    (offset, value bits, position) in segment order and their starts
+    ``[m, segments + 1, tiles]``."""
+    m, k = idx.shape
+    nseg = (nw + (1 << seg_log) - 1) >> seg_log
+    tiles = -(-k // tile)
+    starts = torch.zeros((m, nseg + 1, tiles), dtype=torch.int64)
+    runs = []
+    for r in range(m):
+        row = []
+        for t in range(tiles):
+            pos = torch.arange(min(tile, k - t * tile))
+            i = idx[r, t * tile + pos].to(torch.int64) - base
+            ok = (i >= 0) & (i < nw)  # the unsigned compare
+            seg = i[ok] >> seg_log
+            cnt = torch.bincount(seg, minlength=nseg)
+            starts[r, :nseg, t] = torch.cumsum(cnt, 0) - cnt
+            starts[r, nseg, t] = int(ok.sum())
+            order = torch.sort(seg, stable=True).indices
+            row.append((i[ok][order] & ((1 << seg_log) - 1),
+                        bits[r, t * tile + pos][ok][order], pos[ok][order]))
+        runs.append(row)
+    return runs, starts
+
+
+def _binned_scatter(v, idx, n, gain, *, claim, seg_log, tile,
+                    max_segs=sg_ops.MAX_SEGS):
+    m, k = idx.shape
+    seg_len = 1 << seg_log
+    bits = _f32_bits(torch.tensor(gain, dtype=torch.float32) * v)
+    out = torch.full((m, n), float("nan"))
+    window = max_segs << seg_log
+    for base in range(0, n, window):
+        nw = min(window, n - base)
+        runs, starts = _bin(idx, bits, base, nw, seg_log, tile)
+        tiles = starts.shape[-1]
+        for r in range(m):
+            for s in range(starts.shape[1] - 1):
+                g0 = base + (s << seg_log)
+                length = min(seg_len, base + nw - g0)
+                word = torch.zeros(length, dtype=torch.int64)
+                segf = torch.zeros(length)
+                for t in range(tiles):
+                    lo, hi = int(starts[r, s, t]), int(starts[r, s + 1, t])
+                    off, b, pos = (a[lo:hi] for a in runs[r][t])
+                    if claim:
+                        word.scatter_reduce_(
+                            0, off, ((t * tile + pos + 1) << 32) | b,
+                            reduce="amax")
+                    else:
+                        segf[off] = _bits_f32(b)
+                if claim:
+                    segf = torch.where(word != 0,
+                                       _bits_f32(word & prng.MASK),
+                                       torch.zeros(()))
+                lead = (r * n + g0) % 4  # the plane is 16-byte aligned
+                a0 = min((4 - lead) % 4, length)
+                groups = (length - a0) // 4
+                written = (list(range(a0)) + list(range(a0, a0 + 4 * groups))
+                           + list(range(a0 + 4 * groups, length)))
+                assert written == list(range(length))
+                assert (r * n + g0 + a0) % 4 == 0 or a0 == length
+                assert bool(out[r, g0:g0 + length].isnan().all())  # once
+                out[r, g0:g0 + length] = segf
+    return out
+
+
+def _index_case(kind, m, n, k, seed):
+    rs = np.random.RandomState(seed)
+    if kind == "unique":
+        return torch.from_numpy(np.stack([rs.permutation(n)
+                                          for _ in range(m)]))[:, :k]
+    return torch.from_numpy(rs.randint(0, n, (m, k)).astype(np.int64))
+
+
+@pytest.mark.parametrize("n,k,seg_log,tile,kind", [
+    (3001, 1100, 10, 256, "unique"),  # rows off 16-byte boundaries, n % S
+    (3001, 1, 10, 256, "unique"),  # k = 1
+    (700, 300, 14, 4096, "unique"),  # the package's S and tile: n < S
+    (2500, 2000, 10, 512, "repeats"),  # planted repeats: the last j wins
+    (4099, 4099, 13, 4096, "repeats")])
+def test_binned_scatter_step_for_step(n, k, seg_log, tile, kind):
+    idx = _index_case(kind, 3, n, k, n + k)
+    if k > 1:
+        idx = idx.clone()
+        idx[1, k // 3] = n + 7  # outside [0, n): skipped
+        idx[2, k // 2] = -5
+    v = torch.from_numpy(_x((3, k), n - k))
+    v[:, ::7] = -0.0
+    gain = n / k
+    want = sg_ref.sparse_scatter_ref(v, idx, n, gain)
+    assert torch.equal(sg_ops.sparse_scatter(v, idx, n, gain, unique=False)
+                       .view(torch.int32), want.view(torch.int32))
+    for claim in ((True, False) if kind == "unique" else (True,)):
+        got = _binned_scatter(v, idx, n, gain, claim=claim, seg_log=seg_log,
+                              tile=tile)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((torch.signbit(want) & (want == 0)).sum()) > 0
+
+
+def test_binned_scatter_step_for_step_int32_wrap():
+    """The stride sampler's int32 wrap at n = 100,003 repeats indices; the
+    claim variant's model (the package's S = 2^13 and tile) keeps the last
+    j, as the plain version does."""
+    n = 100_003
+    k = n // 4
+    keys = jaxrand.split(jaxrand.key(5), 64)
+    idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k,
+                              prng.coprime_strides(n))
+    rows = [r for r in range(64) if k - torch.unique(idx[r]).numel() > 0][:2]
+    idx = idx[rows]
+    v = torch.from_numpy(_x((2, k), 8))
+    v[:, ::5] = -0.0
+    got = _binned_scatter(v, idx, n, n / k, claim=True,
+                          seg_log=sg_ops.SEG_LOG["claim"],
+                          tile=sg_ops.BIN_TILE)
+    want = sg_ref.sparse_scatter_ref(v, idx, n, n / k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,k", [(3001, 1100), (4099, 1), (1024, 1024)])
+def test_gather_kernel_step_for_step(n, k):
+    x = torch.from_numpy(_x((3, n), n))
+    x[:, ::5] = -0.0
+    idx = _index_case("unique", 3, n, k, k)
+    idx = torch.cat([idx, torch.full((3, 1), n)], dim=1)[:, :k].clone()
+    idx[0, k - 1] = n + 3
+    for rows in (idx, idx.to(torch.int32)):
+        got = _gather_kernel(x, rows)
+        want = sg_ref.sparse_gather_ref(x, rows)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert float(want[0, k - 1]) == 0.0
+
+
+@pytest.mark.parametrize("n,k,seg_log,tile,max_segs,kind", [
+    (3001, 1100, 8, 256, 4, "unique"),  # 3 windows, the last of 953
+    (3001, 3001, 7, 512, 3, "unique"),  # 8 windows, the last of 313
+    (2500, 2000, 8, 512, 2, "repeats")])  # the last j wins across windows
+def test_binned_scatter_step_for_step_windows(n, k, seg_log, tile, max_segs,
+                                              kind):
+    """A row longer than MAX_SEGS segments goes window by window: each
+    window's bin keeps the indices in it and its fill writes it, every
+    element once (the model at a few windows of small segments)."""
+    idx = _index_case(kind, 3, n, k, n + k + max_segs)
+    idx = idx.clone()
+    idx[1, k // 3] = n + 7  # outside [0, n): skipped
+    idx[2, k // 2] = -5
+    v = torch.from_numpy(_x((3, k), n + max_segs))
+    v[:, ::7] = -0.0
+    want = sg_ref.sparse_scatter_ref(v, idx, n, n / k)
+    assert -(-n // (max_segs << seg_log)) >= 3
+    for claim in ((True, False) if kind == "unique" else (True,)):
+        got = _binned_scatter(v, idx, n, n / k, claim=claim, seg_log=seg_log,
+                              tile=tile, max_segs=max_segs)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_kernel_sizes_match_the_wrappers():
+    """The wrappers size K7's scratch and the CPU models walk the kernels
+    with the sizes of csrc/gather_scatter.cu: each constant there equals
+    its counterpart in sparse_gather/ops.py."""
+    src = (Path(sg_ops.__file__).resolve().parents[2] / "csrc"
+           / "gather_scatter.cu").read_text()
+    for line in (f"constexpr int kGatherPer = {sg_ops.GATHER_PER};",
+                 f"constexpr int kTile = {sg_ops.BIN_TILE};",
+                 f"constexpr int kMaxSegs = {sg_ops.MAX_SEGS};",
+                 f"constexpr int kSegLogUnique = {sg_ops.SEG_LOG['unique']};",
+                 "constexpr int kSegLog = kClaim ? kSegLogUnique - 1 : "
+                 "kSegLogUnique;"):
+        assert src.count(line) == 1, line
+    assert sg_ops.SEG_LOG["claim"] == sg_ops.SEG_LOG["unique"] - 1
+
+
+@pytest.mark.parametrize("m,n,k,kind", [(20, 2 ** 20, 629_146, "unique"),
+                                        (10, 2 ** 20, 262_144, "unique"),
+                                        (20, 1_000_003, 250_001, "claim"),
+                                        (1, 5, 3, "claim")])
+def test_scatter_variant_rule(m, n, k, kind):
+    assert sg_ops.scatter_variant(kind == "unique") == kind
+    nseg, windows, tiles, pair_words, start_words = sg_ops.bin_layout(
+        m, n, k, kind)
+    seg_len = 1 << sg_ops.SEG_LOG[kind]
+    assert nseg == -(-n // seg_len) and tiles == -(-k // sg_ops.BIN_TILE)
+    assert windows == 1  # every main-path row is one window
+    # 8 bytes a pair for claim (position and offset share a word), 6 for
+    # unique; a 16-bit offset and a 16-bit position fit
+    assert 4 * pair_words == (8 if kind == "claim" else 6) * m * tiles \
+        * sg_ops.BIN_TILE
+    assert start_words == m * (nseg + 1) * tiles
+    assert seg_len <= 2 ** 16 and sg_ops.BIN_TILE <= 2 ** 16
+    # a longer row: windows of MAX_SEGS segments, the scratch of one
+    window = sg_ops.MAX_SEGS * seg_len
+    assert sg_ops.bin_layout(m, 2 * window + 1, k, kind) == (
+        sg_ops.MAX_SEGS, 3, tiles, pair_words,
+        m * (sg_ops.MAX_SEGS + 1) * tiles)
+
+
+def test_index_rows_int64_and_int32_through_the_cpu_route():
+    """K6/K7's CPU route takes int64 rows as the permutation's prefix (a
+    strided view) and int32 rows alike, equal to the reference's kernels
+    in interpret mode; an index outside [0, n) gives 0 (K6) and is
+    skipped (K7)."""
+    n, k = 4099, 1500
+    x = _x((2, n), 9)
+    rs = np.random.RandomState(3)
+    perm = torch.from_numpy(np.stack([rs.permutation(n) for _ in range(2)]))
+    idx64 = perm[:, :k]
+    assert idx64.stride() == (n, 1) and idx64.dtype == torch.int64
+    idx32 = idx64.to(torch.int32)
+    xt = torch.from_numpy(x)
+    v = sg_ops.sparse_gather(xt, idx64)
+    assert torch.equal(v, sg_ops.sparse_gather(xt, idx32))
+    for unique in (True, False):
+        out = sg_ops.sparse_scatter(v, idx64, n, n / k, unique=unique)
+        assert torch.equal(out, sg_ops.sparse_scatter(v, idx32, n, n / k,
+                                                      unique=unique))
+    for r in range(2):
+        ji = jnp.asarray(idx32[r].numpy())
+        _eq(v[r].numpy(), jsg.sparse_gather(jnp.asarray(x[r]), ji,
+                                            interpret=True))
+        _eq(out[r].numpy(), jsg.sparse_scatter(jnp.asarray(v[r].numpy()), ji,
+                                               n, gain=n / k, interpret=True))
+    far = idx64.clone()
+    far[1, 7] = n + 2
+    vf = sg_ops.sparse_gather(xt, far)
+    assert float(vf[1, 7]) == 0.0 and torch.equal(vf[0], v[0])
+    outf = sg_ops.sparse_scatter(v, far, n, n / k, unique=True)
+    assert float(outf[1, int(idx64[1, 7])]) == 0.0
+    keep = torch.ones(k, dtype=torch.bool)
+    keep[7] = False
+    assert torch.equal(outf[1], sg_ops.sparse_scatter(
+        v[1:, keep], idx64[1:, keep], n, n / k, unique=True)[0])
 
 
 SPECS = ["identity", "qbit:bits=8", "qbit:bits=4",

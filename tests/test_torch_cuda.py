@@ -147,27 +147,69 @@ def test_quantize_tensor(h100, n, bits):
                                     (1_000_003, "uniform"),
                                     (1_000_003, "stride")])
 def test_sparse_gather_scatter(h100, n, kind):
-    """K6/K7 on [10, n] messages at k = n / 4 bit-equal to their plain
-    versions; the stride case at n = 1,000,003 repeats indices through the
-    int32 wrap and runs K7's claim pass."""
-    k = n // 4
+    """K6/K7 on [10, n] messages at k = n / 4 and k = 1 bit-equal to their
+    plain versions (signs of zero included): the index rows as int64
+    prefixes of [10, n] (read in place) and as int32, -0.0 values planted,
+    one index outside [0, n) (K6 gives 0, K7 skips it); K7 through both
+    variants, each asserted by its counter.  The stride case at n =
+    1,000,003 repeats indices through the int32 wrap, which only the
+    claim variant resolves (the last j wins)."""
     x = torch.randn((10, n), device=h100)
+    x[:, ::7] = -0.0
     keys = jaxrand.split(jaxrand.key(n), 10).to(h100)
-    strides = prng.coprime_strides(n)
-    if kind == "uniform":
-        idx = jaxrand.permutation(keys, n)[..., :k]
-    elif kind == "topk":
-        idx = torch.sort(x.abs(), dim=-1, descending=True,
-                         stable=True).indices[..., :k]
-    else:
-        idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k, strides)
-        assert not sg_ops.indices_unique(n, k, strides)
-        assert sum(k - torch.unique(r).numel() for r in idx) > 0
-    v = sg_ops.sparse_gather(x, idx)
-    assert torch.equal(v, sg_ref.sparse_gather_ref(x, idx))
-    unique = kind != "stride"
+    for k in (n // 4, 1):
+        strides = prng.coprime_strides(n)
+        if kind == "uniform":
+            idx = jaxrand.permutation(keys, n)[..., :k]
+        elif kind == "topk":
+            idx = torch.sort(x.abs(), dim=-1, descending=True,
+                             stable=True).indices[..., :k]
+        else:
+            idx = prng.affine_indices((keys[:, 0], keys[:, 1]), n, k,
+                                      strides)
+            if k > 1:
+                assert not sg_ops.indices_unique(n, k, strides)
+                assert sum(k - torch.unique(r).numel() for r in idx) > 0
+        far = idx.clone()
+        far[3, k // 2] = n + 5 if k > 1 else -1
+        for rows in (idx, idx.to(torch.int32), far):
+            v = sg_ops.sparse_gather(x, rows)
+            assert torch.equal(v.view(torch.int32),
+                               sg_ref.sparse_gather_ref(x, rows)
+                               .view(torch.int32))
+            vals = v.clone()
+            vals[:, ::3] = -0.0
+            want = sg_ref.sparse_scatter_ref(vals, rows, n, n / k)
+            for unique in ((False,) if kind == "stride" else (True, False)):
+                kind7 = sg_ops.scatter_variant(unique)
+                before = getattr(sg_ops.sparse_scatter, f"launches_{kind7}")
+                out = sg_ops.sparse_scatter(vals, rows, n, n / k,
+                                            unique=unique)
+                assert getattr(sg_ops.sparse_scatter,
+                               f"launches_{kind7}") == before + 1
+                assert torch.equal(out.view(torch.int32),
+                                   want.view(torch.int32))
+        assert float(sg_ops.sparse_gather(x, far)[3, k // 2]) == 0.0
+
+
+@pytest.mark.parametrize("unique", [True, False])
+def test_sparse_scatter_in_windows(h100, unique):
+    """A row longer than one window of K7's bin (MAX_SEGS segments) is
+    scattered window by window, bit-equal to the plain version; the last
+    window holds 3 elements, one index planted there."""
+    kind = sg_ops.scatter_variant(unique)
+    n = (sg_ops.MAX_SEGS << sg_ops.SEG_LOG[kind]) * 2 + 3
+    k = 1 << 16
+    g = torch.Generator(device=h100).manual_seed(3)
+    idx = torch.stack([torch.randperm(n, generator=g, device=h100)[:k]
+                       for _ in range(2)])
+    idx[:, 0] = torch.where((idx == n - 1).any(dim=1), idx[:, 0], n - 1)
+    v = torch.randn((2, k), generator=g, device=h100)
+    v[:, ::5] = -0.0
+    assert sg_ops.bin_layout(2, n, k, kind)[1] == 3
     out = sg_ops.sparse_scatter(v, idx, n, n / k, unique=unique)
-    assert torch.equal(out, sg_ref.sparse_scatter_ref(v, idx, n, n / k))
+    want = sg_ref.sparse_scatter_ref(v, idx, n, n / k)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("n", [2 ** 20, 1_000_003])
@@ -228,6 +270,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     with pytest.raises(ValueError):
         sg_ops.sparse_gather(x, torch.zeros((3, 8), dtype=torch.int64,
                                             device=h100))
+    rows = torch.zeros((20, 16), dtype=torch.int64, device=h100)
+    with pytest.raises(TypeError):
+        sg_ops.sparse_gather(x, rows.to(torch.int16))
+    with pytest.raises(ValueError):  # rows not unit-stride
+        sg_ops.sparse_scatter(x[:, :8].contiguous(), rows[:, ::2], 64,
+                              unique=True)
     off = torch.zeros((20,), dtype=torch.int64, device=h100)
     with pytest.raises(ValueError):
         sg_ops.cyclic_gather(x, off[:3], 8)

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Device time of LT-ADMM-CC's RandK-stride round at n = 2^20.
+"""Device time of a RandK or TopK round at n = 2^20.
 
-    python3 tools/randk_round.py [--src PATH] [--rounds 5]
+    python3 tools/randk_round.py [--spec randk-stride] [--src PATH]
+                                 [--rounds 5]
 
-The round is ``chip_smoke.py``'s wide spec ``randk-stride`` (ring of 10
-agents, SAGA, ``randk:fraction=0.6,sampler=stride``, eta 0.5): two K2
-and four K3 launches a round.  After two warm-up rounds it profiles
-``--rounds`` rounds with torch.profiler and prints the round time (host
-clock), the device's busy time and idle share, and the time of the
-RandK plane kernels (K2/K3: the port's ``csrc/randk_plane.cu`` kernels).
+``--spec`` names one of ``chip_smoke.py``'s wide specs on the ring of
+10 agents: ``randk-stride`` (LT-ADMM-CC, SAGA,
+``randk:fraction=0.6,sampler=stride``, eta 0.5: two K2 and four K3
+launches a round), ``randk-uniform`` (the same with the uniform sampler:
+two K6 and four K7 launches a round) or ``choco-topk`` (CHOCO-SGD with
+``topk:fraction=0.25``: one K6 and one K7 an iteration).  After two
+warm-up rounds it profiles ``--rounds`` rounds with torch.profiler and
+prints the round time (host clock), the device's busy time and idle
+share, and the time of the port's own kernels that the round runs
+(K2/K3 or K6/K7, by their CUDA kernel names, either tree's design).
 ``--src`` imports the port from another tree (a parent commit unpacked
 with ``git archive``), so that two versions can be compared in one call
 on one card.  Needs a CUDA card and nvcc; prints one JSON object as its
@@ -24,11 +29,24 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SPEC = "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride"
+# CUDA kernel names of K2/K3 and K6/K7 (both designs)
+OWN_KERNELS = ("randk_gather_pull_kernel", "randk_gather_push_kernel",
+               "randk_scatter_pull_kernel", "randk_scatter_push_kernel",
+               "randk_claim_kernel", "gather_kernel", "claim_kernel",
+               "scatter_kernel", "bin_kernel", "fill_kernel")
+# label -> (solver spec, estimator)
+SPECS = {
+    "randk-stride": ("ltadmm:eta=0.5,compressor=randk:fraction=0.6,"
+                     "sampler=stride", "saga"),
+    "randk-uniform": ("ltadmm:eta=0.5,compressor=randk:fraction=0.6,"
+                      "sampler=uniform", "saga"),
+    "choco-topk": ("choco:compressor=topk:fraction=0.25", "sgd"),
+}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spec", choices=tuple(SPECS), default="randk-stride")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args(argv)
@@ -60,7 +78,8 @@ def main(argv=None):
     u = torch.rand((prob.n_agents, prob.m), generator=g, device=dev)
     data = {"a": a, "b": torch.where(u < 0.5, 1.0, -1.0)}
     graph, ex = build_graph("ring", prob.n_agents)
-    solver = make_solver(SPEC, graph, ex, _estimator("saga", prob),
+    spec, est = SPECS[args.spec]
+    solver = make_solver(spec, graph, ex, _estimator(est, prob),
                          device="cuda")
     st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev))
     base = jaxrand.key(12345)
@@ -77,21 +96,34 @@ def main(argv=None):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    # the RandK plane kernels: the port's own (anonymous-namespace) gather,
-    # scatter and claim kernels; no other port kernel runs in this round
-    randk = [e for e in kernels if "(anonymous namespace)::" in e.name
-             and any(t in e.name for t in ("gather", "scatter", "claim"))]
-    randk_ms = sum(e.time_range.elapsed_us() for e in randk) / 1e3
+    # the port's own kernels that these rounds run: K2/K3
+    # (csrc/randk_plane.cu) and K6/K7 (csrc/gather_scatter.cu, this tree's
+    # and the first design's), by their CUDA kernel names
+    def base(name):
+        return name.split("(anonymous namespace)::")[-1].split("<")[0] \
+            .split("(")[0]
+
+    own = [e for e in kernels if "(anonymous namespace)::" in e.name
+           and base(e.name) in OWN_KERNELS]
+    own_ms = sum(e.time_range.elapsed_us() for e in own) / 1e3
+    by_name = {}
+    for e in own:
+        by_name[base(e.name)] = (by_name.get(base(e.name), 0.0)
+                                 + e.time_range.elapsed_us() / 1e3
+                                 / args.rounds)
     r = args.rounds
-    res = {"src": args.src, "card": card, "round_ms": wall * 1e3 / r,
-           "device_busy_ms": busy / r, "idle_share": 1 - busy / (wall * 1e3),
-           "randk_ms": randk_ms / r, "randk_launches": len(randk) / r,
-           "randk_share_of_busy": randk_ms / busy}
-    print(f"[round] {args.src}: round {res['round_ms']:.3f} ms, device busy "
-          f"{res['device_busy_ms']:.3f} ms, idle share "
-          f"{res['idle_share']:.3f}; K2/K3 {res['randk_ms']:.4f} ms in "
-          f"{res['randk_launches']:.0f} launches a round "
-          f"({res['randk_share_of_busy']:.1%} of busy) [{card}]", flush=True)
+    res = {"spec": args.spec, "src": args.src, "card": card,
+           "round_ms": wall * 1e3 / r, "device_busy_ms": busy / r,
+           "idle_share": 1 - busy / (wall * 1e3),
+           "kernels_ms": own_ms / r, "kernel_launches": len(own) / r,
+           "kernels_share_of_busy": own_ms / busy, "by_kernel_ms": by_name}
+    print(f"[round] {args.spec} {args.src}: round {res['round_ms']:.3f} ms, "
+          f"device busy {res['device_busy_ms']:.3f} ms, idle share "
+          f"{res['idle_share']:.3f}; the port's kernels "
+          f"{res['kernels_ms']:.4f} ms in {res['kernel_launches']:.0f} "
+          f"launches a round ({res['kernels_share_of_busy']:.1%} of busy): "
+          f"{ {k: round(v, 4) for k, v in by_name.items()} } [{card}]",
+          flush=True)
     print(json.dumps(res), flush=True)
     return 0
 
