@@ -7,14 +7,20 @@ Phases (any failure exits non-zero):
   1. device: the card's name, capability, and nvidia-smi's name and
      power limit;
   2. build: every CUDA kernel of the port from ``src/repro_torch/csrc``
-     and, beside them, the first K6/K7 designs (the yardstick, from
-     ``tools/gather_scatter_probe.py``), and the SASS instruction count,
-     by the pipes that may issue each, of one Threefry block (cuobjdump of
-     a probe built with the kernels' flags), which the bounds use; the
-     tensor-core K10's SASS (wgmma, TMA and mbarrier instructions, which
-     every instantiation must have);
+     and, beside them, the first K6/K7 and K1/K4 designs (the yardsticks,
+     from ``tools/gather_scatter_probe.py`` and
+     ``tools/quantize_probe.py``), and the SASS instruction count, by the
+     pipes that may issue each, of one Threefry block (cuobjdump of a
+     probe built with the kernels' flags), which the bounds use, and of
+     the whole K1/K4 element body (Threefry, level, packing, its share of
+     the 16-byte load and the 4-byte store), printed beside the bounds;
+     the tensor-core K10's SASS (wgmma, TMA and mbarrier instructions,
+     which every instantiation must have);
   3. kernels: each kernel held bit-exact against its plain PyTorch
-     version on the card (K0 Threefry, K1 quantize_plane, K2/K3 RandK
+     version on the card (K0 Threefry, K1 quantize_plane and K4/K5 on the
+     quantiser's edge rows too: subnormals, a max below 127 tiny, +-0,
+     NaN, +-inf, the max last; each K1/K4 call one kernel launch and one
+     memset in the profiler, no other kernel; K2/K3 RandK
      gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
      gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
      n = 1,000,003 (K2/K3: the pull variant, and the push variant where
@@ -57,12 +63,13 @@ Phases (any failure exits non-zero):
      with the push kernels forced on the same inputs, in turns, and
      with the block sampler; K6/K7 at the RandK-uniform and TopK shapes
      beside the first designs, in turns; K1 also at drop0.3's
-     [150, 2^20];
+     [150, 2^20]; K1/K4 beside their first designs (the scale pass, then
+     the kernel), in turns;
   6. profile: torch.profiler over three n = 2^20 rounds of the static
      qbit8 round, the RandK-stride and RandK-uniform rounds, CHOCO TopK,
      the drop0.3 schedule round, the churn0.2 tree round and CHOCO's
      drop0.3 iteration: device time by kernel and operator, the device's
-     idle share, and the share of the port's kernels (K1-K3, K6/K7);
+     idle share, and the share of the port's kernels (K1-K4, K6/K7);
   serve. qwen3-0.6b and zamba2-2.7b at full width, bf16 weights from the
      port's init_params: the prefill step with use_flash (B = 4 / 2,
      T = 2048) with counters zeroed just before and read just after (28
@@ -158,6 +165,9 @@ IDX_OPS = Pipes(1, 0, 1)
 # exps on the special-function units: 16 per SM per clock (4 per SM
 # sub-partition), 132 SMs at the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# SASS of the whole K1/K4 element body by class, per element (``body_sass``):
+# "K1 b=8", "K1 b=4", "K4 b=8" -> {class: count}
+BODY_SASS: dict = {}
 # the tensor-core K10's SASS counts by instantiation (``k10_sass``)
 SASS_K10_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")
 K10_SASS: dict = {}
@@ -166,6 +176,7 @@ K10_SASS: dict = {}
 # difference of their SASS instruction counts, less the xor that joins the
 # two, is the instruction count of one block.
 SASS_PROBE = r"""
+#include "quantize.cuh"
 #include "threefry.cuh"
 
 extern "C" __global__ void one_block(uint32_t s0, uint32_t s1, uint32_t* out,
@@ -208,6 +219,42 @@ extern "C" __global__ void two_leaf(uint32_t k0, uint32_t k1, uint32_t* out,
              repro::jax_bits(k0, k1, static_cast<uint32_t>(j) + 0x9E3779B9u);
   }
 }
+
+// the fused quantiser's whole element body (quantize.cuh quantize_group:
+// Threefry, level, packing, the group's 16-byte loads and 4-byte store),
+// one and two groups a loop step
+template <int kBits, class Kappa, int kGroups>
+__device__ __forceinline__ void body(const float4* x, Kappa src, uint32_t s0,
+                                     uint32_t s1, float sc, uint32_t* out,
+                                     int n) {
+  const repro::Pair st{s0, s1};
+  constexpr int g = kBits == 8 ? 1 : 2;
+#pragma unroll 1
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      const int k = i + h * n;
+      out[k] = repro::quantize_group<kBits>(src, st, x + g * k, sc,
+                                            static_cast<uint32_t>(4 * g * k));
+    }
+  }
+}
+
+#define REPRO_BODY(name, bits, Kappa, ...)                                   \
+  extern "C" __global__ void name##_one(const float4* x, uint32_t s0,        \
+                                        uint32_t s1, float sc,               \
+                                        uint32_t* out, int n) {              \
+    body<bits, Kappa, 1>(x, Kappa{__VA_ARGS__}, s0, s1, sc, out, n);         \
+  }                                                                          \
+  extern "C" __global__ void name##_two(const float4* x, uint32_t s0,        \
+                                        uint32_t s1, float sc,               \
+                                        uint32_t* out, int n) {              \
+    body<bits, Kappa, 2>(x, Kappa{__VA_ARGS__}, s0, s1, sc, out, n);         \
+  }
+REPRO_BODY(k1_b8, 8, repro::PlaneKappa, 0u, 0u, nullptr, nullptr)
+REPRO_BODY(k1_b4, 4, repro::PlaneKappa, 0u, 0u, nullptr, nullptr)
+REPRO_BODY(k4_b8, 8, repro::LeafKappa, nullptr)
 """
 
 WIDE_N = 2 ** 20
@@ -217,6 +264,8 @@ DEV = "cuda"
 ERRS: dict = {}  # kernel -> max |kernel - plain| over phase 3
 # ``call(entry, *args)`` of the first K6/K7 designs' library (phase_build)
 YARDSTICK = None
+# the same for the first K1/K4 designs (tools/quantize_probe.py)
+QUANT_FIRST = None
 CARD = None  # nvidia-smi's name and power limit, beside every time
 
 
@@ -300,24 +349,29 @@ def load_tool(name):
 
 def phase_build():
     """Every source of the package, one nvcc each, and beside them the
-    first K6/K7 designs (the yardstick, built by
-    ``tools/gather_scatter_probe.py``), all started together; sets
-    YARDSTICK."""
-    global YARDSTICK
+    first K6/K7 and K1/K4 designs (the yardsticks, built by
+    ``tools/gather_scatter_probe.py`` and ``tools/quantize_probe.py``),
+    all started together; sets YARDSTICK and QUANT_FIRST."""
+    global YARDSTICK, QUANT_FIRST
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
 
     probe = load_tool("gather_scatter_probe")
+    qprobe = load_tool("quantize_probe")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         first = pool.submit(probe.build, str(_build.BUILD_DIR / "yardstick"),
                             ("base",))
+        qfirst = pool.submit(qprobe.build,
+                             str(_build.BUILD_DIR / "quant_yardstick"),
+                             ("base",))
         report = _build.build()
         YARDSTICK = probe.caller(first.result()["base"])
+        QUANT_FIRST = qprobe.caller(qfirst.result()["base"])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall, "
         f"{len(report)} sources compiled into {_build.BUILD_DIR}, the "
-        "first K6/K7 designs beside them")
+        "first K6/K7 and K1/K4 designs beside them")
     for stem, (secs, ptxas) in sorted(report.items()):
         log(f"[build] {stem}.cu {secs:.2f} s")
         for line in ptxas.splitlines():
@@ -400,9 +454,42 @@ def sass_pipes(one, two, what):
     return Pipes(by["alu"], by["fma"], by["either"])
 
 
+# SASS opcodes of the element body outside the integer pipes: conversions
+# and the special-function unit (16 a clock per SM) and memory
+XU_OPS = ("F2I", "I2F", "F2F", "FRND", "MUFU")
+LSU_OPS = ("LDG", "STG", "LDS", "STS", "LD", "ST", "ATOM", "ATOMG", "RED")
+
+
+def body_sass(one, two, what, elements):
+    """The SASS of the quantiser's element body, per element: ``two`` less
+    ``one`` (a loop step of two groups and of one), over the group's
+    ``elements``, by class ("alu", "fma" (float ops and real IMADs),
+    "either", "xu", "lsu", "other"); logs it with an issue estimate: per
+    SM and clock, 128 instructions of all kinds issue, 64 ALU-only, 16
+    conversions."""
+    delta = {op: two.get(op, 0) - one.get(op, 0)
+             for op in sorted(set(one) | set(two))}
+    by = {"alu": 0, "fma": 0, "either": 0, "xu": 0, "lsu": 0, "other": 0}
+    for op, v in delta.items():
+        base = op.split(".")[0]
+        cls = ("xu" if base in XU_OPS else "lsu" if base in LSU_OPS
+               else pipe_of(op) or "other")
+        by[cls] += v
+    per = {k: v / elements for k, v in by.items()}
+    clocks = max(sum(per.values()) / 128, per["alu"] / 64, per["xu"] / 16)
+    per["issue_clocks"] = clocks
+    log(f"[sass] {what} element body: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items()
+                    if k != "issue_clocks")
+        + f" SASS an element ({sum(by.values())} a group of {elements}); "
+        f"issue estimate {clocks:.3f} clocks an element per SM")
+    return per
+
+
 def phase_sass():
     """Count the SASS instructions of one Threefry block as K1 and as K4
-    draw it, by pipe (sets TF_OPS and TF_LEAF_OPS)."""
+    draw it, by pipe (sets TF_OPS and TF_LEAF_OPS), and of the whole
+    K1/K4 element body (sets BODY_SASS)."""
     global TF_OPS, TF_LEAF_OPS
     from repro_torch.kernels import _build
 
@@ -417,6 +504,10 @@ def phase_sass():
                         "one Threefry block as K1 draws it")
     TF_LEAF_OPS = sass_pipes(counts["one_leaf"], counts["two_leaf"],
                              "one jax.random.bits word as K4 draws it")
+    for key, name, group in (("K1 b=8", "k1_b8", 4), ("K1 b=4", "k1_b4", 8),
+                             ("K4 b=8", "k4_b8", 4)):
+        BODY_SASS[key] = body_sass(counts[f"{name}_one"],
+                                   counts[f"{name}_two"], key, group)
     k10_sass()
 
 
@@ -449,9 +540,51 @@ def k10_sass():
 
 
 def note_err(kernel, got, want):
-    err = float((got.double() - want.double()).abs().max()) if got.numel() \
-        else 0.0
+    """Largest |got - want| so far for ``kernel``; equal values (infs)
+    and NaN against NaN count as 0."""
+    import torch
+
+    if not got.numel():
+        err = 0.0
+    else:
+        g, w = got.double(), want.double()
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        err = float(torch.where(same, 0.0, (g - w).abs()).max())
     ERRS[kernel] = max(ERRS.get(kernel, 0.0), err)
+
+
+def same_scale(a, b):
+    """Scales bit for bit, a NaN matching a NaN whatever its payload."""
+    import torch
+
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and same_bits(a[~nan].contiguous(), b[~nan].contiguous()))
+
+
+def one_launch(fn, tag, label):
+    """Run ``fn`` once under torch.profiler and raise unless the card ran
+    exactly one kernel whose name holds ``tag`` and, besides it, nothing
+    but at most one memset (no abs/amax pass); returns the kernel's
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [nm for nm in names if "Memset" not in nm
+               and "Memcpy" not in nm]
+    memsets = [nm for nm in names if "Memset" in nm]
+    if len(kernels) != 1 or tag not in kernels[0] or len(memsets) > 1:
+        raise AssertionError(f"{label}: the card ran {names}, not one "
+                             f"{tag} kernel and at most one memset")
+    return kernels[0], len(memsets)
 
 
 def z_plane_ids(device):
@@ -518,10 +651,11 @@ def check_k0(seed, dev):
     return {"sids": sids, "rids": rids, "ctr": ctr}
 
 
-def plant_saturation(x, seed, sids, rids, levels):
+def plant_saturation(x, seed, sids, rids, levels, first=0):
     """Put each row's max |x| (a power of two, so levels*|x|/scale is
     exactly ``levels``) at the first element whose kappa lifts it to
-    ``levels + 1``; returns the planted (row, col) pairs."""
+    ``levels + 1``, in rows ``first`` on; returns the planted (row, col)
+    pairs."""
     import torch
 
     from repro_torch.kernels import prng
@@ -532,14 +666,21 @@ def plant_saturation(x, seed, sids, rids, levels):
     kappa = prng.uniform01(prng.random_bits((es[0][:, None],
                                              es[1][:, None]), ctr[None, :]))
     hit = (torch.tensor(float(levels), device=x.device) + kappa) == levels + 1
+    hit[:first] = False
     rows = torch.nonzero(hit.any(dim=1)).reshape(-1)
     cols = torch.argmax(hit.to(torch.int8), dim=1)[rows]
-    big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+    big = 2.0 ** math.ceil(math.log2(2 * float(x[first:].abs().max())))
     x[rows, cols] = big
     return rows, cols
 
 
 def check_k1(seed, dev):
+    """K1 bit for bit (q and scale) at the main path's planes (the ring's
+    z- and x-planes, drop0.3's per-edge plane) at n = 2^20 and 1,000,003,
+    b = 8 and 4: the quantiser's edge rows (``ref.EDGE_ROWS``) in rows 0-7
+    and saturating elements planted in the rest; the first design on the
+    z-plane; on the card each call one launch of the fused kernel and one
+    memset."""
     import torch
 
     from repro_torch.kernels import prng
@@ -548,29 +689,54 @@ def check_k1(seed, dev):
     (zs, zr), (xs, _) = plane_cases(dev)
     es, er = edge_ids(DROP_SPEC, dev)
     g = torch.Generator(device=dev).manual_seed(1)
+    edge = len(ref.EDGE_ROWS)
     for n, sid, rid in ((WIDE_N, zs, zr), (ODD_N, zs, zr), (WIDE_N, xs, None),
                         (WIDE_N, es, er)):
         for bits in (8, 4):
             x = torch.randn((sid.numel(), n), generator=g, device=dev)
+            ref.edge_rows(x)
             levels = 2 ** (bits - 1) - 1
             rows, cols = plant_saturation(
-                x, seed, sid, prng.BROADCAST if rid is None else rid, levels)
+                x, seed, sid, prng.BROADCAST if rid is None else rid, levels,
+                first=edge)
             q, sc = ops.quantize_plane(seed, sid, rid, x, bits=bits)
             sync()
             qw, scw = ref.quantize_plane_ref(seed, sid, rid, x, bits=bits)
             note_err("K1", q, qw)
             note_err("K1", sc, scw)
-            if not (torch.equal(q, qw) and torch.equal(sc, scw)):
+            if not (torch.equal(q, qw) and same_scale(sc, scw)):
                 raise AssertionError(
                     f"K1 n={n} b={bits}: {(q != qw).sum()} q mismatches")
+            out = ops.dequantize_plane(q, sc, n=n, bits=bits)
+            sync()
+            ow = ref.dequantize_plane_ref(q, sc, n=n, bits=bits)
+            note_err("K5", out, ow)
+            if not same_scale(out.reshape(-1), ow.reshape(-1)):
+                raise AssertionError(f"K5 dequantize_plane n={n} b={bits}: "
+                                     "mismatch")
             if rows.numel():
                 pre = ref.quantize_values(x[rows, cols], sc[rows], 1.0,
                                           levels)
                 if not bool((pre == levels + 1).all()):
                     raise AssertionError("K1 saturation plant missed")
+            what = ""
+            if DEV == "cuda" and n == WIDE_N and rid is zr:
+                qf, scf = load_tool("quantize_probe").first_plane(
+                    QUANT_FIRST, seed, sid, rid, x, bits)
+                sync()
+                if not (torch.equal(qf, qw) and same_scale(scf, scw)):
+                    raise AssertionError(f"K1 first design b={bits}: "
+                                         "mismatch")
+                name, sets = one_launch(
+                    lambda: ops.quantize_plane(seed, sid, rid, x, bits=bits),
+                    "quantize_rows", f"K1 b={bits}")
+                what = (f"; the first design bit-equal too; one call ran "
+                        f"{name[:60]} and {sets} memset")
             log(f"[kernels] K1 quantize_plane [{sid.numel()}, {n}] b={bits}"
-                f"{' broadcast' if rid is None else ''}: bit-equal,"
-                f" {rows.numel()} rows with a planted saturating element")
+                f"{' broadcast' if rid is None else ''} and its "
+                f"dequantize_plane (K5's division form): bit-equal (edge "
+                f"rows 0-{edge - 1}), {rows.numel()} rows with a planted "
+                f"saturating element{what}")
 
 
 def check_k23(seed, dev):
@@ -649,9 +815,11 @@ SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
 def check_k45(dev):
     """K4/K5 on [10, n] messages (the baselines' x-plane) and on the ring
     tree round's per-leaf x and z messages, [10 or 20, WIDE_SPLIT] and
-    [10 or 20, n - WIDE_SPLIT]: random keys and four rows keyed by
-    SATURATING_KEYS with their max |x| planted at the element whose
-    kappa is 1.0."""
+    [10 or 20, n - WIDE_SPLIT]: random keys, the quantiser's edge rows in
+    rows 0-7, and four rows keyed by SATURATING_KEYS with their max |x|
+    planted at the element whose kappa is 1.0; the first K4 design at
+    [10, 2^20]; on the card each K4 call one launch of the fused kernel
+    and one memset."""
     import torch
 
     from repro_torch.core import jaxrand
@@ -659,6 +827,7 @@ def check_k45(dev):
     from repro_torch.kernels.quantize import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(3)
+    edge = len(ref.EDGE_ROWS)
     for m, n in ((10, WIDE_N), (10, ODD_N), (10, WIDE_SPLIT),
                  (20, WIDE_SPLIT), (10, WIDE_N - WIDE_SPLIT),
                  (20, WIDE_N - WIDE_SPLIT)):
@@ -666,9 +835,14 @@ def check_k45(dev):
             keys = torch.randint(0, 2 ** 32, (m, 2), generator=g,
                                  device=dev, dtype=torch.int64)
             x = torch.randn((m, n), generator=g, device=dev)
+            ref.edge_rows(x)
             levels = 2 ** (bits - 1) - 1
-            big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
-            for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
+            big = 2.0 ** math.ceil(math.log2(2 * float(x[edge:].abs()
+                                                       .max())))
+            planted = [(r, kk) for r, kk in enumerate(SATURATING_KEYS,
+                                                      start=edge)
+                       if r < m and kk[2] < n]
+            for r, (k0, k1, j) in planted:
                 keys[r] = torch.tensor([k0, k1], device=dev)
                 x[r, j] = big if r % 2 == 0 else -big
             q, sc = ops.quantize_tensor(keys, x, bits=bits)
@@ -676,7 +850,7 @@ def check_k45(dev):
             qw, scw = ref.quantize_tensor_ref(keys, x, bits=bits)
             note_err("K4", q, qw)
             note_err("K4", sc, scw)
-            if not (torch.equal(q, qw) and torch.equal(sc, scw)):
+            if not (torch.equal(q, qw) and same_scale(sc, scw)):
                 raise AssertionError(
                     f"K4 [{m}, {n}] b={bits}: {(q != qw).sum()} q "
                     "mismatches")
@@ -684,16 +858,32 @@ def check_k45(dev):
             sync()
             ow = ref.dequantize_tensor_ref(q, sc, n=n, bits=bits)
             note_err("K5", out, ow)
-            if not torch.equal(out, ow):
+            if not same_scale(out.reshape(-1), ow.reshape(-1)):
                 raise AssertionError(f"K5 [{m}, {n}] b={bits}: mismatch")
-            for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
+            for r, (k0, k1, j) in planted:
                 kap = prng.uniform01(jaxrand.bits(keys[r], (j + 1,)))[j]
                 pre = ref.quantize_values(x[r, j], sc[r], kap, levels)
                 if float(pre.abs()) != levels + 1:
                     raise AssertionError("K4 saturation plant missed")
+            what = ""
+            if DEV == "cuda" and (m, n) == (10, WIDE_N):
+                kd = ops._key_words(keys, (m,), x.device)
+                qf, scf = load_tool("quantize_probe").first_leaf(
+                    QUANT_FIRST, kd, x, bits)
+                sync()
+                if not (torch.equal(qf, qw) and same_scale(scf, scw)):
+                    raise AssertionError(f"K4 first design b={bits}: "
+                                         "mismatch")
+                hkeys = keys.cpu()
+                name, sets = one_launch(
+                    lambda: ops.quantize_tensor(hkeys, x, bits=bits),
+                    "quantize_rows", f"K4 b={bits}")
+                what = (f"; the first design bit-equal too; one call ran "
+                        f"{name[:60]} and {sets} memset")
             log(f"[kernels] K4/K5 quantize/dequantize_tensor [{m}, {n}] "
-                f"b={bits}: bit-equal, {len(SATURATING_KEYS)} rows with a "
-                "planted saturating element")
+                f"b={bits}: bit-equal (edge rows 0-{min(m, edge) - 1}), "
+                f"{len(planted)} rows with a planted saturating "
+                f"element{what}")
 
 
 def hold_k67(x, rows, n, gain, variants, label):
@@ -1124,6 +1314,7 @@ def kernel_counters():
             "randk_scatter_plane": sgops.randk_scatter_plane,
             "quantize_tensor": qops.quantize_tensor,
             "dequantize_tensor": qops.dequantize_tensor,
+            "dequantize_plane": qops.dequantize_plane,
             "sparse_gather": sgops.sparse_gather,
             "sparse_scatter": sgops.sparse_scatter,
             "cyclic_gather": sgops.cyclic_gather,
@@ -1356,7 +1547,7 @@ def phase_paper_schedules(rounds, kind_rounds=30):
             _, gns = run_solver(prob, data, solver, kind_rounds,
                                 x0=None if packed else tree_x0(prob, 2, DEV))
             counts = read_counts()
-            used = (("quantize_plane",) if packed
+            used = (("quantize_plane", "dequantize_plane") if packed
                     else ("quantize_tensor", "dequantize_tensor"))
             log(f"[paper] {gspec} packed={packed}: ||gradF||^2 "
                 f"{gns[0]:.3e} -> {gns[-1]:.3e} in {kind_rounds} rounds, "
@@ -1431,7 +1622,8 @@ def phase_fig2(admm_rounds, baseline_iters):
             raise AssertionError(f"{name}: wire bytes {wire} != {ref_wire}")
         if not math.isfinite(floor):
             raise AssertionError(f"{name}: floor {floor} is not finite")
-        used = (("quantize_plane",) if solver.name == "ltadmm" else
+        used = (("quantize_plane", "dequantize_plane")
+                if solver.name == "ltadmm" else
                 ("quantize_tensor", "dequantize_tensor"))
         if DEV == "cuda" and not all(counts[name][u] > 0 for u in used):
             raise AssertionError(f"{name}: kernels {used} not launched")
@@ -1468,18 +1660,23 @@ WIDE_SPLIT = 4096
 DROP_SPEC = "drop:p=0.3,base=complete,seed=0"
 CHURN_SPEC = "churn:p=0.2,base=complete,seed=0"
 WIDE_SPECS = (
-    ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga", ("quantize_plane",),
-     "ring", False, None),
-    ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga", ("quantize_plane",),
-     "ring", False, None),
+    # 2 K1 a round (the x- and z-planes)
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
+     ("quantize_plane", "dequantize_plane"), "ring", False,
+     {"quantize_plane": 2}),
+    ("qbit4", "ltadmm:compressor=qbit:bits=4", "saga",
+     ("quantize_plane", "dequantize_plane"), "ring", False,
+     {"quantize_plane": 2}),
     # 2 K2 and 4 K3 a round, all through the pull variant (n = 2^20)
     ("randk-stride",
      "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", "saga",
      ("randk_gather_plane", "randk_scatter_plane"), "ring", False,
      {"randk_gather_plane_pull": 2, "randk_scatter_plane_pull": 4,
       "randk_gather_plane_push": 0, "randk_scatter_plane_push": 0}),
+    # 1 K4 and 1 K5 an iteration
     ("lead-qbit8", "lead:lr=0.1,compressor=qbit:bits=8", "sgd",
-     ("quantize_tensor", "dequantize_tensor"), "ring", False, None),
+     ("quantize_tensor", "dequantize_tensor"), "ring", False,
+     {"quantize_tensor": 1, "dequantize_tensor": 1}),
     # 1 K6 and 1 K7 an iteration, K7 through its unique variant
     ("choco-topk", "choco:compressor=topk:fraction=0.25", "sgd",
      ("sparse_gather", "sparse_scatter"), "ring", False,
@@ -1496,7 +1693,8 @@ WIDE_SPECS = (
       "sparse_scatter_claim": 0}),
     # the packed schedule round: K1 on [10, 15, 2^20] x- and z-planes
     ("drop-qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
-     ("quantize_plane",), DROP_SPEC, False, {"quantize_plane": 2}),
+     ("quantize_plane", "dequantize_plane"), DROP_SPEC, False,
+     {"quantize_plane": 2}),
     # the tree schedule round: per leaf 2 K8 and 4 K9
     ("churn-tree-randk-block",
      "ltadmm:eta=0.5,packed=false,compressor=randk:fraction=0.6,"
@@ -1557,6 +1755,7 @@ MAIN_PATH_WRAPPERS = {
     "randk_scatter_plane": ("K3", "sparse_gather", "randk_scatter_plane_ref"),
     "quantize_tensor": ("K4", "quantize", "quantize_tensor_ref"),
     "dequantize_tensor": ("K5", "quantize", "dequantize_tensor_ref"),
+    "dequantize_plane": ("K5", "quantize", "dequantize_plane_ref"),
     "sparse_gather": ("K6", "sparse_gather", "sparse_gather_ref"),
     "sparse_scatter": ("K7", "sparse_gather", "sparse_scatter_ref"),
     "cyclic_gather": ("K8", "sparse_gather", "cyclic_gather_ref"),
@@ -2219,7 +2418,14 @@ def time_serve_kernels(counts):
 
 
 # kernel id -> the names of its CUDA kernels (csrc) in a profile
-PROFILED_KERNELS = (("K1", ("quantize8_kernel", "quantize4_kernel")),
+PROFILED_KERNELS = (("K1", ("quantize_rows<8, repro::PlaneKappa>",
+                            "quantize_rows<4, repro::PlaneKappa>")),
+                    ("K4", ("quantize_rows<8, repro::LeafKappa>",
+                            "quantize_rows<4, repro::LeafKappa>")),
+                    ("K5", ("dequantize8_leaf<false>",
+                            "dequantize4_leaf<false>")),
+                    ("K5 plane", ("dequantize8_leaf<true>",
+                                  "dequantize4_leaf<true>")),
                     ("K2", ("randk_gather_",)),
                     ("K3", ("randk_scatter_", "randk_claim")),
                     ("K6", ("::gather_kernel<",)),
@@ -2595,6 +2801,31 @@ def time_k67(x, counts):
     return rows
 
 
+def time_quant(rows, kid, name, source, replaces, run, counts, bits, elems,
+               wrap, bare, first, first_bare, plain, nbytes, int_ops, fp_ops):
+    """A K1 or K4 row: the fused kernel's wrapper and bare entry (scale
+    included; scratch allocated once, zeroed by the entry) beside the
+    first design's wrapper (the scale pass, then its kernel) and bare
+    kernel (the scale given), in turns; the plain version; the bound (x
+    read once, q and scale written once, a Threefry block and 6 f32 ops an
+    element); and the element body's issue estimate from its SASS."""
+    ms, first_ms, ms_turns, first_turns = turns(wrap, first)
+    kms, first_kms, kms_turns, first_kturns = turns(bare, first_bare)
+    body = BODY_SASS[f"{kid} b={bits}"]
+    issue_ms = body["issue_clocks"] * elems / (132 * 1.98e9) * 1e3
+    log(f"[sass] {name}: the element body's issue estimate {issue_ms:.4f} "
+        f"ms ({body['issue_clocks']:.3f} clocks an element per SM) beside "
+        f"the bound {bound_ms(nbytes, int_ops, fp_ops)[0]:.4f} ms")
+    add_row(rows, name, source, replaces, counts[run][
+        "quantize_plane" if kid == "K1" else "quantize_tensor"], ms, kms,
+        cuda_ms(plain, iters=2, warmup=1), nbytes, int_ops, fp_ops, None,
+        rounds=WIDE_ROUNDS, launches_of=run, ms_turns=ms_turns,
+        first_ms=first_ms, first_ms_turns=first_turns,
+        kernel_ms_turns=kms_turns, first_kernel_ms=first_kms,
+        first_kernel_ms_turns=first_kturns, element_sass=body,
+        element_issue_ms=issue_ms)
+
+
 def time_kernels(seed, k0_inputs, counts, shapes):
     """Each kernel at the main path's shapes (the z-plane [20, 2^20] of
     the wide run; RandK at fraction 0.6; K8/K9 also at each shape the
@@ -2613,6 +2844,7 @@ def time_kernels(seed, k0_inputs, counts, shapes):
 
     if TF_OPS is None:
         phase_sass()
+    qprobe = load_tool("quantize_probe")
     dev = torch.device("cuda")
     sid, rid = z_plane_ids(dev)
     m, n = 20, WIDE_N
@@ -2648,72 +2880,72 @@ def time_kernels(seed, k0_inputs, counts, shapes):
         launches_of="K1-K4, which inline K0 (all wide runs)")
 
     sid32, rid32 = qops._plane_ids(sid, (m,)), qops._plane_ids(rid, (m,))
-    scale = qref.row_scale(x)
-    for bits, label in ((8, "qbit8"), (4, "qbit4")):
-        wire = qops.wire_len(n, bits)
-        q = torch.empty((m, wire), device=dev,
-                        dtype=torch.int8 if bits == 8 else torch.uint8)
-        add_row(
-            rows, f"K1 quantize_plane b={bits} [20, 2^20]",
-            "src/repro_torch/csrc/quantize_plane.cu",
-            "src/repro/kernels/quantize/kernel.py:148",
-            counts[label]["quantize_plane"],
-            cuda_ms(lambda: qops.quantize_plane(seed, sid, rid, x, bits=bits)),
-            bare("quantize_plane", x.data_ptr(), m, n, bits, seed[0], seed[1],
-                 sid32.data_ptr(), rid32.data_ptr(), scale.data_ptr(),
-                 q.data_ptr(), wire),
-            cuda_ms(lambda: qref.quantize_plane_ref(seed, sid, rid, x,
-                                                    bits=bits),
-                    iters=3, warmup=1),
-            m * n * 4 + m * wire + 8 * m, TF_OPS * (m * n + 2 * m),
-            6 * m * n, None, rounds=WIDE_ROUNDS)
-
-    # K1 at drop0.3's x/z-plane [10, 15, 2^20] as [150, 2^20] rows
+    # K1: the z-plane [20, 2^20] (b = 8 and 4) and drop0.3's x/z-plane
+    # [10, 15, 2^20] as [150, 2^20] rows
     mb = 150
-    xb = torch.randn((mb, n), device=dev)
     sidb = (torch.arange(mb, device=dev) // 15).to(torch.int32)
     ridb = (torch.arange(mb, device=dev) % 15).to(torch.int32)
-    scb = qref.row_scale(xb)
-    wire = qops.wire_len(n, 8)
-    qb = torch.empty((mb, wire), device=dev, dtype=torch.int8)
-    add_row(
-        rows, "K1 quantize_plane b=8 [150, 2^20] (drop0.3)",
-        "src/repro_torch/csrc/quantize_plane.cu",
-        "src/repro/kernels/quantize/kernel.py:148",
-        counts["drop-qbit8"]["quantize_plane"],
-        cuda_ms(lambda: qops.quantize_plane(seed, sidb, ridb, xb, bits=8)),
-        bare("quantize_plane", xb.data_ptr(), mb, n, 8, seed[0], seed[1],
-             sidb.data_ptr(), ridb.data_ptr(), scb.data_ptr(), qb.data_ptr(),
-             wire),
-        cuda_ms(lambda: qref.quantize_plane_ref(seed, sidb, ridb, xb,
-                                                bits=8), iters=2, warmup=1),
-        mb * n * 4 + mb * wire + 8 * mb, TF_OPS * (mb * n + 2 * mb),
-        6 * mb * n, None, rounds=WIDE_ROUNDS)
-    del xb, qb
+    for mm, bits, run, what, xs, ss, rr in (
+            (m, 8, "qbit8", "[20, 2^20]", x, sid32, rid32),
+            (m, 4, "qbit4", "[20, 2^20]", x, sid32, rid32),
+            (mb, 8, "drop-qbit8", "[150, 2^20] (drop0.3)", None, sidb, ridb)):
+        xs = torch.randn((mb, n), device=dev) if xs is None else xs
+        wire = qops.wire_len(n, bits)
+        q = torch.empty((mm, wire), device=dev,
+                        dtype=torch.int8 if bits == 8 else torch.uint8)
+        sc, given = torch.empty((mm,), device=dev), qref.row_scale(xs)
+        scr = qops.scratch(mm, dev)
+        time_quant(
+            rows, "K1", f"K1 quantize_plane b={bits} {what}",
+            "src/repro_torch/csrc/quantize_plane.cu",
+            "src/repro/kernels/quantize/kernel.py:148", run, counts, bits,
+            mm * n,
+            lambda: qops.quantize_plane(seed, ss, rr, xs, bits=bits),
+            lambda: _build.launch(
+                "quantize_plane", xs.data_ptr(), mm, n, bits, seed[0],
+                seed[1], ss.data_ptr(), rr.data_ptr(), sc.data_ptr(),
+                q.data_ptr(), wire, scr.data_ptr()),
+            lambda: qprobe.first_plane(QUANT_FIRST, seed, ss, rr, xs, bits),
+            QUANT_FIRST("quantize_plane_first", xs.data_ptr(), mm, n, bits,
+                        seed[0], seed[1], ss.data_ptr(), rr.data_ptr(),
+                        given.data_ptr(), q.data_ptr(), wire),
+            lambda: qref.quantize_plane_ref(seed, ss, rr, xs, bits=bits),
+            mm * n * 4 + mm * wire + 8 * mm, TF_OPS * (mm * n + 2 * mm),
+            6 * mm * n)
+        del xs, q, scr
 
     # K2/K3: the pull variant the main path runs, and the push
     # kernels forced on the same inputs in turns (pull, push, push, pull)
     rows += time_k23(seed, x, sid, rid, sid32, rid32, k, counts)
 
-    # K4/K5 on the baselines' x messages [10, 2^20] (LEAD qbit8)
+    # K4/K5 on the baselines' x messages [10, 2^20] (LEAD qbit8), and K4
+    # on the ring tree round's big leaf [20, 2^20 - 4096]
+    for ma, na, run in ((10, n, "lead-qbit8"),
+                        (20, n - WIDE_SPLIT, "ring-tree-qbit8")):
+        xa = (x[:ma] if na == n else x[:, :na]).contiguous()
+        keys = jaxrand.split(jaxrand.key(5), ma)
+        kd = qops._key_words(keys, (ma,), dev)
+        sca, given = torch.empty((ma,), device=dev), qref.row_scale(xa)
+        qa = torch.empty((ma, na), device=dev, dtype=torch.int8)
+        scr = qops.scratch(ma, dev)
+        time_quant(
+            rows, "K4", f"K4 quantize_tensor b=8 [{ma}, {na}]",
+            "src/repro_torch/csrc/quantize_leaf.cu",
+            "src/repro/kernels/quantize/kernel.py:73", run, counts, 8,
+            ma * na,
+            lambda: qops.quantize_tensor(keys, xa, bits=8),
+            lambda: _build.launch("quantize_leaf", xa.data_ptr(), ma, na, 8,
+                                  kd.data_ptr(), sca.data_ptr(),
+                                  qa.data_ptr(), na, scr.data_ptr()),
+            lambda: qprobe.first_leaf(QUANT_FIRST, kd, xa, 8),
+            QUANT_FIRST("quantize_leaf_first", xa.data_ptr(), ma, na, 8,
+                        kd.data_ptr(), given.data_ptr(), qa.data_ptr(), na),
+            lambda: qref.quantize_tensor_ref(keys, xa, bits=8),
+            ma * na * 4 + ma * na + 8 * ma + 4 * ma, TF_LEAF_OPS * ma * na,
+            6 * ma * na)
     ma = 10
     xa = x[:ma].contiguous()
     keys = jaxrand.split(jaxrand.key(5), ma)
-    kd = qops._key_words(keys, (ma,), dev)
-    sca = qref.row_scale(xa)
-    qa = torch.empty((ma, n), device=dev, dtype=torch.int8)
-    add_row(
-        rows, "K4 quantize_tensor b=8 [10, 2^20]",
-        "src/repro_torch/csrc/quantize_leaf.cu",
-        "src/repro/kernels/quantize/kernel.py:73",
-        counts["lead-qbit8"]["quantize_tensor"],
-        cuda_ms(lambda: qops.quantize_tensor(keys, xa, bits=8)),
-        bare("quantize_leaf", xa.data_ptr(), ma, n, 8, kd.data_ptr(),
-             sca.data_ptr(), qa.data_ptr(), n),
-        cuda_ms(lambda: qref.quantize_tensor_ref(keys, xa, bits=8),
-                iters=3, warmup=1),
-        ma * n * 4 + ma * n + 8 * ma + 4 * ma, TF_LEAF_OPS * ma * n,
-        6 * ma * n, None, rounds=WIDE_ROUNDS)
     qa, sca = qops.quantize_tensor(keys, xa, bits=8)
     outa = torch.empty((ma, n), device=dev)
     add_row(
@@ -2723,10 +2955,31 @@ def time_kernels(seed, k0_inputs, counts, shapes):
         counts["lead-qbit8"]["dequantize_tensor"],
         cuda_ms(lambda: qops.dequantize_tensor(qa, sca, n=n, bits=8)),
         bare("dequantize_leaf", qa.data_ptr(), ma, n, 8, sca.data_ptr(),
-             outa.data_ptr(), n),
+             outa.data_ptr(), n, 0),
         cuda_ms(lambda: qref.dequantize_tensor_ref(qa, sca, n=n, bits=8),
                 iters=3, warmup=1),
         ma * n + 4 * ma + ma * n * 4, 0, 2 * ma * n, None, rounds=WIDE_ROUNDS)
+    del qa, outa
+
+    # K5's division form, the plane route's dequantize_plane, at drop0.3's
+    # [150, 2^20] planes (b = 8)
+    xp = torch.randn((mb, n), device=dev)
+    qp, scp = qops.quantize_plane(seed, sidb, ridb, xp, bits=8)
+    del xp
+    outp = torch.empty((mb, n), device=dev)
+    add_row(
+        rows, "K5 dequantize_plane b=8 [150, 2^20] (drop0.3)",
+        "src/repro_torch/csrc/quantize_leaf.cu",
+        "src/repro/kernels/quantize/kernel.py:188",
+        counts["drop-qbit8"]["dequantize_plane"],
+        cuda_ms(lambda: qops.dequantize_plane(qp, scp, n=n, bits=8)),
+        bare("dequantize_leaf", qp.data_ptr(), mb, n, 8, scp.data_ptr(),
+             outp.data_ptr(), n, 1),
+        cuda_ms(lambda: qref.dequantize_plane_ref(qp, scp, n=n, bits=8),
+                iters=2, warmup=1),
+        mb * n + 4 * mb + mb * n * 4, 0, 2 * mb * n, None, rounds=WIDE_ROUNDS,
+        launches_of="drop-qbit8")
+    del qp, outp
 
     # K6/K7 at the RandK-uniform z-plane and CHOCO TopK's x-plane, beside
     # the first designs on the same inputs
@@ -2881,7 +3134,8 @@ def main(argv=None):
     rows = None
     if "wide" in phases:
         counts, shapes = phase_wide(WIDE_ROUNDS)
-        missing = [kk for kk in ("quantize_plane", "randk_gather_plane",
+        missing = [kk for kk in ("quantize_plane", "dequantize_plane",
+                                 "randk_gather_plane",
                                  "randk_scatter_plane", "quantize_tensor",
                                  "dequantize_tensor", "sparse_gather",
                                  "sparse_scatter", "cyclic_gather",

@@ -167,7 +167,7 @@ class BBitQuantizer:
         q = payload["q"]
         if self.bits == 4:
             q = qref.unpack4(q, n)
-        return payload["scale"][..., None] * q.to(torch.float32) / self.levels
+        return qref.dequantize_values(q, payload["scale"], self.levels)
 
     # -- fused plane route: one launch for all [A, S, N] messages --
 

@@ -39,7 +39,7 @@ ENTRIES = {
     "threefry_bits": ("threefry_bits",
                       (_U, _U, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "quantize_plane": ("quantize_plane",
-                       (_P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _I)),
+                       (_P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _I, _P)),
     "randk_gather_pull": ("randk_plane",
                           (_P, _I, _I, _I, _U, _U, _P, _P, _P, _I, _P)),
     "randk_gather_push": ("randk_plane",
@@ -50,8 +50,9 @@ ENTRIES = {
     "randk_scatter_push": ("randk_plane",
                            (_P, _I, _I, _I, _F, _U, _U, _P, _P, _P, _I, _P,
                             _P)),
-    "quantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _P, _I)),
-    "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I)),
+    "quantize_leaf": ("quantize_leaf",
+                      (_P, _I, _I, _I, _P, _P, _P, _I, _P)),
+    "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I, _I)),
     "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _L, _I, _P)),
     "sparse_scatter": ("gather_scatter",
                        (_P, _P, _I, _L, _I, _I, _I, _F, _I, _P, _P, _P)),
@@ -128,7 +129,11 @@ def _lib(stem: str):
 def launch(entry: str, *args) -> None:
     """Call C entry ``entry`` on PyTorch's current stream; raise if the
     launch reported a CUDA error."""
-    stem = ENTRIES[entry][0]
+    stem, argtypes = ENTRIES[entry]
+    if len(args) != len(argtypes):
+        # ctypes would pass extra arguments on, shifting the stream's
+        raise TypeError(f"{entry} takes {len(argtypes)} arguments before "
+                        f"the stream, got {len(args)}")
     fn = getattr(_lib(stem), entry)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -4,8 +4,13 @@ and of the per-message quantize/dequantize kernels (K4/K5,
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
 version (``ref.py``) on a CPU tensor, as the reference runs Pallas in
-interpret mode off the TPU.  ``dequantize_plane`` is plain PyTorch, as in
-the reference (``quantize/ops.py:71``).
+interpret mode off the TPU.  K1 and K4 compute the row scales in the same
+launch as the levels (``csrc/quantize.cuh``), so their wrappers only
+allocate: q, scale, and the kernel's scratch (a ticket, a counter and a
+max word per row), which the C entry zeroes on the stream before the
+launch.  ``dequantize_plane``, a jnp expression in the reference
+(``quantize/ops.py:71``), runs K5's kernel in its division form on the
+card.
 """
 from __future__ import annotations
 
@@ -18,6 +23,13 @@ from repro_torch.kernels.quantize import ref
 def wire_len(n: int, bits: int) -> int:
     """Wire bytes of one quantized message of n elements."""
     return n if bits == 8 else -(-n // 2)
+
+
+def scratch(m: int, device):
+    """The fused quantiser's scratch for m rows: a ticket, then an arrival
+    counter and a max word per row (uint32; zeroed by the C entry).  One
+    per call, so two calls on two streams never share one."""
+    return torch.empty((1 + 2 * m,), dtype=torch.int32, device=device)
 
 
 def _check_bits(bits):
@@ -39,13 +51,14 @@ def quantize_plane(seed, sids, rids, x, *, bits=8):
     m, wire = xf.shape[0], wire_len(n, bits)
     sid = _plane_ids(sids, lead)
     rid = _plane_ids(rids, lead)
-    scale = ref.row_scale(xf)
+    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
     q = torch.empty((m, wire), device=x.device,
                     dtype=torch.int8 if bits == 8 else torch.uint8)
     _build.launch(
         "quantize_plane", xf.data_ptr(), m, n, bits, seed[0], seed[1],
         _build.id_ptr(sid, m, x.device), _build.id_ptr(rid, m, x.device),
         scale.data_ptr(), q.data_ptr(), wire,
+        scratch(m, x.device).data_ptr(),
     )
     quantize_plane.launches += 1
     return q.reshape(lead + (wire,)), scale.reshape(lead)
@@ -79,11 +92,12 @@ def quantize_tensor(keys, x, *, bits=8):
     lead, n, xf = _build.rows(x, "x", torch.float32)
     m, wire = xf.shape[0], wire_len(n, bits)
     kd = _key_words(keys, lead, x.device)
-    scale = ref.row_scale(xf)
+    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
     q = torch.empty((m, wire), device=x.device,
                     dtype=torch.int8 if bits == 8 else torch.uint8)
     _build.launch("quantize_leaf", xf.data_ptr(), m, n, bits, kd.data_ptr(),
-                  scale.data_ptr(), q.data_ptr(), wire)
+                  scale.data_ptr(), q.data_ptr(), wire,
+                  scratch(m, x.device).data_ptr())
     quantize_tensor.launches += 1
     return q.reshape(lead + (wire,)), scale.reshape(lead)
 
@@ -93,22 +107,22 @@ quantize_tensor.launches = 0
 
 def _key_words(keys, lead, device):
     """``[..., 2]`` keys -> contiguous int32 ``[M, 2]`` uint32 bit patterns
-    on ``device``, converted where the keys lie (host keys: one copy)."""
+    on ``device``, converted where the keys lie.  Host keys bound for a
+    CUDA device go through pinned memory in a non-blocking copy, so the
+    host does not wait for the stream (a copy from pageable memory
+    would)."""
     if tuple(keys.shape) != lead + (2,):
         raise ValueError(f"keys of shape {tuple(keys.shape)} do not match "
                          f"the messages' shape {lead}")
-    words = (keys.reshape(-1, 2) & prng.MASK).to(torch.int32)
-    return words.to(device).contiguous()
+    words = (keys.reshape(-1, 2) & prng.MASK).to(torch.int32).contiguous()
+    if words.device.type == "cpu" and torch.device(device).type == "cuda":
+        words = words.pin_memory()
+    return words.to(device, non_blocking=True)
 
 
-def dequantize_tensor(q, scale, *, n, bits=8):
-    """Inverse of ``quantize_tensor`` in one launch: ``(scale * q) *
-    f32(1 / levels)`` per message, as the reference's compiled
-    ``dequantize_tensor`` computes it (``quantize/ops.py:104``).
-    ``q [..., wire_len]``, ``scale [...]``; returns ``[..., n]`` f32."""
-    _check_bits(bits)
-    if q.device.type == "cpu":
-        return ref.dequantize_tensor_ref(q, scale, n=n, bits=bits)
+def _dequantize(q, scale, n, bits, plane):
+    """One launch of the dequantise kernel over q's rows (``plane``: the
+    division form of ``dequantize_plane``)."""
     lead, wire, qf = _build.rows(q, "q",
                                  torch.int8 if bits == 8 else torch.uint8)
     if wire != wire_len(n, bits):
@@ -119,17 +133,38 @@ def dequantize_tensor(q, scale, *, n, bits=8):
     _build.check_tensor("scale", sc, torch.float32, q.device, (m,))
     out = torch.empty((m, n), dtype=torch.float32, device=q.device)
     _build.launch("dequantize_leaf", qf.data_ptr(), m, n, bits,
-                  sc.data_ptr(), out.data_ptr(), wire)
-    dequantize_tensor.launches += 1
+                  sc.data_ptr(), out.data_ptr(), wire, plane)
     return out.reshape(lead + (n,))
+
+
+def dequantize_tensor(q, scale, *, n, bits=8):
+    """Inverse of ``quantize_tensor`` in one launch: ``(scale * q) *
+    f32(1 / levels)`` per message, as the reference's compiled
+    ``dequantize_tensor`` computes it (``quantize/ops.py:104``).
+    ``q [..., wire_len]``, ``scale [...]``; returns ``[..., n]`` f32."""
+    _check_bits(bits)
+    if q.device.type == "cpu":
+        return ref.dequantize_tensor_ref(q, scale, n=n, bits=bits)
+    out = _dequantize(q, scale, n, bits, 0)
+    dequantize_tensor.launches += 1
+    return out
 
 
 dequantize_tensor.launches = 0
 
 
 def dequantize_plane(q, scale, *, n, bits=8):
-    """Elementwise inverse of ``quantize_plane``: ``scale * q / levels``."""
+    """Elementwise inverse of ``quantize_plane``: ``(scale * q) / levels``
+    as the reference's jnp expression (``quantize/ops.py:71``) computes
+    it, subnormal results flushed as XLA flushes them.  On the card one
+    launch of K5's kernel in its division form (``csrc/quantize_leaf.cu``),
+    where the flush in PyTorch would take four passes over the plane."""
     _check_bits(bits)
-    levels = float(2 ** (bits - 1) - 1)
-    qf = q if bits == 8 else ref.unpack4(q, n)
-    return scale[..., None] * qf.to(torch.float32) / levels
+    if q.device.type == "cpu":
+        return ref.dequantize_plane_ref(q, scale, n=n, bits=bits)
+    out = _dequantize(q, scale, n, bits, 1)
+    dequantize_plane.launches += 1
+    return out
+
+
+dequantize_plane.launches = 0

@@ -1,7 +1,13 @@
 """Plain PyTorch versions of the fused plane quantizer (K1) and of the
 per-message quantize/dequantize kernels (K4, K5), and the quantizer
 arithmetic shared with the per-message torch route of
-``core/compression.py``."""
+``core/compression.py``.
+
+The reference's f32 arithmetic runs under XLA, whose CPU backend (and the
+TPU) keeps no f32 subnormal: a subnormal operand counts as a zero of its
+sign and a subnormal result becomes one.  Eager PyTorch keeps them, so the
+quantiser's and dequantiser's steps go through ``ftz`` wherever a
+subnormal can arise."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +31,26 @@ def plane_ids(ids, lead, fill, device):
                     .broadcast_to(lead).reshape(-1))
 
 
+def ftz(t):
+    """f32 subnormals to zeros of the same sign (NaN and inf kept)."""
+    return torch.where(t.abs() < TINY, t * 0.0, t)
+
+
+def round_ftz(v):
+    """f64 ``v``, the result of one f32 multiply or divide taken in f64
+    (exact for a product; for a quotient, rounding twice to 53 then 24
+    bits gives the correctly rounded f32), rounded to f32 as XLA's
+    flushing arithmetic rounds it: to nearest with an unbounded exponent,
+    then to a zero of its sign if below tiny.  IEEE rounding differs just
+    below tiny: it gives tiny for |v| in [tiny - 2^-150, tiny - 2^-151),
+    which XLA rounds to tiny - 2^-150 and flushes."""
+    a = v.abs()
+    r = v.to(torch.float32)
+    small = torch.where(a >= TINY - 2.0 ** -151,
+                        torch.copysign(torch.full_like(r, TINY), r), r * 0.0)
+    return torch.where(a < TINY, small, r)
+
+
 def row_scale(xf):
     """Per-row inf-norm scale, floored at the f32 tiny (``[M]``)."""
     return torch.amax(xf.abs(), dim=-1).clamp_min(TINY)
@@ -32,9 +58,29 @@ def row_scale(xf):
 
 def quantize_values(x, scale, kappa, levels: int):
     """``sign(x) * floor(levels * |x| / scale + kappa)`` in f32, in the
-    reference's operation order."""
-    q = torch.floor(levels * x.abs() / scale + kappa)
+    reference's operation order, subnormals flushed as XLA does: x (so
+    that sign(x) of a subnormal is a zero) and the quotient.  The other
+    steps cannot give one: ``levels * |x|`` of a normal x is normal, kappa
+    is 0 or at least 2^-32, and the last product is a whole number."""
+    x = ftz(x)
+    q = torch.floor(ftz(levels * x.abs() / ftz(scale)) + kappa)
     return torch.sign(x) * q
+
+
+def dequantize_values(q, scale, levels: int):
+    """``(scale * q) / levels`` over ``q [..., n]``, ``scale [...]``, as
+    the reference's jnp dequantisers write it, subnormals flushed as XLA
+    does (at scale = tiny, q = -1 gives -0.0)."""
+    p = ftz(scale)[..., None] * q.to(torch.float32)  # never below tiny
+    return round_ftz(p.double() / levels)
+
+
+def dequantize_plane_ref(q, scale, *, n, bits=8):
+    """The plane route's dequantiser (the reference's jnp
+    ``dequantize_plane``, ``quantize/ops.py:71``): ``q [..., wire]``,
+    ``scale [...]``; returns ``[..., n]`` f32."""
+    qf = q if bits == 8 else unpack4(q, n)
+    return dequantize_values(qf, scale, 2 ** (bits - 1) - 1)
 
 
 def to_int8(q):
@@ -60,6 +106,41 @@ def unpack4(packed, n: int):
     p = packed.to(torch.int32)
     q = torch.stack([(p >> 4) & 0xF, p & 0xF], dim=-1)
     return q.reshape(packed.shape[:-1] + (-1,))[..., :n] - 8
+
+
+EDGE_ROWS = ("subnormal only", "normal with subnormal elements",
+             "max below 127 tiny", "all +-0", "a NaN", "+inf", "-inf",
+             "max at the last element")
+
+
+def edge_rows(x):
+    """Overwrite the first ``len(EDGE_ROWS)`` rows of ``x [M, n]`` (f32,
+    fewer if M is smaller) with the quantiser's edge cases, made from each
+    row's own values (scaled in f64): a row of subnormals only, a normal
+    row with every fifth element subnormal, a row whose max is 50 tiny
+    (below 127 tiny, so levels * |x| / scale and the dequantised levels
+    reach the subnormal range), a row of +0.0 and -0.0, rows holding a
+    NaN, a +inf and a -inf, and a row whose max |x| is its last element.
+    Returns ``x``."""
+    n = x.shape[-1]
+    xd = x.double()
+    peak = xd.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    at = [torch.tensor([j], device=x.device)
+          for j in (n // 2, n // 3, (2 * n) // 3, n - 1)]
+    rows = (
+        lambda: xd[0] * (1e-40 / peak[0]),
+        lambda: torch.where(torch.arange(n, device=x.device) % 5 == 0,
+                            xd[1] * (1e-41 / peak[1]), xd[1]),
+        lambda: xd[2] * (50 * TINY / peak[2]),
+        lambda: torch.where(xd[3] < 0, -0.0, 0.0).to(torch.float64),
+        lambda: xd[4].index_fill(0, at[0], float("nan")),
+        lambda: xd[5].index_fill(0, at[1], float("inf")),
+        lambda: xd[6].index_fill(0, at[2], float("-inf")),
+        lambda: xd[7].index_fill(0, at[3], -2.0 * float(peak[7])),
+    )
+    for r, row in enumerate(rows[:x.shape[0]]):
+        x[r] = row().to(torch.float32)
+    return x
 
 
 def quantize_plane_ref(seed, sids, rids, x, *, bits=8):
@@ -125,5 +206,6 @@ def dequantize_tensor_ref(q, scale, *, n, bits=8):
         qp = _pad_last(qf, -(-wire // half) * half, 0x88)
         qf = unpack4(qp, 2 * qp.shape[-1]).to(torch.float32)
     inv = torch.tensor(1.0, dtype=torch.float32) / (2 ** (bits - 1) - 1)
-    out = scale.reshape(-1, 1).to(torch.float32) * qf * inv.to(q.device)
+    p = ftz(scale.reshape(-1, 1).to(torch.float32)) * qf  # never below tiny
+    out = round_ftz(p.double() * inv.to(q.device, torch.float64))
     return out[:, :n].reshape(lead + (n,))

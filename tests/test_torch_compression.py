@@ -6,6 +6,9 @@
   stride samplers, a row whose max |x| meets a kappa that rounds the
   level up (int8 saturation, nibble wrap), and the int32 wrap of the
   affine index set (with the repeated indices it causes);
+* the plain versions of K1, K4, K5 and ``dequantize_plane`` on the
+  quantiser's edge rows (subnormals, a max below 127 tiny, +-0, NaN,
+  +-inf), which the reference's XLA arithmetic flushes, bit for bit;
 * the plain versions of the per-message kernels (K4/K5 quantize and
   dequantize, K6/K7 gather and scatter, K8/K9 cyclic gather and
   scatter) against the reference's kernels in interpret mode, the same
@@ -36,7 +39,7 @@ from repro.kernels.sparse_gather import ops as jsg  # noqa: E402
 from repro_torch.core import admm  # noqa: E402
 from repro_torch.core import compression as comp  # noqa: E402
 from repro_torch.core import jaxrand  # noqa: E402
-from repro_torch.kernels import prng  # noqa: E402
+from repro_torch.kernels import _build, prng  # noqa: E402
 from repro_torch.kernels.quantize import ops as q_ops  # noqa: E402
 from repro_torch.kernels.sparse_gather import ops as sg_ops  # noqa: E402
 from repro_torch.kernels.sparse_gather import ref as sg_ref  # noqa: E402
@@ -124,6 +127,61 @@ def test_quantize_plane_saturation_matches_reference(bits):
         else:  # level 8 is nibble 16: its own 4 bits are 0
             byte = int(q[r, j // 2])
             assert (byte >> 4 if j % 2 == 0 else byte) & 0xF == 0
+
+
+def _same_f32(got, want):
+    """f32 arrays bit for bit (-0.0 apart from +0.0), a NaN matching a NaN
+    whatever its payload."""
+    g = np.ascontiguousarray(np.asarray(got, np.float32))
+    w = np.ascontiguousarray(np.asarray(want, np.float32))
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    keep = ~np.isnan(g)
+    np.testing.assert_array_equal(_bits(g[keep]), _bits(w[keep]))
+
+
+def _edge_x(m, n, salt):
+    """``[m, n]`` rows from ``_x`` with the quantiser's edge rows planted
+    (``ref.EDGE_ROWS``)."""
+    return q_ops.ref.edge_rows(torch.from_numpy(_x((m, n), salt))).numpy()
+
+
+# q levels whose dequantised values at scale = tiny are subnormal (+-1: the
+# reference gives +-0.0) or normal (+-127)
+TINY_LEVELS = np.array([1, -1, 2, -3, 127, -127, 0, 64], np.int8)
+
+
+@pytest.mark.parametrize("n", [5, 1031, 4099])
+@pytest.mark.parametrize("bits,receivers", [(8, "edge"), (4, "broadcast")])
+def test_quantize_plane_edge_rows_match_reference(n, bits, receivers):
+    """K1's plain version and ``dequantize_plane`` on the quantiser's edge
+    rows (subnormals only, subnormal elements in a normal row, a max below
+    127 tiny, +-0, a NaN, +-inf, the max last) against the reference in
+    interpret mode: q, scale and the dequantised values bit for bit.  The
+    reference's f32 arithmetic (XLA) flushes subnormals, operands and
+    results; the port's plain versions do the same."""
+    sids, rids = _ids(4, 2)
+    rids = None if receivers == "broadcast" else rids
+    x = _edge_x(8, n, n + bits).reshape(4, 2, n)
+    q, sc = q_ops.quantize_plane(SEED, _t(sids),
+                                 None if rids is None else _t(rids),
+                                 torch.from_numpy(x), bits=bits)
+    jq_, jsc = jq.quantize_plane(JSEED, jnp.asarray(sids),
+                                 None if rids is None else jnp.asarray(rids),
+                                 jnp.asarray(x), bits=bits, interpret=True)
+    _eq(q.numpy(), jq_)
+    _same_f32(sc.numpy(), jsc)
+    _same_f32(q_ops.dequantize_plane(q, sc, n=n, bits=bits).numpy(),
+              jq.dequantize_plane(jq_, jsc, n=n, bits=bits))
+    # levels at scale = tiny, straight through the dequantiser
+    lv = np.resize(TINY_LEVELS, n)[None]
+    tq = lv if bits == 8 else np.asarray(q_ops.ref.pack4(
+        torch.from_numpy(np.clip(lv, -7, 7).astype(np.float32))))
+    tiny = np.full((1,), np.finfo(np.float32).tiny, np.float32)
+    _same_f32(q_ops.dequantize_plane(torch.from_numpy(tq),
+                                     torch.from_numpy(tiny), n=n,
+                                     bits=bits).numpy(),
+              jq.dequantize_plane(jnp.asarray(tq), jnp.asarray(tiny), n=n,
+                                  bits=bits))
 
 
 @pytest.mark.parametrize("n,k,receivers", [(3000, 1100, "edge"),
@@ -526,6 +584,52 @@ def test_kernel_sizes_match_the_wrappers():
     assert sg_ops.SEG_LOG["claim"] == sg_ops.SEG_LOG["unique"] - 1
 
 
+# (f32 bits of a, f32 b, op): one f32 operation whose exact result lies
+# just below tiny, where IEEE rounding and XLA's flushing arithmetic part
+# (found by a numpy search; the last is a tie on the subnormal grid)
+BELOW_TINY = ((66977792, 1 / 127, "mul"), (31457279, 1 / 7, "mul"),
+              (22369620, 0.3, "mul"), (0x017FFFFF, 4.0, "div"))
+
+
+@pytest.mark.parametrize("a_bits,b,op", BELOW_TINY)
+def test_round_ftz_matches_xla_below_tiny(a_bits, b, op):
+    """``ref.round_ftz`` rounds a result below tiny as XLA's CPU arithmetic
+    does (to nearest with an unbounded exponent, then flushed), where
+    IEEE rounding would give tiny."""
+    a = np.array([a_bits], np.uint32).view(np.float32)
+    bf = np.float32(b)
+    fn = (lambda u, w: u * w) if op == "mul" else (lambda u, w: u / w)
+    want = np.asarray(jax.jit(fn)(jnp.asarray(a), jnp.float32(bf)))
+    v = fn(torch.from_numpy(a).double(), float(bf))
+    _same_f32(q_ops.ref.round_ftz(v).numpy(), want)
+
+
+def test_quantizer_key_rows_match_the_kernel():
+    """K4's wrapper hands the kernel one int32 (k0, k1) row of uint32 bit
+    patterns per message, in the keys' order, converted where the keys
+    lie; keys that do not match the messages' shape are refused."""
+    keys = jaxrand.split(jaxrand.key(3), 257)
+    words = q_ops._key_words(keys.reshape(257, 1, 2), (257, 1),
+                             torch.device("cpu"))
+    assert words.dtype == torch.int32 and words.shape == (257, 2)
+    assert words.is_contiguous()
+    want = np.asarray(keys.numpy(), np.int64).astype(np.uint32)
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    meta = q_ops._key_words(keys, (257,), torch.device("meta"))
+    assert meta.device.type == "meta" and meta.shape == (257, 2)
+    with pytest.raises(ValueError, match="do not match"):
+        q_ops._key_words(keys, (256,), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_launch_refuses_a_wrong_argument_count(extra):
+    """A C entry called with more or fewer arguments than its ENTRIES
+    signature is refused before any library is loaded."""
+    k = len(_build.ENTRIES["quantize_leaf"][1]) + extra
+    with pytest.raises(TypeError, match="quantize_leaf takes"):
+        _build.launch("quantize_leaf", *([0] * k))
+
+
 @pytest.mark.parametrize("m,n,k,kind", [(20, 2 ** 20, 629_146, "unique"),
                                         (10, 2 ** 20, 262_144, "unique"),
                                         (20, 1_000_003, 250_001, "claim"),
@@ -695,6 +799,60 @@ def test_quantize_tensor_matches_reference(n, bits):
             assert (byte >> 4 if j % 2 == 0 else byte) & 0xF == 0
         assert levels + 1 == float(q_ops.ref.quantize_values(
             torch.tensor(x[r, j]), sc[r], 1.0, levels).abs())
+
+
+@pytest.mark.parametrize("n", [5, 1031, 4099])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_tensor_edge_rows_match_reference(n, bits):
+    """K4's and K5's plain versions on the quantiser's edge rows (see
+    ``test_quantize_plane_edge_rows_match_reference``) against
+    ``quantize_tensor`` / ``dequantize_tensor`` in interpret mode, row by
+    row: q, scale and the dequantised message bit for bit; and K5 on
+    levels at scale = tiny, whose products the reference flushes."""
+    rs = np.random.RandomState(n + bits + 1)
+    words = [tuple(int(w) for w in rs.randint(0, 2 ** 32, 2, np.uint64))
+             for _ in range(8)]
+    x = _edge_x(8, n, n + 7)
+    keys = torch.tensor(words, dtype=torch.int64)
+    q, sc = q_ops.quantize_tensor(keys, torch.from_numpy(x), bits=bits)
+    out = q_ops.dequantize_tensor(q, sc, n=n, bits=bits)
+    for r, w in enumerate(words):
+        want = jq.quantize_tensor(_jkey(w), jnp.asarray(x[r]), bits=bits,
+                                  interpret=True)
+        _eq(q[r].numpy(), want["q"])
+        _same_f32(sc[r].numpy(), want["scale"])
+        _same_f32(out[r].numpy(), jq.dequantize_tensor(
+            want, (n,), bits=bits, interpret=True))
+    lv = np.resize(TINY_LEVELS, n)
+    tq = lv if bits == 8 else np.asarray(q_ops.ref.pack4(
+        torch.from_numpy(np.clip(lv, -7, 7).astype(np.float32))))
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    got = q_ops.dequantize_tensor(torch.from_numpy(tq)[None],
+                                  torch.tensor([tiny]), n=n, bits=bits)
+    _same_f32(got[0].numpy(), jq.dequantize_tensor(
+        {"q": jnp.asarray(tq), "scale": jnp.asarray(tiny)}, (n,), bits=bits,
+        interpret=True))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_torch_route_edge_rows_match_jnp(bits):
+    """The per-message torch route of ``qbit`` (its inline quantiser and
+    dequantiser) against ``impl=jnp`` on the quantiser's edge rows."""
+    n = 1031
+    spec = f"qbit:bits={bits}"
+    jc = jcomp.get_compressor(_impl(spec, "jnp"))
+    tc = comp.get_compressor(_impl(spec, "torch"))
+    x = _edge_x(8, n, 3)
+    tkeys = jaxrand.split(jaxrand.key(n), 8)
+    tp = comp.compress_tree(tc, tkeys, torch.from_numpy(x), nd=1)
+    trec = comp.decompress_tree(tc, tkeys, tp, comp.Spec((n,)), nd=1)
+    for r in range(8):
+        jk = _jkey(tkeys[r].numpy())
+        jp = jcomp.compress_tree(jc, jk, jnp.asarray(x[r]))
+        _eq(tp["q"][r].numpy(), jp["q"])
+        _same_f32(tp["scale"][r].numpy(), jp["scale"])
+        _same_f32(trec[r].numpy(), jcomp.decompress_tree(
+            jc, jk, jp, jax.ShapeDtypeStruct((n,), jnp.float32)))
 
 
 PER_MESSAGE_SPECS = ["qbit:bits=8", "qbit:bits=4", "topk:fraction=0.3",

@@ -61,26 +61,133 @@ def test_threefry_bits(h100):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n", [4096, 1_000_003])
-@pytest.mark.parametrize("bits", [8, 4])
-def test_quantize_plane(h100, n, bits):
-    sid, rid = _ids(h100)
-    x = torch.randn((20, n), generator=torch.Generator(h100).manual_seed(n),
-                    device=h100)
-    levels = 2 ** (bits - 1) - 1
+def _same_scale(got, want):
+    """Scales bit for bit, a NaN matching a NaN whatever its payload."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+def _plant_k1_saturation(x, sid, rid, levels, first):
+    """Rows from ``first`` on: the row's max |x| (a power of two) at the
+    first element whose kappa lifts ``levels`` to ``levels + 1``."""
+    n = x.shape[1]
     es = prng.fold(SEED, prng.u32(sid), prng.u32(rid))
     kappa = prng.uniform01(prng.random_bits(
-        (es[0][:, None], es[1][:, None]), torch.arange(n, device=h100)[None]))
-    hit = (torch.tensor(float(levels), device=h100) + kappa) == levels + 1
+        (es[0][:, None], es[1][:, None]),
+        torch.arange(n, device=x.device)[None]))
+    hit = (torch.tensor(float(levels), device=x.device) + kappa) == levels + 1
+    hit[:first] = False
     rows = torch.nonzero(hit.any(dim=1)).reshape(-1)
     cols = torch.argmax(hit.to(torch.int8), dim=1)[rows]
-    x[rows, cols] = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
+    x[rows, cols] = 2.0 ** math.ceil(math.log2(2 * float(
+        x[first:].abs().max())))
+    return rows
+
+
+def _k1_ids(m, dev):
+    sid = (torch.arange(m, device=dev) // 2).to(torch.int32)
+    rid = ((torch.arange(m, device=dev) * 7 + 1) % 15).to(torch.int32)
+    return sid, rid
+
+
+QUANT_N = [5, 4096, 8191, 8193, 1_000_003, 2 ** 20]
+
+
+@pytest.mark.parametrize("m", [1, 20, 150])
+@pytest.mark.parametrize("n", QUANT_N)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_plane(h100, n, m, bits):
+    """The fused K1 (scale and levels in one launch) bit-equal to its
+    plain version, q and scale, per-edge and broadcast receivers, and
+    ``dequantize_plane`` (K5's division form) on its output: the
+    quantiser's edge rows (``ref.EDGE_ROWS``: subnormals, a max below 127
+    tiny, +-0, NaN, +-inf, the max last; for m = 1 the max-last row), and
+    saturating elements planted in the other rows."""
+    sid, rid = _k1_ids(m, h100)
+    x = torch.randn((m, n), generator=torch.Generator(h100).manual_seed(n),
+                    device=h100)
+    if m == 1:
+        x[0, -1] = 2 * float(x.abs().max())
+    else:
+        q_ref.edge_rows(x)
+    first = len(q_ref.EDGE_ROWS) if m > 1 else 0
+    _plant_k1_saturation(x, sid, rid, 2 ** (bits - 1) - 1, first)
+    for rids in (rid, None):
+        before = q_ops.quantize_plane.launches
+        q, sc = q_ops.quantize_plane(SEED, sid, rids, x, bits=bits)
+        assert q_ops.quantize_plane.launches == before + 1
+        qw, scw = q_ref.quantize_plane_ref(SEED, sid, rids, x, bits=bits)
+        assert torch.equal(q, qw) and _same_scale(sc, scw)
+    # the plane route's dequantiser: K5's kernel in its division form
+    before = q_ops.dequantize_plane.launches
+    out = q_ops.dequantize_plane(q, sc, n=n, bits=bits)
+    assert q_ops.dequantize_plane.launches == before + 1
+    want = q_ref.dequantize_plane_ref(q, sc, n=n, bits=bits)
+    assert _same_scale(out.reshape(-1), want.reshape(-1))
+
+
+def test_quantize_plane_calls_and_streams(h100):
+    """Ten back-to-back K1 calls on one stream (each call's scratch zeroed
+    anew), then calls on two streams at once (a scratch per call), each
+    output bit-equal to the plain version."""
+    m, n = 20, 2 ** 20
+    sid, rid = _k1_ids(m, h100)
+    g = torch.Generator(h100).manual_seed(5)
+    xs = [torch.randn((m, n), generator=g, device=h100) for _ in range(10)]
+    outs = [q_ops.quantize_plane(SEED, sid, rid, x, bits=8) for x in xs]
+    torch.cuda.synchronize()
+    for x, (q, sc) in zip(xs, outs):
+        qw, scw = q_ref.quantize_plane_ref(SEED, sid, rid, x, bits=8)
+        assert torch.equal(q, qw) and torch.equal(sc, scw)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, x in enumerate(xs[:6]):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(q_ops.quantize_plane(SEED, sid, rid, x,
+                                             bits=4 if i % 3 else 8))
+    torch.cuda.synchronize()
+    for i, (x, (q, sc)) in enumerate(zip(xs, outs)):
+        qw, scw = q_ref.quantize_plane_ref(SEED, sid, rid, x,
+                                           bits=4 if i % 3 else 8)
+        assert torch.equal(q, qw) and torch.equal(sc, scw)
+
+
+@pytest.mark.parametrize("m", [1, 257])
+def test_quantize_tensor_host_keys(h100, m):
+    """K4 with host keys (copied to the card through pinned memory without
+    a wait for the stream), bit-equal to the plain version."""
+    keys = jaxrand.split(jaxrand.key(m), m)
+    x = torch.randn((m, 3000), device=h100)
+    q, sc = q_ops.quantize_tensor(keys, x, bits=8)
+    qw, scw = q_ref.quantize_tensor_ref(keys, x, bits=8)
+    assert torch.equal(q, qw) and torch.equal(sc, scw)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantizers_misaligned_and_strided_rows(h100, bits):
+    """A contiguous row view one float past a 16-byte boundary is read
+    correctly (K1 and K4 go element by element there); an odd-strided
+    view is refused."""
+    m, n = 20, 8192 + 8
+    base = torch.randn((m * n + 1,), device=h100)
+    x = base[1:].view(m, n)
+    assert x.data_ptr() % 16 == 4
+    sid, rid = _k1_ids(m, h100)
     q, sc = q_ops.quantize_plane(SEED, sid, rid, x, bits=bits)
     qw, scw = q_ref.quantize_plane_ref(SEED, sid, rid, x, bits=bits)
     assert torch.equal(q, qw) and torch.equal(sc, scw)
-    qb, _ = q_ops.quantize_plane(SEED, sid, None, x, bits=bits)
-    assert torch.equal(qb, q_ref.quantize_plane_ref(SEED, sid, None, x,
-                                                    bits=bits)[0])
+    keys = torch.randint(0, 2 ** 32, (m, 2), device=h100)
+    q, sc = q_ops.quantize_tensor(keys, x, bits=bits)
+    qw, scw = q_ref.quantize_tensor_ref(keys, x, bits=bits)
+    assert torch.equal(q, qw) and torch.equal(sc, scw)
+    strided = torch.randn((m, 2 * n), device=h100)[:, ::2]
+    with pytest.raises(ValueError):
+        q_ops.quantize_plane(SEED, sid, rid, strided, bits=bits)
+    with pytest.raises(ValueError):
+        q_ops.quantize_tensor(keys, strided, bits=bits)
 
 
 @pytest.mark.parametrize("n", [2 ** 20, 100_003])
@@ -120,27 +227,46 @@ SATURATING_KEYS = ((543808644, 1486979388, 944), (3917027860, 3836244836, 966),
                    (781517975, 2568259190, 493), (1025103629, 3342442247, 743))
 
 
-@pytest.mark.parametrize("n", [2 ** 20, 1_000_003])
+@pytest.mark.parametrize("m", [1, 20, 150])
+@pytest.mark.parametrize("n", QUANT_N)
 @pytest.mark.parametrize("bits", [8, 4])
-def test_quantize_tensor(h100, n, bits):
-    """K4/K5 on [10, n] messages bit-equal to their plain versions, with
-    saturating elements planted where kappa is 1.0."""
+def test_quantize_tensor(h100, n, m, bits):
+    """The fused K4 and K5 bit-equal to their plain versions (q, scale,
+    the dequantised message): the quantiser's edge rows (m > 1; for m = 1
+    the max-last row), and rows keyed by SATURATING_KEYS with their max
+    |x| planted at the element whose kappa is 1.0 (where n allows)."""
     g = torch.Generator(h100).manual_seed(n + bits)
-    keys = torch.randint(0, 2 ** 32, (10, 2), generator=g, device=h100)
-    x = torch.randn((10, n), generator=g, device=h100)
-    big = 2.0 ** math.ceil(math.log2(2 * float(x.abs().max())))
-    for r, (k0, k1, j) in enumerate(SATURATING_KEYS):
-        keys[r] = torch.tensor([k0, k1], device=h100)
-        x[r, j] = big if r % 2 == 0 else -big
+    keys = torch.randint(0, 2 ** 32, (m, 2), generator=g, device=h100)
+    x = torch.randn((m, n), generator=g, device=h100)
+    if m == 1:
+        x[0, -1] = 2 * float(x.abs().max())
+    else:
+        q_ref.edge_rows(x)
+    first = len(q_ref.EDGE_ROWS) if m > 1 else 0
+    big = 2.0 ** math.ceil(math.log2(2 * float(x[first:].abs().max())))
+    planted = []
+    for r, (k0, k1, j) in enumerate(SATURATING_KEYS, start=first):
+        if r < m and j < n:
+            keys[r] = torch.tensor([k0, k1], device=h100)
+            x[r, j] = big if r % 2 == 0 else -big
+            planted.append((r, j))
+    before = q_ops.quantize_tensor.launches
     q, sc = q_ops.quantize_tensor(keys, x, bits=bits)
+    assert q_ops.quantize_tensor.launches == before + 1
     qw, scw = q_ref.quantize_tensor_ref(keys, x, bits=bits)
-    assert torch.equal(q, qw) and torch.equal(sc, scw)
-    for r, (_, _, j) in enumerate(SATURATING_KEYS):
+    assert torch.equal(q, qw) and _same_scale(sc, scw)
+    # host keys go to the card through pinned memory
+    qh, sch = q_ops.quantize_tensor(keys.cpu(), x, bits=bits)
+    assert torch.equal(qh, qw) and _same_scale(sch, scw)
+    for r, j in planted:
         if bits == 8:
             assert int(q[r, j]) == (127 if r % 2 == 0 else -128)
     out = q_ops.dequantize_tensor(q, sc, n=n, bits=bits)
-    assert torch.equal(out, q_ref.dequantize_tensor_ref(q, sc, n=n,
-                                                        bits=bits))
+    want = q_ref.dequantize_tensor_ref(q, sc, n=n, bits=bits)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
 
 
 @pytest.mark.parametrize("n,kind", [(2 ** 20, "uniform"), (2 ** 20, "topk"),

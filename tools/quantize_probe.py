@@ -1,0 +1,594 @@
+#!/usr/bin/env python3
+"""Time the fused quantisers K1 (``quantize_plane``) and K4
+(``quantize_tensor``) at the main path's shapes beside their first
+designs and beside builds of the fused kernel with other sizes.
+
+    python3 tools/quantize_probe.py [--tree PATH ...]
+
+The first designs (K1 of slice 1, K4 of slice 2) took each row's scale
+from a separate PyTorch pass (``torch.amax(x.abs(), -1).clamp_min(tiny)``)
+and launched one block per 8,192 elements of a row on a 2-D grid
+(``grid.y`` = the row, so at most 65,535 rows), one element a thread a
+step: a 4-byte load, a Threefry block, the division, a 1-byte store (b=4:
+one byte a pair).  They live here, built from ``SOURCE``, as the
+yardstick: ``chip_smoke.py`` builds this file's base library in its build
+phase, holds the first designs bit for bit against the plain versions and
+times them beside the package in turns.  Their arithmetic is theirs, with
+the .ftz steps (``csrc/quantize.cuh`` ``mul_ftz``, ``div_ftz``, and an
+``add_ftz`` here) that the reference's subnormal flush asks for, so that
+on the same scale they give the same bits.
+
+``build`` compiles ``SOURCE`` once as the package has ``quantize.cuh``
+and ``threefry.cuh`` ("base") and once for each entry of ``VARIANTS``:
+copies of the two headers with a size or a step changed (the tile a
+ticket covers; the ~16 MB of rows whose x stays in L2 between their max
+and quantise tiles; the quantise loop's unrolling; a floor of 6 blocks an
+SM on the register budget; Threefry's rotations), and once with the
+headers of each ``--tree`` (another checkout, e.g. a parent commit
+unpacked with ``git archive``, so that two versions of the fused kernel
+are timed in turns in one process), one ``nvcc`` each, all started
+together.  The fused kernel of each build is reached through the C
+entries ``probe_plane`` / ``probe_leaf`` (the package's
+``quantize_plane`` / ``quantize_leaf``).
+
+``main`` times, at K1's [20, 2^20] (b = 8 and 4) and [150, 2^20]
+(drop0.3's x/z-plane) and K4's [10, 2^20] and [20, 2^20 - 4096] (the ring
+tree's big leaf): the package's wrapper and bare entry, the first
+design's wrapper (scale pass + kernel) and bare kernel, the scale pass
+alone, and each variant's bare entry, every candidate checked bit for bit
+(q and scale) against the plain version first, each timed twice in turns
+(forward, then backward); then nvidia-smi's SM clock and power draw,
+sampled while the fused K1 runs at [150, 2^20] for ~2 s.  Needs a CUDA
+card and nvcc; prints one JSON object as its last line.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# builds of the package's headers with other sizes or steps: name ->
+# [(header, the package's line, its line in the copy)]
+_TILE = "constexpr int kQTile = 8192;"
+_L2 = "(16LL << 20) / row_bytes"
+_ROT = "  return (x << r) | (x >> (32 - r));"
+_UNROLL = "#pragma unroll 4\n  for (int k = 0; k < kQTile"
+_BOUNDS = "__global__ void __launch_bounds__(kQThreads)"
+VARIANTS = {
+    "base": [],
+    "tile4096": [("quantize.cuh", _TILE, _TILE.replace("8192", "4096"))],
+    "l2_32mb": [("quantize.cuh", _L2, _L2.replace("16LL", "32LL"))],
+    "unroll2": [("quantize.cuh", _UNROLL, _UNROLL.replace("4", "2"))],
+    "blocks6": [("quantize.cuh", _BOUNDS,
+                 _BOUNDS.replace("(kQThreads)", "(kQThreads, 6)"))],
+    # Threefry's rotations as a 32 x 32 -> 64 multiply by 2^r (the FMA
+    # pipe) whose halves the following xor joins, instead of a funnel
+    # shift (the ALU pipe)
+    "rot_imad": [("threefry.cuh", _ROT, """  unsigned long long w;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(w) : "r"(x), "r"(1u << r));
+  return static_cast<uint32_t>(w) | static_cast<uint32_t>(w >> 32);""")],
+}
+
+SOURCE = r"""
+#include <cuda_runtime.h>
+
+#include "quantize.cuh"
+
+namespace {
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// the first designs' per-element arithmetic, with the .ftz steps of the
+// reference's XLA arithmetic: q = sign(x) * floor(levels |x| / scale +
+// kappa), converted as XLA converts
+__device__ __forceinline__ float quantize_one(float x, float levels,
+                                              float scale, float kappa) {
+  const float xf = repro::mul_ftz(x, 1.f);
+  const float y = add_ftz(
+      repro::div_ftz(repro::mul_ftz(levels, fabsf(xf)), scale), kappa);
+  const float s = xf > 0.f ? 1.f : (xf < 0.f ? -1.f : xf);
+  return repro::mul_ftz(s, floorf(y));
+}
+
+__device__ __forceinline__ int to_int_sat(float q, float lo, float hi) {
+  if (q != q) return 0;
+  return static_cast<int>(fminf(fmaxf(q, lo), hi));
+}
+
+__device__ __forceinline__ int nibble(float q) {
+  return (q != q ? 0 : static_cast<int>(q)) + 8;
+}
+
+constexpr int kThreads = 256;
+constexpr int kPerThread = 32;
+constexpr int kTile = kThreads * kPerThread;
+
+// K1, first design: one element a thread a step, the scale given
+__global__ void quantize8_kernel(const float* __restrict__ x, int n,
+                                 uint32_t s0, uint32_t s1,
+                                 const uint32_t* __restrict__ sids,
+                                 const uint32_t* __restrict__ rids,
+                                 const float* __restrict__ scale,
+                                 int8_t* __restrict__ q) {
+  const int m = blockIdx.y;
+  const repro::Pair es = repro::message_seed(
+      s0, s1, repro::id_or(sids, m, 0u),
+      repro::id_or(rids, m, repro::kBroadcast));
+  const float sc = scale[m];
+  const float* xr = x + static_cast<long long>(m) * n;
+  int8_t* qr = q + static_cast<long long>(m) * n;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = base + i * kThreads;
+    if (j < n) {
+      const float kappa = repro::uniform01(
+          repro::random_bits(es, static_cast<uint32_t>(j)));
+      const float v = quantize_one(xr[j], 127.f, sc, kappa);
+      qr[j] = static_cast<int8_t>(to_int_sat(v, -128.f, 127.f));
+    }
+  }
+}
+
+__global__ void quantize4_kernel(const float* __restrict__ x, int n, int wire,
+                                 uint32_t s0, uint32_t s1,
+                                 const uint32_t* __restrict__ sids,
+                                 const uint32_t* __restrict__ rids,
+                                 const float* __restrict__ scale,
+                                 uint8_t* __restrict__ q) {
+  const int m = blockIdx.y;
+  const repro::Pair es = repro::message_seed(
+      s0, s1, repro::id_or(sids, m, 0u),
+      repro::id_or(rids, m, repro::kBroadcast));
+  const float sc = scale[m];
+  const float* xr = x + static_cast<long long>(m) * n;
+  uint8_t* qr = q + static_cast<long long>(m) * wire;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int p = base + i * kThreads;
+    if (p < wire) {
+      int nib[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * p + h;
+        float v = 0.f;
+        if (j < n) {
+          const float kappa = repro::uniform01(
+              repro::random_bits(es, static_cast<uint32_t>(j)));
+          v = quantize_one(xr[j], 7.f, sc, kappa);
+        }
+        nib[h] = nibble(v);
+      }
+      qr[p] = static_cast<uint8_t>((nib[0] << 4) | nib[1]);
+    }
+  }
+}
+
+// K4, first design
+__device__ __forceinline__ float kappa_at(uint32_t k0, uint32_t k1, int j) {
+  return repro::uniform01(repro::jax_bits(k0, k1, static_cast<uint32_t>(j)));
+}
+
+__global__ void quantize8_leaf(const float* __restrict__ x, int n,
+                               const uint32_t* __restrict__ keys,
+                               const float* __restrict__ scale,
+                               int8_t* __restrict__ q) {
+  const int m = blockIdx.y;
+  const uint32_t k0 = keys[2 * m], k1 = keys[2 * m + 1];
+  const float sc = scale[m];
+  const float* xr = x + static_cast<long long>(m) * n;
+  int8_t* qr = q + static_cast<long long>(m) * n;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = base + i * kThreads;
+    if (j < n) {
+      const float v = quantize_one(xr[j], 127.f, sc, kappa_at(k0, k1, j));
+      qr[j] = static_cast<int8_t>(to_int_sat(v, -128.f, 127.f));
+    }
+  }
+}
+
+__global__ void quantize4_leaf(const float* __restrict__ x, int n, int wire,
+                               const uint32_t* __restrict__ keys,
+                               const float* __restrict__ scale,
+                               uint8_t* __restrict__ q) {
+  const int m = blockIdx.y;
+  const uint32_t k0 = keys[2 * m], k1 = keys[2 * m + 1];
+  const float sc = scale[m];
+  const float* xr = x + static_cast<long long>(m) * n;
+  uint8_t* qr = q + static_cast<long long>(m) * wire;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int p = base + i * kThreads;
+    if (p < wire) {
+      int nib[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * p + h;
+        const float v =
+            j < n ? quantize_one(xr[j], 7.f, sc, kappa_at(k0, k1, j)) : 0.f;
+        nib[h] = nibble(v);
+      }
+      qr[p] = static_cast<uint8_t>((nib[0] << 4) | nib[1]);
+    }
+  }
+}
+
+bool bad_shape(int M, int n, int bits, int wire) {
+  return M <= 0 || M > 65535 || n <= 0 ||
+         !((bits == 8 && wire == n) || (bits == 4 && wire == (n + 1) / 2));
+}
+
+}  // namespace
+
+extern "C" int quantize_plane_first(const void* x, int M, int n, int bits,
+                                    uint32_t s0, uint32_t s1,
+                                    const void* sids, const void* rids,
+                                    const void* scale, void* q, int wire,
+                                    void* stream) {
+  if (bad_shape(M, n, bits, wire)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const float*>(x);
+  const auto* si = static_cast<const uint32_t*>(sids);
+  const auto* ri = static_cast<const uint32_t*>(rids);
+  const auto* sc = static_cast<const float*>(scale);
+  const dim3 grid((wire + kTile - 1) / kTile, M);
+  if (bits == 8) {
+    quantize8_kernel<<<grid, kThreads, 0, st>>>(xs, n, s0, s1, si, ri, sc,
+                                                static_cast<int8_t*>(q));
+  } else {
+    quantize4_kernel<<<grid, kThreads, 0, st>>>(xs, n, wire, s0, s1, si, ri,
+                                                sc, static_cast<uint8_t*>(q));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int quantize_leaf_first(const void* x, int M, int n, int bits,
+                                   const void* keys, const void* scale,
+                                   void* q, int wire, void* stream) {
+  if (bad_shape(M, n, bits, wire)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const float*>(x);
+  const auto* ks = static_cast<const uint32_t*>(keys);
+  const auto* sc = static_cast<const float*>(scale);
+  const dim3 grid((wire + kTile - 1) / kTile, M);
+  if (bits == 8) {
+    quantize8_leaf<<<grid, kThreads, 0, st>>>(xs, n, ks, sc,
+                                              static_cast<int8_t*>(q));
+  } else {
+    quantize4_leaf<<<grid, kThreads, 0, st>>>(xs, n, wire, ks, sc,
+                                              static_cast<uint8_t*>(q));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the fused kernel of this build's quantize.cuh (the package's entries)
+extern "C" int probe_plane(const void* x, int M, int n, int bits,
+                           uint32_t s0, uint32_t s1, const void* sids,
+                           const void* rids, void* scale, void* q, int wire,
+                           void* scratch, void* stream) {
+  const repro::PlaneKappa src{s0, s1, static_cast<const uint32_t*>(sids),
+                              static_cast<const uint32_t*>(rids)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return bits == 8
+             ? repro::launch_quantize_rows<8>(
+                   static_cast<const float*>(x), M, n, wire, src,
+                   static_cast<float*>(scale), static_cast<uint8_t*>(q),
+                   static_cast<unsigned*>(scratch), st)
+             : repro::launch_quantize_rows<4>(
+                   static_cast<const float*>(x), M, n, wire, src,
+                   static_cast<float*>(scale), static_cast<uint8_t*>(q),
+                   static_cast<unsigned*>(scratch), st);
+}
+
+extern "C" int probe_leaf(const void* x, int M, int n, int bits,
+                          const void* keys, void* scale, void* q, int wire,
+                          void* scratch, void* stream) {
+  const repro::LeafKappa src{static_cast<const uint32_t*>(keys)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return bits == 8
+             ? repro::launch_quantize_rows<8>(
+                   static_cast<const float*>(x), M, n, wire, src,
+                   static_cast<float*>(scale), static_cast<uint8_t*>(q),
+                   static_cast<unsigned*>(scratch), st)
+             : repro::launch_quantize_rows<4>(
+                   static_cast<const float*>(x), M, n, wire, src,
+                   static_cast<float*>(scale), static_cast<uint8_t*>(q),
+                   static_cast<unsigned*>(scratch), st);
+}
+"""
+
+
+def build(out_dir, variants=tuple(VARIANTS), trees=()):
+    """Compile ``SOURCE`` once per entry of ``variants`` (names of
+    ``VARIANTS``) and once with the headers of each tree of ``trees``
+    (roots of other checkouts, named "tree <path>"), one ``nvcc`` each,
+    all started together, into ``out_dir/<name>/``.  Returns ``{name:
+    ctypes library}``; raises with nvcc's log if a build fails or a line
+    to change is not in the package's header."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    jobs = [(name, _build._CSRC, VARIANTS[name]) for name in variants]
+    jobs += [(f"tree {t}", Path(t) / "src" / "repro_torch" / "csrc", [])
+             for t in trees]
+    procs = {}
+    for i, (name, csrc, changes) in enumerate(jobs):
+        vdir = os.path.join(out_dir, name if i < len(variants) else f"t{i}")
+        os.makedirs(vdir, exist_ok=True)
+        for header in ("quantize.cuh", "threefry.cuh"):
+            text = (csrc / header).read_text()
+            for hdr, line, repl in changes:
+                if hdr != header:
+                    continue
+                if text.count(line) != 1:
+                    raise RuntimeError(f"{header} has no single {line!r}")
+                text = text.replace(line, repl)
+            with open(os.path.join(vdir, header), "w") as f:
+                f.write(text)
+        src = os.path.join(vdir, "quantize_probe.cu")
+        lib = os.path.join(vdir, "quantize_probe.so")
+        with open(src, "w") as f:
+            f.write(SOURCE)
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", vdir, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    sigs = {
+        "quantize_plane_first": [P, I, I, I, U, U, P, P, P, P, I, P],
+        "quantize_leaf_first": [P, I, I, I, P, P, P, I, P],
+        "probe_plane": [P, I, I, I, U, U, P, P, P, P, I, P, P],
+        "probe_leaf": [P, I, I, I, P, P, P, I, P, P],
+    }
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the probe ({name}):\n{log}")
+        fn_name = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn_name = line.split("'")[1]
+            elif "Used" in line and "quantize_rows" in fn_name:
+                print(f"[ptxas] {name} {fn_name[:60]}: {line.strip()}",
+                      flush=True)
+        dll = ctypes.CDLL(lib)
+        for fn_name, argtypes in sigs.items():
+            fn = getattr(dll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = I
+        libs[name] = dll
+    return libs
+
+
+def caller(dll):
+    """``call(entry, *args)``: a function that launches C entry ``entry``
+    of ``dll`` on PyTorch's current stream and raises on a CUDA error."""
+    import torch
+
+    def call(name, *args):
+        def run():
+            rc = getattr(dll, name)(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        return run
+    return call
+
+
+def first_plane(call, seed, sid, rid, x, bits):
+    """The first K1 design's wrapper: the scale pass, then its kernel;
+    returns ``(q, scale)``."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops, ref
+
+    m, n = x.shape
+    wire = ops.wire_len(n, bits)
+    scale = ref.row_scale(x)
+    q = torch.empty((m, wire), device=x.device,
+                    dtype=torch.int8 if bits == 8 else torch.uint8)
+    call("quantize_plane_first", x.data_ptr(), m, n, bits, seed[0], seed[1],
+         sid.data_ptr(), None if rid is None else rid.data_ptr(),
+         scale.data_ptr(), q.data_ptr(), wire)()
+    return q, scale
+
+
+def first_leaf(call, kd, x, bits):
+    """The first K4 design's wrapper (``kd``: int32 [M, 2] key words);
+    returns ``(q, scale)``."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops, ref
+
+    m, n = x.shape
+    wire = ops.wire_len(n, bits)
+    scale = ref.row_scale(x)
+    q = torch.empty((m, wire), device=x.device,
+                    dtype=torch.int8 if bits == 8 else torch.uint8)
+    call("quantize_leaf_first", x.data_ptr(), m, n, bits, kd.data_ptr(),
+         scale.data_ptr(), q.data_ptr(), wire)()
+    return q, scale
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="root of another checkout whose fused kernel is "
+                    "timed beside this one's (repeatable)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops, ref
+
+    if not torch.cuda.is_available():
+        print("quantize_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    _build.build()
+    libs = build(os.path.join(ROOT, "build", "quantize_probe"),
+                 trees=args.tree)
+    call = caller(libs["base"])
+    dev = torch.device("cuda")
+    seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
+
+    def ms(fn, iters=30, warmup=5):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def same(got, want):
+        q, sc = got
+        qw, scw = want
+        return (torch.equal(q, qw) and torch.equal(torch.isnan(sc),
+                                                   torch.isnan(scw))
+                and torch.equal(sc.nan_to_num(), scw.nan_to_num()))
+
+    n = 2 ** 20
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    shapes = (("K1", 20, n, 8), ("K1", 20, n, 4), ("K1", 150, n, 8),
+              ("K4", 10, n, 8), ("K4", 20, n - 4096, 8))
+    for kid, m, nn, bits in shapes:
+        label = f"{kid} [{m}, {nn}] b={bits}"
+        x = torch.randn((m, nn), generator=g, device=dev)
+        wire = ops.wire_len(nn, bits)
+        q = torch.empty((m, wire), device=dev,
+                        dtype=torch.int8 if bits == 8 else torch.uint8)
+        sc = torch.empty((m,), device=dev)
+        scr = ops.scratch(m, dev)
+        if kid == "K1":
+            sid = (torch.arange(m, device=dev) // 2).to(torch.int32)
+            rid = (torch.arange(m, device=dev) % 15).to(torch.int32)
+            want = ref.quantize_plane_ref(seed, sid, rid, x, bits=bits)
+            wrapper = lambda: ops.quantize_plane(seed, sid, rid, x,  # noqa
+                                                 bits=bits)
+            first = lambda: first_plane(call, seed, sid, rid, x, bits)  # noqa
+            fscale = ref.row_scale(x)
+
+            def entry(lib, name="probe_plane"):
+                return caller(lib)(name, x.data_ptr(), m, nn, bits, seed[0],
+                                   seed[1], sid.data_ptr(), rid.data_ptr(),
+                                   sc.data_ptr(), q.data_ptr(), wire,
+                                   scr.data_ptr())
+            first_bare = call("quantize_plane_first", x.data_ptr(), m, nn,
+                              bits, seed[0], seed[1], sid.data_ptr(),
+                              rid.data_ptr(), fscale.data_ptr(),
+                              q.data_ptr(), wire)
+            package = lambda: _build.launch(  # noqa
+                "quantize_plane", x.data_ptr(), m, nn, bits, seed[0],
+                seed[1], sid.data_ptr(), rid.data_ptr(), sc.data_ptr(),
+                q.data_ptr(), wire, scr.data_ptr())
+        else:
+            keys = jaxrand.split(jaxrand.key(5), m)
+            kd = ops._key_words(keys, (m,), dev)
+            want = ref.quantize_tensor_ref(keys, x, bits=bits)
+            wrapper = lambda: ops.quantize_tensor(keys, x, bits=bits)  # noqa
+            first = lambda: first_leaf(call, kd, x, bits)  # noqa
+            fscale = ref.row_scale(x)
+
+            def entry(lib, name="probe_leaf"):
+                return caller(lib)(name, x.data_ptr(), m, nn, bits,
+                                   kd.data_ptr(), sc.data_ptr(),
+                                   q.data_ptr(), wire, scr.data_ptr())
+            first_bare = call("quantize_leaf_first", x.data_ptr(), m, nn,
+                              bits, kd.data_ptr(), fscale.data_ptr(),
+                              q.data_ptr(), wire)
+            package = lambda: _build.launch(  # noqa
+                "quantize_leaf", x.data_ptr(), m, nn, bits, kd.data_ptr(),
+                sc.data_ptr(), q.data_ptr(), wire, scr.data_ptr())
+        cands = {"wrapper (package)": wrapper, "bare (package)": package,
+                 "first wrapper (scale pass + kernel)": first,
+                 "first bare (scale given)": first_bare,
+                 "scale pass alone": lambda: ref.row_scale(x)}
+        for name, lib in libs.items():
+            cands[f"fused {name} bare"] = entry(lib)
+        for name, fn in cands.items():
+            if name == "scale pass alone":
+                continue
+            q.zero_()
+            sc.fill_(-1.0)
+            got = fn()
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got = (q, fscale if name.startswith("first bare") else sc)
+            if not same(got, want):
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     "plain version")
+        times = {}
+        for name in list(cands) + list(reversed(cands)):
+            times.setdefault(name, []).append(ms(cands[name]))
+        for name, t in times.items():
+            print(f"[probe] {label}: {name}: {min(t):.4f} ms (turns "
+                  f"{', '.join(f'{u:.4f}' for u in t)}) [{card}]", flush=True)
+        results[label] = {nm: min(t) for nm, t in times.items()}
+        del x, q
+        torch.cuda.empty_cache()
+    # the SM clock and the power while the fused K1 runs at [150, 2^20]
+    # for ~2 s (nvidia-smi sampled from a thread meanwhile)
+    import threading
+
+    m, nn = 150, n
+    x = torch.randn((m, nn), generator=g, device=dev)
+    sid = (torch.arange(m, device=dev) // 15).to(torch.int32)
+    rid = (torch.arange(m, device=dev) % 15).to(torch.int32)
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip())
+
+    ops.quantize_plane(seed, sid, rid, x)
+    torch.cuda.synchronize()
+    th = threading.Thread(target=sample)
+    th.start()
+    for _ in range(3000):
+        ops.quantize_plane(seed, sid, rid, x)
+    torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    print(f"[probe] clocks.sm, power.draw while K1 [150, 2^20] runs: "
+          f"{samples} [{card}]", flush=True)
+    print(json.dumps({"card": card, "ms": results,
+                      "clock_samples": samples}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

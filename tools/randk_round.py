@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Device time of a RandK or TopK round at n = 2^20.
+"""Device time of one of the wide runs' rounds at n = 2^20.
 
     python3 tools/randk_round.py [--spec randk-stride] [--src PATH]
                                  [--rounds 5]
 
-``--spec`` names one of ``chip_smoke.py``'s wide specs on the ring of
-10 agents: ``randk-stride`` (LT-ADMM-CC, SAGA,
-``randk:fraction=0.6,sampler=stride``, eta 0.5: two K2 and four K3
-launches a round), ``randk-uniform`` (the same with the uniform sampler:
-two K6 and four K7 launches a round) or ``choco-topk`` (CHOCO-SGD with
-``topk:fraction=0.25``: one K6 and one K7 an iteration).  After two
-warm-up rounds it profiles ``--rounds`` rounds with torch.profiler and
-prints the round time (host clock), the device's busy time and idle
-share, and the time of the port's own kernels that the round runs
-(K2/K3 or K6/K7, by their CUDA kernel names, either tree's design).
+``--spec`` names one of ``chip_smoke.py``'s wide specs over 10 agents
+(``WIDE_SPECS``, built by its ``wide_solver``), among them
+``randk-stride`` (LT-ADMM-CC, SAGA, ``randk:fraction=0.6,sampler=stride``,
+eta 0.5, on the ring: two K2 and four K3 launches a round),
+``randk-uniform`` (the same with the uniform sampler: two K6 and four K7
+launches a round), ``choco-topk`` (CHOCO-SGD with ``topk:fraction=0.25``:
+one K6 and one K7 an iteration), ``qbit8`` (LT-ADMM-CC, SAGA,
+``qbit:bits=8``: two K1 launches a round), ``drop-qbit8`` (the same on
+the drop0.3 schedule over the complete graph: two K1 launches a round on
+[10, 15, 2^20] planes), ``lead-qbit8`` (LEAD: one K4 and one K5 an
+iteration) and ``ring-tree-qbit8`` (LT-ADMM-CC on the two-leaf tree:
+four K4 and eight K5 a round).  After two warm-up rounds it profiles
+``--rounds`` rounds with torch.profiler and prints the round time (host
+clock), the device's busy time and idle share, and the time of the
+port's own kernels that the round runs (K1-K7, by their CUDA kernel
+names, either tree's design; a tree whose K1 or K4 takes its scale from
+a PyTorch pass, or whose plane route dequantises in PyTorch, counts those
+passes under the library's kernels).
 ``--src`` imports the port from another tree (a parent commit unpacked
 with ``git archive``), so that two versions can be compared in one call
 on one card.  Needs a CUDA card and nvcc; prints one JSON object as its
@@ -33,33 +41,30 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OWN_KERNELS = ("randk_gather_pull_kernel", "randk_gather_push_kernel",
                "randk_scatter_pull_kernel", "randk_scatter_push_kernel",
                "randk_claim_kernel", "gather_kernel", "claim_kernel",
-               "scatter_kernel", "bin_kernel", "fill_kernel")
-# label -> (solver spec, estimator)
-SPECS = {
-    "randk-stride": ("ltadmm:eta=0.5,compressor=randk:fraction=0.6,"
-                     "sampler=stride", "saga"),
-    "randk-uniform": ("ltadmm:eta=0.5,compressor=randk:fraction=0.6,"
-                      "sampler=uniform", "saga"),
-    "choco-topk": ("choco:compressor=topk:fraction=0.25", "sgd"),
-}
+               "scatter_kernel", "bin_kernel", "fill_kernel",
+               "quantize_rows", "quantize8_kernel", "quantize4_kernel",
+               "quantize8_leaf", "quantize4_leaf",
+               "dequantize8_leaf", "dequantize4_leaf")
 
 
 def main(argv=None):
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--spec", choices=tuple(SPECS), default="randk-stride")
+    ap.add_argument("--spec", choices=[w[0] for w in chip_smoke.WIDE_SPECS],
+                    default="randk-stride")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args(argv)
+    # after chip_smoke's own path, so that --src's port is the one imported
     sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import jaxrand
-    from repro_torch.core.schedule import build_graph
-    from repro_torch.core.solver import make_solver
     from repro_torch.kernels import _build
-    from repro_torch.paper_fig2 import _estimator
     from repro_torch.problems.logistic import LogisticProblem
 
     if not torch.cuda.is_available():
@@ -72,16 +77,9 @@ def main(argv=None):
     _build.build()
     dev = torch.device("cuda")
     prob = LogisticProblem(n=2 ** 20)
-    g = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn((prob.n_agents, prob.m, prob.n), generator=g, device=dev)
-    a /= torch.linalg.vector_norm(a, dim=-1, keepdim=True)
-    u = torch.rand((prob.n_agents, prob.m), generator=g, device=dev)
-    data = {"a": a, "b": torch.where(u < 0.5, 1.0, -1.0)}
-    graph, ex = build_graph("ring", prob.n_agents)
-    spec, est = SPECS[args.spec]
-    solver = make_solver(spec, graph, ex, _estimator(est, prob),
-                         device="cuda")
-    st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev))
+    data = chip_smoke.wide_data(prob, dev)
+    solver, x0, _, _, _ = chip_smoke.wide_solver(args.spec, prob, dev)
+    st = solver.init(x0)
     base = jaxrand.key(12345)
     for i in range(2):
         st = solver.step(st, data, jaxrand.fold_in(base, i))
@@ -96,14 +94,15 @@ def main(argv=None):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    # the port's own kernels that these rounds run: K2/K3
-    # (csrc/randk_plane.cu) and K6/K7 (csrc/gather_scatter.cu, this tree's
-    # and the first design's), by their CUDA kernel names
+    # the port's own kernels that these rounds run: K1 (quantize_plane.cu),
+    # K2/K3 (randk_plane.cu), K4/K5 (quantize_leaf.cu) and K6/K7
+    # (gather_scatter.cu), this tree's and the first designs', by their
+    # CUDA kernel names
     def base(name):
-        return name.split("(anonymous namespace)::")[-1].split("<")[0] \
-            .split("(")[0]
+        return name.split("<")[0].split("::")[-1].split("(")[0]
 
-    own = [e for e in kernels if "(anonymous namespace)::" in e.name
+    own = [e for e in kernels if ("(anonymous namespace)::" in e.name
+                                  or "repro::" in e.name)
            and base(e.name) in OWN_KERNELS]
     own_ms = sum(e.time_range.elapsed_us() for e in own) / 1e3
     by_name = {}
