@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
      from ``tools/gather_scatter_probe.py`` and
      ``tools/quantize_probe.py``), and the SASS instruction count, by the
      pipes that may issue each, of one Threefry block (cuobjdump of a
-     probe built with the kernels' flags), which the bounds use, and of
-     the whole K1/K4 element body (Threefry, level, packing, its share of
-     the 16-byte load and the 4-byte store), printed beside the bounds;
+     probe built with the kernels' flags), which the bounds use, also by
+     the pipes ptxas fixed ("as compiled"; the block's adds must be IMADs,
+     none an IADD3), and of the whole K1/K4 element body (Threefry, level,
+     packing, its share of the 16-byte load and the 4-byte store), printed
+     beside the bounds;
      the tensor-core K10's SASS (wgmma, TMA and mbarrier instructions,
      which every instantiation must have);
   3. kernels: each kernel held bit-exact against its plain PyTorch
@@ -21,7 +23,10 @@ Phases (any failure exits non-zero):
      quantiser's edge rows too: subnormals, a max below 127 tiny, +-0,
      NaN, +-inf, the max last; each K1/K4 call one kernel launch and one
      memset in the profiler, no other kernel; K2/K3 RandK
-     gather/scatter, K4/K5 per-message quantize/dequantize, K6/K7
+     gather/scatter, K4/K5 per-message quantize/dequantize (K5 in both
+     forms, also at n = 1 to 4097 with M = 1, 3, 7, at M = 70,000, from
+     q 1, 2 and 4 bytes past a 16-byte boundary, and its first design),
+     K6/K7
      gather/scatter, K8/K9 cyclic gather/scatter), at n = 2^20 and
      n = 1,000,003 (K2/K3: the pull variant, and the push variant where
      the stride sampler's int32 sum wraps at 1,000,003, each case's
@@ -64,7 +69,10 @@ Phases (any failure exits non-zero):
      with the block sampler; K6/K7 at the RandK-uniform and TopK shapes
      beside the first designs, in turns; K1 also at drop0.3's
      [150, 2^20]; K1/K4 beside their first designs (the scale pass, then
-     the kernel), in turns;
+     the kernel), in turns; K0 and K1/K4 also with an issue estimate from
+     the pipes their SASS was compiled to; K5 (multiply form at
+     [10, 2^20], division form at [150, 2^20]) beside its first design,
+     in turns;
   6. profile: torch.profiler over three n = 2^20 rounds of the static
      qbit8 round, the RandK-stride and RandK-uniform rounds, CHOCO TopK,
      the drop0.3 schedule round, the churn0.2 tree round and CHOCO's
@@ -159,6 +167,17 @@ TF_OPS = None
 # the same for one jax.random.bits word as K4 draws it (counter (0, j),
 # both output words XORed)
 TF_LEAF_OPS = None
+# the same two blocks by the pipes ptxas fixed (``compiled_pipe``)
+TF_COMPILED = TF_LEAF_COMPILED = None
+# the most ALU-pipe instructions a block may take as compiled: 37 and 40
+# with the adds as IMADs (40 and 40 with ptxas's own IADD3s for some)
+TF_ALU_MOST, TF_LEAF_ALU_MOST = 37, 40
+# the fewest ALU-only instructions a block is known to compile to on
+# sm_90a: 37 as K1 draws it, 39 as K4 draws it (threefry.cuh with plain
+# adds, whose K4 block compiled to one LOP3 fewer).  The ideal split
+# counts the fewer of these and the current compile, so a rewrite of the
+# cipher that costs an ALU instruction cannot loosen a bound
+TF_ALU_FEWEST, TF_LEAF_ALU_FEWEST = 37, 39
 # the pull kernels' index step an element (K2/K3): an add (either pipe)
 # and a mask or a conditional subtract (ALU)
 IDX_OPS = Pipes(1, 0, 1)
@@ -430,28 +449,49 @@ def pipe_of(op):
     return "alu"
 
 
+def compiled_pipe(op):
+    """The pipe that ptxas fixed for a SASS opcode (with its suffixes):
+    an add or a move written as an IMAD form or as VIADD goes to the FMA
+    pipe, one written as IADD3 / IADD / MOV / LEA to the ALU pipe; every
+    other opcode as ``pipe_of`` says.  VIADD: a Threefry block with 14 of
+    them (K4's before its adds became IMADs) ran at 0.71 clocks a block
+    per SM in ``tools/quantize_probe.py``'s rate probe, below the 0.84
+    that 54 ALU-pipe instructions would take."""
+    pipe = pipe_of(op)
+    if pipe == "either":
+        return "fma" if op.startswith(("IMAD", "VIADD")) else "alu"
+    return pipe
+
+
 def sass_pipes(one, two, what):
     """The instructions of one block: ``two`` less ``one`` (a kernel's
     opcode counts, with suffixes, with two blocks a loop step and with
-    one), less the xor that joins the two, as ``Pipes``."""
+    one), less the xor that joins the two: ``(ideal, compiled)``, the
+    first as ``Pipes`` by the pipes that may issue each instruction, the
+    second by the pipes ptxas fixed (``compiled_pipe``; no "either")."""
     delta = {op: two.get(op, 0) - one.get(op, 0)
              for op in sorted(set(one) | set(two))}
     delta = {op: v for op, v in delta.items() if v}
     xor = next(op for op in delta if op.startswith("LOP3"))
     delta[xor] -= 1  # the joining xor
     by = {"alu": 0, "fma": 0, "either": 0, None: 0}
+    fixed = {"alu": 0, "fma": 0, None: 0}
     for op, v in delta.items():
         by[pipe_of(op)] += v
+        fixed[compiled_pipe(op)] += v
     total = by["alu"] + by["fma"] + by["either"]
     log(f"[sass] {what}: {total} integer-pipe instructions, {by['alu']} "
         f"only on the ALU pipe, {by['fma']} only on the FMA pipe, "
-        f"{by['either']} adds and moves on either; {by[None]} left out "
-        f"(uniform datapath, branch control, constant loads) (two "
-        f"{sum(two.values())} - one {sum(one.values())} - 1 xor); by opcode "
-        f"{delta}")
+        f"{by['either']} adds and moves on either; as compiled "
+        f"{fixed['alu']} on the ALU pipe, {fixed['fma']} on the FMA pipe; "
+        f"{by[None]} left out (uniform datapath, branch control, constant "
+        f"loads) (two {sum(two.values())} - one {sum(one.values())} - 1 "
+        f"xor); by opcode {delta}")
     if not 20 <= total <= 120:
         raise AssertionError(f"implausible Threefry count {total}")
-    return Pipes(by["alu"], by["fma"], by["either"])
+    return (Pipes(by["alu"], by["fma"], by["either"]),
+            Pipes(fixed["alu"], fixed["fma"]),
+            sum(v for op, v in delta.items() if op.startswith("IADD3")))
 
 
 # SASS opcodes of the element body outside the integer pipes: conversions
@@ -475,22 +515,49 @@ def body_sass(one, two, what, elements):
         cls = ("xu" if base in XU_OPS else "lsu" if base in LSU_OPS
                else pipe_of(op) or "other")
         by[cls] += v
+    # as compiled: the adds and moves on the pipe ptxas fixed, every IMAD
+    # form on the FMA pipe's 64 a clock (float ops also issue on its
+    # second half, so they count only in the total)
+    alu_c = by["alu"] + sum(v for op, v in delta.items()
+                            if compiled_pipe(op) == "alu"
+                            and pipe_of(op) == "either")
+    imad = sum(v for op, v in delta.items() if op.startswith("IMAD"))
     per = {k: v / elements for k, v in by.items()}
     clocks = max(sum(per.values()) / 128, per["alu"] / 64, per["xu"] / 16)
+    compiled = max(sum(per.values()) / 128, alu_c / elements / 64,
+                   imad / elements / 64, per["xu"] / 16)
     per["issue_clocks"] = clocks
+    per["compiled_alu"] = alu_c / elements
+    per["compiled_imad"] = imad / elements
+    per["compiled_clocks"] = compiled
     log(f"[sass] {what} element body: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in per.items()
-                    if k != "issue_clocks")
+        + ", ".join(f"{k} {per[k]:.2f}" for k in by)
         + f" SASS an element ({sum(by.values())} a group of {elements}); "
-        f"issue estimate {clocks:.3f} clocks an element per SM")
+        f"issue estimate {clocks:.3f} clocks an element per SM; as "
+        f"compiled {per['compiled_alu']:.2f} on the ALU pipe, "
+        f"{per['compiled_imad']:.2f} IMAD forms on the FMA pipe: "
+        f"{compiled:.3f} clocks")
     return per
+
+
+def ideal_block(ops, fewest, what):
+    """The ideal split of one Threefry block from its compiled ``Pipes``:
+    ALU-only work at most ``fewest`` (``TF_ALU_FEWEST``), and every
+    FMA-only instruction counted as an add that either pipe may issue (the
+    cipher multiplies nothing: its IMADs are ``add_fma``'s adds)."""
+    alu, fma, either = ops
+    ideal = Pipes(min(alu, fewest), 0, fma + either)
+    log(f"[sass] the ideal split of a block as {what} draws it: "
+        f"{ideal[0]} only on the ALU pipe (compiled {alu}, fewest known "
+        f"{fewest}), {ideal[2]} adds and moves on either")
+    return ideal
 
 
 def phase_sass():
     """Count the SASS instructions of one Threefry block as K1 and as K4
     draw it, by pipe (sets TF_OPS and TF_LEAF_OPS), and of the whole
     K1/K4 element body (sets BODY_SASS)."""
-    global TF_OPS, TF_LEAF_OPS
+    global TF_OPS, TF_LEAF_OPS, TF_COMPILED, TF_LEAF_COMPILED
     from repro_torch.kernels import _build
 
     src = _build.BUILD_DIR / "threefry_probe.cu"
@@ -500,10 +567,24 @@ def phase_sass():
                     "-cubin", f"-I{_build._CSRC}", "-o", str(cubin), str(src)],
                    check=True, capture_output=True, timeout=300)
     counts = sass_counts(cubin, suffixes=True)
-    TF_OPS = sass_pipes(counts["one_block"], counts["two_blocks"],
-                        "one Threefry block as K1 draws it")
-    TF_LEAF_OPS = sass_pipes(counts["one_leaf"], counts["two_leaf"],
-                             "one jax.random.bits word as K4 draws it")
+    TF_OPS, TF_COMPILED, iadd3 = sass_pipes(
+        counts["one_block"], counts["two_blocks"],
+        "one Threefry block as K1 draws it")
+    TF_LEAF_OPS, TF_LEAF_COMPILED, leaf_iadd3 = sass_pipes(
+        counts["one_leaf"], counts["two_leaf"],
+        "one jax.random.bits word as K4 draws it")
+    TF_OPS = ideal_block(TF_OPS, TF_ALU_FEWEST, "K1")
+    TF_LEAF_OPS = ideal_block(TF_LEAF_OPS, TF_LEAF_ALU_FEWEST, "K4")
+    # the cipher's adds are IMADs on the FMA pipe (threefry.cuh add_fma): a
+    # compiler that turned some back into IADD3s would load the ALU pipe
+    for what, fixed, adds, most in (
+            ("K1", TF_COMPILED, iadd3, TF_ALU_MOST),
+            ("K4", TF_LEAF_COMPILED, leaf_iadd3, TF_LEAF_ALU_MOST)):
+        if adds or fixed[0] > most:
+            raise AssertionError(
+                f"a Threefry block as {what} draws it has {adds} IADD3 and "
+                f"{fixed[0]} instructions on the ALU pipe as compiled (at "
+                f"most {most}): its adds are no longer all IMADs")
     for key, name, group in (("K1 b=8", "k1_b8", 4), ("K1 b=4", "k1_b4", 8),
                              ("K4 b=8", "k4_b8", 4)):
         BODY_SASS[key] = body_sass(counts[f"{name}_one"],
@@ -572,12 +653,24 @@ def one_launch(fn, tag, label):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a trace with no device activity at all is the profiler losing the
+    # call (CUPTI), not a count of its launches: profile it again, logging
+    # the host-side launch calls the empty trace did hold
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = [e.name for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        host = sum("LaunchKernel" in e.name or "Memset" in e.name
+                   for e in events)
+        log(f"[profile] {label}: trace {attempt} of 3 held no device "
+            f"event and {host} host-side launch or memset calls; "
+            f"profiling again")
     kernels = [nm for nm in names if "Memset" not in nm
                and "Memcpy" not in nm]
     memsets = [nm for nm in names if "Memset" in nm]
@@ -854,12 +947,7 @@ def check_k45(dev):
                 raise AssertionError(
                     f"K4 [{m}, {n}] b={bits}: {(q != qw).sum()} q "
                     "mismatches")
-            out = ops.dequantize_tensor(q, sc, n=n, bits=bits)
-            sync()
-            ow = ref.dequantize_tensor_ref(q, sc, n=n, bits=bits)
-            note_err("K5", out, ow)
-            if not same_scale(out.reshape(-1), ow.reshape(-1)):
-                raise AssertionError(f"K5 [{m}, {n}] b={bits}: mismatch")
+            hold_k5(q, sc, n, bits, f"[{m}, {n}]")
             for r, (k0, k1, j) in planted:
                 kap = prng.uniform01(jaxrand.bits(keys[r], (j + 1,)))[j]
                 pre = ref.quantize_values(x[r, j], sc[r], kap, levels)
@@ -867,6 +955,18 @@ def check_k45(dev):
                     raise AssertionError("K4 saturation plant missed")
             what = ""
             if DEV == "cuda" and (m, n) == (10, WIDE_N):
+                for plane in (0, 1):  # K5's first design
+                    out = torch.empty((m, n), device=dev)
+                    QUANT_FIRST("dequantize_leaf_first", q.data_ptr(), m, n,
+                                bits, sc.data_ptr(), out.data_ptr(),
+                                q.shape[-1], plane)()
+                    want = (ref.dequantize_plane_ref if plane
+                            else ref.dequantize_tensor_ref)(q, sc, n=n,
+                                                            bits=bits)
+                    sync()
+                    if not same_scale(out.reshape(-1), want.reshape(-1)):
+                        raise AssertionError(f"K5 first design b={bits} "
+                                             f"plane={plane}: mismatch")
                 kd = ops._key_words(keys, (m,), x.device)
                 qf, scf = load_tool("quantize_probe").first_leaf(
                     QUANT_FIRST, kd, x, bits)
@@ -883,7 +983,56 @@ def check_k45(dev):
             log(f"[kernels] K4/K5 quantize/dequantize_tensor [{m}, {n}] "
                 f"b={bits}: bit-equal (edge rows 0-{min(m, edge) - 1}), "
                 f"{len(planted)} rows with a planted saturating "
-                f"element{what}")
+                f"element; K5 in both forms, also from q 1, 2 and 4 bytes "
+                f"past a 16-byte boundary{what}")
+    # K5's walk at its edges: rows shorter than a quad, rows straddling
+    # quads, odd n at b=4 (a pad nibble a row), every byte value of q, a
+    # scale whose levels reach below tiny; and more rows than a 2-D grid's
+    # y takes (on the card)
+    many = 70_000 if DEV == "cuda" else 700
+    for m, n in [(m, n) for n in (1, 5, 15, 16, 17, 1023, 4097)
+                 for m in (1, 3, 7)] + [(many, 17)]:
+        for bits in (8, 4):
+            wire = ops.wire_len(n, bits)
+            q = torch.randint(0, 256, (m, wire), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+            if bits == 8:
+                q = q.view(torch.int8)
+            sc = torch.randn((m,), generator=g, device=dev) * 1e3
+            sc[0] = 50 * ref.TINY
+            hold_k5(q, sc, n, bits, f"[{m}, {n}]")
+    log("[kernels] K5 both forms at n = 1, 5, 15, 16, 17, 1023, 4097 x "
+        f"M = 1, 3, 7 and [{many}, 17], b = 8 and 4, from q 0, 1, 2 and 4 "
+        "bytes past a 16-byte boundary: bit-equal")
+
+
+def hold_k5(q, sc, n, bits, label):
+    """K5 in both forms (``dequantize_tensor``, ``dequantize_plane``, one
+    launch each, asserted by their counters) bit-equal to their plain
+    versions on ``q``, ``sc``, and again on copies of q whose data start
+    1, 2 and 4 bytes past a 16-byte boundary."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops, ref
+
+    views = [q]
+    for offset in (1, 2, 4):
+        flat = torch.empty(q.numel() + 16, dtype=q.dtype, device=q.device)
+        views.append(flat[offset:offset + q.numel()].view(q.shape))
+        views[-1].copy_(q)
+    for qv in views:
+        for fn, plain in ((ops.dequantize_tensor, ref.dequantize_tensor_ref),
+                          (ops.dequantize_plane, ref.dequantize_plane_ref)):
+            before = fn.launches
+            out = fn(qv, sc, n=n, bits=bits)
+            sync()
+            want = plain(q, sc, n=n, bits=bits)
+            note_err("K5", out, want)
+            if DEV == "cuda" and fn.launches != before + 1:
+                raise AssertionError(f"K5 {fn.__name__}: not one launch")
+            if not same_scale(out.reshape(-1), want.reshape(-1)):
+                raise AssertionError(f"K5 {fn.__name__} {label} b={bits} "
+                                     f"q at {qv.data_ptr() % 16}: mismatch")
 
 
 def hold_k67(x, rows, n, gain, variants, label):
@@ -2422,10 +2571,10 @@ PROFILED_KERNELS = (("K1", ("quantize_rows<8, repro::PlaneKappa>",
                             "quantize_rows<4, repro::PlaneKappa>")),
                     ("K4", ("quantize_rows<8, repro::LeafKappa>",
                             "quantize_rows<4, repro::LeafKappa>")),
-                    ("K5", ("dequantize8_leaf<false>",
-                            "dequantize4_leaf<false>")),
-                    ("K5 plane", ("dequantize8_leaf<true>",
-                                  "dequantize4_leaf<true>")),
+                    ("K5", ("dequantize_rows<8, false",
+                            "dequantize_rows<4, false")),
+                    ("K5 plane", ("dequantize_rows<8, true",
+                                  "dequantize_rows<4, true")),
                     ("K2", ("randk_gather_",)),
                     ("K3", ("randk_scatter_", "randk_claim")),
                     ("K6", ("::gather_kernel<",)),
@@ -2514,6 +2663,14 @@ def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
         + ("" if "cc_kernel_ms" not in extra else
            f"; the CUDA-core kernel on the same inputs "
            f"{extra['cc_kernel_ms']:.4f} ms")
+        + ("" if "first_ms" in extra or "first_kernel_ms" not in extra else
+           f"; the first design on the same inputs: bare "
+           f"{extra['first_kernel_ms']:.4f} ms")
+        + ("" if "as_compiled_ms" not in extra else
+           f"; as compiled {extra['as_compiled_ms']:.4f} ms")
+        + ("" if "host_ms" not in extra else
+           f"; host time a wrapper call {extra['host_ms']:.4f} ms (first "
+           f"design {extra['first_host_ms']:.4f} ms)")
         + ("" if "first_ms" not in extra else
            f"; the first design on the same inputs: wrapper "
            f"{extra['first_ms']:.4f} ms, bare {extra['first_kernel_ms']:.4f}"
@@ -2535,6 +2692,22 @@ def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
            f"{extra['block_ms']:.4f} ms, bare {extra['block_kernel_ms']:.4f}"
            " ms")
         + ("" if CARD is None else f" [{CARD}]"))
+
+
+def host_ms(fn, iters=20, warmup=3):
+    """Mean host time of ``fn()`` over ``iters`` calls that the card runs
+    behind: near ``cuda_ms(fn)``, the host sets the pace."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / iters * 1e3
 
 
 def turns(a, b):
@@ -2808,14 +2981,17 @@ def time_quant(rows, kid, name, source, replaces, run, counts, bits, elems,
     first design's wrapper (the scale pass, then its kernel) and bare
     kernel (the scale given), in turns; the plain version; the bound (x
     read once, q and scale written once, a Threefry block and 6 f32 ops an
-    element); and the element body's issue estimate from its SASS."""
+    element); the element body's issue estimate from its SASS; and each
+    wrapper's host time a call (``host_ms``)."""
     ms, first_ms, ms_turns, first_turns = turns(wrap, first)
     kms, first_kms, kms_turns, first_kturns = turns(bare, first_bare)
     body = BODY_SASS[f"{kid} b={bits}"]
     issue_ms = body["issue_clocks"] * elems / (132 * 1.98e9) * 1e3
+    compiled_ms = body["compiled_clocks"] * elems / (132 * 1.98e9) * 1e3
     log(f"[sass] {name}: the element body's issue estimate {issue_ms:.4f} "
-        f"ms ({body['issue_clocks']:.3f} clocks an element per SM) beside "
-        f"the bound {bound_ms(nbytes, int_ops, fp_ops)[0]:.4f} ms")
+        f"ms ({body['issue_clocks']:.3f} clocks an element per SM), as "
+        f"compiled {compiled_ms:.4f} ms ({body['compiled_clocks']:.3f}), "
+        f"beside the bound {bound_ms(nbytes, int_ops, fp_ops)[0]:.4f} ms")
     add_row(rows, name, source, replaces, counts[run][
         "quantize_plane" if kid == "K1" else "quantize_tensor"], ms, kms,
         cuda_ms(plain, iters=2, warmup=1), nbytes, int_ops, fp_ops, None,
@@ -2823,7 +2999,8 @@ def time_quant(rows, kid, name, source, replaces, run, counts, bits, elems,
         first_ms=first_ms, first_ms_turns=first_turns,
         kernel_ms_turns=kms_turns, first_kernel_ms=first_kms,
         first_kernel_ms_turns=first_kturns, element_sass=body,
-        element_issue_ms=issue_ms)
+        element_issue_ms=issue_ms, as_compiled_ms=compiled_ms,
+        host_ms=host_ms(wrap), first_host_ms=host_ms(first))
 
 
 def time_kernels(seed, k0_inputs, counts, shapes):
@@ -2877,7 +3054,12 @@ def time_kernels(seed, k0_inputs, counts, shapes):
         4 * nc + 8 * nb + 4 * nb * nc + 8 * nb,
         TF_OPS * (nb * nc + 3 * nb), 0, None,
         rounds=WIDE_ROUNDS * len(counts),
-        launches_of="K1-K4, which inline K0 (all wide runs)")
+        launches_of="K1-K4, which inline K0 (all wide runs)",
+        as_compiled_ms=bound_ms(0, TF_COMPILED * (nb * nc + 3 * nb))[0],
+        first_kernel_ms=cuda_ms(QUANT_FIRST(
+            "threefry_bits_first", seed[0], seed[1], s.data_ptr(),
+            r.data_ptr(), c.data_ptr(), nb, nc, ODD_N, 64,
+            *(t.data_ptr() for t in out))))
 
     sid32, rid32 = qops._plane_ids(sid, (m,)), qops._plane_ids(rid, (m,))
     # K1: the z-plane [20, 2^20] (b = 8 and 4) and drop0.3's x/z-plane
@@ -2937,49 +3119,46 @@ def time_kernels(seed, k0_inputs, counts, shapes):
             lambda: _build.launch("quantize_leaf", xa.data_ptr(), ma, na, 8,
                                   kd.data_ptr(), sca.data_ptr(),
                                   qa.data_ptr(), na, scr.data_ptr()),
-            lambda: qprobe.first_leaf(QUANT_FIRST, kd, xa, 8),
+            # the first design's wrapper too takes the keys from the host
+            lambda: qprobe.first_leaf(
+                QUANT_FIRST, qops._key_words(keys, (ma,), dev), xa, 8),
             QUANT_FIRST("quantize_leaf_first", xa.data_ptr(), ma, na, 8,
                         kd.data_ptr(), given.data_ptr(), qa.data_ptr(), na),
             lambda: qref.quantize_tensor_ref(keys, xa, bits=8),
             ma * na * 4 + ma * na + 8 * ma + 4 * ma, TF_LEAF_OPS * ma * na,
             6 * ma * na)
-    ma = 10
-    xa = x[:ma].contiguous()
-    keys = jaxrand.split(jaxrand.key(5), ma)
-    qa, sca = qops.quantize_tensor(keys, xa, bits=8)
-    outa = torch.empty((ma, n), device=dev)
-    add_row(
-        rows, "K5 dequantize_tensor b=8 [10, 2^20]",
-        "src/repro_torch/csrc/quantize_leaf.cu",
-        "src/repro/kernels/quantize/kernel.py:188",
-        counts["lead-qbit8"]["dequantize_tensor"],
-        cuda_ms(lambda: qops.dequantize_tensor(qa, sca, n=n, bits=8)),
-        bare("dequantize_leaf", qa.data_ptr(), ma, n, 8, sca.data_ptr(),
-             outa.data_ptr(), n, 0),
-        cuda_ms(lambda: qref.dequantize_tensor_ref(qa, sca, n=n, bits=8),
-                iters=3, warmup=1),
-        ma * n + 4 * ma + ma * n * 4, 0, 2 * ma * n, None, rounds=WIDE_ROUNDS)
-    del qa, outa
-
-    # K5's division form, the plane route's dequantize_plane, at drop0.3's
-    # [150, 2^20] planes (b = 8)
-    xp = torch.randn((mb, n), device=dev)
-    qp, scp = qops.quantize_plane(seed, sidb, ridb, xp, bits=8)
-    del xp
-    outp = torch.empty((mb, n), device=dev)
-    add_row(
-        rows, "K5 dequantize_plane b=8 [150, 2^20] (drop0.3)",
-        "src/repro_torch/csrc/quantize_leaf.cu",
-        "src/repro/kernels/quantize/kernel.py:188",
-        counts["drop-qbit8"]["dequantize_plane"],
-        cuda_ms(lambda: qops.dequantize_plane(qp, scp, n=n, bits=8)),
-        bare("dequantize_leaf", qp.data_ptr(), mb, n, 8, scp.data_ptr(),
-             outp.data_ptr(), n, 1),
-        cuda_ms(lambda: qref.dequantize_plane_ref(qp, scp, n=n, bits=8),
-                iters=2, warmup=1),
-        mb * n + 4 * mb + mb * n * 4, 0, 2 * mb * n, None, rounds=WIDE_ROUNDS,
-        launches_of="drop-qbit8")
-    del qp, outp
+    # K5 on LEAD's [10, 2^20] messages (its multiply form) and, in its
+    # division form (the plane route's dequantize_plane), on drop0.3's
+    # [150, 2^20] planes, b = 8; the bare kernel and its first design (one
+    # element a thread a step, tools/quantize_probe.py) in turns
+    for mk, plane, run, what in ((10, 0, "lead-qbit8", "dequantize_tensor"),
+                                 (mb, 1, "drop-qbit8", "dequantize_plane")):
+        xk = torch.randn((mk, n), device=dev)
+        sk = (torch.arange(mk, device=dev) // 15).to(torch.int32)
+        qk, sck = qops.quantize_plane(seed, sk, sk, xk, bits=8)
+        del xk
+        outk = torch.empty((mk, n), device=dev)
+        fn = getattr(qops, what)
+        plain = (qref.dequantize_plane_ref if plane
+                 else qref.dequantize_tensor_ref)
+        args = (qk.data_ptr(), mk, n, 8, sck.data_ptr(), outk.data_ptr(), n,
+                plane)
+        kms, first_kms, kms_turns, first_kturns = turns(
+            lambda: _build.launch("dequantize_leaf", *args),
+            QUANT_FIRST("dequantize_leaf_first", *args))
+        add_row(
+            rows, f"K5 {what} b=8 [{mk}, 2^20]"
+            + (" (drop0.3)" if plane else ""),
+            "src/repro_torch/csrc/quantize_leaf.cu",
+            "src/repro/kernels/quantize/kernel.py:188"
+            if not plane else "src/repro/kernels/quantize/ops.py:71",
+            counts[run][what],
+            cuda_ms(lambda: fn(qk, sck, n=n, bits=8)), kms,
+            cuda_ms(lambda: plain(qk, sck, n=n, bits=8), iters=2, warmup=1),
+            mk * n + 4 * mk + mk * n * 4, 0, 2 * mk * n, None,
+            rounds=WIDE_ROUNDS, launches_of=run, kernel_ms_turns=kms_turns,
+            first_kernel_ms=first_kms, first_kernel_ms_turns=first_kturns)
+        del qk, outk
 
     # K6/K7 at the RandK-uniform z-plane and CHOCO TopK's x-plane, beside
     # the first designs on the same inputs

@@ -33,83 +33,212 @@
 // kernel computes (a true division differs from it in the last bit for
 // some levels and scales).  The reference's pad bytes (0 at b=8, 0x88 at
 // b=4) only feed elements past n, which it slices away, so the kernel
-// stops at n.  The same kernels serve the plane route's dequantize_plane
+// stops at n.  The same kernel serves the plane route's dequantize_plane
 // (plane = 1), whose reference is the jnp expression (scale * q) / levels
 // (src/repro/kernels/quantize/ops.py:71), a true division there: its
 // second step is an .ftz division, one pass where the flush in PyTorch
 // would take four.
 //
 // Bound: K4 by integer operations (one full Threefry block per element,
-// both words kept: 64 SASS, 39 only on the ALU pipe; chip_smoke.py's
-// phase_sass counts them), against 4 bytes read and 1 or 0.5 written; K5
-// by bytes (1 or 0.5 read, 4 written per element).  K5's design: rows read
-// unpadded and masked at n, each thread loads its row's scale once for 32
-// elements, coalesced loads and stores (thread t touches element base + t
-// in each step).
+// both words kept; chip_smoke.py's phase_sass counts its SASS by pipe),
+// against 4 bytes read and 1 or 0.5 written; K5 by bytes (1 or 0.5 read,
+// 4 written per element).
+//
+// K5's design: the rows are one flat walk over the M * n elements of
+// out, in quads of kDqQuad = 4 consecutive elements, one float4 store a
+// quad: a thread takes kDqQuads quads, kDqThreads * 4 elements apart, so
+// each warp's store covers 512 contiguous bytes (a thread writing 16
+// consecutive elements in four float4s instead would leave every warp
+// store half of each 32-byte sector, which measured slower than one
+// 4-byte store an element).  The flat walk holds because q [M, wire] is
+// flat too: element e = m n + j is byte e at b=8 and nibble e + m pad at
+// b=4, where pad = 2 wire - n is 1 for odd n (each row's last byte
+// carries a pad nibble) and 0 for even n.  A quad's levels come from the
+// aligned 4-byte words of q that hold them (one word, two where they
+// straddle a word), shifted into place, so q may start at any byte: a
+// warp's loads cover 128 (b=8) or 64 (b=4) contiguous bytes.  A quad
+// takes its row's scale (m = e / n, one division a thread, the other
+// quads' rows by a compare); a quad that straddles two rows, or whose
+// words reach past q, and the last n mod 4 elements go one element at a
+// time.  Where out is not 16-byte aligned every element does.  No 2-D
+// grid, so any M; the indices are 32-bit, so the C entry refuses
+// M * n >= kDqMostElements (2^31 - 2^11 elements, 8 GiB of out).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "quantize.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 32;
-constexpr int kTile = kThreads * kPerThread;
+// K5's walk (mirrored in kernels/quantize/ops.py)
+constexpr int kDqThreads = 256;
+constexpr int kDqQuad = 4;    // elements a quad: one float4 store
+constexpr int kDqQuads = 2;   // quads a thread, kDqThreads quads apart
+// M * n stays below this, so that every element, nibble and word index,
+// and a thread's quads past the last (< total + 4 kDqQuads kDqThreads),
+// fits 32 bits
+constexpr long long kDqMostElements =
+    ((1LL << 32) - 8LL * kDqQuads * kDqThreads) / 2;
 // f32(1 / 127) and f32(1 / 7), correctly rounded, as XLA folds them
 constexpr float kInv127 = 0x1.020408p-7f;
 constexpr float kInv7 = 0x1.24924ap-3f;
 
 // the dequantised value of level v at scale sc: (sc * v) * f32(1 / levels)
 // (K5) or, for the plane route, (sc * v) / levels, each step .ftz
-template <bool kDiv>
-__device__ __forceinline__ float dequantize_one(float sc, float v,
-                                                float levels, float inv) {
+template <int kBits, bool kDiv>
+__device__ __forceinline__ float dequantize_one(float sc, float v) {
   const float p = repro::mul_ftz(sc, v);
-  return kDiv ? repro::div_ftz(p, levels) : repro::mul_ftz(p, inv);
+  return kDiv ? repro::div_ftz(p, kBits == 8 ? 127.f : 7.f)
+              : repro::mul_ftz(p, kBits == 8 ? kInv127 : kInv7);
 }
 
-template <bool kDiv>
-__global__ void dequantize8_leaf(const int8_t* __restrict__ q, int n,
-                                 const float* __restrict__ scale,
-                                 float* __restrict__ out) {
-  const int m = blockIdx.y;
-  const float sc = scale[m];
-  const int8_t* qr = q + static_cast<long long>(m) * n;
-  float* orow = out + static_cast<long long>(m) * n;
-  const int base = blockIdx.x * kTile + threadIdx.x;
-#pragma unroll 4
-  for (int i = 0; i < kPerThread; ++i) {
-    const int j = base + i * kThreads;
-    if (j < n) {
-      orow[j] = dequantize_one<kDiv>(sc, static_cast<float>(qr[j]), 127.f,
-                                     kInv127);
+// the store of a whole quad, streaming (evict-first): out is written once
+__device__ __forceinline__ void store_quad(float4* p, float4 v) {
+  __stcs(p, v);
+}
+
+// level k (0..3) of a quad from its word: at b=8 four int8 levels
+// (little-endian); at b=4 the top 16 bits hold four nibbles, the first on
+// top, offset 8
+template <int kBits>
+__device__ __forceinline__ float quad_level(uint32_t w, int k) {
+  if (kBits == 8) return static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
+  return static_cast<float>(static_cast<int>((w >> (28 - 4 * k)) & 0xFu) - 8);
+}
+
+// element e of the flat walk, alone: its row, its level, its value
+template <int kBits, bool kDiv, bool kPad>
+__device__ __forceinline__ float dequantize_element(
+    const uint8_t* __restrict__ q, uint32_t e, uint32_t n,
+    const float* __restrict__ scale) {
+  const uint32_t m = e / n;
+  float v;
+  if (kBits == 8) {
+    v = static_cast<float>(static_cast<int8_t>(__ldg(q + e)));
+  } else {
+    const uint32_t nib = kPad ? e + m : e;  // odd n: a pad nibble a row
+    const int byte = __ldg(q + (nib >> 1));
+    v = static_cast<float>(((nib & 1) ? (byte & 0xF) : (byte >> 4)) - 8);
+  }
+  return dequantize_one<kBits, kDiv>(__ldg(scale + m), v);
+}
+
+// Dequantise the M * n elements of q [M, wire] into out [M, n] (see the
+// header): quads [4 i, 4 i + 4) for i < quads, the rest one element at a
+// time.  q's words are read from qw, q rounded down to 4 bytes (q0 = q's
+// offset in its first word), words [0, qwords) lying in q's storage up to
+// q's last byte.
+template <int kBits, bool kDiv, bool kPad>
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_rows(const uint8_t* __restrict__ q, const uint32_t* __restrict__ qw,
+                int q0, uint32_t qwords, uint32_t total, uint32_t n,
+                uint32_t quads, const float* __restrict__ scale,
+                float* __restrict__ out) {
+  constexpr uint32_t kStep = 4 * kDqThreads;  // elements between quads
+  const uint32_t e0 = 4 * (blockIdx.x * (kDqQuads * kDqThreads) +
+                           threadIdx.x);
+  const uint32_t m0 = e0 / n, r0 = e0 - m0 * n;
+  uint32_t lo[kDqQuads], hi[kDqQuads];
+  uint32_t m[kDqQuads];
+  int shift[kDqQuads];
+  bool whole[kDqQuads];  // in one row, its words in bounds
+  // every quad's row and words first, so that the loads are in flight
+  // together
+#pragma unroll
+  for (int h = 0; h < kDqQuads; ++h) {
+    const uint32_t e = e0 + h * kStep;
+    uint32_t r = r0 + h * kStep;
+    m[h] = m0;
+    if (r + kDqQuad > n) {  // another row, or across two
+      m[h] = e / n;
+      r = e - m[h] * n;
     }
+    // the quad's first byte (b=8) or nibble (b=4) from qw, its word and
+    // its place in that word; a second word where the quad runs past it
+    const uint32_t at = kBits == 8 ? q0 + e : 2 * q0 + e + (kPad ? m[h] : 0);
+    const uint32_t word = kBits == 8 ? at >> 2 : at >> 3;
+    shift[h] = static_cast<int>(kBits == 8 ? at & 3 : at & 7);
+    const bool two = kBits == 8 ? shift[h] != 0 : shift[h] > 4;
+    whole[h] = e / 4 < quads && r + kDqQuad <= n && word + two < qwords;
+    if (whole[h]) {
+      lo[h] = __ldg(qw + word);
+      hi[h] = two ? __ldg(qw + word + 1) : 0u;
+    }
+  }
+  const float sc0 = __ldg(scale + min(m0, total / n - 1));
+#pragma unroll
+  for (int h = 0; h < kDqQuads; ++h) {
+    const uint32_t e = e0 + h * kStep;
+    if (e / 4 >= quads) continue;
+    if (whole[h]) {
+      const float sc = m[h] == m0 ? sc0 : __ldg(scale + m[h]);
+      // the quad's 4 bytes, or its 4 nibbles in the top 16 bits
+      const uint32_t w =
+          kBits == 8 ? __byte_perm(lo[h], hi[h], 0x3210 + 0x1111 * shift[h])
+                     : __funnelshift_l(__byte_perm(hi[h], 0u, 0x0123),
+                                       __byte_perm(lo[h], 0u, 0x0123),
+                                       4 * shift[h]);
+      store_quad(reinterpret_cast<float4*>(out) + e / 4,
+                 make_float4(
+                     dequantize_one<kBits, kDiv>(sc, quad_level<kBits>(w, 0)),
+                     dequantize_one<kBits, kDiv>(sc, quad_level<kBits>(w, 1)),
+                     dequantize_one<kBits, kDiv>(sc, quad_level<kBits>(w, 2)),
+                     dequantize_one<kBits, kDiv>(sc,
+                                                 quad_level<kBits>(w, 3))));
+    } else {  // straddles two rows, or its words reach past q
+#pragma unroll
+      for (int i = 0; i < kDqQuad; ++i) {
+        out[e + i] = dequantize_element<kBits, kDiv, kPad>(q, e + i, n,
+                                                           scale);
+      }
+    }
+  }
+  // the elements past the last quad: all of them where there are no quads
+  const uint32_t stride = gridDim.x * kDqThreads;
+  for (uint32_t e = 4 * quads + blockIdx.x * kDqThreads + threadIdx.x;
+       e < total; e += stride) {
+    out[e] = dequantize_element<kBits, kDiv, kPad>(q, e, n, scale);
   }
 }
 
-template <bool kDiv>
-__global__ void dequantize4_leaf(const uint8_t* __restrict__ q, int n,
-                                 int wire, const float* __restrict__ scale,
-                                 float* __restrict__ out) {
-  const int m = blockIdx.y;
-  const float sc = scale[m];
-  const uint8_t* qr = q + static_cast<long long>(m) * wire;
-  float* orow = out + static_cast<long long>(m) * n;
-  const int base = blockIdx.x * kTile + threadIdx.x;
-#pragma unroll 4
-  for (int i = 0; i < kPerThread; ++i) {
-    const int j = base + i * kThreads;
-    if (j < n) {
-      const int byte = qr[j >> 1];
-      const int level = ((j & 1) ? (byte & 0xF) : (byte >> 4)) - 8;
-      orow[j] = dequantize_one<kDiv>(sc, static_cast<float>(level), 7.f,
-                                     kInv7);
-    }
-  }
+template <int kBits, bool kDiv, bool kPad>
+int launch_dequantize(const void* q, long long total, int n,
+                      long long qbytes, const float* scale, float* out,
+                      cudaStream_t st) {
+  const auto qa = reinterpret_cast<uintptr_t>(q);
+  const int q0 = static_cast<int>(qa & 3);
+  // quads where out takes float4 stores (a tensor from the caching
+  // allocator always does)
+  const long long quads =
+      reinterpret_cast<uintptr_t>(out) % 16 ? 0 : total / kDqQuad;
+  const long long rest = total - kDqQuad * quads;
+  const long long per_block = 1LL * kDqQuads * kDqThreads;
+  const long long blocks =
+      std::max((quads + per_block - 1) / per_block,
+               std::min((rest + kDqThreads - 1) / kDqThreads, 1LL << 16));
+  dequantize_rows<kBits, kDiv, kPad>
+      <<<static_cast<unsigned>(blocks), kDqThreads, 0, st>>>(
+          static_cast<const uint8_t*>(q),
+          reinterpret_cast<const uint32_t*>(qa - q0), q0,
+          static_cast<uint32_t>((q0 + qbytes) / 4),
+          static_cast<uint32_t>(total), static_cast<uint32_t>(n),
+          static_cast<uint32_t>(quads), scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kBits, bool kPad>
+int dequantize_form(const void* q, long long total, int n, long long qbytes,
+                    const float* scale, float* out, int plane,
+                    cudaStream_t st) {
+  return plane ? launch_dequantize<kBits, true, kPad>(q, total, n, qbytes,
+                                                      scale, out, st)
+               : launch_dequantize<kBits, false, kPad>(q, total, n, qbytes,
+                                                       scale, out, st);
 }
 
 bool bad_shape(int M, int n, int bits, int wire) {
-  return M <= 0 || M > 65535 || n <= 0 ||
+  return M <= 0 || n <= 0 ||
          !((bits == 8 && wire == n) || (bits == 4 && wire == (n + 1) / 2));
 }
 
@@ -143,20 +272,19 @@ extern "C" int dequantize_leaf(const void* q, int M, int n, int bits,
   if (bad_shape(M, n, bits, wire)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long total = 1LL * M * n;
+  if (total >= kDqMostElements) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long qbytes = 1LL * M * wire;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* sc = static_cast<const float*>(scale);
   auto* o = static_cast<float*>(out);
-  const dim3 grid((n + kTile - 1) / kTile, M);
-  const auto* q8 = static_cast<const int8_t*>(q);
-  const auto* q4 = static_cast<const uint8_t*>(q);
-  if (bits == 8 && plane) {
-    dequantize8_leaf<true><<<grid, kThreads, 0, st>>>(q8, n, sc, o);
-  } else if (bits == 8) {
-    dequantize8_leaf<false><<<grid, kThreads, 0, st>>>(q8, n, sc, o);
-  } else if (plane) {
-    dequantize4_leaf<true><<<grid, kThreads, 0, st>>>(q4, n, wire, sc, o);
-  } else {
-    dequantize4_leaf<false><<<grid, kThreads, 0, st>>>(q4, n, wire, sc, o);
+  if (bits == 8) {
+    return dequantize_form<8, false>(q, total, n, qbytes, sc, o, plane, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return n % 2 ? dequantize_form<4, true>(q, total, n, qbytes, sc, o, plane,
+                                          st)
+               : dequantize_form<4, false>(q, total, n, qbytes, sc, o, plane,
+                                           st);
 }

@@ -8,15 +8,26 @@
 // derive_stride_slot :127).  On the TPU these were jnp expressions inlined
 // into the Pallas kernel bodies; here they are __forceinline__ functions.
 //
-// Bound: integer operations.  One block, as quantize_plane draws it (seed
-// fixed per thread, counter word 1 zero, word 0 kept), compiles to 63 SASS
-// instructions on sm_90a (20 add/rotate/xor rounds; chip_smoke.py counts
-// them with cuobjdump), so a kernel that draws one block per element is
-// limited by the cipher, not by its bytes: at 128 instructions per clock
-// per SM, 63 per 5 bytes moved take longer than the bytes at 3.35 TB/s.
-// The design keeps the cipher in registers, counts from the element index
-// (no state, no random stream in memory), and folds each message's seed
-// once per thread.
+// Bound: integer operations.  One block is 20 rounds of an add, a rotation
+// and a xor, and 12 key-injection adds (fewer where ptxas folds a fixed
+// counter word or seed); chip_smoke.py's phase_sass counts its SASS by the
+// pipe that issues each instruction.  Rotations (SHF) and xors (LOP3) only
+// issue on the ALU pipe, 64 a clock per SM; an add issues on the ALU pipe
+// as IADD3 or on the FMA pipe as an IMAD form or a VIADD (a K4 block with
+// 14 VIADDs ran at 0.71 clocks per SM in tools/quantize_probe.py's rate
+// probe, below the 0.84 that 54 ALU-pipe instructions take).  Left to
+// itself, ptxas wrote 3 of the adds of a block as K1 draws it as IADD3:
+// 40 SASS on the ALU pipe and 23 on the FMA pipe as compiled, and 40 / 24
+// as K4 draws it.  So the adds after the first round are written as
+// mad.lo.u32 by a 1 read from constant memory (add_fma), which ptxas
+// cannot fold into an add: they stay IMADs on the FMA pipe, and the ALU
+// pipe keeps the rotations and xors, 37 / 29 as K1 draws it and 40 / 31
+// as K4 does.  Only K1's block lost ALU work: K4's lost its one IADD3 and
+// gained a LOP3.  The counter and the first round keep plain adds, so
+// that ptxas still folds a fixed counter word or seed into them.  The
+// design keeps the cipher in registers, counts from the element
+// index (no state, no random stream in memory), and folds each message's
+// seed once per thread or block.
 //
 // Bit-equality with the reference: the cipher is plain uint32 arithmetic,
 // identical on every backend.  uniform01 converts with round-to-nearest
@@ -37,8 +48,18 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
+// a 1 that ptxas cannot fold: the multiplier of add_fma
+static __constant__ uint32_t kFmaOne = 1u;
+
+// a + b as an IMAD (the FMA pipe) instead of an IADD3 (the ALU pipe)
+__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(kFmaOne), "r"(b));
+  return r;
+}
+
 #define REPRO_TF_MIX(r)        \
-  x0 += x1;                    \
+  x0 = add_fma(x0, x1);        \
   x1 = rotl32(x1, r) ^ x0;
 #define REPRO_TF_ROT0 REPRO_TF_MIX(13) REPRO_TF_MIX(15) REPRO_TF_MIX(26) REPRO_TF_MIX(6)
 #define REPRO_TF_ROT1 REPRO_TF_MIX(17) REPRO_TF_MIX(29) REPRO_TF_MIX(16) REPRO_TF_MIX(24)
@@ -48,11 +69,14 @@ __device__ __forceinline__ Pair threefry2x32(uint32_t k0, uint32_t k1,
   const uint32_t k2 = k0 ^ k1 ^ kParity;
   uint32_t x0 = c0 + k0;
   uint32_t x1 = c1 + k1;
-  REPRO_TF_ROT0 x0 += k1; x1 += k2 + 1u;
-  REPRO_TF_ROT1 x0 += k2; x1 += k0 + 2u;
-  REPRO_TF_ROT0 x0 += k0; x1 += k1 + 3u;
-  REPRO_TF_ROT1 x0 += k1; x1 += k2 + 4u;
-  REPRO_TF_ROT0 x0 += k2; x1 += k0 + 5u;
+  x0 += x1;  // the first round's add, plain (see the header)
+  x1 = rotl32(x1, 13) ^ x0;
+  REPRO_TF_MIX(15) REPRO_TF_MIX(26) REPRO_TF_MIX(6)
+  x0 = add_fma(x0, k1); x1 = add_fma(x1, k2 + 1u);
+  REPRO_TF_ROT1 x0 = add_fma(x0, k2); x1 = add_fma(x1, k0 + 2u);
+  REPRO_TF_ROT0 x0 = add_fma(x0, k0); x1 = add_fma(x1, k1 + 3u);
+  REPRO_TF_ROT1 x0 = add_fma(x0, k1); x1 = add_fma(x1, k2 + 4u);
+  REPRO_TF_ROT0 x0 = add_fma(x0, k2); x1 = add_fma(x1, k0 + 5u);
   return Pair{x0, x1};
 }
 

@@ -10,7 +10,8 @@ allocate: q, scale, and the kernel's scratch (a ticket, a counter and a
 max word per row), which the C entry zeroes on the stream before the
 launch.  ``dequantize_plane``, a jnp expression in the reference
 (``quantize/ops.py:71``), runs K5's kernel in its division form on the
-card.
+card.  K5 walks its rows as one flat array in quads of 4 elements
+(``DQ_*`` mirror its sizes).
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ import torch
 
 from repro_torch.kernels import _build, prng
 from repro_torch.kernels.quantize import ref
+
+
+# K5's walk, as csrc/quantize_leaf.cu sizes it: the M * n elements of out
+# as one flat array in quads of DQ_QUAD (one float4 store each, where out
+# is 16-byte aligned), a thread DQ_QUADS quads 4 * DQ_THREADS elements
+# apart, a block DQ_THREADS threads
+DQ_THREADS = 256
+DQ_QUAD = 4
+DQ_QUADS = 2
 
 
 def wire_len(n: int, bits: int) -> int:

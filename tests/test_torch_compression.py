@@ -584,6 +584,141 @@ def test_kernel_sizes_match_the_wrappers():
     assert sg_ops.SEG_LOG["claim"] == sg_ops.SEG_LOG["unique"] - 1
 
 
+def _bswap(w):
+    return (((w & 0xFF) << 24) | (((w >> 8) & 0xFF) << 16)
+            | (((w >> 16) & 0xFF) << 8) | ((w >> 24) & 0xFF))
+
+
+def _k5_walk(q, scale, n, bits, plane, q_addr, out_addr):
+    """K5's flat walk step for step (``quantize_leaf.cu``
+    ``dequantize_rows``), q's data at byte address ``q_addr`` (the bytes
+    before it in its first word are storage the kernel may read but must
+    not use: 0xA5 here) and out at ``out_addr``: thread t of block b takes
+    the quads at ``e0 + h * 4 * DQ_THREADS``, ``e0 = 4 (b DQ_QUADS
+    DQ_THREADS + t)``, its first quad's row by a division and the others'
+    by a compare where they stay in it; a quad reads the aligned words
+    that hold its 4 bytes (b=8) or nibbles (b=4), shifted into place; a
+    quad that straddles two rows or whose words reach past q, and the
+    elements past the last quad, read each level alone.  Asserts every
+    store aligned and every element written once; returns ``(out [m, n],
+    quads, quads taken alone)``."""
+    m = scale.numel()
+    total, qbytes = m * n, q.numel()
+    q0 = q_addr % 4
+    quads = 0 if out_addr % 16 else total // q_ops.DQ_QUAD
+    pad = bits == 4 and n % 2 == 1  # element e of row r is nibble e + r
+    # q's aligned words from q_addr - q0, zero past the storage's end (a
+    # whole quad never reads there)
+    qb = q.reshape(-1).view(torch.uint8)
+    qp = torch.cat([torch.full((q0,), 0xA5, dtype=torch.uint8), qb,
+                    torch.zeros(8, dtype=torch.uint8)]).to(torch.int64)
+    words = qp[:4 * (qp.numel() // 4)].reshape(-1, 4)
+    words = (words[:, 0] | (words[:, 1] << 8) | (words[:, 2] << 16)
+             | (words[:, 3] << 24))
+    qwords = (q0 + qbytes) // 4
+    per_block = q_ops.DQ_QUADS * q_ops.DQ_THREADS
+    step = q_ops.DQ_QUAD * q_ops.DQ_THREADS
+    blocks = -(-quads // per_block)
+    e0 = 4 * (torch.arange(blocks)[:, None] * per_block
+              + torch.arange(q_ops.DQ_THREADS)[None, :]).reshape(-1)
+    m0 = e0 // n
+    e = e0[:, None] + step * torch.arange(q_ops.DQ_QUADS)[None, :]
+    r = (e0 - m0 * n)[:, None] + step * torch.arange(q_ops.DQ_QUADS)[None, :]
+    row = torch.where(r + 4 > n, e // n, m0[:, None])
+    r = e - row * n
+    live = e // 4 < quads
+    e, r, row = e[live], r[live], row[live]
+    if bits == 8:
+        at = q0 + e
+        word, sh = at >> 2, at & 3
+        two = sh != 0
+    else:
+        at = 2 * q0 + e + (row if pad else 0)
+        word, sh = at >> 3, at & 7
+        two = sh > 4
+    whole = (r + 4 <= n) & (word + two.to(torch.int64) < qwords)
+    lo = words[word.clamp_max(words.numel() - 1)]
+    hi = torch.where(two, words[(word + 1).clamp_max(words.numel() - 1)], 0)
+    k = torch.arange(4)
+    if bits == 8:
+        both = lo | (hi << 32)  # __byte_perm(lo, hi, 0x3210 + 0x1111 sh)
+        byte = (both[:, None] >> (8 * (sh[:, None] + k[None, :]))) & 0xFF
+        lv = torch.where(byte >= 128, byte - 256, byte)
+    else:
+        blo, bhi = _bswap(lo), _bswap(hi)  # the nibble stream, top first
+        sh4 = 4 * sh
+        win = ((blo << sh4) | (bhi >> (32 - sh4))) & prng.MASK
+        lv = ((win[:, None] >> (28 - 4 * k[None, :])) & 0xF) - 8
+    assert bool(((out_addr + 4 * e[whole]) % 16 == 0).all())
+    alone = torch.cat([(e[~whole][:, None] + k[None, :]).reshape(-1),
+                       torch.arange(4 * quads, total)])
+    arow = alone // n
+    if bits == 8:
+        a = qb[alone].to(torch.int64)
+        alv = torch.where(a >= 128, a - 256, a)
+    else:
+        anib = alone + arow if pad else alone
+        a = qb[anib >> 1].to(torch.int64)
+        alv = torch.where(anib % 2 == 1, a & 0xF, a >> 4) - 8
+    elems = torch.cat([(e[whole][:, None] + k[None, :]).reshape(-1), alone])
+    rows = torch.cat([row[whole][:, None].expand(-1, 4).reshape(-1), arow])
+    levels = torch.cat([lv[whole].reshape(-1), alv]).to(torch.float32)
+    assert torch.equal(torch.bincount(elems, minlength=total),
+                       torch.ones(total, dtype=torch.int64))
+    lv_n = 2 ** (bits - 1) - 1
+    p = q_ops.ref.ftz(scale.reshape(-1)[rows]) * levels
+    if plane:
+        v = q_ops.ref.round_ftz(p.double() / lv_n)
+    else:
+        inv = torch.tensor(1.0, dtype=torch.float32) / lv_n
+        v = q_ops.ref.round_ftz(p.double() * inv.double())
+    out = torch.empty(total, dtype=torch.float32)
+    out[elems] = v
+    return out.reshape(m, n), quads, int((~whole).sum())
+
+
+@pytest.mark.parametrize("form", ["tensor", "plane"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 3, 7])
+@pytest.mark.parametrize("n", [1, 5, 15, 16, 17, 1023, 4097])
+def test_dequantize_walk_step_for_step(n, m, bits, form):
+    """K5's walk (quads of 4 from the aligned words of q, rows straddling
+    quads, odd-n nibble rows) gives the plain versions' bits with q at
+    every offset in its first word (a view of q 1-3 bytes past an aligned
+    address), and with out misaligned (every element alone)."""
+    rs = np.random.RandomState(n * 31 + m * 7 + bits)
+    wire = q_ops.wire_len(n, bits)
+    q = torch.from_numpy(rs.randint(0, 256, (m, wire)).astype(np.uint8))
+    if bits == 8:
+        q = q.view(torch.int8)
+    scale = torch.from_numpy(
+        (rs.standard_normal(m) * 10.0 ** rs.randint(-30, 30, m))
+        .astype(np.float32))
+    scale[0] = 50 * q_ops.ref.TINY  # levels times it reach below tiny
+    plane = form == "plane"
+    want = (q_ops.ref.dequantize_plane_ref if plane
+            else q_ops.ref.dequantize_tensor_ref)(q, scale, n=n, bits=bits)
+    for q_addr, out_addr in ((256, 512), (257, 512), (258, 512), (259, 512),
+                             (256, 516)):
+        got, quads, alone = _k5_walk(q, scale, n, bits, plane, q_addr,
+                                     out_addr)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        if quads and m > 1 and n in (15, 17, 1023):
+            assert alone > 0  # some quad straddles two rows
+
+
+def test_dequantize_walk_sizes_match_the_wrappers():
+    """The CPU model walks K5 with the sizes of csrc/quantize_leaf.cu:
+    each constant there equals its mirror in quantize/ops.py."""
+    src = (Path(q_ops.__file__).resolve().parents[2] / "csrc"
+           / "quantize_leaf.cu").read_text()
+    for line in (f"constexpr int kDqThreads = {q_ops.DQ_THREADS};",
+                 f"constexpr int kDqQuad = {q_ops.DQ_QUAD};",
+                 f"constexpr int kDqQuads = {q_ops.DQ_QUADS};"):
+        assert src.count(line) == 1, line
+    assert q_ops.DQ_QUAD == 4  # a quad: one float4 store
+
+
 # (f32 bits of a, f32 b, op): one f32 operation whose exact result lies
 # just below tiny, where IEEE rounding and XLA's flushing arithmetic part
 # (found by a numpy search; the last is a tie on the subnormal grid)

@@ -269,6 +269,61 @@ def test_quantize_tensor(h100, n, m, bits):
                        want[~nan].view(torch.int32))
 
 
+def _hold_k5(q, sc, n, bits):
+    """Both of K5's forms (one launch each) bit-equal to their plain
+    versions on ``q``, ``sc``."""
+    for fn, plain in ((q_ops.dequantize_tensor, q_ref.dequantize_tensor_ref),
+                      (q_ops.dequantize_plane, q_ref.dequantize_plane_ref)):
+        before = fn.launches
+        out = fn(q, sc, n=n, bits=bits)
+        assert fn.launches == before + 1
+        want = plain(q, sc, n=n, bits=bits)
+        assert _same_scale(out.reshape(-1), want.reshape(-1)), fn.__name__
+
+
+def _misaligned(q, offset):
+    """A contiguous copy of ``q`` whose data starts ``offset`` bytes past a
+    16-byte boundary."""
+    flat = torch.empty(q.numel() + 16, dtype=q.dtype, device=q.device)
+    out = flat[offset:offset + q.numel()].view(q.shape)
+    out.copy_(q)
+    assert out.data_ptr() % 16 == offset
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 3, 7])
+@pytest.mark.parametrize("n", [1, 5, 15, 16, 17, 1023, 4097])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequantize_edge_shapes(h100, n, m, bits):
+    """K5 in both forms bit-equal to the plain versions where its walk has
+    edges: rows shorter than a group, rows straddling groups, odd n at
+    b=4 (a pad nibble a row), and q views 1, 4 and 8 bytes past a 16-byte
+    boundary (a scalar head, or no group aligned at all); every byte
+    value of q and a scale whose levels reach below tiny."""
+    g = torch.Generator(h100).manual_seed(n * 8 + m + bits)
+    wire = q_ops.wire_len(n, bits)
+    q = torch.randint(0, 256, (m, wire), generator=g, device=h100,
+                      dtype=torch.int32).to(torch.uint8)
+    if bits == 8:
+        q = q.view(torch.int8)
+    sc = torch.randn((m,), generator=g, device=h100) * 1e3
+    sc[0] = 50 * q_ref.TINY
+    _hold_k5(q, sc, n, bits)
+    for offset in (1, 4, 8):
+        _hold_k5(_misaligned(q, offset), sc, n, bits)
+
+
+@pytest.mark.parametrize("n,bits", [(17, 8), (17, 4), (64, 4), (1, 8)])
+def test_dequantize_many_rows(h100, n, bits):
+    """M = 70,000 rows, past the 65,535 a 2-D grid's y takes: K5's flat
+    walk takes them, both forms bit-equal."""
+    m = 70_000
+    keys = torch.randint(0, 2 ** 32, (m, 2), device=h100)
+    x = torch.randn((m, n), device=h100)
+    q, sc = q_ops.quantize_tensor(keys, x, bits=bits)
+    _hold_k5(q, sc, n, bits)
+
+
 @pytest.mark.parametrize("n,kind", [(2 ** 20, "uniform"), (2 ** 20, "topk"),
                                     (1_000_003, "uniform"),
                                     (1_000_003, "stride")])
@@ -393,6 +448,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(h100):
     q, sc = q_ops.quantize_tensor(keys, x)
     with pytest.raises(ValueError):
         q_ops.dequantize_tensor(q, sc, n=65)
+    # K5 takes any row count and a misaligned q, but not a strided q, a
+    # scale per row of the wrong length or type, or a wire that n does not
+    # give
+    for fn in (q_ops.dequantize_tensor, q_ops.dequantize_plane):
+        with pytest.raises(ValueError):
+            fn(torch.cat([q, q], 1)[:, ::2], sc, n=64)
+        with pytest.raises(ValueError):
+            fn(q, sc[:3], n=64)
+        with pytest.raises(TypeError):
+            fn(q, sc.double(), n=64)
+        with pytest.raises(ValueError):
+            fn(q, sc, n=63)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("dequantize_leaf", q.data_ptr(), 20, 64, 4,
+                      sc.data_ptr(), x.data_ptr(), 64, 1)
+    # K5 and K0's test entry index in 32 bits: their C entries refuse 2^31
+    # elements of out and more than 2^32 words (before touching memory)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("dequantize_leaf", q.data_ptr(), 2048, 2 ** 20, 4,
+                      sc.data_ptr(), x.data_ptr(), 2 ** 19, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("threefry_bits", 0, 0, sid32.data_ptr(),
+                      rid32.data_ptr(), sid32.data_ptr(), 65535, 65538, 64,
+                      1, x.data_ptr(), x.data_ptr(), x.data_ptr())
     with pytest.raises(ValueError):
         sg_ops.sparse_gather(x, torch.zeros((3, 8), dtype=torch.int64,
                                             device=h100))

@@ -100,10 +100,10 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
-    # 52 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1),
-    # and one line per wide spec holding its second round's kernel calls
-    # against the plain versions
-    assert out.stdout.count("bit-equal") == 52 + 10
+    # 53 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
+    # at its walk's edge shapes), and one line per wide spec holding its
+    # second round's kernel calls against the plain versions
+    assert out.stdout.count("bit-equal") == 53 + 10
     assert out.stdout.count("round 1's kernel calls bit-equal") == 10
     # K10 and K11 within their limits (18 + 8 and 2 checks: the served
     # shapes' 18, f32, bf16 and bf16 at a misaligned base, then the eight

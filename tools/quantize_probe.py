@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the fused quantisers K1 (``quantize_plane``) and K4
 (``quantize_tensor``) at the main path's shapes beside their first
-designs and beside builds of the fused kernel with other sizes.
+designs and beside builds of the fused kernel with other sizes; and the
+dequantiser K5 (both forms) and K0's test entry beside theirs.
 
     python3 tools/quantize_probe.py [--tree PATH ...]
 
@@ -23,13 +24,25 @@ and ``threefry.cuh`` ("base") and once for each entry of ``VARIANTS``:
 copies of the two headers with a size or a step changed (the tile a
 ticket covers; the ~16 MB of rows whose x stays in L2 between their max
 and quantise tiles; the quantise loop's unrolling; a floor of 6 blocks an
-SM on the register budget; Threefry's rotations), and once with the
-headers of each ``--tree`` (another checkout, e.g. a parent commit
+SM on the register budget; Threefry's rotations, all of them or two of
+them, on the FMA pipe), and once with the headers of each ``--tree``
+(another checkout, e.g. a parent commit
 unpacked with ``git archive``, so that two versions of the fused kernel
 are timed in turns in one process), one ``nvcc`` each, all started
 together.  The fused kernel of each build is reached through the C
 entries ``probe_plane`` / ``probe_leaf`` (the package's
-``quantize_plane`` / ``quantize_leaf``).
+``quantize_plane`` / ``quantize_leaf``).  It also compiles the package's
+``quantize_leaf.cu`` and ``threefry_bits.cu`` once for each entry of
+``PACKAGE_VARIANTS`` (K5 with other quads a thread, write-back stores,
+streaming loads; K0's entry with more counters a thread or more threads
+a block), each its own library.
+
+The first K5 (C entry ``dequantize_leaf_first``) gave each thread one
+element a step, a 1-byte load and a 4-byte store, on a 2-D grid
+(``grid.y`` = the row); the first K0 entry (``threefry_bits_first``)
+folded the message seed in every thread, with 64-bit indices.  Built
+with a ``--tree``'s headers, ``threefry_bits_first`` is that tree's K0
+entry with its cipher.
 
 ``main`` times, at K1's [20, 2^20] (b = 8 and 4) and [150, 2^20]
 (drop0.3's x/z-plane) and K4's [10, 2^20] and [20, 2^20 - 4096] (the ring
@@ -37,8 +50,16 @@ tree's big leaf): the package's wrapper and bare entry, the first
 design's wrapper (scale pass + kernel) and bare kernel, the scale pass
 alone, and each variant's bare entry, every candidate checked bit for bit
 (q and scale) against the plain version first, each timed twice in turns
-(forward, then backward); then nvidia-smi's SM clock and power draw,
-sampled while the fused K1 runs at [150, 2^20] for ~2 s.  Needs a CUDA
+(forward, then backward); K5 at [10, 2^20] b=8 (multiply form) and
+[150, 2^20] b=8, [20, 2^20] b=8 and 4 (division form; also the
+multiply form at [150, 2^20]), the package beside its first design and
+its variant builds, and K0 at 8 seeds x 2^20 counters beside the first
+design of every build and the entry's variant builds, the same way; the
+cipher's issue rate by the SM's own clock (``clock64``), Threefry blocks
+a clock per SM as K1 and as K4 draw them, 1, 2 and 4 independent chains
+a thread, one block of 1,024 threads an SM, each build's cipher; then
+nvidia-smi's SM clock and power draw, sampled while the fused K1 runs
+at [150, 2^20] for ~2 s.  Needs a CUDA
 card and nvcc; prints one JSON object as its last line.
 """
 from __future__ import annotations
@@ -59,6 +80,8 @@ _L2 = "(16LL << 20) / row_bytes"
 _ROT = "  return (x << r) | (x >> (32 - r));"
 _UNROLL = "#pragma unroll 4\n  for (int k = 0; k < kQTile"
 _BOUNDS = "__global__ void __launch_bounds__(kQThreads)"
+_ROT1 = ("#define REPRO_TF_ROT1 REPRO_TF_MIX(17) REPRO_TF_MIX(29) "
+         "REPRO_TF_MIX(16) REPRO_TF_MIX(24)")
 VARIANTS = {
     "base": [],
     "tile4096": [("quantize.cuh", _TILE, _TILE.replace("8192", "4096"))],
@@ -72,7 +95,48 @@ VARIANTS = {
     "rot_imad": [("threefry.cuh", _ROT, """  unsigned long long w;
   asm("mul.wide.u32 %0, %1, %2;" : "=l"(w) : "r"(x), "r"(1u << r));
   return static_cast<uint32_t>(w) | static_cast<uint32_t>(w >> 32);""")],
+    # the first rotation of rounds 5 and 13 (ROT1's first mix) on the FMA
+    # pipe, as x * 2^r + hi(x * 2^r) (IMAD and IMAD.HI by a multiplier
+    # ptxas cannot fold), to balance the block's ALU and FMA pipes
+    "rot_split": [("threefry.cuh", _ROT1, r"""
+__device__ __forceinline__ uint32_t rotl_fma(uint32_t x, int r) {
+  const uint32_t p = kFmaOne << r;
+  uint32_t hi, lo;
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(hi) : "r"(x), "r"(p));
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(lo) : "r"(x), "r"(p), "r"(hi));
+  return lo;
 }
+#define REPRO_TF_MIXM(r) x0 = add_fma(x0, x1); x1 = rotl_fma(x1, r) ^ x0;
+#define REPRO_TF_ROT1 \
+  REPRO_TF_MIXM(17) REPRO_TF_MIX(29) REPRO_TF_MIX(16) REPRO_TF_MIX(24)""")],
+}
+
+# builds of the package's K5 (csrc/quantize_leaf.cu, C entry
+# dequantize_leaf) and of K0's test entry (csrc/threefry_bits.cu, C entry
+# threefry_bits) with other sizes or steps: name -> (source, [(its line,
+# the copy's)])
+_QUADS = "constexpr int kDqQuads = 2;"
+_STORE = "  __stcs(p, v);"
+_LOAD = "lo[h] = __ldg(qw + word);"
+_K0_PER = "constexpr int kPerThread = 8;"
+_K0_THREADS = "constexpr int kThreads = 256;"
+PACKAGE_VARIANTS = {
+    "k5 quads1": ("quantize_leaf.cu", [(_QUADS, _QUADS.replace("2", "1"))]),
+    "k5 quads4": ("quantize_leaf.cu", [(_QUADS, _QUADS.replace("2", "4"))]),
+    "k5 quads8": ("quantize_leaf.cu", [(_QUADS, _QUADS.replace("2", "8"))]),
+    # write-back stores of out instead of streaming ones
+    "k5 store_wb": ("quantize_leaf.cu", [(_STORE, "  *p = v;")]),
+    # streaming loads of q too
+    "k5 ldcs": ("quantize_leaf.cu",
+                [(_LOAD, _LOAD.replace("__ldg", "__ldcs"))]),
+    # K0's entry with 32 counters a thread, or 1,024 threads a block
+    "k0 per32": ("threefry_bits.cu",
+                 [(_K0_PER, _K0_PER.replace("8", "32"))]),
+    "k0 threads1024": ("threefry_bits.cu",
+                       [(_K0_THREADS, _K0_THREADS.replace("256", "1024"))]),
+}
+PACKAGE_ENTRIES = {"quantize_leaf.cu": "dequantize_leaf",
+                   "threefry_bits.cu": "threefry_bits"}
 
 SOURCE = r"""
 #include <cuda_runtime.h>
@@ -231,7 +295,186 @@ bool bad_shape(int M, int n, int bits, int wire) {
          !((bits == 8 && wire == n) || (bits == 4 && wire == (n + 1) / 2));
 }
 
+// K5, first design: one element a thread a step (a 1-byte load, a 4-byte
+// store), a 2-D grid (grid.y = the row); plane = 1 divides by levels
+constexpr float kInv127 = 0x1.020408p-7f;
+constexpr float kInv7 = 0x1.24924ap-3f;
+
+template <bool kDiv>
+__device__ __forceinline__ float dequantize_one(float sc, float v,
+                                                float levels, float inv) {
+  const float p = repro::mul_ftz(sc, v);
+  return kDiv ? repro::div_ftz(p, levels) : repro::mul_ftz(p, inv);
+}
+
+template <bool kDiv>
+__global__ void dequantize8_leaf(const int8_t* __restrict__ q, int n,
+                                 const float* __restrict__ scale,
+                                 float* __restrict__ out) {
+  const int m = blockIdx.y;
+  const float sc = scale[m];
+  const int8_t* qr = q + static_cast<long long>(m) * n;
+  float* orow = out + static_cast<long long>(m) * n;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = base + i * kThreads;
+    if (j < n) {
+      orow[j] = dequantize_one<kDiv>(sc, static_cast<float>(qr[j]), 127.f,
+                                     kInv127);
+    }
+  }
+}
+
+template <bool kDiv>
+__global__ void dequantize4_leaf(const uint8_t* __restrict__ q, int n,
+                                 int wire, const float* __restrict__ scale,
+                                 float* __restrict__ out) {
+  const int m = blockIdx.y;
+  const float sc = scale[m];
+  const uint8_t* qr = q + static_cast<long long>(m) * wire;
+  float* orow = out + static_cast<long long>(m) * n;
+  const int base = blockIdx.x * kTile + threadIdx.x;
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = base + i * kThreads;
+    if (j < n) {
+      const int byte = qr[j >> 1];
+      const int level = ((j & 1) ? (byte & 0xF) : (byte >> 4)) - 8;
+      orow[j] = dequantize_one<kDiv>(sc, static_cast<float>(level), 7.f,
+                                     kInv7);
+    }
+  }
+}
+
+// K0's test entry, first design: every thread folds its message's seed
+// (two Threefry blocks) before its 8 counters, 64-bit indices
+constexpr int kBitsPerThread = 8;
+
+__global__ void threefry_bits_first_kernel(
+    uint32_t s0, uint32_t s1, const uint32_t* __restrict__ sids,
+    const uint32_t* __restrict__ rids, const uint32_t* __restrict__ ctr,
+    int C, int n, int n_strides, uint32_t* __restrict__ bits,
+    int32_t* __restrict__ off, int32_t* __restrict__ slot) {
+  const int b = blockIdx.y;
+  const repro::Pair es = repro::message_seed(s0, s1, sids[b], rids[b]);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const repro::Pair ob = repro::offset_block(es);
+    off[b] = static_cast<int32_t>(ob.x0 % static_cast<uint32_t>(n));
+    slot[b] = static_cast<int32_t>(ob.x1 % static_cast<uint32_t>(n_strides));
+  }
+  const long long base =
+      static_cast<long long>(blockIdx.x) * kThreads * kBitsPerThread +
+      threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kBitsPerThread; ++i) {
+    const long long c = base + static_cast<long long>(i) * kThreads;
+    if (c < C) {
+      bits[static_cast<long long>(b) * C + c] = repro::random_bits(es, ctr[c]);
+    }
+  }
+}
+
+// The cipher's issue rate, by the SM's own clock: kChains independent
+// chains of Threefry blocks a thread (each block's output the next one's
+// counter), as K1 draws a block (random_bits: seed fixed, counter word 1
+// zero, word 0 kept) or as K4 does (jax_bits); one block of 1024 threads
+// an SM (32 warps).
+template <int kChains, bool kLeaf>
+__global__ void __launch_bounds__(1024, 1)
+cipher_rate_kernel(uint32_t s0, uint32_t s1, int iters, uint32_t* out,
+                   long long* cycles) {
+  const repro::Pair es{s0, s1};
+  uint32_t c[kChains];
+#pragma unroll
+  for (int i = 0; i < kChains; ++i) {
+    c[i] = (blockIdx.x * 1024u + threadIdx.x) * kChains + i;
+  }
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < kChains; ++i) {
+      c[i] = kLeaf ? repro::jax_bits(s0, s1, c[i])
+                   : repro::random_bits(es, c[i]);
+    }
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < kChains; ++i) x ^= c[i];
+  out[blockIdx.x * 1024 + threadIdx.x] = x;
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+}
+
 }  // namespace
+
+extern "C" int probe_cipher_rate(int leaf, int chains, int blocks, int iters,
+                                 void* out, void* cycles, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<uint32_t*>(out);
+  auto* c = static_cast<long long*>(cycles);
+  const uint32_t s0 = 0x9E3779B9u, s1 = 0x7F4A7C15u;
+#define REPRO_RATE(k)                                                        \
+  if (chains == k) {                                                         \
+    if (leaf) {                                                              \
+      cipher_rate_kernel<k, true><<<blocks, 1024, 0, st>>>(s0, s1, iters, o, \
+                                                           c);               \
+    } else {                                                                 \
+      cipher_rate_kernel<k, false><<<blocks, 1024, 0, st>>>(s0, s1, iters,   \
+                                                            o, c);           \
+    }                                                                        \
+    return static_cast<int>(cudaGetLastError());                             \
+  }
+  REPRO_RATE(1)
+  REPRO_RATE(2)
+  REPRO_RATE(4)
+#undef REPRO_RATE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int dequantize_leaf_first(const void* q, int M, int n, int bits,
+                                     const void* scale, void* out, int wire,
+                                     int plane, void* stream) {
+  if (bad_shape(M, n, bits, wire)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* sc = static_cast<const float*>(scale);
+  auto* o = static_cast<float*>(out);
+  const dim3 grid((n + kTile - 1) / kTile, M);
+  const auto* q8 = static_cast<const int8_t*>(q);
+  const auto* q4 = static_cast<const uint8_t*>(q);
+  if (bits == 8 && plane) {
+    dequantize8_leaf<true><<<grid, kThreads, 0, st>>>(q8, n, sc, o);
+  } else if (bits == 8) {
+    dequantize8_leaf<false><<<grid, kThreads, 0, st>>>(q8, n, sc, o);
+  } else if (plane) {
+    dequantize4_leaf<true><<<grid, kThreads, 0, st>>>(q4, n, wire, sc, o);
+  } else {
+    dequantize4_leaf<false><<<grid, kThreads, 0, st>>>(q4, n, wire, sc, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int threefry_bits_first(uint32_t s0, uint32_t s1, const void* sids,
+                                   const void* rids, const void* ctr, int B,
+                                   int C, int n, int n_strides, void* bits,
+                                   void* off, void* slot, void* stream) {
+  if (B <= 0 || B > 65535 || C <= 0 || n <= 0 || n_strides <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(
+      (C + kThreads * kBitsPerThread - 1) / (kThreads * kBitsPerThread), B);
+  threefry_bits_first_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      s0, s1, static_cast<const uint32_t*>(sids),
+      static_cast<const uint32_t*>(rids), static_cast<const uint32_t*>(ctr),
+      C, n, n_strides, static_cast<uint32_t*>(bits),
+      static_cast<int32_t*>(off), static_cast<int32_t*>(slot));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int quantize_plane_first(const void* x, int M, int n, int bits,
                                     uint32_t s0, uint32_t s1,
@@ -315,11 +558,12 @@ extern "C" int probe_leaf(const void* x, int M, int n, int bits,
 """
 
 
-def build(out_dir, variants=tuple(VARIANTS), trees=()):
+def build(out_dir, variants=tuple(VARIANTS), trees=(), package=()):
     """Compile ``SOURCE`` once per entry of ``variants`` (names of
     ``VARIANTS``) and once with the headers of each tree of ``trees``
-    (roots of other checkouts, named "tree <path>"), one ``nvcc`` each,
-    all started together, into ``out_dir/<name>/``.  Returns ``{name:
+    (roots of other checkouts, named "tree <path>"), and the package's
+    source once per entry of ``package`` (names of ``PACKAGE_VARIANTS``),
+    one ``nvcc`` each, all started together, into ``out_dir/<name>/``.  Returns ``{name:
     ctypes library}``; raises with nvcc's log if a build fails or a line
     to change is not in the package's header."""
     from pathlib import Path
@@ -350,12 +594,36 @@ def build(out_dir, variants=tuple(VARIANTS), trees=()):
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-I", vdir, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    # the package's sources with each PACKAGE_VARIANTS change, a library
+    # each
+    for name in package:
+        source, changes = PACKAGE_VARIANTS[name]
+        vdir = os.path.join(out_dir, name.replace(" ", "_"))
+        os.makedirs(vdir, exist_ok=True)
+        for f in _build._CSRC.glob("*.cuh"):
+            with open(os.path.join(vdir, f.name), "w") as out:
+                out.write(f.read_text())
+        text = (_build._CSRC / source).read_text()
+        for line, repl in changes:
+            if text.count(line) != 1:
+                raise RuntimeError(f"{source} has no single {line!r}")
+            text = text.replace(line, repl)
+        src = os.path.join(vdir, source)
+        lib = os.path.join(vdir, source.replace(".cu", ".so"))
+        with open(src, "w") as f:
+            f.write(text)
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     sigs = {
         "quantize_plane_first": [P, I, I, I, U, U, P, P, P, P, I, P],
         "quantize_leaf_first": [P, I, I, I, P, P, P, I, P],
         "probe_plane": [P, I, I, I, U, U, P, P, P, P, I, P, P],
         "probe_leaf": [P, I, I, I, P, P, P, I, P, P],
+        "dequantize_leaf_first": [P, I, I, I, P, P, I, I, P],
+        "threefry_bits_first": [U, U, P, P, P, I, I, I, I, P, P, P, P],
+        "probe_cipher_rate": [I, I, I, I, P, P, P],
     }
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -370,7 +638,11 @@ def build(out_dir, variants=tuple(VARIANTS), trees=()):
                 print(f"[ptxas] {name} {fn_name[:60]}: {line.strip()}",
                       flush=True)
         dll = ctypes.CDLL(lib)
-        for fn_name, argtypes in sigs.items():
+        if name in PACKAGE_VARIANTS:
+            entry = PACKAGE_ENTRIES[PACKAGE_VARIANTS[name][0]]
+            mine = {entry: list(_build.ENTRIES[entry][1]) + [P]}
+        for fn_name, argtypes in (
+                mine if name in PACKAGE_VARIANTS else sigs).items():
             fn = getattr(dll, fn_name)
             fn.argtypes = argtypes
             fn.restype = I
@@ -453,7 +725,7 @@ def main(argv=None):
     print(card, flush=True)
     _build.build()
     libs = build(os.path.join(ROOT, "build", "quantize_probe"),
-                 trees=args.tree)
+                 trees=args.tree, package=tuple(PACKAGE_VARIANTS))
     call = caller(libs["base"])
     dev = torch.device("cuda")
     seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
@@ -482,6 +754,9 @@ def main(argv=None):
     results = {}
     shapes = (("K1", 20, n, 8), ("K1", 20, n, 4), ("K1", 150, n, 8),
               ("K4", 10, n, 8), ("K4", 20, n - 4096, 8))
+    k5_libs = {k: v for k, v in libs.items() if k.startswith("k5 ")}
+    k0_libs = {k: v for k, v in libs.items() if k.startswith("k0 ")}
+    libs = {k: v for k, v in libs.items() if k not in PACKAGE_VARIANTS}
     for kid, m, nn, bits in shapes:
         label = f"{kid} [{m}, {nn}] b={bits}"
         x = torch.randn((m, nn), generator=g, device=dev)
@@ -557,6 +832,117 @@ def main(argv=None):
         results[label] = {nm: min(t) for nm, t in times.items()}
         del x, q
         torch.cuda.empty_cache()
+    # K5 in both forms beside its first design, at the main path's shapes
+    # (LEAD's [10, 2^20] messages; the drop0.3 and ring planes' rows)
+    for m, nn, bits, plane in ((10, n, 8, 0), (150, n, 8, 1), (150, n, 8, 0),
+                               (20, n, 8, 1), (20, n, 4, 1)):
+        form = "dequantize_plane" if plane else "dequantize_tensor"
+        label = f"K5 {form} [{m}, {nn}] b={bits}"
+        x = torch.randn((m, nn), generator=g, device=dev)
+        sid = (torch.arange(m, device=dev) // 15).to(torch.int32)
+        rid = (torch.arange(m, device=dev) % 15).to(torch.int32)
+        q, sc = ops.quantize_plane(seed, sid, rid, x, bits=bits)
+        del x
+        wire = q.shape[-1]
+        out = torch.empty((m, nn), device=dev)
+        fn = ops.dequantize_plane if plane else ops.dequantize_tensor
+        plain = ref.dequantize_plane_ref if plane else \
+            ref.dequantize_tensor_ref
+        want = plain(q, sc, n=nn, bits=bits)
+        args = (q.data_ptr(), m, nn, bits, sc.data_ptr(), out.data_ptr(),
+                wire, plane)
+        cands = {"wrapper (package)": lambda: fn(q, sc, n=nn, bits=bits),
+                 "bare (package)": lambda: _build.launch(  # noqa
+                     "dequantize_leaf", *args)}
+        cands["first design, bare"] = call("dequantize_leaf_first", *args)
+        for name, lib in k5_libs.items():
+            cands[f"{name} bare"] = caller(lib)("dequantize_leaf", *args)
+        for name, fn_ in cands.items():
+            out.fill_(float("nan"))
+            got = fn_()
+            torch.cuda.synchronize()
+            got = out if got is None else got
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     "plain version")
+        times = {}
+        for name in list(cands) + list(reversed(cands)):
+            times.setdefault(name, []).append(ms(cands[name]))
+        for name, t in times.items():
+            print(f"[probe] {label}: {name}: {min(t):.4f} ms (turns "
+                  f"{', '.join(f'{u:.4f}' for u in t)}) [{card}]", flush=True)
+        results[label] = {nm: min(t) for nm, t in times.items()}
+        del q, out
+        torch.cuda.empty_cache()
+    # K0's test entry (8 seeds x 2^20 counters) beside its first design
+    # (every thread folds its seed, 64-bit indices), with this build's
+    # cipher and each --tree's
+    from repro_torch.kernels import prng
+
+    label = "K0 threefry_bits [8, 2^20]"
+    sids = prng.u32([0, 1, 9, 2 ** 31, 2 ** 31 + 7, 2 ** 32 - 1, 12345,
+                     3_000_000_000], dev).to(torch.int32)
+    rids = prng.u32([1, 0, prng.BROADCAST, 5, 2 ** 31 + 1, 3, 2 ** 32 - 2,
+                     4_000_000_000], dev).to(torch.int32)
+    ctr = ((torch.arange(n, device=dev, dtype=torch.int64) * 4099
+            + 2 ** 31 - 100) & prng.MASK).to(torch.int32)
+    want = prng._threefry_bits_ref(seed, sids, rids, ctr, 1_000_003, 64)
+    outs = [torch.empty(sh, dtype=torch.int32, device=dev)
+            for sh in ((8, n), (8,), (8,))]
+    args = (seed[0], seed[1], sids.data_ptr(), rids.data_ptr(),
+            ctr.data_ptr(), 8, n, 1_000_003, 64,
+            *(t.data_ptr() for t in outs))
+    cands = {"wrapper (package)": lambda: prng.threefry_bits(
+                 seed, sids, rids, ctr, n=1_000_003, n_strides=64),
+             "bare (package)": lambda: _build.launch("threefry_bits",
+                                                     *args)}
+    for name, lib in libs.items():
+        cands[f"first design, {name} build, bare"] = caller(lib)(
+            "threefry_bits_first", *args)
+    for name, lib in k0_libs.items():
+        cands[f"{name} bare"] = caller(lib)("threefry_bits", *args)
+    for name, fn_ in cands.items():
+        for t in outs:
+            t.fill_(-1)
+        got = fn_()
+        torch.cuda.synchronize()
+        got = tuple(prng.u32(t) for t in outs) if got is None else got
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 "version")
+    times = {}
+    for name in list(cands) + list(reversed(cands)):
+        times.setdefault(name, []).append(ms(cands[name]))
+    for name, t in times.items():
+        print(f"[probe] {label}: {name}: {min(t):.4f} ms (turns "
+              f"{', '.join(f'{u:.4f}' for u in t)}) [{card}]", flush=True)
+    results[label] = {nm: min(t) for nm, t in times.items()}
+    # the cipher's issue rate by the SM clock: Threefry blocks a clock per
+    # SM, as K1 and as K4 draw them, 1, 2 and 4 independent chains a
+    # thread, 32 warps an SM (a block of 1024 on each), each build's cipher
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2048
+    sink = torch.empty((sms * 1024,), dtype=torch.int32, device=dev)
+    cycles = torch.empty((sms,), dtype=torch.int64, device=dev)
+    rates = {}
+    for name, lib in libs.items():
+        for leaf in (0, 1):
+            for chains in (1, 2, 4):
+                run = caller(lib)("probe_cipher_rate", leaf, chains, sms,
+                                  iters, sink.data_ptr(), cycles.data_ptr())
+                run()
+                run()
+                torch.cuda.synchronize()
+                med = float(cycles.double().median())
+                per_clock = 1024 * chains * iters / med
+                key = (f"{name} {'K4 jax_bits' if leaf else 'K1 random_bits'}"
+                       f" x{chains}")
+                rates[key] = 1 / per_clock
+                print(f"[rate] {key}: {1 / per_clock:.4f} clocks a block "
+                      f"per SM ({per_clock:.3f} blocks a clock, median "
+                      f"{med:.0f} cycles of {sms} blocks) [{card}]",
+                      flush=True)
+    results["cipher clocks a block per SM"] = rates
     # the SM clock and the power while the fused K1 runs at [150, 2^20]
     # for ~2 s (nvidia-smi sampled from a thread meanwhile)
     import threading

@@ -44,7 +44,7 @@ OWN_KERNELS = ("randk_gather_pull_kernel", "randk_gather_push_kernel",
                "scatter_kernel", "bin_kernel", "fill_kernel",
                "quantize_rows", "quantize8_kernel", "quantize4_kernel",
                "quantize8_leaf", "quantize4_leaf",
-               "dequantize8_leaf", "dequantize4_leaf")
+               "dequantize8_leaf", "dequantize4_leaf", "dequantize_rows")
 
 
 def main(argv=None):
