@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
      packing, its share of the 16-byte load and the 4-byte store), printed
      beside the bounds;
      the tensor-core K10's SASS (wgmma, TMA and mbarrier instructions,
-     which every instantiation must have);
+     which every instantiation must have) and the tensor-core K11's
+     (wgmma and cp.async in its states and outputs kernels);
   3. kernels: each kernel held bit-exact against its plain PyTorch
      version on the card (K0 Threefry, K1 quantize_plane and K4/K5 on the
      quantiser's edge rows too: subnormals, a max below 127 tiny, +-0,
@@ -41,8 +42,11 @@ Phases (any failure exits non-zero):
      the CUDA-core one, within one ulp), and in bf16 with scores scaled by 8, T = 96 with S = 300
      non-causal, Dh 16, 32, 64 and 256 (tensor cores) and Dh 20 (CUDA
      cores; each call's variant checked by its counter), and K11 the
-     SSD scan at zamba2-2.7b's (within 1e-5 of the output's scale, one
-     ulp for bf16 y);
+     SSD scan at zamba2-2.7b's and with two groups (one case at chunk 64
+     with a strong decay): f32 through the CUDA-core variant, bf16
+     through the tensor-core one and then the CUDA-core one forced, each
+     call's variant checked by its counter (within 1e-5 of the output's
+     scale, one ulp for bf16 y, h_final within 1e-5);
   4. paper problem: LT-ADMM-CC on the paper's logistic task (ring N=10,
      n=5, m=100, SAGA) for qbit8, qbit4 and the Fig.-1 RandK settings,
      and the reference's two schedule rows (q8 + SAGA on drop0.3 and
@@ -84,13 +88,18 @@ Phases (any failure exits non-zero):
      / 9 launches of K10's tensor-core variant) and every K10 call held
      against its plain version, then once more with the CUDA-core
      variant forced (28 / 9 of its launches, each call held); zamba2's 54 Mamba blocks' prefill inputs (forward hooks)
-     through mamba_forward(use_kernel=True): 54 K11 launches, each held;
+     through mamba_forward(use_kernel=True): 54 launches of K11's
+     tensor-core variant, each held, then 54 of its CUDA-core variant
+     forced, each held, and a profile of each run (K11's device time by
+     kernel, the idle share);
      the prefill without the kernel; qwen3's f32 prefill logits (28
      launches of K10's CUDA-core variant) against token-by-token
      decode_step at T = 256; the greedy server (ms per decode step,
      tok/s) and profiles of a prefill and of decode steps; then K10
-     (both variants) and K11 timed beside their bounds, their plain
-     versions and (K10) scaled_dot_product_attention.
+     and K11 (both variants each) timed beside their bounds, their plain
+     versions and (K10) scaled_dot_product_attention, and the
+     tensor-core K11's launches as the runtime reports them (registers,
+     shared memory, resident blocks per SM).
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -590,6 +599,28 @@ def phase_sass():
         BODY_SASS[key] = body_sass(counts[f"{name}_one"],
                                    counts[f"{name}_two"], key, group)
     k10_sass()
+    k11_sass()
+
+
+def k11_sass():
+    """The tensor-core K11's SASS: per kernel the counts of wgmma (HGMMA)
+    and cp.async (LDGSTS) instructions; raises unless its states and
+    outputs kernels have both."""
+    from repro_torch.kernels import _build
+
+    counts = sass_counts(_build._lib_path("ssd_scan_sm90"))
+    found = 0
+    for fn, ops in sorted(counts.items()):
+        for kernel in ("ssd_state_kernel", "ssd_output_kernel"):
+            if kernel not in fn:
+                continue
+            found += 1
+            reading = {op: ops.get(op, 0) for op in ("HGMMA", "LDGSTS")}
+            log(f"[sass] K11 {fn}: {reading}")
+            if not all(reading.values()):
+                raise AssertionError(f"K11 {fn} has no wgmma or no cp.async")
+    if not found:
+        raise AssertionError("no tensor-core kernel in the K11 library")
 
 
 def k10_sass():
@@ -1244,6 +1275,13 @@ K10_TC_CASES = (
 )
 # K11 at zamba2-2.7b's SSD: (B, T, NH, HD, NG, DS, chunk)
 K11_CASE = (2, 2048, 80, 64, 1, 64, 128)
+# check_k11's cases: (label, B, T, NH, HD, NG, DS, chunk, decay); each in
+# f32 (the CUDA-core variant) and bf16 (the tensor-core one by ``route``,
+# then the CUDA-core one forced), B and C at their token stride
+K11_CASES = (("zamba2", *K11_CASE, "usual"),
+             ("two groups", 2, 1024, 16, 64, 2, 64, 128, "usual"),
+             ("two groups strong decay chunk 64", 1, 512, 8, 32, 2, 16, 64,
+              "strong"))
 K11_REL_TOL = 1e-5  # max |kernel - plain| over max |plain|, f32 outputs
 
 
@@ -1352,14 +1390,18 @@ def check_k10(dev, cases=K10_CASES, tc_cases=K10_TC_CASES):
                 f"{hold_k10(got, want, tag, expect)}")
 
 
-def ssd_inputs(dev, b, t, nh, hd, ng, ds, dtype, seed=11):
+def ssd_inputs(dev, b, t, nh, hd, ng, ds, dtype, seed=11, decay="usual"):
     """SSD inputs in the model layout, B and C as column slices of one
-    [B, T, NH * HD + 2 NG DS] tensor, as the Mamba block hands them over."""
+    [B, T, NH * HD + 2 NG DS] tensor, as the Mamba block hands them over;
+    alog -0.2 |N(0, 1)| ("usual") or about -5 a step ("strong": exp
+    underflows inside a chunk)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     x = 0.5 * torch.randn((b, t, nh, hd), generator=g, device=dev)
     alog = -0.2 * torch.randn((b, t, nh), generator=g, device=dev).abs()
+    if decay == "strong":
+        alog = -5.0 + 0.5 * alog
     xbc = 0.5 * torch.randn((b, t, nh * hd + 2 * ng * ds), generator=g,
                             device=dev)
     bm = xbc[..., nh * hd:nh * hd + ng * ds].reshape(b, t, ng, ds)
@@ -1367,16 +1409,19 @@ def ssd_inputs(dev, b, t, nh, hd, ng, ds, dtype, seed=11):
     return [a.to(dtype) for a in (x, bm, cm, alog)]
 
 
-def hold_k11(got, want, label):
+def hold_k11(got, want, label, variant="tc"):
     """K11's limits against its plain version: y within K11_REL_TOL of its
-    scale in f32 (one bf16 ulp in bf16), h_final within K11_REL_TOL."""
+    scale in f32 (one bf16 ulp in bf16), h_final within K11_REL_TOL.  The
+    error is noted under the variant that ran: "K11-tc", "K11-cc" (bf16)
+    or "K11-cc-f32"."""
     import torch
 
     from repro_torch.kernels.tolerance import bf16_ulps
 
     (y, h), (yw, hw) = got, want
-    note_err("K11", y, yw)
-    note_err("K11", h, hw)
+    kid = f"K11-{variant}" + ("-f32" if y.dtype == torch.float32 else "")
+    note_err(kid, y, yw)
+    note_err(kid, h, hw)
     rel_h = float((h - hw).abs().max() / hw.abs().max())
     scale = float(yw.float().abs().max())
     if y.dtype == torch.float32:
@@ -1391,24 +1436,52 @@ def hold_k11(got, want, label):
     return f"{text}, h_final rel {rel_h:.3e} (limit {K11_REL_TOL})"
 
 
-def check_k11(dev, case=K11_CASE):
-    """K11 against its plain version at zamba2's SSD shape, f32 and bf16
-    inputs, B and C read through their token stride."""
+def k11_call(cfg, x, bm, cm, alog, expect, variant=None):
+    """K11 through its wrapper (``variant`` forced, or ``route``'s); on the
+    card, raises unless the variant ``expect`` ran and no other (its
+    counter alone moved; without ``variant``, ``route`` named it)."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    before = read_counts()
+    got = ops.ssd_chunked(cfg, x, bm, cm, alog, variant=variant)
+    sync()
+    after = read_counts()
+    if DEV == "cpu":
+        return got
+    moved = [n for n in ("tc", "cc") if after[f"ssd_chunked_{n}"]
+             != before[f"ssd_chunked_{n}"]]
+    ran = variant or ops.route(x, bm, cfg, cm)
+    if moved != [expect] or ran != expect:
+        raise AssertionError(f"K11 launched {moved} ({ran}), expected "
+                             f"{expect}")
+    return got
+
+
+def check_k11(dev, cases=K11_CASES):
+    """K11 against its plain version at zamba2's SSD shape and with two
+    groups (one case at chunk 64 with a strong decay): f32 through the
+    CUDA-core variant; bf16 through the tensor-core one (``route``), then
+    the CUDA-core one forced, on the same inputs."""
     import torch
 
-    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.kernels.ssm_scan import ref
     from repro_torch.models.mamba import SSMConfig
 
-    b, t, nh, hd, ng, ds, chunk = case
-    cfg = SSMConfig(nh * hd // 2, d_state=ds, head_dim=hd, n_groups=ng,
-                    chunk=chunk)
-    for dt in (torch.float32, torch.bfloat16):
-        x, bm, cm, alog = ssd_inputs(dev, b, t, nh, hd, ng, ds, dt)
-        got = ops.ssd_chunked(cfg, x, bm, cm, alog)
-        sync()
-        want = ref.ssd_scan_plain(x, alog, bm, cm, chunk=chunk)
-        tag = f"[{b}, {nh}, {t}, {hd}] DS {ds} chunk {chunk} {dt}"
-        log(f"[kernels] K11 ssd_scan {tag}: {hold_k11(got, want, tag)}")
+    for label, b, t, nh, hd, ng, ds, chunk, decay in cases:
+        cfg = SSMConfig(nh * hd // 2, d_state=ds, head_dim=hd, n_groups=ng,
+                        chunk=chunk)
+        for dt, runs in ((torch.float32, ((None, "cc"),)),
+                         (torch.bfloat16, ((None, "tc"), ("cc", "cc")))):
+            x, bm, cm, alog = ssd_inputs(dev, b, t, nh, hd, ng, ds, dt,
+                                         decay=decay)
+            want = ref.ssd_scan_plain(x, alog, bm, cm, chunk=chunk)
+            for variant, expect in runs:
+                got = k11_call(cfg, x, bm, cm, alog, expect, variant)
+                tag = (f"{label} [{b}, {nh}, {t}, {hd}] NG {ng} DS {ds} "
+                       f"chunk {chunk} {decay} decay {dt}")
+                log(f"[kernels] K11 ssd_scan ({expect}"
+                    f"{', forced' if variant else ''}) {tag}: "
+                    f"{hold_k11(got, want, tag, expect)}")
 
 
 def same_bits(a, b):
@@ -2100,9 +2173,9 @@ def k11_plain(cfg, x, bmat, cmat, alog, h0=None):
 
 
 # the serving path's kernels for ``MainPathTap``: held within their limits
+# (K11's by ``serve_k11``, which names the variant each run takes)
 SERVE_WRAPPERS = {
     "flash_attention": ("K10", "flash_attention", k10_plain, hold_k10),
-    "ssd_chunked": ("K11", "ssm_scan", k11_plain, hold_k11),
 }
 
 
@@ -2380,41 +2453,124 @@ def phase_serve():
     return counts
 
 
+@contextlib.contextmanager
+def forced_k11(variant):
+    """Route K11 to ``variant`` inside the block: the script swaps
+    ``route`` in the wrapper module, as ``forced_push`` does for K2/K3."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    saved = ops.route
+    ops.route = lambda *args, **kwargs: variant
+    try:
+        yield
+    finally:
+        ops.route = saved
+
+
 def serve_k11(arch_id, cfg, mamba_in, n_mamba):
     """Each Mamba block's prefill input through ``mamba_forward(...,
-    use_kernel=True)``: K11 counted (zeroed before, read after) and every
-    call held against its plain version; the jnp path's distance printed
-    as a reading only (in bf16 its cumulative decay is rounded to bf16)."""
-    tap = MainPathTap(SERVE_WRAPPERS)
-    tap.checking = True
-    dist = []
-    try:
-        reset_counts()  # the Mamba blocks' kernel path starts here
-        outs = [mod(x, use_kernel=True) for mod, x in mamba_in]
+    use_kernel=True)``, twice: as ``route`` sends it (the tensor-core
+    variant), then with the CUDA-core variant forced; each run counted
+    (zeroed before, read after) and every call held against its plain
+    version.  The jnp path's distance is printed as a reading only (in
+    bf16 its cumulative decay is rounded to bf16).  On the card, each
+    variant's 54 calls are profiled again without the checks: K11's
+    device time and the idle share.  Returns {variant: launches}."""
+    import functools
+
+    launches = {}
+    for variant in ("tc", "cc"):
+        tap = MainPathTap({"ssd_chunked": (
+            "K11", "ssm_scan", k11_plain,
+            functools.partial(hold_k11, variant=variant))})
+        tap.checking = True
+        try:
+            with (forced_k11("cc") if variant == "cc"
+                  else contextlib.nullcontext()):
+                reset_counts()  # the Mamba blocks' kernel path starts here
+                outs = [mod(x, use_kernel=True) for mod, x in mamba_in]
+                sync()
+                after = read_counts()  # ... and ends here
+        finally:
+            tap.close()
+        readings = tap.readings.get("ssd_chunked", [])
+        n_tc, n_cc = after["ssd_chunked_tc"], after["ssd_chunked_cc"]
+        launches[variant] = n_tc if variant == "tc" else n_cc
+        log(f"[serve] {arch_id} Mamba blocks through K11"
+            f"{' (CUDA-core variant forced)' if variant == 'cc' else ''}: "
+            f"launches {after['ssd_chunked']} (tensor-core {n_tc}, CUDA-core "
+            f"{n_cc}), calls {len(outs)} (blocks {n_mamba}), every call "
+            f"held: {sorted(set(readings))[:3]}")
+        if len(outs) != n_mamba or len(readings) != n_mamba:
+            raise AssertionError(f"{arch_id}: {len(readings)} K11 calls held"
+                                 f", {n_mamba} blocks")
+        want = (n_mamba, 0) if variant == "tc" else (0, n_mamba)
+        if DEV == "cuda" and (n_tc, n_cc) != want:
+            raise AssertionError(f"{arch_id}: K11 launches tensor-core {n_tc}"
+                                 f", CUDA-core {n_cc}, expected {want}")
+        if variant == "tc":
+            dist = []
+            for (mod, x), y in zip(mamba_in, outs):
+                y_jnp = mod(x, use_kernel=False)
+                dist.append((float((y.float() - y_jnp.float()).abs().max()),
+                             float(y.float().abs().max())))
+            worst = max(dist)
+            log(f"[serve] {arch_id} K11 path vs the jnp path in {cfg.dtype} "
+                f"(reading only): max |d| {worst[0]:.4e} at output scale "
+                f"{worst[1]:.3f}; mean over blocks "
+                f"{sum(d for d, _ in dist) / len(dist):.4e}")
+        del outs
+    if DEV == "cuda":
+        for variant in ("tc", "cc"):
+            profile_k11(arch_id, mamba_in, variant)
+    return launches
+
+
+# K11's CUDA kernels by variant, as a profile names them
+K11_KERNELS = {"tc": ("ssd_state_kernel", "ssd_pass_kernel",
+                      "ssd_output_kernel"),
+               "cc": ("ssd_kernel<",)}
+
+
+def profile_k11(arch_id, mamba_in, variant):
+    """torch.profiler over the Mamba blocks' kernel path (one warm-up pass
+    first): K11's device time by kernel, the window's wall and device
+    busy time, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        with (forced_k11("cc") if variant == "cc"
+              else contextlib.nullcontext()):
+            for mod, x in mamba_in:
+                mod(x, use_kernel=True)
+
+    run()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         sync()
-        n_k11 = read_counts()["ssd_chunked"]  # ... and ends here
-    finally:
-        tap.close()
-    for (mod, x), y in zip(mamba_in, outs):
-        y_jnp = mod(x, use_kernel=False)
-        dist.append((float((y.float() - y_jnp.float()).abs().max()),
-                     float(y.float().abs().max())))
-    readings = tap.readings.get("ssd_chunked", [])
-    log(f"[serve] {arch_id} Mamba blocks through K11: launches {n_k11}, "
-        f"calls {len(outs)} (blocks {n_mamba}), every call held: "
-        f"{sorted(set(readings))[:3]}")
-    worst = max(dist)
-    log(f"[serve] {arch_id} K11 path vs the jnp path in {cfg.dtype} "
-        f"(reading only): max |d| {worst[0]:.4e} at output scale "
-        f"{worst[1]:.3f}; mean over blocks "
-        f"{sum(d for d, _ in dist) / len(dist):.4e}")
-    if len(outs) != n_mamba or len(readings) != n_mamba:
-        raise AssertionError(f"{arch_id}: {len(readings)} K11 calls held, "
-                             f"{n_mamba} blocks")
-    if DEV == "cuda" and n_k11 != n_mamba:
-        raise AssertionError(f"{arch_id}: {n_k11} K11 launches, expected "
-                             f"{n_mamba}")
-    return n_k11
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        for k in K11_KERNELS[variant]:
+            if k in e.name:
+                by_name[k] = by_name.get(k, 0.0) + e.time_range.elapsed_us()
+    k11 = sum(by_name.values()) / 1e3
+    log(f"[serve] {arch_id} K11 profile ({variant}), {len(mamba_in)} Mamba "
+        f"blocks: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle "
+        f"share {1 - busy / (wall * 1e3):.3f}; K11 {k11:.3f} ms on the device"
+        f" ({k11 / len(mamba_in):.4f} ms a block: "
+        + ", ".join(f"{k.rstrip('<')} {v / 1e3 / len(mamba_in):.4f}"
+                    for k, v in sorted(by_name.items())) + ")")
+    if not by_name:
+        raise AssertionError(f"K11 ({variant}) left no kernel in the "
+                             "profile")
 
 
 def consistency(arch_id):
@@ -2463,15 +2619,13 @@ def time_serve_kernels(counts):
     """K10 at each served model's prefill shape, bf16 as the prefill gives
     them (the tensor-core variant, with the CUDA-core kernel's bare time
     on the same inputs beside it), and at the f32 prefill's shape
-    (the CUDA-core variant); K11 at zamba2's: wrapper, bare launch, plain
-    version, bound and (K10) SDPA on the same tensors."""
+    (the CUDA-core variant): wrapper, bare launch, plain version, bound
+    and SDPA on the same tensors; then K11 (``time_k11``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flops
-    from repro_torch.kernels.ssm_scan import ops as ssmops
-    from repro_torch.models.mamba import SSMConfig
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     rows = []
@@ -2538,31 +2692,102 @@ def time_serve_kernels(counts):
                 counts["f32"], kernel_ms=cc_ms, fp_ops=2 * 2 * dh * pairs,
                 max_abs_err_bf16=ERRS.get("K10-cc"), **common)
         del q, k, v, out, qt, kt, vt
+    rows += time_k11(counts)
+    return rows
+
+
+def time_k11(counts):
+    """K11 at zamba2's SSD shape in bf16: the tensor-core variant's wrapper
+    and bare launch (the CUDA-core kernel's bare launch on the same inputs
+    in turns beside it), the plain version, and the bound of the work
+    each design does; then the CUDA-core variant's wrapper forced.  Also
+    prints what the tensor-core launches look like to the runtime."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import ops as ssmops
+    from repro_torch.kernels.ssm_scan import ref as ssmref
+    from repro_torch.models.mamba import SSMConfig
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
     b, t, nh, hd, ng, ds, chunk = K11_CASE
     cfg = SSMConfig(nh * hd // 2, d_state=ds, head_dim=hd, n_groups=ng,
                     chunk=chunk)
     x, bm, cm, alog = ssd_inputs(dev, b, t, nh, hd, ng, ds, bf)
+    want = k11_plain(cfg, x, bm, cm, alog)
+    for variant in ("tc", "cc"):
+        got = k11_call(cfg, x, bm, cm, alog, variant, variant)
+        log(f"[time] K11 ({variant}) zamba2: "
+            f"{hold_k11(got, want, 'zamba2 timed', variant)}")
+    del got, want
+    info = ssmops.tc_launch_info(b, t, nh, ng, hd, ds, chunk)
+    log(f"[time] K11-tc launches as the runtime reports them (threads, "
+        f"dynamic shared memory, registers, local bytes, resident blocks "
+        f"per SM, heads a block, blocks): {json.dumps(info)}")
     y = torch.empty_like(x)
     hout = torch.empty((b, nh, ds, hd), device=dev)
-    tri = chunk * (chunk + 1) // 2
+    scratch = torch.empty(ssmops.tc_scratch_bytes(b, t, nh, hd, ds, chunk),
+                          dtype=torch.uint8, device=dev)
+    ptrs = (x.data_ptr(), alog.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            y.data_ptr(), hout.data_ptr())
+    dims = (b, t, nh, ng, hd, ds, chunk, bm.stride(1), cm.stride(1))
+    tc_ms, cc_ms, tc_turns, cc_turns = turns(
+        lambda: _build.launch("ssd_scan_tc", *ptrs, scratch.data_ptr(),
+                              *dims),
+        lambda: _build.launch("ssd_scan", *ptrs, *dims, 1))
+    plain_ms = cuda_ms(lambda: k11_plain(cfg, x, bm, cm, alog), iters=3,
+                       warmup=1)
+    nc, tri = t // chunk, chunk * (chunk + 1) // 2
+    heads = b * nh * nc  # (batch, chunk, head) tiles
+    # x, y, alog, B, C once each, h_final; the tensor-core design adds the
+    # chunk states' round trip (S in f32 and h_in's two bf16 pieces, each
+    # written once and read once)
+    nbytes = (2 * (2 * b * t * nh * hd + b * t * nh + 2 * b * t * ng * ds)
+              + 4 * b * nh * ds * hd)
+    state_bytes = 4 * 4 * heads * ds * hd
+    pieces = ssmref.TC_PIECES
+    # C B^T's lower triangle once per (batch, chunk, group) with two bf16
+    # operands; per tile (G X), C h_in and Bw^T X, each times its pieces
+    tc_bf16 = (2 * b * nc * ng * tri * ds
+               + heads * (pieces["g"] * 2 * tri * hd
+                          + pieces["h_in"] * 2 * chunk * ds * hd
+                          + pieces["bw"] * 2 * chunk * ds * hd))
+    # exps: L's triangle, exp(cum_Q - cum_s) and exp(cum_t); f32 on the
+    # CUDA cores: G = C B^T o L, Bw, the exp(cum_t) scaling and the pass
+    tc_sfu = heads * (tri + 2 * chunk)
+    tc_fp = heads * (tri + chunk * ds + chunk * hd + 2 * ds * hd)
+    with_state, _ = bound_ms(nbytes + state_bytes, 0, tc_fp, tc_bf16, tc_sfu)
+    common = dict(plain_ms=plain_ms, nbytes=nbytes, int_ops=0,
+                  library_ms=None,
+                  launches_of="zamba2-2.7b's 54 Mamba blocks, kernel path")
+    rows = []
     add_row(
-        rows, f"K11 ssd_scan [{b}, {nh}, {t}, {hd}] DS {ds} chunk {chunk} "
-        "bf16", "src/repro_torch/csrc/ssd_scan.cu",
+        rows, f"K11-tc ssd_scan_tc [{b}, {nh}, {t}, {hd}] DS {ds} chunk "
+        f"{chunk} bf16", "src/repro_torch/csrc/ssd_scan_sm90.cu",
         "src/repro/kernels/ssm_scan/kernel.py:81",
-        counts["zamba2-2.7b"]["ssd_chunked"],
-        cuda_ms(lambda: ssmops.ssd_chunked(cfg, x, bm, cm, alog)),
-        cuda_ms(lambda: _build.launch(
-            "ssd_scan", x.data_ptr(), alog.data_ptr(), bm.data_ptr(),
-            cm.data_ptr(), y.data_ptr(), hout.data_ptr(), b, t, nh, ng, hd,
-            ds, chunk, bm.stride(1), cm.stride(1), 1)),
-        cuda_ms(lambda: k11_plain(cfg, x, bm, cm, alog), iters=3, warmup=1),
-        2 * (2 * b * t * nh * hd + b * t * nh + 2 * b * t * ng * ds)
-        + 4 * b * nh * ds * hd, 0,
-        # the lower triangle of C.B^T has two bf16 operands; (C B^T o L) X,
-        # C.h and the decayed B^T X have one f32 operand
-        2 * b * nh * (t // chunk) * (tri * hd + 2 * chunk * ds * hd),
-        None, bf16_ops=2 * b * nh * (t // chunk) * tri * ds,
-        launches_of="zamba2-2.7b's 54 Mamba blocks, kernel path")
+        counts["zamba2-2.7b"]["ssd_chunked"]["tc"],
+        cuda_ms(lambda: ssmops.ssd_chunked(cfg, x, bm, cm, alog)), tc_ms,
+        fp_ops=tc_fp, bf16_ops=tc_bf16, sfu_ops=tc_sfu, cc_kernel_ms=cc_ms,
+        kernel_ms_turns=tc_turns, cc_kernel_ms_turns=cc_turns,
+        bound_with_state_ms=with_state, launch_info=info, **common)
+    log(f"[time] K11-tc bound with the chunk states' round trip "
+        f"({state_bytes} bytes more): {with_state:.4f} ms")
+    # the CUDA-core design: the lower triangle of C.B^T with two bf16
+    # operands; (C B^T o L) X, C.h and the decayed B^T X with one f32
+    # operand on the CUDA cores
+    with forced_k11("cc"):
+        cc_wrapper_ms = cuda_ms(lambda: ssmops.ssd_chunked(cfg, x, bm, cm,
+                                                           alog))
+    add_row(
+        rows, f"K11-cc ssd_scan [{b}, {nh}, {t}, {hd}] DS {ds} chunk {chunk}"
+        " bf16", "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssm_scan/kernel.py:81",
+        counts["zamba2-2.7b"]["ssd_chunked"]["cc"], cc_wrapper_ms, cc_ms,
+        fp_ops=2 * heads * (tri * hd + 2 * chunk * ds * hd),
+        bf16_ops=2 * heads * tri * ds,
+        max_abs_err_f32=ERRS.get("K11-cc-f32"),
+        **{**common, "launches_of": "zamba2-2.7b's 54 Mamba blocks, "
+           "CUDA-core variant forced"})
     return rows
 
 
@@ -3257,7 +3482,9 @@ def rehearse():
                       for lab, _, h, kh, _, dh in K10_CASES],
               [(lab, 1, h, kh, min(t, 256), s - t + min(t, 256), *rest)
                for lab, _, h, kh, t, s, *rest in K10_TC_CASES])
-    check_k11("cpu", (1, 256, 8, 64, 1, 64, 128))
+    check_k11("cpu", [(lab, 1, 256, min(nh, 8), hd, ng, ds, chunk, decay)
+                      for lab, _, _, nh, hd, ng, ds, chunk, decay
+                      in K11_CASES])
     phase_paper(PAPER_ROUNDS)
     phase_paper_schedules(30, kind_rounds=11)  # rounds_to_tol 20 in 30
     phase_fig2(110, 250)  # LT-ADMM-CC reaches 1e-8 at round 100

@@ -63,6 +63,8 @@ ENTRIES = {
     "flash_attention_tc": ("flash_attention_sm90",
                            (_P, _P, _P, _P) + (_I,) * 8 + (_F,)),
     "ssd_scan": ("ssd_scan", (_P,) * 6 + (_I,) * 10),
+    "ssd_scan_tc": ("ssd_scan_sm90", (_P,) * 7 + (_I,) * 9),
+    "ssd_scan_tc_info": ("ssd_scan_sm90", (_I,) * 7 + (_P,)),
 }
 SOURCES = tuple(sorted({stem for stem, _ in ENTRIES.values()}))
 

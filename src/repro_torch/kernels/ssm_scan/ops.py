@@ -1,11 +1,26 @@
-"""Wrapper of the SSD-scan kernel (K11, ``csrc/ssd_scan.cu``) in the model
-zoo's layout (``src/repro/kernels/ssm_scan/ops.py``):
+"""Wrapper of the SSD-scan kernel (K11) in the model zoo's layout
+(``src/repro/kernels/ssm_scan/ops.py``):
 ``models.mamba.ssd_chunked(..., use_kernel=True)`` dispatches here.
 
 The reference's wrapper repeats the groups to heads and moves the head
 axis forward before its kernel; K11 reads x [B,T,NH,HD], alog [B,T,NH]
 and the groups [B,T,NG,DS] in place and writes y in the same layout, so
-nothing is copied.  On a CPU tensor the plain version (``ref.py``) runs.
+nothing is copied.  On a CUDA tensor ``ssd_chunked`` launches one of two
+variants, by the rule of ``route``:
+
+* ``"tc"`` (``csrc/ssd_scan_sm90.cu``): bf16 on the tensor cores, split
+  over (batch, chunk, head) in three launches (the chunks' own states,
+  the pass across chunks, the outputs); for chunks of 32, 64 or 128
+  steps, head_dim 32 or 64, d_state a multiple of 16 up to 64, and x, B
+  and C 16-byte aligned with token strides of B and C a multiple of 8
+  elements.  It takes a scratch of ``tc_scratch_bytes``.
+* ``"cc"`` (``csrc/ssd_scan.cu``): f32 on the CUDA cores, one block per
+  (head, batch) walking the chunks, and the bf16 shapes "tc" refuses.
+
+The rule is on the shape and the pointers, decided before the launch.
+``variant`` forces one (the card tests and the timing do); a launch that
+the chosen kernel refuses raises, nothing falls back.  On a CPU tensor the
+plain version (``ref.py``) runs.
 """
 from __future__ import annotations
 
@@ -15,13 +30,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import ref
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use (H100)
+TC_CHUNKS = (32, 64, 128)
+TC_HEAD_DIMS = (32, 64)
 
 
 def smem_bytes(chunk: int, hd: int, ds: int) -> int:
-    """K11's dynamic shared memory: x, Bᵀ, Cᵀ, the masked C Bᵀ ∘ L tile
-    and the state h in f32, and three chunk-length vectors."""
+    """The CUDA-core K11's dynamic shared memory: x, Bᵀ, Cᵀ, the masked
+    C Bᵀ ∘ L tile and the state h in f32, and three chunk-length
+    vectors."""
     return 4 * (chunk * hd + 2 * ds * chunk + chunk * chunk + ds * hd
                 + 3 * chunk)
+
+
+def tc_scratch_bytes(b: int, t: int, nh: int, hd: int, ds: int,
+                     chunk: int) -> int:
+    """The tensor-core K11's scratch: each (batch, chunk, head)'s own state
+    in f32 and its h_in as two bf16 pieces ([DS, HD] each), and
+    exp(cum_Q)."""
+    slots = b * (t // chunk) * nh
+    return 8 * slots * ds * hd + 4 * slots
 
 
 def _token_stride(name, a, shape):
@@ -40,10 +67,27 @@ def _token_stride(name, a, shape):
     return st[1]
 
 
-def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None):
+def route(x, bmat, cfg, cmat=None) -> str:
+    """K11's variant for these tensors: "tc" or "cc" (module doc).
+    ``cmat`` defaults to ``bmat`` (the Mamba block's C sits beside B in
+    the same conv output, at the same stride)."""
+    cmat = bmat if cmat is None else cmat
+    t, hd = x.shape[1], x.shape[3]
+    ds = bmat.shape[3]
+    chunk = min(cfg.chunk, t)
+    rows = all(a.data_ptr() % 16 == 0 and a.stride(1) % 8 == 0
+               for a in (bmat, cmat))
+    tc = (x.dtype == torch.bfloat16 and chunk in TC_CHUNKS
+          and hd in TC_HEAD_DIMS and ds % 16 == 0 and 16 <= ds <= 64
+          and x.data_ptr() % 16 == 0 and rows)
+    return "tc" if tc else "cc"
+
+
+def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None, *, variant=None):
     """Same contract as ``models.mamba.ssd_chunked`` (h0 must be None:
     the kernel owns the initial state; T a multiple of the chunk).
-    Returns y [B,T,NH,HD] in x's dtype and h_final [B,NH,DS,HD] f32."""
+    Returns y [B,T,NH,HD] in x's dtype and h_final [B,NH,DS,HD] f32.
+    ``variant`` ("tc" or "cc") overrides ``route`` on the card."""
     if h0 is not None:
         raise ValueError("the kernel path owns the scan state: h0 must be "
                          "None")
@@ -63,19 +107,58 @@ def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None):
             raise TypeError(f"{name} must be {x.dtype} on {x.device}")
     b_stride = _token_stride("bmat", bmat, (b, t, ng, ds))
     c_stride = _token_stride("cmat", cmat, (b, t, ng, ds))
-    if ng == 0 or nh % ng or chunk % 4 or hd % 4 or ds % 4 \
-            or smem_bytes(chunk, hd, ds) > SMEM_LIMIT:
-        raise ValueError(f"unsupported shapes: chunk {chunk}, head_dim {hd},"
-                         f" d_state {ds}, heads {nh}, groups {ng}")
+    if ng == 0 or nh % ng:
+        raise ValueError(f"{nh} heads do not share {ng} groups evenly")
+    if variant not in (None, "tc", "cc"):
+        raise ValueError(f"variant must be 'tc' or 'cc', got {variant!r}")
+    best = route(x, bmat, cfg, cmat)
+    variant = best if variant is None else variant
+    shape = (f"chunk {chunk}, head_dim {hd}, d_state {ds}, heads {nh}, "
+             f"groups {ng}, {x.dtype}")
+    if variant == "tc" and best != "tc":
+        raise ValueError(f"the tensor-core K11 does not take {shape}")
+    if variant == "cc" and (chunk % 4 or hd % 4 or ds % 4
+                            or smem_bytes(chunk, hd, ds) > SMEM_LIMIT):
+        raise ValueError(f"unsupported shapes: {shape}")
     y = torch.empty_like(x)
     h = torch.empty((b, nh, ds, hd), dtype=torch.float32, device=x.device)
-    _build.launch("ssd_scan", x.data_ptr(), alog.data_ptr(),
-                  bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(),
-                  h.data_ptr(), b, t, nh, ng, hd, ds, chunk, b_stride,
-                  c_stride,
-                  int(x.dtype == torch.bfloat16))
+    args = (x.data_ptr(), alog.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            y.data_ptr(), h.data_ptr())
+    if variant == "tc":
+        scratch = torch.empty(tc_scratch_bytes(b, t, nh, hd, ds, chunk),
+                              dtype=torch.uint8, device=x.device)
+        _build.launch("ssd_scan_tc", *args, scratch.data_ptr(), b, t, nh,
+                      ng, hd, ds, chunk, b_stride, c_stride)
+        ssd_chunked.launches_tc += 1
+    else:
+        _build.launch("ssd_scan", *args, b, t, nh, ng, hd, ds, chunk,
+                      b_stride, c_stride, int(x.dtype == torch.bfloat16))
+        ssd_chunked.launches_cc += 1
     ssd_chunked.launches += 1
     return y, h
 
 
+# launches of each variant; ``launches`` is their sum
 ssd_chunked.launches = 0
+ssd_chunked.launches_tc = 0
+ssd_chunked.launches_cc = 0
+
+
+def tc_launch_info(b, t, nh, ng, hd, ds, chunk) -> dict:
+    """What the tensor-core K11 launches for this shape, as the CUDA
+    runtime reports it (``cudaFuncGetAttributes`` and the occupancy API):
+    per kernel its threads, registers and resident blocks per SM; for the
+    states and outputs kernels also the dynamic shared memory, local
+    (spilled) bytes, heads a block walks and the grid's blocks."""
+    import ctypes
+
+    out = (ctypes.c_int * 18)()
+    _build.launch("ssd_scan_tc_info", b, t, nh, ng, hd, ds, chunk,
+                  ctypes.addressof(out))
+    v = list(out)
+    keys = ("threads", "smem_bytes", "registers", "local_bytes",
+            "blocks_per_sm", "heads_per_block", "blocks")
+    return {"states": dict(zip(keys, v[0:7])),
+            "pass": dict(zip(("threads", "registers", "blocks_per_sm"),
+                             v[7:10])),
+            "outputs": dict(zip(keys, v[10:17])), "sms": v[17]}

@@ -610,12 +610,21 @@ def test_flash_attention(h100, b, h, kh, t, s, dh, causal, window, shifted,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,t,nh,hd,ng,ds,chunk", [
-    (2, 512, 80, 64, 1, 64, 128),  # zamba2's SSD
-    (1, 256, 4, 32, 2, 16, 64),  # two groups
-    (2, 96, 3, 16, 1, 8, 32),
+@pytest.mark.parametrize("b,t,nh,hd,ng,ds,chunk,decay", [
+    (2, 512, 80, 64, 1, 64, 128, "usual"),  # zamba2's SSD
+    (1, 256, 4, 32, 2, 16, 64, "usual"),  # two groups
+    (2, 96, 3, 16, 1, 8, 32, "usual"),  # a shape the tensor cores refuse
+    (1, 128, 8, 64, 1, 64, 128, "usual"),  # T = chunk, B = 1
+    (2, 128, 6, 32, 2, 32, 32, "usual"),  # chunk 32, two groups
+    (1, 256, 8, 64, 2, 64, 64, "strong"),  # chunk 64, exp underflows
+    (2, 512, 16, 64, 1, 64, 128, "none"),  # no decay: the state grows
 ])
-def test_ssd_scan(h100, b, t, nh, hd, ng, ds, chunk, dtype):
+def test_ssd_scan(h100, b, t, nh, hd, ng, ds, chunk, decay, dtype):
+    """Each call takes the variant ``route`` states (bf16 at the shapes the
+    tensor-core kernel takes: it; f32 and the rest: the CUDA-core one),
+    then every variant the shape admits runs forced on the same inputs,
+    B and C read at their token stride; each within the limits of the
+    plain version.  A forced "tc" on a shape it refuses raises."""
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.ssm_scan import ref as ssm_ref
     from repro_torch.models.mamba import SSMConfig
@@ -623,7 +632,11 @@ def test_ssd_scan(h100, b, t, nh, hd, ng, ds, chunk, dtype):
     g = torch.Generator(h100).manual_seed(t + hd + ds)
     dt = getattr(torch, dtype)
     x = 0.5 * torch.randn((b, t, nh, hd), generator=g, device=h100)
-    alog = -0.2 * torch.randn((b, t, nh), generator=g, device=h100).abs()
+    alog = {"usual": -0.2 * torch.randn((b, t, nh), generator=g,
+                                        device=h100).abs(),
+            "strong": -5.0 + 0.1 * torch.randn((b, t, nh), generator=g,
+                                               device=h100),
+            "none": torch.zeros((b, t, nh), device=h100)}[decay]
     # B and C as column slices of one tensor, as the Mamba block has them
     xbc = 0.5 * torch.randn((b, t, 2 * ng * ds + 8), generator=g,
                             device=h100).to(dt)
@@ -631,17 +644,29 @@ def test_ssd_scan(h100, b, t, nh, hd, ng, ds, chunk, dtype):
     cm = xbc[..., 8 + ng * ds:].reshape(b, t, ng, ds)
     x, alog = x.to(dt), alog.to(dt)
     cfg = SSMConfig(64, chunk=chunk)
-    ssm_ops.ssd_chunked.launches = 0
-    y, h = ssm_ops.ssd_chunked(cfg, x, bm, cm, alog)
-    torch.cuda.synchronize()
-    assert ssm_ops.ssd_chunked.launches == 1
+    tc_takes = dt == torch.bfloat16 and hd in (32, 64) and ds % 16 == 0
+    assert ssm_ops.route(x, bm, cfg, cm) == ("tc" if tc_takes else "cc")
     yw, hw = ssm_ref.ssd_scan_plain(x, alog, bm, cm, chunk=chunk)
     scale = float(yw.float().abs().max())
-    assert float((h - hw).abs().max()) <= 1e-5 * float(hw.abs().max())
-    if dt == torch.float32:
-        assert float((y - yw).abs().max()) <= 1e-5 * scale
-    else:
-        assert bf16_ulps(y, yw, 1e-5 * scale) <= 1
+    fn = ssm_ops.ssd_chunked
+    for variant in (None, "tc", "cc") if tc_takes else (None, "cc"):
+        fn.launches = fn.launches_tc = fn.launches_cc = 0
+        y, h = fn(cfg, x, bm, cm, alog, variant=variant)
+        torch.cuda.synchronize()
+        ran = variant or ("tc" if tc_takes else "cc")
+        assert (fn.launches, fn.launches_tc, fn.launches_cc) == (
+            (1, 1, 0) if ran == "tc" else (1, 0, 1)), variant
+        assert y.dtype == dt and y.shape == x.shape
+        assert float((h - hw).abs().max()) <= 1e-5 * float(hw.abs().max())
+        if dt == torch.float32:
+            assert float((y - yw).abs().max()) <= 1e-5 * scale
+        else:
+            assert bf16_ulps(y, yw, 1e-5 * scale) <= 1, variant
+    if not tc_takes:
+        fn.launches = 0
+        with pytest.raises(ValueError, match="tensor-core"):
+            fn(cfg, x, bm, cm, alog, variant="tc")
+        assert fn.launches == 0
 
 
 def test_serving_wrappers_reject_what_the_kernels_do_not_take(h100):

@@ -105,18 +105,23 @@ def test_chip_smoke_rehearses_on_the_cpu():
     # second round's kernel calls against the plain versions
     assert out.stdout.count("bit-equal") == 53 + 10
     assert out.stdout.count("round 1's kernel calls bit-equal") == 10
-    # K10 and K11 within their limits (18 + 8 and 2 checks: the served
+    # K10 and K11 within their limits (18 + 8 and 9 checks: the served
     # shapes' 18, f32, bf16 and bf16 at a misaligned base, then the eight
-    # bf16 design cases), then the serving phase on the smoke configs:
-    # each prefill's K10 calls, also with the CUDA-core kernel forced,
-    # and zamba2's Mamba blocks through K11 held against the plain
-    # versions, the f32 prefill against decode, and both greedy servers
+    # bf16 design cases; K11's three cases in f32, in bf16 by route and
+    # in bf16 with the CUDA-core variant forced), then the serving phase
+    # on the smoke configs: each prefill's K10 calls, also with the
+    # CUDA-core kernel forced, and zamba2's Mamba blocks through K11 (also
+    # with its CUDA-core variant forced) held against the plain versions,
+    # the f32 prefill against decode, and both greedy servers
     assert out.stdout.count("[kernels] K10 flash_attention") == 18 + 8
     assert out.stdout.count("misaligned") == 6
     assert out.stdout.count("scores x8") == 2
-    assert out.stdout.count("[kernels] K11 ssd_scan") == 2
+    assert out.stdout.count("[kernels] K11 ssd_scan") == 9
+    assert out.stdout.count("[kernels] K11 ssd_scan (cc, forced)") == 3
     assert out.stdout.count("every call held against its plain") == 2
     assert out.stdout.count("with the CUDA-core K10 forced") == 2
-    assert "Mamba blocks through K11" in out.stdout
+    assert "Mamba blocks through K11:" in out.stdout
+    assert "Mamba blocks through K11 (CUDA-core variant forced)" \
+        in out.stdout
     assert "f32 prefill vs decode_step" in out.stdout
     assert out.stdout.count("greedy server") == 2

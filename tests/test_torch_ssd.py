@@ -13,7 +13,14 @@ same numpy-seeded inputs:
   and at one full-width zamba2 block (d 2560) over T = 256, within 2e-5
   of the output's scale (measured: 6e-6; the 2560-wide projections sum in
   another order);
-* the wrapper's contract: h0 is None and T a multiple of the chunk.
+* the wrapper's contract: h0 is None and T a multiple of the chunk;
+* the tensor-core K11's arithmetic (``ref.ssd_scan_tc_model``: the
+  chunk-parallel split, each f32 operand in bf16 pieces) on bf16 inputs
+  against the reference's Pallas kernel in interpret mode, at zamba2's
+  heads and with two groups, without decay, with a strong one (alog about
+  -5 a step, exp underflows inside a chunk) and the usual -0.2 |N(0, 1)|:
+  y within one bf16 ulp (a floor of 1e-5 of its scale), h_final within
+  1e-5 of its max; and ``route``, which sends those shapes to it.
 """
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ from repro.kernels.ssm_scan import ref as jssm_ref  # noqa: E402
 from repro.models import mamba as jm  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm  # noqa: E402
 from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
+from repro_torch.kernels.tolerance import bf16_ulps  # noqa: E402
 from repro_torch.models import mamba as m  # noqa: E402
 
 # torch 2.13.0+cpu's first float32 exp of a process now and then returns
@@ -143,3 +151,83 @@ def test_mamba_block_matches_reference(block):
             _close(y, yw, 2e-5)
         _close(cache["h"], jcache["h"], 2e-5)
         _close(cache["conv"], jcache["conv"], 2e-5)
+
+
+def _bf16_inputs(b, nh, ng, t, hd, ds, decay, seed):
+    """bf16 inputs (numpy-seeded) and their f32 values for the reference."""
+    rng = np.random.default_rng(seed)
+    alog = {"none": np.zeros((b, t, nh)),
+            "strong": -5.0 + 0.1 * rng.standard_normal((b, t, nh)),
+            "usual": -0.2 * np.abs(rng.standard_normal((b, t, nh)))}[decay]
+    arrs = (0.5 * rng.standard_normal((b, t, nh, hd)),
+            0.5 * rng.standard_normal((b, t, ng, ds)),
+            0.5 * rng.standard_normal((b, t, ng, ds)), alog)
+    bf = [torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+          for a in arrs]
+    return bf, [a.float().numpy() for a in bf]
+
+
+def _reference(chunk, x, bm, cm, al):
+    yw, hw = jssm.ssd_chunked(jm.SSMConfig(64, chunk=chunk),
+                              *(jnp.asarray(a) for a in (x, bm, cm, al)))
+    return torch.from_numpy(np.array(yw)), torch.from_numpy(np.array(hw))
+
+
+TC_SHAPES = {"zamba2 heads": (1, 4, 1, 256, 64, 64, 128),
+             "two groups": (2, 4, 2, 128, 32, 16, 64)}
+
+
+@pytest.mark.parametrize("decay", ["none", "strong", "usual"])
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+def test_tc_model_matches_reference_kernel(shape, decay):
+    b, nh, ng, t, hd, ds, chunk = TC_SHAPES[shape]
+    (x, bm, cm, al), f32 = _bf16_inputs(b, nh, ng, t, hd, ds, decay,
+                                        t + nh)
+    yw, hw = _reference(chunk, *f32)
+    y, h = ssm_ref.ssd_scan_tc_model(x, al, bm, cm, chunk=chunk)
+    scale = float(yw.abs().max())
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert bf16_ulps(y, yw.to(torch.bfloat16), 1e-5 * scale) <= 1
+    assert float((h - hw).abs().max()) <= 1e-5 * float(hw.abs().max())
+
+
+def test_tc_model_needs_its_pieces():
+    """One bf16 piece an operand misses y's limit by hundreds of ulps, so
+    the split test above holds the pieces, not just the decomposition."""
+    (x, bm, cm, al), f32 = _bf16_inputs(1, 4, 1, 256, 64, 64, "usual", 3)
+    yw, _ = _reference(128, *f32)
+    y, _ = ssm_ref.ssd_scan_tc_model(x, al, bm, cm, chunk=128,
+                                     pieces={"g": 1, "h_in": 1, "bw": 1})
+    scale = float(yw.abs().max())
+    assert bf16_ulps(y, yw.to(torch.bfloat16), 1e-5 * scale) > 8
+
+
+@pytest.mark.parametrize("case,want", [
+    ("zamba2-2.7b bf16", "tc"), ("zamba2-smoke bf16", "tc"),
+    ("two groups bf16", "tc"), ("zamba2-2.7b f32", "cc"),
+    ("head_dim 16 bf16", "cc"), ("d_state 8 bf16", "cc"),
+    ("chunk 96 bf16", "cc"), ("odd token stride bf16", "cc"),
+    ("misaligned bf16", "cc")])
+def test_route(case, want):
+    """bf16 at the served shapes goes to the tensor-core kernel; f32 and
+    what it refuses (head_dim, d_state, chunk, B/C rows 16-byte apart, a
+    base off 16 bytes) to the CUDA-core one."""
+    shape = {"zamba2-2.7b": (2, 256, 80, 64, 1, 64, 128),
+             "zamba2-smoke": (2, 64, 8, 32, 1, 16, 32),
+             "two groups": (1, 256, 4, 32, 2, 16, 64),
+             "head_dim 16": (2, 96, 3, 16, 1, 16, 32),
+             "d_state 8": (2, 96, 3, 32, 1, 8, 32),
+             "chunk 96": (1, 192, 2, 64, 1, 64, 96),
+             "odd token stride": (1, 128, 2, 64, 1, 64, 128),
+             "misaligned": (1, 128, 2, 64, 1, 64, 128)}[case.rsplit(" ", 1)[0]]
+    b, t, nh, hd, ng, ds, chunk = shape
+    dt = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    pad = 4 if case.startswith("odd") else 8
+    # B and C as column slices of one conv output, as the Mamba block has
+    xbc = torch.zeros((b, t, pad + 2 * ng * ds), dtype=dt)
+    bm = xbc[..., pad:pad + ng * ds].reshape(b, t, ng, ds)
+    cm = xbc[..., pad + ng * ds:].reshape(b, t, ng, ds)
+    x = torch.zeros(b * t * nh * hd + 1, dtype=dt)
+    x = (x[1:] if case.startswith("misaligned") else x[:-1]).view(
+        b, t, nh, hd)
+    assert ssm.route(x, bm, m.SSMConfig(64, chunk=chunk), cm) == want
