@@ -52,7 +52,12 @@ Phases (any failure exits non-zero):
      and the reference's two schedule rows (q8 + SAGA on drop0.3 and
      churn0.2 over the complete graph, packed and packed=false), through
      the kernels, against the reference's rounds-to-tolerance and wire
-     bytes, and against the same run on the CPU;
+     bytes, and against the same run on the CPU; then faults: the
+     reference's combined-fault row (``fault_sweep.smoke_row``,
+     drop 0.05 + corrupt 1e-3 + crash 0.01: 68 B a round, rounds_to_tol
+     the live reference's 110 or its BENCH file's 120) beside the same
+     run on the CPU, a row per fault kind at the reference sweep's middle
+     rate, and LEAD qbit8 under the row's faults against the CPU;
   fig2. the paper's Fig.-2 comparison (``repro_torch.paper_fig2``): its
      seven methods at the paper's size through the kernels (the gossip
      baselines' qbit messages through K4/K5), counters zeroed and read
@@ -63,7 +68,9 @@ Phases (any failure exits non-zero):
      spec (LT-ADMM-CC with qbit8, qbit4, RandK stride and RandK uniform,
      LEAD qbit8, CHOCO TopK on the ring; LT-ADMM-CC qbit8 on drop0.3,
      RandK block with packed=false on churn0.2, qbit8 with packed=false
-     on the ring, CHOCO RandK block on drop0.3), launch counters zeroed
+     on the ring, CHOCO RandK block on drop0.3; LT-ADMM-CC qbit8 on the
+     ring with every fault kind armed, its round time beside the
+     unfaulted ring's), launch counters zeroed
      just before each spec's rounds and read just after, every kernel
      call of each spec's second round held bit for bit against its plain
      version on the same inputs, then each kernel timed at the shapes of
@@ -78,7 +85,9 @@ Phases (any failure exits non-zero):
      [10, 2^20], division form at [150, 2^20]) beside its first design,
      in turns;
   6. profile: torch.profiler over three n = 2^20 rounds of the static
-     qbit8 round, the RandK-stride and RandK-uniform rounds, CHOCO TopK,
+     qbit8 round, the faulted ring round (with the device time of its
+     seal, verify and inject), the RandK-stride and RandK-uniform rounds,
+     CHOCO TopK,
      the drop0.3 schedule round, the churn0.2 tree round and CHOCO's
      drop0.3 iteration: device time by kernel and operator, the device's
      idle share, and the share of the port's kernels (K1-K4, K6/K7);
@@ -1781,6 +1790,115 @@ def phase_paper_schedules(rounds, kind_rounds=30):
                 raise AssertionError(f"{gspec}: kernels {used} not launched")
 
 
+# The reference's combined-fault perf row (benchmarks/BENCH_BASELINE.json,
+# admm/ring/q8+saga+faults, ``fault_sweep.SMOKE_FAULTS``): 68 B a round.
+# Its file records rounds_to_tol 120, taken under jax's older
+# (non-partitionable) Threefry mode; the live reference in the
+# partitionable mode, whose draws the port follows, reaches 1e-8 at round
+# 110 (tests/test_torch_faults.py holds the CPU run to it), 0.1 % under the
+# tolerance: a card's rounding may give the next sample.  The reference's
+# regression gate allows 1.25 x 120.
+FAULT_ROW_WIRE, FAULT_ROW_R2T, FAULT_GATE = 68, (110, 120), 150
+# the reference sweep's middle rates (benchmarks/fault_sweep.py SWEEP) and
+# the live reference's rounds_to_tol at each (600 rounds, jax 0.9.0 on a
+# CPU; the port's CPU run gives the same four)
+FAULT_KIND_ROWS = (("drop", 0.05, 110), ("corrupt", 5e-3, 100),
+                   ("stale", 0.05, 110), ("crash", 0.02, 110))
+LEAD_FAULTS = ("lead:lr=0.1,compressor=qbit:bits=8,"
+               "faults=faults:drop=0.05|corrupt=1e-3|crash=0.01|seed=0")
+
+
+def with_impl(spec, impl="kernel"):
+    """``spec`` with its compressor's ``impl``, placed before a nested
+    ``faults=`` (which would take a later ``impl`` as a fault param)."""
+    head, sep, tail = spec.partition(",faults=")
+    return f"{head},impl={impl}{sep}{tail}"
+
+
+def phase_paper_faults(rounds, kind_rounds):
+    """Faults on the paper's problem through the kernels: the reference's
+    combined-fault row by ``fault_sweep.smoke_row`` (counters zeroed and
+    read around it), the same run on the CPU beside it, one row per fault
+    kind at the sweep's middle rate, and LEAD qbit8 under the row's faults
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch import fault_sweep, paper_fig2
+    from repro_torch.bench import rounds_to_tol, run_solver
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.problems.logistic import LogisticProblem
+
+    impl = "kernel" if DEV == "cpu" else None
+    reset_counts()
+    row = fault_sweep.smoke_row(rounds=rounds, device=DEV, impl=impl)
+    counts = read_counts()
+    r2t, wb = row["rounds_to_tol"], row["wire_bytes_per_round"]
+    log(f"[paper] {row['name']} ({row['spec']}): rounds_to_tol={r2t} "
+        f"(reference: {FAULT_ROW_R2T[0]} live, {FAULT_ROW_R2T[1]} in its "
+        f"BENCH file) wire_bytes_per_round={wb} (reference "
+        f"{FAULT_ROW_WIRE}) final={row['final_gradnorm_sq']:.3e} "
+        f"cold_wall_s={row['cold_wall_s']} warm_wall_s={row['warm_wall_s']}"
+        f" launches={ {k: v for k, v in counts.items() if v} }")
+    if wb != FAULT_ROW_WIRE:
+        raise AssertionError(f"faulted row: wire bytes {wb} != 68")
+    if r2t not in FAULT_ROW_R2T:
+        raise AssertionError(f"faulted row: rounds_to_tol {r2t} is neither "
+                             f"of the reference's {FAULT_ROW_R2T}")
+    if DEV == "cuda" and not (counts["quantize_plane"] > 0
+                              and counts["dequantize_plane"] > 0):
+        raise AssertionError("faulted row: K1/K5 not launched")
+    # the same run on the CPU (the kernels' plain versions) beside it
+    prob, data, dev = fault_sweep.solver_for(fault_sweep.SMOKE_FAULTS, DEV,
+                                             impl=impl)
+    _, _, cpu = fault_sweep.solver_for(fault_sweep.SMOKE_FAULTS, "cpu",
+                                       impl="kernel")
+    idx, g_dev, st_dev = run_solver(prob, data, dev, rounds,
+                                    return_state=True)
+    _, g_cpu, st_cpu = run_solver(prob, data, cpu, rounds, return_state=True)
+    keep = (g_dev >= 1e-12) & (g_cpu >= 1e-12)
+    dlog = float(np.max(np.abs(np.log10(g_dev[keep])
+                               - np.log10(g_cpu[keep]))))
+    log(f"[paper] faulted row on the CPU: rounds_to_tol="
+        f"{rounds_to_tol(idx, g_cpu, 1e-8)} final={g_cpu[-1]:.3e}; card vs "
+        f"CPU: max |d log10 gradF^2| = {dlog:.3e} over {int(keep.sum())} "
+        f"samples >= 1e-12")
+    if not dlog < 0.05:
+        raise AssertionError("faulted row: card and CPU trajectories differ")
+    for kind, rate, ref in FAULT_KIND_ROWS:
+        reset_counts()
+        r2t, final = fault_sweep._converge(f"faults:{kind}={rate:g},seed=0",
+                                           kind_rounds, device=DEV, impl=impl)
+        counts = read_counts()
+        log(f"[paper] faults/{kind}={rate:g}: rounds_to_tol={r2t} (live "
+            f"reference {ref}) final={final:.3e} launches="
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if r2t is None or r2t > 1.25 * ref:
+            raise AssertionError(f"faults/{kind}: rounds_to_tol {r2t}")
+    # LEAD under the row's faults: K4/K5 on the faulted gossip
+    graph, ex = build_graph("ring", prob.n_agents)
+    est = paper_fig2._estimator("sgd", prob)
+    lead = make_solver(LEAD_FAULTS if impl is None else with_impl(LEAD_FAULTS),
+                       graph, ex, est, device=DEV)
+    reset_counts()
+    _, g_dev, st_dev = run_solver(prob, data, lead, 20, seed=999,
+                                  return_state=True)
+    counts = read_counts()
+    cpu = make_solver(with_impl(LEAD_FAULTS), graph, ex, est, device="cpu")
+    _, g_cpu, st_cpu = run_solver(prob, data, cpu, 20, seed=999,
+                                  return_state=True)
+    dx = float((lead.consensus_params(st_dev).cpu()
+                - cpu.consensus_params(st_cpu)).abs().max())
+    log(f"[paper] {LEAD_FAULTS}: card vs CPU after 20 iterations: max |dx| "
+        f"= {dx:.3e}, ||gradF||^2 {g_dev[-1]:.3e} vs {g_cpu[-1]:.3e} "
+        f"launches={ {k: v for k, v in counts.items() if v} }")
+    if not (np.isfinite(g_dev[-1]) and dx < PAPER_DX_TOL):
+        raise AssertionError("LEAD under faults: card and CPU disagree")
+    if DEV == "cuda" and not (counts["quantize_tensor"] > 0
+                              and counts["dequantize_tensor"] > 0):
+        raise AssertionError("LEAD under faults: K4/K5 not launched")
+
+
 # ---------------------------------------------------------------------------
 # phase fig2: the paper's Fig.-2 comparison through the kernels
 # ---------------------------------------------------------------------------
@@ -1881,6 +1999,7 @@ def phase_fig2(admm_rounds, baseline_iters):
 WIDE_SPLIT = 4096
 DROP_SPEC = "drop:p=0.3,base=complete,seed=0"
 CHURN_SPEC = "churn:p=0.2,base=complete,seed=0"
+WIDE_FAULTS = "faults=faults:drop=0.05|corrupt=1e-3|stale=0.02|crash=0.01|seed=0"
 WIDE_SPECS = (
     # 2 K1 a round (the x- and z-planes)
     ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
@@ -1931,6 +2050,12 @@ WIDE_SPECS = (
      "choco:compressor=randk:fraction=0.6,sampler=block", "sgd",
      ("cyclic_gather", "cyclic_scatter"), DROP_SPEC, False,
      {"cyclic_gather": 1, "cyclic_scatter": 1}),
+    # every fault kind on the ring: the sealed, faulted schedule round
+    # launches K1 and K5 as the unfaulted ring does (2 and 4 a round),
+    # on [10, 2, 2^20] per-edge x- and z-planes
+    ("ring-faults-qbit8", "ltadmm:compressor=qbit:bits=8," + WIDE_FAULTS,
+     "saga", ("quantize_plane", "dequantize_plane"), "ring", False,
+     {"quantize_plane": 2, "dequantize_plane": 4}),
 )
 
 
@@ -1964,7 +2089,7 @@ def wide_solver(label, prob, dev):
         est, x0 = (_estimator(kind, prob),
                    torch.zeros((prob.n_agents, prob.n), device=dev))
     # the CPU rehearsal asks for the kernel route (the plain versions)
-    spec += ",impl=kernel" if DEV == "cpu" else ""
+    spec = with_impl(spec) if DEV == "cpu" else spec
     return (make_solver(spec, graph, ex, est, device=DEV), x0, gspec, used,
             per_round)
 
@@ -2080,6 +2205,7 @@ def phase_wide(rounds, warm=2, check_round=1):
         torch.cuda.reset_peak_memory_stats()
     counts = {}  # per spec: launches over its main-path rounds
     shapes = {}  # per spec: (wrapper, shapes) -> calls
+    means = {}  # per spec: mean round time after the warm-up
     for label, *_ in WIDE_SPECS:
         solver, x0, gspec, used, per_round = wide_solver(label, prob, dev)
         tap = MainPathTap()
@@ -2128,7 +2254,12 @@ def phase_wide(rounds, warm=2, check_round=1):
                 raise AssertionError(
                     f"wide {label}: {counts[label][kname]} {kname} "
                     f"launches, expected {per} per round")
+        means[label] = mean_s
         del st, solver
+    log(f"[wide] ring-faults-qbit8 round {means['ring-faults-qbit8'] * 1e3:.3f}"
+        f" ms beside the unfaulted ring qbit8 round "
+        f"{means['qbit8'] * 1e3:.3f} ms (x"
+        f"{means['ring-faults-qbit8'] / means['qbit8']:.3f}, host clock)")
     if DEV == "cuda":
         log(f"[wide] max_memory_allocated="
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -2806,10 +2937,41 @@ PROFILED_KERNELS = (("K1", ("quantize_rows<8, repro::PlaneKappa>",
                     ("K7", ("::bin_kernel<", "::fill_kernel<")))
 
 
+@contextlib.contextmanager
+def fault_ranges():
+    """While open, the fault path's seal (``compression.seal_plane``),
+    verify (``compression.verify_plane_kinds``) and inject
+    (``FaultPlane.inject``, inside the armed exchange) each run inside a
+    torch.profiler range ``fault:<part>``."""
+    import torch
+
+    from repro_torch.core import compression, faults
+
+    saved = []
+    for owner, attr, part in ((compression, "seal_plane", "seal"),
+                              (compression, "verify_plane_kinds", "verify"),
+                              (faults.FaultPlane, "inject", "inject")):
+        fn = getattr(owner, attr)
+
+        def call(*a, _fn=fn, _part=part, **kw):
+            with torch.profiler.record_function(f"fault:{_part}"):
+                return _fn(*a, **kw)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, call)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
 def phase_profile(label, rounds=3):
     """torch.profiler over ``rounds`` rounds of the wide run of spec
     ``label`` (after two warm-up rounds): device time by operator, and
-    the device's idle share of the window's wall time."""
+    the device's idle share of the window's wall time; on a faulted spec
+    also the device time inside the seal, verify and inject ranges
+    (``fault_ranges``).  Returns (wall, device busy) ms a round."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2824,8 +2986,10 @@ def phase_profile(label, rounds=3):
     for i in range(2):
         st = solver.step(st, data, jaxrand.fold_in(base, i))
     torch.cuda.synchronize()
+    faulted = "faults" in label
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, (
+            fault_ranges() if faulted else contextlib.nullcontext()):
         t0 = time.perf_counter()
         for i in range(2, 2 + rounds):
             st = solver.step(st, data, jaxrand.fold_in(base, i))
@@ -2837,6 +3001,11 @@ def phase_profile(label, rounds=3):
     # aten op, so sum the CUDA kernels (device type) for the busy time
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a record_function range also shows on the device timeline, as the
+    # span from its first kernel's start to its last one's end: not a
+    # kernel of its own
+    spans = [e for e in kernels if e.name.startswith("fault:")]
+    kernels = [e for e in kernels if not e.name.startswith("fault:")]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     log(f"[profile] {label}: {rounds} rounds on {gspec} n={WIDE_N}: wall "
         f"{wall * 1e3:.3f} "
@@ -2864,6 +3033,26 @@ def phase_profile(label, rounds=3):
     for e in ops:
         log(f"[profile] op {e.device_time_total / 1e3 / rounds:9.4f} ms/round"
             f" calls/round {e.count // rounds:4d}  {e.key[:80]}")
+    if faulted:
+        # a range's device time: its kernels, those that ran inside its
+        # spans (one stream, so no other kernel runs there)
+        total = 0.0
+        for key in ("fault:seal", "fault:verify", "fault:inject"):
+            mine = [a.time_range for a in spans if a.name == key]
+            ms = sum(e.time_range.elapsed_us() for e in kernels
+                     if any(r.start <= e.time_range.start
+                            and e.time_range.end <= r.end
+                            for r in mine)) / 1e3 / rounds
+            span = sum(r.elapsed_us() for r in mine) / 1e3 / rounds
+            total += ms
+            log(f"[profile] {label}: {key} {ms:.4f} ms/round of kernels "
+                f"in {len(mine) // rounds} spans/round of {span:.4f} ms "
+                f"on the device timeline, {ms / 1e3 / (busy / rounds):.1%} "
+                f"of device busy")
+        log(f"[profile] {label}: seal+verify+inject {total:.4f} ms/round, "
+            f"{total / 1e3 / (busy / rounds):.1%} of the round's device "
+            f"busy {busy * 1e3 / rounds:.4f} ms")
+    return wall * 1e3 / rounds, busy * 1e3 / rounds
 
 
 def add_row(rows, name, source, replaces, launches, ms, kernel_ms, plain_ms,
@@ -3487,6 +3676,7 @@ def rehearse():
                       in K11_CASES])
     phase_paper(PAPER_ROUNDS)
     phase_paper_schedules(30, kind_rounds=11)  # rounds_to_tol 20 in 30
+    phase_paper_faults(PAPER_ROUNDS, 120)  # every row's 1e-8 by round 110
     phase_fig2(110, 250)  # LT-ADMM-CC reaches 1e-8 at round 100
     phase_wide(WIDE_ROUNDS)
     SMOKE = True
@@ -3535,6 +3725,7 @@ def main(argv=None):
     if "paper" in phases:
         phase_paper(PAPER_ROUNDS)
         phase_paper_schedules(PAPER_ROUNDS)
+        phase_paper_faults(PAPER_ROUNDS, PAPER_ROUNDS)
     if "fig2" in phases:
         phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
     rows = None
@@ -3552,10 +3743,14 @@ def main(argv=None):
         if k0 is not None:
             rows = time_kernels(seed, k0, counts, shapes)
     if "profile" in phases:
-        for label in ("qbit8", "randk-stride", "randk-uniform", "choco-topk",
-                      "drop-qbit8", "churn-tree-randk-block",
-                      "choco-drop-randk-block"):
-            phase_profile(label)
+        prof = {}
+        for label in ("qbit8", "ring-faults-qbit8", "randk-stride",
+                      "randk-uniform", "choco-topk", "drop-qbit8",
+                      "churn-tree-randk-block", "choco-drop-randk-block"):
+            prof[label] = phase_profile(label)
+        (fw, fb), (uw, ub) = prof["ring-faults-qbit8"], prof["qbit8"]
+        log(f"[profile] ring-faults-qbit8 vs qbit8: round {fw:.3f} vs "
+            f"{uw:.3f} ms, device busy {fb:.3f} vs {ub:.3f} ms a round")
     if "serve" in phases:
         serve_counts = phase_serve()
         rows = (rows or []) + time_serve_kernels(serve_counts)

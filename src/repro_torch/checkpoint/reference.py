@@ -3,19 +3,20 @@ the port.
 
 The reference's state arrives as numpy leaves: either the state itself
 after ``tree_map(np.asarray, state)`` (LT-ADMM's named tuple, static or
-time-varying, or a gossip baseline's dict), or the arrays of a reference
-checkpoint (``arrays.npz`` read with numpy, keys like ``x`` or ``.x``,
-and ``x/w1`` or ``.x/w1`` for the leaves of pytree parameters, with
-``manifest.json`` read with json for the round counter).  No JAX is
-needed to read either.
+time-varying, faulted or not, or a gossip baseline's dict), or the arrays
+of a reference checkpoint (read by ``checkpoint.store.load_checkpoint``:
+keys like ``x`` or ``.x``, and ``x/w1`` or ``.x/w1`` for the leaves of
+pytree parameters, the manifest's ``step`` for the round counter).  No
+JAX is needed to read either.  A checkpoint also restores straight into
+a port state: ``load_checkpoint(path, like_tree=solver.init(x0))``.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
 
 import numpy as np
-import torch
 
+from repro_torch.checkpoint.store import load_checkpoint, to_tensor
 from repro_torch.common.trees import tree_map
 from repro_torch.core.admm import (LTADMMConfig, LTADMMScheduleState,
                                    LTADMMState)
@@ -41,17 +42,8 @@ def _by_field(arrays):
     return out
 
 
-def _tensor(a, dev):
-    """A numpy array (bf16 ones as ml_dtypes' bfloat16) as a tensor."""
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
-            dev)
-    return torch.as_tensor(a, device=dev)
-
-
 def _tensors(tree, dev):
-    return tree_map(lambda a: _tensor(a, dev), tree)
+    return tree_map(lambda a: to_tensor(a, dev), tree)
 
 
 def state_from_numpy(arrays, cfg: LTADMMConfig, device=None,
@@ -92,10 +84,24 @@ def baseline_state_from_numpy(arrays, solver, device=None,
     return st
 
 
+def state_from_checkpoint(path, cfg: LTADMMConfig, device=None):
+    """``state_from_numpy`` of the checkpoint at ``path`` (either
+    package's), the round counter from its manifest."""
+    arrays, manifest = load_checkpoint(path)
+    return state_from_numpy(arrays, cfg, device, step=manifest["step"])
+
+
+def baseline_state_from_checkpoint(path, solver, device=None) -> dict:
+    """``baseline_state_from_numpy`` of the checkpoint at ``path``."""
+    arrays, manifest = load_checkpoint(path)
+    return baseline_state_from_numpy(arrays, solver, device,
+                                     step=manifest["step"])
+
+
 def data_from_numpy(data, device=None) -> dict:
     """The reference's data dict (numpy leaves) as tensors on ``device``."""
     dev = resolve_device(device)
-    return {k: _tensor(v, dev) for k, v in data.items()}
+    return {k: to_tensor(v, dev) for k, v in data.items()}
 
 
 def model_params_from_reference(np_tree, cfg, device=None):

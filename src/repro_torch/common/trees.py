@@ -38,6 +38,25 @@ def tree_flatten(tree, is_leaf=None):
     return leaves, rebuild
 
 
+def is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def tree_children(node):
+    """``[(path element, child)]`` of an inner node, in jax's flatten
+    order and with the reference checkpoint's path strings (``.field`` of
+    a named tuple, a mapping's key, a sequence's index), or None for a
+    leaf.  Unlike ``tree_flatten`` it takes named tuples (the solver
+    states) apart."""
+    if is_namedtuple(node):
+        return [("." + f, getattr(node, f)) for f in node._fields]
+    if isinstance(node, Mapping):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
 def as_tensor(leaf):
     """A tensor as it is; anything else (a numpy array) as a tensor."""
     if isinstance(leaf, torch.Tensor):

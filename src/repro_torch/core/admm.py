@@ -31,11 +31,19 @@ the union-graph slots of ``round_mask(k)``; inactive edges hold all edge
 state, inactive nodes freeze x, and x̂ (and u) are kept per edge, as in
 the reference's asynchronous-ADMM round.
 
+Faults (``cfg.faults``, a ``core.faults.FaultPlane``) run on the packed
+time-varying round (``make_solver`` wraps a static graph in
+``schedule.static_schedule``): both message planes are sealed (crc +
+round tag), routed through the fault-armed exchange, verified; a crashed
+agent freezes its x, and an edge advances only where both endpoints
+received both messages cleanly (NAK symmetrisation), else it holds as an
+inactive edge does.
+
 Every random draw folds the reference's salts into the round key with
 ``core.jaxrand``, so the port follows the reference's draws.  Round keys
 and all key derivation live on the host; compression runs on the
-state's device.  Not ported yet: faults (ROADMAP Queue 1 item 11) and
-telemetry taps (item 12).
+state's device.  Not ported yet: telemetry taps (ROADMAP Queue 1 item
+12).
 """
 from __future__ import annotations
 
@@ -65,12 +73,9 @@ class LTADMMConfig:
     batch_size: int = 1
     compressor_x: Any = compression.Identity()
     compressor_z: Any = compression.Identity()
+    # core.faults.FaultPlane | None: payloads are sealed (crc + round tag)
+    # and faulted messages hold their edge for the round
     faults: Any = None
-
-    def __post_init__(self):
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 11")
 
     @property
     def lean(self) -> bool:
@@ -264,6 +269,12 @@ def step(cfg: LTADMMConfig, topo, exchange, vr_est, state: LTADMMState,
     if hasattr(topo, "round_mask"):
         return step_schedule(cfg, topo, exchange, vr_est, state, data,
                              round_key, ids)
+    if cfg.faults is not None:
+        raise ValueError(
+            "cfg.faults requires a TopologySchedule (the hold semantics "
+            "live on the schedule path); wrap static graphs with "
+            "schedule.static_schedule — make_solver does this "
+            "automatically")
     if ids is None:
         x0 = first_leaf(state.x)
         ids = RoundIds.build(topo, x0.device, x0.dtype)
@@ -359,6 +370,17 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
     cx, cz = cfg.compressor_x, cfg.compressor_z
     act = sched.round_mask(state.k, x0.device)  # [A, S]
     node_k = sched.round_node_mask(state.k, x0.device)  # [A] | None
+    fp = cfg.faults
+    if fp is not None:
+        if not isinstance(state.x, torch.Tensor):
+            raise NotImplementedError(
+                "fault injection runs on the packed schedule path only "
+                "(packed=true); the tree path has no sealed wire format")
+        # a crashed agent is inert for the round: x frozen (node hold),
+        # every incident edge dark (folded into ok below); "restart"
+        # resumes from the held state, the async-ADMM recovery
+        alive = fp.node_alive(state.k, sched.union, x0.device)
+        node_k = alive if node_k is None else node_k & alive
     # fused-route base seeds (salts of _key_xe/_key_z)
     bxe = jaxrand.fold_in(round_key, 17)
     bz = jaxrand.fold_in(round_key, 13)
@@ -383,8 +405,13 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
     z_hat_own = tree_add(state.s, rec_z)
 
     # ---- the only cross-agent communication (all slots, every round)
-    recv_x = exchange.exchange_batched(m_x)
-    recv_z = exchange.exchange_batched(m_z)
+    if fp is None:
+        recv_x = exchange.exchange_batched(m_x)
+        recv_z = exchange.exchange_batched(m_z)
+    else:
+        recv_x, recv_z, verdicts = sealed_exchange(fp, exchange, m_x, m_z,
+                                                   state.k, alive)
+        act = act & verdicts.edge_ok
     x_hat_edge_new = tree_select(act, tree_add(u_adv, rec_x), xh)
     u_edge_new = (None if cfg.lean
                   else tree_select(act, u_adv, state.u_edge))
@@ -414,6 +441,43 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
     )
 
 
+class WireVerdicts(NamedTuple):
+    """A faulted round's receiver-side verdicts, ``[A, S]`` bool each: per
+    message kind the checksum, tag and combined checks; ``ok`` (both kinds
+    clean and the receiver alive) and ``edge_ok`` (``ok`` at both
+    endpoints).  Schedule-inactive slots carry placeholders: count them on
+    the round's active slots."""
+
+    crc_x: torch.Tensor
+    tag_x: torch.Tensor
+    ok_x: torch.Tensor
+    crc_z: torch.Tensor
+    tag_z: torch.Tensor
+    ok_z: torch.Tensor
+    ok: torch.Tensor
+    edge_ok: torch.Tensor
+
+
+def sealed_exchange(fp, exchange, m_x, m_z, k: int, alive):
+    """Seal both message planes with round tag ``k``, route them through
+    the fault-armed exchange and verify them: ``(recv_x, recv_z,
+    WireVerdicts)``.  Both payloads of a round share the link, so one ok
+    mask covers x and z; an edge advances only when BOTH endpoints
+    received cleanly (NAK symmetrisation over the reliable control
+    plane), else duals and mirrors hold on both sides in lockstep."""
+    armed = exchange.armed(fp)
+    recv_x, ok_x, crc_x, tag_x = compression.verify_plane_kinds(
+        armed.exchange_batched(compression.seal_plane(m_x, k, nd=2),
+                               round_index=k), k)
+    recv_z, ok_z, crc_z, tag_z = compression.verify_plane_kinds(
+        armed.exchange_batched(compression.seal_plane(m_z, k, nd=2),
+                               round_index=k), k)
+    ok = ok_x & ok_z & alive[:, None]
+    edge_ok = ok & exchange.exchange_batched(ok)
+    return recv_x, recv_z, WireVerdicts(crc_x, tag_x, ok_x, crc_z, tag_z,
+                                        ok_z, ok, edge_ok)
+
+
 # ---------------------------------------------------------------------------
 # Diagnostics and wire accounting
 # ---------------------------------------------------------------------------
@@ -428,8 +492,10 @@ def consensus_error(state):
 
 
 def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:
+    # sealed payloads (fault detection) carry crc + tag on both messages
+    seal = 2 * compression.SEAL_BYTES if cfg.faults is not None else 0
     return (compression.tree_wire_bytes(cfg.compressor_x, params)
-            + compression.tree_wire_bytes(cfg.compressor_z, params))
+            + compression.tree_wire_bytes(cfg.compressor_z, params) + seal)
 
 
 def wire_bytes_per_round(cfg: LTADMMConfig, topo, params) -> int:

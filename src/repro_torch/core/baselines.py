@@ -20,9 +20,16 @@ Random draws follow the reference's key derivations exactly: minibatch
 indices ``randint(fold_in(key, aid), (B,), 0, m)``, compression keys
 ``fold_in(fold_in(key, 1), aid)`` then the per-leaf ``split``.  The
 update formulas keep the reference's expression order (``a - lr * (b +
-c)``, ``gamma_mix / (2 * lr)``) so that results stay bit-close.  Not
-ported yet: faults (ROADMAP Queue 1 item 11) and telemetry taps (item
-12).
+c)``, ``gamma_mix / (2 * lr)``) so that results stay bit-close.
+
+Faults (``faults``, a ``core.faults.FaultPlane``): the dense gossip has no
+per-edge payload wire, so a round's surviving edges come from the oracle
+``FaultPlane.edge_ok`` (exactly what LT-ADMM's wire detection gives), and
+round k mixes with the Metropolis weights of that surviving graph
+(``_metropolis_online``, built on the host from the host masks), so every
+round stays doubly stochastic and a fault-isolated agent keeps its own
+value.  A crashed agent skips its step and holds its state.  Not ported
+yet: telemetry taps (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -38,6 +45,22 @@ from repro_torch.common.trees import (as_tensor, first_leaf, tree_add,
 from repro_torch.core import compression, jaxrand, packing, vr
 from repro_torch.core.schedule import TopologySchedule, metropolis_schedule
 from repro_torch.core.topology import metropolis_weights
+
+
+def _metropolis_online(union, act):
+    """f32 ``[A, A]`` Metropolis-Hastings weights of the graph whose active
+    slots are ``act`` (``[A, S]`` bool numpy, symmetric per edge, a subset
+    of the union's real slots), in the reference's f32 arithmetic: equal
+    to ``metropolis_weights`` of the induced graph; an isolated agent gets
+    the identity row (keeps its own value)."""
+    a = union.n_agents
+    nbr = union.neighbor_table()
+    actf = act.astype(np.float32)
+    deg = np.sum(actf, axis=1, dtype=np.float32)
+    wslot = actf / (np.float32(1.0) + np.maximum(deg[:, None], deg[nbr]))
+    w = np.zeros((a, a), dtype=np.float32)
+    np.add.at(w, (np.arange(a)[:, None], nbr), wslot)
+    return w + np.diag(np.float32(1.0) - np.sum(w, axis=1, dtype=np.float32))
 
 
 def _compress_stacked(comp, key, x, like):
@@ -68,11 +91,6 @@ class GossipSolverMixin:
     comm_rounds: int = 1
     estimator: str = "sgd"
 
-    def __post_init__(self):
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 11")
-
     @property
     def graph(self):
         return self.topo
@@ -98,11 +116,32 @@ class GossipSolverMixin:
             self._cache[("W", device)] = W
         return W[k % self.topo.period] if W.dim() == 3 else W
 
+    def _fault_weights(self, k: int, device):
+        """Round k's weights under faults: Metropolis-Hastings of the
+        round's edges (the schedule's, or the static graph's) that survive
+        ``faults.edge_ok``, one host-to-device copy a round."""
+        fp, topo = self.faults, self.topo
+        if isinstance(topo, TopologySchedule):
+            union = topo.union
+            act = topo.round_mask_host(k)
+        else:
+            union = topo
+            act = np.asarray(topo.slot_mask())
+        act = act & fp.edge_ok(k, union).numpy()
+        w = torch.from_numpy(_metropolis_online(union, act))
+        if torch.device(device).type == "cpu":
+            return w
+        return w.pin_memory().to(device, non_blocking=True)
+
     def _mix(self, x, k: int):
         """Gossip: ``W @ x`` over the agent axis of every ``[A, ...]``
         leaf.  A plain f32 product: PyTorch's default matmul precision
         ("highest", no TF32) keeps it so on the card."""
-        W = self._weights(k, first_leaf(x).device)
+        dev = first_leaf(x).device
+        if self.faults is not None and self.faults.active:
+            W = self._fault_weights(k, dev)
+        else:
+            W = self._weights(k, dev)
         return tree_map(
             lambda t: torch.matmul(W, t.reshape(t.shape[0], -1))
             .reshape(t.shape), x)
@@ -128,13 +167,19 @@ class GossipSolverMixin:
         k = state["k"]
         st = self._step({f: state[f] for f in self.state_fields}, data, key,
                         k, est)
-        if isinstance(self.topo, TopologySchedule):
-            # an agent out of round k skips its step and holds its state
-            nm = self.topo.round_node_mask(
-                k, first_leaf(state["x"]).device)
-            if nm is not None:
-                st = {f: tree_select(nm, st[f], state[f])
-                      for f in self.state_fields}
+        # an agent out of round k skips its step and holds its state
+        x0 = first_leaf(state["x"])
+        nm = (self.topo.round_node_mask(k, x0.device)
+              if isinstance(self.topo, TopologySchedule) else None)
+        fp = self.faults
+        if fp is not None and fp.crash > 0:
+            # crashed agents hold like non-participating ones; their edges
+            # are already dark through the edge_ok oracle
+            alive = ~fp.crash_mask(k, x0.shape[0], x0.device)
+            nm = alive if nm is None else nm & alive
+        if nm is not None:
+            st = {f: tree_select(nm, st[f], state[f])
+                  for f in self.state_fields}
         st["k"] = k + 1
         return st
 

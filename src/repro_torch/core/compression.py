@@ -5,7 +5,8 @@ A compressor's ``compress`` returns the wire representation (a
 ``Payload`` of named tensors) and ``decompress`` rebuilds the dense
 message.  Implemented: ``Identity``, ``BBitQuantizer`` (the paper's C1,
 ``qbit``), ``RandK`` (C2, seed-synchronised: only the k values travel)
-and ``TopK`` (biased, values plus indices).
+and ``TopK`` (biased, values plus indices).  ``seal_plane`` /
+``verify_plane`` add and check the fault plane's crc + round-tag words.
 
 Batching: where the reference ``vmap``s a per-message compressor, the
 port passes a batch.  ``compress(keys, x)`` takes keys ``[..., 2]``
@@ -430,6 +431,119 @@ def plane_decompress(comp, keys_fn, base_key, sids, rids, payload, like):
                                      math.prod(like.shape))
     return decompress_tree(comp, keys_fn(), payload, like,
                            _lead_dims(payload, like))
+
+
+# ---------------------------------------------------------------------------
+# Sealed payloads: additive checksum + round tag (fault detection)
+# ---------------------------------------------------------------------------
+
+# wire overhead of a sealed message: crc + tag, one 4-byte word each (int32
+# tensors holding the reference's uint32 bits)
+SEAL_BYTES = 8
+
+_SEAL_KEYS = ("crc", "tag")
+# a leaf's bits as a signed integer of its width, and the mask that makes
+# the value unsigned after widening
+_VIEW_OF_WIDTH = {1: (torch.uint8, None), 2: (torch.int16, 0xFFFF),
+                  4: (torch.int32, prng.MASK)}
+# elements widened at a time by the checksum: bounds its scratch (64 MB
+# of int32); and the columns of a chunk whose int32 sum cannot overflow
+# (255 * 2^23, 65535 * 2^15 < 2^31)
+_SUM_CHUNK = 1 << 24
+_COLS_CAP = {1: 1 << 23, 2: 1 << 15}
+
+
+def _u32_view(leaf):
+    """Bit-exact uint32 view of a leaf (narrow types widen losslessly), in
+    int64: the checksum's plain definition, which the chunked
+    ``_leaf_sum`` is held to (tests/test_torch_faults.py)."""
+    view, mask = _VIEW_OF_WIDTH[leaf.element_size()]
+    v = leaf.view(view).to(torch.int64)
+    return v if mask is None else v & mask
+
+
+def _leaf_sum(leaf, nd: int):
+    """Sum mod 2^32 of each message's elements as uint32 (``[lead]``
+    int64).  The widening runs over even column chunks of about
+    ``_SUM_CHUNK`` elements, so a large plane never has a whole wide
+    copy; 1- and 2-byte leaves widen to int32 (a chunk's columns are
+    capped so its sum cannot overflow), 4-byte leaves to int64, reduced
+    mod 2^32 at the end (the sum of signed words is congruent to the sum
+    of their unsigned bits)."""
+    width = leaf.element_size()
+    view, mask = _VIEW_OF_WIDTH[width]
+    lead = tuple(leaf.shape[:nd])
+    flat = leaf.reshape(math.prod(lead), -1).view(view)
+    wide = torch.int64 if width == 4 else torch.int32
+    rows, n = flat.shape
+    chunks = max(1, -(-rows * n // _SUM_CHUNK),
+                 -(-n // _COLS_CAP.get(width, n or 1)))
+    cols = max(1, -(-n // chunks))
+    tot = None
+    for c0 in range(0, n, cols):
+        part = flat[:, c0:c0 + cols].to(wide)
+        if width == 2:
+            part &= mask
+        s = part.sum(dim=1, dtype=wide).to(torch.int64)
+        tot = s if tot is None else tot + s
+    if tot is None:
+        tot = torch.zeros(flat.shape[0], dtype=torch.int64,
+                          device=leaf.device)
+    return (tot & prng.MASK).reshape(lead)
+
+
+def payload_checksum(payload, nd: int):
+    """Additive mod-2^32 checksum over the data leaves of a payload whose
+    leaves carry ``nd`` lead (message) dims: ``[lead]`` int64 holding the
+    reference's uint32 word.  Additive on purpose: any single bit flip
+    moves the sum by a nonzero power of two, and linearity lets a stale
+    rewind keep the checksum valid (rejected by the tag alone)."""
+    tot = None
+    for k in payload:
+        if k in _SEAL_KEYS:
+            continue
+        s = _leaf_sum(payload[k], nd)
+        tot = s if tot is None else (tot + s) & prng.MASK
+    return tot
+
+
+def _i32(words):
+    """int64 holding uint32 -> int32 with the same bits."""
+    return prng.wrap_i32(words).to(torch.int32)
+
+
+def seal_plane(payload, tag, nd: int):
+    """Add ``crc``/``tag`` leaves (``crc = checksum + tag`` mod 2^32,
+    int32 tensors holding the uint32 bits) to a batched payload; ``tag``
+    is the round index (an int)."""
+    csum = payload_checksum(payload, nd)
+    tag_arr = torch.full(csum.shape, int(tag) & prng.MASK,
+                         dtype=torch.int64, device=csum.device)
+    return Payload(**dict(payload), crc=_i32(csum + tag_arr),
+                   tag=_i32(tag_arr))
+
+
+def verify_plane_kinds(payload, expected_tag):
+    """Strip the seal and verdict each message with the failure kind split
+    out: ``(data_payload, ok, crc_ok, tag_ok)``, all verdicts [lead] bool.
+    ``crc_ok`` fails on dropped or corrupted payloads, ``tag_ok`` on a
+    wrong-round delivery (a stale replay is checksum-consistent, so the
+    tag alone rejects it).  ``ok = crc_ok & tag_ok``."""
+    crc = payload["crc"].to(torch.int64) & prng.MASK
+    tag = payload["tag"].to(torch.int64) & prng.MASK
+    data = Payload(**{k: v for k, v in payload.items()
+                      if k not in _SEAL_KEYS})
+    crc_ok = ((payload_checksum(data, crc.dim()) + tag) & prng.MASK) == crc
+    tag_ok = tag == (int(expected_tag) & prng.MASK)
+    return data, crc_ok & tag_ok, crc_ok, tag_ok
+
+
+def verify_plane(payload, expected_tag):
+    """Strip the seal and verdict each message: ``(data_payload, ok)``,
+    ``ok`` [lead] True iff the checksum holds and the round tag matches.
+    Callers gate on ``ok``, never on the possibly-poisoned data."""
+    data, ok, _, _ = verify_plane_kinds(payload, expected_tag)
+    return data, ok
 
 
 # ---------------------------------------------------------------------------

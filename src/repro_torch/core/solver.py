@@ -14,8 +14,11 @@ gossip baselines of ``core.baselines``.
 true) runs on the packed ``[A, N]`` plane; ``packed=false`` keeps the
 parameters a pytree, compressed leaf by leaf.  ``make_solver`` takes
 ``device=`` (default the card) and raises without CUDA unless
-``device="cpu"``.  ``dada:`` keeps its name in the grammar but is not
-ported yet and raises.
+``device="cpu"``.  ``faults=`` (a nested ``core.faults`` spec, ``|`` for
+``,``) arms seeded fault injection on every solver; LT-ADMM then runs the
+packed time-varying round (a static graph becomes a period-1 schedule).
+``dada:`` keeps its name in the grammar but is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from repro_torch.common.trees import as_tensor, first_leaf
 from repro_torch.common.trees import consensus_error as _consensus_error
 from repro_torch.common.trees import consensus_mean as _consensus_mean
 from repro_torch.common.trees import tree_map
-from repro_torch.core import admm, baselines, compression, packing
+from repro_torch.core import admm, baselines, compression, faults, packing
 from repro_torch.core.admm import LTADMMConfig
-from repro_torch.core.schedule import TopologySchedule, union_topology
+from repro_torch.core.schedule import (TopologySchedule, static_schedule,
+                                       union_topology)
 from repro_torch.core.topology import Exchange
 from repro_torch.device import resolve_device
 
@@ -154,8 +158,9 @@ def solver_entry(spec: str) -> SolverEntry:
 
 def parse_solver_spec(spec: str):
     """``name[:k=v,...]`` -> (entry, params).  A ``k=v`` item whose key
-    the solver does not know, right after a nested compressor key, is
-    folded into that compressor spec; any other unknown key raises."""
+    the solver does not know, right after a nested key (a compressor or
+    ``faults``), is folded into that spec; any other unknown key raises.
+    Nested specs are validated here, naming the valid params."""
     entry = solver_entry(spec)
     kw: dict = {}
     last_nested = None
@@ -174,11 +179,11 @@ def parse_solver_spec(spec: str):
             raise ValueError(
                 f"solver {entry.name!r} got unknown param {item!r} "
                 f"(accepted: {sorted(entry.params)})")
-    if "faults" in kw:
-        raise NotImplementedError(
-            "fault injection is not ported yet: ROADMAP Queue 1 item 11")
     for k in entry.nested & kw.keys():
-        compression.validate_spec(kw[k])
+        if k == "faults":
+            faults.validate_spec(kw[k])
+        else:
+            compression.validate_spec(kw[k])
     return entry, kw
 
 
@@ -206,6 +211,7 @@ _LTADMM_CFG_FIELDS = tuple(f.name for f in dataclasses.fields(LTADMMConfig)
 def _make_ltadmm(graph, exchange, grad_est, device, **kw):
     comp = kw.pop("compressor", None)
     packed = compression.coerce_param(kw.pop("packed", True))
+    fp = faults.get_faults(kw.pop("faults", None))
     if comp is not None:
         comp = _as_compressor(comp)
         kw.setdefault("compressor_x", comp)
@@ -214,7 +220,16 @@ def _make_ltadmm(graph, exchange, grad_est, device, **kw):
         if key in kw:
             kw[key] = _as_compressor(kw[key])
     cfg = LTADMMConfig(
-        **{k: compression.coerce_param(v) for k, v in kw.items()})
+        **{k: compression.coerce_param(v) for k, v in kw.items()},
+        faults=fp)
+    if fp is not None:
+        if not packed:
+            raise ValueError(
+                "ltadmm faults= requires packed=true (the sealed wire "
+                "format lives on the packed plane)")
+        # faults need the per-edge EF/hold machinery of the schedule
+        # path; identity on inputs that are already schedules
+        graph = static_schedule(graph)
     return LTADMMSolver(graph=graph, exchange=exchange, grad_est=grad_est,
                         cfg=cfg, packed=packed, device=device)
 
@@ -251,6 +266,8 @@ def _baseline_factory(cls):
         del exchange  # baselines gossip through a dense mixing matrix
         if "compressor" in kw:
             kw["compressor"] = _as_compressor(kw["compressor"])
+        if "faults" in kw:
+            kw["faults"] = faults.get_faults(kw["faults"])
         kw = {k: compression.coerce_param(v) for k, v in kw.items()}
         return cls(topo=graph, grad_est=grad_est, device=device, **kw)
 

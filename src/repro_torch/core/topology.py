@@ -8,9 +8,11 @@ points at ``i`` itself (a masked slot) otherwise.  ``reverse_slot[s]`` is
 the neighbor's slot that names the same edge.
 
 ``Exchange`` routes messages inside one process by indexing the agent
-axis; a masked slot delivers the agent's own message.  The multi-process
-half of the reference (one collective-permute per slot on a mesh axis) is
-not ported yet.
+axis; a masked slot delivers the agent's own message.  A fault-armed
+exchange (``faults``, a ``core.faults.FaultPlane``) injects the round's
+seeded faults into routed sealed payloads when a call passes
+``round_index``.  The multi-process half of the reference (one
+collective-permute per slot on a mesh axis) is not ported yet.
 """
 from __future__ import annotations
 
@@ -319,9 +321,13 @@ def make_topology(spec: str, n_agents: int):
 class Exchange:
     """Neighbor exchange over any topology, simulated in one process.
 
-    ``axis``/``mesh`` (the reference's multi-device path) and ``faults``
-    (seeded fault injection) are not ported yet and raise.  Index tensors
-    are built once per device and kept on the instance."""
+    ``faults`` (a ``core.faults.FaultPlane``, duck-typed: this module
+    never imports it) arms the slot-batched calls: with ``round_index``
+    given, routed sealed payloads get that round's faults injected after
+    routing.  Calls without it (the NAK control plane) stay reliable.
+    ``axis``/``mesh`` (the reference's multi-device path) are not ported
+    yet and raise.  Index tensors are built once per device and kept on
+    the instance, and shared with its armed copies (``armed``)."""
 
     topo: Any
     axis: str | None = None
@@ -335,9 +341,19 @@ class Exchange:
             raise NotImplementedError(
                 "the multi-process exchange (mesh axis) is not ported yet: "
                 "ROADMAP Queue 1 item 15")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1 item 11")
+
+    def armed(self, faults):
+        """This exchange with ``faults`` armed: made once per fault plane
+        and kept, sharing this instance's index tensors, so arming it every
+        round copies nothing to the device."""
+        if faults == self.faults:
+            return self
+        key = ("armed", faults)
+        ex = self._index.get(key)
+        if ex is None:
+            ex = dataclasses.replace(self, faults=faults)  # same _index
+            self._index[key] = ex
+        return ex
 
     def indices(self, device):
         """``(nbr [A, S], flat [A, S])`` int64 on ``device``: the sender of
@@ -364,13 +380,14 @@ class Exchange:
             for s in range(self.topo.n_slots)
         )
 
-    def gather_batched(self, per_agent_tree):
+    def gather_batched(self, per_agent_tree, round_index=None):
         """Broadcast exchange: leaves ``[A, ...]`` in, ``[A, S, ...]`` out,
         ``out[i, s] = in[neighbor_table()[i, s]]``."""
-        return tree_map(lambda x: x[self.indices(x.device)[0]],
-                        per_agent_tree)
+        return self._maybe_inject(
+            tree_map(lambda x: x[self.indices(x.device)[0]],
+                     per_agent_tree), round_index)
 
-    def exchange_batched(self, edge_tree):
+    def exchange_batched(self, edge_tree, round_index=None):
         """Edge-directed exchange: leaves ``[A, S, ...]`` in and out,
         ``out[i, s] = in[neighbor_table()[i, s], reverse_slot[s]]``."""
         a, s = self.topo.n_agents, self.topo.n_slots
@@ -379,7 +396,15 @@ class Exchange:
             x2 = x.reshape((a * s,) + tuple(x.shape[2:]))
             return x2[self.indices(x.device)[1]]
 
-        return tree_map(route, edge_tree)
+        return self._maybe_inject(tree_map(route, edge_tree), round_index)
+
+    def _maybe_inject(self, routed, round_index):
+        """Inject round ``round_index``'s faults into the routed payloads,
+        in place: routing made them fresh tensors."""
+        if self.faults is None or round_index is None:
+            return routed
+        return self.faults.inject(routed, self.topo, round_index,
+                                  inplace=True)
 
 
 def metropolis_weights(topo) -> np.ndarray:

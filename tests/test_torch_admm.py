@@ -10,8 +10,9 @@
   (interpret mode) over 20 rounds: the fused plane route (qbit8, RandK
   block) and the packed fallback's per-message route (TopK, RandK
   uniform);
-* topology tables, the device rule, and the paths not ported yet
-  (faults, dada, the mesh exchange).
+* topology tables, the device rule, the faulted specs that build and
+  step and those refused as the reference refuses them, and the paths
+  not ported yet (dada, the mesh exchange).
 """
 import json
 import os
@@ -34,6 +35,7 @@ from repro_torch.bench import rounds_to_tol, run_solver  # noqa: E402
 from repro_torch.checkpoint.reference import (  # noqa: E402
     data_from_numpy, state_from_numpy)
 from repro_torch.core import jaxrand, topology, vr  # noqa: E402
+from repro_torch.core.faults import FaultPlane  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
     TopologySchedule, build_graph)
 from repro_torch.core.solver import make_solver  # noqa: E402
@@ -205,22 +207,74 @@ def test_make_solver_defaults_to_the_card():
         make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, None)
 
 
-@pytest.mark.parametrize("spec,err", [
-    ("dsgd:faults=faults:drop=0.1", "item 11"), ("dada:lr=0.1", "item 13"),
-    ("ltadmm:faults=faults:drop=0.1", "item 11")])
+@pytest.mark.parametrize("spec,err", [("dada:lr=0.1", "item 13")])
 def test_unported_solver_paths_raise(spec, err):
     graph, ex = build_graph("ring", 10)
     with pytest.raises(NotImplementedError, match=err):
         make_solver(spec, graph, ex, None, device="cpu")
 
 
-def test_faults_on_a_schedule_raise():
-    graph, ex = build_graph("drop:p=0.3,base=complete,seed=0", 10)
-    for spec in ("ltadmm:faults=faults:drop=0.1",
-                 "ltadmm:packed=false,faults=faults:crash=0.01",
-                 "choco:faults=faults:drop=0.1"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            make_solver(spec, graph, ex, None, device="cpu")
+FAULTED_SPECS = [
+    ("dsgd:faults=faults:drop=0.1", "ring"),
+    ("ltadmm:faults=faults:drop=0.1", "ring"),
+    ("ltadmm:faults=faults:drop=0.1", "drop:p=0.3,base=complete,seed=0"),
+    ("choco:faults=faults:drop=0.1", "drop:p=0.3,base=complete,seed=0"),
+]
+
+
+@pytest.mark.parametrize("spec,gspec", FAULTED_SPECS)
+def test_faulted_specs_build_and_step(spec, gspec):
+    """The specs that raised before faults were ported now build (LT-ADMM
+    on a period-1 schedule over a static graph) and step."""
+    graph, ex = build_graph(gspec, 10)
+    est = (vr.SagaTable(sample_grads=PROB.sample_grads, m=PROB.m)
+           if spec.startswith("ltadmm") else
+           vr.PlainSgd(batch_grad=PROB.batch_grad))
+    s = make_solver(spec, graph, ex, est, device="cpu")
+    ltadmm = spec.startswith("ltadmm")
+    assert (s.cfg.faults if ltadmm else s.faults) == FaultPlane(drop=0.1)
+    assert not ltadmm or s.is_schedule
+    st = s.init(torch.zeros(10, 5))
+    for r in range(2):
+        st = s.step(st, data_from_numpy(DATA_NP, "cpu"), jaxrand.key(r))
+    assert bool(torch.isfinite(s.consensus_params(st)).all())
+
+
+@pytest.mark.parametrize("case", ["packed-false-ring", "packed-false-drop",
+                                  "static-step", "tree-step"])
+def test_faults_refused_as_the_reference_refuses(case):
+    """What the reference refuses, the port refuses with its exception
+    type and words: ``packed=false`` with faults (ValueError, from
+    ``make_solver``), a faulted config on the static round (ValueError),
+    and on the tree path of the schedule round (NotImplementedError, as
+    the reference's ``step_schedule`` raises)."""
+    from repro_torch.core import admm, schedule
+
+    if case.startswith("packed-false"):
+        gspec = "ring" if case.endswith("ring") else "drop:p=0.3,base=ring"
+        graph, ex = build_graph(gspec, 10)
+        with pytest.raises(ValueError, match="requires packed=true"):
+            make_solver("ltadmm:packed=false,faults=faults:crash=0.01",
+                        graph, ex, None, device="cpu")
+        with pytest.raises(ValueError, match="requires packed=true"):
+            jmake_solver("ltadmm:packed=false,faults=faults:crash=0.01",
+                         JGRAPH, JEX, None)
+        return
+    topo = topology.Ring(10)
+    s = make_solver("ltadmm:faults=faults:drop=0.1", topo, None,
+                    vr.SagaTable(sample_grads=PROB.sample_grads, m=PROB.m),
+                    device="cpu")
+    if case == "static-step":
+        st = admm.init(s.cfg, topo, s.exchange, torch.zeros(10, 5))
+        with pytest.raises(ValueError, match="requires a TopologySchedule"):
+            admm.step(s.cfg, topo, s.exchange, s.grad_est, st,
+                      data_from_numpy(DATA_NP, "cpu"), jaxrand.key(0))
+        return
+    sched = schedule.static_schedule(topo)
+    st = admm.init(s.cfg, sched, s.exchange, {"w": torch.zeros(10, 5)})
+    with pytest.raises(NotImplementedError, match="packed schedule path"):
+        admm.step(s.cfg, sched, s.exchange, s.grad_est, st,
+                  data_from_numpy(DATA_NP, "cpu"), jaxrand.key(0))
 
 
 def test_unported_graph_paths_raise():

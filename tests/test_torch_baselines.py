@@ -14,7 +14,7 @@ against the reference.
   sum;
 * wire bytes, round costs, the cost model, the registry and the Fig.-2
   runner's methods equal to the reference's;
-* the device rule and the paths not ported yet.
+* the device rule, and ``faults=`` on a baseline spec.
 """
 import json
 
@@ -210,9 +210,22 @@ def test_make_solver_defaults_to_the_card():
     assert s.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("spec,err", [
-    ("choco:faults=faults:drop=0.1", "item 11")])
-def test_unported_baseline_paths_raise(spec, err):
+@pytest.mark.parametrize("spec", ["choco:faults=faults:drop=0.1",
+                                  "lead:compressor=qbit:bits=8,"
+                                  "faults=faults:crash=0.2|seed=1"])
+def test_baseline_specs_take_faults(spec):
+    """``faults=`` nests in a baseline spec (``|`` for ``,``): the solver
+    holds the reference's FaultPlane fields and its wire bytes stay the
+    unfaulted ones (the dense gossip seals nothing)."""
+    from repro.core import faults as jfaults
+
     graph, ex = build_graph("ring", 10)
-    with pytest.raises(NotImplementedError, match=err):
-        solver.make_solver(spec, graph, ex, None, device="cpu")
+    s = solver.make_solver(spec, graph, ex, None, device="cpu")
+    js = jsolver.make_solver(spec, JGRAPH, JEX, None)
+    assert all(getattr(s.faults, f) == getattr(js.faults, f)
+               for f in jfaults.fault_entry("faults").params | {"name"})
+    assert isinstance(js.faults, jfaults.FaultPlane)
+    plain = solver.make_solver(spec.split("faults=")[0].rstrip(","), graph,
+                               ex, None, device="cpu")
+    x = {"x": np.zeros(5, np.float32)}
+    assert s.wire_bytes(x) == plain.wire_bytes(x) == js.wire_bytes(x)

@@ -533,6 +533,55 @@ def test_baseline_through_the_kernels(h100):
     assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 18
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_sealed_faulted_exchange_on_the_card(h100, bits):
+    """A K1 payload sealed, routed through the fault-armed exchange
+    (injection in place on the card, masks copied through pinned memory)
+    and verified: every leaf and verdict bit-equal to the same calls on
+    the CPU, for every fault kind at once."""
+    from repro_torch.core import compression, faults, topology
+
+    topo = topology.Complete(6)
+    fp = faults.FaultPlane(drop=0.2, corrupt=0.3, stale=0.2, crash=0.1,
+                           seed=5)
+    ex = topology.Exchange(topo).armed(fp)
+    a, s = topo.n_agents, topo.n_slots
+    sid, rid = _ids(h100, a, s)
+    x = torch.randn((a, s, 4099), device=h100)
+    for k in range(4):
+        q, sc = q_ops.quantize_plane(SEED, sid, rid, x.reshape(a * s, -1),
+                                     bits=bits)
+        p = compression.Payload(q=q.reshape(a, s, -1),
+                                scale=sc.reshape(a, s))
+        got = compression.verify_plane_kinds(
+            ex.exchange_batched(compression.seal_plane(p, k, 2),
+                                round_index=k), k)
+        pc = compression.Payload(**{n: v.cpu() for n, v in p.items()})
+        want = compression.verify_plane_kinds(
+            ex.exchange_batched(compression.seal_plane(pc, k, 2),
+                                round_index=k), k)
+        for n in want[0]:
+            assert torch.equal(got[0][n].cpu(), want[0][n]), (k, n)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g.cpu(), w), k
+
+
+def test_faulted_round_through_the_kernels(h100):
+    """The combined-fault row's spec on the paper problem: the faulted
+    schedule round launches K1 twice and K5 four times a round and
+    converges below 1e-8 at 68 B a round."""
+    from repro_torch import fault_sweep
+    from repro_torch.bench import rounds_to_tol, run_solver
+
+    prob, data, solver = fault_sweep.solver_for(fault_sweep.SMOKE_FAULTS)
+    q_ops.quantize_plane.launches = q_ops.dequantize_plane.launches = 0
+    idx, gns = run_solver(prob, data, solver, 150)
+    assert q_ops.quantize_plane.launches == 300
+    assert q_ops.dequantize_plane.launches == 600
+    assert rounds_to_tol(idx, gns, 1e-8) in (110, 120)
+    assert solver.wire_bytes({"x": np.zeros(5, np.float32)}) == 68
+
+
 def test_tree_schedule_round_through_the_kernels(h100):
     """LT-ADMM with packed=false and RandK block on a churn schedule,
     two-leaf parameters: each round and leaf launches K8 twice and K9

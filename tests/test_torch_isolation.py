@@ -71,6 +71,25 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_fault_and_checkpoint_modules_load_no_jax():
+    """The fault plane, the checkpoint store and the fault sweep (whose
+    reference counterparts live beside JAX code) pull in neither JAX nor
+    the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
+        "import repro_torch.core.faults, repro_torch.checkpoint.store\n"
+        "import repro_torch.fault_sweep\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     import shutil
 
@@ -101,10 +120,17 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
     # 53 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
-    # at its walk's edge shapes), and one line per wide spec holding its
-    # second round's kernel calls against the plain versions
-    assert out.stdout.count("bit-equal") == 53 + 10
-    assert out.stdout.count("round 1's kernel calls bit-equal") == 10
+    # at its walk's edge shapes), and one line per wide spec (the faulted
+    # ring's included) holding its second round's kernel calls against the
+    # plain versions
+    assert out.stdout.count("bit-equal") == 53 + 11
+    assert out.stdout.count("round 1's kernel calls bit-equal") == 11
+    # the faulted paper rows: the reference's combined-fault row, the same
+    # run on the CPU, a row per fault kind and LEAD under faults
+    assert "admm/ring/q8+saga+faults" in out.stdout
+    assert out.stdout.count("[paper] faults/") == 4
+    assert "LEAD" in out.stdout or "lead:lr=0.1" in out.stdout
+    assert "ring-faults-qbit8 round" in out.stdout
     # K10 and K11 within their limits (18 + 8 and 9 checks: the served
     # shapes' 18, f32, bf16 and bf16 at a misaligned base, then the eight
     # bf16 design cases; K11's three cases in f32, in bf16 by route and
