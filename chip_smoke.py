@@ -64,6 +64,31 @@ Phases (any failure exits non-zero):
      around each method, wire bytes against the reference's, time to
      1e-8 and floor beside the reference's own run, and each method
      against the same run on the CPU;
+  obs. the telemetry counters (``repro_torch.obs``) through the kernels:
+     the tx-parity matrix (the 7 ported solvers of the reference's
+     tests/test_obs.py on the ring, drop0.3, churn0.2 and with faults
+     nested on drop0.3, 4 rounds: the busiest agent's measured bytes
+     equal ``wire_bytes(params, t)`` each round and every counter the
+     CPU run's); ``repro_torch.perf_smoke`` (the reference's BENCH
+     schema; its three rows' telemetry exactly the reference's
+     21600/24000/6000, 70884/73932/6000, 75546/70264/4797, no drops or
+     NAKs, 600 rounds); the combined-fault row wrapped on the card and on
+     the CPU, every field equal; ring-faults-qbit8 at n = 2^20 wrapped
+     and unwrapped, every state leaf equal; the wrapped round beside the
+     unwrapped one at the paper's size and at n = 2^20 (ring qbit8,
+     drop-qbit8, ring-faults-qbit8; host clock, in turns), with each
+     round's host syncs under torch's sync debug mode (equal counts
+     required) and the tap's device launches a round (the fewest over
+     three profiled rounds); the phase's own trace, summarised;
+  harness. the paper's harnesses through the kernels: Fig. 1's four
+     variants at 1500 rounds (rounds_to_tol and wire bytes the live
+     reference's, final ||grad F||^2 < 1e-12 for q8, q4 and RandK, the
+     rate within 10 % of the reference's CPU run), Table I, the topology
+     and schedule sweeps at their default rounds (wire bytes and t/round
+     the reference's, final < 1e-12, rates within 10 %), the
+     participation sweep at 300 rounds (every row's rounds to 1e-10 by
+     190 in the reference), and the perf-smoke trace read back through
+     ``load_events`` and ``python -m repro_torch.obs.summary``;
   5. main path at real width: the solvers at n = 2^20 for 20 rounds per
      spec (LT-ADMM-CC with qbit8, qbit4, RandK stride and RandK uniform,
      LEAD qbit8, CHOCO TopK on the ring; LT-ADMM-CC qbit8 on drop0.3,
@@ -1809,10 +1834,11 @@ LEAD_FAULTS = ("lead:lr=0.1,compressor=qbit:bits=8,"
 
 
 def with_impl(spec, impl="kernel"):
-    """``spec`` with its compressor's ``impl``, placed before a nested
-    ``faults=`` (which would take a later ``impl`` as a fault param)."""
-    head, sep, tail = spec.partition(",faults=")
-    return f"{head},impl={impl}{sep}{tail}"
+    """``spec`` with its compressor's ``impl`` (``bench.with_impl``:
+    before a nested ``faults=``)."""
+    from repro_torch.bench import with_impl as pin
+
+    return pin(spec, impl)
 
 
 def phase_paper_faults(rounds, kind_rounds):
@@ -3647,6 +3673,500 @@ def time_kernels(seed, k0_inputs, counts, shapes):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase obs: the telemetry counters, the trace, the perf-smoke run
+# ---------------------------------------------------------------------------
+
+# every ported solver of the reference's tests/test_obs.py:39 (dada waits
+# for ROADMAP item 13), on the ring, drop0.3 and churn0.2, and nested
+# faults on drop0.3
+OBS_SOLVER_SPECS = (
+    "ltadmm:tau=3,compressor=qbit:bits=8",
+    "dsgd:lr=0.1",
+    "choco:lr=0.1,compressor=qbit:bits=8",
+    "lead:lr=0.1,compressor=qbit:bits=8",
+    "cold:lr=0.1,compressor=randk:fraction=0.5,sampler=block",
+    "cedas:lr=0.1,compressor=qbit:bits=4",
+    "dpdc:lr=0.1,compressor=qbit:bits=8",
+)
+OBS_FAULTS = "faults=faults:drop=0.1|corrupt=5e-3|stale=0.05|crash=0.02|seed=0"
+OBS_GRAPHS = (("ring", ""), (DROP_SPEC, ""), (CHURN_SPEC, ""),
+              (DROP_SPEC, OBS_FAULTS))
+# the perf-smoke rows (benchmarks/BENCH_BASELINE.json): spec -> BENCH
+# telemetry (tx_bytes_max_agent, tx_msgs_total, participations_total),
+# rounds_to_tol and wire bytes
+OBS_BENCH = {"ring": ((21600, 24000, 6000), 100, 36),
+             "drop:p=0.3,base=complete,seed=0": ((70884, 73932, 6000), 20,
+                                                 118),
+             CHURN_SPEC: ((75546, 70264, 4797), 20, 126)}
+# the wrapped round beside the unwrapped one: wide labels, and the same
+# recipes at the paper's size
+OBS_TIMED = (("qbit8", "ring", ""), ("drop-qbit8", DROP_SPEC, ""),
+             ("ring-faults-qbit8", "ring", WIDE_FAULTS))
+OBS_ROUNDS = 600  # the perf-smoke rows' rounds
+PERF_SMOKE = None  # (payload, BENCH path, seconds) of the one run
+
+
+def obs_solver(spec, gspec, dev, wrapped=True, prob=None):
+    """``(solver, data on dev, x0)`` of ``spec`` on the paper's problem
+    (or ``prob``), through the kernel route (``impl=kernel``), with the
+    telemetry wrapper where ``wrapped``."""
+    import torch
+
+    from repro_torch.bench import saga
+    from repro_torch.core.schedule import build_graph
+    from repro_torch.core.solver import make_solver
+    from repro_torch.obs import telemetry
+    from repro_torch.paper_fig2 import _estimator
+    from repro_torch.problems.logistic import LogisticProblem
+
+    prob = prob or LogisticProblem()
+    graph, ex = build_graph(gspec, prob.n_agents)
+    est = saga(prob) if spec.startswith("ltadmm") else _estimator("sgd",
+                                                                 prob)
+    if "compressor=" in spec:
+        spec = with_impl(spec)
+    s = make_solver(spec, graph, ex, est, device=dev)
+    if wrapped:
+        s = telemetry.with_telemetry(s)
+    data = {k: v.to(dev) for k, v in prob.make_data(0).items()}
+    return s, data, torch.zeros((prob.n_agents, prob.n), device=dev)
+
+
+def obs_parity(rounds=4):
+    """The tx-parity matrix through the kernels: every round, the busiest
+    agent's measured tx bytes equal ``wire_bytes(params, t)``, and every
+    counter field equals the CPU run's (masks and payload shapes, not the
+    trajectory, set the counters)."""
+    import numpy as np
+
+    from repro_torch.core import jaxrand
+    from repro_torch.obs.telemetry import counters
+
+    params = {"x": np.zeros(5, np.float32)}
+    for gspec, fl in OBS_GRAPHS:
+        for spec in OBS_SOLVER_SPECS:
+            spec = spec + ("," + fl if fl else "")
+            runs = {}
+            for dev in (DEV, "cpu"):
+                s, data, x0 = obs_solver(spec, gspec, dev)
+                st = s.init(x0)
+                snaps = [counters(st)]
+                for t in range(rounds):
+                    st = s.step(st, data, jaxrand.key(t))
+                    snaps.append(counters(st))
+                runs[dev] = (s, snaps)
+            s, snaps = runs[DEV]
+            for t in range(rounds):
+                tx = int((snaps[t + 1]["tx_bytes"]
+                          - snaps[t]["tx_bytes"]).max())
+                if tx != s.wire_bytes(params, t=t):
+                    raise AssertionError(
+                        f"obs {spec} on {gspec}: round {t} measured {tx} "
+                        f"B != wire_bytes {s.wire_bytes(params, t=t)}")
+            for a, b in zip(snaps, runs["cpu"][1]):
+                for f in a:
+                    if not np.array_equal(a[f], b[f]):
+                        raise AssertionError(f"obs {spec} on {gspec}: {f} "
+                                             "differs from the CPU run")
+        log(f"[obs] tx parity on {gspec}{' + faults' if fl else ''}: "
+            f"{len(OBS_SOLVER_SPECS)} solvers x {rounds} rounds, the busiest"
+            f" agent's measured bytes == wire_bytes(params, t) each round,"
+            f" every counter == the CPU run's")
+
+
+def run_perf_smoke(rounds):
+    """``repro_torch.perf_smoke`` once per script (the obs and harness
+    phases share it), into the gitignored build directory."""
+    global PERF_SMOKE
+    if PERF_SMOKE is None:
+        from repro_torch import perf_smoke
+
+        path = os.path.join(ROOT, "build", "perf_smoke", "bench.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        payload = perf_smoke.perf_smoke(
+            path, device=DEV, impl="kernel", rounds=rounds,
+            kernel_iters=20 if DEV == "cuda" else 2)
+        PERF_SMOKE = (payload, path, time.perf_counter() - t0)
+    return PERF_SMOKE
+
+
+def obs_bench_rows(rounds):
+    """The perf-smoke rows' BENCH telemetry dicts, exact (at 600 rounds;
+    the rehearsal's shorter run holds the ring row's per-round counts)."""
+    payload, path, secs = run_perf_smoke(rounds)
+    log(f"[obs] perf_smoke {rounds} rounds: {secs:.1f} s, backend "
+        f"{payload['backend']}, device {payload['device']}, power limit "
+        f"{payload['power_limit']}")
+    for row in payload["results"]:
+        log(f"[obs] BENCH {row['name']}: rounds_to_tol="
+            f"{row['rounds_to_tol']} wire={row['wire_bytes_per_round']} "
+            f"cold {row['cold_wall_s']} s warm {row['warm_wall_s']} s "
+            f"telemetry={row.get('telemetry')}")
+        if row["spec"] not in OBS_BENCH:
+            continue
+        tel = row["telemetry"]
+        (tx, msgs, parts), r2t, wire = OBS_BENCH[row["spec"]]
+        got = (tel["tx_bytes_max_agent"], tel["tx_msgs_total"],
+               tel["participations_total"])
+        if rounds == OBS_ROUNDS:
+            want = (tx, msgs, parts)
+        elif row["spec"] == "ring":
+            want = (36 * rounds, 40 * rounds, 10 * rounds)
+        else:
+            want = got
+        if (got != want or tel["rx_dropped_total"] or tel["naks_total"]
+                or tel["rounds"] != rounds
+                or row["wire_bytes_per_round"] != wire
+                or (rounds == OBS_ROUNDS and row["rounds_to_tol"] != r2t)):
+            raise AssertionError(f"BENCH {row['name']}: {row}, expected "
+                                 f"telemetry {want}, rounds_to_tol {r2t}, "
+                                 f"{wire} B")
+    if payload["backend"] != DEV:
+        raise AssertionError(f"BENCH backend {payload['backend']}")
+    for k in payload["kernels"]:
+        log(f"[obs] BENCH {k['name']}: {k['us_per_call']} us "
+            f"({k['derived']})")
+
+
+def obs_fault_row(rounds):
+    """The combined-fault row telemetry-wrapped on the card and on the
+    CPU: every counter field equal (the fault masks and schedules set
+    them)."""
+    import numpy as np
+
+    from repro_torch import fault_sweep
+    from repro_torch.bench import run_solver
+    from repro_torch.obs import telemetry
+    from repro_torch.perf_smoke import telemetry_dict
+
+    tel = {}
+    for dev in (DEV, "cpu"):
+        prob, data, solver = fault_sweep.solver_for(
+            fault_sweep.SMOKE_FAULTS, device=dev, impl="kernel")
+        s = telemetry.with_telemetry(solver)
+        _, _, st = run_solver(prob, data, s, rounds, metric_every=10,
+                              return_state=True)
+        tel[dev] = telemetry.counters(st)
+    for f in tel["cpu"]:
+        if not np.array_equal(tel[DEV][f], tel["cpu"][f]):
+            raise AssertionError(f"fault row {f}: {tel[DEV][f]} != the CPU "
+                                 f"run's {tel['cpu'][f]}")
+    d = telemetry_dict(tel[DEV])
+    kinds = {f: int(tel[DEV][f].sum()) for f in
+             ("rx_crc_rejects", "rx_tag_rejects", "rx_dropped", "naks")}
+    if kinds["rx_dropped"] != kinds["rx_crc_rejects"] + kinds[
+            "rx_tag_rejects"]:
+        raise AssertionError(f"fault kinds do not partition: {kinds}")
+    log(f"[obs] admm/ring/q8+saga+faults wrapped, {rounds} rounds: {d}, "
+        f"{kinds}; every field equal to the CPU run's")
+
+
+def obs_bit_identity(prob, data, rounds=3):
+    """ring-faults-qbit8 at n = 2^20: the wrapped trajectory is the
+    unwrapped one, every state leaf ``torch.equal``."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.obs import telemetry
+
+    plain, x0, *_ = wide_solver("ring-faults-qbit8", prob, torch.device(DEV))
+    wrapped = telemetry.with_telemetry(
+        wide_solver("ring-faults-qbit8", prob, torch.device(DEV))[0])
+    sp, sw = plain.init(x0), wrapped.init(x0)
+    base = jaxrand.key(12345)
+    for i in range(rounds):
+        sp = plain.step(sp, data, jaxrand.fold_in(base, i))
+        sw = wrapped.step(sw, data, jaxrand.fold_in(base, i))
+    for f in sp._fields:
+        a, b = getattr(sp, f), getattr(sw.inner, f)
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
+        if not same:
+            raise AssertionError(f"wrapped ring-faults-qbit8: {f} differs")
+    log(f"[obs] ring-faults-qbit8 n={prob.n}: {rounds} wrapped rounds "
+        "bit-identical to the unwrapped ones (torch.equal on every state "
+        f"leaf); counters {telemetry.counters(sw)['tx_bytes'].tolist()}")
+
+
+def sync_warnings(fn):
+    """Host syncs ``fn()`` makes, as torch's sync debug mode warns them
+    (the mode is process-wide: restored in ``finally``)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return len([x for x in w if "synchroniz" in str(x.message)])
+
+
+def device_launches(fn):
+    """Device activities (kernels, copies, fills) of one ``fn()`` in
+    torch.profiler: the fewest over three profiled calls (the same round
+    read 28 activities more in one profile than in another)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if e.device_type
+                          == torch.autograd.DeviceType.CUDA))
+    return min(counts)
+
+
+def timed_round(fn, iters):
+    """Mean host-clock ms of ``fn()`` over ``iters`` calls, the card
+    synchronised before and after."""
+    for _ in range(2):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def obs_overhead(wide_prob, wide_data_):
+    """The wrapped round beside the unwrapped one (host clock, turns
+    plain, wrapped, wrapped, plain) at the paper's size and at n = 2^20;
+    on the card the sync warnings of one round each (must be equal) and
+    the tap's device launches a round (profiled round, wrapped less
+    unwrapped)."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.obs import telemetry
+
+    dev = torch.device(DEV)
+    key = jaxrand.key(3)
+    for label, gspec, fl in OBS_TIMED:
+        spec = "ltadmm:compressor=qbit:bits=8" + ("," + fl if fl else "")
+        for size in ("paper", "wide"):
+            if size == "paper":
+                plain, data, x0 = obs_solver(spec, gspec, dev, wrapped=False)
+                iters = 100 if DEV == "cuda" else 5
+            else:
+                plain, x0, *_ = wide_solver(label, wide_prob, dev)
+                data, iters = wide_data_, 10 if DEV == "cuda" else 2
+            wrapped = telemetry.with_telemetry(plain)
+            sp, sw = plain.init(x0), wrapped.init(x0)
+            sp = plain.step(sp, data, key)  # k = 1: past the first round
+            sw = wrapped.step(sw, data, key)
+
+            def run_p():
+                return plain.step(sp, data, key)
+
+            def run_w():
+                return wrapped.step(sw, data, key)
+
+            p1 = timed_round(run_p, iters)
+            w1 = timed_round(run_w, iters)
+            w2 = timed_round(run_w, iters)
+            p2 = timed_round(run_p, iters)
+            p, w = (p1 + p2) / 2, (w1 + w2) / 2
+            extra = ""
+            if DEV == "cuda":
+                sp_w, sw_w = sync_warnings(run_p), sync_warnings(run_w)
+                lp, lw = device_launches(run_p), device_launches(run_w)
+                if sw_w != sp_w:
+                    raise AssertionError(
+                        f"{label} {size}: the wrapped round makes {sw_w} "
+                        f"host syncs, the unwrapped one {sp_w}")
+                extra = (f"; sync warnings a round {sp_w} vs {sw_w}; device"
+                         f" launches a round {lp} vs {lw}: the tap's {lw - lp}")
+            log(f"[obs] {label} {size} (n={x0.shape[1]}): round {p:.4f} ms "
+                f"unwrapped ({p1:.4f}, {p2:.4f}), {w:.4f} ms wrapped ({w1:.4f},"
+                f" {w2:.4f}): {100 * (w / p - 1):+.2f} % (host clock, "
+                f"{iters} rounds a reading){extra}")
+            del sp, sw, plain, wrapped
+
+
+def phase_obs(rounds=OBS_ROUNDS):
+    import torch
+
+    from repro_torch.obs import summary, trace
+    from repro_torch.problems.logistic import LogisticProblem
+
+    path = os.path.join(ROOT, "build", "obs", "obs.trace.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    with trace.Tracer(path) as tracer:
+        with tracer.span("tx-parity"):
+            obs_parity()
+        with tracer.span("perf-smoke"):
+            obs_bench_rows(rounds)
+        with tracer.span("fault-row"):
+            obs_fault_row(rounds)
+        prob = LogisticProblem(n=WIDE_N)
+        data = wide_data(prob, torch.device(DEV))
+        with tracer.span("bit-identity"):
+            obs_bit_identity(prob, data)
+            sync()
+        with tracer.span("overhead"):
+            obs_overhead(prob, data)
+            sync()
+        tracer.counter("obs", phases=5)
+        del data
+    for line in summary.summarize(trace.load_events(path)).splitlines():
+        log(f"[obs] trace {line}")
+    log(f"[obs] phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase harness: the paper's harnesses (Fig. 1, Table I, sweeps, perf-smoke)
+# ---------------------------------------------------------------------------
+
+# The live reference on the CPU (jax 0.9.0), 1500 rounds sampled every 50:
+# name -> (rounds_to_tol at 1e-8, wire bytes, rate per round); the CPU test
+# (tests/test_torch_harness.py) holds the port's run to the reference's
+FIG1_REFERENCE = {"q8": (100, 36, -0.07008361434936523),
+                  "q4": (100, 28, -0.07011503982543946),
+                  "randk_k3": (100, 48, -0.070930362701416),
+                  "identity": (100, 80, -0.07003121566772462)}
+FIG1_KERNELS = {"q8": ("quantize_plane", "dequantize_plane"),
+                "q4": ("quantize_plane", "dequantize_plane"),
+                "randk_k3": ("sparse_gather", "sparse_scatter"),
+                "identity": ()}
+TABLE1_REFERENCE = [
+    ("table1/lead", 55.0), ("table1/cedas", 105.0),
+    ("table1/cold_dpdc_sgd", 55.0), ("table1/cold_dpdc_full", 550.0),
+    ("table1/lt-admm-cc", 124.0), ("table1/wire_bytes_f32", 16000000),
+    ("table1/wire_bytes_q8", 4000016), ("table1/wire_bytes_q4", 2000016),
+    ("table1/wire_bytes_randk25", 4000000)]
+# the reference's sweeps at their default rounds: name -> (wire bytes,
+# t/round, rate per round); every final ||grad F||^2 there is below 1.2e-16
+SWEEP_REFERENCE = {
+    "topology/ring": (36, 124.0, -0.07112550961856787),
+    "topology/star": (162, 122.0, -0.15944538688369198),
+    "topology/complete": (162, 194.0, -1.1302548293780568),
+    "topology/erdos0.4": (90, 136.0, -0.21343785871493273),
+    "topology/smallworld0.2": (108, 152.0, -0.5536274091434863),
+    "schedule/ring": (36, 124.0, -0.07112550961856787),
+    "schedule/cycle:ring,star": (99, 123.0, -0.12669095180118964),
+    "schedule/complete": (162, 194.0, -1.1302548293780568),
+    "schedule/drop0.1:complete": (153, 184.375, -0.9388447541456952),
+    "schedule/drop0.3:complete": (118, 165.625, -0.701639337299251),
+    "schedule/drop0.5:complete": (89, 147.875, -0.43982203301643663),
+    "schedule/gossip3:ring": (15, 110.0, -0.019937820475299066),
+    "schedule/churn0.2:complete": (126, 141.825, -0.6180307469909048),
+    "schedule/burst0.2-0.5:complete": (103, 126.58749999999999,
+                                       -0.4867644877849888),
+    "schedule/sample0.5:complete": (58, 72.0, -0.16821179841884334)}
+# participation_sweep's rows (participation, rounds_to_tol at 1e-10,
+# t/round, wire bytes) at its 5000 rounds; each reaches 1e-10 by round
+# 190, so the card runs PARTICIPATION_ROUNDS
+PARTICIPATION_REFERENCE = {
+    "sample:frac=1.0,base=complete,seed=0": (1.0, 20, 194.0, 162),
+    "sample:frac=0.75,base=complete,seed=0": (0.8, 40, 139.2, 118),
+    "sample:frac=0.5,base=complete,seed=0": (0.5, 90, 72.0, 58),
+    "sample:frac=0.25,base=complete,seed=0": (0.3, 190, 38.5125, 15)}
+FIG1_ROUNDS, PARTICIPATION_ROUNDS = 1500, 300
+SWEEP_RATE_TOL = 0.1  # |rate / reference's - 1|: the fit's last points
+# sit just above the 1e-14 floor, where f32 rounding differs
+
+
+def phase_harness(fig1_rounds=FIG1_ROUNDS, sweep_rounds=None,
+                  part_rounds=PARTICIPATION_ROUNDS, smoke_rounds=OBS_ROUNDS):
+    from repro_torch import (paper_fig1, paper_table1, schedule_sweep,
+                             topology_sweep)
+    from repro_torch.bench import linear_rate, rounds_to_tol
+    from repro_torch.obs import summary, trace
+
+    t0 = time.perf_counter()
+    for name in paper_fig1.SPECS:
+        reset_counts()
+        t1 = time.perf_counter()
+        idx, gns, wire = paper_fig1.variant(name, fig1_rounds, device=DEV,
+                                            impl="kernel")
+        secs = time.perf_counter() - t1
+        counts = read_counts()
+        r2t, rate = rounds_to_tol(idx, gns, paper_fig1.TOL), linear_rate(
+            idx, gns)
+        ref_r2t, ref_wire, ref_rate = FIG1_REFERENCE[name]
+        log(f"[harness] fig1/{name}: rounds_to_tol={r2t} (reference "
+            f"{ref_r2t}) wire={wire} ({ref_wire}) final={gns[-1]:.3e} "
+            f"rate={rate:.5f} (the reference's CPU run {ref_rate:.5f}) "
+            f"{fig1_rounds} rounds in {secs:.1f} s launches="
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if (r2t, wire) != (ref_r2t, ref_wire):
+            raise AssertionError(f"fig1/{name}: {r2t}, {wire} B")
+        if (fig1_rounds == FIG1_ROUNDS and name != "identity"
+                and not gns[-1] < 1e-12):
+            raise AssertionError(f"fig1/{name}: final {gns[-1]} >= 1e-12")
+        if (fig1_rounds == FIG1_ROUNDS
+                and not abs(rate / ref_rate - 1) < SWEEP_RATE_TOL):
+            raise AssertionError(f"fig1/{name}: rate {rate}")
+        if DEV == "cuda" and not all(counts[k] for k in FIG1_KERNELS[name]):
+            raise AssertionError(f"fig1/{name}: {FIG1_KERNELS[name]} not "
+                                 "launched")
+    rows = paper_table1.run(print_rows=False)
+    if rows != TABLE1_REFERENCE:
+        raise AssertionError(f"Table I {rows}")
+    log(f"[harness] Table I equal to the reference's: {rows}")
+    t1 = time.perf_counter()
+    kw = {} if sweep_rounds is None else {"rounds": sweep_rounds}
+    sweep = (topology_sweep.run(print_rows=False, device=DEV, impl="kernel",
+                                **kw)
+             + schedule_sweep.run(print_rows=False, device=DEV,
+                                  impl="kernel", **kw))
+    for name, final, rate, wire, t_round in sweep:
+        ref_wire, ref_t, ref_rate = SWEEP_REFERENCE[name]
+        log(f"[harness] {name}: final={final:.3e} rate={rate:.4f} "
+            f"(reference {ref_rate:.4f}) wire={wire} ({ref_wire}) "
+            f"t/round={t_round} ({ref_t})")
+        if (wire, t_round) != (ref_wire, ref_t):
+            raise AssertionError(f"{name}: {wire} B, t/round {t_round}")
+        if sweep_rounds is None and not (
+                final < 1e-12 and abs(rate / ref_rate - 1) < SWEEP_RATE_TOL):
+            raise AssertionError(f"{name}: final {final}, rate {rate}")
+    log(f"[harness] topology_sweep and schedule_sweep "
+        f"({'default rounds' if sweep_rounds is None else sweep_rounds}): "
+        f"{len(sweep)} rows in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for spec, part, r2t, t_round, wire, final in \
+            schedule_sweep.participation_sweep(
+                rounds=part_rounds, print_rows=False, device=DEV,
+                impl="kernel"):
+        want = PARTICIPATION_REFERENCE[spec]
+        log(f"[harness] participation {spec}: participation={part} "
+            f"rounds_to_tol={r2t} t/round={t_round} wire={wire} "
+            f"final={final:.3e} (reference {want})")
+        if part_rounds > want[1] and (part, r2t, t_round, wire) != want:
+            raise AssertionError(f"participation {spec}")
+    log(f"[harness] participation_sweep at {part_rounds} rounds (the "
+        f"reference's 5000; every row reaches 1e-10 by round 190): "
+        f"{time.perf_counter() - t1:.1f} s")
+    payload, path, _ = run_perf_smoke(smoke_rounds)
+    tpath = os.path.splitext(path)[0] + ".trace.jsonl"
+    events = trace.load_events(tpath)
+    names = [e["name"] for e in events]
+    if names != ["cold", "warm"] * 3 + ["faults", "kernels"]:
+        raise AssertionError(f"perf-smoke trace spans {names}")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.summary", tpath],
+        capture_output=True, text=True, timeout=120, check=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if out.stdout.rstrip("\n") != summary.summarize(events):
+        raise AssertionError("python -m repro_torch.obs.summary differs")
+    for line in out.stdout.splitlines():
+        log(f"[harness] perf-smoke trace {line}")
+    log(f"[harness] BENCH schema keys {sorted(payload)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def rehearse():
     """Every phase but device, build and timing on the CPU at a tiny
     size, the kernels replaced by their plain versions, on one CPU thread
@@ -3679,6 +4199,9 @@ def rehearse():
     phase_paper_faults(PAPER_ROUNDS, 120)  # every row's 1e-8 by round 110
     phase_fig2(110, 250)  # LT-ADMM-CC reaches 1e-8 at round 100
     phase_wide(WIDE_ROUNDS)
+    phase_obs(rounds=30)
+    phase_harness(fig1_rounds=200, sweep_rounds=20, part_rounds=20,
+                  smoke_rounds=30)
     SMOKE = True
     phase_serve()
     log("[rehearse] done on the CPU; no result")
@@ -3687,8 +4210,8 @@ def rehearse():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,paper,fig2,wide,profile,"
-                    "serve",
+                    default="device,build,kernels,paper,fig2,obs,harness,"
+                    "wide,profile,serve",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -3728,6 +4251,10 @@ def main(argv=None):
         phase_paper_faults(PAPER_ROUNDS, PAPER_ROUNDS)
     if "fig2" in phases:
         phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
+    if "obs" in phases:
+        phase_obs()
+    if "harness" in phases:
+        phase_harness()
     rows = None
     if "wide" in phases:
         counts, shapes = phase_wide(WIDE_ROUNDS)

@@ -42,8 +42,12 @@ inactive edge does.
 Every random draw folds the reference's salts into the round key with
 ``core.jaxrand``, so the port follows the reference's draws.  Round keys
 and all key derivation live on the host; compression runs on the
-state's device.  Not ported yet: telemetry taps (ROADMAP Queue 1 item
-12).
+state's device.
+
+Telemetry: while a ``obs.telemetry.with_telemetry`` wrapper steps the
+solver, both rounds charge their measured wire bytes, messages,
+participation and gradient evaluations (and, on a faulted round, the
+receive verdicts) through one tap, ``_emit_round_telemetry``.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from repro_torch.common.trees import (first_leaf, tree_add, tree_lerp,
                                       tree_map, tree_select, tree_sub,
                                       tree_zeros_like)
 from repro_torch.core import compression, jaxrand
+from repro_torch.obs import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +119,9 @@ class LTADMMScheduleState(NamedTuple):
 class RoundIds:
     """The round's constant per-message ids: host int64 tensors for key
     derivation, device int32 copies for the kernels, the per-agent
-    degrees and the ``[A, S]`` slot mask (None when every slot is
-    active) of a static topology (a schedule's union)."""
+    degrees (in the state's dtype, and as int64 for the telemetry tap)
+    and the ``[A, S]`` slot mask (None when every slot is active) of a
+    static topology (a schedule's union)."""
 
     agent: torch.Tensor  # [A] host
     aid2: torch.Tensor  # [A, S] host
@@ -125,6 +131,7 @@ class RoundIds:
     nbr_d: torch.Tensor  # [A, S] device int32
     degrees: torch.Tensor  # [A] device, state dtype
     mask: torch.Tensor | None  # [A, S] device bool
+    degrees_i64: torch.Tensor  # [A] device int64
 
     @classmethod
     def build(cls, topo, device, dtype=torch.float32):
@@ -141,6 +148,8 @@ class RoundIds:
             degrees=torch.as_tensor(topo.degrees(), dtype=dtype,
                                     device=device),
             mask=None if mask.all() else torch.as_tensor(mask, device=device),
+            degrees_i64=torch.as_tensor(mask.sum(axis=1), dtype=torch.int64,
+                                        device=device),
         )
 
 
@@ -312,6 +321,13 @@ def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
     # ---- the only cross-agent communication
     recv_x = exchange.gather_batched(m_x)
     recv_z = exchange.exchange_batched(m_z)
+    if telemetry.active():
+        # one x-message per sender to every neighbour, one z-message per
+        # edge; masked union slots carry placeholders and are not charged
+        per_msg = (telemetry.payload_nbytes(m_x, nd=1)
+                   + telemetry.payload_nbytes(m_z, nd=2))
+        _emit_round_telemetry(cfg, vr_est, data, ids.degrees_i64, per_msg,
+                              None)
 
     # ---- 7. receiver-side mirrors
     u_nbr_new = (state.x_hat_nbr if cfg.lean
@@ -408,9 +424,22 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
     if fp is None:
         recv_x = exchange.exchange_batched(m_x)
         recv_z = exchange.exchange_batched(m_z)
+        verdicts = None
     else:
         recv_x, recv_z, verdicts = sealed_exchange(fp, exchange, m_x, m_z,
                                                    state.k, alive)
+    if telemetry.active():
+        # charged on the schedule's active slots, before the faults
+        # refine them (a dropped message was still sent), per edge for
+        # both messages: the sealed planes' bytes on a faulted round
+        per_msg = (telemetry.payload_nbytes(m_x, nd=2)
+                   + telemetry.payload_nbytes(m_z, nd=2)
+                   if verdicts is None else verdicts.sealed_nbytes)
+        _emit_round_telemetry(
+            cfg, vr_est, data, sched.round_degrees_device(state.k, x0.device),
+            per_msg, node_k,
+            None if verdicts is None else _fault_counters(act, verdicts))
+    if verdicts is not None:
         act = act & verdicts.edge_ok
     x_hat_edge_new = tree_select(act, tree_add(u_adv, rec_x), xh)
     u_edge_new = (None if cfg.lean
@@ -446,7 +475,8 @@ class WireVerdicts(NamedTuple):
     message kind the checksum, tag and combined checks; ``ok`` (both kinds
     clean and the receiver alive) and ``edge_ok`` (``ok`` at both
     endpoints).  Schedule-inactive slots carry placeholders: count them on
-    the round's active slots."""
+    the round's active slots.  ``sealed_nbytes``: the bytes of one x- and
+    one z-message as sealed (measured on the sealed planes' leaves)."""
 
     crc_x: torch.Tensor
     tag_x: torch.Tensor
@@ -456,6 +486,7 @@ class WireVerdicts(NamedTuple):
     ok_z: torch.Tensor
     ok: torch.Tensor
     edge_ok: torch.Tensor
+    sealed_nbytes: int
 
 
 def sealed_exchange(fp, exchange, m_x, m_z, k: int, alive):
@@ -466,16 +497,53 @@ def sealed_exchange(fp, exchange, m_x, m_z, k: int, alive):
     received cleanly (NAK symmetrisation over the reliable control
     plane), else duals and mirrors hold on both sides in lockstep."""
     armed = exchange.armed(fp)
+    tx_x = compression.seal_plane(m_x, k, nd=2)
+    tx_z = compression.seal_plane(m_z, k, nd=2)
     recv_x, ok_x, crc_x, tag_x = compression.verify_plane_kinds(
-        armed.exchange_batched(compression.seal_plane(m_x, k, nd=2),
-                               round_index=k), k)
+        armed.exchange_batched(tx_x, round_index=k), k)
     recv_z, ok_z, crc_z, tag_z = compression.verify_plane_kinds(
-        armed.exchange_batched(compression.seal_plane(m_z, k, nd=2),
-                               round_index=k), k)
+        armed.exchange_batched(tx_z, round_index=k), k)
     ok = ok_x & ok_z & alive[:, None]
     edge_ok = ok & exchange.exchange_batched(ok)
+    nbytes = (telemetry.payload_nbytes(tx_x, nd=2)
+              + telemetry.payload_nbytes(tx_z, nd=2))
     return recv_x, recv_z, WireVerdicts(crc_x, tag_x, ok_x, crc_z, tag_z,
-                                        ok_z, ok, edge_ok)
+                                        ok_z, ok, edge_ok, nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry tap (only reached while a with_telemetry wrapper steps)
+# ---------------------------------------------------------------------------
+
+
+def _emit_round_telemetry(cfg, vr_est, data, deg, per_msg: int, node_k,
+                          fault_counters=None):
+    """The tap shared by both rounds: charge each agent its active-degree
+    x+z message pairs (``per_msg`` measured bytes a pair), its
+    participation and the local phase's gradient evaluations; ``deg``
+    ``[A]`` int64 on the device, ``node_k`` ``[A]`` bool or None (every
+    agent participates).  Terms only: the wrapper folds them, one add
+    each, and nothing is read back to the host."""
+    m = next(iter(data.values())).shape[1]
+    evals = telemetry.local_phase_evals(vr_est, m, cfg.tau, cfg.batch_size)
+    telemetry.emit(
+        tx_bytes=(deg, per_msg), tx_msgs=(deg, 2),
+        participations=1 if node_k is None else node_k,
+        grad_evals=evals if node_k is None else (node_k, evals),
+        **(fault_counters or {}))
+
+
+def _fault_counters(act, v: WireVerdicts) -> dict:
+    """Receiver-side verdict counts on the schedule-active slots ``act``,
+    summed over both message kinds: checksum rejects, tag rejects (crc
+    ok, tag wrong: ``ok = crc & tag``, so they are the dropped less the
+    checksum rejects), dropped, and NAK'd clean receives."""
+    miss = (act & ~torch.stack((v.crc_x, v.crc_z, v.ok_x, v.ok_z))).sum(
+        dim=2)
+    crc, dropped = miss[0] + miss[1], miss[2] + miss[3]
+    return {"rx_crc_rejects": crc, "rx_tag_rejects": dropped - crc,
+            "rx_dropped": dropped,
+            "naks": (act & v.ok & ~v.edge_ok).sum(dim=1)}
 
 
 # ---------------------------------------------------------------------------

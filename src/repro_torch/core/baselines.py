@@ -28,8 +28,13 @@ per-edge payload wire, so a round's surviving edges come from the oracle
 round k mixes with the Metropolis weights of that surviving graph
 (``_metropolis_online``, built on the host from the host masks), so every
 round stays doubly stochastic and a fault-isolated agent keeps its own
-value.  A crashed agent skips its step and holds its state.  Not ported
-yet: telemetry taps (ROADMAP Queue 1 item 12).
+value.  A crashed agent skips its step and holds its state.
+
+Telemetry: while a ``obs.telemetry.with_telemetry`` wrapper steps the
+solver, ``_emit_telemetry`` charges each iteration's messages with bytes
+measured from the wire compressor's payload, the participation mask of
+the hold, and the estimator's gradient evaluations; under faults the
+oracle-dark edges count as dropped receives.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from repro_torch.common.trees import (as_tensor, first_leaf, tree_add,
 from repro_torch.core import compression, jaxrand, packing, vr
 from repro_torch.core.schedule import TopologySchedule, metropolis_schedule
 from repro_torch.core.topology import metropolis_weights
+from repro_torch.obs import telemetry
 
 
 def _metropolis_online(union, act):
@@ -180,8 +186,46 @@ class GossipSolverMixin:
         if nm is not None:
             st = {f: tree_select(nm, st[f], state[f])
                   for f in self.state_fields}
+        if telemetry.active():
+            self._emit_telemetry(state, data, k, nm)
         st["k"] = k + 1
         return st
+
+    def _emit_telemetry(self, state, data, k: int, node_mask):
+        """One iteration's telemetry (only while a ``with_telemetry``
+        wrapper steps): one message per active incident edge per
+        communication round, its bytes measured from the payload the wire
+        compressor emits; the oracle-dark edges of a faulted round as
+        dropped receives.  Device terms only, no host sync: the degrees
+        are a row of a stack kept on the device, the dark edges one
+        pinned copy."""
+        dev = first_leaf(state["x"]).device
+        topo = self.topo
+        if isinstance(topo, TopologySchedule):
+            deg, union = topo.round_degrees_device(k, dev), topo.union
+        else:
+            deg, union = self._cache.get(("degrees", dev)), topo
+            if deg is None:
+                deg = torch.as_tensor(np.asarray(topo.slot_mask()).sum(1),
+                                      dtype=torch.int64, device=dev)
+                self._cache[("degrees", dev)] = deg
+        per_msg = telemetry.message_nbytes(
+            self._wire_compressor(),
+            compression.like_per_message(state["x"]))
+        m = next(iter(data.values())).shape[1]
+        evals = telemetry.round_grad_evals(self.grad_est, m, self.batch_size)
+        counters = dict(
+            tx_bytes=(deg, self.comm_rounds * per_msg),
+            tx_msgs=(deg, self.comm_rounds),
+            participations=1 if node_mask is None else node_mask,
+            grad_evals=evals if node_mask is None else (node_mask, evals))
+        fp = self.faults
+        if fp is not None and fp.active:
+            dark = fp.edge_dark(k, union, dev)  # real slots only
+            if isinstance(topo, TopologySchedule):
+                dark = dark & topo.round_mask(k, dev)
+            counters["rx_dropped"] = dark.sum(dim=1)
+        telemetry.emit(**counters)
 
     def consensus_params(self, state):
         if self.packed:

@@ -114,6 +114,15 @@ class TopologySchedule:
         """``[A, S]`` bool activity mask of round ``k`` on ``device``."""
         return self._stack("masks", device)[k % self.period]
 
+    def round_degrees_device(self, k: int, device="cpu") -> torch.Tensor:
+        """``[A]`` int64 active degrees of round ``k`` on ``device`` (a row
+        of the ``[T, A]`` stack kept there: no launch, no copy)."""
+        return self._stack("_degree_stack", device)[k % self.period]
+
+    @property
+    def _degree_stack(self) -> np.ndarray:  # [T, A] int64
+        return self.masks.sum(axis=2).astype(np.int64)
+
     def round_node_mask(self, k: int, device="cpu") -> torch.Tensor | None:
         """``[A]`` bool participation of round ``k``, or None when the
         schedule has no node layer."""

@@ -90,6 +90,27 @@ def test_fault_and_checkpoint_modules_load_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_obs_and_harness_modules_load_no_jax():
+    """The observability layer and the paper's harnesses (whose reference
+    counterparts import JAX) pull in neither JAX nor the reference."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
+        "import repro_torch.obs, repro_torch.obs.summary\n"
+        "import repro_torch.core.reference, repro_torch.bench\n"
+        "import repro_torch.paper_fig1, repro_torch.paper_table1\n"
+        "import repro_torch.topology_sweep, repro_torch.schedule_sweep\n"
+        "import repro_torch.kernels_bench, repro_torch.perf_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     import shutil
 
@@ -151,3 +172,19 @@ def test_chip_smoke_rehearses_on_the_cpu():
         in out.stdout
     assert "f32 prefill vs decode_step" in out.stdout
     assert out.stdout.count("greedy server") == 2
+    # the obs phase: the tx-parity matrix on the ring, drop0.3, churn0.2
+    # and with faults nested; the perf-smoke rows' counters; the wrapped
+    # fault row against the CPU run; the wrapped trajectory bit-identical;
+    # the wrapped round beside the unwrapped one (3 recipes x 2 sizes)
+    assert out.stdout.count("[obs] tx parity on") == 4
+    assert out.stdout.count("[obs] BENCH admm/") == 4
+    assert "every field equal to the CPU run's" in out.stdout
+    assert "bit-identical to the unwrapped ones" in out.stdout
+    assert out.stdout.count("% (host clock") == 6
+    # the harness phase: Fig. 1's four variants, Table I, the 15 sweep
+    # rows, the 4 participation rows, the perf-smoke trace read back
+    assert out.stdout.count("[harness] fig1/") == 4
+    assert "[harness] Table I equal to the reference's" in out.stdout
+    assert out.stdout.count(") t/round=") == 15
+    assert out.stdout.count("[harness] participation sample:") == 4
+    assert "[harness] perf-smoke trace warm" in out.stdout
