@@ -65,14 +65,15 @@ Phases (any failure exits non-zero):
      1e-8 and floor beside the reference's own run, and each method
      against the same run on the CPU;
   obs. the telemetry counters (``repro_torch.obs``) through the kernels:
-     the tx-parity matrix (the 7 ported solvers of the reference's
-     tests/test_obs.py on the ring, drop0.3, churn0.2 and with faults
-     nested on drop0.3, 4 rounds: the busiest agent's measured bytes
+     the tx-parity matrix (the 8 solvers of the reference's
+     tests/test_obs.py, dada included, on the ring, drop0.3, churn0.2
+     and with faults nested on drop0.3, 4 rounds: the busiest agent's measured bytes
      equal ``wire_bytes(params, t)`` each round and every counter the
      CPU run's); ``repro_torch.perf_smoke`` (the reference's BENCH
      schema; its three rows' telemetry exactly the reference's
      21600/24000/6000, 70884/73932/6000, 75546/70264/4797, no drops or
-     NAKs, 600 rounds); the combined-fault row wrapped on the card and on
+     NAKs, 600 rounds; the dada row 190 rounds at 62 B, no telemetry);
+     the combined-fault row wrapped on the card and on
      the CPU, every field equal; ring-faults-qbit8 at n = 2^20 wrapped
      and unwrapped, every state leaf equal; the wrapped round beside the
      unwrapped one at the paper's size and at n = 2^20 (ring qbit8,
@@ -89,13 +90,21 @@ Phases (any failure exits non-zero):
      participation sweep at 300 rounds (every row's rounds to 1e-10 by
      190 in the reference), and the perf-smoke trace read back through
      ``load_events`` and ``python -m repro_torch.obs.summary``;
+  dada. the learned graphs (``repro_torch.personalization_sweep``) at
+     the paper's size (16 agents, n = 5, the planted-cluster problem):
+     the perf row cold and warm (rounds_to_tol and wire bytes the live
+     reference's 190 and 62, its metric within 1e-3 relative of the CPU
+     run's at every sample) and the sweep's three rows at 300 rounds
+     (losses within 2e-3 of the live reference's, edge P = R = 1 at
+     separation 1 and 3; separation 0's printed);
   5. main path at real width: the solvers at n = 2^20 for 20 rounds per
      spec (LT-ADMM-CC with qbit8, qbit4, RandK stride and RandK uniform,
      LEAD qbit8, CHOCO TopK on the ring; LT-ADMM-CC qbit8 on drop0.3,
      RandK block with packed=false on churn0.2, qbit8 with packed=false
      on the ring, CHOCO RandK block on drop0.3; LT-ADMM-CC qbit8 on the
      ring with every fault kind armed, its round time beside the
-     unfaulted ring's), launch counters zeroed
+     unfaulted ring's; dada qbit8 on the complete graph, its [10, 9, n]
+     mirrors, one K4 and one K5 a round), launch counters zeroed
      just before each spec's rounds and read just after, every kernel
      call of each spec's second round held bit for bit against its plain
      version on the same inputs, then each kernel timed at the shapes of
@@ -113,9 +122,10 @@ Phases (any failure exits non-zero):
      qbit8 round, the faulted ring round (with the device time of its
      seal, verify and inject), the RandK-stride and RandK-uniform rounds,
      CHOCO TopK,
-     the drop0.3 schedule round, the churn0.2 tree round and CHOCO's
-     drop0.3 iteration: device time by kernel and operator, the device's
-     idle share, and the share of the port's kernels (K1-K4, K6/K7);
+     the drop0.3 schedule round, the churn0.2 tree round, CHOCO's
+     drop0.3 iteration and dada's qbit8 round on the complete graph (five
+     rounds, one a graph round): device time by kernel and operator, the
+     device's idle share, and the share of the port's kernels (K1-K4, K6/K7);
   serve. qwen3-0.6b and zamba2-2.7b at full width, bf16 weights from the
      port's init_params: the prefill step with use_flash (B = 4 / 2,
      T = 2048) with counters zeroed just before and read just after (28
@@ -2026,6 +2036,9 @@ WIDE_SPLIT = 4096
 DROP_SPEC = "drop:p=0.3,base=complete,seed=0"
 CHURN_SPEC = "churn:p=0.2,base=complete,seed=0"
 WIDE_FAULTS = "faults=faults:drop=0.05|corrupt=1e-3|stale=0.02|crash=0.01|seed=0"
+# personalization_sweep.DADA_SPEC (phase_dada holds them equal)
+DADA_SPEC = ("dada:lr=0.05,mu=0.5,lambda_g=0.05,graph_every=5,"
+             "degree_cap=3,batch_size=8")
 WIDE_SPECS = (
     # 2 K1 a round (the x- and z-planes)
     ("qbit8", "ltadmm:compressor=qbit:bits=8", "saga",
@@ -2082,6 +2095,12 @@ WIDE_SPECS = (
     ("ring-faults-qbit8", "ltadmm:compressor=qbit:bits=8," + WIDE_FAULTS,
      "saga", ("quantize_plane", "dequantize_plane"), "ring", False,
      {"quantize_plane": 2, "dequantize_plane": 4}),
+    # the learned graph's compressed round: the mirrors' innovation
+    # through the per-message route, 1 K4 and 1 K5 a round, and the
+    # [10, 9, 2^20] gathered mirrors on the complete graph
+    ("dada-qbit8", DADA_SPEC + ",compressor=qbit:bits=8", "sgd",
+     ("quantize_tensor", "dequantize_tensor"), "complete", False,
+     {"quantize_tensor": 1, "dequantize_tensor": 1}),
 )
 
 
@@ -3670,6 +3689,16 @@ def time_kernels(seed, k0_inputs, counts, shapes):
                 cuda_ms(fn[3]), rounds=WIDE_ROUNDS * max(1, len(by_run)),
                 **extra)
         del xc, widx, cout
+    # dada-qbit8 gives K4/K5 LEAD's [10, 2^20] shape: its launches beside
+    # LEAD's in those rows
+    for row in rows:
+        for what in ("quantize_tensor", "dequantize_tensor"):
+            if row["name"].startswith((f"K4 {what} b=8 [10, ",
+                                       f"K5 {what} b=8 [10, ")):
+                row["launches_dada_qbit8"] = counts["dada-qbit8"][what]
+                log(f"[time] {row['name']}: dada-qbit8 launched it "
+                    f"{row['launches_dada_qbit8']} times in its "
+                    f"{WIDE_ROUNDS} wide rounds (LEAD {row['launches']})")
     return rows
 
 
@@ -3677,9 +3706,8 @@ def time_kernels(seed, k0_inputs, counts, shapes):
 # phase obs: the telemetry counters, the trace, the perf-smoke run
 # ---------------------------------------------------------------------------
 
-# every ported solver of the reference's tests/test_obs.py:39 (dada waits
-# for ROADMAP item 13), on the ring, drop0.3 and churn0.2, and nested
-# faults on drop0.3
+# every solver of the reference's tests/test_obs.py:40, on the ring,
+# drop0.3 and churn0.2, and nested faults on drop0.3
 OBS_SOLVER_SPECS = (
     "ltadmm:tau=3,compressor=qbit:bits=8",
     "dsgd:lr=0.1",
@@ -3688,6 +3716,8 @@ OBS_SOLVER_SPECS = (
     "cold:lr=0.1,compressor=randk:fraction=0.5,sampler=block",
     "cedas:lr=0.1,compressor=qbit:bits=4",
     "dpdc:lr=0.1,compressor=qbit:bits=8",
+    "dada:lr=0.1,mu=0.5,lambda_g=0.1,graph_every=2,degree_cap=2,"
+    "compressor=qbit:bits=8",
 )
 OBS_FAULTS = "faults=faults:drop=0.1|corrupt=5e-3|stale=0.05|crash=0.02|seed=0"
 OBS_GRAPHS = (("ring", ""), (DROP_SPEC, ""), (CHURN_SPEC, ""),
@@ -3804,6 +3834,11 @@ def obs_bench_rows(rounds):
             f"{row['rounds_to_tol']} wire={row['wire_bytes_per_round']} "
             f"cold {row['cold_wall_s']} s warm {row['warm_wall_s']} s "
             f"telemetry={row.get('telemetry')}")
+        if row["name"] == "dada/complete16/learned-graph":
+            r2t, wire, _ = DADA_PERF_REFERENCE
+            if ("telemetry" in row or row["rounds_to_tol"] != r2t
+                    or row["wire_bytes_per_round"] != wire):
+                raise AssertionError(f"BENCH {row['name']}: {row}")
         if row["spec"] not in OBS_BENCH:
             continue
         tel = row["telemetry"]
@@ -4026,6 +4061,77 @@ def phase_obs(rounds=OBS_ROUNDS):
 
 
 # ---------------------------------------------------------------------------
+# phase dada: learned collaboration graphs at the paper's size
+# ---------------------------------------------------------------------------
+
+# The live reference on the CPU (jax 0.9.0; benchmarks/
+# personalization_sweep.py): the perf row (rounds_to_tol at tol 2e-3,
+# wire bytes, final metric at round 400) and the sweep's rows at 300
+# rounds, separation -> (consensus loss, dada loss, edge P, edge R).
+# Under jax's older Threefry mode the perf row gives 200 (the BENCH
+# file's) and the sweep 0.6325 / 0.4542 at separation 3.
+DADA_PERF_REFERENCE = (190, 62, 9.721844689920545e-04)
+DADA_SWEEP_REFERENCE = {
+    0.0: (0.6943814754486084, 0.7090305685997009, 0.2, 0.125),
+    1.0: (0.6455972790718079, 0.4964939057826996, 1.0, 1.0),
+    3.0: (0.6352057456970215, 0.44385233521461487, 1.0, 1.0)}
+DADA_LOSS_TOL = 2e-3  # |test loss - the reference's|
+DADA_METRIC_RTOL = 1e-3  # the perf metric, card vs CPU, at every sample
+
+
+def phase_dada(perf_rounds=400, sweep_rounds=300):
+    """The dada perf row on the card (cold, then warm) and its metric
+    trajectory against the CPU run's; then the personalization sweep's
+    rows against the live reference's.  The paper-size spec compresses
+    with the identity: no kernel of the port runs here (the wide phase's
+    dada-qbit8 launches K4/K5)."""
+    import numpy as np
+
+    from repro_torch import personalization_sweep as ps
+
+    if ps.DADA_SPEC != DADA_SPEC:
+        raise AssertionError(f"DADA_SPEC {DADA_SPEC} != {ps.DADA_SPEC}")
+    t0 = time.perf_counter()
+    reset_counts()
+    row = ps.perf_row(rounds=perf_rounds, device=DEV)
+    counts = {k: v for k, v in read_counts().items() if v}
+    _, idx, card, _ = ps.perf_trajectory(rounds=perf_rounds, device=DEV)
+    _, _, cpu, _ = ps.perf_trajectory(rounds=perf_rounds, device="cpu")
+    rel = float(np.max(np.abs(card / cpu - 1)))
+    r2t, wire, final = DADA_PERF_REFERENCE
+    log(f"[dada] perf row {row['name']} ({perf_rounds} rounds): "
+        f"rounds_to_tol={row['rounds_to_tol']} (reference {r2t}) wire="
+        f"{row['wire_bytes_per_round']} ({wire}) final="
+        f"{row['final_gradnorm_sq']:.6e} (reference {final:.6e}) cold "
+        f"{row['cold_wall_s']} s warm {row['warm_wall_s']} s; the metric "
+        f"at round {idx[r2t // 10 - 1] if perf_rounds >= r2t else '-'}: "
+        f"{card[min(r2t, perf_rounds) // 10 - 1]:.6e}; card vs CPU at "
+        f"every sample: max relative {rel:.3e}; launches {counts}")
+    if (row["wire_bytes_per_round"] != wire or rel > DADA_METRIC_RTOL
+            or (perf_rounds >= r2t and row["rounds_to_tol"] != r2t)):
+        raise AssertionError(f"dada perf row {row}")
+    if perf_rounds == 400 and abs(row["final_gradnorm_sq"] / final
+                                  - 1) > DADA_METRIC_RTOL:
+        raise AssertionError(f"dada final {row['final_gradnorm_sq']}")
+    t1 = time.perf_counter()
+    for name, cons, dd, p, r in ps.run(print_rows=False,
+                                       rounds=sweep_rounds, device=DEV):
+        sep = float(name.rpartition("=")[2])
+        want = DADA_SWEEP_REFERENCE[sep]
+        log(f"[dada] {name}: consensus {cons:.6f} dada {dd:.6f} edge P/R "
+            f"{p:.3f}/{r:.3f} (reference {want[0]:.6f} {want[1]:.6f} "
+            f"{want[2]:.3f}/{want[3]:.3f}; {sweep_rounds} rounds)")
+        if sweep_rounds == 300 and not (
+                abs(cons - want[0]) < DADA_LOSS_TOL
+                and abs(dd - want[1]) < DADA_LOSS_TOL):
+            raise AssertionError(f"{name}: {cons}, {dd}")
+        if sep > 0 and sweep_rounds == 300 and (p, r) != (1.0, 1.0):
+            raise AssertionError(f"{name}: edge P/R {p}/{r}")
+    log(f"[dada] sweep {time.perf_counter() - t1:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase harness: the paper's harnesses (Fig. 1, Table I, sweeps, perf-smoke)
 # ---------------------------------------------------------------------------
 
@@ -4153,7 +4259,7 @@ def phase_harness(fig1_rounds=FIG1_ROUNDS, sweep_rounds=None,
     tpath = os.path.splitext(path)[0] + ".trace.jsonl"
     events = trace.load_events(tpath)
     names = [e["name"] for e in events]
-    if names != ["cold", "warm"] * 3 + ["faults", "kernels"]:
+    if names != ["cold", "warm"] * 3 + ["dada", "faults", "kernels"]:
         raise AssertionError(f"perf-smoke trace spans {names}")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.obs.summary", tpath],
@@ -4200,6 +4306,7 @@ def rehearse():
     phase_fig2(110, 250)  # LT-ADMM-CC reaches 1e-8 at round 100
     phase_wide(WIDE_ROUNDS)
     phase_obs(rounds=30)
+    phase_dada(perf_rounds=60, sweep_rounds=20)
     phase_harness(fig1_rounds=200, sweep_rounds=20, part_rounds=20,
                   smoke_rounds=30)
     SMOKE = True
@@ -4210,8 +4317,8 @@ def rehearse():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,paper,fig2,obs,harness,"
-                    "wide,profile,serve",
+                    default="device,build,kernels,paper,fig2,obs,dada,"
+                    "harness,wide,profile,serve",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -4253,6 +4360,8 @@ def main(argv=None):
         phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
     if "obs" in phases:
         phase_obs()
+    if "dada" in phases:
+        phase_dada()
     if "harness" in phases:
         phase_harness()
     rows = None
@@ -4273,8 +4382,11 @@ def main(argv=None):
         prof = {}
         for label in ("qbit8", "ring-faults-qbit8", "randk-stride",
                       "randk-uniform", "choco-topk", "drop-qbit8",
-                      "churn-tree-randk-block", "choco-drop-randk-block"):
-            prof[label] = phase_profile(label)
+                      "churn-tree-randk-block", "choco-drop-randk-block",
+                      "dada-qbit8"):
+            # dada's window holds one graph round in five, its cadence
+            prof[label] = phase_profile(
+                label, rounds=5 if label == "dada-qbit8" else 3)
         (fw, fb), (uw, ub) = prof["ring-faults-qbit8"], prof["qbit8"]
         log(f"[profile] ring-faults-qbit8 vs qbit8: round {fw:.3f} vs "
             f"{uw:.3f} ms, device busy {fb:.3f} vs {ub:.3f} ms a round")

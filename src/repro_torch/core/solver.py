@@ -1,6 +1,7 @@
 """The solvers behind the reference's ``Solver`` protocol and spec-string
-registry (port of ``repro/core/solver.py``): ``ltadmm:`` and the six
-gossip baselines of ``core.baselines``.
+registry (port of ``repro/core/solver.py``): ``ltadmm:``, the six
+gossip baselines of ``core.baselines`` and ``dada:`` (``core.graphlearn``,
+learned collaboration graphs).
 
     solver = make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, est)
     solver = make_solver("lead:lr=0.1,compressor=qbit:bits=8", graph, ex,
@@ -17,8 +18,6 @@ parameters a pytree, compressed leaf by leaf.  ``make_solver`` takes
 ``device="cpu"``.  ``faults=`` (a nested ``core.faults`` spec, ``|`` for
 ``,``) arms seeded fault injection on every solver; LT-ADMM then runs the
 packed time-varying round (a static graph becomes a period-1 schedule).
-``dada:`` keeps its name in the grammar but is not ported yet and
-raises.
 """
 from __future__ import annotations
 
@@ -31,7 +30,8 @@ from repro_torch.common.trees import as_tensor, first_leaf
 from repro_torch.common.trees import consensus_error as _consensus_error
 from repro_torch.common.trees import consensus_mean as _consensus_mean
 from repro_torch.common.trees import tree_map
-from repro_torch.core import admm, baselines, compression, faults, packing
+from repro_torch.core import (admm, baselines, compression, faults,
+                              graphlearn, packing)
 from repro_torch.core.admm import LTADMMConfig
 from repro_torch.core.schedule import (TopologySchedule, static_schedule,
                                        union_topology)
@@ -132,9 +132,6 @@ class SolverEntry:
 
 SOLVERS: dict[str, SolverEntry] = {}
 
-# registered in the reference, not ported yet: name -> ROADMAP item
-UNPORTED = {"dada": 13}
-
 
 def register_solver(name, factory, params, nested=(), estimator="sgd",
                     doc=""):
@@ -146,10 +143,6 @@ def register_solver(name, factory, params, nested=(), estimator="sgd",
 
 def solver_entry(spec: str) -> SolverEntry:
     name = spec.partition(":")[0]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet: ROADMAP Queue 1 item "
-            f"{UNPORTED[name]}")
     if name not in SOLVERS:
         raise ValueError(
             f"unknown solver {name!r}; choose from {sorted(SOLVERS)}")
@@ -282,3 +275,15 @@ for _name, _cls in baselines.ALL_BASELINES.items():
         nested=tuple(k for k in ("compressor", "faults") if k in _fields),
         estimator="sgd", doc=_BASELINE_DOCS[_name],
     )
+
+
+# ---- dada: learned collaboration graph --------------------------------------
+
+register_solver(
+    "dada", graphlearn.make_dada, params=graphlearn.DADA_PARAMS,
+    nested=("compressor", "faults"), estimator="sgd",
+    doc="Dada: jointly learned personalized models + sparse "
+        "collaboration graph (alternating model/graph rounds; "
+        "lambda_g entropic weight, mu coupling, graph_every cadence, "
+        "degree_cap live-edge sparsity)",
+)

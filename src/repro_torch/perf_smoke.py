@@ -9,13 +9,15 @@ One static and two time-varying runs of the paper-scale convex problem
 (``obs.telemetry``), so every row carries its measured counters; each
 run twice, cold (the kernels' first build and launch) and warm, inside a
 ``Tracer`` span that synchronises the card before it closes, so the
-span's wall time is the run's.  Then the combined-fault row
+span's wall time is the run's.  Then the learned-graph row
+(``personalization_sweep.perf_row``: dada on the planted-cluster
+problem, no telemetry, as the reference's), the combined-fault row
 (``fault_sweep.smoke_row``) and the communication kernels' rows
 (``kernels_bench.run(fast=True)``).  The JSON has the reference's BENCH
 schema, with ``torch``, ``"backend": "cuda"``, the card's name and its
 power limit where the reference names jax and its device; the spans go
 to ``<out>.trace.jsonl`` (``python -m repro_torch.obs.summary`` reads
-it).  The learned-graph (dada) row waits for ROADMAP Queue 1 item 13.
+it).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import fault_sweep, kernels_bench
+from repro_torch import fault_sweep, kernels_bench, personalization_sweep
 from repro_torch.bench import (SWEEP_SPEC, make_problem, rounds_to_tol,
                                run_solver, saga, with_impl)
 from repro_torch.core.solver import make_solver
@@ -122,9 +124,8 @@ def perf_smoke(out_path: str, device=None, impl=None,
     try:
         results = [smoke_row(spec, tracer, rounds, dev, impl)
                    for spec in PERF_SMOKE_SPECS]
-        print("# perf-smoke: the learned-graph (dada) row waits for the "
-              "port of core/graphlearn.py (ROADMAP Queue 1 item 13)",
-              file=sys.stderr)
+        with tracer.span("dada"):
+            results.append(personalization_sweep.perf_row(device=dev))
         with tracer.span("faults"):
             results.append(fault_sweep.smoke_row(rounds, device=dev,
                                                  impl=impl))

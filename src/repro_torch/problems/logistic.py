@@ -47,6 +47,14 @@ class LogisticProblem:
 
     # ---- batched per-agent gradients: x [A, n], samples [A, B, ...] ------
 
+    def batch_loss(self, x, batch):
+        """Batch-mean loss of each agent: ``[A]``, in the reference's
+        ``logaddexp`` form."""
+        logits = batch["b"] * torch.matmul(batch["a"], x[..., None])[..., 0]
+        return (torch.mean(torch.logaddexp(torch.zeros_like(logits),
+                                           -logits), dim=-1)
+                + 0.5 * self.eps * torch.sum(x * x, dim=-1))
+
     def _coef(self, x, batch):
         """Per-sample scalar of the loss gradient, ``[A, B]``."""
         dot = torch.matmul(batch["a"], x[..., None])[..., 0]

@@ -11,8 +11,8 @@
   block) and the packed fallback's per-message route (TopK, RandK
   uniform);
 * topology tables, the device rule, the faulted specs that build and
-  step and those refused as the reference refuses them, and the paths
-  not ported yet (dada, the mesh exchange).
+  step and those refused as the reference refuses them, and the path
+  not ported yet (the mesh exchange, item 15).
 """
 import json
 import os
@@ -207,11 +207,15 @@ def test_make_solver_defaults_to_the_card():
         make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, None)
 
 
-@pytest.mark.parametrize("spec,err", [("dada:lr=0.1", "item 13")])
-def test_unported_solver_paths_raise(spec, err):
-    graph, ex = build_graph("ring", 10)
+@pytest.mark.parametrize("spec,mesh,err", [
+    ("dada:lr=0.1", {"axis": "agents"}, "item 15"),
+    ("ltadmm:compressor=qbit:bits=8", {"mesh": object()}, "item 15")])
+def test_unported_solver_paths_raise(spec, mesh, err):
+    """A solver over the multi-process exchange (a mesh axis)."""
+    graph, _ = build_graph("ring", 10)
     with pytest.raises(NotImplementedError, match=err):
-        make_solver(spec, graph, ex, None, device="cpu")
+        make_solver(spec, graph, topology.Exchange(graph, **mesh), None,
+                    device="cpu")
 
 
 FAULTED_SPECS = [

@@ -177,8 +177,8 @@ def test_perf_smoke_writes_the_reference_schema(tmp_path):
     assert payload["backend"] == "cpu" and payload["device"] == "cpu"
     ref_rows = {r["name"]: r for r in ref["results"]}
     names = [r["name"] for r in payload["results"]]
-    # every reference row but the learned graph's (dada, item 13)
-    assert names == [n for n in ref_rows if not n.startswith("dada/")]
+    # every reference row, in the reference's order
+    assert names == list(ref_rows)
     for row in payload["results"]:
         assert sorted(row) == sorted(ref_rows[row["name"]]), row["name"]
         if "telemetry" in row:
@@ -193,7 +193,7 @@ def test_perf_smoke_writes_the_reference_schema(tmp_path):
                for k in payload["kernels"])
     events = trace.load_events(str(tmp_path / "bench.trace.jsonl"))
     assert [e["name"] for e in events] == ["cold", "warm"] * 3 + [
-        "faults", "kernels"]
+        "dada", "faults", "kernels"]
     report = summary.summarize(events)
     assert "warm" in report and "kernels" in report
 

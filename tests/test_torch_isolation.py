@@ -142,10 +142,10 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert "[rehearse] done" in out.stdout
     # 53 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
     # at its walk's edge shapes), and one line per wide spec (the faulted
-    # ring's included) holding its second round's kernel calls against the
-    # plain versions
-    assert out.stdout.count("bit-equal") == 53 + 11
-    assert out.stdout.count("round 1's kernel calls bit-equal") == 11
+    # ring's and dada's included) holding its second round's kernel calls
+    # against the plain versions
+    assert out.stdout.count("bit-equal") == 53 + 12
+    assert out.stdout.count("round 1's kernel calls bit-equal") == 12
     # the faulted paper rows: the reference's combined-fault row, the same
     # run on the CPU, a row per fault kind and LEAD under faults
     assert "admm/ring/q8+saga+faults" in out.stdout
@@ -178,6 +178,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
     # the wrapped round beside the unwrapped one (3 recipes x 2 sizes)
     assert out.stdout.count("[obs] tx parity on") == 4
     assert out.stdout.count("[obs] BENCH admm/") == 4
+    assert "[obs] BENCH dada/complete16/learned-graph" in out.stdout
+    # the dada phase: the perf row, its metric beside the CPU run's, and
+    # the personalization sweep's three rows
+    assert "[dada] perf row dada/complete16/learned-graph" in out.stdout
+    assert out.stdout.count("[dada] personalization/sep=") == 3
     assert "every field equal to the CPU run's" in out.stdout
     assert "bit-identical to the unwrapped ones" in out.stdout
     assert out.stdout.count("% (host clock") == 6

@@ -1,7 +1,7 @@
 """Observability in the port against the reference (``repro.obs``).
 
 * every counter field of a ``with_telemetry`` run equals the reference's,
-  round by round, as uint32: the 7 ported solvers on the ring, drop0.3
+  round by round, as uint32: the 8 solvers on the ring, drop0.3
   and churn0.2, and with every fault kind nested on drop0.3 (4 rounds);
   the busiest agent's per-round tx bytes equal ``wire_bytes(params, t)``
   bit for bit (the reference's ``tests/test_obs.py:85`` / ``:96``);
@@ -54,7 +54,7 @@ DATA = PROB.make_data(0)
 A, N = PROB.n_agents, PROB.n
 PARAMS = {"w": np.zeros((N,), np.float32)}
 
-# every ported solver (the reference's SOLVER_SPECS less dada, item 13)
+# every solver (the reference's SOLVER_SPECS, tests/test_obs.py:40)
 SOLVER_SPECS = {
     "ltadmm": "ltadmm:tau=3,compressor=qbit:bits=8",
     "dsgd": "dsgd:lr=0.1",
@@ -63,6 +63,8 @@ SOLVER_SPECS = {
     "cold": "cold:lr=0.1,compressor=randk:fraction=0.5,sampler=block",
     "cedas": "cedas:lr=0.1,compressor=qbit:bits=4",
     "dpdc": "dpdc:lr=0.1,compressor=qbit:bits=8",
+    "dada": "dada:lr=0.1,mu=0.5,lambda_g=0.1,graph_every=2,degree_cap=2,"
+            "compressor=qbit:bits=8",
 }
 GRAPH_SPECS = {
     "static": "ring",
