@@ -144,6 +144,21 @@ Phases (any failure exits non-zero):
      versions and (K10) scaled_dot_product_attention, and the
      tensor-core K11's launches as the runtime reports them (registers,
      shared memory, resident blocks per SM).
+  train. the training path: ``launch/train.py --smoke --agents 4
+     --rounds 3 --telemetry`` on the card and on the CPU (header
+     integers, telemetry and the losses equal to the reference's; card
+     vs CPU mean_loss within 1e-4, consensus_err within 1e-3 relative);
+     one K5 ``dequantize_plane`` call of [12, 187,045,376] elements, past
+     its C entry's limit, in row groups, every row bit-equal to the plain
+     version; ``build_train`` at qwen3-0.6b's widths cut to 2 layers, f32,
+     4 agents on the ring, qbit8, SVRG, 5 rounds, counters zeroed just
+     before and read just after (2 K1 and 4 K5 a round), round 1's K1/K5
+     calls held bit for bit against their plain versions (in column
+     windows), mean_loss finite, the round time, peak memory and a
+     profiled round (device busy, K1/K5's share), K1/K5 timed at the
+     training planes; 3 DDP Adam steps on the same model (the loss
+     falls); granite-moe-1b-a400m at full width in bf16: a prefill at
+     B = 2, T = 2048 (its MoE aux loss finite) and 8 greedy steps.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -2765,7 +2780,7 @@ def consistency(arch_id):
     tokens = jaxrand.randint(jaxrand.key(1, DEV), (1, t), 0, cfg.vocab)
     with torch.no_grad():
         reset_counts()  # the f32 prefill starts here
-        full = tr.forward(params, cfg, tokens=tokens)
+        full, _ = tr.forward(params, cfg, tokens=tokens)
         sync()
         after = read_counts()  # ... and ends here
         step, init_cache = build_serve(arch, cfg)
@@ -4179,7 +4194,14 @@ PARTICIPATION_REFERENCE = {
     "sample:frac=0.75,base=complete,seed=0": (0.8, 40, 139.2, 118),
     "sample:frac=0.5,base=complete,seed=0": (0.5, 90, 72.0, 58),
     "sample:frac=0.25,base=complete,seed=0": (0.3, 190, 38.5125, 15)}
-FIG1_ROUNDS, PARTICIPATION_ROUNDS = 1500, 300
+FIG1_ROUNDS, PARTICIPATION_ROUNDS = 500, 300
+# Fig. 1 and the sweeps' rows run past the last point their rate fit takes
+# (|grad|^2 above 1e-14: Fig. 1's at round 250 of the reference's 1500,
+# the ring rows' at 293 of 1200 / 1500, gossip3's at 1052 of 1500, in the
+# port's CPU run), so final, rate, wire and t/round read what the
+# reference's full rounds give
+SWEEP_ROUNDS, SWEEP_SLOW_ROUNDS = 400, 1200
+SWEEP_SLOW = ("gossip:edges=3,base=ring,seed=1",)
 SWEEP_RATE_TOL = 0.1  # |rate / reference's - 1|: the fit's last points
 # sit just above the 1e-14 floor, where f32 rounding differs
 
@@ -4223,11 +4245,14 @@ def phase_harness(fig1_rounds=FIG1_ROUNDS, sweep_rounds=None,
         raise AssertionError(f"Table I {rows}")
     log(f"[harness] Table I equal to the reference's: {rows}")
     t1 = time.perf_counter()
-    kw = {} if sweep_rounds is None else {"rounds": sweep_rounds}
-    sweep = (topology_sweep.run(print_rows=False, device=DEV, impl="kernel",
-                                **kw)
-             + schedule_sweep.run(print_rows=False, device=DEV,
-                                  impl="kernel", **kw))
+    sweep = []
+    for mod, specs in ((topology_sweep, topology_sweep.DEFAULT_TOPOLOGIES),
+                       (schedule_sweep, schedule_sweep.DEFAULT_SCHEDULES)):
+        for spec in specs:
+            rounds = sweep_rounds or (SWEEP_SLOW_ROUNDS if spec in SWEEP_SLOW
+                                      else SWEEP_ROUNDS)
+            sweep += mod.run([spec], rounds=rounds, print_rows=False,
+                             device=DEV, impl="kernel")
     for name, final, rate, wire, t_round in sweep:
         ref_wire, ref_t, ref_rate = SWEEP_REFERENCE[name]
         log(f"[harness] {name}: final={final:.3e} rate={rate:.4f} "
@@ -4238,9 +4263,10 @@ def phase_harness(fig1_rounds=FIG1_ROUNDS, sweep_rounds=None,
         if sweep_rounds is None and not (
                 final < 1e-12 and abs(rate / ref_rate - 1) < SWEEP_RATE_TOL):
             raise AssertionError(f"{name}: final {final}, rate {rate}")
-    log(f"[harness] topology_sweep and schedule_sweep "
-        f"({'default rounds' if sweep_rounds is None else sweep_rounds}): "
-        f"{len(sweep)} rows in {time.perf_counter() - t1:.1f} s")
+    log(f"[harness] topology_sweep and schedule_sweep ("
+        + (f"{SWEEP_ROUNDS} rounds, gossip3 {SWEEP_SLOW_ROUNDS}"
+           if sweep_rounds is None else f"{sweep_rounds} rounds")
+        + f"): {len(sweep)} rows in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     for spec, part, r2t, t_round, wire, final in \
             schedule_sweep.participation_sweep(
@@ -4271,6 +4297,474 @@ def phase_harness(fig1_rounds=FIG1_ROUNDS, sweep_rounds=None,
         log(f"[harness] perf-smoke trace {line}")
     log(f"[harness] BENCH schema keys {sorted(payload)}; phase "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase train: the training path (launch/train.py, build_train at full
+# width, K5 past its element limit, the DDP baseline, granite's MoE)
+# ---------------------------------------------------------------------------
+
+# the reference's launch/train.py at TRAIN_ARGV on the CPU (jax 0.9):
+# header integers, mean_loss per round, telemetry per agent
+TRAIN_ARGV = ["--smoke", "--agents", "4", "--rounds", "3", "--telemetry"]
+TRAIN_REFERENCE = {"params": 361_216, "wire": 1_444_880, "ddp": 8_669_184,
+                   "mean_loss": (6.2395, 6.2108, 6.1887),
+                   "telemetry": {"tx_bytes": 4_334_640, "tx_msgs": 12,
+                                 "grad_evals": 60, "participations": 3}}
+TRAIN_LOSS_TOL = 1e-4  # |mean_loss card - CPU|, and against the reference
+TRAIN_CONSENSUS_RTOL = 1e-3  # consensus_err card vs CPU, relative
+TRAIN_RESUME_RTOL = 1e-5  # resumed vs uninterrupted state on the card
+# the full-width run: qwen3-0.6b's widths cut to 2 layers, in f32 (what
+# launch/train.py trains a full config in), launch/train.py's defaults
+TRAIN_LAYERS, TRAIN_AGENTS, TRAIN_ROUNDS = 2, 4, 5
+TRAIN_M, TRAIN_SEQ = 8, 64
+# K1/K5 launches a ring qbit8 round: K1 on the x-plane and the z-plane,
+# K5 on each one's sender-side and receiver-side reconstruction
+TRAIN_PER_ROUND = {"quantize_plane": 2, "dequantize_plane": 4}
+# columns a plain-version window takes (bounds its Threefry and f64
+# temporaries on a [8, 1.87e8] plane)
+PLAIN_WINDOW = 1 << 22
+
+
+def hold_windowed(got, want, label):
+    """Bit-for-bit hold of a big kernel output against its plain version,
+    a window of rows at a time (``same_bits`` and ``note_err`` on the
+    whole of a 6 GB plane would take several copies of it)."""
+    import torch
+
+    outs = list(zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))))
+    for g, w in outs:
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: {tuple(g.shape)} {g.dtype} vs "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        g2, w2 = (t.reshape(-1, t.shape[-1]) if t.dim() else t.reshape(1, 1)
+                  for t in (g, w))
+        for r in range(g2.shape[0]):
+            a, b = g2[r], w2[r]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: row {r} differs from its "
+                                     "plain version")
+    return sum(g.numel() for g, _ in outs)
+
+
+def run_train_cli(argv, device):
+    """``launch/train.py`` on ``argv`` on ``device``: its printed lines
+    and ``run``'s summary."""
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train.run(train.parse_args(argv + ["--device", str(device)]))
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"[train] {device}: {ln}")
+    return lines, out
+
+
+def train_smoke_parity():
+    """The smoke run on the card and on the CPU: the header integers and
+    telemetry equal to each other and to the reference's, mean_loss and
+    consensus_err every round within tolerance."""
+    ref = TRAIN_REFERENCE
+    runs = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        lines, out = run_train_cli(TRAIN_ARGV, dev)
+        runs[dev] = (lines, out, time.perf_counter() - t0)
+    (lc, oc, tc), (lh, oh, th) = runs[DEV], runs["cpu"]
+    header = [ln for ln in lc if ln.startswith("# ")]
+    if header != [ln for ln in lh if ln.startswith("# ")]:
+        raise AssertionError(f"train smoke: headers differ {header}")
+    for key in ("params", "wire", "ddp"):
+        if not oc[key] == oh[key] == ref[key]:
+            raise AssertionError(f"train smoke: {key} {oc[key]} / {oh[key]}"
+                                 f", the reference's {ref[key]}")
+    if oc["telemetry"] != oh["telemetry"]:
+        raise AssertionError("train smoke: telemetry differs card vs CPU")
+    for key, per in ref["telemetry"].items():
+        if oc["telemetry"][key] != [per] * 4:
+            raise AssertionError(f"train smoke: telemetry {key} "
+                                 f"{oc['telemetry'][key]}, expected {per}")
+    worst_l = worst_c = 0.0
+    for r, (c, h, want) in enumerate(zip(oc["rounds"], oh["rounds"],
+                                         ref["mean_loss"])):
+        dl = abs(c["mean_loss_full"] - h["mean_loss_full"])
+        dc = abs(c["consensus_err"] / h["consensus_err"] - 1)
+        worst_l, worst_c = max(worst_l, dl), max(worst_c, dc)
+        if (dl > TRAIN_LOSS_TOL or dc > TRAIN_CONSENSUS_RTOL
+                or abs(c["mean_loss_full"] - want) > TRAIN_LOSS_TOL):
+            raise AssertionError(f"train smoke round {r}: card {c}, CPU {h},"
+                                 f" the reference's mean_loss {want}")
+    log(f"[train] smoke run ({' '.join(TRAIN_ARGV)}): params "
+        f"{oc['params']:,}, wire {oc['wire']:,} B/agent/round, DDP "
+        f"equivalent {oc['ddp']:,}, telemetry equal to the reference's; "
+        f"card vs CPU max |d mean_loss| {worst_l:.3e}, max relative "
+        f"d consensus_err {worst_c:.3e}; {tc:.2f} s on {DEV}, {th:.2f} s on "
+        "the CPU")
+
+
+def train_resume():
+    """``--checkpoint-every 1`` then ``--resume`` from round 2's state on
+    the device: the resumed run's last round and state against the
+    uninterrupted run's, bit for bit where they are (the CPU's are, by
+    tests/test_torch_train.py), else within TRAIN_RESUME_RTOL of each
+    leaf's largest |value| (the card's atomics may reorder a sum)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.store import flatten_with_paths, to_numpy
+
+    argv = TRAIN_ARGV[:-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        _, whole = run_train_cli(argv + ["--checkpoint", ck,
+                                         "--checkpoint-every", "1"], DEV)
+        _, resumed = run_train_cli(argv + ["--checkpoint", ck, "--resume",
+                                           ck + ".state"], DEV)
+    a, b = (flatten_with_paths(o["state"]) for o in (whole, resumed))
+    worst, same = 0.0, True
+    for k in a:
+        x, y = to_numpy(a[k]), to_numpy(b[k])
+        if x.dtype.kind != "f":
+            same &= bool(np.array_equal(x, y))
+            continue
+        same &= bool(np.array_equal(x.view(np.uint32), y.view(np.uint32)))
+        scale = max(float(np.abs(x).max()), 1e-30)
+        worst = max(worst, float(np.abs(x - y).max()) / scale)
+    if worst > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"train resume: state {worst:.3e} off")
+    log(f"[train] --resume on {DEV}: the resumed state "
+        + ("bit-identical to" if same else
+           f"within {worst:.3e} (of each leaf's max) of")
+        + " the uninterrupted run's")
+
+
+def train_k5_past_limit(n):
+    """One ``dequantize_plane`` call of more elements than K5's C entry
+    takes ([12, n], the complete graph's z-plane at the full-width n):
+    the wrapper splits it in row groups, and every row equals the plain
+    version's, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    m = 12
+    if m * n < qops.DQ_MOST_ELEMENTS:
+        raise AssertionError(f"[{m}, {n}] is below K5's limit")
+    g = torch.Generator(device=DEV).manual_seed(3)
+    q = torch.randint(-127, 128, (m, n), dtype=torch.int8, device=DEV,
+                      generator=g)
+    scale = torch.rand((m,), device=DEV, generator=g) + 0.5
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = qops.dequantize_plane(q, scale, n=n, bits=8)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = read_counts()["dequantize_plane"]
+    spans = [(g.start, g.stop) for g in qops.row_groups(m, n)]
+    groups = len(spans)
+    if launches != groups or groups < 2:
+        raise AssertionError(f"K5 past its limit: {launches} launches, "
+                             f"{groups} row groups")
+    for r in range(m):
+        want = qref.dequantize_plane_ref(q[r:r + 1], scale[r:r + 1], n=n,
+                                         bits=8, window=PLAIN_WINDOW)
+        if not same_bits(out[r:r + 1], want):
+            raise AssertionError(f"K5 past its limit: row {r} differs")
+        del want
+    log(f"[train] K5 dequantize_plane at [{m}, {n}] ({m * n:,} elements, "
+        f"past the C entry's {qops.DQ_MOST_ELEMENTS:,}): {launches} "
+        f"launches (row groups {spans}), every row equal to the plain "
+        f"version's bit for bit; {secs * 1e3:.1f} ms (host clock, first "
+        "call)")
+    del q, out
+
+
+def train_full_width():
+    """``build_train`` at full width: qwen3-0.6b cut to TRAIN_LAYERS, 4
+    agents on the ring, qbit8, SVRG, launch/train.py's defaults; counts
+    zeroed just before the rounds and read just after; round 1's K1 and
+    K5 calls held bit for bit against their plain versions; mean_loss
+    finite every round; round time, device busy, peak memory and K1/K5's
+    share of a profiled round.  Returns ``(arch, cfg)``."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from repro_torch.common.trees import tree_map
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.launch import steps, train
+    from repro_torch.models.common import init_params, param_count
+
+    arch = ARCHS["qwen3-0.6b"]
+    rounds, m_local, seq = TRAIN_ROUNDS, TRAIN_M, TRAIN_SEQ
+    if SMOKE:
+        cfg = arch.make_smoke()
+        rounds, m_local, seq = 3, 4, 16
+    else:
+        cfg = dataclasses.replace(train.train_config(arch, smoke=False),
+                                  n_layers=TRAIN_LAYERS)
+    args = train.parse_args(["--device", str(DEV)])
+    # the CPU rehearsal asks for the kernel route (the plain versions)
+    recipe = steps.TrainRecipe(
+        tau=args.tau, gamma=args.gamma, beta=args.beta,
+        batch_size=args.batch_size, topology="ring",
+        compressor=f"qbit:bits={args.bits}"
+        + (",impl=kernel" if DEV == "cpu" else ""))
+    step_fn, init_fn, solver = steps.build_train(
+        arch, cfg, TRAIN_AGENTS, "ltadmm", recipe, device=DEV)
+    loss = steps.model_loss(arch, cfg)
+    specs = steps.model_specs(arch, cfg)
+    n = param_count(specs)
+    log(f"[train] full width: {cfg.name} d_model {cfg.d_model}, heads "
+        f"{cfg.attn.n_heads}/{cfg.attn.n_kv_heads} of {cfg.attn.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied, qk-norm; depth cut "
+        f"{arch.make(None).n_layers if not SMOKE else cfg.n_layers} -> "
+        f"{cfg.n_layers} layers; {cfg.dtype}; N = {n:,} parameters; "
+        f"{TRAIN_AGENTS} agents, ring, qbit8, SVRG, tau {recipe.tau}, batch "
+        f"{recipe.batch_size}, m_local {m_local}, seq {seq}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq,
+                            n_agents=TRAIN_AGENTS, m_local=m_local,
+                            heterogeneity=args.heterogeneity)
+    data = {"tokens": ds.sample(jaxrand.key(0)).to(DEV)}
+    t0 = time.perf_counter()
+    params0 = init_params(jaxrand.key(1, DEV), specs)
+    state = init_fn(tree_map(lambda t: t[None].expand(
+        (TRAIN_AGENTS,) + t.shape).clone(), params0))
+    sync()
+    log(f"[train] full width: weights drawn and state built in "
+        f"{time.perf_counter() - t0:.2f} s; wire "
+        f"{solver.wire_bytes(params0):,} B/agent/round")
+    del params0
+    plain = {"quantize_plane": ("K1", "quantize", functools.partial(
+                 qref.quantize_plane_ref, window=PLAIN_WINDOW),
+                 hold_windowed),
+             "dequantize_plane": ("K5", "quantize", functools.partial(
+                 qref.dequantize_plane_ref, window=PLAIN_WINDOW),
+                 hold_windowed)}
+    tap = MainPathTap(plain)
+    times, losses = [], []
+    try:
+        reset_counts()  # the main-path run starts here
+        for i in range(rounds):
+            tap.checking = i == 1
+            sync()
+            t0 = time.perf_counter()
+            state = step_fn(state, data, 1000 + i)
+            sync()
+            times.append(time.perf_counter() - t0)
+            tap.checking = False
+            losses.append(train.mean_loss(solver, loss, state,
+                                          data["tokens"]))
+        counts = read_counts()  # ... and ends here
+    finally:
+        tap.close()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train full width: mean_loss {losses}")
+    if DEV == "cuda":
+        for kname, per in TRAIN_PER_ROUND.items():
+            if counts[kname] != per * rounds:
+                raise AssertionError(
+                    f"train full width: {counts[kname]} {kname} launches "
+                    f"in {rounds} rounds, expected {per} a round")
+    held = ", ".join(f"{MAIN_PATH_WRAPPERS[nm][0]} {nm} {_show(sh)} x{c}"
+                     for (nm, sh), c in tap.checked.items())
+    if not tap.checked or set(tap.by_shape) != set(tap.checked):
+        raise AssertionError("train full width: calls outside round 1: "
+                             f"{set(tap.by_shape) - set(tap.checked)}")
+    mean_ms = sum(times[2:]) / len(times[2:]) * 1e3
+    log(f"[train] full width: {rounds} rounds, mean_loss {losses}, round "
+        f"times {[round(t * 1e3, 1) for t in times]} ms, mean after 2 "
+        f"warm-ups (round 1 held its kernel calls) {mean_ms:.1f} ms (host "
+        f"clock); launches {({k: v for k, v in counts.items() if v})}; "
+        f"round 1's calls held bit for bit against their plain versions: "
+        f"{held}")
+    if DEV == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        by_kernel, wall = profile_window(
+            lambda: step_fn(state, data, 1000 + rounds))
+        busy = sum(by_kernel.values())
+        share = {kid: sum(t for nm, t in by_kernel.items()
+                          if any(tag in nm for tag in tags))
+                 for kid, tags in PROFILED_KERNELS
+                 if kid in ("K1", "K5 plane")}
+        log(f"[train] full width: peak memory {peak / 1e9:.2f} GB "
+            f"(max_memory_allocated); a profiled round: wall {wall:.1f} ms, "
+            f"device busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}; "
+            f"{1 - busy / mean_ms:.3f} of the unprofiled mean round); "
+            + ", ".join(f"{kid} {ms:.3f} ms ({ms / busy:.1%} of busy)"
+                        for kid, ms in share.items()) + f" [{CARD}]")
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[train] kernel {ms:9.3f} ms {ms / busy:6.1%}  {name[:100]}")
+        time_train_quant(state.x, state.z, solver)
+    del state
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return arch, cfg, data["tokens"][0, :2]
+
+
+def time_train_quant(x, z, solver):
+    """K1 and K5 (division form) at the training planes' shapes, the
+    wrappers by CUDA events beside their bounds (x read once, q and
+    scale written once; K1 also a Threefry block and 6 f32 ops an
+    element)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops as qops
+    from repro_torch.kernels.quantize import ref as qref
+
+    seed = (7, 11)
+    for what, plane in (("x-plane", x), ("z-plane", z)):
+        mm, n = plane.numel() // plane.shape[-1], plane.shape[-1]
+        ids = torch.arange(mm, dtype=torch.int32,
+                           device=plane.device).reshape(plane.shape[:-1])
+        q, sc = qops.quantize_plane(seed, ids, ids, plane, bits=8)
+        k1 = cuda_ms(lambda: qops.quantize_plane(seed, ids, ids, plane,
+                                                 bits=8), iters=5, warmup=1)
+        k5 = cuda_ms(lambda: qops.dequantize_plane(q, sc, n=n, bits=8),
+                     iters=5, warmup=1)
+        # the bare C entries on prepared inputs (one launch each: below
+        # K5's element limit)
+        flat, idf = plane.reshape(mm, n), ids.reshape(-1)
+        q2, sc2 = torch.empty_like(q), torch.empty_like(sc)
+        scr, out = qops.scratch(mm, plane.device), torch.empty_like(flat)
+        k1b = cuda_ms(lambda: _build.launch(
+            "quantize_plane", flat.data_ptr(), mm, n, 8, seed[0], seed[1],
+            idf.data_ptr(), idf.data_ptr(), sc2.data_ptr(), q2.data_ptr(), n,
+            scr.data_ptr()), iters=5, warmup=1)
+        k5b = cuda_ms(lambda: _build.launch(
+            "dequantize_leaf", q.data_ptr(), mm, n, 8, sc.data_ptr(),
+            out.data_ptr(), n, 1), iters=5, warmup=1)
+        p1, p5 = (cuda_ms(fn, iters=1, warmup=0) for fn in (
+            lambda: qref.quantize_plane_ref(seed, ids, ids, plane, bits=8,
+                                            window=PLAIN_WINDOW),
+            lambda: qref.dequantize_plane_ref(q, sc, n=n, bits=8,
+                                              window=PLAIN_WINDOW)))
+        b1 = bound_ms(mm * n * 4 + mm * n + 8 * mm,
+                      (TF_OPS or Pipes(0)) * (mm * n + 2 * mm), 6 * mm * n)
+        b5 = bound_ms(mm * n + 4 * mm + 4 * mm * n, 0, 2 * mm * n)
+        log(f"[train] K1 quantize_plane b=8 {what} {list(plane.shape)}: "
+            f"wrapper {k1:.4f} ms, bare {k1b:.4f} ms, plain (windowed) "
+            f"{p1:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]}); K5 "
+            f"dequantize_plane: wrapper {k5:.4f} ms, bare {k5b:.4f} ms, "
+            f"plain {p5:.4f} ms, bound {b5[0]:.4f} ms ({b5[1]}) [{CARD}]")
+        del q, sc, q2, sc2, scr, out
+
+
+def train_ddp(arch, cfg, batch):
+    """3 Adam steps of ``build_ddp_train`` on the same model and one
+    fixed batch: the loss falls."""
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import steps
+    from repro_torch.models.common import init_params
+
+    step_fn, opt = steps.build_ddp_train(arch, cfg, lr=1e-3)
+    params = init_params(jaxrand.key(1, DEV), steps.model_specs(arch, cfg))
+    st = opt.init(params)
+    losses, times = [], []
+    for i in range(3):
+        sync()
+        t0 = time.perf_counter()
+        params, st, lv = step_fn(params, st, {"tokens": batch}, i)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train DDP: losses {losses} do not fall")
+    # Adam's bias corrections, 1 - b ** t in f32 (t an int32 counter), on
+    # the device against the CPU's (XLA's on the CPU, bit for bit, for
+    # these t: tests/test_torch_train.py)
+    import torch
+
+    t = torch.arange(1, 2001, dtype=torch.int32)
+    ulps = 0
+    for b in (0.9, 0.999):
+        got, want = (1.0 - torch.pow(torch.tensor(b, device=d),
+                                     t.to(d).float()) for d in (DEV, "cpu"))
+        ulps = max(ulps, int((got.cpu().view(torch.int32).long()
+                              - want.view(torch.int32).long()).abs().max()))
+    log(f"[train] DDP Adam lr 1e-3, batch {list(batch.shape)}: losses "
+        f"{losses}, step times {[round(t * 1e3, 1) for t in times]} ms; "
+        f"Adam's 1 - b ** t on {DEV} vs the CPU, t = 1..2000: at most "
+        f"{ulps} ulp apart")
+
+
+def train_granite():
+    """granite-moe-1b-a400m at its published widths, bf16 weights from
+    init_params(key(0)) as serving draws them: a prefill at B = 2, T =
+    2048 (its MoE aux loss finite), timed at its first and second call,
+    and 8 greedy steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tr
+
+    arch, cfg, params = serve_model("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, use_flash=False)
+    b, t = (2, 64) if SMOKE else (2, 2048)
+    tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
+    secs = []  # the first call, then a second on the same tokens
+    with torch.no_grad():
+        for _ in range(2):
+            logits = None
+            sync()
+            t0 = time.perf_counter()
+            logits, aux = tr.forward(params, cfg, tokens=tokens)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            if not (torch.isfinite(logits).all()
+                    and math.isfinite(float(aux))):
+                raise AssertionError("granite prefill: non-finite logits "
+                                     "or aux")
+    del logits
+    out, gen_s = serve.generate(arch, cfg, params, tokens[:, :8], 8)
+    if not (0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        raise AssertionError(f"granite greedy tokens out of range: {out}")
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, {cfg.dtype}: "
+        f"prefill B = {b}, T = {t} in {secs[0] * 1e3:.1f} ms first call, "
+        f"{secs[1] * 1e3:.1f} ms second call (host clock), aux "
+        f"{float(aux):.6f}; 8 greedy steps from an 8-token prompt in "
+        f"{gen_s * 1e3:.1f} ms: {out.tolist()}"
+        + ("" if CARD is None else f" [{CARD}]"))
+
+
+def phase_train():
+    import torch
+
+    t0 = time.perf_counter()
+    train_smoke_parity()
+    train_resume()
+    if DEV == "cuda":
+        train_k5_past_limit(187_045_376)
+    else:
+        log("[train] K5 past its limit: on the card only (the CPU runs the "
+            "plain version whole)")
+    arch, cfg, batch = train_full_width()
+    train_ddp(arch, cfg, batch)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    train_granite()
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
 
 def rehearse():
@@ -4311,14 +4805,25 @@ def rehearse():
                   smoke_rounds=30)
     SMOKE = True
     phase_serve()
+    phase_train()
     log("[rehearse] done on the CPU; no result")
+
+
+@contextlib.contextmanager
+def phase_clock(name, spent):
+    """Adds the host-clock seconds of the block to ``spent[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,paper,fig2,obs,dada,"
-                    "harness,wide,profile,serve",
+                    "harness,wide,profile,serve,train",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -4337,62 +4842,81 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_main, spent = time.perf_counter(), {}
     name, _ = phase_device()
     if "build" in phases:
-        phase_build()
-        phase_sass()
+        with phase_clock("build", spent):
+            phase_build()
+            phase_sass()
     seed = jaxrand.key_seed(jaxrand.fold_in(jaxrand.key(7), 13))
     k0 = None
     if "kernels" in phases:
-        k0 = check_k0(seed, torch.device("cuda"))
-        check_k1(seed, torch.device("cuda"))
-        check_k23(seed, torch.device("cuda"))
-        check_k45(torch.device("cuda"))
-        check_k67(torch.device("cuda"))
-        check_k89(torch.device("cuda"))
-        check_k10(torch.device("cuda"))
-        check_k11(torch.device("cuda"))
+        with phase_clock("kernels", spent):
+            k0 = check_k0(seed, torch.device("cuda"))
+            check_k1(seed, torch.device("cuda"))
+            check_k23(seed, torch.device("cuda"))
+            check_k45(torch.device("cuda"))
+            check_k67(torch.device("cuda"))
+            check_k89(torch.device("cuda"))
+            check_k10(torch.device("cuda"))
+            check_k11(torch.device("cuda"))
     if "paper" in phases:
-        phase_paper(PAPER_ROUNDS)
-        phase_paper_schedules(PAPER_ROUNDS)
-        phase_paper_faults(PAPER_ROUNDS, PAPER_ROUNDS)
+        with phase_clock("paper", spent):
+            phase_paper(PAPER_ROUNDS)
+            phase_paper_schedules(PAPER_ROUNDS)
+            phase_paper_faults(PAPER_ROUNDS, PAPER_ROUNDS)
     if "fig2" in phases:
-        phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
+        with phase_clock("fig2", spent):
+            phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)
     if "obs" in phases:
-        phase_obs()
+        with phase_clock("obs", spent):
+            phase_obs()
     if "dada" in phases:
-        phase_dada()
+        with phase_clock("dada", spent):
+            phase_dada()
     if "harness" in phases:
-        phase_harness()
+        with phase_clock("harness", spent):
+            phase_harness()
     rows = None
     if "wide" in phases:
-        counts, shapes = phase_wide(WIDE_ROUNDS)
-        missing = [kk for kk in ("quantize_plane", "dequantize_plane",
-                                 "randk_gather_plane",
-                                 "randk_scatter_plane", "quantize_tensor",
-                                 "dequantize_tensor", "sparse_gather",
-                                 "sparse_scatter", "cyclic_gather",
-                                 "cyclic_scatter")
-                   if not any(c[kk] for c in counts.values())]
-        if missing:
-            raise AssertionError(f"main path never launched {missing}")
+        with phase_clock("wide", spent):
+            counts, shapes = phase_wide(WIDE_ROUNDS)
+            missing = [kk for kk in ("quantize_plane", "dequantize_plane",
+                                     "randk_gather_plane",
+                                     "randk_scatter_plane", "quantize_tensor",
+                                     "dequantize_tensor", "sparse_gather",
+                                     "sparse_scatter", "cyclic_gather",
+                                     "cyclic_scatter")
+                       if not any(c[kk] for c in counts.values())]
+            if missing:
+                raise AssertionError(f"main path never launched {missing}")
         if k0 is not None:
-            rows = time_kernels(seed, k0, counts, shapes)
+            with phase_clock("timing", spent):
+                rows = time_kernels(seed, k0, counts, shapes)
     if "profile" in phases:
-        prof = {}
-        for label in ("qbit8", "ring-faults-qbit8", "randk-stride",
-                      "randk-uniform", "choco-topk", "drop-qbit8",
-                      "churn-tree-randk-block", "choco-drop-randk-block",
-                      "dada-qbit8"):
-            # dada's window holds one graph round in five, its cadence
-            prof[label] = phase_profile(
-                label, rounds=5 if label == "dada-qbit8" else 3)
-        (fw, fb), (uw, ub) = prof["ring-faults-qbit8"], prof["qbit8"]
-        log(f"[profile] ring-faults-qbit8 vs qbit8: round {fw:.3f} vs "
-            f"{uw:.3f} ms, device busy {fb:.3f} vs {ub:.3f} ms a round")
+        with phase_clock("profile", spent):
+            prof = {}
+            for label in ("qbit8", "ring-faults-qbit8", "randk-stride",
+                          "randk-uniform", "choco-topk", "drop-qbit8",
+                          "churn-tree-randk-block", "choco-drop-randk-block",
+                          "dada-qbit8"):
+                # dada's window holds one graph round in five, its cadence
+                prof[label] = phase_profile(
+                    label, rounds=5 if label == "dada-qbit8" else 3)
+            (fw, fb), (uw, ub) = prof["ring-faults-qbit8"], prof["qbit8"]
+            log(f"[profile] ring-faults-qbit8 vs qbit8: round {fw:.3f} vs "
+                f"{uw:.3f} ms, device busy {fb:.3f} vs {ub:.3f} ms a round")
     if "serve" in phases:
-        serve_counts = phase_serve()
-        rows = (rows or []) + time_serve_kernels(serve_counts)
+        with phase_clock("serve", spent):
+            serve_counts = phase_serve()
+            rows = (rows or []) + time_serve_kernels(serve_counts)
+    if "train" in phases:
+        with phase_clock("train", spent):
+            torch.cuda.empty_cache()
+            phase_train()
+    log(f"[time] host-clock seconds by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
+        + f"; main {time.perf_counter() - t_main:.1f}")
     if rows is not None:
         print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -110,3 +110,12 @@ def model_params_from_reference(np_tree, cfg, device=None):
     along a leading axis) as the port's modules on ``device``
     (``models.transformer.model_params``)."""
     return tr.model_params(cfg, _tensors(np_tree, resolve_device(device)))
+
+
+def params_tree_from_reference(np_tree, device=None):
+    """The reference's model parameters (numpy, as above) as the plain
+    tree the port trains on: nested dicts of tensors on ``device``, the
+    units stacked as the reference lays them out.  ``transformer.forward``
+    and ``loss_fn`` take it as it is, and autograd reaches every leaf in
+    that layout."""
+    return _tensors(np_tree, resolve_device(device))

@@ -24,16 +24,20 @@ def tree_flatten(tree, is_leaf=None):
         return [tree], lambda leaves: leaves[0]
     sizes = [len(p[0]) for p in parts]
     leaves = [leaf for p in parts for leaf in p[0]]
+    # the node's type only: a rebuild kept in a layout must not pin the
+    # tensors of the tree it was taken from
+    cls, as_dict = type(tree), isinstance(tree, dict)
+    fns = [fn for _, fn in parts]
 
     def rebuild(flat):
         out, i = [], 0
-        for (_, fn), n in zip(parts, sizes):
+        for fn, n in zip(fns, sizes):
             out.append(fn(flat[i:i + n]))
             i += n
         if keys is not None:
             items = dict(zip(keys, out))
-            return items if isinstance(tree, dict) else type(tree)(**items)
-        return type(tree)(out)
+            return items if as_dict else cls(**items)
+        return cls(out)
 
     return leaves, rebuild
 

@@ -3,10 +3,11 @@ the counterpart of ``src/repro/configs/archs.py``.
 
 Every entry cites its source.  ``make(shape)`` returns the FULL config,
 ``make_smoke()`` a reduced same-family variant that runs a real forward
-on the CPU.  The six archs whose blocks the port serves (attn,
-shared_attn, mamba) are here; the other four ids stay in ``ARCHS`` and
-raise ``NotImplementedError`` when made, until ROADMAP item 16 ports
-their blocks.
+on the CPU; the smoke configs turn remat off, as the reference's do.
+The seven archs whose blocks the port runs (attn, shared_attn, moe,
+mamba) are here; the other three ids stay in ``ARCHS`` and raise
+``NotImplementedError`` when made, until ROADMAP item 16 ports their
+blocks.
 
 Full-attention architectures get ``sliding_window=LONG_CONTEXT_WINDOW``
 when instantiated for the ``long_500k`` shape (ring-buffer KV cache).
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.mamba import SSMConfig
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import ModelConfig
 
 LONG_CONTEXT_WINDOW = 4096
@@ -54,7 +56,7 @@ def qwen3_0_6b(shape=None):
 def qwen3_smoke():
     return ModelConfig(
         name="qwen3-smoke", n_layers=2, d_model=128, vocab=512, d_ff=256,
-        attn=AttnConfig(128, 4, 2, 32, qk_norm=True),
+        attn=AttnConfig(128, 4, 2, 32, qk_norm=True), remat=False,
     )
 
 
@@ -71,7 +73,7 @@ def qwen2_1_5b(shape=None):
 def qwen2_smoke():
     return ModelConfig(
         name="qwen2-smoke", n_layers=2, d_model=96, vocab=512, d_ff=192,
-        attn=AttnConfig(96, 6, 2, 16, qkv_bias=True),
+        attn=AttnConfig(96, 6, 2, 16, qkv_bias=True), remat=False,
     )
 
 
@@ -86,7 +88,7 @@ def olmo_1b(shape=None):
 def olmo_smoke():
     return ModelConfig(
         name="olmo-smoke", n_layers=2, d_model=128, vocab=512, d_ff=512,
-        attn=AttnConfig(128, 4, 4, 32), norm="nonparam_ln",
+        attn=AttnConfig(128, 4, 4, 32), norm="nonparam_ln", remat=False,
     )
 
 
@@ -104,6 +106,7 @@ def command_r_smoke():
     return ModelConfig(
         name="command-r-smoke", n_layers=2, d_model=256, vocab=512,
         d_ff=704, attn=AttnConfig(256, 8, 2, 32), parallel_block=True,
+        remat=False,
     )
 
 
@@ -123,7 +126,26 @@ def pixtral_smoke():
     return ModelConfig(
         name="pixtral-smoke", n_layers=2, d_model=128, vocab=512, d_ff=256,
         attn=AttnConfig(128, 4, 2, 32), tie_embeddings=False,
-        inputs_via_embeds=True,
+        inputs_via_embeds=True, remat=False,
+    )
+
+
+def granite_moe_1b(shape=None):
+    return ModelConfig(
+        name="granite-moe-1b-a400m", n_layers=24, d_model=1024,
+        vocab=49155, pattern=("moe",),
+        attn=AttnConfig(1024, 16, 8, 64, sliding_window=_sw(shape)),
+        moe=MoEConfig(1024, n_experts=32, top_k=8, d_ff_expert=512),
+        tie_embeddings=True, dtype=torch.bfloat16,
+    )
+
+
+def granite_moe_smoke():
+    return ModelConfig(
+        name="granite-moe-smoke", n_layers=2, d_model=128, vocab=512,
+        pattern=("moe",), attn=AttnConfig(128, 4, 2, 32),
+        moe=MoEConfig(128, n_experts=4, top_k=2, d_ff_expert=64),
+        remat=False,
     )
 
 
@@ -145,6 +167,7 @@ def zamba2_smoke():
         pattern=("mamba",) * 2, shared_attn=True, d_ff=256,
         attn=AttnConfig(128, 4, 4, 32),
         ssm=SSMConfig(128, d_state=16, head_dim=32, chunk=32),
+        remat=False,
     )
 
 
@@ -176,11 +199,11 @@ ARCHS = {
                 "ViT frontend stubbed (patch embeddings)"),
         ArchDef("zamba2-2.7b", "hybrid", "lm", "arXiv:2411.15242",
                 zamba2_2_7b, zamba2_smoke, "Mamba2 + shared attention block"),
-        _unported("granite-moe-1b-a400m", "moe", "lm",
-                  "hf:ibm-granite/granite-3.0-1b-a400m-base", "MoE blocks",
-                  "32 experts top-8"),
+        ArchDef("granite-moe-1b-a400m", "moe", "lm",
+                "hf:ibm-granite/granite-3.0-1b-a400m-base",
+                granite_moe_1b, granite_moe_smoke, "32 experts top-8"),
         _unported("deepseek-v2-lite-16b", "moe", "lm", "arXiv:2405.04434",
-                  "MLA and MoE blocks",
+                  "MLA blocks and the leading dense layers",
                   "MLA kv_lora=512; 2 shared + 64 routed top-6"),
         _unported("xlstm-125m", "ssm", "lm", "arXiv:2405.04517",
                   "mLSTM and sLSTM blocks", "sLSTM + mLSTM blocks"),

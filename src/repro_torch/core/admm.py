@@ -311,12 +311,16 @@ def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
         cx, lambda: _key_x(round_key, ids.agent), bx,
         ids.agent_d, None, tree_sub(x_new, u_new), like)
     x_hat_new = tree_add(u_new, dx)
+    # each plane-sized temporary goes as soon as it is used: the round
+    # holds two states at once (a full-width model's plane is GBs)
+    del dx
 
     # ---- 5-6. sender-side error feedback for z (all slots at once)
     m_z, rec_z = compression.plane_compress(
         cz, lambda: _key_z(round_key, ids.aid2, ids.nbr), bz,
         ids.aid2_d, ids.nbr_d, tree_sub(state.z, state.s), like)
     z_hat_own = _masked(tree_add(state.s, rec_z), mask)
+    del rec_z
 
     # ---- the only cross-agent communication
     recv_x = exchange.gather_batched(m_x)
@@ -328,6 +332,7 @@ def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
                    + telemetry.payload_nbytes(m_z, nd=2))
         _emit_round_telemetry(cfg, vr_est, data, ids.degrees_i64, per_msg,
                               None)
+    del m_x, m_z
 
     # ---- 7. receiver-side mirrors
     u_nbr_new = (state.x_hat_nbr if cfg.lean
@@ -335,9 +340,11 @@ def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
     x_hat_nbr_new = tree_add(u_nbr_new, compression.plane_decompress(
         cx, lambda: _key_x(round_key, ids.nbr), bx,
         ids.nbr_d, None, recv_x, like))
+    del recv_x
     z_hat_nbr = _masked(tree_add(state.s_tilde, compression.plane_decompress(
         cz, lambda: _key_z(round_key, ids.nbr, ids.aid2), bz,
         ids.nbr_d, ids.aid2_d, recv_z, like)), mask)
+    del recv_z
 
     # ---- 8. z update, eq. (4)
     z_new = _masked(_eq4(cfg, z_hat_own, z_hat_nbr, x_new, x_hat_new,
@@ -360,7 +367,12 @@ def _eq4(cfg, z_hat_own, z_hat_nbr, x_new, x_hat, x_hat_nbr,
     def one(zo, zn, xn, xh, xhj):
         if x_hat_per_agent:
             xh = xh[:, None]
-        return 0.5 * (zo - zn) + rrho * xn[:, None] - rrho * (xh - xhj)
+        # 0.5 * (zo - zn) + rrho * xn - rrho * (xh - xhj), each step of
+        # that expression in place on two [A, S, ...] buffers (the same
+        # roundings, half the temporaries)
+        out = (zo - zn).mul_(0.5)
+        out.add_(rrho * xn[:, None])
+        return out.sub_((xh - xhj).mul_(rrho))
 
     return tree_map(one, z_hat_own, z_hat_nbr, x_new, x_hat, x_hat_nbr)
 

@@ -11,7 +11,8 @@ max word per row), which the C entry zeroes on the stream before the
 launch.  ``dequantize_plane``, a jnp expression in the reference
 (``quantize/ops.py:71``), runs K5's kernel in its division form on the
 card.  K5 walks its rows as one flat array in quads of 4 elements
-(``DQ_*`` mirror its sizes).
+(``DQ_*`` mirror its sizes); a call of 2^31 - 2^11 elements or more goes
+in row groups, one launch each.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ from repro_torch.kernels.quantize import ref
 DQ_THREADS = 256
 DQ_QUAD = 4
 DQ_QUADS = 2
+# its element, nibble and word indices are 32-bit: the C entry refuses
+# M * n at or above kDqMostElements (2^31 - 2^11), so a larger call goes
+# in row groups below it
+DQ_MOST_ELEMENTS = ((1 << 32) - 8 * DQ_QUADS * DQ_THREADS) // 2
 
 
 def wire_len(n: int, bits: int) -> int:
@@ -130,9 +135,20 @@ def _key_words(keys, lead, device):
     return words.to(device, non_blocking=True)
 
 
+def row_groups(m: int, n: int, most: int = DQ_MOST_ELEMENTS):
+    """Slices of consecutive rows of an ``[m, n]`` call, each fewer than
+    ``most`` elements: one slice unless m * n reaches it."""
+    if n >= most:
+        raise ValueError(f"a row of {n} elements is past the dequantise "
+                         f"kernel's {most}")
+    per = (most - 1) // n
+    return [slice(r0, min(m, r0 + per)) for r0 in range(0, max(m, 1), per)]
+
+
 def _dequantize(q, scale, n, bits, plane):
-    """One launch of the dequantise kernel over q's rows (``plane``: the
-    division form of ``dequantize_plane``)."""
+    """The dequantise kernel over q's rows (``plane``: the division form
+    of ``dequantize_plane``): one launch per row group (``row_groups``).
+    Returns ``(out, launches)``."""
     lead, wire, qf = _build.rows(q, "q",
                                  torch.int8 if bits == 8 else torch.uint8)
     if wire != wire_len(n, bits):
@@ -142,9 +158,12 @@ def _dequantize(q, scale, n, bits, plane):
     sc = scale.reshape(-1)
     _build.check_tensor("scale", sc, torch.float32, q.device, (m,))
     out = torch.empty((m, n), dtype=torch.float32, device=q.device)
-    _build.launch("dequantize_leaf", qf.data_ptr(), m, n, bits,
-                  sc.data_ptr(), out.data_ptr(), wire, plane)
-    return out.reshape(lead + (n,))
+    groups = row_groups(m, n)
+    for g in groups:
+        _build.launch("dequantize_leaf", qf[g].data_ptr(),
+                      g.stop - g.start, n, bits, sc[g].data_ptr(),
+                      out[g].data_ptr(), wire, plane)
+    return out.reshape(lead + (n,)), len(groups)
 
 
 def dequantize_tensor(q, scale, *, n, bits=8):
@@ -155,8 +174,8 @@ def dequantize_tensor(q, scale, *, n, bits=8):
     _check_bits(bits)
     if q.device.type == "cpu":
         return ref.dequantize_tensor_ref(q, scale, n=n, bits=bits)
-    out = _dequantize(q, scale, n, bits, 0)
-    dequantize_tensor.launches += 1
+    out, launches = _dequantize(q, scale, n, bits, 0)
+    dequantize_tensor.launches += launches
     return out
 
 
@@ -172,8 +191,8 @@ def dequantize_plane(q, scale, *, n, bits=8):
     _check_bits(bits)
     if q.device.type == "cpu":
         return ref.dequantize_plane_ref(q, scale, n=n, bits=bits)
-    out = _dequantize(q, scale, n, bits, 1)
-    dequantize_plane.launches += 1
+    out, launches = _dequantize(q, scale, n, bits, 1)
+    dequantize_plane.launches += launches
     return out
 
 

@@ -75,12 +75,32 @@ def dequantize_values(q, scale, levels: int):
     return round_ftz(p.double() / levels)
 
 
-def dequantize_plane_ref(q, scale, *, n, bits=8):
+def _windows(n: int, window):
+    """Column windows ``(j0, j1)`` over n elements: one, or ``window``
+    (even, so a nibble pair never straddles two) at a time."""
+    w = n if window is None else window
+    if w < n and w % 2:
+        raise ValueError(f"window {w} must be even")
+    return [(j0, min(n, j0 + w)) for j0 in range(0, max(n, 1), w)]
+
+
+def dequantize_plane_ref(q, scale, *, n, bits=8, window=None):
     """The plane route's dequantiser (the reference's jnp
     ``dequantize_plane``, ``quantize/ops.py:71``): ``q [..., wire]``,
-    ``scale [...]``; returns ``[..., n]`` f32."""
-    qf = q if bits == 8 else unpack4(q, n)
-    return dequantize_values(qf, scale, 2 ** (bits - 1) - 1)
+    ``scale [...]``; returns ``[..., n]`` f32.  ``window`` computes the
+    same values that many columns at a time (bounds the f64
+    temporaries of a large plane)."""
+    levels = 2 ** (bits - 1) - 1
+    if window is None:
+        qf = q if bits == 8 else unpack4(q, n)
+        return dequantize_values(qf, scale, levels)
+    out = torch.empty(q.shape[:-1] + (n,), dtype=torch.float32,
+                      device=q.device)
+    for j0, j1 in _windows(n, window):
+        qw = (q[..., j0:j1] if bits == 8
+              else unpack4(q[..., j0 // 2:-(-j1 // 2)], j1 - j0))
+        out[..., j0:j1] = dequantize_values(qw, scale, levels)
+    return out
 
 
 def to_int8(q):
@@ -143,22 +163,28 @@ def edge_rows(x):
     return x
 
 
-def quantize_plane_ref(seed, sids, rids, x, *, bits=8):
+def quantize_plane_ref(seed, sids, rids, x, *, bits=8, window=None):
     """K1's plain version: the counter-PRNG kappas materialised as a
-    ``[M, n]`` tensor.  Returns ``(q [..., wire_len], scale [...])``."""
+    ``[M, n]`` tensor (``window``: that many columns at a time, which
+    bounds the int64 Threefry temporaries of a large plane; element j's
+    kappa depends only on the ids and j).  Returns ``(q [..., wire_len],
+    scale [...])``."""
     lead, n = tuple(x.shape[:-1]), x.shape[-1]
     xf = x.reshape(-1, n).to(torch.float32)
     s = plane_ids(sids, lead, 0, x.device)
     r = plane_ids(rids, lead, prng.BROADCAST, x.device)
     scale = row_scale(xf)
     es = prng.fold(seed, s, r)
-    ctr = torch.arange(n, dtype=torch.int64, device=x.device)
-    kappa = prng.uniform01(
-        prng.random_bits((es[0][:, None], es[1][:, None]), ctr[None, :])
-    )
     levels = 2 ** (bits - 1) - 1
-    q = quantize_values(xf, scale[:, None], kappa, levels)
-    q = to_int8(q) if bits == 8 else pack4(q)
+    parts = []
+    for j0, j1 in _windows(n, window):
+        ctr = torch.arange(j0, j1, dtype=torch.int64, device=x.device)
+        kappa = prng.uniform01(
+            prng.random_bits((es[0][:, None], es[1][:, None]), ctr[None, :])
+        )
+        q = quantize_values(xf[:, j0:j1], scale[:, None], kappa, levels)
+        parts.append(to_int8(q) if bits == 8 else pack4(q))
+    q = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return q.reshape(lead + (q.shape[-1],)), scale.reshape(lead)
 
 

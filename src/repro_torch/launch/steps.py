@@ -1,19 +1,35 @@
-"""Step builders, the inference half of ``src/repro/launch/steps.py``:
-``build_prefill`` and ``build_serve`` for the decoder-only models, and
-the training loop's ``DivergenceWatchdog``.
+"""Step builders, the counterpart of ``src/repro/launch/steps.py``: the
+solver train step (LT-ADMM-CC or any registered baseline), the
+all-reduce DDP train step, ``build_prefill`` and ``build_serve`` for the
+decoder-only models, and the training loop's ``DivergenceWatchdog``.
 
-There is no mesh and no partition spec here (ROADMAP item 15), and no
-train step yet (item 16); the encoder-decoder waits for item 16 too.
+The agents run in one process through the host-simulated ``Exchange``:
+there is no mesh and no partition spec here, so ``state_sharding`` and
+``abstract_train_state`` wait for ROADMAP item 15.  The encoder-decoder
+waits for item 16.
+
+The model is differentiated by autograd, as the reference differentiates
+through jnp: no kernel lies on the gradient path.  The solvers take
+batched gradient callables (``core.vr``): params ``[A, ...]`` and token
+rows ``[A, b, T+1]`` in, one gradient per agent out, each of the agent's
+own mean loss over its rows (one forward and ``torch.autograd.grad`` per
+agent, where the reference vmaps).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 
 import torch
 
-from repro_torch.common.trees import is_namedtuple, tree_children
+from repro_torch.common.trees import (is_namedtuple, tree_children,
+                                      tree_flatten, tree_map)
+from repro_torch.core import jaxrand, vr
+from repro_torch.core.schedule import build_graph
+from repro_torch.core.solver import make_solver, solver_entry
 from repro_torch.models import transformer as tr
+from repro_torch.optim import optimizers
 
 
 def _lm_only(arch_def):
@@ -28,6 +44,180 @@ def model_specs(arch_def, cfg):
     return tr.model_specs(cfg)
 
 
+def model_loss(arch_def, cfg):
+    """``loss(params, batch)``: the model's ``loss_fn`` on one batch."""
+    _lm_only(arch_def)
+    return lambda p, b: tr.loss_fn(p, cfg, b)
+
+
+def value_and_grad(loss, params, batch):
+    """``(loss value, grads)`` of ``loss(params, batch)`` for a tree of
+    tensors: each leaf enters as a detached view that requires grad (no
+    copy), and a leaf the loss does not use gets a zero gradient, as
+    ``jax.grad`` gives."""
+    leaves, rebuild = tree_flatten(params)
+    xs = [leaf.detach().requires_grad_() for leaf in leaves]
+    with torch.enable_grad():
+        val = loss(rebuild(xs), batch)
+        gs = torch.autograd.grad(val, xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, gs)]
+    return val.detach(), rebuild(grads)
+
+
+def batched_grad(loss):
+    """The per-agent gradient of ``loss`` as ``core.vr`` calls it:
+    ``grad(params [A, ...], data [A, b, ...]) -> grads [A, ...]``, agent
+    a's gradient of its own ``loss(params[a], data[a])``, written into
+    one ``[A, ...]`` tensor per leaf."""
+    def grad(params, data):
+        leaves, rebuild = tree_flatten(params)
+        out = [torch.empty_like(leaf) for leaf in leaves]
+        for a in range(leaves[0].shape[0]):
+            _, g = value_and_grad(loss, rebuild([leaf[a] for leaf in leaves]),
+                                  tree_map(lambda d: d[a], data))
+            for o, ga in zip(out, tree_flatten(g)[0]):
+                o[a].copy_(ga)
+        return rebuild(out)
+
+    return grad
+
+
+# ---------------------------------------------------------------------------
+# Solver train step (LT-ADMM-CC + every registered baseline)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRecipe:
+    """Transformer-scale solver defaults.
+
+    gamma is much smaller than the convex-experiment value (0.3): L for a
+    transformer loss is far larger.  batch_size counts sequences per inner
+    step out of the agent's m_local.  Every field is a DEFAULT: params in
+    the solver spec string given to ``build_train`` win.
+    """
+
+    rho: float = 0.1
+    beta: float = 0.01
+    gamma: float = 0.02
+    r: float = 1.0
+    eta: float = 1.0
+    tau: int = 5
+    batch_size: int = 4
+    # compressor spec string ("qbit:bits=4", "randk:fraction=0.25,
+    # sampler=block", ...); paper Fig. 2's default: the 8-bit quantizer
+    compressor: str = "qbit"
+    # agent graph spec, anything ``schedule.build_graph`` accepts: a
+    # static family ("ring", "complete", "erdos:p=0.3", ...) or a
+    # time-varying schedule ("cycle:ring|star", "drop:p=0.2,base=complete")
+    topology: str = "ring"
+    # the SVRG anchor's full gradient over m_local in this many
+    # sequential microbatches (bounds the live activations; 1 = one pass)
+    anchor_microbatches: int = 1
+
+    def solver_defaults(self, solver_name: str) -> dict:
+        """Fallback params for ``make_solver`` (spec params override;
+        keys a solver does not accept are dropped there)."""
+        if solver_name == "ltadmm":
+            return {
+                "rho": self.rho,
+                "beta": self.beta,
+                "gamma": self.gamma,
+                "r": self.r,
+                "eta": self.eta,
+                "tau": self.tau,
+                "batch_size": self.batch_size,
+                "compressor": self.compressor,
+            }
+        return {
+            "batch_size": self.batch_size,
+            "compressor": self.compressor,
+        }
+
+
+def build_estimator(arch_def, cfg, recipe: TrainRecipe, kind: str):
+    """Gradient estimator over the model loss: ``"vr"`` -> SVRG anchor
+    (its full gradient optionally in microbatches over m_local, the mean
+    of the chunk means as the reference's ``lax.map`` gives it),
+    ``"sgd"`` -> plain minibatch gradients."""
+    grad_fn = batched_grad(model_loss(arch_def, cfg))
+    if kind != "vr":
+        return vr.PlainSgd(batch_grad=grad_fn)
+    if recipe.anchor_microbatches > 1:
+        nmb = recipe.anchor_microbatches
+
+        def full_grad(params, data):
+            m = tree_flatten(data)[0][0].shape[1]
+            if m % nmb:
+                raise ValueError(f"m_local {m} is not a multiple of "
+                                 f"anchor_microbatches {nmb}")
+            c = m // nmb
+            grads = [grad_fn(params, tree_map(
+                lambda x, i=i: x[:, i * c:(i + 1) * c], data))
+                for i in range(nmb)]
+            return tree_map(lambda *g: torch.mean(torch.stack(g), dim=0),
+                            *grads)
+    else:
+        full_grad = grad_fn
+    return vr.SvrgAnchor(batch_grad=grad_fn, full_grad=full_grad)
+
+
+def build_train(arch_def, cfg, n_agents: int, solver_spec: str,
+                recipe: TrainRecipe | None = None, device=None):
+    """Train-step builder for ANY registered solver.
+
+    Returns ``(step_fn, init_fn, solver)``: ``step_fn(state, data, seed)``
+    advances one outer round under the key ``jaxrand.key(seed)``,
+    ``init_fn(x0_stacked)`` builds the state from stacked ``[A, ...]``
+    params, and ``solver`` carries the graph, config and accounting
+    hooks.  The recipe supplies topology and hyperparameter defaults;
+    params in ``solver_spec`` win.  The agents run in one process on
+    ``device`` (default the card) through the host-simulated exchange;
+    the reference's ``state_sharding`` and ``abstract_train_state`` wait
+    for the mesh (ROADMAP item 15).
+    """
+    recipe = recipe or TrainRecipe()
+    graph, exchange = build_graph(recipe.topology, n_agents)
+    entry = solver_entry(solver_spec)
+    est = build_estimator(arch_def, cfg, recipe, entry.estimator)
+    solver = make_solver(solver_spec, graph, exchange, est,
+                         defaults=recipe.solver_defaults(entry.name),
+                         device=device)
+
+    def step_fn(state, data, seed):
+        return solver.step(state, data, jaxrand.key(seed))
+
+    return step_fn, solver.init, solver
+
+
+# ---------------------------------------------------------------------------
+# All-reduce DDP baseline train step (what the paper's method replaces)
+# ---------------------------------------------------------------------------
+
+
+def build_ddp_train(arch_def, cfg, lr=1e-3):
+    """Standard data-parallel Adam training step on one global batch:
+    ``step_fn(params, opt_state, batch, seed) -> (params, opt_state,
+    loss)``; returns ``(step_fn, opt)``.  The reference's TP/FSDP
+    partition specs wait for the mesh (item 15)."""
+    loss = model_loss(arch_def, cfg)
+    opt = optimizers.adam(lr)
+
+    def step_fn(params, opt_state, batch, seed):
+        del seed
+        loss_val, grads = value_and_grad(loss, params, batch)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optimizers.apply_updates(params, updates)
+        return params, opt_state, loss_val
+
+    return step_fn, opt
+
+
+# ---------------------------------------------------------------------------
+# Inference steps
+# ---------------------------------------------------------------------------
+
+
 def build_prefill(arch_def, cfg):
     """``prefill(params, batch) -> logits [B, 1, vocab]`` of the last
     position; ``batch`` holds ``tokens [B, T]`` or ``embeds [B, T, d]``.
@@ -35,8 +225,8 @@ def build_prefill(arch_def, cfg):
     _lm_only(arch_def)
 
     def prefill(params, batch):
-        logits = tr.forward(params, cfg, tokens=batch.get("tokens"),
-                            embeds=batch.get("embeds"))
+        logits, _ = tr.forward(params, cfg, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"))
         return logits[:, -1:, :]
 
     return prefill

@@ -6,14 +6,17 @@ Every layer defines a ``*_specs(cfg)`` function returning a tree of
 draws the reference's weights from such a tree, through ``core.jaxrand``,
 and ``Params`` holds a tree of weights as an ``nn.Module`` whose
 parameters keep the reference's shapes and names (``wq [d, h, dh]``), so
-the layers' einsums read as the reference's do.  The losses wait for
-training (ROADMAP item 16).
+the layers' einsums read as the reference's do.  The layers read a plain
+nested dict of tensors just as well, which is what training hands them
+(its leaves require grad; ``Params`` would cut them from autograd).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from collections.abc import Mapping
+
+import torch.utils.checkpoint as ckpt
 
 import torch
 import torch.nn.functional as F
@@ -234,3 +237,65 @@ def unembed_head_specs(vocab, d):
 
 def unembed_head(params, x):
     return torch.einsum("...d,dv->...v", x, params["w"])
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _chunk_step(xf, chunk, labels, off: int, m, s, gold):
+    """One vocab chunk of the online logsumexp: the running (max,
+    sumexp, gold logit) after ``chunk [vc, d]``'s logits."""
+    vc = chunk.shape[0]
+    logits_c = torch.einsum("btd,vd->btv", xf, chunk.float())
+    m_new = torch.maximum(m, torch.amax(logits_c, dim=-1))
+    s = s * torch.exp(m - m_new) + torch.sum(
+        torch.exp(logits_c - m_new[..., None]), dim=-1)
+    local = labels - off
+    in_chunk = (local >= 0) & (local < vc)
+    picked = torch.gather(logits_c, -1,
+                          local.clamp(0, vc - 1)[..., None])[..., 0]
+    return m_new, s, torch.where(in_chunk, picked, gold)
+
+
+def softmax_xent_streamed(x, embedding, labels, n_chunks=8):
+    """Fused unembed + cross-entropy, streamed over vocab chunks.
+
+    Never materializes the [B, T, V] logits tensor: loops over
+    V/n_chunks slices of the tied embedding, carrying the running (max,
+    sumexp, gold logit) of an online logsumexp.  Each chunk runs under
+    ``torch.utils.checkpoint``, so the backward pass recomputes its
+    logits instead of storing them (the reference's ``jax.checkpoint``).
+
+    x [B, T, d] final hidden states; embedding [V, d]; labels [B, T].
+    """
+    v, d = embedding.shape
+    if v % n_chunks:
+        raise ValueError(f"vocab {v} is not a multiple of n_chunks "
+                         f"{n_chunks}")
+    vc = v // n_chunks
+    xf = x.float()
+    labels = labels.long()
+    b, t = labels.shape
+    m = torch.full((b, t), -torch.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((b, t), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((b, t), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        m, s, gold = ckpt.checkpoint(
+            _chunk_step, xf, embedding[c * vc:(c + 1) * vc], labels, c * vc,
+            m, s, gold, use_reentrant=False)
+    nll = m + torch.log(s) - gold
+    return torch.mean(nll)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross entropy.  logits [..., V]; labels [...] int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

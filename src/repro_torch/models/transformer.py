@@ -1,45 +1,62 @@
 """Decoder-only language model assembler, the counterpart of
-``src/repro/models/transformer.py`` for the block kinds served so far.
+``src/repro/models/transformer.py`` for the block kinds ported so far.
 
 A model is a stack of *units*; each unit is a short pattern of blocks
 (``("attn",)`` for dense models, ``("mamba",)*6`` for Zamba2 with a shared
 attention block applied after each unit).  The reference stacks the
 units' parameters along a leading axis and runs them under ``lax.scan``;
-here ``model_params`` turns that stacked tree into a ``ModuleList`` of
-units (views into the stacked tensors: no copy) and ``forward`` loops
-over it.  Remat has no meaning at inference.
+here ``forward`` loops over the units.  It takes either
+
+* the reference's tree itself (nested dicts of tensors, the units
+  stacked; ``common.init_params`` draws it): each unit is a view of the
+  stacked tensors, so gradients reach the stacked leaves in their own
+  layout (training); or
+* that tree as the port's modules (``model_params``: ``units`` a
+  ``ModuleList`` of views, inference only, Mamba mixers as modules whose
+  forward hooks see each block's input).
+
+``cfg.remat`` runs each unit under ``torch.utils.checkpoint`` when
+autograd records (``remat_policy="dots"`` keeps the outputs of the
+products without batch dims, as jax's ``dots_with_no_batch_dims_saveable``
+does); neither changes a value.
 
 Block kinds:
     attn         pre-norm GQA attention + SwiGLU FFN (or parallel block)
     shared_attn  (Zamba2) one attention+FFN block whose parameters are
                  shared across all its invocations (after every unit)
+    moe          pre-norm GQA attention + MoE FFN (+ shared experts)
     mamba        pre-norm Mamba2 (SSD) block
-The kinds moe, mla, mla_dense, mlstm and slstm, and DeepSeek's leading
-dense layers, wait for ROADMAP item 16.
+The kinds mla, mla_dense, mlstm and slstm, and DeepSeek's leading dense
+layers, wait for ROADMAP item 16.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ParamSpec,
     Params,
     embed,
     embedding_specs,
     make_norm,
+    softmax_xent,
+    softmax_xent_streamed,
     unembed,
     unembed_head,
     unembed_head_specs,
 )
 
-SERVED_KINDS = ("attn", "shared_attn", "mamba")
+SERVED_KINDS = ("attn", "shared_attn", "moe", "mamba")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +68,7 @@ class ModelConfig:
     pattern: tuple = ("attn",)  # repeating unit of block kinds
     d_ff: int = 0  # dense FFN hidden size
     attn: Any = None  # AttnConfig
+    moe: Any = None  # MoEConfig
     ssm: Any = None  # SSMConfig
     norm: str = "rms"
     parallel_block: bool = False  # command-r style fused attn+ffn residual
@@ -58,7 +76,12 @@ class ModelConfig:
     first_dense: int = 0  # DeepSeek: leading dense layers (item 16)
     tie_embeddings: bool = True
     dtype: Any = torch.float32
+    remat: bool = True
+    remat_policy: str = "full"  # full | dots (dots_with_no_batch_dims)
     use_flash: bool = False
+    # >0: streamed fused unembed+xent over this many vocab chunks (never
+    # materializes [B,T,V] logits); tied embeddings only
+    xent_chunks: int = 0
     # VLM / audio stubs feed embeddings, not token ids
     inputs_via_embeds: bool = False
 
@@ -115,6 +138,10 @@ def block_specs(cfg: ModelConfig, kind: str):
     if kind == "mamba":
         return {"ln": dict(norm_specs), "mamba": mamba_lib.mamba_specs(cfg.ssm)}
     specs = {"ln1": dict(norm_specs), "attn": attn_lib.gqa_specs(cfg.attn)}
+    if kind == "moe":
+        specs["ln2"] = dict(norm_specs)
+        specs["moe"] = moe_lib.moe_specs(cfg.moe)
+        return specs
     if not cfg.parallel_block:
         specs["ln2"] = dict(norm_specs)
     specs["ffn"] = _ffn_specs(d, cfg.d_ff)
@@ -122,20 +149,27 @@ def block_specs(cfg: ModelConfig, kind: str):
 
 
 def block_forward(params, cfg: ModelConfig, kind: str, x, positions):
-    """Full-sequence block application."""
+    """Full-sequence block application.  Returns (y, aux_loss)."""
     _check_kind(kind)
     _, norm = make_norm(cfg.norm, cfg.d_model)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mamba":
         h = norm(params.get("ln", {}), x)
-        return x + params["mamba"](h)
+        mixer = params["mamba"]
+        if isinstance(mixer, nn.Module):
+            return x + mixer(h), aux
+        return x + mamba_lib.mamba_forward(mixer, cfg.ssm, h), aux
     h = norm(params.get("ln1", {}), x)
     a = attn_lib.gqa_forward(params["attn"], cfg.attn, h, positions,
                              use_flash=cfg.use_flash)
-    if cfg.parallel_block:
-        return x + a + _ffn(params["ffn"], h)
+    if cfg.parallel_block and kind != "moe":
+        return x + a + _ffn(params["ffn"], h), aux
     x = x + a
     h = norm(params.get("ln2", {}), x)
-    return x + _ffn(params["ffn"], h)
+    if kind == "moe":
+        y, aux = moe_lib.moe_forward(params["moe"], cfg.moe, h)
+        return x + y, aux
+    return x + _ffn(params["ffn"], h), aux
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -157,10 +191,12 @@ def block_decode(params, cfg: ModelConfig, kind: str, cache, x, pos: int):
         return x + y, cache
     h = norm(params.get("ln1", {}), x)
     a, cache = attn_lib.gqa_decode(params["attn"], cfg.attn, cache, h, pos)
-    if cfg.parallel_block:
+    if cfg.parallel_block and kind != "moe":
         return x + a + _ffn(params["ffn"], h), cache
     x = x + a
     h = norm(params.get("ln2", {}), x)
+    if kind == "moe":
+        return x + moe_lib.moe_forward(params["moe"], cfg.moe, h)[0], cache
     return x + _ffn(params["ffn"], h), cache
 
 
@@ -208,9 +244,10 @@ def _index(tree, u: int):
 def model_params(cfg: ModelConfig, tree) -> Params:
     """The reference's parameter tree (nested dicts of tensors, the units
     stacked along a leading axis, as ``model_specs`` lays it out and
-    ``common.init_params`` draws it) as the port's modules: ``units`` a
-    ``ModuleList`` with one ``Params`` per unit, whose parameters are
-    views of the stacked tensors."""
+    ``common.init_params`` draws it) as the port's modules for inference:
+    ``units`` a ``ModuleList`` with one ``Params`` per unit, whose
+    parameters are views of the stacked tensors (they do not require
+    grad; ``forward`` takes the tree itself for training)."""
     _check_cfg(cfg)
     top = {k: v for k, v in tree.items() if k not in ("units", "shared")}
     if cfg.shared_attn:
@@ -224,26 +261,63 @@ def model_params(cfg: ModelConfig, tree) -> Params:
     return params
 
 
+def _units(params, cfg: ModelConfig):
+    """Each unit's parameters: the modules of ``model_params``, or views
+    of the stacked tree's leaves."""
+    units = params["units"]
+    if isinstance(units, nn.ModuleList):
+        return list(units)
+    return [_index(units, u) for u in range(cfg.n_units)]
+
+
 def _unit_forward(cfg: ModelConfig, unit_params, shared_params, x,
                   positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.pattern):
-        x = block_forward(unit_params[f"{i}_{kind}"], cfg, kind, x, positions)
+        x, a = block_forward(unit_params[f"{i}_{kind}"], cfg, kind, x,
+                             positions)
+        aux = aux + a
     if cfg.shared_attn:
-        x = block_forward(shared_params, cfg, "shared_attn", x, positions)
-    return x
+        x, a = block_forward(shared_params, cfg, "shared_attn", x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of the products without batch dims (the einsums over [B, T,
+    d] rows become ``mm``), recompute the rest."""
+    del ctx, args, kwargs
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+    autograd records; ``fn`` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: full | dots")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _logits(params, cfg: ModelConfig, x):
-    _, norm = make_norm(cfg.norm, cfg.d_model)
-    x = norm(params["final_norm"], x)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return unembed_head(params["unembed"], x)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
-            positions=None):
-    """Prefill forward: logits [B, T, vocab]."""
+            positions=None, return_hidden=False):
+    """Train / prefill forward.  Returns (logits [B, T, vocab] | hidden
+    [B, T, d], aux_loss): aux is the f32 sum of the blocks' auxiliary
+    losses (the MoE blocks' load balance; 0 without them)."""
     _check_cfg(cfg)
     if embeds is None:
         x = embed(params["embed"], tokens).to(cfg.dtype)
@@ -251,10 +325,43 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
         x = embeds.to(cfg.dtype)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
-    for unit_p in params["units"]:
-        x = _unit_forward(cfg, unit_p, shared, x, positions)
-    return _logits(params, cfg, x)
+    for unit_p in _units(params, cfg):
+        body = _remat(cfg, functools.partial(_unit_forward, cfg, unit_p,
+                                             shared))
+        x, aux = body(x, positions)
+        aux_total = aux_total + aux
+    _, norm = make_norm(cfg.norm, cfg.d_model)
+    x = norm(params["final_norm"], x)
+    if return_hidden:
+        return x, aux_total
+    return _logits(params, cfg, x), aux_total
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": [B, T+1]} or {"embeds": [B, T, d], "labels":
+    [B, T]}.  Mean next-token cross entropy plus the blocks' aux loss."""
+    if cfg.xent_chunks and cfg.tie_embeddings:
+        if "embeds" in batch:
+            x, aux = forward(params, cfg, embeds=batch["embeds"],
+                             return_hidden=True)
+            labels = batch["labels"]
+        else:
+            x, aux = forward(params, cfg, tokens=batch["tokens"][:, :-1],
+                             return_hidden=True)
+            labels = batch["tokens"][:, 1:]
+        loss = softmax_xent_streamed(x, params["embed"]["embedding"], labels,
+                                     cfg.xent_chunks)
+        return loss + aux
+    if "embeds" in batch:
+        logits, aux = forward(params, cfg, embeds=batch["embeds"])
+        loss = softmax_xent(logits, batch["labels"])
+    else:
+        tokens = batch["tokens"]
+        logits, aux = forward(params, cfg, tokens=tokens[:, :-1])
+        loss = softmax_xent(logits, tokens[:, 1:])
+    return loss + aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -284,7 +391,7 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
     else:
         x = embed_in.to(cfg.dtype)
     shared = params.get("shared")
-    for u, unit_p in enumerate(params["units"]):
+    for u, unit_p in enumerate(_units(params, cfg)):
         c = cache["units"][u]
         for i, kind in enumerate(cfg.pattern):
             key = f"{i}_{kind}"
@@ -292,4 +399,5 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
         if cfg.shared_attn:
             x, cache["shared"][u] = block_decode(
                 shared, cfg, "shared_attn", cache["shared"][u], x, pos)
-    return _logits(params, cfg, x), cache
+    _, norm = make_norm(cfg.norm, cfg.d_model)
+    return _logits(params, cfg, norm(params["final_norm"], x)), cache

@@ -5,7 +5,7 @@ reference, on the reference's own weights carried across as numpy:
   (``jaxrand.normal`` repeats XLA's erf_inv polynomial), within one ulp in
   bf16, also when a leaf is drawn in slices;
 * ``model_params_from_reference`` keeps every weight (units restacked);
-* for the smoke configs of the six served archs in f32: ``forward`` with
+* for the smoke configs of the seven served archs in f32: ``forward`` with
   the flash kernel's plain version off and on, and ``decode_step`` over
   16 positions, each within 1e-5 of the reference's logits (measured:
   2e-6); the port's prefill against its own decode steps (the reference's
@@ -17,7 +17,8 @@ reference, on the reference's own weights carried across as numpy:
   decay makes both packages drift from the f32 result by several units
   (ROADMAP Queue 3): the port must drift no more than the reference does;
 * greedy tokens of ``launch.serve`` equal to the reference's loop
-  (``launch/serve.py:50-70``) for qwen3-0.6b and for zamba2-2.7b at
+  (``launch/serve.py:50-70``) for granite-moe-1b-a400m, qwen3-0.6b and
+  for zamba2-2.7b at
   ``examples/serve_lm.py``'s settings, on carried-over weights and from
   the port's own ``init_params``;
 * the unported kinds and options raise ``NotImplementedError``.
@@ -49,10 +50,9 @@ from repro_torch.models import transformer as tr  # noqa: E402
 # see tests/test_torch_ssd.py: torch 2.13.0+cpu's first exp of a process
 torch.exp(torch.linspace(-20.0, 20.0, 50_000))
 
-SERVED = ["command-r-plus-104b", "olmo-1b", "pixtral-12b", "qwen2-1.5b",
-          "qwen3-0.6b", "zamba2-2.7b"]
-UNPORTED = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m",
-            "seamless-m4t-medium", "xlstm-125m"]
+SERVED = ["command-r-plus-104b", "granite-moe-1b-a400m", "olmo-1b",
+          "pixtral-12b", "qwen2-1.5b", "qwen3-0.6b", "zamba2-2.7b"]
+UNPORTED = ["deepseek-v2-lite-16b", "seamless-m4t-medium", "xlstm-125m"]
 B, T = 2, 16
 
 
@@ -141,12 +141,18 @@ def test_forward_and_decode_match_reference(arch_id):
         for flash in (False, True):
             want, _ = jtr.forward(
                 jparams, dataclasses.replace(jcfg, use_flash=flash), **jin)
-            got = tr.forward(params, dataclasses.replace(cfg,
-                                                         use_flash=flash),
-                             **tin)
+            got, _ = tr.forward(params, dataclasses.replace(
+                cfg, use_flash=flash), **tin)
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        atol=1e-5, rtol=0)
         full = got
+        if cfg.moe is not None:
+            # no capacity drop in the prefill, as the reference's
+            # test_prefill_decode_consistency sets it: a decoded token
+            # never meets a full expert
+            full, _ = tr.forward(params, dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0)),
+                **tin)
         # decode token by token (the embedding of each token for the VLM
         # stub, whose decode embeds token ids)
         tokens = (np.random.default_rng(6).integers(0, cfg.vocab, (B, T))
@@ -189,7 +195,7 @@ def test_sliding_window_ring_buffer_past_the_window():
     jstep = jax.jit(lambda p, c, tok, pos: jtr.decode_step(
         p, jcfg, c, token=tok, pos=pos))
     with torch.no_grad():
-        full = tr.forward(params, cfg, tokens=torch.from_numpy(tokens))
+        full, _ = tr.forward(params, cfg, tokens=torch.from_numpy(tokens))
         for pos in range(steps_):
             want, jcache = jstep(jparams, jcache, jnp.asarray(tokens[:, pos]),
                                  jnp.int32(pos))
@@ -238,7 +244,7 @@ def _logits(jcfg, cfg, np_tree, tokens, dtype):
     params = model_params_from_reference(jax.tree.map(np.asarray, jp), cfg,
                                          "cpu")
     with torch.no_grad():
-        got = tr.forward(params, cfg, tokens=torch.from_numpy(tokens))
+        got, _ = tr.forward(params, cfg, tokens=torch.from_numpy(tokens))
     return got.float().numpy(), np.asarray(want.astype(jnp.float32))
 
 
@@ -284,7 +290,8 @@ def _reference_greedy(arch_id, batch, plen, gen):
     return np.array(prompt), np.asarray(jnp.stack(out, axis=1))
 
 
-@pytest.mark.parametrize("arch_id", ["qwen3-0.6b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch_id", ["granite-moe-1b-a400m", "qwen3-0.6b",
+                                     "zamba2-2.7b"])
 def test_greedy_serve_matches_reference(arch_id, capsys):
     batch, plen, gen = 4, 8, 16
     prompt, want = _reference_greedy(arch_id, batch, plen, gen)
@@ -314,7 +321,7 @@ def test_prefill_step_returns_the_last_position():
     tokens = torch.from_numpy(_inputs(cfg)["tokens"]).long()
     with torch.no_grad():
         last = steps.build_prefill(arch, cfg)(params, {"tokens": tokens})
-        full = tr.forward(params, cfg, tokens=tokens)
+        full, _ = tr.forward(params, cfg, tokens=tokens)
     assert tuple(last.shape) == (B, 1, cfg.vocab)
     assert torch.equal(last, full[:, -1:])
 
@@ -326,7 +333,7 @@ def test_unported_kinds_raise():
         with pytest.raises(NotImplementedError, match="item 16"):
             ARCHS[arch_id].make_smoke()
     cfg = ARCHS["qwen3-0.6b"].make_smoke()
-    for kind in ("moe", "mla", "mla_dense", "mlstm", "slstm"):
+    for kind in ("mla", "mla_dense", "mlstm", "slstm"):
         with pytest.raises(NotImplementedError, match="item 16"):
             tr.block_specs(cfg, kind)
         with pytest.raises(NotImplementedError, match="item 16"):
