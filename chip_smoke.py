@@ -159,6 +159,29 @@ Phases (any failure exits non-zero):
      training planes; 3 DDP Adam steps on the same model (the loss
      falls); granite-moe-1b-a400m at full width in bf16: a prefill at
      B = 2, T = 2048 (its MoE aux loss finite) and 8 greedy steps.
+  zoo. deepseek-v2-lite-16b (MLA, its leading dense layer, 64 routed
+     experts) at its published widths and all 27 layers in bf16, weights
+     from the port's init_params (the reference's 15,496,769,024): a
+     prefill at B = 2, T = 2048 (the dense MLA branch) timed at its
+     first and second call, logits and MoE aux finite, and profiled (the
+     idle share, the top kernels), one at B = 1, T = 4096 (the blockwise
+     branch), 8 greedy steps from an 8-token prompt; the same widths cut
+     to the dense layer and one MLA + MoE unit in f32, no expert
+     capacity drop: a T = 64 prefill's last logits against
+     token-by-token absorbed decoding within 1e-4, argmax equal;
+     xlstm-125m at its published widths and 12 layers in bf16
+     (161,480,528 parameters): a prefill at B = 2, T = 2048 timed twice,
+     its first 512 tokens profiled (the idle share), 8 greedy steps; in
+     f32 at T = 300 (mLSTM chunks of 256, the last padded) its prefill
+     against token-by-token decoding: the first position within 1e-4,
+     the sLSTM recurrence's growth past it reported, and the five mLSTM
+     blocks alone within 1e-3 at every position; deepseek's smoke run
+     through
+     ``launch/train.py`` on the card and the CPU (the reference's
+     integers and losses, consensus_err card vs CPU and against the
+     reference's within 1e-3 relative), counters zeroed just before the
+     card's run and read just after (2 K1 and 4 K5 a round), every K1/K5
+     call held bit for bit against its plain version.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -2370,10 +2393,10 @@ SERVE_WRAPPERS = {
 }
 
 
-def serve_model(arch_id, dtype=None):
-    """(arch, cfg, params): the config with ``use_flash``, the port's
-    init_params(key(0)) weights on the device, in ``dtype`` (default the
-    config's)."""
+def serve_model(arch_id, dtype=None, cfg=None):
+    """(arch, cfg, params): the config (``cfg``, a cut of the arch's, or
+    its published one) with ``use_flash``, the port's init_params(key(0))
+    weights on the device, in ``dtype`` (default the config's)."""
     import dataclasses
 
     import torch
@@ -2385,7 +2408,8 @@ def serve_model(arch_id, dtype=None):
     from repro_torch.models.common import init_params
 
     arch = ARCHS[arch_id]
-    cfg = arch.make_smoke() if SMOKE else arch.make(None)
+    if cfg is None:
+        cfg = arch.make_smoke() if SMOKE else arch.make(None)
     cfg = dataclasses.replace(cfg, use_flash=True, dtype=dtype or cfg.dtype)
     t0 = time.perf_counter()
     params = tr.model_params(cfg, init_params(
@@ -4705,26 +4729,16 @@ def train_ddp(arch, cfg, batch):
         f"{ulps} ulp apart")
 
 
-def train_granite():
-    """granite-moe-1b-a400m at its published widths, bf16 weights from
-    init_params(key(0)) as serving draws them: a prefill at B = 2, T =
-    2048 (its MoE aux loss finite), timed at its first and second call,
-    and 8 greedy steps."""
-    import dataclasses
-
+def timed_prefill(cfg, params, tokens, label, calls=2):
+    """``calls`` prefills (``transformer.forward``) of ``tokens``: their
+    host-clock seconds, the logits and the MoE aux finite each time."""
     import torch
 
-    from repro_torch.core import jaxrand
-    from repro_torch.launch import serve
     from repro_torch.models import transformer as tr
 
-    arch, cfg, params = serve_model("granite-moe-1b-a400m")
-    cfg = dataclasses.replace(cfg, use_flash=False)
-    b, t = (2, 64) if SMOKE else (2, 2048)
-    tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
-    secs = []  # the first call, then a second on the same tokens
+    secs = []
     with torch.no_grad():
-        for _ in range(2):
+        for _ in range(calls):
             logits = None
             sync()
             t0 = time.perf_counter()
@@ -4733,9 +4747,26 @@ def train_granite():
             secs.append(time.perf_counter() - t0)
             if not (torch.isfinite(logits).all()
                     and math.isfinite(float(aux))):
-                raise AssertionError("granite prefill: non-finite logits "
-                                     "or aux")
-    del logits
+                raise AssertionError(f"{label}: non-finite logits or aux")
+    return secs, float(aux)
+
+
+def train_granite():
+    """granite-moe-1b-a400m at its published widths, bf16 weights from
+    init_params(key(0)) as serving draws them: a prefill at B = 2, T =
+    2048 (its MoE aux loss finite), timed at its first and second call,
+    and 8 greedy steps."""
+    import dataclasses
+
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import serve
+
+    arch, cfg, params = serve_model("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, use_flash=False)
+    b, t = (2, 64) if SMOKE else (2, 2048)
+    tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
+    # the first call, then a second on the same tokens
+    secs, aux = timed_prefill(cfg, params, tokens, "granite prefill")
     out, gen_s = serve.generate(arch, cfg, params, tokens[:, :8], 8)
     if not (0 <= int(out.min()) and int(out.max()) < cfg.vocab):
         raise AssertionError(f"granite greedy tokens out of range: {out}")
@@ -4743,7 +4774,7 @@ def train_granite():
         f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, {cfg.dtype}: "
         f"prefill B = {b}, T = {t} in {secs[0] * 1e3:.1f} ms first call, "
         f"{secs[1] * 1e3:.1f} ms second call (host clock), aux "
-        f"{float(aux):.6f}; 8 greedy steps from an 8-token prompt in "
+        f"{aux:.6f}; 8 greedy steps from an 8-token prompt in "
         f"{gen_s * 1e3:.1f} ms: {out.tolist()}"
         + ("" if CARD is None else f" [{CARD}]"))
 
@@ -4765,6 +4796,309 @@ def phase_train():
         torch.cuda.empty_cache()
     train_granite()
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase zoo: deepseek-v2-lite-16b (MLA, the leading dense layer, MoE) and
+# xlstm-125m (mLSTM, sLSTM) at their published widths, and deepseek's
+# smoke training through LT-ADMM-CC
+# ---------------------------------------------------------------------------
+
+# the published configs' parameter counts (the reference's model_specs)
+ZOO_PARAMS = {"deepseek-v2-lite-16b": 15_496_769_024,
+              "xlstm-125m": 161_480_528}
+# the reference's launch/train.py at TRAIN_ARGV + --arch
+# deepseek-v2-lite-16b on the CPU (jax 0.9.0)
+ZOO_TRAIN_ARGV = TRAIN_ARGV + ["--arch", "deepseek-v2-lite-16b"]
+ZOO_TRAIN_REFERENCE = {
+    "params": 347_328, "wire": 1_389_328, "ddp": 8_335_872,
+    "mean_loss": (6.2374, 6.2193, 6.2127),
+    "consensus_err": (0.1297444850206375, 0.31731125712394714,
+                      0.5175784826278687),
+    "telemetry": {"tx_bytes": 4_167_984, "tx_msgs": 12, "grad_evals": 60,
+                  "participations": 3}}
+# xlstm-125m's f32 prefill against token-by-token decoding.  Past its
+# first position the whole model cannot meet CONSISTENCY_TOL in either
+# package: the sLSTM recurrence amplifies the two forms' f32 rounding
+# ~1.55x a step, so by position ~24 they are O(1) apart (the reference's
+# own at 6 layers on the CPU: 6.5e-4 at position 8, 1.2 at 24).  The
+# five mLSTM blocks alone are held at every position: the reference's
+# own chunkwise-vs-recurrent gap there reads 1.58e-4 on the CPU (the
+# port's 1.66e-4) at a logit scale ~2, so the limit is 6x that
+XLSTM_CONSISTENCY_T, XLSTM_CONSISTENCY_TOL = 300, 1e-3
+
+
+def zoo_profile(label, cfg, params, tokens):
+    """One prefill under the profiler: its idle share (a string with the
+    wall and busy ms and the profile's own seconds) and the top kernels
+    logged."""
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        by_kernel, wall = profile_window(
+            lambda: tr.forward(params, cfg, tokens=tokens))
+    busy = sum(by_kernel.values())
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[zoo] {label} kernel {ms:9.3f} ms {ms / busy:6.1%}  "
+            f"{name[:100]}")
+    return (f"{1 - busy / wall:.3f} (profiled call: wall {wall:.1f} ms, "
+            f"device busy {busy:.1f} ms; the profile "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def zoo_generate(arch, cfg, params, prompt, gen=8):
+    """``gen`` greedy steps from ``prompt`` through ``serve.generate``:
+    (ms a step, tokens), the tokens in the vocabulary."""
+    from repro_torch.launch import serve
+
+    serve.generate(arch, cfg, params, prompt, 2)  # warm-up
+    out, secs = serve.generate(arch, cfg, params, prompt, gen)
+    if tuple(out.shape) != (prompt.shape[0], gen) or not (
+            0 <= int(out.min()) and int(out.max()) < cfg.vocab):
+        raise AssertionError(f"{cfg.name} greedy tokens: {out}")
+    return secs * 1e3 / gen, out
+
+
+def zoo_count(arch_id, params):
+    n = sum(p.numel() for p in params.parameters())
+    if not SMOKE and n != ZOO_PARAMS[arch_id]:
+        raise AssertionError(f"{arch_id}: {n:,} parameters, the "
+                             f"reference's {ZOO_PARAMS[arch_id]:,}")
+    return n
+
+
+def zoo_deepseek():
+    """deepseek-v2-lite-16b at full width in bf16: the prefill through
+    the dense MLA branch (first and second call) and the blockwise one,
+    8 greedy steps."""
+    import torch
+
+    from repro_torch.core import jaxrand
+
+    arch_id = "deepseek-v2-lite-16b"
+    arch, cfg, params = serve_model(arch_id)
+    n = zoo_count(arch_id, params)
+    b, t = (2, 64) if SMOKE else (2, 2048)
+    tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
+    secs, aux = timed_prefill(cfg, params, tokens, f"{arch_id} prefill")
+    idle = (zoo_profile(arch_id, cfg, params, tokens) if DEV == "cuda"
+            else "not measured on the CPU")
+    t_long = 3072 if SMOKE else 4096
+    long = jaxrand.randint(jaxrand.key(3, DEV), (1, t_long), 0, cfg.vocab)
+    long_secs, _ = timed_prefill(cfg, params, long,
+                               f"{arch_id} blockwise prefill", calls=1)
+    step_ms, out = zoo_generate(arch, cfg, params, tokens[:, :8])
+    log(f"[zoo] {arch_id}: {cfg.n_layers} layers ({cfg.first_dense} dense "
+        f"+ {cfg.n_units} MLA+MoE), d {cfg.d_model}, MLA r "
+        f"{cfg.mla.kv_lora_rank}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, {cfg.dtype}, {n:,} "
+        f"parameters: prefill B = {b}, T = {t} (dense MLA) "
+        f"{secs[0] * 1e3:.1f} ms first call, {secs[1] * 1e3:.1f} ms second "
+        f"(host clock), aux {aux:.6f}, idle share {idle}; B = 1, T = "
+        f"{t_long} (blockwise) "
+        f"{long_secs[0] * 1e3:.1f} ms first call; 8 greedy steps from an "
+        f"8-token prompt {step_ms:.1f} ms a step: {out.tolist()}"
+        + ("" if CARD is None else f" [{CARD}]"))
+    del params
+    if DEV == "cuda":
+        log(f"[zoo] {arch_id}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            "(max_memory_allocated)")
+        torch.cuda.empty_cache()
+
+
+def zoo_decode_gaps(arch, cfg, params, tokens):
+    """The f32 prefill's logits against token-by-token ``decode_step``
+    logits: (max |d| at each position, the prefill's logits)."""
+    import torch
+
+    from repro_torch.launch.steps import build_serve
+    from repro_torch.models import transformer as tr
+
+    t = tokens.shape[1]
+    with torch.no_grad():
+        full, _ = tr.forward(params, cfg, tokens=tokens)
+        step, init_cache = build_serve(arch, cfg)
+        cache = init_cache(tokens.shape[0], t, tokens.device)
+        gaps = []
+        for pos in range(t):
+            lg, cache = step(params, cache, {"token": tokens[:, pos],
+                                             "pos": pos})
+            gaps.append(float((lg[:, 0] - full[:, pos]).abs().max()))
+    return gaps, full, lg
+
+
+def zoo_deepseek_consistency():
+    """deepseek-v2-lite-16b's widths cut to its dense layer and one MLA +
+    MoE unit, in f32, with the capacity factor n_experts / top_k (no
+    pair dropped, as in a one-token decode step): the last position's
+    prefill logits against absorbed token-by-token decoding."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+
+    arch = ARCHS["deepseek-v2-lite-16b"]
+    cfg = (arch.make_smoke() if SMOKE
+           else dataclasses.replace(arch.make(None), n_layers=2))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    _, cfg, params = serve_model(arch.arch_id, torch.float32, cfg)
+    t = 16 if SMOKE else 64
+    tokens = jaxrand.randint(jaxrand.key(1, DEV), (1, t), 0, cfg.vocab)
+    gaps, full, last = zoo_decode_gaps(arch, cfg, params, tokens)
+    same = bool((last[:, 0].argmax(-1) == full[:, -1].argmax(-1)).all())
+    log(f"[zoo] {cfg.name} cut to {cfg.n_layers} layers ({cfg.first_dense} "
+        f"dense + {cfg.n_units} MLA+MoE), f32, capacity factor "
+        f"{cfg.moe.capacity_factor:.3f}: T = {t} prefill vs absorbed "
+        f"decode_step, last position max |d| {gaps[-1]:.4e} (limit "
+        f"{CONSISTENCY_TOL}; logit scale {float(full.abs().max()):.3f}), "
+        f"argmax equal {same}; every position {max(gaps):.4e}")
+    if not (gaps[-1] <= CONSISTENCY_TOL and same):
+        raise AssertionError(f"{cfg.name}: prefill and absorbed decode "
+                             f"disagree by {gaps[-1]}")
+
+
+def zoo_xlstm():
+    """xlstm-125m at full width in bf16: the prefill (twice, then its
+    first 512 tokens profiled), 8 greedy steps; then f32 prefill against
+    token-by-token decoding at T = XLSTM_CONSISTENCY_T."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import jaxrand
+
+    arch_id = "xlstm-125m"
+    arch, cfg, params = serve_model(arch_id)
+    n = zoo_count(arch_id, params)
+    b, t = (2, 64) if SMOKE else (2, 2048)
+    tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
+    secs, _ = timed_prefill(cfg, params, tokens, f"{arch_id} prefill")
+    idle = "not measured on the CPU"
+    if DEV == "cuda":
+        # the first 512 tokens: the profiler takes ~50 s to gather the
+        # full prefill's ~10^5 kernel events, and each sLSTM step is the
+        # same host-bound launch train at any T
+        idle = zoo_profile(arch_id, cfg, params, tokens[:, :512])
+    step_ms, out = zoo_generate(arch, cfg, params, tokens[:, :8])
+    log(f"[zoo] {arch_id}: {cfg.n_layers} layers {cfg.pattern} x "
+        f"{cfg.n_units}, d {cfg.d_model}, {cfg.lstm.n_heads} heads of "
+        f"{cfg.lstm.head_dim}, {cfg.dtype}, {n:,} parameters: prefill B = "
+        f"{b}, T = {t} {secs[0] * 1e3:.1f} ms first call, "
+        f"{secs[1] * 1e3:.1f} ms second (host clock), idle share at T = "
+        f"512 {idle}; 8 greedy steps {step_ms:.1f} ms a step: {out.tolist()}"
+        + ("" if CARD is None else f" [{CARD}]"))
+    del params
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    # f32: the whole model, then its mLSTM blocks alone
+    t = 16 if SMOKE else XLSTM_CONSISTENCY_T
+    tokens = jaxrand.randint(jaxrand.key(1, DEV), (1, t), 0, cfg.vocab)
+    _, cfg32, params = serve_model(arch_id, torch.float32, cfg)
+    gaps, full, _ = zoo_decode_gaps(arch, cfg32, params, tokens)
+    past = next((p for p, g in enumerate(gaps) if g > CONSISTENCY_TOL), None)
+    log(f"[zoo] {arch_id} f32 prefill vs decode_step over {t} positions: "
+        f"position 0 max |d| {gaps[0]:.4e} (limit {CONSISTENCY_TOL}), first "
+        f"position past it {past}, every position {max(gaps):.4e} (logit "
+        f"scale {float(full.abs().max()):.3f}; the sLSTM recurrence)")
+    if not gaps[0] <= CONSISTENCY_TOL:
+        raise AssertionError(f"{arch_id}: prefill and decode disagree by "
+                             f"{gaps[0]} at position 0")
+    del params
+    k = cfg.pattern.count("mlstm")
+    _, cfg_m, params = serve_model(arch_id, torch.float32, dataclasses.replace(
+        cfg, n_layers=k, pattern=("mlstm",) * k))
+    gaps, full, _ = zoo_decode_gaps(arch, cfg_m, params, tokens)
+    log(f"[zoo] {arch_id}'s {k} mLSTM blocks alone, f32, T = {t}: prefill "
+        f"(chunkwise) vs decode_step (recurrent) max |d| {max(gaps):.4e} "
+        f"over every position (limit {XLSTM_CONSISTENCY_TOL}; logit scale "
+        f"{float(full.abs().max()):.3f})")
+    if not max(gaps) <= XLSTM_CONSISTENCY_TOL:
+        raise AssertionError(f"{arch_id} mLSTM blocks: prefill and decode "
+                             f"disagree by {max(gaps)}")
+
+
+def zoo_train():
+    """deepseek's smoke run through launch/train.py on the card, counts
+    zeroed just before and read just after, every K1/K5 call held bit
+    for bit against its plain version; then on the CPU."""
+    ref = ZOO_TRAIN_REFERENCE
+    tap = MainPathTap({k: MAIN_PATH_WRAPPERS[k]
+                       for k in TRAIN_PER_ROUND})
+    tap.checking = True
+    try:
+        reset_counts()  # the card's run starts here
+        t0 = time.perf_counter()
+        _, oc = run_train_cli(ZOO_TRAIN_ARGV, DEV)
+        tc = time.perf_counter() - t0
+        counts = read_counts()  # ... and ends here
+    finally:
+        tap.close()
+    t0 = time.perf_counter()
+    # the rehearsal's "card" run is already the CPU's
+    oh = oc if DEV == "cpu" else run_train_cli(ZOO_TRAIN_ARGV, "cpu")[1]
+    th = time.perf_counter() - t0
+    for key in ("params", "wire", "ddp"):
+        if not oc[key] == oh[key] == ref[key]:
+            raise AssertionError(f"zoo train: {key} {oc[key]} / {oh[key]}, "
+                                 f"the reference's {ref[key]}")
+    for key, per in ref["telemetry"].items():
+        if not oc["telemetry"][key] == oh["telemetry"][key] == [per] * 4:
+            raise AssertionError(f"zoo train: telemetry {key} "
+                                 f"{oc['telemetry'][key]}, expected {per}")
+    worst_l = worst_c = 0.0
+    for r, (c, h, loss, cerr) in enumerate(zip(
+            oc["rounds"], oh["rounds"], ref["mean_loss"],
+            ref["consensus_err"])):
+        dl = abs(c["mean_loss_full"] - h["mean_loss_full"])
+        dc = max(abs(c["consensus_err"] / h["consensus_err"] - 1),
+                 abs(c["consensus_err"] / cerr - 1))
+        worst_l, worst_c = max(worst_l, dl), max(worst_c, dc)
+        if (dl > TRAIN_LOSS_TOL or dc > TRAIN_CONSENSUS_RTOL
+                or abs(c["mean_loss_full"] - loss) > TRAIN_LOSS_TOL):
+            raise AssertionError(f"zoo train round {r}: card {c}, CPU {h}, "
+                                 f"the reference's {loss} / {cerr}")
+    rounds = len(oc["rounds"])
+    held = {}
+    for (nm, _), c in tap.checked.items():
+        held[nm] = held.get(nm, 0) + c
+    if DEV == "cuda":
+        for kname, per in TRAIN_PER_ROUND.items():
+            if counts[kname] != per * rounds or held.get(kname) != counts[
+                    kname]:
+                raise AssertionError(
+                    f"zoo train: {counts[kname]} {kname} launches, "
+                    f"{held.get(kname)} held, in {rounds} rounds; expected "
+                    f"{per} a round")
+    log(f"[zoo] deepseek smoke run ({' '.join(ZOO_TRAIN_ARGV)}): params "
+        f"{oc['params']:,}, wire {oc['wire']:,} B/agent/round, DDP "
+        f"equivalent {oc['ddp']:,}, telemetry the reference's; card vs CPU "
+        f"max |d mean_loss| {worst_l:.3e}, max relative d consensus_err "
+        f"(card vs CPU and the reference's) {worst_c:.3e}; launches "
+        f"{({k: v for k, v in counts.items() if v})}, held bit for bit "
+        f"against their plain versions: {held}; {tc:.2f} s on {DEV}, "
+        f"{th:.2f} s on the CPU")
+
+
+def phase_zoo():
+    import torch
+
+    t0 = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for part in (zoo_deepseek, zoo_deepseek_consistency, zoo_xlstm,
+                 zoo_train):
+        t1 = time.perf_counter()
+        part()
+        log(f"[zoo] {part.__name__} {time.perf_counter() - t1:.1f} s")
+    log(f"[zoo] phase {time.perf_counter() - t0:.1f} s")
 
 
 def rehearse():
@@ -4806,6 +5140,7 @@ def rehearse():
     SMOKE = True
     phase_serve()
     phase_train()
+    phase_zoo()
     log("[rehearse] done on the CPU; no result")
 
 
@@ -4823,7 +5158,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,paper,fig2,obs,dada,"
-                    "harness,wide,profile,serve,train",
+                    "harness,wide,profile,serve,train,zoo",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -4914,6 +5249,10 @@ def main(argv=None):
         with phase_clock("train", spent):
             torch.cuda.empty_cache()
             phase_train()
+    if "zoo" in phases:
+        with phase_clock("zoo", spent):
+            torch.cuda.empty_cache()
+            phase_zoo()
     log(f"[time] host-clock seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f"; main {time.perf_counter() - t_main:.1f}")

@@ -4,10 +4,9 @@ the counterpart of ``src/repro/configs/archs.py``.
 Every entry cites its source.  ``make(shape)`` returns the FULL config,
 ``make_smoke()`` a reduced same-family variant that runs a real forward
 on the CPU; the smoke configs turn remat off, as the reference's do.
-The seven archs whose blocks the port runs (attn, shared_attn, moe,
-mamba) are here; the other three ids stay in ``ARCHS`` and raise
-``NotImplementedError`` when made, until ROADMAP item 16 ports their
-blocks.
+The nine decoder-only archs are here; seamless-m4t-medium stays in
+``ARCHS`` and raises ``NotImplementedError`` when made, until ROADMAP
+item 16 ports the encoder-decoder.
 
 Full-attention architectures get ``sliding_window=LONG_CONTEXT_WINDOW``
 when instantiated for the ``long_500k`` shape (ring-buffer KV cache).
@@ -19,10 +18,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.attention import AttnConfig
+from repro_torch.models.attention import AttnConfig, MLAConfig
 from repro_torch.models.mamba import SSMConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import ModelConfig
+from repro_torch.models.xlstm import XLSTMConfig
 
 LONG_CONTEXT_WINDOW = 4096
 
@@ -149,6 +149,31 @@ def granite_moe_smoke():
     )
 
 
+def deepseek_v2_lite(shape=None):
+    return ModelConfig(
+        name="deepseek-v2-lite-16b", n_layers=27, d_model=2048, vocab=102400,
+        pattern=("mla",),
+        mla=MLAConfig(2048, 16, kv_lora_rank=512, qk_nope_dim=128,
+                      qk_rope_dim=64, v_head_dim=128,
+                      sliding_window=_sw(shape)),
+        moe=MoEConfig(2048, n_experts=64, top_k=6, d_ff_expert=1408,
+                      n_shared=2),
+        first_dense=1, d_ff_first=10944, tie_embeddings=True,
+        dtype=torch.bfloat16,
+    )
+
+
+def deepseek_smoke():
+    return ModelConfig(
+        name="deepseek-smoke", n_layers=2, d_model=128, vocab=512,
+        pattern=("mla",),
+        mla=MLAConfig(128, 4, kv_lora_rank=32, qk_nope_dim=16,
+                      qk_rope_dim=8, v_head_dim=16),
+        moe=MoEConfig(128, n_experts=4, top_k=2, d_ff_expert=64, n_shared=1),
+        first_dense=1, d_ff_first=256, remat=False,
+    )
+
+
 def zamba2_2_7b(shape=None):
     # 54 Mamba2 blocks + one SHARED attention block applied every 6 blocks
     # (the reference's approximation of Zamba2's shared-block scheme).
@@ -167,6 +192,24 @@ def zamba2_smoke():
         pattern=("mamba",) * 2, shared_attn=True, d_ff=256,
         attn=AttnConfig(128, 4, 4, 32),
         ssm=SSMConfig(128, d_state=16, head_dim=32, chunk=32),
+        remat=False,
+    )
+
+
+def xlstm_125m(shape=None):
+    del shape  # recurrent: no windowing needed at 500k
+    return ModelConfig(
+        name="xlstm-125m", n_layers=12, d_model=768, vocab=50304,
+        pattern=("mlstm",) * 5 + ("slstm",),  # xLSTM[7:1]-ish mix
+        lstm=XLSTMConfig(768, n_heads=4), tie_embeddings=True,
+        dtype=torch.bfloat16,
+    )
+
+
+def xlstm_smoke():
+    return ModelConfig(
+        name="xlstm-smoke", n_layers=2, d_model=128, vocab=512,
+        pattern=("mlstm", "slstm"), lstm=XLSTMConfig(128, n_heads=2),
         remat=False,
     )
 
@@ -202,11 +245,11 @@ ARCHS = {
         ArchDef("granite-moe-1b-a400m", "moe", "lm",
                 "hf:ibm-granite/granite-3.0-1b-a400m-base",
                 granite_moe_1b, granite_moe_smoke, "32 experts top-8"),
-        _unported("deepseek-v2-lite-16b", "moe", "lm", "arXiv:2405.04434",
-                  "MLA blocks and the leading dense layers",
-                  "MLA kv_lora=512; 2 shared + 64 routed top-6"),
-        _unported("xlstm-125m", "ssm", "lm", "arXiv:2405.04517",
-                  "mLSTM and sLSTM blocks", "sLSTM + mLSTM blocks"),
+        ArchDef("deepseek-v2-lite-16b", "moe", "lm", "arXiv:2405.04434",
+                deepseek_v2_lite, deepseek_smoke,
+                "MLA kv_lora=512; 2 shared + 64 routed top-6"),
+        ArchDef("xlstm-125m", "ssm", "lm", "arXiv:2405.04517",
+                xlstm_125m, xlstm_smoke, "sLSTM + mLSTM blocks"),
         ArchDef("qwen2-1.5b", "dense", "lm", "arXiv:2407.10671",
                 qwen2_1_5b, qwen2_smoke, "GQA kv=2, QKV bias"),
         ArchDef("command-r-plus-104b", "dense", "lm",

@@ -1,16 +1,18 @@
-"""GQA attention (with qk-norm / QKV-bias / sliding-window options), the
-counterpart of the GQA half of ``src/repro/models/attention.py``.
+"""GQA attention (with qk-norm / QKV-bias / sliding-window options) and
+DeepSeek-style MLA (multi-head latent attention), the counterpart of
+``src/repro/models/attention.py``.
 
-    gqa_specs(cfg)                             parameter ParamSpec tree
-    gqa_forward(params, cfg, x, positions)     full-sequence (prefill)
-    gqa_init_cache(cfg, batch, max_len, ...)   decode cache (zeros)
-    gqa_decode(params, cfg, cache, x, pos)     one-token decode
+Both expose:
+    *_specs(cfg)                               parameter ParamSpec tree
+    *_forward(params, cfg, x, positions)       full-sequence (prefill)
+    *_init_cache(cfg, batch, max_len, ...)     decode cache (zeros)
+    *_decode(params, cfg, cache, x, pos)       one-token decode
 
 Sliding-window decode uses a ring-buffer cache of length ``window`` with
 an absolute-position side array (slots with pos_id < 0 are invalid).
-Unlike the reference, which returns a new cache, the decode writes the
-new key and value into the cache in place (no copy of the cache per
-token).  MLA, cross-attention (encoder-decoder) and the sequence-sharded
+Unlike the reference, which returns a new cache, the decodes write the
+new token's entries into the cache in place (no copy of the cache per
+token).  Cross-attention (encoder-decoder) and the sequence-sharded
 path wait for ROADMAP items 16 and 15.
 """
 from __future__ import annotations
@@ -228,4 +230,128 @@ def gqa_decode(params, cfg: AttnConfig, cache, x, pos: int):
     pos_ids = cache["pos_ids"]
     valid = (pos_ids >= 0) & (pos_ids <= pos)
     out = sdpa(q, cache["k"], cache["v"], valid[None, None, None, None, :])
+    return torch.einsum("bthk,hkd->btd", out, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank latent KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    sliding_window: int | None = None
+
+
+def mla_specs(cfg: MLAConfig):
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": ParamSpec((d, h, qk), ("embed", "heads", "head")),
+        "w_dkv": ParamSpec((d, r), ("embed", None)),
+        "kv_norm": ParamSpec((r,), (None,), init="ones"),
+        "w_uk": ParamSpec((r, h, cfg.qk_nope_dim), (None, "heads", "head")),
+        "w_uv": ParamSpec((r, h, cfg.v_head_dim), (None, "heads", "head")),
+        "w_kr": ParamSpec((d, cfg.qk_rope_dim), ("embed", None)),
+        "wo": ParamSpec((h, cfg.v_head_dim, d), ("heads", "head", "embed")),
+    }
+
+
+def _mla_common(params, cfg: MLAConfig, x, positions):
+    """The latent ``c [B, T, r]`` (through ``kv_norm``), the shared roped
+    key ``k_rope [B, T, 1, rope]`` and the query's two parts."""
+    c = torch.einsum("btd,dr->btr", x, params["w_dkv"])
+    c = rmsnorm({"scale": params["kv_norm"]}, c)
+    k_rope = torch.einsum("btd,de->bte", x, params["w_kr"])[:, :, None, :]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return c, k_rope, q_nope, q_rope
+
+
+def _mla_scale(cfg: MLAConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_forward(params, cfg: MLAConfig, x, positions, use_flash=False):
+    """Full-sequence MLA.  ``use_flash`` is ignored, as the reference
+    ignores it (no MLA flash variant).  Up to BLOCKWISE_THRESHOLD tokens
+    the two score terms are added in the activation dtype, then cast to
+    f32 (so in bf16 the sum is rounded first, as the reference's is);
+    past it the shared rope key is broadcast over the heads and
+    concatenated with the per-head keys (192-wide keys beside 128-wide
+    values) for ``sdpa_blockwise``.  With a sliding window that branch is
+    held to the dense path, not to the reference's blockwise walk, which
+    skips or repeats KV blocks (``sdpa_blockwise``; ROADMAP Queue 3)."""
+    del use_flash
+    c, k_rope, q_nope, q_rope = _mla_common(params, cfg, x, positions)
+    k_nope = torch.einsum("btr,rhk->bthk", c, params["w_uk"])
+    v = torch.einsum("btr,rhk->bthk", c, params["w_uv"])
+    b, t = x.shape[0], x.shape[1]
+    if t > BLOCKWISE_THRESHOLD:
+        k_eff = torch.cat([k_nope, k_rope.expand(b, t, cfg.n_heads,
+                                                 cfg.qk_rope_dim)], dim=-1)
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        out = sdpa_blockwise(q_eff, k_eff, v, causal=True,
+                             window=cfg.sliding_window)
+        return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    scores = (torch.einsum("bthk,bshk->bhts", q_nope, k_nope)
+              + torch.einsum("bthk,bsk->bhts", q_rope, k_rope[:, :, 0])
+              ).float() * _mla_scale(cfg)
+    mask = causal_mask(t, t, cfg.sliding_window, device=x.device)[:, :, 0]
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhts,bshk->bthk", probs, v)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"])
+
+
+def mla_cache_len(cfg: MLAConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def mla_init_cache(cfg: MLAConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    s = mla_cache_len(cfg, max_len)
+    return {
+        "c": torch.zeros((batch, s, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "k_rope": torch.zeros((batch, s, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+        "pos_ids": torch.full((s,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(params, cfg: MLAConfig, cache, x, pos: int):
+    """Absorbed-matmul decode: the scores against the latent cache itself
+    (q_nope absorbed through w_uk, the output through w_uv), so a step's
+    work and cache traffic scale with kv_lora_rank, not the heads.
+    Writes the token's latent and rope key into ``cache`` in place (slot
+    ``pos % S``); returns ``(y, cache)``."""
+    positions = torch.full((1, 1), pos, device=x.device)
+    c, k_rope, q_nope, q_rope = _mla_common(params, cfg, x, positions)
+    s = cache["c"].shape[1]
+    slot = pos % s  # == pos for full-length caches
+    cache["c"][:, slot] = c[:, 0]
+    cache["k_rope"][:, slot] = k_rope[:, 0, 0]
+    cache["pos_ids"][slot] = pos
+    cc, ckr, pos_ids = cache["c"], cache["k_rope"], cache["pos_ids"]
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope, params["w_uk"])
+    scores = (torch.einsum("bthr,bsr->bhts", q_lat, cc)
+              + torch.einsum("bthk,bsk->bhts", q_rope, ckr)
+              ).float() * _mla_scale(cfg)
+    valid = (pos_ids >= 0) & (pos_ids <= pos)
+    scores = torch.where(valid[None, None, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhts,bsr->bthr", probs, cc)
+    out = torch.einsum("bthr,rhk->bthk", out_lat, params["w_uv"])
     return torch.einsum("bthk,hkd->btd", out, params["wo"]), cache

@@ -1,11 +1,13 @@
 """Decoder-only language model assembler, the counterpart of
-``src/repro/models/transformer.py`` for the block kinds ported so far.
+``src/repro/models/transformer.py``.
 
 A model is a stack of *units*; each unit is a short pattern of blocks
 (``("attn",)`` for dense models, ``("mamba",)*6`` for Zamba2 with a shared
-attention block applied after each unit).  The reference stacks the
-units' parameters along a leading axis and runs them under ``lax.scan``;
-here ``forward`` loops over the units.  It takes either
+attention block applied after each unit, ``("mlstm",)*5 + ("slstm",)``
+for xLSTM), after ``first_dense`` leading dense layers (DeepSeek's,
+stacked as ``"first"``).  The reference stacks the units' parameters
+along a leading axis and runs them under ``lax.scan``; here ``forward``
+loops over the units.  It takes either
 
 * the reference's tree itself (nested dicts of tensors, the units
   stacked; ``common.init_params`` draws it): each unit is a view of the
@@ -25,9 +27,11 @@ Block kinds:
     shared_attn  (Zamba2) one attention+FFN block whose parameters are
                  shared across all its invocations (after every unit)
     moe          pre-norm GQA attention + MoE FFN (+ shared experts)
+    mla          pre-norm MLA attention + MoE FFN
+    mla_dense    pre-norm MLA attention + dense FFN (DeepSeek first-k-dense)
     mamba        pre-norm Mamba2 (SSD) block
-The kinds mla, mla_dense, mlstm and slstm, and DeepSeek's leading dense
-layers, wait for ROADMAP item 16.
+    mlstm, slstm xLSTM blocks (no separate FFN)
+The encoder-decoder waits for ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from torch import nn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -56,9 +61,6 @@ from repro_torch.models.common import (
     unembed_head_specs,
 )
 
-SERVED_KINDS = ("attn", "shared_attn", "moe", "mamba")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -68,12 +70,15 @@ class ModelConfig:
     pattern: tuple = ("attn",)  # repeating unit of block kinds
     d_ff: int = 0  # dense FFN hidden size
     attn: Any = None  # AttnConfig
+    mla: Any = None  # MLAConfig
     moe: Any = None  # MoEConfig
     ssm: Any = None  # SSMConfig
+    lstm: Any = None  # XLSTMConfig
     norm: str = "rms"
     parallel_block: bool = False  # command-r style fused attn+ffn residual
     shared_attn: bool = False  # Zamba2 shared block after each unit
-    first_dense: int = 0  # DeepSeek: leading dense layers (item 16)
+    first_dense: int = 0  # DeepSeek: leading dense layers
+    d_ff_first: int = 0  # their FFN width
     tie_embeddings: bool = True
     dtype: Any = torch.float32
     remat: bool = True
@@ -93,23 +98,10 @@ class ModelConfig:
                              f"+ k * len(pattern {self.pattern})")
         return n
 
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} waits for ROADMAP item 16 (the rest of the model zoo); the "
-        f"port serves the block kinds {SERVED_KINDS}")
-
-
-def _check_kind(kind: str):
-    if kind not in SERVED_KINDS:
-        raise _unported(f"block kind {kind!r}")
-
-
-def _check_cfg(cfg: ModelConfig):
-    if cfg.first_dense:
-        raise _unported("first_dense (leading dense layers)")
-    for kind in cfg.pattern:
-        _check_kind(kind)
+    @property
+    def first_kind(self) -> str:
+        """The leading dense layers' block kind."""
+        return "mla_dense" if self.mla else "attn"
 
 
 # ---------------------------------------------------------------------------
@@ -131,20 +123,40 @@ def _ffn(params, x):
     return torch.einsum("btf,fd->btd", h, params["wd"])
 
 
+_KINDS = ("attn", "shared_attn", "moe", "mla", "mla_dense", "mamba", "mlstm",
+          "slstm")
+_MLA_KINDS = ("mla", "mla_dense")
+_MOE_KINDS = ("moe", "mla")
+
+
+def _check_kind(kind: str):
+    if kind not in _KINDS:
+        raise ValueError(kind)
+
+
 def block_specs(cfg: ModelConfig, kind: str):
     _check_kind(kind)
     d = cfg.d_model
     norm_specs, _ = make_norm(cfg.norm, d)
     if kind == "mamba":
         return {"ln": dict(norm_specs), "mamba": mamba_lib.mamba_specs(cfg.ssm)}
-    specs = {"ln1": dict(norm_specs), "attn": attn_lib.gqa_specs(cfg.attn)}
-    if kind == "moe":
+    if kind == "mlstm":
+        return {"ln": dict(norm_specs),
+                "cell": xlstm_lib.mlstm_specs(cfg.lstm)}
+    if kind == "slstm":
+        return {"ln": dict(norm_specs),
+                "cell": xlstm_lib.slstm_specs(cfg.lstm)}
+    mla = kind in _MLA_KINDS
+    specs = {"ln1": dict(norm_specs),
+             "attn": (attn_lib.mla_specs(cfg.mla) if mla
+                      else attn_lib.gqa_specs(cfg.attn))}
+    if kind in _MOE_KINDS:
         specs["ln2"] = dict(norm_specs)
         specs["moe"] = moe_lib.moe_specs(cfg.moe)
         return specs
-    if not cfg.parallel_block:
+    if mla or not cfg.parallel_block:
         specs["ln2"] = dict(norm_specs)
-    specs["ffn"] = _ffn_specs(d, cfg.d_ff)
+    specs["ffn"] = _ffn_specs(d, cfg.d_ff_first if mla else cfg.d_ff)
     return specs
 
 
@@ -159,14 +171,22 @@ def block_forward(params, cfg: ModelConfig, kind: str, x, positions):
         if isinstance(mixer, nn.Module):
             return x + mixer(h), aux
         return x + mamba_lib.mamba_forward(mixer, cfg.ssm, h), aux
+    if kind in ("mlstm", "slstm"):
+        fwd = (xlstm_lib.mlstm_forward if kind == "mlstm"
+               else xlstm_lib.slstm_forward)
+        h = norm(params.get("ln", {}), x)
+        return x + fwd(params["cell"], cfg.lstm, h), aux
     h = norm(params.get("ln1", {}), x)
-    a = attn_lib.gqa_forward(params["attn"], cfg.attn, h, positions,
-                             use_flash=cfg.use_flash)
-    if cfg.parallel_block and kind != "moe":
+    if kind in _MLA_KINDS:
+        a = attn_lib.mla_forward(params["attn"], cfg.mla, h, positions)
+    else:
+        a = attn_lib.gqa_forward(params["attn"], cfg.attn, h, positions,
+                                 use_flash=cfg.use_flash)
+    if cfg.parallel_block and kind in ("attn", "shared_attn"):
         return x + a + _ffn(params["ffn"], h), aux
     x = x + a
     h = norm(params.get("ln2", {}), x)
-    if kind == "moe":
+    if kind in _MOE_KINDS:
         y, aux = moe_lib.moe_forward(params["moe"], cfg.moe, h)
         return x + y, aux
     return x + _ffn(params["ffn"], h), aux
@@ -177,6 +197,13 @@ def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     _check_kind(kind)
     if kind == "mamba":
         return mamba_lib.mamba_init_cache(cfg.ssm, batch, cfg.dtype, device)
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_init_cache(cfg.lstm, batch, cfg.dtype, device)
+    if kind == "slstm":
+        return xlstm_lib.slstm_init_cache(cfg.lstm, batch, cfg.dtype, device)
+    if kind in _MLA_KINDS:
+        return attn_lib.mla_init_cache(cfg.mla, batch, max_len, cfg.dtype,
+                                       device)
     return attn_lib.gqa_init_cache(cfg.attn, batch, max_len, cfg.dtype,
                                    device)
 
@@ -189,13 +216,24 @@ def block_decode(params, cfg: ModelConfig, kind: str, cache, x, pos: int):
         y, cache = mamba_lib.mamba_decode(params["mamba"], cfg.ssm, cache, h,
                                           pos)
         return x + y, cache
+    if kind in ("mlstm", "slstm"):
+        decode = (xlstm_lib.mlstm_decode if kind == "mlstm"
+                  else xlstm_lib.slstm_decode)
+        h = norm(params.get("ln", {}), x)
+        y, cache = decode(params["cell"], cfg.lstm, cache, h, pos)
+        return x + y, cache
     h = norm(params.get("ln1", {}), x)
-    a, cache = attn_lib.gqa_decode(params["attn"], cfg.attn, cache, h, pos)
-    if cfg.parallel_block and kind != "moe":
+    if kind in _MLA_KINDS:
+        a, cache = attn_lib.mla_decode(params["attn"], cfg.mla, cache, h,
+                                       pos)
+    else:
+        a, cache = attn_lib.gqa_decode(params["attn"], cfg.attn, cache, h,
+                                       pos)
+    if cfg.parallel_block and kind in ("attn", "shared_attn"):
         return x + a + _ffn(params["ffn"], h), cache
     x = x + a
     h = norm(params.get("ln2", {}), x)
-    if kind == "moe":
+    if kind in _MOE_KINDS:
         return x + moe_lib.moe_forward(params["moe"], cfg.moe, h)[0], cache
     return x + _ffn(params["ffn"], h), cache
 
@@ -214,7 +252,6 @@ def _stack_specs(specs, n):
 
 
 def model_specs(cfg: ModelConfig):
-    _check_cfg(cfg)
     unit = {f"{i}_{kind}": block_specs(cfg, kind)
             for i, kind in enumerate(cfg.pattern)}
     specs = {
@@ -222,6 +259,9 @@ def model_specs(cfg: ModelConfig):
         "units": _stack_specs(unit, cfg.n_units),
         "final_norm": make_norm(cfg.norm, cfg.d_model)[0],
     }
+    if cfg.first_dense:
+        specs["first"] = _stack_specs(block_specs(cfg, cfg.first_kind),
+                                      cfg.first_dense)
     if cfg.shared_attn:
         specs["shared"] = block_specs(cfg, "shared_attn")
     if not cfg.tie_embeddings:
@@ -245,11 +285,12 @@ def model_params(cfg: ModelConfig, tree) -> Params:
     """The reference's parameter tree (nested dicts of tensors, the units
     stacked along a leading axis, as ``model_specs`` lays it out and
     ``common.init_params`` draws it) as the port's modules for inference:
-    ``units`` a ``ModuleList`` with one ``Params`` per unit, whose
+    ``units`` a ``ModuleList`` with one ``Params`` per unit, and
+    ``first`` one with a ``Params`` per leading dense layer, whose
     parameters are views of the stacked tensors (they do not require
     grad; ``forward`` takes the tree itself for training)."""
-    _check_cfg(cfg)
-    top = {k: v for k, v in tree.items() if k not in ("units", "shared")}
+    top = {k: v for k, v in tree.items()
+           if k not in ("units", "shared", "first")}
     if cfg.shared_attn:
         top["shared"] = _block_module(cfg, "shared_attn", tree["shared"])
     params = Params(top)
@@ -258,16 +299,22 @@ def model_params(cfg: ModelConfig, tree) -> Params:
                                     _index(blk, u))
                 for name, blk in tree["units"].items()})
         for u in range(cfg.n_units)))
+    if cfg.first_dense:
+        params.add_module("first", nn.ModuleList(
+            Params(_index(tree["first"], u)) for u in range(cfg.first_dense)))
     return params
 
 
-def _units(params, cfg: ModelConfig):
-    """Each unit's parameters: the modules of ``model_params``, or views
-    of the stacked tree's leaves."""
-    units = params["units"]
-    if isinstance(units, nn.ModuleList):
-        return list(units)
-    return [_index(units, u) for u in range(cfg.n_units)]
+def _layers(params, name: str, n: int):
+    """Each stacked layer's parameters under ``name`` ("units" or
+    "first"): the modules of ``model_params``, or views of the stacked
+    tree's leaves."""
+    if n == 0:
+        return []
+    layers = params[name]
+    if isinstance(layers, nn.ModuleList):
+        return list(layers)
+    return [_index(layers, u) for u in range(n)]
 
 
 def _unit_forward(cfg: ModelConfig, unit_params, shared_params, x,
@@ -318,7 +365,6 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     """Train / prefill forward.  Returns (logits [B, T, vocab] | hidden
     [B, T, d], aux_loss): aux is the f32 sum of the blocks' auxiliary
     losses (the MoE blocks' load balance; 0 without them)."""
-    _check_cfg(cfg)
     if embeds is None:
         x = embed(params["embed"], tokens).to(cfg.dtype)
     else:
@@ -326,8 +372,12 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the leading dense layers run without remat, as the reference's do
+    for layer_p in _layers(params, "first", cfg.first_dense):
+        x, aux = block_forward(layer_p, cfg, cfg.first_kind, x, positions)
+        aux_total = aux_total + aux
     shared = params.get("shared")
-    for unit_p in _units(params, cfg):
+    for unit_p in _layers(params, "units", cfg.n_units):
         body = _remat(cfg, functools.partial(_unit_forward, cfg, unit_p,
                                              shared))
         x, aux = body(x, positions)
@@ -366,10 +416,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zero decode caches: ``{"units": [per unit {block: cache}],
-    "shared": [per unit shared-block cache] | None}``."""
-    _check_cfg(cfg)
+    "shared": [per unit shared-block cache] | None}``, and ``"first":
+    [per leading dense layer cache]`` where the config has them."""
     n = cfg.n_units
-    return {
+    cache = {
         "units": [{f"{i}_{kind}": block_init_cache(cfg, kind, batch, max_len,
                                                    device)
                    for i, kind in enumerate(cfg.pattern)}
@@ -378,6 +428,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
                                      device) for _ in range(n)]
                    if cfg.shared_attn else None),
     }
+    if cfg.first_dense:
+        cache["first"] = [block_init_cache(cfg, cfg.first_kind, batch,
+                                           max_len, device)
+                          for _ in range(cfg.first_dense)]
+    return cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
@@ -385,13 +440,15 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
     """One-token decode.  token [B] int or embed_in [B,1,d]; pos the
     (int) position.  Updates ``cache`` in place; returns (logits
     [B, 1, vocab], cache)."""
-    _check_cfg(cfg)
     if embed_in is None:
         x = embed(params["embed"], token[:, None]).to(cfg.dtype)
     else:
         x = embed_in.to(cfg.dtype)
+    for i, layer_p in enumerate(_layers(params, "first", cfg.first_dense)):
+        x, cache["first"][i] = block_decode(layer_p, cfg, cfg.first_kind,
+                                            cache["first"][i], x, pos)
     shared = params.get("shared")
-    for u, unit_p in enumerate(_units(params, cfg)):
+    for u, unit_p in enumerate(_layers(params, "units", cfg.n_units)):
         c = cache["units"][u]
         for i, kind in enumerate(cfg.pattern):
             key = f"{i}_{kind}"

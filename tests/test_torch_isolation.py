@@ -193,3 +193,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert out.stdout.count(") t/round=") == 15
     assert out.stdout.count("[harness] participation sample:") == 4
     assert "[harness] perf-smoke trace warm" in out.stdout
+    # the zoo phase: deepseek's prefills and greedy steps, its prefill
+    # against absorbed decoding, xlstm's prefill and decoding, deepseek's
+    # smoke training with the reference's integers
+    assert "dense MLA" in out.stdout and "(blockwise)" in out.stdout
+    assert "prefill vs absorbed decode_step" in out.stdout
+    assert "mLSTM blocks alone" in out.stdout
+    assert "[zoo] deepseek smoke run" in out.stdout
+    assert "[zoo] phase" in out.stdout

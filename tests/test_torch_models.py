@@ -5,23 +5,29 @@ reference, on the reference's own weights carried across as numpy:
   (``jaxrand.normal`` repeats XLA's erf_inv polynomial), within one ulp in
   bf16, also when a leaf is drawn in slices;
 * ``model_params_from_reference`` keeps every weight (units restacked);
-* for the smoke configs of the seven served archs in f32: ``forward`` with
+* for the smoke configs of the nine served archs in f32: ``forward`` with
   the flash kernel's plain version off and on, and ``decode_step`` over
   16 positions, each within 1e-5 of the reference's logits (measured:
   2e-6); the port's prefill against its own decode steps (the reference's
   ``test_prefill_decode_consistency``, 2e-2); a 4-slot sliding-window ring
-  buffer decoded past its window;
+  buffer decoded past its window.  xlstm-125m's sLSTM recurrence
+  amplifies f32 rounding ~1.6x a step in both packages (ROADMAP Queue
+  3), so at 16 positions the two sit ~1e-3 apart and each as far from
+  the same model evaluated in f64: there each package's f32 logits are
+  held to the port's f64 ones, the reference's within 5e-3 (measured
+  5e-4-6e-4) and the port's within 4x the reference's distance
+  (measured 0.7-1.2x);
 * qwen3-0.6b at full widths (2 layers, vocab 1024) in bf16 within 0.05 of
   the reference's logits (2 bf16 ulps at their scale; measured one ulp);
   one full-width zamba2 unit in bf16, where the SSD's bf16 cumulative
   decay makes both packages drift from the f32 result by several units
   (ROADMAP Queue 3): the port must drift no more than the reference does;
 * greedy tokens of ``launch.serve`` equal to the reference's loop
-  (``launch/serve.py:50-70``) for granite-moe-1b-a400m, qwen3-0.6b and
-  for zamba2-2.7b at
+  (``launch/serve.py:50-70``) for deepseek-v2-lite-16b,
+  granite-moe-1b-a400m, qwen3-0.6b, xlstm-125m and for zamba2-2.7b at
   ``examples/serve_lm.py``'s settings, on carried-over weights and from
   the port's own ``init_params``;
-* the unported kinds and options raise ``NotImplementedError``.
+* the unported arch and options raise ``NotImplementedError``.
 """
 import dataclasses
 import functools
@@ -50,9 +56,14 @@ from repro_torch.models import transformer as tr  # noqa: E402
 # see tests/test_torch_ssd.py: torch 2.13.0+cpu's first exp of a process
 torch.exp(torch.linspace(-20.0, 20.0, 50_000))
 
-SERVED = ["command-r-plus-104b", "granite-moe-1b-a400m", "olmo-1b",
-          "pixtral-12b", "qwen2-1.5b", "qwen3-0.6b", "zamba2-2.7b"]
-UNPORTED = ["deepseek-v2-lite-16b", "seamless-m4t-medium", "xlstm-125m"]
+SERVED = ["command-r-plus-104b", "deepseek-v2-lite-16b",
+          "granite-moe-1b-a400m", "olmo-1b", "pixtral-12b", "qwen2-1.5b",
+          "qwen3-0.6b", "xlstm-125m", "zamba2-2.7b"]
+UNPORTED = ["seamless-m4t-medium"]
+# archs whose f32 logits drift from exact arithmetic past 1e-5 in both
+# packages (the sLSTM recurrence): held against the port's f64 logits
+CHAOTIC = ("xlstm-125m",)
+DRIFT_LIMIT, DRIFT_FACTOR = 5e-3, 4.0
 B, T = 2, 16
 
 
@@ -128,23 +139,52 @@ def _inputs(cfg, seed=5):
     return {"tokens": rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)}
 
 
+def _f64_twin(cfg, np_tree):
+    """The config and the reference's weights in f64 (the port's exact
+    arithmetic stand-in)."""
+    return (dataclasses.replace(cfg, dtype=torch.float64),
+            model_params_from_reference(
+                jax.tree.map(lambda a: a.astype(np.float64), np_tree),
+                dataclasses.replace(cfg, dtype=torch.float64), "cpu"))
+
+
+def _assert_logits(got, want, exact=None):
+    """The port's logits within 1e-5 of the reference's; for a chaotic
+    arch (``exact``: the port's f64 logits) the reference's within
+    DRIFT_LIMIT of f64 (which holds the port's arithmetic to the
+    reference's) and the port's within DRIFT_FACTOR x the reference's
+    distance (its f32 rounding no worse, up to the recurrence's
+    amplification)."""
+    if exact is None:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        return
+    ref_drift = float(np.abs(want - exact).max())
+    assert ref_drift <= DRIFT_LIMIT
+    assert float(np.abs(got - exact).max()) <= max(
+        DRIFT_FACTOR * ref_drift, 1e-5), ref_drift
+
+
 @pytest.mark.parametrize("arch_id", SERVED)
 def test_forward_and_decode_match_reference(arch_id):
     jparams, np_tree = _reference(arch_id)
     jcfg, cfg = JARCHS[arch_id].make_smoke(), ARCHS[arch_id].make_smoke()
     params = model_params_from_reference(np_tree, cfg, "cpu")
+    chaotic = arch_id in CHAOTIC
+    if chaotic:
+        cfg64, params64 = _f64_twin(cfg, np_tree)
     inp = _inputs(cfg)
     jin = {k: jnp.asarray(v) for k, v in inp.items()}
     tin = {k: torch.from_numpy(v).long() if k == "tokens"
            else torch.from_numpy(v) for k, v in inp.items()}
     with torch.no_grad():
+        exact = (tr.forward(params64, cfg64, **tin)[0].numpy() if chaotic
+                 else None)
         for flash in (False, True):
             want, _ = jtr.forward(
                 jparams, dataclasses.replace(jcfg, use_flash=flash), **jin)
             got, _ = tr.forward(params, dataclasses.replace(
                 cfg, use_flash=flash), **tin)
-            np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                       atol=1e-5, rtol=0)
+            _assert_logits(got.numpy(), np.asarray(want), exact)
         full = got
         if cfg.moe is not None:
             # no capacity drop in the prefill, as the reference's
@@ -160,15 +200,19 @@ def test_forward_and_decode_match_reference(arch_id):
         jstep = jax.jit(lambda p, c, tok, pos: jtr.decode_step(
             p, jcfg, c, token=tok, pos=pos))
         jcache, cache = jtr.init_cache(jcfg, B, T), tr.init_cache(cfg, B, T)
+        if chaotic:
+            cache64 = tr.init_cache(cfg64, B, T)
         for pos in range(T):
             want, jcache = jstep(jparams, jcache, jnp.asarray(tokens[:, pos]),
                                  jnp.int32(pos))
-            got, cache = tr.decode_step(
-                params, cfg, cache, token=torch.from_numpy(
-                    np.asarray(tokens[:, pos])).long(), pos=pos)
-            np.testing.assert_allclose(got[:, 0].numpy(),
-                                       np.asarray(want[:, 0]), atol=1e-5,
-                                       rtol=0)
+            tok = torch.from_numpy(np.asarray(tokens[:, pos])).long()
+            got, cache = tr.decode_step(params, cfg, cache, token=tok,
+                                        pos=pos)
+            if chaotic:
+                exact, cache64 = tr.decode_step(params64, cfg64, cache64,
+                                                token=tok, pos=pos)
+                exact = exact[:, 0].numpy()
+            _assert_logits(got[:, 0].numpy(), np.asarray(want[:, 0]), exact)
             if not cfg.inputs_via_embeds:
                 # prefill == token-by-token decode (the reference's test)
                 np.testing.assert_allclose(got[:, 0].numpy(),
@@ -290,8 +334,9 @@ def _reference_greedy(arch_id, batch, plen, gen):
     return np.array(prompt), np.asarray(jnp.stack(out, axis=1))
 
 
-@pytest.mark.parametrize("arch_id", ["granite-moe-1b-a400m", "qwen3-0.6b",
-                                     "zamba2-2.7b"])
+@pytest.mark.parametrize("arch_id", ["deepseek-v2-lite-16b",
+                                     "granite-moe-1b-a400m", "qwen3-0.6b",
+                                     "xlstm-125m", "zamba2-2.7b"])
 def test_greedy_serve_matches_reference(arch_id, capsys):
     batch, plen, gen = 4, 8, 16
     prompt, want = _reference_greedy(arch_id, batch, plen, gen)
@@ -333,13 +378,9 @@ def test_unported_kinds_raise():
         with pytest.raises(NotImplementedError, match="item 16"):
             ARCHS[arch_id].make_smoke()
     cfg = ARCHS["qwen3-0.6b"].make_smoke()
-    for kind in ("mla", "mla_dense", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tr.block_specs(cfg, kind)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tr.model_specs(dataclasses.replace(cfg, pattern=(kind,)))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tr.model_specs(dataclasses.replace(cfg, first_dense=1, n_layers=3))
+    # an unknown block kind is a ValueError, as in the reference
+    with pytest.raises(ValueError, match="encdec"):
+        tr.block_specs(cfg, "encdec")
     with pytest.raises(NotImplementedError, match="item 15"):
         attention.AttnConfig(64, 4, 2, 16, seq_shard_axis="model")
     with pytest.raises(NotImplementedError, match="item 16"):

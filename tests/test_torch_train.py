@@ -5,11 +5,18 @@
 sizes (B = 2, T = 16, m_local 4):
 
 * ``loss_fn`` and every gradient leaf, on the reference's smoke weights
-  carried across as numpy, for the six trainable smoke archs (granite's
-  with its MoE aux loss) and pixtral's embeds branch: the loss within
-  1e-5 relative of the reference's (measured <1e-7), each leaf within
-  1e-4 of ``jax.grad``'s relative to the leaf's largest |g| (measured
-  <1e-5); the streamed cross entropy (``xent_chunks``) against the
+  carried across as numpy, for the eight trainable smoke archs (granite's
+  and deepseek's with their MoE aux loss) and pixtral's embeds branch:
+  the loss within 1e-5 relative of the reference's (measured <1e-7),
+  each leaf within 1e-4 of ``jax.grad``'s relative to the leaf's largest
+  |g| (measured <1e-5).  xlstm-125m's sLSTM recurrence amplifies f32
+  rounding in both packages (ROADMAP Queue 3: at these weights its
+  gradients grow ~1.55x a step backwards through time, 1e10 at T = 64),
+  so at T = 16 (|g| up to ~600) the two packages' gradients sit ~5e-3
+  of a leaf's largest |g| apart, each as far from the port's f64
+  gradients: the reference's are held within 2e-2 of those (measured
+  5.8e-3) and the port's within 4x the reference's distance (0.74x);
+  the streamed cross entropy (``xent_chunks``) against the
   reference's and against ``softmax_xent`` (measured ~1e-7); remat (full
   and dots) leaving the loss and every gradient bit for bit unchanged;
 * ``sgd`` (with and without momentum), ``adam`` and ``adamw`` over 3
@@ -25,7 +32,11 @@ sizes (B = 2, T = 16, m_local 4):
 * ``launch/train.py`` on the reference's argv beside the port's:
   the header and telemetry lines equal, ``mean_loss`` within 1e-4 and
   ``consensus_err`` within 1e-3 relative every round (measured ~1e-7
-  and ~1e-5), for LT-ADMM-CC qbit8 and CHOCO; the consensus checkpoint
+  and ~1e-5), for LT-ADMM-CC qbit8 and CHOCO; deepseek-v2-lite-16b's
+  smoke run against the reference's printed numbers, and xlstm-125m's
+  at the defaults refused by the watchdog as the reference's is;
+  ``train_lm_admm`` handing ``launch/train`` the reference example's
+  argv (``--full-100m`` too); the consensus checkpoint
   the port writes loads in the reference's ``load_checkpoint`` with the
   reference's leaf paths, within 1e-5 of its values; ``--resume`` from
   a ``--checkpoint-every 1`` state continues bit for bit;
@@ -37,6 +48,7 @@ import dataclasses
 import functools
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -74,8 +86,9 @@ from repro_torch.optim import optimizers  # noqa: E402
 # see tests/test_torch_ssd.py: torch 2.13.0+cpu's first exp of a process
 torch.exp(torch.linspace(-20.0, 20.0, 50_000))
 
-TRAINABLE = ["command-r-plus-104b", "granite-moe-1b-a400m", "olmo-1b",
-             "qwen2-1.5b", "qwen3-0.6b", "zamba2-2.7b"]
+TRAINABLE = ["command-r-plus-104b", "deepseek-v2-lite-16b",
+             "granite-moe-1b-a400m", "olmo-1b", "qwen2-1.5b", "qwen3-0.6b",
+             "xlstm-125m", "zamba2-2.7b"]
 B, T = 2, 16
 ARGV = ["--smoke", "--agents", "4", "--rounds", "3", "--seq-len", "16",
         "--m-local", "4", "--telemetry"]
@@ -122,6 +135,14 @@ def _assert_grads(got, want, rel=1e-4):
         assert float(np.abs(g.numpy() - w).max()) <= rel * scale
 
 
+def _leaf_drift(got, exact):
+    """The largest |got - exact| of any leaf, relative to the leaf's
+    largest |exact|."""
+    return max(float(np.abs(np.asarray(g) - x).max())
+               / max(float(np.abs(x).max()), 1e-30)
+               for g, x in zip(got, exact))
+
+
 @pytest.mark.parametrize("arch_id", TRAINABLE + ["pixtral-12b"])
 def test_loss_and_grads_match_reference(arch_id):
     jparams, np_tree = _reference(arch_id)
@@ -130,7 +151,21 @@ def test_loss_and_grads_match_reference(arch_id):
     want_l, want_g = _ref_value_and_grad(jcfg, jparams, batch)
     got_l, got_g = _port_value_and_grad(cfg, np_tree, batch, arch_id)
     assert abs(float(got_l) - float(want_l)) <= 1e-5 * abs(float(want_l))
-    _assert_grads(got_g, want_g)
+    if arch_id != "xlstm-125m":
+        _assert_grads(got_g, want_g)
+        return
+    # the sLSTM recurrence: both packages against the port's f64 gradients
+    _, exact = _port_value_and_grad(
+        dataclasses.replace(cfg, dtype=torch.float64),
+        jax.tree.map(lambda a: a.astype(np.float64), np_tree), batch,
+        arch_id)
+    exact = [x.numpy() for x in tree_flatten(exact)[0]]
+    got = [g.numpy() for g in tree_flatten(got_g)[0]]
+    want = jax.tree.leaves(want_g)
+    assert [g.shape for g in got] == [np.shape(w) for w in want]
+    ref_drift = _leaf_drift(want, exact)
+    assert ref_drift <= 2e-2
+    assert _leaf_drift(got, exact) <= 4 * ref_drift, ref_drift
 
 
 def test_granite_loss_carries_the_moe_aux():
@@ -347,6 +382,70 @@ def test_train_main_matches_reference(solver, tmp_path, capsys):
             np.abs(w).max(), 1e-30), k
 
 
+# the reference's launch/train.py at ARGV + --arch deepseek-v2-lite-16b on
+# the CPU (jax 0.9.0): its header, telemetry and rounds
+DEEPSEEK_REFERENCE = {
+    "header": ["# arch=deepseek-smoke params=347,328 agents=4 solver=ltadmm "
+               "topology=ring",
+               "# wire bytes/agent/round: 1,389,328 (f32 DDP equivalent: "
+               "8,335,872)"],
+    "telemetry": {"tx_bytes": 4_167_984, "tx_msgs": 12, "grad_evals": 48,
+                  "participations": 3},
+    "mean_loss": (6.1569, 6.0641, 6.0349),
+    "consensus_err": (0.7044211626052856, 1.1338051557540894,
+                      1.8120474815368652),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a run of many tiny ops: more gain nothing
+    alone (measured ~5 s either way), and beside the suite's other
+    workers their spinning pools slowed such a run 40-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_deepseek_smoke_run_matches_reference(capsys, one_thread):
+    """The MLA + MoE model with its leading dense layer through
+    LT-ADMM-CC qbit8: the reference's integers, mean_loss within 1e-4 and
+    consensus_err within 1e-3 relative every round (measured 2e-6)."""
+    ref = DEEPSEEK_REFERENCE
+    out = train.main(ARGV + ["--arch", "deepseek-v2-lite-16b", "--device",
+                             "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert _header(lines) == ref["header"]
+    assert (out["params"], out["wire"], out["ddp"]) == (347_328, 1_389_328,
+                                                        8_335_872)
+    for key, per in ref["telemetry"].items():
+        assert out["telemetry"][key] == [per] * 4, key
+    rounds = _rounds(lines)
+    assert [r["round"] for r in rounds] == [0, 1, 2]
+    for r, full, loss, cerr in zip(rounds, out["rounds"], ref["mean_loss"],
+                                   ref["consensus_err"]):
+        assert abs(full["mean_loss_full"] - loss) <= 1e-4
+        assert abs(r["consensus_err"] - cerr) <= 1e-3 * cerr
+
+
+def test_xlstm_smoke_run_diverges_as_the_reference_does(capsys,
+                                                         one_thread):
+    """At launch/train.py's defaults the xLSTM smoke model's gradients at
+    x0 overflow a gamma-0.05 step (the sLSTM recurrence, ROADMAP Queue
+    3): the reference's watchdog refuses round 0, and so does the
+    port's, after the reference's header."""
+    with pytest.raises(RuntimeError, match=r"divergence \(metric=nan\) "
+                       "before any healthy snapshot"):
+        train.main(["--arch", "xlstm-125m", "--smoke", "--agents", "4",
+                    "--rounds", "3", "--telemetry", "--device", "cpu"])
+    assert _header(capsys.readouterr().out.splitlines()) == [
+        "# arch=xlstm-smoke params=658,308 agents=4 solver=ltadmm "
+        "topology=ring",
+        "# wire bytes/agent/round: 2,633,248 (f32 DDP equivalent: "
+        "15,799,392)"]
+
+
 def test_resume_continues_bit_for_bit(tmp_path, capsys):
     argv = ARGV[:-1] + ["--checkpoint", str(tmp_path / "ck"),
                         "--checkpoint-every", "1"]
@@ -418,12 +517,44 @@ def test_ddp_adam_steps_match_reference():
 def test_full_config_trains_in_f32_and_refusals():
     cfg = train.train_config(ARCHS["qwen3-0.6b"], smoke=False)
     assert cfg.dtype == torch.float32 and cfg.d_model == 1024
+    cfg = train.train_config(ARCHS["xlstm-125m"], smoke=False)
+    assert cfg.dtype == torch.float32 and cfg.n_layers == 12
     with pytest.raises(SystemExit, match="token-LM"):
         train.run(_args(["--arch", "pixtral-12b", "--smoke"]))
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_train_lm_admm_hands_train_the_examples_argv(full, monkeypatch):
+    """``train_lm_admm.main`` hands ``launch/train`` the argv of the
+    reference's ``examples/train_lm_admm.py`` (its subprocess command
+    caught, nothing run), the checkpoint under this machine's temporary
+    directory and ``--device`` added."""
+    import importlib.util
+    import subprocess
+
     from repro_torch import train_lm_admm
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_lm_admm.main(["--full-100m", "--device", "cpu"])
+    spec = importlib.util.spec_from_file_location(
+        "ref_train_lm_admm",
+        Path(__file__).resolve().parents[1] / "examples" / "train_lm_admm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    flags = ["--rounds", "7"] + (["--full-100m"] if full else [])
+    seen = {}
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd, env=None: seen.setdefault("ref", cmd) and 0)
+    monkeypatch.setattr(sys, "argv", ["train_lm_admm.py"] + flags)
+    with pytest.raises(SystemExit):
+        example.main()
+    monkeypatch.setattr(train, "main", lambda argv: seen.setdefault(
+        "port", argv))
+    train_lm_admm.main(flags + ["--device", "cpu"])
+    want = seen["ref"][3:]
+    assert seen["ref"][1:3] == ["-m", "repro.launch.train"]
+    ck = want.index("--checkpoint") + 1
+    want[ck] = str(Path(tempfile.gettempdir()) / "ltadmm_lm_ckpt")
+    assert seen["port"] == want + ["--device", "cpu"]
+    assert ("xlstm-125m" in want) == full and ("--smoke" in want) != full
 
 
 def test_dequantize_row_groups():
