@@ -181,7 +181,17 @@ Phases (any failure exits non-zero):
      integers and losses, consensus_err card vs CPU and against the
      reference's within 1e-3 relative), counters zeroed just before the
      card's run and read just after (2 K1 and 4 K5 a round), every K1/K5
-     call held bit for bit against its plain version.
+     call held bit for bit against its plain version; seamless-m4t-medium
+     (the encoder-decoder) at its published widths, 12 + 12 layers in
+     bf16 (715,403,264 parameters): a prefill at B = 2, T = 2048 from 512
+     source frames timed at its first and second call and profiled, one
+     at B = 1, T = 4096 from 1024 frames (blockwise), 8 greedy steps from
+     the 512-frame memory, the same prefill with use_flash with counters
+     zeroed just before and read just after (12 non-causal and 12 causal
+     launches of K10's tensor-core variant, every call held against its
+     plain version, the last logits beside the plain prefill's), a
+     2 + 2-layer f32 cut's prefill against token-by-token decoding within
+     1e-4 at every position, then K10 timed at the two new shapes.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -4806,7 +4816,8 @@ def phase_train():
 
 # the published configs' parameter counts (the reference's model_specs)
 ZOO_PARAMS = {"deepseek-v2-lite-16b": 15_496_769_024,
-              "xlstm-125m": 161_480_528}
+              "xlstm-125m": 161_480_528,
+              "seamless-m4t-medium": 715_403_264}
 # the reference's launch/train.py at TRAIN_ARGV + --arch
 # deepseek-v2-lite-16b on the CPU (jax 0.9.0)
 ZOO_TRAIN_ARGV = TRAIN_ARGV + ["--arch", "deepseek-v2-lite-16b"]
@@ -4828,18 +4839,15 @@ ZOO_TRAIN_REFERENCE = {
 XLSTM_CONSISTENCY_T, XLSTM_CONSISTENCY_TOL = 300, 1e-3
 
 
-def zoo_profile(label, cfg, params, tokens):
-    """One prefill under the profiler: its idle share (a string with the
-    wall and busy ms and the profile's own seconds) and the top kernels
-    logged."""
+def zoo_profile(label, fn):
+    """One call of the prefill ``fn`` under the profiler: its idle share
+    (a string with the wall and busy ms and the profile's own seconds)
+    and the top kernels logged."""
     import torch
-
-    from repro_torch.models import transformer as tr
 
     t0 = time.perf_counter()
     with torch.no_grad():
-        by_kernel, wall = profile_window(
-            lambda: tr.forward(params, cfg, tokens=tokens))
+        by_kernel, wall = profile_window(fn)
     busy = sum(by_kernel.values())
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[zoo] {label} kernel {ms:9.3f} ms {ms / busy:6.1%}  "
@@ -4878,14 +4886,17 @@ def zoo_deepseek():
 
     from repro_torch.core import jaxrand
 
+    from repro_torch.models import transformer as tr
+
     arch_id = "deepseek-v2-lite-16b"
     arch, cfg, params = serve_model(arch_id)
     n = zoo_count(arch_id, params)
     b, t = (2, 64) if SMOKE else (2, 2048)
     tokens = jaxrand.randint(jaxrand.key(2, DEV), (b, t), 0, cfg.vocab)
     secs, aux = timed_prefill(cfg, params, tokens, f"{arch_id} prefill")
-    idle = (zoo_profile(arch_id, cfg, params, tokens) if DEV == "cuda"
-            else "not measured on the CPU")
+    idle = (zoo_profile(arch_id, lambda: tr.forward(params, cfg,
+                                                    tokens=tokens))
+            if DEV == "cuda" else "not measured on the CPU")
     t_long = 3072 if SMOKE else 4096
     long = jaxrand.randint(jaxrand.key(3, DEV), (1, t_long), 0, cfg.vocab)
     long_secs, _ = timed_prefill(cfg, params, long,
@@ -4973,6 +4984,7 @@ def zoo_xlstm():
     import torch
 
     from repro_torch.core import jaxrand
+    from repro_torch.models import transformer as tr
 
     arch_id = "xlstm-125m"
     arch, cfg, params = serve_model(arch_id)
@@ -4985,7 +4997,8 @@ def zoo_xlstm():
         # the first 512 tokens: the profiler takes ~50 s to gather the
         # full prefill's ~10^5 kernel events, and each sLSTM step is the
         # same host-bound launch train at any T
-        idle = zoo_profile(arch_id, cfg, params, tokens[:, :512])
+        idle = zoo_profile(arch_id, lambda: tr.forward(
+            params, cfg, tokens=tokens[:, :512]))
     step_ms, out = zoo_generate(arch, cfg, params, tokens[:, :8])
     log(f"[zoo] {arch_id}: {cfg.n_layers} layers {cfg.pattern} x "
         f"{cfg.n_units}, d {cfg.d_model}, {cfg.lstm.n_heads} heads of "
@@ -5022,6 +5035,292 @@ def zoo_xlstm():
     if not max(gaps) <= XLSTM_CONSISTENCY_TOL:
         raise AssertionError(f"{arch_id} mLSTM blocks: prefill and decode "
                              f"disagree by {max(gaps)}")
+
+
+# seamless-m4t-medium's cells: (B, T) of the prefill and of the blockwise
+# one, the source frames T / SRC_FRAMES_RATIO (the reference's
+# ``configs/__init__.py:19``); the f32 cut's encoder and decoder layers,
+# B, source frames and T
+SRC_FRAMES_RATIO = 4
+SEAMLESS_PREFILL, SEAMLESS_LONG = (2, 2048), (1, 4096)
+SEAMLESS_F32 = (2, 1, 64, 64)
+
+
+def seamless_model(dtype=None, cfg=None):
+    """(arch, cfg, params, n) of seamless-m4t-medium: the config (``cfg``,
+    a cut of the arch's, or its published one; the smoke config in the
+    rehearsal) in ``dtype`` (default the config's), the stacked tree of
+    the port's init_params(key(0)) on the device, its weight count."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.trees import tree_flatten
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.launch.steps import model_specs
+    from repro_torch.models.common import init_params
+
+    arch = ARCHS["seamless-m4t-medium"]
+    if cfg is None:
+        cfg = arch.make_smoke() if SMOKE else arch.make(None)
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+    t0 = time.perf_counter()
+    params = init_params(jaxrand.key(0, DEV), model_specs(arch, cfg),
+                         dtype=cfg.dtype)
+    sync()
+    n = sum(p.numel() for p in tree_flatten(params)[0])
+    log(f"[zoo] {arch.arch_id}: {n:,} weights, "
+        f"{n * torch.finfo(cfg.dtype).bits / 8e9:.3f} GB in {cfg.dtype}, "
+        f"drawn by init_params on {DEV} in {time.perf_counter() - t0:.2f} s")
+    return arch, cfg, params, n
+
+
+def seamless_batch(cfg, b, t, seed):
+    """The prefill's batch: ``src_embeds [b, t / SRC_FRAMES_RATIO, d]``
+    (normals) and ``tgt_tokens [b, t]`` from two keys of ``seed``."""
+    from repro_torch.core import jaxrand
+
+    return {"src_embeds": jaxrand.normal(
+                jaxrand.key(seed, DEV),
+                (b, t // SRC_FRAMES_RATIO, cfg.d_model)),
+            "tgt_tokens": jaxrand.randint(jaxrand.key(seed + 1, DEV),
+                                          (b, t), 0, cfg.vocab)}
+
+
+def seamless_prefill(prefill, params, batch, label, calls=2):
+    """``calls`` runs of ``prefill``: their host-clock seconds and the
+    last logits, of shape [B, 1, vocab] and finite each time."""
+    import torch
+
+    secs, last = [], None
+    with torch.no_grad():
+        for _ in range(calls):
+            last = None
+            sync()
+            t0 = time.perf_counter()
+            last = prefill(params, batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            b = batch["tgt_tokens"].shape[0]
+            if tuple(last.shape[:2]) != (b, 1) or not bool(
+                    torch.isfinite(last.float()).all()):
+                raise AssertionError(f"{label}: logits {tuple(last.shape)} "
+                                     "or not finite")
+    return secs, last
+
+
+def seamless_k10_on_path(arch, cfg, params, batch, last):
+    """The prefill again with ``use_flash``, under a ``MainPathTap``
+    (counts zeroed just before, read just after): one K10 call per
+    encoder layer (non-causal, at the source length) and per decoder
+    self-attention (causal), none for cross-attention, every call held
+    against its plain version; on the card all of them launches of the
+    tensor-core variant.  Logs the last logits against ``last`` (the
+    prefill without the kernel).  Returns {"enc": launches, "dec":
+    launches}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import build_prefill
+
+    prefill = build_prefill(arch, dataclasses.replace(cfg, use_flash=True))
+    tap = MainPathTap(SERVE_WRAPPERS)
+    tap.checking = True
+    try:
+        reset_counts()  # the use_flash prefill starts here
+        with torch.no_grad():
+            flast = prefill(params, batch)
+        sync()
+        after = read_counts()  # ... and ends here
+    finally:
+        tap.close()
+    b, t = batch["tgt_tokens"].shape
+    s_src = batch["src_embeds"].shape[1]
+    a = cfg.attn
+    calls = {part: tap.by_shape.get(("flash_attention", ((b, n, a.n_heads,
+                                                          a.head_dim),) * 3),
+                                    0)
+             for part, n in (("enc", s_src), ("dec", t))}
+    total = sum(c for (nm, _), c in tap.by_shape.items()
+                if nm == "flash_attention")
+    readings = tap.readings.get("flash_attention", [])
+    n_attn = cfg.n_enc_layers + cfg.n_dec_layers
+    d = float((flast.float() - last.float()).abs().max())
+    agree = float((flast.argmax(-1) == last.argmax(-1)).float().mean())
+    log(f"[zoo] {arch.arch_id} prefill B={b} T={t} S_src={s_src} with "
+        f"use_flash: K10 launches {after['flash_attention']} "
+        f"({after['flash_attention_tc']} of the tensor-core variant), calls "
+        f"{calls['enc']} non-causal at [{b}, {s_src}, {a.n_heads}, "
+        f"{a.head_dim}] and {calls['dec']} causal at [{b}, {t}, "
+        f"{a.n_heads}, {a.head_dim}] ({total} in all, {n_attn} "
+        f"self-attention blocks), each held within its limit: "
+        f"{sorted(set(readings))[:4]}; last logits vs use_flash=False max "
+        f"|d| {d:.4e} (scale {float(last.float().abs().max()):.3f}), argmax "
+        f"agreement {agree:.3f}")
+    if (calls != {"enc": cfg.n_enc_layers, "dec": cfg.n_dec_layers}
+            or total != n_attn or len(readings) != n_attn):
+        raise AssertionError(f"{arch.arch_id}: K10 calls {calls}, {total} "
+                             f"in all, {len(readings)} held; expected "
+                             f"{n_attn}")
+    if DEV == "cuda" and not (after["flash_attention"]
+                              == after["flash_attention_tc"] == n_attn):
+        raise AssertionError(f"{arch.arch_id}: K10 launches {after}, "
+                             f"expected {n_attn} tensor-core")
+    return calls
+
+
+def seamless_consistency(arch):
+    """The published widths cut to SEAMLESS_F32's layers, in f32: the
+    prefill's logits at every position against token-by-token
+    ``decode_step`` (the cross K/V cached from the encoder's memory)
+    within CONSISTENCY_TOL, argmax equal at every position."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.launch.steps import build_serve
+    from repro_torch.models import encdec
+
+    n_l, b, s_src, t = (2, 1, 16, 16) if SMOKE else SEAMLESS_F32
+    cut = dataclasses.replace(arch.make_smoke() if SMOKE else arch.make(None),
+                              n_enc_layers=n_l, n_dec_layers=n_l)
+    _, cfg, params, _ = seamless_model(torch.float32, cut)
+    src = jaxrand.normal(jaxrand.key(4, DEV), (b, s_src, cfg.d_model))
+    tokens = jaxrand.randint(jaxrand.key(5, DEV), (b, t), 0, cfg.vocab)
+    with torch.no_grad():
+        full = encdec.forward(params, cfg, src, tokens)
+        step, init_cache = build_serve(arch, cfg)
+        cache = init_cache(params, encdec.encode(params, cfg, src), t)
+        gaps, same = [], True
+        for pos in range(t):
+            lg, cache = step(params, cache, {"token": tokens[:, pos],
+                                             "pos": pos})
+            gaps.append(float((lg[:, 0] - full[:, pos]).abs().max()))
+            same &= bool((lg[:, 0].argmax(-1) == full[:, pos].argmax(-1))
+                         .all())
+    log(f"[zoo] {cfg.name} cut to {n_l} + {n_l} layers, f32: prefill vs "
+        f"decode_step at every position (B = {b}, S_src = {src.shape[1]}, "
+        f"T = {t}): max |d| {max(gaps):.4e} (limit {CONSISTENCY_TOL}; logit "
+        f"scale {float(full.abs().max()):.3f}), last position "
+        f"{gaps[-1]:.4e}, argmax equal at every position {same}")
+    if not (max(gaps) <= CONSISTENCY_TOL and same):
+        raise AssertionError(f"{cfg.name}: prefill and decode disagree by "
+                             f"{max(gaps)} (argmax equal {same})")
+
+
+def zoo_seamless():
+    """seamless-m4t-medium at full width in bf16 (12 + 12 layers): the
+    prefill at B = 2, T = 2048 from 512 source frames timed at its first
+    and second call and profiled, one at B = 1, T = 4096 from 1024 frames
+    (the blockwise branch), 8 greedy steps from the 512-frame memory;
+    the prefill with ``use_flash`` through K10 on the path; the f32 cut's
+    prefill against decoding; then K10 timed at the two new shapes.
+    Returns the kernels line's rows (on the card)."""
+    import torch
+
+    from repro_torch.launch.steps import build_prefill
+
+    t_part = time.perf_counter()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    arch, cfg, params, n = seamless_model()
+    if not SMOKE and n != ZOO_PARAMS[arch.arch_id]:
+        raise AssertionError(f"{arch.arch_id}: {n:,} parameters, the "
+                             f"reference's {ZOO_PARAMS[arch.arch_id]:,}")
+    b, t = (2, 64) if SMOKE else SEAMLESS_PREFILL
+    batch = seamless_batch(cfg, b, t, 2)
+    prefill = build_prefill(arch, cfg)
+    label = f"{arch.arch_id} prefill"
+    secs, last = seamless_prefill(prefill, params, batch, label)
+    idle = (zoo_profile(arch.arch_id, lambda: prefill(params, batch))
+            if DEV == "cuda" else "not measured on the CPU")
+    b2, t2 = (1, 3072) if SMOKE else SEAMLESS_LONG
+    long_secs, _ = seamless_prefill(prefill, params,
+                                    seamless_batch(cfg, b2, t2, 6),
+                                    f"{label} (blockwise)", calls=1)
+    step_ms, out = zoo_generate(arch, cfg, params, batch["src_embeds"])
+    s_src = t // SRC_FRAMES_RATIO
+    log(f"[zoo] {arch.arch_id}: {cfg.n_enc_layers} + {cfg.n_dec_layers} "
+        f"layers, d {cfg.d_model}, {cfg.attn.n_heads} heads of "
+        f"{cfg.attn.head_dim}, vocab {cfg.vocab}, {cfg.dtype}, {n:,} "
+        f"parameters: prefill B = {b}, T = {t}, S_src = {s_src} "
+        f"{secs[0] * 1e3:.1f} ms first call, {secs[1] * 1e3:.1f} ms second "
+        f"(host clock), idle share {idle}; B = {b2}, T = {t2}, S_src = "
+        f"{t2 // SRC_FRAMES_RATIO} (blockwise) {long_secs[0] * 1e3:.1f} ms "
+        f"first call; 8 greedy steps from the {s_src}-frame memory "
+        f"{step_ms:.1f} ms a step: {out.tolist()}"
+        + ("" if CARD is None else f" [{CARD}]"))
+    calls = seamless_k10_on_path(arch, cfg, params, batch, last)
+    del params, last, prefill
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    seamless_consistency(arch)
+    peak = ("not measured on the CPU" if DEV != "cuda" else
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            "(max_memory_allocated)")
+    log(f"[zoo] {arch.arch_id} part {time.perf_counter() - t_part:.1f} s "
+        f"before the kernel timing, peak memory {peak}")
+    if DEV != "cuda":
+        return []
+    a = cfg.attn
+    return time_seamless_k10(calls, ((b, s_src, a.n_heads, a.head_dim),
+                                     (b, t, a.n_heads, a.head_dim)))
+
+
+def time_seamless_k10(calls, shapes):
+    """K10 at seamless's two prefill shapes in bf16 (the encoder's
+    non-causal [B, S_src, H, Dh], the decoder's causal [B, T, H, Dh]), as
+    ``time_serve_kernels`` times the served ones: the inputs held again,
+    wrapper, bare tensor-core launch, bare CUDA-core launch, plain
+    version, bound and scaled_dot_product_attention on the same
+    tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flops
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    rows = []
+    for part, causal, (b, t, h, dh) in (("enc", False, shapes[0]),
+                                        ("dec", True, shapes[1])):
+        q, k, v = (torch.randn((b, t, h, dh), device=dev, dtype=bf)
+                   for _ in range(3))
+        out = torch.empty_like(q)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, t, t, h, h, dh, int(causal), 0, 1.0 / math.sqrt(dh))
+        label = (f"seamless {'encoder' if part == 'enc' else 'decoder'} "
+                 f"{'causal' if causal else 'non-causal'}")
+        want = k10_plain(q, k, v, causal=causal)
+        got, variant = k10_call(q, k, v, causal, None, "tc")
+        log(f"[time] K10 ({variant}) {label}: "
+            f"{hold_k10(got, want, label, variant)}")
+        cc_ms = cuda_ms(lambda: _build.launch("flash_attention", *ptrs, 1))
+        del got, want
+        add_row(
+            rows, f"K10-tc flash_attention_tc {label} [{b}, {t}, {h}, {dh}] "
+            f"kv {h} bf16", "src/repro_torch/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention/kernel.py:84", calls[part],
+            ms=cuda_ms(lambda: flops.flash_attention(q, k, v,
+                                                     causal=causal)),
+            kernel_ms=cuda_ms(lambda: _build.launch("flash_attention_tc",
+                                                    *ptrs)),
+            plain_ms=cuda_ms(lambda: k10_plain(q, k, v, causal=causal),
+                             iters=3, warmup=1),
+            nbytes=4 * q.element_size() * b * t * h * dh, int_ops=0,
+            fp_ops=0, bf16_ops=3 * 2 * dh * pairs, sfu_ops=pairs,
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)),
+            cc_kernel_ms=cc_ms, sass=K10_SASS.get(f"kD={dh} kBK=128"),
+            launches_of=f"seamless-m4t-medium use_flash prefill ({part})")
+        del q, k, v, out, qt, kt, vt
+    return rows
 
 
 def zoo_train():
@@ -5087,18 +5386,22 @@ def zoo_train():
 
 
 def phase_zoo():
+    """The zoo's parts; returns the kernels line's rows (seamless's K10
+    shapes, on the card)."""
     import torch
 
     t0 = time.perf_counter()
     if DEV == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    rows = []
     for part in (zoo_deepseek, zoo_deepseek_consistency, zoo_xlstm,
-                 zoo_train):
+                 zoo_seamless, zoo_train):
         t1 = time.perf_counter()
-        part()
+        rows += part() or []
         log(f"[zoo] {part.__name__} {time.perf_counter() - t1:.1f} s")
     log(f"[zoo] phase {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def rehearse():
@@ -5252,7 +5555,7 @@ def main(argv=None):
     if "zoo" in phases:
         with phase_clock("zoo", spent):
             torch.cuda.empty_cache()
-            phase_zoo()
+            rows = (rows or []) + phase_zoo()
     log(f"[time] host-clock seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f"; main {time.perf_counter() - t_main:.1f}")

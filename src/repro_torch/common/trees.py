@@ -1,6 +1,7 @@
-"""The few tree helpers the main path needs.  A tree is a tensor, or a
-mapping (a dict or a ``Payload``), list or tuple of trees; mapping keys
-are taken in sorted order, as jax flattens them."""
+"""Tree helpers (the counterpart of ``src/repro/common/trees.py``, under
+its names, and the flatten/rebuild the port's layouts use).  A tree is a
+tensor, or a mapping (a dict or a ``Payload``), list or tuple of trees;
+mapping keys are taken in sorted order, as jax flattens them."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -100,17 +101,76 @@ def tree_select(mask, on_tree, off_tree):
     return tree_map(one, on_tree, off_tree)
 
 
+def tree_scale(c, a):
+    return tree_map(lambda x: c * x, a)
+
+
+def tree_axpy(c, a, b):
+    """c * a + b."""
+    return tree_map(lambda x, y: c * x + y, a, b)
+
+
 def tree_lerp(a, b, eta):
     """(1 - eta) * a + eta * b."""
     return tree_map(lambda x, y: (1.0 - eta) * x + eta * y, a, b)
 
 
-def consensus_mean(params):
+def tree_dot(a, b):
+    """The sum over leaves of each leaf pair's flat dot product."""
+    return sum(tree_flatten(tree_map(
+        lambda x, y: torch.vdot(x.reshape(-1), y.reshape(-1)), a, b))[0])
+
+
+def tree_sq_norm(a):
+    return tree_dot(a, a)
+
+
+def tree_norm(a):
+    return torch.sqrt(tree_sq_norm(a))
+
+
+def tree_nbytes(a):
+    """Total bytes of all leaves (shapes and dtypes only)."""
+    return sum(x.numel() * x.element_size() for x in tree_flatten(a)[0])
+
+
+def tree_size(a):
+    return sum(x.numel() for x in tree_flatten(a)[0])
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
+
+
+def tree_stack(trees, axis=0):
+    return tree_map(lambda *xs: torch.stack(xs, dim=axis), *trees)
+
+
+def tree_index(tree, idx):
+    """tree[idx] along the leading axis of every leaf."""
+    return tree_map(lambda x: x[idx], tree)
+
+
+def tree_where(pred, a, b):
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def tree_broadcast_leading(tree, n):
+    """The tree tiled along a new leading axis of size n (views)."""
+    return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)), tree)
+
+
+def tree_all_finite(a):
+    return torch.stack([torch.isfinite(x).all()
+                        for x in tree_flatten(a)[0]]).all()
+
+
+def tree_consensus_mean(params):
     """Mean over the leading agent axis of stacked ``[A, ...]`` params."""
     return tree_map(lambda x: torch.mean(x, dim=0), params)
 
 
-def consensus_error(params):
+def tree_consensus_error(params):
     """Total squared deviation from the agent mean."""
     sq = tree_map(lambda x: torch.sum((x - torch.mean(x, dim=0)) ** 2),
                   params)

@@ -4,9 +4,8 @@ the counterpart of ``src/repro/configs/archs.py``.
 Every entry cites its source.  ``make(shape)`` returns the FULL config,
 ``make_smoke()`` a reduced same-family variant that runs a real forward
 on the CPU; the smoke configs turn remat off, as the reference's do.
-The nine decoder-only archs are here; seamless-m4t-medium stays in
-``ARCHS`` and raises ``NotImplementedError`` when made, until ROADMAP
-item 16 ports the encoder-decoder.
+Nine archs are decoder-only (``ModelConfig``); seamless-m4t-medium is the
+encoder-decoder (``EncDecConfig``, ``kind="encdec"``).
 
 Full-attention architectures get ``sliding_window=LONG_CONTEXT_WINDOW``
 when instantiated for the ``long_500k`` shape (ring-buffer KV cache).
@@ -19,6 +18,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.attention import AttnConfig, MLAConfig
+from repro_torch.models.encdec import EncDecConfig
 from repro_torch.models.mamba import SSMConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import ModelConfig
@@ -214,25 +214,29 @@ def xlstm_smoke():
     )
 
 
-def _waits(arch_id: str, blocks: str):
-    def make(shape=None):
-        raise NotImplementedError(
-            f"{arch_id} needs {blocks}, which wait for ROADMAP item 16 (the "
-            "rest of the model zoo)")
-    return make
+def seamless_m4t_medium(shape=None):
+    # speech-encoder + text-decoder backbone; conv/mel frontend stubbed
+    return EncDecConfig(
+        name="seamless-m4t-medium", n_enc_layers=12, n_dec_layers=12,
+        d_model=1024, vocab=256206, d_ff=4096,
+        attn=AttnConfig(1024, 16, 16, 64, sliding_window=_sw(shape)),
+        dtype=torch.bfloat16,
+    )
 
 
-def _unported(arch_id, family, kind, source, blocks, notes):
-    make = _waits(arch_id, blocks)
-    return ArchDef(arch_id, family, kind, source, make, make, notes)
+def seamless_smoke():
+    return EncDecConfig(
+        name="seamless-smoke", n_enc_layers=2, n_dec_layers=2, d_model=128,
+        vocab=512, d_ff=256, attn=AttnConfig(128, 4, 4, 32), remat=False,
+    )
 
 
 ARCHS = {
     a.arch_id: a
     for a in [
-        _unported("seamless-m4t-medium", "audio", "encdec",
-                  "arXiv:2308.11596", "the encoder-decoder",
-                  "enc-dec; audio frontend stubbed (frame embeddings)"),
+        ArchDef("seamless-m4t-medium", "audio", "encdec",
+                "arXiv:2308.11596", seamless_m4t_medium, seamless_smoke,
+                "enc-dec; audio frontend stubbed (frame embeddings)"),
         ArchDef("qwen3-0.6b", "dense", "lm", "hf:Qwen/Qwen3-8B",
                 qwen3_0_6b, qwen3_smoke, "qk-norm, GQA"),
         ArchDef("olmo-1b", "dense", "lm", "arXiv:2402.00838",

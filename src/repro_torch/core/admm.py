@@ -57,8 +57,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.common.trees import consensus_error as _consensus_error
-from repro_torch.common.trees import (first_leaf, tree_add, tree_lerp,
+from repro_torch.common.trees import (first_leaf, tree_add,
+                                      tree_consensus_error, tree_lerp,
                                       tree_map, tree_select, tree_sub,
                                       tree_zeros_like)
 from repro_torch.core import compression, jaxrand
@@ -568,7 +568,7 @@ def consensus_mean(state):
 
 
 def consensus_error(state):
-    return _consensus_error(state.x)
+    return tree_consensus_error(state.x)
 
 
 def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:

@@ -5,6 +5,12 @@ The layout is static host metadata: per leaf, its shape, dtype and
 ``[offset, offset + size)`` segment of the plane.  A tree that is already
 one flat vector has a trivial layout, and ``pack``/``unpack`` are then
 reshapes.
+
+    layout = layout_of(tree)                # per-agent tree, no agent axis
+    flat   = pack(layout, tree)             # [..., N]; any leading dims
+    tree   = unpack(layout, flat)           # exact inverse
+    views  = leaf_views(layout, flat)       # the same leaves, as views
+    est    = PackedEstimator(grad_est, layout)
 """
 from __future__ import annotations
 
@@ -95,6 +101,36 @@ def unpack(layout: PackedLayout, flat):
     outs = [flat[..., s.offset:s.offset + s.size].reshape(lead + s.shape)
             .to(s.dtype) for s in layout.slots]
     return layout.rebuild(outs)
+
+
+def leaf_views(layout: PackedLayout, flat):
+    """Per-leaf views of the plane: each leaf whose dtype is the plane's
+    is a reshape of its ``[offset, offset + size)`` segment, sharing the
+    plane's storage, so a write to the plane shows through (a leaf of
+    another dtype is cast, a copy, as ``unpack`` gives it)."""
+    return unpack(layout, flat)
+
+
+def cache_layout(owner, layout: PackedLayout) -> PackedLayout:
+    """Keep ``layout`` on a (frozen) solver instance, so its step and
+    consensus hooks can pack and unpack without being handed the tree
+    again."""
+    object.__setattr__(owner, "_layout", layout)
+    return layout
+
+
+def cached_layout(owner, x_stacked) -> PackedLayout:
+    """The layout ``cache_layout`` kept on ``owner``, or, when there is
+    none (a state restored from outside, ``init`` never called), the
+    trivial layout of an already flat ``[A, N]`` plane, then kept."""
+    lay = getattr(owner, "_layout", None)
+    if lay is None:
+        if not isinstance(x_stacked, torch.Tensor):
+            raise AssertionError(
+                "packed solver received a pytree state without a cached "
+                "layout; call solver.init(x0) first")
+        lay = cache_layout(owner, layout_of(x_stacked[0]))
+    return lay
 
 
 @dataclasses.dataclass(frozen=True)

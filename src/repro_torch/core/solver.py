@@ -22,14 +22,13 @@ packed time-varying round (a static graph becomes a period-1 schedule).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.common.trees import as_tensor, first_leaf
-from repro_torch.common.trees import consensus_error as _consensus_error
-from repro_torch.common.trees import consensus_mean as _consensus_mean
-from repro_torch.common.trees import tree_map
+from repro_torch.common.trees import (as_tensor, first_leaf,
+                                      tree_consensus_error,
+                                      tree_consensus_mean, tree_map)
 from repro_torch.core import (admm, baselines, compression, faults,
                               graphlearn, packing)
 from repro_torch.core.admm import LTADMMConfig
@@ -38,8 +37,30 @@ from repro_torch.core.schedule import (TopologySchedule, static_schedule,
 from repro_torch.core.topology import Exchange
 from repro_torch.device import resolve_device
 
-consensus_mean = _consensus_mean
-consensus_error = _consensus_error
+@runtime_checkable
+class Solver(Protocol):
+    """What the launch and bench layers require of a distributed method
+    (the reference's protocol).  Its two sharding hooks,
+    ``abstract_state`` and ``state_sharding``, join it with the mesh
+    (ROADMAP item 15): the port runs its agents in one process."""
+
+    name: str
+
+    def init(self, x0) -> Any: ...
+
+    def step(self, state, data, key) -> Any: ...
+
+    def consensus_params(self, state) -> Any: ...
+
+    def wire_bytes(self, params, t: int | None = None) -> int: ...
+
+    def round_cost(self, cost_model, m: int) -> float: ...
+
+
+# consensus diagnostics over stacked [A, ...] params: one definition in
+# common.trees, under the names the reference's solver module gives it
+consensus_mean = tree_consensus_mean
+consensus_error = tree_consensus_error
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,12 +18,36 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from repro_torch.common.trees import tree_map
+
+
+@runtime_checkable
+class Topology(Protocol):
+    """Structural view of an undirected agent graph (see the module
+    docstring).  Implementations are frozen dataclasses whose tables are
+    host numpy."""
+
+    n_agents: int
+
+    @property
+    def n_slots(self) -> int: ...
+
+    # reverse_slot[s]: the neighbor's slot naming the same edge
+    reverse_slot: tuple
+
+    def neighbor_table(self) -> np.ndarray:  # [A, S] int, self where masked
+        ...
+
+    def slot_mask(self) -> np.ndarray:  # [A, S] bool
+        ...
+
+    def degrees(self) -> np.ndarray:  # [A] int
+        ...
 
 
 def edge_set(topo) -> set:

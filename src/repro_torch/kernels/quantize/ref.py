@@ -84,6 +84,35 @@ def _windows(n: int, window):
     return [(j0, min(n, j0 + w)) for j0 in range(0, max(n, 1), w)]
 
 
+def quantize_ref(x_flat, rnd_bits, scale, *, bits=8):
+    """The reference's leaf oracle (``quantize/ref.py:43``) under its
+    signature: ``x_flat [n]``, its uint32 stream ``rnd_bits [n]`` (kappa =
+    bits * 2^-32) and the scale -> int8 levels, or at b=4 offset-8
+    nibbles two a byte (n even).  The arithmetic of
+    ``quantize_tensor_ref``, which draws the bits from a key instead."""
+    levels = 2 ** (bits - 1) - 1
+    q = quantize_values(torch.as_tensor(x_flat).to(torch.float32),
+                        torch.as_tensor(scale, dtype=torch.float32),
+                        prng.uniform01(prng.u32(rnd_bits)), levels)
+    return to_int8(q) if bits == 8 else pack4(q)
+
+
+def dequantize_ref(q, scale, *, bits=8, n=None, out_dtype=torch.float32):
+    """The reference's leaf dequantiser (``quantize/ref.py:55``) under its
+    signature: ``scale * q / levels`` (nibbles unpacked at b=4, cut to n
+    when given), cast to ``out_dtype``.  Eager jax divides, where the
+    compiled kernel (and ``dequantize_tensor_ref``) multiplies by the
+    reciprocal."""
+    levels = 2 ** (bits - 1) - 1
+    q = torch.as_tensor(q)
+    if bits == 8:
+        qf = q.to(torch.float32)
+    else:
+        qf = unpack4(q, 2 * q.shape[-1] if n is None else n)
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    return dequantize_values(qf, scale, levels).to(out_dtype)
+
+
 def dequantize_plane_ref(q, scale, *, n, bits=8, window=None):
     """The plane route's dequantiser (the reference's jnp
     ``dequantize_plane``, ``quantize/ops.py:71``): ``q [..., wire]``,

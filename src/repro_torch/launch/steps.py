@@ -1,19 +1,21 @@
 """Step builders, the counterpart of ``src/repro/launch/steps.py``: the
 solver train step (LT-ADMM-CC or any registered baseline), the
 all-reduce DDP train step, ``build_prefill`` and ``build_serve`` for the
-decoder-only models, and the training loop's ``DivergenceWatchdog``.
+decoder-only models and the encoder-decoder (``arch_def.kind ==
+"encdec"``), and the training loop's ``DivergenceWatchdog``.
 
 The agents run in one process through the host-simulated ``Exchange``:
 there is no mesh and no partition spec here, so ``state_sharding`` and
-``abstract_train_state`` wait for ROADMAP item 15.  The encoder-decoder
-waits for item 16.
+``abstract_train_state`` wait for ROADMAP item 15.
 
 The model is differentiated by autograd, as the reference differentiates
 through jnp: no kernel lies on the gradient path.  The solvers take
 batched gradient callables (``core.vr``): params ``[A, ...]`` and token
 rows ``[A, b, T+1]`` in, one gradient per agent out, each of the agent's
 own mean loss over its rows (one forward and ``torch.autograd.grad`` per
-agent, where the reference vmaps).
+agent, where the reference vmaps).  The batches are dicts, so the
+encoder-decoder trains through ``build_train`` as it is, on
+``{"src_embeds" [A, m, S, d], "tgt_tokens" [A, m, T+1]}``.
 """
 from __future__ import annotations
 
@@ -28,25 +30,21 @@ from repro_torch.common.trees import (is_namedtuple, tree_children,
 from repro_torch.core import jaxrand, vr
 from repro_torch.core.schedule import build_graph
 from repro_torch.core.solver import make_solver, solver_entry
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tr
 from repro_torch.optim import optimizers
 
 
-def _lm_only(arch_def):
-    if arch_def.kind == "encdec":
-        raise NotImplementedError(
-            f"{arch_def.arch_id}: the encoder-decoder waits for ROADMAP "
-            "item 16")
-
-
 def model_specs(arch_def, cfg):
-    _lm_only(arch_def)
+    if arch_def.kind == "encdec":
+        return encdec.model_specs(cfg)
     return tr.model_specs(cfg)
 
 
 def model_loss(arch_def, cfg):
     """``loss(params, batch)``: the model's ``loss_fn`` on one batch."""
-    _lm_only(arch_def)
+    if arch_def.kind == "encdec":
+        return lambda p, b: encdec.loss_fn(p, cfg, b)
     return lambda p, b: tr.loss_fn(p, cfg, b)
 
 
@@ -220,9 +218,17 @@ def build_ddp_train(arch_def, cfg, lr=1e-3):
 
 def build_prefill(arch_def, cfg):
     """``prefill(params, batch) -> logits [B, 1, vocab]`` of the last
-    position; ``batch`` holds ``tokens [B, T]`` or ``embeds [B, T, d]``.
-    With ``cfg.use_flash`` the attention runs the flash kernel (K10)."""
-    _lm_only(arch_def)
+    position.  ``batch`` holds ``tokens [B, T]`` or ``embeds [B, T, d]``;
+    for the encoder-decoder ``src_embeds [B, S, d]`` and ``tgt_tokens
+    [B, T]``.  With ``cfg.use_flash`` the self-attention runs the flash
+    kernel (K10)."""
+    if arch_def.kind == "encdec":
+        def prefill(params, batch):
+            logits = encdec.forward(params, cfg, batch["src_embeds"],
+                                    batch["tgt_tokens"])
+            return logits[:, -1:, :]
+
+        return prefill
 
     def prefill(params, batch):
         logits, _ = tr.forward(params, cfg, tokens=batch.get("tokens"),
@@ -235,9 +241,22 @@ def build_prefill(arch_def, cfg):
 def build_serve(arch_def, cfg):
     """``(serve, init_cache)``: ``serve(params, cache, batch) -> (logits
     [B, 1, vocab], cache)`` decodes one token (``batch["token"] [B]`` at
-    the int ``batch["pos"]``), updating ``cache`` in place;
-    ``init_cache(batch_size, max_len, device)`` makes its zero cache."""
-    _lm_only(arch_def)
+    the int ``batch["pos"]``), updating ``cache`` in place.
+
+    ``init_cache`` makes the zero cache.  Its signature follows the
+    model: ``init_cache(batch_size, max_len, device)`` for the
+    decoder-only models, ``init_cache(params, memory, max_len)`` for the
+    encoder-decoder, whose cache holds the cross-attention K/V projected
+    from the encoder's ``memory [B, S, d]`` (``encdec.encode``)."""
+    if arch_def.kind == "encdec":
+        def serve(params, cache, batch):
+            return encdec.decode_step(params, cfg, cache, batch["token"],
+                                      batch["pos"])
+
+        def init_cache(params, memory, max_len):
+            return encdec.init_cache(params, cfg, memory, max_len)
+
+        return serve, init_cache
 
     def serve(params, cache, batch):
         return tr.decode_step(params, cfg, cache, token=batch["token"],

@@ -12,8 +12,8 @@ Sliding-window decode uses a ring-buffer cache of length ``window`` with
 an absolute-position side array (slots with pos_id < 0 are invalid).
 Unlike the reference, which returns a new cache, the decodes write the
 new token's entries into the cache in place (no copy of the cache per
-token).  Cross-attention (encoder-decoder) and the sequence-sharded
-path wait for ROADMAP items 16 and 15.
+token).  ``gqa_forward(..., kv=memory)`` is the encoder-decoder's
+cross-attention; the sequence-sharded path waits for ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -104,8 +104,9 @@ def sdpa_blockwise(q, k, v, *, causal=True, window=None,
                    q_block=512, kv_block=1024):
     """Flash-structured attention in plain PyTorch: online softmax over
     KV blocks for each Q block, O(block^2) live memory instead of O(T*S).
-    With a sliding window only the KV blocks that hold a Q block's window
-    are touched; full-causal visits every KV block and masks.  (The
+    With a sliding window only the KV blocks that hold a key the window
+    admits are touched (non-causal: every block from the window's first
+    key on); without one every KV block is visited and masked.  (The
     reference walks back ceil(window/kv_block)+1 blocks from the Q block's
     own index, which skips or repeats KV blocks when q_block != kv_block.)"""
     b, t, h, dh = q.shape
@@ -171,23 +172,45 @@ def causal_mask(t, s, window=None, offset=0, device=None):
 BLOCKWISE_THRESHOLD = 2048  # switch to flash-structured attention above this
 
 
-def gqa_forward(params, cfg: AttnConfig, x, positions, *, use_flash=False):
-    """Full-sequence self-attention.  ``use_flash`` runs K10 where
-    ``flash_ops.supported`` admits the shapes, as the reference does;
-    otherwise blockwise attention when T is long, else dense."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    causal = cfg.causal
-    if use_flash:
+def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
+                kv_positions=None, use_flash=False, impl="auto"):
+    """Full-sequence attention.  ``kv`` [B, S, d] makes it cross-attention
+    (the encoder-decoder's): q from ``x``, k/v from ``kv``, the biases
+    where ``qkv_bias`` is set, no RoPE, no qk-norm, never causal.
+    ``kv_positions`` is accepted and unused, as in the reference.
+
+    ``use_flash`` runs K10 on self-attention (``kv`` None) where
+    ``flash_ops.supported`` admits the shapes, as the reference does.
+    Otherwise ``impl``: "dense", "blockwise", or "auto" (blockwise when
+    max(T, S) > BLOCKWISE_THRESHOLD)."""
+    del kv_positions
+    if kv is None:
+        q, k, v = _project_qkv(params, cfg, x, positions)
+        causal = cfg.causal
+    else:
+        q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+        k = torch.einsum("bsd,dhk->bshk", kv, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", kv, params["wv"])
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+            k, v = k + params["bk"], v + params["bv"]
+        causal = False
+    if use_flash and kv is None:
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
         if flash_ops.supported(q, k, v, None):
             out = flash_ops.flash_attention(
                 q, k, v, causal=causal, window=cfg.sliding_window)
             return torch.einsum("bthk,hkd->btd", out, params["wo"])
-    if max(q.shape[1], k.shape[1]) > BLOCKWISE_THRESHOLD:
+    if impl not in ("dense", "blockwise", "auto"):
+        raise ValueError(f"impl {impl!r}: dense | blockwise | auto")
+    if impl == "blockwise" or (
+            impl == "auto"
+            and max(q.shape[1], k.shape[1]) > BLOCKWISE_THRESHOLD):
         out = sdpa_blockwise(q, k, v, causal=causal,
                              window=cfg.sliding_window)
     else:
+        # no mask, so no window, without causality (as the reference)
         mask = (causal_mask(q.shape[1], k.shape[1], cfg.sliding_window,
                             device=q.device) if causal else None)
         out = sdpa(q, k, v, mask)

@@ -31,7 +31,7 @@ Block kinds:
     mla_dense    pre-norm MLA attention + dense FFN (DeepSeek first-k-dense)
     mamba        pre-norm Mamba2 (SSD) block
     mlstm, slstm xLSTM blocks (no separate FFN)
-The encoder-decoder waits for ROADMAP item 16.
+The encoder-decoder is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -342,15 +342,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat(cfg: ModelConfig, fn):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
-    autograd records; ``fn`` itself otherwise."""
+    autograd records; ``fn`` itself otherwise.  A config without
+    ``remat_policy`` (the encoder-decoder's) rematerialises in full."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
     kw = {}
-    if cfg.remat_policy == "dots":
+    policy = getattr(cfg, "remat_policy", "full")
+    if policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    elif cfg.remat_policy != "full":
-        raise ValueError(f"remat_policy {cfg.remat_policy!r}: full | dots")
+    elif policy != "full":
+        raise ValueError(f"remat_policy {policy!r}: full | dots")
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 

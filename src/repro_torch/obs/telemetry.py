@@ -219,8 +219,20 @@ class TelemetrySolver:
     solver: Any
 
     def __getattr__(self, name):
-        # name, graph, wire_bytes, round_cost, cfg, device, ... delegate
+        # graph, cfg, device, ... delegate
         return getattr(object.__getattribute__(self, "solver"), name)
+
+    # the protocol's members, spelled out: ``isinstance(w, Solver)`` looks
+    # them up statically, past ``__getattr__``
+    @property
+    def name(self) -> str:
+        return self.solver.name
+
+    def wire_bytes(self, params, t: int | None = None) -> int:
+        return self.solver.wire_bytes(params, t)
+
+    def round_cost(self, cost_model, m: int) -> float:
+        return self.solver.round_cost(cost_model, m)
 
     def init(self, x0):
         inner = self.solver.init(x0)

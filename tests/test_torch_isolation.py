@@ -200,4 +200,15 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert "prefill vs absorbed decode_step" in out.stdout
     assert "mLSTM blocks alone" in out.stdout
     assert "[zoo] deepseek smoke run" in out.stdout
+    # seamless-m4t-medium (smoke widths): its prefills and greedy steps
+    # from the encoder's memory, the use_flash prefill's K10 calls (two
+    # non-causal encoder calls, two causal decoder ones, each held), the
+    # f32 prefill against decoding at every position
+    assert "[zoo] seamless-m4t-medium: 2 + 2 layers" in out.stdout
+    assert "8 greedy steps from the 16-frame memory" in out.stdout
+    assert ("calls 2 non-causal at [2, 16, 4, 32] and 2 causal at "
+            "[2, 64, 4, 32] (4 in all" in out.stdout)
+    assert "prefill vs decode_step at every position" in out.stdout
+    assert "argmax equal at every position True" in out.stdout
+    assert "[zoo] zoo_seamless" in out.stdout
     assert "[zoo] phase" in out.stdout

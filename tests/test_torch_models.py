@@ -27,7 +27,9 @@ reference, on the reference's own weights carried across as numpy:
   granite-moe-1b-a400m, qwen3-0.6b, xlstm-125m and for zamba2-2.7b at
   ``examples/serve_lm.py``'s settings, on carried-over weights and from
   the port's own ``init_params``;
-* the unported arch and options raise ``NotImplementedError``.
+* the unported options (the mesh of ROADMAP item 15) raise
+  ``NotImplementedError``; every arch builds (the encoder-decoder's own
+  tests are ``tests/test_torch_encdec.py``).
 """
 import dataclasses
 import functools
@@ -49,6 +51,7 @@ from repro_torch.checkpoint.reference import (  # noqa: E402
 from repro_torch.common.trees import tree_flatten  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import jaxrand  # noqa: E402
+from repro_torch.core.topology import Exchange  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import attention, common  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
@@ -59,7 +62,6 @@ torch.exp(torch.linspace(-20.0, 20.0, 50_000))
 SERVED = ["command-r-plus-104b", "deepseek-v2-lite-16b",
           "granite-moe-1b-a400m", "olmo-1b", "pixtral-12b", "qwen2-1.5b",
           "qwen3-0.6b", "xlstm-125m", "zamba2-2.7b"]
-UNPORTED = ["seamless-m4t-medium"]
 # archs whose f32 logits drift from exact arithmetic past 1e-5 in both
 # packages (the sLSTM recurrence): held against the port's f64 logits
 CHAOTIC = ("xlstm-125m",)
@@ -372,20 +374,18 @@ def test_prefill_step_returns_the_last_position():
 
 
 def test_unported_kinds_raise():
-    for arch_id in UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ARCHS[arch_id].make(None)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ARCHS[arch_id].make_smoke()
+    # every arch, the encoder-decoder too, builds its configs
+    for arch_id, arch in ARCHS.items():
+        assert arch.make(None).name == arch_id
+        assert arch.make_smoke().name.endswith("-smoke")
     cfg = ARCHS["qwen3-0.6b"].make_smoke()
     # an unknown block kind is a ValueError, as in the reference
     with pytest.raises(ValueError, match="encdec"):
         tr.block_specs(cfg, "encdec")
     with pytest.raises(NotImplementedError, match="item 15"):
         attention.AttnConfig(64, 4, 2, 16, seq_shard_axis="model")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        steps.build_prefill(dataclasses.replace(ARCHS["qwen3-0.6b"],
-                                                kind="encdec"), cfg)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Exchange(None, axis="agents")
 
 
 def test_serve_without_a_card_raises():
