@@ -58,6 +58,20 @@ Phases (any failure exits non-zero):
      the live reference's 110 or its BENCH file's 120) beside the same
      run on the CPU, a row per fault kind at the reference sweep's middle
      rate, and LEAD qbit8 under the row's faults against the CPU;
+  mesh. the multi-process exchange (``Exchange(topo, axis, mesh)``) in a
+     one-rank NCCL world started from a FileStore (no fallback backend),
+     on its (1, 1) ("data", "model") mesh: LT-ADMM-CC at the paper's size
+     (qbit8 and Fig. 1's RandK stride on the ring, q8 on drop0.3; 110
+     rounds) through the mesh and the host exchange, rounds_to_tol, wire
+     bytes, the metric and every state leaf equal; at n = 2^20 on the
+     ring (qbit8; RandK stride) 5 rounds each way with the counters zeroed
+     just before and read just after (2 K1 + 4 K5; 2 K2 + 4 K3 a round on
+     both), every state leaf bit-equal, the collectives a round and their
+     bytes, the round beside the host round in turns, and one profiled
+     mesh round with the consensus all_reduce (NCCL's kernels, launches
+     and device time, the idle share); with two cards also a two-rank
+     NCCL world (5 agents a rank) held bit for bit against the one-card
+     host run, else a line saying it waits for such a machine;
   fig2. the paper's Fig.-2 comparison (``repro_torch.paper_fig2``): its
      seven methods at the paper's size through the kernels (the gossip
      baselines' qbit messages through K4/K5), counters zeroed and read
@@ -2163,9 +2177,9 @@ def wide_data(prob, dev):
     return {"a": a, "b": torch.where(u < 0.5, 1.0, -1.0)}
 
 
-def wide_solver(label, prob, dev):
+def wide_solver(label, prob, dev, mesh=None):
     """``(solver, x0, graph spec, kernels, launches per round)`` of the
-    wide spec ``label``."""
+    wide spec ``label`` (through ``mesh``'s "data" axis where given)."""
     import torch
 
     from repro_torch.core.schedule import build_graph
@@ -2174,7 +2188,8 @@ def wide_solver(label, prob, dev):
 
     _, spec, kind, used, gspec, tree, per_round = next(
         w for w in WIDE_SPECS if w[0] == label)
-    graph, ex = build_graph(gspec, prob.n_agents)
+    graph, ex = build_graph(gspec, prob.n_agents,
+                            axis=None if mesh is None else "data", mesh=mesh)
     if tree:
         est, x0 = (tree_estimator(prob, WIDE_SPLIT),
                    tree_x0(prob, WIDE_SPLIT, dev))
@@ -5447,6 +5462,303 @@ def rehearse():
     log("[rehearse] done on the CPU; no result")
 
 
+# the mesh phase: LT-ADMM-CC through the multi-process exchange in a
+# one-rank NCCL world beside the host exchange.  Paper-size rows (label,
+# spec, graph) run MESH_ROUNDS rounds each way; the n = 2^20 rows (label,
+# launches a round) run MESH_WIDE_ROUNDS rounds with the counters zeroed
+# just before and read just after
+MESH_ROUNDS = 110
+MESH_PAPER = (
+    ("qbit8", "ltadmm:compressor=qbit:bits=8", "ring"),
+    ("randk-stride",
+     "ltadmm:eta=0.5,compressor=randk:fraction=0.6,sampler=stride", "ring"),
+    ("drop-q8", "ltadmm:compressor=qbit:bits=8", DROP_SPEC),
+)
+MESH_WIDE = (("qbit8", {"quantize_plane": 2, "dequantize_plane": 4}),
+             ("randk-stride", {"randk_gather_plane": 2,
+                               "randk_scatter_plane": 4}))
+MESH_WIDE_ROUNDS = 5
+
+
+def mesh_paper(mesh, dev):
+    """Each ``MESH_PAPER`` row at the paper's size through the mesh and
+    the host exchange: equal rounds_to_tol and wire bytes, every state
+    leaf bit-equal at the last round; then the warm round of each path,
+    timed in turns (``mesh_paper_rounds``)."""
+    import numpy as np
+
+    from repro_torch.bench import rounds_to_tol
+    from repro_torch.launch import spmd_check
+
+    for label, spec, gspec in MESH_PAPER:
+        got = spmd_check.paper_run(mesh, dev, spec, gspec, MESH_ROUNDS)
+        want = spmd_check.paper_run(None, dev, spec, gspec, MESH_ROUNDS)
+        r2t = [rounds_to_tol(r["idx"], r["gns"], 1e-8) for r in (got, want)]
+        log(f"[mesh] {label} on {gspec}: rounds_to_tol mesh {r2t[0]} host "
+            f"{r2t[1]}, wire bytes {got['wire_bytes']} / "
+            f"{want['wire_bytes']}")
+        if r2t[0] != r2t[1] or r2t[0] is None:
+            raise AssertionError(f"mesh {label}: rounds_to_tol {r2t}")
+        if got["wire_bytes"] != want["wire_bytes"]:
+            raise AssertionError(f"mesh {label}: wire bytes differ")
+        if not np.array_equal(got["gns"], want["gns"]):
+            raise AssertionError(f"mesh {label}: the metric differs")
+        lo, hi = got["rows"]
+        for f, v in got["state"].items():
+            if not np.array_equal(v, want["state"][f][lo:hi]):
+                raise AssertionError(f"mesh {label}: state leaf {f} differs")
+        mesh_paper_rounds(mesh, dev, label, spec, gspec)
+
+
+def mesh_paper_rounds(mesh, dev, label, spec, gspec, rounds=20, turns=4):
+    """The paper-size round of ``spec`` through the mesh and the host
+    exchange, each warm (one round first), timed in blocks of ``rounds``
+    rounds on the host clock in turns (the order flips each turn), with
+    the collectives a mesh round makes."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import spmd_check
+
+    paths = {}
+    for name, m in (("host", None), ("mesh", mesh)):
+        prob, solver = spmd_check.paper_solver(m, dev, spec, gspec)
+        rows = slice(solver.exchange.rows.start, solver.exchange.rows.stop)
+        data = {k: v.to(dev)[rows] for k, v in prob.make_data(0).items()}
+        st = solver.init(torch.zeros((prob.n_agents, prob.n), device=dev)
+                         [rows])
+        paths[name] = [solver, data, solver.step(st, data, jaxrand.key(0))]
+    sync()
+    ms = {"host": [], "mesh": []}
+    coll = paths["mesh"][0].exchange.collectives
+    for key in coll:
+        coll[key] = 0
+    k = 1
+    for turn in range(turns):
+        order = ("host", "mesh") if turn % 2 == 0 else ("mesh", "host")
+        for name in order:
+            solver, data, st = paths[name]
+            sync()
+            t0 = time.perf_counter()
+            for i in range(rounds):
+                st = solver.step(st, data, jaxrand.key(k + i))
+            sync()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / rounds)
+            paths[name][2] = st
+        k += rounds
+    calls = coll["calls"] / (turns * rounds)
+    gap = min(ms["mesh"]) - min(ms["host"])
+    log(f"[mesh] {label} paper-size round ms (host clock, warm, "
+        f"{rounds}-round blocks in turns; {CARD}): mesh "
+        f"{', '.join(f'{t:.4f}' for t in ms['mesh'])}; host "
+        f"{', '.join(f'{t:.4f}' for t in ms['host'])}; {calls:g} "
+        f"collectives a mesh round; best mesh - best host {gap:.4f} ms, "
+        f"{gap / calls:.4f} ms a collective")
+
+
+def mesh_collective_ms(mesh, dev, calls=200):
+    """Host-clock ms of one paper-size ``all_to_all_single`` ([10, 5] f32,
+    int8) on the mesh's agent group, warm: issued back to back and
+    synchronised at the end, and synchronised after each call."""
+    import torch
+
+    group = mesh.get_group("data")
+    out = []
+    for dtype in (torch.float32, torch.int8):
+        x = torch.ones((10, 5), dtype=dtype, device=dev)
+        recv = torch.empty_like(x)
+        for _ in range(10):
+            torch.distributed.all_to_all_single(recv, x, group=group)
+        for each in (False, True):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                torch.distributed.all_to_all_single(recv, x, group=group)
+                if each:
+                    sync()
+            sync()
+            out.append(f"{dtype} {'synced' if each else 'issued'} "
+                       f"{(time.perf_counter() - t0) * 1e3 / calls:.4f}")
+    log(f"[mesh] one all_to_all_single on [10, 5], ms a call over {calls} "
+        f"(host clock, warm; {CARD}): {'; '.join(out)}")
+
+
+def mesh_wide(mesh, dev, label, per_round):
+    """The n-wide ``label`` round through the mesh and the host exchange:
+    the same launches a round (counters zeroed just before, read just
+    after), every state leaf bit-equal, the collectives a mesh round makes
+    and their bytes, the round's host-clock time beside the host round's
+    (in turns), and one profiled mesh round (NCCL's kernels and device
+    time, the idle share).  Returns the profile's figures."""
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import spmd_check
+    from repro_torch.problems.logistic import LogisticProblem
+
+    rounds = MESH_WIDE_ROUNDS
+    prob = LogisticProblem(n=WIDE_N)
+    data = wide_data(prob, dev)
+    host, x0, gspec, _, _ = wide_solver(label, prob, dev)
+    on_mesh, _, _, _, _ = wide_solver(label, prob, dev, mesh=mesh)
+    lo, hi = on_mesh.exchange.rows.start, on_mesh.exchange.rows.stop
+    mine = {k: v[lo:hi] for k, v in data.items()}
+    base = jaxrand.key(12345)
+    states, counts = {}, {}
+    for name, solver, d in (("host", host, data), ("mesh", on_mesh, mine)):
+        st = solver.init(x0[lo:hi] if name == "mesh" else x0)
+        st = solver.step(st, d, jaxrand.fold_in(base, 0))
+        sync()
+        reset_counts()
+        coll = solver.exchange.collectives
+        for key in coll:
+            coll[key] = 0
+        for i in range(1, 1 + rounds):
+            st = solver.step(st, d, jaxrand.fold_in(base, i))
+        sync()
+        counts[name] = read_counts()
+        if name == "mesh":
+            coll = dict(coll)
+        states[name] = st
+    for k, per in per_round.items():
+        if (counts["mesh"][k] != per * rounds
+                or counts["host"][k] != per * rounds):
+            raise AssertionError(
+                f"mesh {label}: {k} launched {counts['mesh'][k]} (mesh) and "
+                f"{counts['host'][k]} (host) times in {rounds} rounds, not "
+                f"{per * rounds}")
+    if counts["mesh"] != counts["host"]:
+        raise AssertionError(f"mesh {label}: launches differ: "
+                             f"{counts['mesh']} vs {counts['host']}")
+    spmd_check.compare_states(label, states["mesh"], states["host"],
+                              on_mesh.exchange.rows)
+    log(f"[mesh] {label} n={WIDE_N}: {rounds} rounds, launches a round "
+        f"{ {k: v // rounds for k, v in counts['mesh'].items() if v} } "
+        f"(mesh = host), state bit-equal; collectives a round "
+        f"{coll['calls'] / rounds:g} moving {coll['bytes'] / rounds:.0f} B "
+        f"({coll['bytes_off_rank'] / rounds:.0f} B off the rank)")
+    # the round's host clock, mesh and host in turns
+    turns_ms = {"host": [], "mesh": []}
+    k = 1 + rounds
+    for _ in range(3):
+        for name, solver, d in (("host", host, data),
+                                ("mesh", on_mesh, mine)):
+            sync()
+            t0 = time.perf_counter()
+            states[name] = solver.step(states[name], d,
+                                       jaxrand.fold_in(base, k))
+            sync()
+            turns_ms[name].append((time.perf_counter() - t0) * 1e3)
+        k += 1
+    log(f"[mesh] {label} n={WIDE_N} round ms (host clock, in turns; "
+        f"{CARD}): mesh {', '.join(f'{t:.3f}' for t in turns_ms['mesh'])}; "
+        f"host {', '.join(f'{t:.3f}' for t in turns_ms['host'])}")
+    return profile_mesh_round(label, on_mesh, states["mesh"], mine, base, k)
+
+
+def profile_mesh_round(label, solver, st, data, base, k):
+    """torch.profiler over one mesh round and the consensus all_reduce
+    after it: the NCCL kernels (their device time), the NCCL operators
+    torch records, device copies, busy time and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import admm, jaxrand
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = solver.step(st, data, jaxrand.fold_in(base, k))
+        admm.consensus_mean(st, solver.exchange)
+        sync()
+        wall = time.perf_counter() - t0
+    # a collective's record_function range ("nccl:all_to_all") also shows
+    # on the device timeline, spanning its kernels: not a kernel itself
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("nccl:", "gloo:"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    nccl_k = {}
+    for e in dev_events:
+        if "nccl" in e.name.lower():
+            ms, n = nccl_k.get(e.name, (0.0, 0))
+            nccl_k[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    copies = sum(e.time_range.elapsed_us() for e in dev_events
+                 if "memcpy" in e.name.lower()) / 1e3
+    ops = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(("nccl:", "gloo:"))):
+            ops[e.name] = ops.get(e.name, 0) + 1
+    log(f"[mesh] {label} profiled round ({CARD}): wall {wall * 1e3:.3f} ms, "
+        f"device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / (wall * 1e3):.3f}; NCCL kernels (ms, launches) "
+        f"{ {n[:40]: (round(v[0], 4), v[1]) for n, v in nccl_k.items()} } "
+        f"({sum(v[0] for v in nccl_k.values()):.4f} ms); device copies "
+        f"{copies:.4f} ms; collective operators (host events) {ops}")
+    if not ops and not nccl_k:
+        raise AssertionError(f"mesh {label}: no collective in the profile")
+    if not nccl_k:
+        log(f"[mesh] {label}: the one-rank world ran its collectives "
+            f"({ops}) without a device kernel named NCCL")
+    return {"nccl_ms": sum(v[0] for v in nccl_k.values()), "ops": ops,
+            "busy": busy, "wall": wall * 1e3}
+
+
+def mesh_two_cards(dev):
+    """With two cards: a two-rank NCCL world (one card a rank, 5 agents a
+    rank) on the paper's ring, its states gathered to this process and
+    held bit for bit against the one-card host run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import spmd_check
+
+    if torch.cuda.device_count() < 2:
+        log("[mesh] one card: the multi-card run (a two-rank NCCL world) "
+            "waits for a machine with more cards")
+        return
+    label, spec, gspec = MESH_PAPER[0]
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spmd_check.collect_world(spmd_check.start_world(
+            "paper", 2, d, backend="nccl", spec=spec, gspec=gspec,
+            rounds=MESH_ROUNDS), 2, d)
+    want = spmd_check.paper_run(None, dev, spec, gspec, MESH_ROUNDS)
+    for f, v in want["state"].items():
+        got = np.concatenate([r["state"][f] for r in ranks])
+        if not np.array_equal(got, v):
+            raise AssertionError(f"two cards: state leaf {f} differs")
+    log(f"[mesh] two cards ({CARD}): {label} on {gspec}, rows "
+        f"{[r['rows'] for r in ranks]}, every state leaf bit-equal to the "
+        f"one-card host run")
+
+
+def phase_mesh():
+    """A one-rank NCCL world from a FileStore on card 0, its ``(1, 1)``
+    ("data", "model") mesh, the paper-size and n-wide mesh rounds against
+    the host rounds, then the two-card world where there are two cards.
+    A failure to start the world fails the phase."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh, world
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as d, world(
+            "nccl", os.path.join(d, "store"), device=dev):
+        mesh = make_host_mesh()
+        log(f"[mesh] nccl world of {torch.distributed.get_world_size()}, "
+            f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+            f"{mesh.device_type}")
+        mesh_paper(mesh, dev)
+        mesh_collective_ms(mesh, dev)
+        for label, per_round in MESH_WIDE:
+            mesh_wide(mesh, dev, label, per_round)
+    mesh_two_cards(dev)
+
+
 @contextlib.contextmanager
 def phase_clock(name, spent):
     """Adds the host-clock seconds of the block to ``spent[name]``."""
@@ -5460,8 +5772,8 @@ def phase_clock(name, spent):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,paper,fig2,obs,dada,"
-                    "harness,wide,profile,serve,train,zoo",
+                    default="device,build,kernels,paper,mesh,fig2,obs,"
+                    "dada,harness,wide,profile,serve,train,zoo",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -5503,6 +5815,9 @@ def main(argv=None):
             phase_paper(PAPER_ROUNDS)
             phase_paper_schedules(PAPER_ROUNDS)
             phase_paper_faults(PAPER_ROUNDS, PAPER_ROUNDS)
+    if "mesh" in phases:
+        with phase_clock("mesh", spent):
+            phase_mesh()
     if "fig2" in phases:
         with phase_clock("fig2", spent):
             phase_fig2(FIG2_ADMM_ROUNDS, FIG2_BASELINE_ITERS)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.common.trees import tree_flatten
+from repro_torch.common.trees import tree_flatten, tree_map
 from repro_torch.core import jaxrand, vr
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.schedule import build_graph
@@ -97,19 +97,29 @@ def run_solver(prob, data, solver, rounds: int, metric_every: int = 10,
     state when ``return_state``).  ``data`` is moved to the solver's
     device.  ``x0``: the stacked initial params (a tree for
     ``packed=false``; zeros ``[A, n]`` when None), whose consensus mean
-    packs into the problem's ``[n]`` vector."""
+    packs into the problem's ``[n]`` vector.  On a mesh exchange ``data``
+    and ``x0`` still hold all A agents: the solver takes its rank's rows,
+    and the metric's mean is over every agent's x, gathered over the
+    agent axis (the one-process run's mean, bit for bit)."""
     data = {k: (v if isinstance(v, torch.Tensor) else
                 torch.from_numpy(np.array(v))).to(solver.device)
             for k, v in data.items()}
     if x0 is None:
         x0 = torch.zeros((prob.n_agents, prob.n), device=solver.device)
+    ex = getattr(solver, "exchange", None)
+    mine, gather = data, (lambda tree: tree)
+    if ex is not None and ex.mesh is not None:
+        rows = slice(ex.rows.start, ex.rows.stop)
+        mine = {k: v[rows] for k, v in data.items()}
+        x0 = tree_map(lambda t: t[rows], x0)
+        gather = ex.gather_rows
     st = solver.init(x0)
     base = jaxrand.key(seed)
     idx, gns = [], []
     for i in range(rounds):
-        st = solver.step(st, data, jaxrand.fold_in(base, i))
+        st = solver.step(st, mine, jaxrand.fold_in(base, i))
         if i % metric_every == 0:
-            xbar = _flat_mean(solver.consensus_params(st))
+            xbar = _flat_mean(gather(solver.consensus_params(st)))
             idx.append(i)
             gns.append(prob.global_grad_norm_sq(xbar, data))
     gns = np.asarray([float(g) for g in gns], dtype=np.float64)

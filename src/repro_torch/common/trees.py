@@ -175,3 +175,14 @@ def tree_consensus_error(params):
     sq = tree_map(lambda x: torch.sum((x - torch.mean(x, dim=0)) ** 2),
                   params)
     return sum(tree_flatten(sq)[0])
+
+
+def meta_like(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor (shape and dtype, no storage): the port's
+    ``jax.ShapeDtypeStruct``."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def abstract_counter() -> torch.Tensor:
+    """The round counter's abstract leaf, the reference's int32 scalar."""
+    return meta_like((), torch.int32)

@@ -31,6 +31,11 @@ the union-graph slots of ``round_mask(k)``; inactive edges hold all edge
 state, inactive nodes freeze x, and x̂ (and u) are kept per edge, as in
 the reference's asynchronous-ADMM round.
 
+On a mesh exchange (``Exchange(topo, axis, mesh)``) the state, the data
+and every message hold the rank's agent rows ``exchange.rows`` only, and
+every key and kernel id is the global agent id, so rank p's round equals
+rows ``exchange.rows`` of the one-process round bit for bit.
+
 Faults (``cfg.faults``, a ``core.faults.FaultPlane``) run on the packed
 time-varying round (``make_solver`` wraps a static graph in
 ``schedule.static_schedule``): both message planes are sealed (crc +
@@ -58,7 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.trees import (first_leaf, tree_add,
-                                      tree_consensus_error, tree_lerp,
+                                      tree_consensus_error, tree_flatten,
+                                      tree_lerp,
                                       tree_map, tree_select, tree_sub,
                                       tree_zeros_like)
 from repro_torch.core import compression, jaxrand
@@ -121,7 +127,9 @@ class RoundIds:
     derivation, device int32 copies for the kernels, the per-agent
     degrees (in the state's dtype, and as int64 for the telemetry tap)
     and the ``[A, S]`` slot mask (None when every slot is active) of a
-    static topology (a schedule's union)."""
+    static topology (a schedule's union).  ``rows`` (a range of global
+    agent ids, all when None) keeps a mesh rank's rows: the ids stay
+    global."""
 
     agent: torch.Tensor  # [A] host
     aid2: torch.Tensor  # [A, S] host
@@ -134,18 +142,21 @@ class RoundIds:
     degrees_i64: torch.Tensor  # [A] device int64
 
     @classmethod
-    def build(cls, topo, device, dtype=torch.float32):
-        a, s = topo.n_agents, topo.n_slots
-        agent = torch.arange(a, dtype=torch.int64)
-        aid2 = agent[:, None].expand(a, s).contiguous()
-        nbr = torch.as_tensor(np.asarray(topo.neighbor_table(), np.int64))
-        mask = np.asarray(topo.slot_mask())
+    def build(cls, topo, device, dtype=torch.float32, rows=None):
+        rows = range(topo.n_agents) if rows is None else rows
+        lo, hi = rows.start, rows.stop
+        s = topo.n_slots
+        agent = torch.arange(lo, hi, dtype=torch.int64)
+        aid2 = agent[:, None].expand(hi - lo, s).contiguous()
+        nbr = torch.as_tensor(np.asarray(topo.neighbor_table(),
+                                         np.int64)[lo:hi])
+        mask = np.asarray(topo.slot_mask())[lo:hi]
         return cls(
             agent=agent, aid2=aid2, nbr=nbr,
             agent_d=agent.to(device, torch.int32),
             aid2_d=aid2.to(device, torch.int32),
             nbr_d=nbr.to(device, torch.int32),
-            degrees=torch.as_tensor(topo.degrees(), dtype=dtype,
+            degrees=torch.as_tensor(topo.degrees()[lo:hi], dtype=dtype,
                                     device=device),
             mask=None if mask.all() else torch.as_tensor(mask, device=device),
             degrees_i64=torch.as_tensor(mask.sum(axis=1), dtype=torch.int64,
@@ -239,11 +250,12 @@ def _key_xe(round_key, sender, receiver):
     return jaxrand.fold_in(jaxrand.fold_in(k, sender), receiver)
 
 
-def batch_indices(cfg: LTADMMConfig, round_key, n_agents: int, m: int):
+def batch_indices(cfg: LTADMMConfig, round_key, agents, m: int):
     """Every local step's minibatch indices, ``[A, tau, batch_size]``
     (host int64): ``randint(_key_batch(round_key, agent, t), (bs,), 0,
-    m)`` for all agents and steps in one batched derivation."""
-    agent = torch.arange(n_agents, dtype=torch.int64)[:, None]
+    m)`` for all agents and steps in one batched derivation; ``agents``
+    the host int64 global ids (``RoundIds.agent``)."""
+    agent = agents[:, None]
     t = torch.arange(cfg.tau, dtype=torch.int64)[None, :]
     keys = _key_batch(round_key, agent, t)
     return jaxrand.randint(keys, (cfg.batch_size,), 0, m)
@@ -260,7 +272,7 @@ def local_phase(cfg: LTADMMConfig, ids: RoundIds, vr_est, x, z, data,
                                    * ids.degrees.reshape(
                                        (-1,) + (1,) * (xs.dim() - 1)) * xs
                                    - cfg.r * torch.sum(zs, dim=1)), x, z)
-    idx = batch_indices(cfg, round_key, x0.shape[0], m).to(x0.device)
+    idx = batch_indices(cfg, round_key, ids.agent, m).to(x0.device)
     vr_state = vr_est.reset(x, data)
     phi = x
     for t in range(cfg.tau):
@@ -286,7 +298,7 @@ def step(cfg: LTADMMConfig, topo, exchange, vr_est, state: LTADMMState,
             "automatically")
     if ids is None:
         x0 = first_leaf(state.x)
-        ids = RoundIds.build(topo, x0.device, x0.dtype)
+        ids = RoundIds.build(topo, x0.device, x0.dtype, exchange.rows)
     return _step_static(cfg, exchange, vr_est, state, data, round_key, ids)
 
 
@@ -392,12 +404,13 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
     per agent and slot whether the advanced or the held state is kept,
     and the node mask freezes the x of inactive agents."""
     x0 = first_leaf(state.x)
+    rows = None if exchange.mesh is None else exchange.rows
     if ids is None:
-        ids = RoundIds.build(sched.union, x0.device, x0.dtype)
+        ids = RoundIds.build(sched.union, x0.device, x0.dtype, rows)
     like = compression.like_per_message(state.x)
     cx, cz = cfg.compressor_x, cfg.compressor_z
-    act = sched.round_mask(state.k, x0.device)  # [A, S]
-    node_k = sched.round_node_mask(state.k, x0.device)  # [A] | None
+    act = sched.round_mask(state.k, x0.device, rows)  # [A, S]
+    node_k = sched.round_node_mask(state.k, x0.device, rows)  # [A] | None
     fp = cfg.faults
     if fp is not None:
         if not isinstance(state.x, torch.Tensor):
@@ -407,7 +420,7 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
         # a crashed agent is inert for the round: x frozen (node hold),
         # every incident edge dark (folded into ok below); "restart"
         # resumes from the held state, the async-ADMM recovery
-        alive = fp.node_alive(state.k, sched.union, x0.device)
+        alive = fp.node_alive(state.k, sched.union, x0.device, rows)
         node_k = alive if node_k is None else node_k & alive
     # fused-route base seeds (salts of _key_xe/_key_z)
     bxe = jaxrand.fold_in(round_key, 17)
@@ -448,7 +461,8 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
                    + telemetry.payload_nbytes(m_z, nd=2)
                    if verdicts is None else verdicts.sealed_nbytes)
         _emit_round_telemetry(
-            cfg, vr_est, data, sched.round_degrees_device(state.k, x0.device),
+            cfg, vr_est, data,
+            sched.round_degrees_device(state.k, x0.device, rows),
             per_msg, node_k,
             None if verdicts is None else _fault_counters(act, verdicts))
     if verdicts is not None:
@@ -563,12 +577,24 @@ def _fault_counters(act, v: WireVerdicts) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def consensus_mean(state):
-    return tree_map(lambda x: torch.mean(x, dim=0), state.x)
+def consensus_mean(state, exchange=None):
+    """Mean of x over all agents; on a mesh exchange the rank's rows are
+    summed and ``all_reduce``d over the agent axis."""
+    if exchange is None or exchange.mesh is None:
+        return tree_map(lambda x: torch.mean(x, dim=0), state.x)
+    n = exchange.topo.n_agents
+    return tree_map(lambda t: t / n, exchange.agent_sum(state.x))
 
 
-def consensus_error(state):
-    return tree_consensus_error(state.x)
+def consensus_error(state, exchange=None):
+    """Total squared deviation of the agents' x from their mean (over
+    every leaf); global over the mesh as ``consensus_mean`` is."""
+    if exchange is None or exchange.mesh is None:
+        return tree_consensus_error(state.x)
+    mean = consensus_mean(state, exchange)
+    sq = tree_map(lambda x, m: ((x - m) ** 2).reshape(x.shape[0], -1)
+                  .sum(dim=1), state.x, mean)
+    return sum(tree_flatten(exchange.agent_sum(sq))[0])
 
 
 def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:

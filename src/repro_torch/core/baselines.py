@@ -44,7 +44,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.common.trees import (as_tensor, first_leaf, tree_add,
+from repro_torch.common.trees import (abstract_counter, as_tensor,
+                                      first_leaf, meta_like, tree_add,
                                       tree_map, tree_select, tree_sub,
                                       tree_zeros_like)
 from repro_torch.core import compression, jaxrand, packing, vr
@@ -231,6 +232,32 @@ class GossipSolverMixin:
         if self.packed:
             return packing.unpack(self._layout(state), state["x"])
         return state["x"]
+
+    # ---- sharding / lowering hooks ----------------------------------------
+
+    def abstract_state(self, x_sds):
+        """The state's ``meta`` tree from stacked ``[A, ...]`` ``meta``
+        params, derived from ``state_fields`` (``init`` is not run): the
+        packed plane ``[A, N]`` where packed, an int32 counter."""
+        if self.packed:
+            a = first_leaf(x_sds).shape[0]
+            lay = packing.layout_of_stacked(x_sds)
+            self._cache["layout"] = lay
+            x_sds = meta_like((a, lay.size), lay.dtype)
+        st = self._abstract_fields(x_sds)
+        st["k"] = abstract_counter()
+        return st
+
+    def _abstract_fields(self, x):
+        return {f: x for f in self.state_fields}
+
+    def state_sharding(self, x_ps, edge_ps, scalar_ps):
+        """Every parameter-shaped field shards like the stacked params;
+        the round counter is replicated (``edge_ps`` is unused here)."""
+        del edge_ps
+        out = {f: x_ps for f in self.state_fields}
+        out["k"] = scalar_ps
+        return out
 
     def _wire_compressor(self):
         """What moves per neighbour message: the configured compressor,

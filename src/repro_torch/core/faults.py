@@ -119,10 +119,14 @@ class FaultPlane:
         return _tensor(_draw(self, int(k), n_agents)[0][_KIND_CRASH],
                        device)
 
-    def node_alive(self, k, topo, device=None):
+    def node_alive(self, k, topo, device=None, rows=None):
         """[A] bool: ``~crash_mask`` of round ``k``, drawn with the
-        round's message masks (one host draw serves both)."""
-        return _tensor(~_host_plane(self, int(k), topo)[0], device)
+        round's message masks (one host draw serves both); the agents
+        ``rows`` only where given."""
+        alive = ~_host_plane(self, int(k), topo)[0]
+        if rows is not None:
+            alive = alive[rows.start:rows.stop]
+        return _tensor(alive, device)
 
     def message_masks(self, k, topo, device=None):
         """Receiver-indexed [A, S] (drop, corrupt, stale) masks of round
@@ -133,7 +137,7 @@ class FaultPlane:
 
     # -- injection (wire path) -------------------------------------------
 
-    def inject(self, tree, topo, k, inplace: bool = False):
+    def inject(self, tree, topo, k, inplace: bool = False, rows=None):
         """Apply round-``k`` faults to routed sealed payload(s): Payload
         leaves whose tensors are receiver-indexed ``[A, S, ...]``.  Drops
         zero the data leaves and poison the tag; corruption flips one
@@ -142,13 +146,14 @@ class FaultPlane:
         rejects it.  Applied corrupt, then stale, then drop.  ``inplace``:
         the data leaves are the exchange's freshly routed tensors and are
         edited where they lie (else a leaf that changes is a new
-        tensor)."""
+        tensor).  ``rows`` (a range of global agent ids): the payloads hold
+        only those receivers' rows, as a mesh exchange's rank does."""
         payloads, rebuild = tree_flatten(
             tree, is_leaf=lambda t: isinstance(t, compression.Payload))
-        return rebuild([self._inject_payload(p, topo, int(k), inplace)
+        return rebuild([self._inject_payload(p, topo, int(k), inplace, rows)
                         for p in payloads])
 
-    def _inject_payload(self, p, topo, k: int, inplace: bool):
+    def _inject_payload(self, p, topo, k: int, inplace: bool, rows):
         if not isinstance(p, compression.Payload):
             raise TypeError(
                 f"fault injection needs sealed Payloads, got {type(p)!r}")
@@ -160,7 +165,7 @@ class FaultPlane:
         data_keys = [n for n in sorted(leaves) if n not in _SEAL_KEYS]
         first = leaves[data_keys[0]] if data_keys else leaves["tag"]
         dev = _device_plane(self, k, topo, math.prod(first.shape[2:]),
-                            first.element_size(), first.device)
+                            first.element_size(), first.device, rows)
         owned = set()  # data leaves that are this call's own tensors
         if dev.flip is not None and data_keys:
             # dropped messages are left out: the drop zeroes them below
@@ -277,16 +282,19 @@ class _DevicePlane:
 
 
 def _device_plane(fp: FaultPlane, k: int, topo, n_elem: int, width: int,
-                  device) -> _DevicePlane:
+                  device, rows=None) -> _DevicePlane:
     """The injection planes of round ``k`` for a first data leaf of
     ``n_elem`` elements of ``width`` bytes a message, copied to ``device``
     in one transfer and kept (the x- and z-exchanges of a round share
-    it)."""
-    key = ("device", k, topo, n_elem, width, device)
+    it); only the receivers ``rows`` (all when None)."""
+    key = ("device", k, topo, n_elem, width, device, rows)
     hit = fp._cache.get(key)
     if hit is not None:
         return hit
     _, drop, corrupt, stale, bits = _host_plane(fp, k, topo)
+    if rows is not None:
+        drop, corrupt, stale, bits = (m[rows.start:rows.stop]
+                                      for m in (drop, corrupt, stale, bits))
     flip = corrupt & ~drop
     nbits = 8 * width
     elem = bits % n_elem

@@ -57,8 +57,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.common.trees import (first_leaf, tree_add, tree_flatten,
-                                      tree_map, tree_sub, tree_zeros_like)
+from repro_torch.common.trees import (first_leaf, meta_like, tree_add,
+                                      tree_flatten, tree_map, tree_sub,
+                                      tree_zeros_like)
 from repro_torch.core import compression, faults as faults_mod, jaxrand
 from repro_torch.core import packing
 from repro_torch.core.baselines import (GossipSolverMixin, _cache_field,
@@ -344,6 +345,17 @@ class DadaSolver(GossipSolverMixin):
                 dark = dark & self.topo.round_mask(k, dev)
             counters["rx_dropped"] = dark.sum(dim=1)
         telemetry.emit(**counters)
+
+    # ---- sharding: w and c are edge-shaped ---------------------------------
+
+    def _abstract_fields(self, x):
+        edge = meta_like((first_leaf(x).shape[0], self._union.n_slots),
+                         torch.float32)
+        return {"x": x, "xhat": x, "w": edge, "c": edge}
+
+    def state_sharding(self, x_ps, edge_ps, scalar_ps):
+        return {"x": x_ps, "xhat": x_ps, "w": edge_ps, "c": edge_ps,
+                "k": scalar_ps}
 
     # ---- learned-graph views ----------------------------------------------
 

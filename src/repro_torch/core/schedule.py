@@ -101,34 +101,42 @@ class TopologySchedule:
 
     # ---- device view: one index into the stack kept on the device ----------
 
-    def _stack(self, what: str, device):
+    def _stack(self, what: str, device, rows=None):
+        """The ``[T, A, ...]`` stack ``what`` on ``device``, kept; only the
+        agents ``rows`` (a range of global ids; all when None)."""
         device = torch.device(device)
-        key = (what, device)
+        key = (what, device, rows)
         t = self._cache.get(key)
         if t is None:
-            t = torch.as_tensor(getattr(self, what), device=device)
+            host = getattr(self, what)
+            if rows is not None:
+                host = host[:, rows.start:rows.stop]
+            t = torch.as_tensor(np.ascontiguousarray(host), device=device)
             self._cache[key] = t
         return t
 
-    def round_mask(self, k: int, device="cpu") -> torch.Tensor:
-        """``[A, S]`` bool activity mask of round ``k`` on ``device``."""
-        return self._stack("masks", device)[k % self.period]
+    def round_mask(self, k: int, device="cpu", rows=None) -> torch.Tensor:
+        """``[A, S]`` bool activity mask of round ``k`` on ``device`` (the
+        agents ``rows`` only, where given: a mesh rank's)."""
+        return self._stack("masks", device, rows)[k % self.period]
 
-    def round_degrees_device(self, k: int, device="cpu") -> torch.Tensor:
+    def round_degrees_device(self, k: int, device="cpu",
+                             rows=None) -> torch.Tensor:
         """``[A]`` int64 active degrees of round ``k`` on ``device`` (a row
         of the ``[T, A]`` stack kept there: no launch, no copy)."""
-        return self._stack("_degree_stack", device)[k % self.period]
+        return self._stack("_degree_stack", device, rows)[k % self.period]
 
     @property
     def _degree_stack(self) -> np.ndarray:  # [T, A] int64
         return self.masks.sum(axis=2).astype(np.int64)
 
-    def round_node_mask(self, k: int, device="cpu") -> torch.Tensor | None:
+    def round_node_mask(self, k: int, device="cpu",
+                        rows=None) -> torch.Tensor | None:
         """``[A]`` bool participation of round ``k``, or None when the
         schedule has no node layer."""
         if self.node_masks is None:
             return None
-        return self._stack("node_masks", device)[k % self.period]
+        return self._stack("node_masks", device, rows)[k % self.period]
 
 
 def static_schedule(topo) -> TopologySchedule:
@@ -437,11 +445,12 @@ def union_topology(graph):
     return graph.union if isinstance(graph, TopologySchedule) else graph
 
 
-def build_graph(spec: str, n_agents: int):
+def build_graph(spec: str, n_agents: int, axis=None, mesh=None):
     """``(graph, exchange)`` from one spec string; the exchange runs over
-    the union graph's slots."""
+    the union graph's slots (in one process when ``axis`` is None, else
+    between the ranks of ``mesh``'s axis ``axis``)."""
     graph = make_graph(spec, n_agents)
-    return graph, Exchange(union_topology(graph))
+    return graph, Exchange(union_topology(graph), axis=axis, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,17 @@ parameters a pytree, compressed leaf by leaf.  ``make_solver`` takes
 ``device="cpu"``.  ``faults=`` (a nested ``core.faults`` spec, ``|`` for
 ``,``) arms seeded fault injection on every solver; LT-ADMM then runs the
 packed time-varying round (a static graph becomes a period-1 schedule).
+
+An exchange on a mesh axis (``Exchange(topo, axis, mesh)``) runs
+LT-ADMM-CC with each rank holding its agent rows: ``init`` takes and the
+state holds ``[A/W, ...]`` rows.  The gossip baselines and dada mix
+through a dense ``[A, A]`` matrix and do not run on a mesh yet (ROADMAP
+Queue 1 item 15).
+
+The sharding hooks: ``abstract_state(x)`` maps stacked ``[A, ...]``
+``meta`` tensors to the state's shapes and dtypes without allocating,
+and ``state_sharding(x_ps, edge_ps, scalar_ps)`` lays the given specs out
+in the state's structure.
 """
 from __future__ import annotations
 
@@ -26,7 +37,8 @@ from typing import Any, Callable, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.common.trees import (as_tensor, first_leaf,
+from repro_torch.common.trees import (abstract_counter, as_tensor,
+                                      first_leaf, meta_like,
                                       tree_consensus_error,
                                       tree_consensus_mean, tree_map)
 from repro_torch.core import (admm, baselines, compression, faults,
@@ -40,9 +52,7 @@ from repro_torch.device import resolve_device
 @runtime_checkable
 class Solver(Protocol):
     """What the launch and bench layers require of a distributed method
-    (the reference's protocol).  Its two sharding hooks,
-    ``abstract_state`` and ``state_sharding``, join it with the mesh
-    (ROADMAP item 15): the port runs its agents in one process."""
+    (the reference's protocol), with its two sharding hooks."""
 
     name: str
 
@@ -55,6 +65,10 @@ class Solver(Protocol):
     def wire_bytes(self, params, t: int | None = None) -> int: ...
 
     def round_cost(self, cost_model, m: int) -> float: ...
+
+    def abstract_state(self, x_sds) -> Any: ...
+
+    def state_sharding(self, x_ps, edge_ps, scalar_ps) -> Any: ...
 
 
 # consensus diagnostics over stacked [A, ...] params: one definition in
@@ -97,7 +111,7 @@ class LTADMMSolver:
         ids = self._cache.get(("ids", x.device))
         if ids is None:
             ids = admm.RoundIds.build(union_topology(self.graph), x.device,
-                                      x.dtype)
+                                      x.dtype, self.exchange.rows)
             self._cache[("ids", x.device)] = ids
         return ids
 
@@ -139,6 +153,40 @@ class LTADMMSolver:
     def round_cost(self, cost_model, m: int) -> float:
         """(t_g, t_c) cost of one outer round, Table I's last row."""
         return cost_model.lt_admm_cc(m, self.cfg.tau)
+
+    # ---- sharding / lowering hooks ----------------------------------------
+
+    def state_tree(self, x_leaf, edge_leaf, k_leaf):
+        """State-shaped tree from representative leaves: every per-agent
+        field gets ``x_leaf``, every per-edge field ``edge_leaf`` (the u
+        fields None when lean); the state class follows the graph kind."""
+        u_edge = None if self.cfg.lean else edge_leaf
+        if self.is_schedule:
+            return admm.LTADMMScheduleState(
+                x=x_leaf, x_hat_edge=edge_leaf, u_edge=u_edge, z=edge_leaf,
+                s=edge_leaf, s_tilde=edge_leaf, x_hat_nbr=edge_leaf,
+                u_nbr=u_edge, k=k_leaf)
+        return admm.LTADMMState(
+            x=x_leaf, x_hat=x_leaf, u=None if self.cfg.lean else x_leaf,
+            z=edge_leaf, s=edge_leaf, s_tilde=edge_leaf, x_hat_nbr=edge_leaf,
+            u_nbr=u_edge, k=k_leaf)
+
+    def abstract_state(self, x_sds):
+        """The state's ``meta`` tree from stacked ``[A, ...]`` ``meta``
+        params: the packed plane ``[A, N]`` (its layout kept for
+        ``step``), edge leaves ``[A, S, ...]``, an int32 counter."""
+        if self.packed:
+            a = first_leaf(x_sds).shape[0]
+            lay = packing.layout_of_stacked(x_sds)
+            self._cache["layout"] = lay
+            x_sds = meta_like((a, lay.size), lay.dtype)
+        n_slots = self.graph.n_slots
+        edge = tree_map(lambda t: meta_like(
+            (t.shape[0], n_slots) + tuple(t.shape[1:]), t.dtype), x_sds)
+        return self.state_tree(x_sds, edge, abstract_counter())
+
+    def state_sharding(self, x_ps, edge_ps, scalar_ps):
+        return self.state_tree(x_ps, edge_ps, scalar_ps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +259,11 @@ def make_solver(spec: str, graph, exchange=None, grad_est=None,
     merged.update(kw)
     if exchange is None:
         exchange = Exchange(union_topology(graph))
+    if exchange.mesh is not None and entry.name != "ltadmm":
+        raise NotImplementedError(
+            f"{entry.name!r} on a mesh exchange: the gossip baselines' and "
+            "dada's rounds over torch.distributed ranks are not ported yet "
+            "(ROADMAP Queue 1 item 15); LT-ADMM-CC runs there")
     return entry.factory(graph, exchange, grad_est, device=dev, **merged)
 
 

@@ -8,11 +8,12 @@ points at ``i`` itself (a masked slot) otherwise.  ``reverse_slot[s]`` is
 the neighbor's slot that names the same edge.
 
 ``Exchange`` routes messages inside one process by indexing the agent
-axis; a masked slot delivers the agent's own message.  A fault-armed
-exchange (``faults``, a ``core.faults.FaultPlane``) injects the round's
-seeded faults into routed sealed payloads when a call passes
-``round_index``.  The multi-process half of the reference (one
-collective-permute per slot on a mesh axis) is not ported yet.
+axis, or, given a mesh axis, between the ranks of a ``torch.distributed``
+world: one ``all_to_all_single`` per slot and leaf, where the reference
+makes one collective-permute per slot.  A masked slot delivers the
+agent's own message on both paths.  A fault-armed exchange (``faults``, a
+``core.faults.FaultPlane``) injects the round's seeded faults into routed
+sealed payloads when a call passes ``round_index``.
 """
 from __future__ import annotations
 
@@ -342,16 +343,83 @@ def make_topology(spec: str, n_agents: int):
 
 
 @dataclasses.dataclass(frozen=True)
+class _SlotRoute:
+    """One slot's all-to-all on a mesh axis, from rank ``p``'s side:
+    which local rows go out (grouped by destination rank, None for all
+    rows in order), the split sizes, and the local row each received
+    message lands on (None for all rows in order)."""
+
+    send: torch.Tensor | None
+    send_splits: list
+    recv_splits: list
+    dest: torch.Tensor | None
+    off_rank: int  # messages of the slot that leave the rank
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _slot_routes(topo, world: int, pos: int, device) -> tuple:
+    """Each slot's ``_SlotRoute`` for the rank at position ``pos`` of an
+    axis of ``world`` ranks, each owning ``A / world`` contiguous agents.
+    Slot s carries ``in[nbr[i, s]]`` to agent i; ``nbr[:, s]`` is a
+    permutation, so every agent sends and receives one message a slot."""
+    nbr = np.asarray(topo.neighbor_table(), dtype=np.int64)
+    a = topo.n_agents
+    b = a // world
+    mine = np.arange(pos * b, (pos + 1) * b)
+    routes = []
+    for s in range(topo.n_slots):
+        src = nbr[:, s]
+        # to rank r: my agents j = src[i] for r's agents i, in i's order
+        send = np.concatenate([src[r * b:(r + 1) * b][
+            src[r * b:(r + 1) * b] // b == pos] for r in range(world)]) - pos * b
+        send_splits = [int((src[r * b:(r + 1) * b] // b == pos).sum())
+                       for r in range(world)]
+        # from rank q: messages for my agents i with src[i] on q, in i's order
+        from_q = src[mine] // b
+        order = np.argsort(from_q, kind="stable")
+        recv_splits = [int((from_q == q).sum()) for q in range(world)]
+        ident = np.arange(b)
+        routes.append(_SlotRoute(
+            send=(None if np.array_equal(send, ident)
+                  else torch.as_tensor(send, device=device)),
+            send_splits=send_splits, recv_splits=recv_splits,
+            dest=(None if np.array_equal(order, ident)
+                  else torch.as_tensor(order, device=device)),
+            off_rank=int(b - send_splits[pos])))
+    return tuple(routes)
+
+
+@dataclasses.dataclass(frozen=True)
 class Exchange:
-    """Neighbor exchange over any topology, simulated in one process.
+    """Neighbor exchange over any topology: simulated in one process, or
+    between the ranks of a ``torch.distributed`` world.
+
+    ``axis``/``mesh`` (a ``DeviceMesh`` and one of its dimension names)
+    put the agents on that axis: the rank at position ``p`` of its ``W``
+    ranks owns the contiguous agent rows ``rows = range(p·A/W,
+    (p+1)·A/W)`` (``A % W == 0``), and every tree that enters or leaves
+    the exchange holds those rows only (``[A/W, ...]``, ``[A/W, S,
+    ...]``).  ``W = A`` is the reference's layout, one agent a shard;
+    ``W = 1`` routes every message through the backend to the rank
+    itself.  Rank ``p``'s result equals rows ``rows`` of the one-process
+    result.  The other mesh axes replicate: their ranks hold the same
+    rows and exchange among themselves.  ``collectives`` counts the
+    collectives made, the bytes handed to them (send buffers) and, of
+    those, the bytes bound for another rank (an all-to-all's messages
+    for other ranks; all of an ``all_gather``'s or ``all_reduce``'s
+    buffer when the axis has more than one rank); ``chip_smoke.py``
+    reads and resets it.
 
     ``faults`` (a ``core.faults.FaultPlane``, duck-typed: this module
     never imports it) arms the slot-batched calls: with ``round_index``
     given, routed sealed payloads get that round's faults injected after
-    routing.  Calls without it (the NAK control plane) stay reliable.
-    ``axis``/``mesh`` (the reference's multi-device path) are not ported
-    yet and raise.  Index tensors are built once per device and kept on
-    the instance, and shared with its armed copies (``armed``)."""
+    routing (on the rank's rows, by global agent id).  Calls without it
+    (the NAK control plane) stay reliable.  Index tensors and routes are
+    built once per device and kept on the instance, and shared with its
+    armed copies (``armed``)."""
 
     topo: Any
     axis: str | None = None
@@ -359,12 +427,45 @@ class Exchange:
     faults: Any = None
     _index: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+    collectives: dict = dataclasses.field(
+        default_factory=lambda: {"calls": 0, "bytes": 0,
+                                 "bytes_off_rank": 0},
+        compare=False, repr=False)
 
     def __post_init__(self):
-        if self.axis is not None or self.mesh is not None:
-            raise NotImplementedError(
-                "the multi-process exchange (mesh axis) is not ported yet: "
-                "ROADMAP Queue 1 item 15")
+        if (self.axis is None) != (self.mesh is None):
+            raise ValueError("Exchange: give a mesh axis together with its "
+                             "mesh (axis= and mesh=), or neither")
+        if self.mesh is not None:
+            names = tuple(self.mesh.mesh_dim_names or ())
+            if self.axis not in names:
+                raise ValueError(f"mesh axes {names} hold no {self.axis!r}")
+            w = self.mesh.size(names.index(self.axis))
+            if self.topo.n_agents % w:
+                raise ValueError(
+                    f"{self.topo.n_agents} agents do not split into equal "
+                    f"blocks over the {w} ranks of axis {self.axis!r}")
+
+    @property
+    def world(self) -> int:
+        """Ranks on the agent axis (1 for the host simulation)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.size(tuple(self.mesh.mesh_dim_names)
+                              .index(self.axis))
+
+    @property
+    def position(self) -> int:
+        """This rank's position on the agent axis (0 for the host
+        simulation)."""
+        return 0 if self.mesh is None else self.mesh.get_local_rank(
+            self.axis)
+
+    @property
+    def rows(self) -> range:
+        """The global agent rows this rank holds."""
+        b = self.topo.n_agents // self.world
+        return range(self.position * b, (self.position + 1) * b)
 
     def armed(self, faults):
         """This exchange with ``faults`` armed: made once per fault plane
@@ -375,7 +476,8 @@ class Exchange:
         key = ("armed", faults)
         ex = self._index.get(key)
         if ex is None:
-            ex = dataclasses.replace(self, faults=faults)  # same _index
+            # the same _index and collectives
+            ex = dataclasses.replace(self, faults=faults)
             self._index[key] = ex
         return ex
 
@@ -393,9 +495,65 @@ class Exchange:
             self._index[device] = idx
         return idx
 
+    def routes(self, device):
+        """Each slot's ``_SlotRoute`` on the mesh axis for this rank."""
+        device = torch.device(device)
+        key = ("routes", device)
+        r = self._index.get(key)
+        if r is None:
+            r = _slot_routes(self.topo, self.world, self.position, device)
+            self._index[key] = r
+        return r
+
+    def _route_slot(self, x, s: int, out):
+        """Rank-local ``x [A/W, ...]`` (slot s's outgoing messages) through
+        slot s's all-to-all into ``out [A/W, ...]``."""
+        r = self.routes(x.device)[s]
+        send = (x if r.send is None else x.index_select(0, r.send))
+        send = send.contiguous()
+        if send.dtype == torch.bool:  # carried as bytes on every backend
+            send = send.view(torch.uint8)
+        recv = torch.empty_like(send)
+        torch.distributed.all_to_all_single(
+            recv, send, r.recv_splits, r.send_splits,
+            group=self.mesh.get_group(self.axis))
+        nbytes = _nbytes(send)
+        self._count(nbytes, nbytes // max(send.shape[0], 1) * r.off_rank)
+        recv = recv.view(out.dtype)
+        if r.dest is None:
+            out.copy_(recv)
+        else:
+            out.index_copy_(0, r.dest, recv)
+
+    def _count(self, nbytes: int, off_rank: int):
+        """One collective handed ``nbytes`` of send buffer, ``off_rank`` of
+        them bound for another rank."""
+        self.collectives["calls"] += 1
+        self.collectives["bytes"] += nbytes
+        self.collectives["bytes_off_rank"] += off_rank
+
+    def _mesh_batched(self, tree, per_slot):
+        """``[A/W, S, ...]`` leaves: slot s gets ``per_slot(x, s)``'s
+        messages routed by slot s's all-to-all."""
+        n_slots = self.topo.n_slots
+
+        def one(x):
+            first = per_slot(x, 0)
+            out = torch.empty((first.shape[0], n_slots) + tuple(
+                first.shape[1:]), dtype=x.dtype, device=x.device)
+            for s in range(n_slots):
+                self._route_slot(per_slot(x, s), s, out[:, s])
+            return out
+
+        return tree_map(one, tree)
+
     def gather_from_neighbors(self, per_agent_tree):
         """Tuple over slots of ``[A, ...]`` messages: slot s holds what my
         slot-s neighbor broadcast (my own message on a masked slot)."""
+        if self.mesh is not None:
+            routed = self._mesh_batched(per_agent_tree, lambda x, s: x)
+            return tuple(tree_map(lambda t, s=s: t[:, s], routed)
+                         for s in range(self.topo.n_slots))
         nbr = self.topo.neighbor_table()
         return tuple(
             tree_map(lambda x, s=s: x[torch.as_tensor(nbr[:, s],
@@ -407,6 +565,10 @@ class Exchange:
     def gather_batched(self, per_agent_tree, round_index=None):
         """Broadcast exchange: leaves ``[A, ...]`` in, ``[A, S, ...]`` out,
         ``out[i, s] = in[neighbor_table()[i, s]]``."""
+        if self.mesh is not None:
+            return self._maybe_inject(
+                self._mesh_batched(per_agent_tree, lambda x, s: x),
+                round_index)
         return self._maybe_inject(
             tree_map(lambda x: x[self.indices(x.device)[0]],
                      per_agent_tree), round_index)
@@ -414,6 +576,11 @@ class Exchange:
     def exchange_batched(self, edge_tree, round_index=None):
         """Edge-directed exchange: leaves ``[A, S, ...]`` in and out,
         ``out[i, s] = in[neighbor_table()[i, s], reverse_slot[s]]``."""
+        if self.mesh is not None:
+            rev = self.topo.reverse_slot
+            return self._maybe_inject(
+                self._mesh_batched(edge_tree, lambda x, s: x[:, rev[s]]),
+                round_index)
         a, s = self.topo.n_agents, self.topo.n_slots
 
         def route(x):
@@ -422,13 +589,47 @@ class Exchange:
 
         return self._maybe_inject(tree_map(route, edge_tree), round_index)
 
+    def gather_rows(self, tree):
+        """All A agents' rows of ``[A/W, ...]`` leaves, on every rank: an
+        ``all_gather`` over the agent axis (the tree itself on the host
+        path)."""
+        if self.mesh is None:
+            return tree
+
+        def one(x):
+            x = x.contiguous()
+            out = torch.empty((x.shape[0] * self.world,) + tuple(
+                x.shape[1:]), dtype=x.dtype, device=x.device)
+            torch.distributed.all_gather_into_tensor(
+                out, x, group=self.mesh.get_group(self.axis))
+            self._count(_nbytes(x), _nbytes(x) if self.world > 1 else 0)
+            return out
+
+        return tree_map(one, tree)
+
+    def agent_sum(self, tree):
+        """Sum over all A agents of ``[A, ...]`` leaves (this rank's rows
+        summed, then an ``all_reduce`` over the agent axis on the mesh):
+        ``[...]`` on every rank."""
+        def one(x):
+            t = torch.sum(x, dim=0)
+            if self.mesh is not None:
+                torch.distributed.all_reduce(
+                    t, group=self.mesh.get_group(self.axis))
+                self._count(_nbytes(t), _nbytes(t) if self.world > 1 else 0)
+            return t
+
+        return tree_map(one, tree)
+
     def _maybe_inject(self, routed, round_index):
         """Inject round ``round_index``'s faults into the routed payloads,
         in place: routing made them fresh tensors."""
         if self.faults is None or round_index is None:
             return routed
         return self.faults.inject(routed, self.topo, round_index,
-                                  inplace=True)
+                                  inplace=True,
+                                  rows=None if self.mesh is None
+                                  else self.rows)
 
 
 def metropolis_weights(topo) -> np.ndarray:

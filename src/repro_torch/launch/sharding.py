@@ -1,0 +1,220 @@
+"""Sharding rules: logical parameter axes -> mesh axes, per execution mode
+(the counterpart of ``src/repro/launch/sharding.py``).
+
+Modes
+-----
+admm  (train): LT-ADMM-CC.  The agent graph lives on the agent axis
+      ("data" on a single pod; "pod" on the multi-pod mesh).
+serve (prefill/decode): no agent axis; batch over the data-like axes,
+      tensor parallel over "model"; long-context caches fall back to
+      sequence sharding when the batch does not divide.
+
+Every spec is sanitized against the concrete shape: a mesh axis is
+dropped from a dim that it does not divide (kv_heads=8 on a 16-way model
+axis), so every architecture gets a spec on every mesh without per-arch
+rules.
+
+The port keeps its own ``PartitionSpec``: a tuple of mesh axis names (or
+tuples of them, or None) per tensor dim, equal tuple for tuple to the
+reference's.  The rules read a mesh through ``mesh.axes_of``: a
+``DeviceMesh``, or any stand-in with ``shape`` (``{name: size}``) and
+``axis_names``.  ``shard_like`` turns specs into DTensor placements
+(``Shard``/``Replicate`` per mesh dim) for ``distribute_tensor``.
+"""
+from __future__ import annotations
+
+import math
+
+from repro_torch.common.trees import tree_flatten
+from repro_torch.launch.mesh import agent_axis_for, axes_of
+from repro_torch.models.common import is_spec
+
+
+class PartitionSpec(tuple):
+    """Mesh axes per tensor dim: a name, a tuple of names, or None.  A
+    one-name tuple is kept as the name, as jax's ``PartitionSpec`` keeps
+    it."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, tuple(
+            a[0] if isinstance(a, tuple) and len(a) == 1 else a
+            for a in axes))
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+P = PartitionSpec
+
+
+def is_pspec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _map(fn, tree, is_leaf):
+    leaves, rebuild = tree_flatten(tree, is_leaf=is_leaf)
+    return rebuild([fn(leaf) for leaf in leaves])
+
+
+def _axis_size(mesh, name):
+    if name is None:
+        return 1
+    if isinstance(name, tuple):
+        return math.prod(_axis_size(mesh, n) for n in name)
+    return mesh.shape[name]
+
+
+def sanitize_spec(mesh, shape, spec) -> PartitionSpec:
+    """Drop mesh axes that do not divide the corresponding dim, and
+    de-duplicate axes that appear on several dims (the first dim wins:
+    MoE expert weights [E, d, ff] map both "experts" and "ffn" to
+    'model'; the expert dim keeps it)."""
+    mesh = axes_of(mesh)
+    out = []
+    used = set()
+    for i, name in enumerate(spec):
+        if name is None or i >= len(shape):
+            out.append(None)
+            continue
+        if isinstance(name, tuple):
+            # the longest prefix of the tuple that divides and is unused
+            kept = []
+            size = 1
+            for n in name:
+                if n in used:
+                    continue
+                if shape[i] % (size * _axis_size(mesh, n)) == 0:
+                    kept.append(n)
+                    size *= _axis_size(mesh, n)
+            used.update(kept)
+            out.append(tuple(kept) if kept else None)
+        else:
+            ok = name not in used and shape[i] % _axis_size(mesh, name) == 0
+            if ok:
+                used.add(name)
+            out.append(name if ok else None)
+    while len(out) < len(shape):
+        out.append(None)
+    return P(*out)
+
+
+def param_rules(mesh, mode: str) -> dict:
+    """Logical axis name -> mesh axis (before sanitizing).  Mode
+    "serve_replicated": tensor parallel only, the weights replicated over
+    the data axes (decode of a model that fits a device)."""
+    multi_pod = "pod" in axes_of(mesh).axis_names
+    if mode == "serve_replicated":
+        fsdp = ()
+    else:
+        fsdp = ("data",) if (mode == "serve" or multi_pod) else ()
+    # "embed" carries FSDP (it is in every matmul's non-TP dim);
+    # heads/ffn/experts/vocab carry tensor parallelism
+    return {
+        "embed": fsdp[0] if fsdp else None,
+        "heads": "model",
+        "kv_heads": "model",
+        "head": None,
+        "ffn": "model",
+        "experts": "model",
+        "vocab": "model",
+        "ssm_inner": "model",
+        "layers": None,
+        None: None,
+    }
+
+
+def param_pspec(mesh, mode: str, spec_tree):
+    """PartitionSpec tree for (per-agent) model parameters."""
+    rules = param_rules(mesh, mode)
+    return _map(lambda s: sanitize_spec(mesh, s.shape,
+                                        P(*[rules.get(a) for a in s.axes])),
+                spec_tree, is_spec)
+
+
+def prefix_pspec(pspec_tree, *prefix):
+    """Prepend mesh axes (the agent axis) to every PartitionSpec."""
+    return _map(lambda sp: P(*prefix, *sp), pspec_tree, is_pspec)
+
+
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: per mesh dim,
+    ``Shard(i)`` where the dim's name shards tensor dim ``i``, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {}
+    for i, name in enumerate(spec):
+        for n in (name if isinstance(name, tuple) else (name,)):
+            if n is not None:
+                dims[n] = i
+    return tuple(Shard(dims[n]) if n in dims else Replicate()
+                 for n in axes_of(mesh).axis_names)
+
+
+def shard_like(mesh, pspec_tree):
+    """The placements tree of ``pspec_tree`` (the reference's
+    ``NamedSharding`` tree): hand each leaf to ``distribute_tensor(t,
+    mesh, placements)``."""
+    return _map(lambda sp: placements(mesh, sp), pspec_tree, is_pspec)
+
+
+# ---------------------------------------------------------------------------
+# Activation / data shardings
+# ---------------------------------------------------------------------------
+
+
+def train_data_pspec(mesh, leaves_ndim: dict):
+    """ADMM train data [A, m, ...]: A on the agent axis; m on 'data' when
+    the agent axis is 'pod' (hierarchical mode)."""
+    aaxis = agent_axis_for(mesh)
+    inner = "data" if aaxis == "pod" else None
+    return {k: P(aaxis, inner, *([None] * (v - 2)))
+            for k, v in leaves_ndim.items()}
+
+
+def batch_pspec(mesh, shape):
+    """Serve-mode batched tensor: the batch dim takes every data-like axis
+    that divides it; the sequence dim (axis 1, if present) takes 'data'
+    when the batch cannot (long-context single-request decode)."""
+    ax = axes_of(mesh)
+    data_axes = [a for a in ax.axis_names if a != "model"]
+    batch_axes = []
+    size = 1
+    for a in data_axes:
+        if shape[0] % (size * ax.shape[a]) == 0:
+            batch_axes.append(a)
+            size *= ax.shape[a]
+    spec = [tuple(batch_axes) if batch_axes else None]
+    leftover = [a for a in data_axes if a not in batch_axes]
+    if len(shape) > 2 and leftover:
+        kept = []
+        size = 1
+        for a in leftover:
+            if shape[1] % (size * ax.shape[a]) == 0:
+                kept.append(a)
+                size *= ax.shape[a]
+        spec.append(tuple(kept) if kept else None)
+    while len(spec) < len(shape):
+        spec.append(None)
+    return sanitize_spec(mesh, shape, P(*spec))
+
+
+def cache_pspec(mesh, cache_tree):
+    """Decode caches: [B, S, KH, Dh] / [B, S, r] / SSM states [B, ...]
+    (a None entry, an absent cache, stays None)."""
+    def one(x):
+        if x is None:
+            return None
+        shape = tuple(x.shape)
+        if len(shape) >= 2:
+            base = batch_pspec(mesh, shape)
+            # model parallelism on the heads dim (axis 2) of a KV cache
+            if len(shape) == 4:
+                lst = list(base) + [None] * (4 - len(base))
+                if lst[2] is None:
+                    lst[2] = "model"
+                return sanitize_spec(mesh, shape, P(*lst))
+            return base
+        return P(*([None] * len(shape)))
+
+    return _map(one, cache_tree, None)

@@ -1,0 +1,465 @@
+"""Checks of the mesh path, one process per rank (the counterpart of the
+reference's ``tests/_distributed_check.py`` and
+``tests/_topology_spmd_check.py``).
+
+Every check takes a ``DeviceMesh`` and the rank's device, runs the mesh
+path and the one-process path on the same inputs, and raises unless the
+rank's rows of the two agree bit for bit.  It returns the rank's rows
+(numpy) for a caller that holds them against something else, such as the
+reference's run.  ``tests/test_torch_mesh.py`` runs ``suite`` in a gloo
+world of 8 CPU ranks on a ``(4 data, 2 model)`` mesh; ``chip_smoke.py``
+runs the LT-ADMM-CC checks in a one-rank NCCL world on the card.  Run
+the gloo world with ``pytest tests/test_torch_mesh.py``.
+
+``start_world`` starts a world of ``torch.multiprocessing`` processes
+that meet at a ``FileStore`` (no TCP port) and runs one named check on
+every rank; ``collect_world`` waits for them and returns each rank's
+result.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from repro_torch.common.trees import tree_flatten, tree_map
+from repro_torch.core import admm
+from repro_torch.core import schedule as sched_mod
+from repro_torch.core import topology as topo_mod
+from repro_torch.core import vr
+from repro_torch.core.schedule import union_topology
+from repro_torch.core.solver import make_solver
+from repro_torch.core.topology import Exchange
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import (axes_of, make_host_mesh, use_mesh,
+                                    world)
+from repro_torch.models import attention
+from repro_torch.problems.logistic import LogisticProblem
+
+QBIT8 = "ltadmm:tau=3,compressor=qbit:bits=8,impl=kernel"
+RANDK_STRIDE = ("ltadmm:tau=3,eta=0.5,compressor=randk:fraction=0.6,"
+                "sampler=stride,impl=kernel")
+FAULTS = ",faults=faults:drop=0.1|corrupt=0.1|stale=0.1|crash=0.05|seed=0"
+
+# LT-ADMM-CC + SAGA (n = 6, m = 20, tau = 3) on the graphs of the
+# reference's SPMD checks: (graph recipe, agents, rounds, spec)
+ADMM_CASES = {
+    "star": (("star",), 4, 3, QBIT8),
+    "cycle": (("cycle", "ring", "star"), 4, 4, QBIT8),
+    "churn": (("churn", "complete", 0.3, 1, 4), 4, 4, QBIT8),
+    "ring8": (("ring",), 8, 3, QBIT8),
+    "randk": (("ring",), 4, 1, RANDK_STRIDE),
+    "faults": (("churn", "complete", 0.3, 1, 4), 4, 4, QBIT8 + FAULTS),
+}
+# cases run wrapped in the telemetry counters (every counter compared)
+TELEMETRY_CASES = ("faults",)
+EXCHANGE_GRAPHS = {"ring": ("ring",), "star": ("star",),
+                   "complete": ("complete",), "erdos": ("erdos", 0.5, 0)}
+PROBLEM = dict(n=6, m=20)
+# sequence-sharded attention cases: (T, window)
+ATTN_CASES = ((64, None), (64, 20), (66, None), (66, 20))
+ATTN_SHAPE = dict(b=2, h=4, kh=2, dh=8)
+
+
+def make_graph(recipe, n_agents: int):
+    """A graph from a recipe tuple: a static family name (with
+    ``erdos``'s p and seed), ``("cycle", name, name)`` or ``("churn",
+    base, p, seed, period)``."""
+    kind = recipe[0]
+    static = {"ring": topo_mod.Ring, "star": topo_mod.Star,
+              "complete": topo_mod.Complete}
+    if kind in static:
+        return static[kind](n_agents)
+    if kind == "erdos":
+        return topo_mod.ErdosRenyi(n_agents, p=recipe[1], seed=recipe[2])
+    if kind == "cycle":
+        return sched_mod.cycle_schedule(
+            [static[n](n_agents) for n in recipe[1:]])
+    if kind == "churn":
+        _, base, p, seed, period = recipe
+        return sched_mod.churn_schedule(static[base](n_agents), p=p,
+                                        seed=seed, period=period)
+    raise ValueError(f"unknown graph recipe {recipe!r}")
+
+
+def _equal(name, got, want):
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(got, want):
+        diff = ((got.double() - want.double()).abs().max().item()
+                if got.shape == want.shape else "shape")
+        raise AssertionError(f"{name}: mesh rows differ from the host rows "
+                             f"(max |diff| {diff})")
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The exchange primitive
+# ---------------------------------------------------------------------------
+
+
+def exchange_inputs(n_agents: int, seed: int = 0, kinds: bool = False):
+    """The f32 ``[A, 6, 8]`` messages of ``check_exchange`` (numpy), and
+    with ``kinds`` also its int8 ``[A, 6]`` and bool ``[A]`` leaves."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(size=(n_agents, 6, 8)).astype(np.float32)
+    if not kinds:
+        return x
+    return x, rng.randint(-128, 128, (n_agents, 6), np.int8), \
+        rng.rand(n_agents) < 0.5
+
+
+def check_exchange(mesh, device, recipe, axis="data", seed=0):
+    """``gather_from_neighbors``, ``gather_batched`` and
+    ``exchange_batched`` over a 4-agent graph: f32, int8 and bool leaves,
+    masked slots included; returns the routed f32 rows."""
+    topo = make_graph(recipe, 4)
+    host, ex = Exchange(topo), Exchange(topo, axis=axis, mesh=mesh)
+    rows = slice(ex.rows.start, ex.rows.stop)
+    s = topo.n_slots
+    tree = {k: torch.from_numpy(v).to(device) for k, v in zip(
+        ("x", "q", "ok"), exchange_inputs(topo.n_agents, seed, kinds=True))}
+    edge = tree_map(lambda t: torch.stack(
+        [t + s_ if t.dtype != torch.bool else t ^ bool(s_ % 2)
+         for s_ in range(s)], dim=1), tree)
+    local = tree_map(lambda t: t[rows], tree)
+    local_edge = tree_map(lambda t: t[rows], edge)
+    out = {}
+    for s_, (g, w) in enumerate(zip(ex.gather_from_neighbors(local),
+                                    host.gather_from_neighbors(tree))):
+        for k in g:
+            _equal(f"gather_from_neighbors slot {s_} {k}", g[k], w[k][rows])
+    for name, got, want in (
+            ("gather_batched", ex.gather_batched(local),
+             host.gather_batched(tree)),
+            ("exchange_batched", ex.exchange_batched(local_edge),
+             host.exchange_batched(edge))):
+        for k in got:
+            _equal(f"{name} {k}", got[k], want[k][rows])
+        out[name] = _numpy(got["x"])
+    out["rows"] = (ex.rows.start, ex.rows.stop)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LT-ADMM-CC rounds
+# ---------------------------------------------------------------------------
+
+
+def admm_pair(spec, graph, mesh, device, axis="data", problem=None,
+              wrap=False):
+    """``(host solver, mesh solver, problem)``: ``spec`` with SAGA, on
+    ``graph`` through the host exchange and through ``mesh``'s axis
+    (both wrapped in the telemetry counters with ``wrap``)."""
+    from repro_torch.obs.telemetry import with_telemetry
+
+    prob = problem or LogisticProblem(n_agents=graph.n_agents, **PROBLEM)
+    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+    union = union_topology(graph)
+    host = make_solver(spec, graph, Exchange(union), est, device=device)
+    on_mesh = make_solver(spec, graph, Exchange(union, axis=axis, mesh=mesh),
+                          est, device=device)
+    if wrap:
+        host, on_mesh = with_telemetry(host), with_telemetry(on_mesh)
+    return host, on_mesh, prob
+
+
+def state_leaves(state) -> dict:
+    """``{field: tensor}`` of a solver state (None fields and the
+    counter left out)."""
+    return {f: v for f, v in zip(state._fields, state)
+            if isinstance(v, torch.Tensor)}
+
+
+def compare_telemetry(name, got, want, rows):
+    """Every telemetry counter of the mesh run equals the host run's: the
+    per-agent vectors at the rank's rows, the scalars whole."""
+    for f, g in zip(got._fields, got):
+        w = getattr(want, f)
+        _equal(f"{name}.telemetry.{f}", g,
+               w[rows.start:rows.stop] if w.dim() else w)
+
+
+def compare_states(name, mesh_state, host_state, rows):
+    """Every state leaf of the mesh run equals the host run's rows, bit
+    for bit, and the round counters agree (a telemetry-wrapped state's
+    counters too)."""
+    if hasattr(mesh_state, "telemetry"):
+        compare_telemetry(name, mesh_state.telemetry, host_state.telemetry,
+                          rows)
+        mesh_state, host_state = mesh_state.inner, host_state.inner
+    if mesh_state.k != host_state.k:
+        raise AssertionError(f"{name}: round {mesh_state.k} against "
+                             f"{host_state.k}")
+    host = state_leaves(host_state)
+    got = state_leaves(mesh_state)
+    if got.keys() != host.keys():
+        raise AssertionError(f"{name}: fields {sorted(got)} against "
+                             f"{sorted(host)}")
+    for f in got:
+        _equal(f"{name}.{f}", got[f], host[f][rows.start:rows.stop])
+
+
+def run_rounds(solver, state, data, rounds: int, first_key: int = 100):
+    """``rounds`` rounds under the keys ``key(first_key + i)``, as the
+    reference's SPMD checks step."""
+    from repro_torch.core import jaxrand
+
+    for i in range(rounds):
+        state = solver.step(state, data, jaxrand.key(first_key + i))
+    return state
+
+
+def check_admm(mesh, device, case, data_np, x0_np, axis="data"):
+    """One ``ADMM_CASES`` case on the mesh and on the host from the same
+    data and x0 (numpy, all agents): every state leaf bit-equal; returns
+    the rank's state rows, wire bytes and rows."""
+    recipe, n_agents, rounds, spec = ADMM_CASES[case]
+    graph = make_graph(recipe, n_agents)
+    host, on_mesh, _ = admm_pair(spec, graph, mesh, device, axis,
+                                 wrap=case in TELEMETRY_CASES)
+    rows = on_mesh.exchange.rows
+    data = {k: torch.from_numpy(v).to(device) for k, v in data_np.items()}
+    x0 = torch.from_numpy(x0_np).to(device)
+    st_h = run_rounds(host, host.init(x0), data, rounds)
+    st_m = run_rounds(on_mesh, on_mesh.init(x0[rows.start:rows.stop]),
+                      {k: v[rows.start:rows.stop] for k, v in data.items()},
+                      rounds)
+    compare_states(case, st_m, st_h, rows)
+    inner_m, inner_h = (getattr(st, "inner", st) for st in (st_m, st_h))
+    for fn in (admm.consensus_mean, admm.consensus_error):
+        # global over the agent axis: one all_reduce, sums reassociated
+        torch.testing.assert_close(fn(inner_m, on_mesh.exchange),
+                                   fn(inner_h), rtol=1e-5, atol=1e-6)
+    params = np.zeros((PROBLEM["n"],), np.float32)
+    if on_mesh.wire_bytes(params) != host.wire_bytes(params):
+        raise AssertionError(f"{case}: wire bytes differ")
+    inner = getattr(st_m, "inner", st_m)
+    return {"rows": (rows.start, rows.stop),
+            "state": {f: _numpy(v) for f, v in state_leaves(inner).items()},
+            "wire_bytes": on_mesh.wire_bytes(params)}
+
+
+def paper_solver(mesh, device, spec, gspec, axis="data"):
+    """The paper's problem (``LogisticProblem()``: N = 10, n = 5, m = 100,
+    SAGA) and ``spec``'s solver on the graph ``gspec``, through ``mesh``'s
+    axis (the host exchange when ``mesh`` is None)."""
+    from repro_torch.core.schedule import build_graph
+
+    prob = LogisticProblem()
+    graph, ex = build_graph(gspec, prob.n_agents,
+                            axis=None if mesh is None else axis, mesh=mesh)
+    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+    return prob, make_solver(spec, graph, ex, est, device=device)
+
+
+def paper_run(mesh, device, spec, gspec, rounds, axis="data"):
+    """``paper_solver``'s run on ``make_data(0)`` for ``rounds`` rounds.
+    Returns the sampled metric, the wire bytes, the rank's rows and its
+    final state rows (numpy)."""
+    from repro_torch.bench import run_solver
+
+    prob, solver = paper_solver(mesh, device, spec, gspec, axis)
+    ex = solver.exchange
+    idx, gns, st = run_solver(prob, prob.make_data(0), solver, rounds,
+                              return_state=True)
+    return {"idx": idx, "gns": gns, "rows": (ex.rows.start, ex.rows.stop),
+            "wire_bytes": solver.wire_bytes(
+                {"x": np.zeros(prob.n, np.float32)}),
+            "state": {f: _numpy(v) for f, v in state_leaves(st).items()}}
+
+
+# ---------------------------------------------------------------------------
+# shard_like and sequence-sharded attention
+# ---------------------------------------------------------------------------
+
+SHARD_TREE = {"a": ((8, 6), ("data", "model")),
+              "b": ((4, 2, 3), (None, "model", None)),
+              "c": ((8, 4), (("data", "model"), None)),
+              "d": ((5,), (None,))}
+
+
+def check_shard_like(mesh, device):
+    """``distribute_tensor`` with ``shard_like``'s placements gives every
+    rank the slice its spec names."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = {k: shd.P(*axes) for k, (_, axes) in SHARD_TREE.items()}
+    placements = shd.shard_like(mesh, specs)
+    sizes = axes_of(mesh).shape
+    for k, (shape, axes) in SHARD_TREE.items():
+        full = torch.arange(float(np.prod(shape))).reshape(shape).to(device)
+        local = distribute_tensor(full, mesh, placements[k]).to_local()
+        want = full
+        for dim, ax in enumerate(axes):
+            ax = () if ax is None else (ax if isinstance(ax, tuple)
+                                        else (ax,))
+            n, pos = 1, 0
+            for a in ax:
+                pos = pos * sizes[a] + mesh.get_local_rank(a)
+                n *= sizes[a]
+            c = shape[dim] // n
+            want = want.narrow(dim, pos * c, c)
+        _equal(f"shard_like {k}", local, want)
+    return {"placements": {k: repr(v) for k, v in placements.items()}}
+
+
+def attention_inputs(t: int, seed: int = 0):
+    """f32 ``q [B, T, H, Dh]``, ``k``/``v [B, T, KH, Dh]`` from a seed."""
+    rng = np.random.RandomState(seed + t)
+    b, h, kh, dh = (ATTN_SHAPE[k] for k in ("b", "h", "kh", "dh"))
+    return tuple(rng.normal(size=(b, t, n, dh)).astype(np.float32)
+                 for n in (h, kh, kh))
+
+
+def check_attention(mesh, device, axis="data"):
+    """Sequence-sharded blockwise attention over ``axis`` (causal, with
+    and without a window; T divisible by the axis and not) within 1e-5
+    relative of the unsharded ``sdpa_blockwise``; also once through
+    ``gqa_forward`` with ``seq_shard_axis``.  Returns the outputs."""
+    out = {}
+    with use_mesh(mesh):
+        for t, window in ATTN_CASES:
+            q, k, v = (torch.from_numpy(a).to(device)
+                       for a in attention_inputs(t))
+            got = attention._seq_sharded_blockwise(
+                q, k, v, causal=True, window=window, axis=axis)
+            want = attention.sdpa_blockwise(q, k, v, causal=True,
+                                            window=window)
+            torch.testing.assert_close(
+                got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+            out[(t, window)] = _numpy(got)
+        d, h, kh, dh = 16, ATTN_SHAPE["h"], ATTN_SHAPE["kh"], \
+            ATTN_SHAPE["dh"]
+        cfg = attention.AttnConfig(d, h, kh, dh, seq_shard_axis=axis)
+        rng = np.random.RandomState(1)
+        params = {n: torch.from_numpy(
+            (rng.normal(size=s) / 4).astype(np.float32)).to(device)
+            for n, s in (("wq", (d, h, dh)), ("wk", (d, kh, dh)),
+                         ("wv", (d, kh, dh)), ("wo", (h, dh, d)))}
+        x = torch.from_numpy(rng.normal(size=(2, 64, d)).astype(
+            np.float32)).to(device)
+        pos = torch.arange(64, device=device)[None].expand(2, 64)
+        got = attention.gqa_forward(params, cfg, x, pos, impl="blockwise")
+    want = attention.gqa_forward(
+        params, attention.AttnConfig(d, h, kh, dh), x, pos,
+        impl="blockwise")
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    return out
+
+
+def check_ddp(mesh, device, arch_id="qwen3-0.6b", per_rank=2, t=16):
+    """``build_ddp_train`` with the mesh: each "data" rank steps on its
+    ``per_rank`` sequences; the averaged loss and Adam's first moment (a
+    tenth of the averaged gradient) lie within 1e-5 of one process's
+    step on the whole batch.  Returns the loss."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models.common import abstract_params
+
+    arch = ARCHS[arch_id]
+    cfg = dataclasses.replace(arch.make_smoke(), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)  # the same weights on every rank
+    params = tree_map(
+        lambda t: (torch.randn(t.shape, generator=gen) / 8).to(device),
+        abstract_params(steps.model_specs(arch, cfg)))
+    w, p = axes_of(mesh).shape["data"], mesh.get_local_rank("data")
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (per_rank * w, t + 1))).to(device)
+    step, _, opt = steps.build_ddp_train(arch, cfg, mesh=mesh)
+    _, st, loss = step(params, opt.init(params),
+                       {"tokens": tokens[p * per_rank:(p + 1) * per_rank]},
+                       0)
+    one_step, one_opt = steps.build_ddp_train(arch, cfg)
+    _, want, want_loss = one_step(params, one_opt.init(params),
+                                  {"tokens": tokens}, 0)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-6)
+    for g, r in zip(tree_flatten(st["m"])[0], tree_flatten(want["m"])[0]):
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * r.abs().max().item())
+    return float(loss)
+
+
+# ---------------------------------------------------------------------------
+# The whole suite, and the world around it
+# ---------------------------------------------------------------------------
+
+
+def suite(mesh, device, admm_inputs):
+    """Every check on one rank: the exchanges over the four graphs, the
+    ``ADMM_CASES`` (``admm_inputs[case] = (data, x0)`` numpy), shard_like,
+    the attention and the DDP step.  Returns the rank's results."""
+    import time
+
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    return {"rank": torch.distributed.get_rank(),
+            "coords": tuple(mesh.get_coordinate()),
+            "exchange": timed("exchange", lambda: {
+                n: check_exchange(mesh, device, r)
+                for n, r in EXCHANGE_GRAPHS.items()}),
+            "admm": timed("admm", lambda: {
+                c: check_admm(mesh, device, c, *admm_inputs[c])
+                for c in ADMM_CASES}),
+            "shard_like": timed("shard_like",
+                                lambda: check_shard_like(mesh, device)),
+            "attention": timed("attention",
+                               lambda: check_attention(mesh, device)),
+            "ddp_loss": timed("ddp", lambda: check_ddp(mesh, device)),
+            "seconds": seconds}
+
+
+CHECKS = {"suite": suite, "paper": paper_run}
+
+
+def _rank_main(rank, check, world_size, model, backend, store_dir, kw):
+    torch.set_num_threads(1)
+    device = torch.device("cpu")
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    with world(backend, os.path.join(store_dir, "store"), rank, world_size,
+               device if backend == "nccl" else None):
+        mesh = make_host_mesh(world_size, model=model)
+        res = CHECKS[check](mesh, device, **kw)
+        torch.distributed.barrier()
+    with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def start_world(check: str, world_size: int, store_dir: str,
+                model: int = 1, backend: str = "gloo", **kw):
+    """Start ``CHECKS[check](mesh, device, **kw)`` on every rank of a new
+    world of ``world_size`` processes on a ``(world_size / model,
+    model)`` mesh (one card a rank with NCCL); returns the processes'
+    context for ``collect_world``."""
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(
+        _rank_main, args=(check, world_size, model, backend, store_dir, kw),
+        nprocs=world_size, join=False, start_method="spawn")
+
+
+def collect_world(ctx, world_size: int, store_dir: str) -> list:
+    """Wait for ``start_world``'s ranks and return each one's result in
+    rank order.  A rank that raised fails the call."""
+    while not ctx.join():
+        pass
+    out = []
+    for r in range(world_size):
+        with open(os.path.join(store_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out

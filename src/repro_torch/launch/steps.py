@@ -4,9 +4,12 @@ all-reduce DDP train step, ``build_prefill`` and ``build_serve`` for the
 decoder-only models and the encoder-decoder (``arch_def.kind ==
 "encdec"``), and the training loop's ``DivergenceWatchdog``.
 
-The agents run in one process through the host-simulated ``Exchange``:
-there is no mesh and no partition spec here, so ``state_sharding`` and
-``abstract_train_state`` wait for ROADMAP item 15.
+The agents run in one process through the host-simulated ``Exchange``,
+or, given a ``DeviceMesh`` (``launch.mesh``), one rank's agent rows a
+process over the mesh's agent axis; ``build_train`` then also returns
+the reference's ``state_sharding`` tree and ``build_ddp_train`` its
+TP/FSDP specs and an all-reduce of the gradients over "data".
+``abstract_train_state`` gives the state's ``meta`` tree.
 
 The model is differentiated by autograd, as the reference differentiates
 through jnp: no kernel lies on the gradient path.  The solvers take
@@ -25,13 +28,16 @@ import math
 
 import torch
 
-from repro_torch.common.trees import (is_namedtuple, tree_children,
-                                      tree_flatten, tree_map)
+from repro_torch.common.trees import (is_namedtuple, meta_like,
+                                      tree_children, tree_flatten, tree_map)
 from repro_torch.core import jaxrand, vr
 from repro_torch.core.schedule import build_graph
 from repro_torch.core.solver import make_solver, solver_entry
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import agent_axis_for, axes_of
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tr
+from repro_torch.models.common import abstract_params
 from repro_torch.optim import optimizers
 
 
@@ -160,8 +166,8 @@ def build_estimator(arch_def, cfg, recipe: TrainRecipe, kind: str):
     return vr.SvrgAnchor(batch_grad=grad_fn, full_grad=full_grad)
 
 
-def build_train(arch_def, cfg, n_agents: int, solver_spec: str,
-                recipe: TrainRecipe | None = None, device=None):
+def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
+                recipe: TrainRecipe | None = None, device=None, mesh=None):
     """Train-step builder for ANY registered solver.
 
     Returns ``(step_fn, init_fn, solver)``: ``step_fn(state, data, seed)``
@@ -170,12 +176,24 @@ def build_train(arch_def, cfg, n_agents: int, solver_spec: str,
     params, and ``solver`` carries the graph, config and accounting
     hooks.  The recipe supplies topology and hyperparameter defaults;
     params in ``solver_spec`` win.  The agents run in one process on
-    ``device`` (default the card) through the host-simulated exchange;
-    the reference's ``state_sharding`` and ``abstract_train_state`` wait
-    for the mesh (ROADMAP item 15).
+    ``device`` (default the card) through the host-simulated exchange.
+
+    With a ``mesh``, the graph's exchange runs over its agent axis
+    (``n_agents`` None: one agent a rank, the reference's layout), each
+    rank's state and data hold its agent rows, and the return is
+    ``(step_fn, state_sharding, init_fn, solver)`` as the reference's:
+    ``state_sharding`` the state's ``PartitionSpec`` tree (the packed
+    plane on the agent axis and replicated elsewhere; per-leaf TP specs
+    on the pytree path).
     """
     recipe = recipe or TrainRecipe()
-    graph, exchange = build_graph(recipe.topology, n_agents)
+    aaxis = None if mesh is None else agent_axis_for(mesh)
+    if n_agents is None:
+        if mesh is None:
+            raise ValueError("build_train needs n_agents or a mesh")
+        n_agents = axes_of(mesh).shape[aaxis]
+    graph, exchange = build_graph(recipe.topology, n_agents, axis=aaxis,
+                                  mesh=mesh)
     entry = solver_entry(solver_spec)
     est = build_estimator(arch_def, cfg, recipe, entry.estimator)
     solver = make_solver(solver_spec, graph, exchange, est,
@@ -185,7 +203,27 @@ def build_train(arch_def, cfg, n_agents: int, solver_spec: str,
     def step_fn(state, data, seed):
         return solver.step(state, data, jaxrand.key(seed))
 
-    return step_fn, solver.init, solver
+    if mesh is None:
+        return step_fn, solver.init, solver
+    if getattr(solver, "packed", False):
+        # the packed plane [A, N]: the agent axis, replicated elsewhere
+        x_ps = shd.P(aaxis)
+        edge_ps = shd.P(aaxis, None)
+    else:
+        pps = shd.param_pspec(mesh, "admm", model_specs(arch_def, cfg))
+        x_ps = shd.prefix_pspec(pps, aaxis)  # [A, ...]
+        edge_ps = shd.prefix_pspec(pps, aaxis, None)  # [A, S, ...]
+    state_ps = solver.state_sharding(x_ps, edge_ps, shd.P())
+    return step_fn, state_ps, solver.init, solver
+
+
+def abstract_train_state(arch_def, cfg, solver):
+    """The solver state's ``meta`` tree for stacked ``[A, ...]`` params of
+    ``cfg`` (nothing is allocated)."""
+    a = solver.graph.n_agents
+    x_sds = tree_map(lambda t: meta_like((a,) + tuple(t.shape), t.dtype),
+                     abstract_params(model_specs(arch_def, cfg), cfg.dtype))
+    return solver.abstract_state(x_sds)
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +231,42 @@ def build_train(arch_def, cfg, n_agents: int, solver_spec: str,
 # ---------------------------------------------------------------------------
 
 
-def build_ddp_train(arch_def, cfg, lr=1e-3):
-    """Standard data-parallel Adam training step on one global batch:
+def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None):
+    """Standard data-parallel Adam training step:
     ``step_fn(params, opt_state, batch, seed) -> (params, opt_state,
-    loss)``; returns ``(step_fn, opt)``.  The reference's TP/FSDP
-    partition specs wait for the mesh (item 15)."""
+    loss)``; returns ``(step_fn, opt)``.
+
+    With a ``mesh`` each rank takes its equal share of the batch; the
+    loss and the gradients are averaged over the "data" axis (an
+    ``all_reduce`` sum, then a division), so every rank applies the
+    update of the whole batch.  The return is then ``(step_fn, pspecs,
+    opt)``, ``pspecs`` the reference's TP + FSDP parameter specs (mode
+    "serve"); the parameters themselves stay whole on every rank (tensor
+    parallelism over "model" is not in the port: ROADMAP Queue 1)."""
     loss = model_loss(arch_def, cfg)
     opt = optimizers.adam(lr)
+    group = None if mesh is None else mesh.get_group("data")
+    world = 1 if mesh is None else axes_of(mesh).shape["data"]
+
+    def mean_over_data(t):
+        if group is not None:
+            torch.distributed.all_reduce(t, group=group)
+            t.div_(world)
+        return t
 
     def step_fn(params, opt_state, batch, seed):
         del seed
         loss_val, grads = value_and_grad(loss, params, batch)
+        grads = tree_map(mean_over_data, grads)
+        loss_val = mean_over_data(loss_val)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optimizers.apply_updates(params, updates)
         return params, opt_state, loss_val
 
-    return step_fn, opt
+    if mesh is None:
+        return step_fn, opt
+    return step_fn, shd.param_pspec(mesh, "serve",
+                                    model_specs(arch_def, cfg)), opt
 
 
 # ---------------------------------------------------------------------------

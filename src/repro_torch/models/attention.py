@@ -13,7 +13,9 @@ an absolute-position side array (slots with pos_id < 0 are invalid).
 Unlike the reference, which returns a new cache, the decodes write the
 new token's entries into the cache in place (no copy of the cache per
 token).  ``gqa_forward(..., kv=memory)`` is the encoder-decoder's
-cross-attention; the sequence-sharded path waits for ROADMAP item 15.
+cross-attention.  With ``seq_shard_axis`` set, the blockwise path splits
+the query rows over that axis of the ambient mesh (``launch.mesh.use_mesh``)
+and gathers the output back (``_seq_sharded_blockwise``).
 """
 from __future__ import annotations
 
@@ -38,13 +40,9 @@ class AttnConfig:
     rope_theta: float = 10000.0
     sliding_window: int | None = None  # None = full causal
     causal: bool = True  # False for encoder self-attention
+    # the ambient mesh's axis that splits the query rows on the blockwise
+    # path (None: unsharded)
     seq_shard_axis: str | None = None
-
-    def __post_init__(self):
-        if self.seq_shard_axis is not None:
-            raise NotImplementedError(
-                "sequence-sharded attention (seq_shard_axis) needs the mesh "
-                "of ROADMAP item 15, not ported yet")
 
 
 def gqa_specs(cfg: AttnConfig):
@@ -101,14 +99,16 @@ def sdpa(q, k, v, mask):
 
 
 def sdpa_blockwise(q, k, v, *, causal=True, window=None,
-                   q_block=512, kv_block=1024):
+                   q_block=512, kv_block=1024, q_offset=0):
     """Flash-structured attention in plain PyTorch: online softmax over
     KV blocks for each Q block, O(block^2) live memory instead of O(T*S).
     With a sliding window only the KV blocks that hold a key the window
     admits are touched (non-causal: every block from the window's first
     key on); without one every KV block is visited and masked.  (The
     reference walks back ceil(window/kv_block)+1 blocks from the Q block's
-    own index, which skips or repeats KV blocks when q_block != kv_block.)"""
+    own index, which skips or repeats KV blocks when q_block != kv_block.)
+    ``q_offset``: the absolute position of q's first row (a sequence
+    shard's), against keys at positions 0..S-1."""
     b, t, h, dh = q.shape
     s, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kh
@@ -127,12 +127,13 @@ def sdpa_blockwise(q, k, v, *, causal=True, window=None,
                           device=dev)
         m = torch.full((b, q_block, kh, g), -math.inf, device=dev)
         lsum = torch.zeros((b, q_block, kh, g), device=dev)
-        qpos = iq * q_block + torch.arange(q_block, device=dev)
+        q0 = q_offset + iq * q_block
+        qpos = q0 + torch.arange(q_block, device=dev)
         first, last = 0, nk - 1
         if window is not None:
-            first = max(iq * q_block - window + 1, 0) // kv_block
+            first = max(q0 - window + 1, 0) // kv_block
             if causal:
-                last = min(((iq + 1) * q_block - 1) // kv_block, last)
+                last = min((q0 + q_block - 1) // kv_block, last)
         for ik in range(first, last + 1):
             kc = k[:, ik * kv_block:(ik + 1) * kv_block]
             vc = v[:, ik * kv_block:(ik + 1) * kv_block]
@@ -172,6 +173,34 @@ def causal_mask(t, s, window=None, offset=0, device=None):
 BLOCKWISE_THRESHOLD = 2048  # switch to flash-structured attention above this
 
 
+def _seq_sharded_blockwise(q, k, v, *, causal, window, axis):
+    """Sequence-parallel attention over ``axis`` of the ambient mesh: the
+    rank at position p computes query rows ``[p·T/n, (p+1)·T/n)`` with
+    ``sdpa_blockwise`` at that offset (K/V whole on every rank), then the
+    rows are ``all_gather``ed along T, since torch has no lazy re-shard.
+    T not divisible by n: the unsharded path, as the reference."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axes_of, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError(
+            f"seq_shard_axis={axis!r} needs an ambient mesh "
+            "(launch.mesh.use_mesh)")
+    n = axes_of(mesh).shape[axis]
+    t = q.shape[1]
+    if t % n:
+        return sdpa_blockwise(q, k, v, causal=causal, window=window)
+    tl = t // n
+    p = mesh.get_local_rank(axis)
+    local = sdpa_blockwise(q[:, p * tl:(p + 1) * tl], k, v, causal=causal,
+                           window=window, q_offset=p * tl).contiguous()
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local, group=mesh.get_group(axis))
+    return torch.cat(parts, dim=1)
+
+
 def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
                 kv_positions=None, use_flash=False, impl="auto"):
     """Full-sequence attention.  ``kv`` [B, S, d] makes it cross-attention
@@ -207,8 +236,13 @@ def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
     if impl == "blockwise" or (
             impl == "auto"
             and max(q.shape[1], k.shape[1]) > BLOCKWISE_THRESHOLD):
-        out = sdpa_blockwise(q, k, v, causal=causal,
-                             window=cfg.sliding_window)
+        if cfg.seq_shard_axis is not None and kv is None:
+            out = _seq_sharded_blockwise(q, k, v, causal=causal,
+                                         window=cfg.sliding_window,
+                                         axis=cfg.seq_shard_axis)
+        else:
+            out = sdpa_blockwise(q, k, v, causal=causal,
+                                 window=cfg.sliding_window)
     else:
         # no mask, so no window, without causality (as the reference)
         mask = (causal_mask(q.shape[1], k.shape[1], cfg.sliding_window,

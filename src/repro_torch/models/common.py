@@ -111,6 +111,30 @@ def init_params(key, spec_tree, dtype=torch.float32, device=None):
     return out
 
 
+def _map_specs(fn, spec_tree):
+    if is_spec(spec_tree):
+        return fn(spec_tree)
+    return {k: _map_specs(fn, v) for k, v in spec_tree.items()}
+
+
+def abstract_params(spec_tree, dtype=torch.float32):
+    """The tree of ``meta`` tensors (shape and dtype, no storage) of a
+    spec tree: the reference's ``ShapeDtypeStruct`` tree."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=dtype,
+                                            device="meta"), spec_tree)
+
+
+def partition_specs(spec_tree, rules: dict):
+    """Each spec's logical axis names mapped to mesh axes through
+    ``rules`` (``{logical name: mesh axis | tuple | None}``): a tree of
+    ``launch.sharding.PartitionSpec``."""
+    from repro_torch.launch.sharding import PartitionSpec
+
+    return _map_specs(lambda s: PartitionSpec(*[rules.get(a)
+                                                for a in s.axes]),
+                      spec_tree)
+
+
 def param_count(spec_tree) -> int:
     return sum(math.prod(s.shape) for _, s in _spec_leaves(spec_tree))
 

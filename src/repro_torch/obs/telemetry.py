@@ -250,6 +250,22 @@ class TelemetrySolver:
     def consensus_params(self, state):
         return self.solver.consensus_params(state.inner)
 
+    def abstract_state(self, x_sds):
+        """The wrapped solver's abstract state beside ``meta`` counters:
+        ``[A]`` per agent, two scalars, int64 as the port keeps them."""
+        a = first_leaf(x_sds).shape[0]
+        vec = [torch.empty((a,), dtype=torch.int64, device="meta")] * 8
+        sca = [torch.empty((), dtype=torch.int64, device="meta")] * 2
+        return TelemetryState(self.solver.abstract_state(x_sds),
+                              Telemetry(*vec, *sca))
+
+    def state_sharding(self, x_ps, edge_ps, scalar_ps):
+        """The wrapped solver's specs; the counters are tiny and
+        replicated."""
+        inner = self.solver.state_sharding(x_ps, edge_ps, scalar_ps)
+        return TelemetryState(inner, Telemetry(
+            *([scalar_ps] * len(Telemetry._fields))))
+
 
 def with_telemetry(solver) -> TelemetrySolver:
     """Wrap any registered solver with the telemetry counters

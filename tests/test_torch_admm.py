@@ -11,8 +11,9 @@
   block) and the packed fallback's per-message route (TopK, RandK
   uniform);
 * topology tables, the device rule, the faulted specs that build and
-  step and those refused as the reference refuses them, and the path
-  not ported yet (the mesh exchange, item 15).
+  step and those refused as the reference refuses them, and the mesh
+  exchange in a one-rank gloo world (LT-ADMM-CC builds and steps there;
+  dada's round on a mesh is not ported yet, item 15).
 """
 import json
 import os
@@ -39,6 +40,7 @@ from repro_torch.core.faults import FaultPlane  # noqa: E402
 from repro_torch.core.schedule import (  # noqa: E402
     TopologySchedule, build_graph)
 from repro_torch.core.solver import make_solver  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, world  # noqa: E402
 from repro_torch.problems.logistic import LogisticProblem  # noqa: E402
 
 JPROB, JDATA, JGRAPH, JEX = make_problem(seed=0)
@@ -208,14 +210,30 @@ def test_make_solver_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("spec,mesh,err", [
-    ("dada:lr=0.1", {"axis": "agents"}, "item 15"),
-    ("ltadmm:compressor=qbit:bits=8", {"mesh": object()}, "item 15")])
-def test_unported_solver_paths_raise(spec, mesh, err):
-    """A solver over the multi-process exchange (a mesh axis)."""
-    graph, _ = build_graph("ring", 10)
-    with pytest.raises(NotImplementedError, match=err):
-        make_solver(spec, graph, topology.Exchange(graph, **mesh), None,
-                    device="cpu")
+    ("dada:lr=0.1", {"axis": "data"}, "item 15"),
+    ("ltadmm:compressor=qbit:bits=8", {"axis": "data"}, None)])
+def test_unported_solver_paths_raise(spec, mesh, err, tmp_path):
+    """A solver over the multi-process exchange (the "data" axis of a
+    one-rank gloo world): LT-ADMM-CC builds and its round equals the host
+    round bit for bit; dada's round there is not ported yet (item 15)."""
+    graph, host_ex = build_graph("ring", 10)
+    est = vr.SagaTable(sample_grads=PROB.sample_grads, m=PROB.m)
+    with world("gloo", str(tmp_path / "store")):
+        ex = topology.Exchange(graph, mesh=make_host_mesh(), **mesh)
+        if err is not None:
+            with pytest.raises(NotImplementedError, match=err):
+                make_solver(spec, graph, ex, None, device="cpu")
+            return
+        s = make_solver(spec, graph, ex, est, device="cpu")
+        assert s.exchange is ex and ex.rows == range(10) and ex.world == 1
+        data = data_from_numpy(DATA_NP, "cpu")
+        x0 = torch.zeros((PROB.n_agents, PROB.n))
+        got = s.step(s.init(x0), data, jaxrand.key(3))
+    h = make_solver(spec, graph, host_ex, est, device="cpu")
+    want = h.step(h.init(x0), data, jaxrand.key(3))
+    for f, g in zip(got._fields, got):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, getattr(want, f)), f
 
 
 FAULTED_SPECS = [
@@ -281,12 +299,21 @@ def test_faults_refused_as_the_reference_refuses(case):
                   data_from_numpy(DATA_NP, "cpu"), jaxrand.key(0))
 
 
-def test_unported_graph_paths_raise():
+def test_unported_graph_paths_raise(tmp_path):
     """Schedules are ported (item 9): ``build_graph`` gives one with the
-    exchange over its union graph.  The mesh exchange (item 15) still
-    raises."""
+    exchange over its union graph, on a mesh axis too (item 15); an axis
+    without its mesh, or agents that do not split over the axis, raise."""
     graph, ex = build_graph("drop:p=0.2,base=complete", 10)
     assert isinstance(graph, TopologySchedule)
     assert ex.topo is graph.union and graph.period == 16
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="mesh"):
         topology.Exchange(topology.Ring(4), axis="data")
+    with world("gloo", str(tmp_path / "store")):
+        mesh = make_host_mesh()
+        graph, ex = build_graph("drop:p=0.2,base=complete", 10, axis="data",
+                                mesh=mesh)
+        assert ex.topo is graph.union and ex.mesh is mesh
+        assert (ex.axis, ex.world, ex.position, ex.rows) == (
+            "data", 1, 0, range(10))
+        with pytest.raises(ValueError, match="no 'agents'"):
+            topology.Exchange(graph.union, axis="agents", mesh=mesh)

@@ -3,8 +3,8 @@ module paths, against the reference on the same inputs:
 
 * the runtime-checkable Protocols ``core.solver.Solver`` (every solver
   the registry builds, the telemetry wrapper) and ``core.topology.
-  Topology`` (every topology family), with the reference's members (the
-  solver's two sharding hooks wait for the mesh);
+  Topology`` (every topology family), with the reference's members, the
+  solver's two sharding hooks included;
 * ``core.packing.leaf_views`` (views of the plane's segments: a write to
   the plane shows through), ``cache_layout`` and ``cached_layout`` (the
   trivial layout of a flat plane, the assertion for a pytree);
@@ -53,8 +53,7 @@ CONFIG_MODULES = ("command_r_plus_104b", "deepseek_v2_lite_16b",
 
 def test_solver_protocol_over_the_registry():
     assert solver.Solver.__protocol_attrs__ == (
-        jsolver.Solver.__protocol_attrs__
-        - {"abstract_state", "state_sharding"})
+        jsolver.Solver.__protocol_attrs__)
     ring, ex = schedule.build_graph("ring", 4)
     drop, _ = schedule.build_graph("drop:p=0.3,base=complete", 4)
     built = [solver.make_solver(name, ring, ex, None, device="cpu")

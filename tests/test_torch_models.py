@@ -27,9 +27,9 @@ reference, on the reference's own weights carried across as numpy:
   granite-moe-1b-a400m, qwen3-0.6b, xlstm-125m and for zamba2-2.7b at
   ``examples/serve_lm.py``'s settings, on carried-over weights and from
   the port's own ``init_params``;
-* the unported options (the mesh of ROADMAP item 15) raise
-  ``NotImplementedError``; every arch builds (the encoder-decoder's own
-  tests are ``tests/test_torch_encdec.py``).
+* the mesh options (ROADMAP item 15) build: ``seq_shard_axis`` asks for
+  an ambient mesh, an exchange axis for its mesh; every arch builds (the
+  encoder-decoder's own tests are ``tests/test_torch_encdec.py``).
 """
 import dataclasses
 import functools
@@ -382,9 +382,15 @@ def test_unported_kinds_raise():
     # an unknown block kind is a ValueError, as in the reference
     with pytest.raises(ValueError, match="encdec"):
         tr.block_specs(cfg, "encdec")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        attention.AttnConfig(64, 4, 2, 16, seq_shard_axis="model")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the mesh options build; the sharded path needs its ambient mesh
+    acfg = attention.AttnConfig(16, 4, 2, 4, seq_shard_axis="model")
+    assert acfg.seq_shard_axis == "model"
+    q = torch.zeros((1, 8, 4, 4))
+    with pytest.raises(RuntimeError, match="ambient mesh"):
+        attention._seq_sharded_blockwise(q, q[:, :, :2], q[:, :, :2],
+                                         causal=True, window=None,
+                                         axis="model")
+    with pytest.raises(ValueError, match="mesh"):
         Exchange(None, axis="agents")
 
 
