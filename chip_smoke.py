@@ -69,7 +69,10 @@ Phases (any failure exits non-zero):
      both), every state leaf bit-equal, the collectives a round and their
      bytes, the round beside the host round in turns, and one profiled
      mesh round with the consensus all_reduce (NCCL's kernels, launches
-     and device time, the idle share); with two cards also a two-rank
+     and device time, the idle share); CHOCO qbit8 (K4 and K5 launched)
+     and dada at the paper's size over the mesh and the host exchange
+     (plain SGD; rounds_to_tol, wire bytes, the metric and every state
+     leaf equal); with two cards also a two-rank
      NCCL world (5 agents a rank) held bit for bit against the one-card
      host run, else a line saying it waits for such a machine;
   fig2. the paper's Fig.-2 comparison (``repro_torch.paper_fig2``): its
@@ -206,6 +209,15 @@ Phases (any failure exits non-zero):
      plain version, the last logits beside the plain prefill's), a
      2 + 2-layer f32 cut's prefill against token-by-token decoding within
      1e-4 at every position, then K10 timed at the two new shapes.
+  dryrun. ``repro_torch.launch.dryrun`` in a fake world of 256 ranks on
+     ``meta`` tensors: qwen3-0.6b at full width, cut to one layer (the
+     train round at tau 1), on the four shapes, its roofline terms, op
+     counts and useful fraction; the served prefill (qwen3-0.6b, B 4 x
+     T 2048, bf16, K10) traced on ``meta`` on a world of one and run for
+     real: the trace's total_live within 10 % of the card's peak
+     (``max_memory_allocated`` less what was there before, plus the
+     inputs), the real run's dot_flops (``OpCounter`` on the card) equal
+     to the trace's, its measured ms beside the roofline terms.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -5053,10 +5065,8 @@ def zoo_xlstm():
 
 
 # seamless-m4t-medium's cells: (B, T) of the prefill and of the blockwise
-# one, the source frames T / SRC_FRAMES_RATIO (the reference's
-# ``configs/__init__.py:19``); the f32 cut's encoder and decoder layers,
-# B, source frames and T
-SRC_FRAMES_RATIO = 4
+# one, the source frames T / SRC_FRAMES_RATIO (``repro_torch.configs``);
+# the f32 cut's encoder and decoder layers, B, source frames and T
 SEAMLESS_PREFILL, SEAMLESS_LONG = (2, 2048), (1, 4096)
 SEAMLESS_F32 = (2, 1, 64, 64)
 
@@ -5094,6 +5104,7 @@ def seamless_model(dtype=None, cfg=None):
 def seamless_batch(cfg, b, t, seed):
     """The prefill's batch: ``src_embeds [b, t / SRC_FRAMES_RATIO, d]``
     (normals) and ``tgt_tokens [b, t]`` from two keys of ``seed``."""
+    from repro_torch.configs import SRC_FRAMES_RATIO
     from repro_torch.core import jaxrand
 
     return {"src_embeds": jaxrand.normal(
@@ -5236,6 +5247,7 @@ def zoo_seamless():
     Returns the kernels line's rows (on the card)."""
     import torch
 
+    from repro_torch.configs import SRC_FRAMES_RATIO
     from repro_torch.launch.steps import build_prefill
 
     t_part = time.perf_counter()
@@ -5478,6 +5490,13 @@ MESH_WIDE = (("qbit8", {"quantize_plane": 2, "dequantize_plane": 4}),
              ("randk-stride", {"randk_gather_plane": 2,
                                "randk_scatter_plane": 4}))
 MESH_WIDE_ROUNDS = 5
+# the gossip rows: (label, spec, graph, counters that must launch), plain
+# SGD at the paper's size, MESH_ROUNDS rounds each way
+MESH_GOSSIP = (
+    ("choco-qbit8", "choco:compressor=qbit:bits=8", "ring",
+     ("quantize_tensor", "dequantize_tensor")),
+    ("dada", "dada:", "ring", ()),
+)
 
 
 def mesh_paper(mesh, dev):
@@ -5508,6 +5527,41 @@ def mesh_paper(mesh, dev):
             if not np.array_equal(v, want["state"][f][lo:hi]):
                 raise AssertionError(f"mesh {label}: state leaf {f} differs")
         mesh_paper_rounds(mesh, dev, label, spec, gspec)
+
+
+def mesh_gossip(mesh, dev):
+    """Each ``MESH_GOSSIP`` row at the paper's size through the mesh (the
+    gossip's all-gather of each leaf; dada's all-to-alls) and through the
+    host exchange: rounds_to_tol, wire bytes, the sampled metric and
+    every state leaf equal; its kernels launched on the mesh run."""
+    import numpy as np
+
+    from repro_torch.bench import rounds_to_tol
+    from repro_torch.launch import spmd_check
+
+    for label, spec, gspec, kernels in MESH_GOSSIP:
+        t0 = time.perf_counter()
+        reset_counts()
+        got = spmd_check.paper_run(mesh, dev, spec, gspec, MESH_ROUNDS)
+        counts = {k: v for k, v in read_counts().items() if v}
+        want = spmd_check.paper_run(None, dev, spec, gspec, MESH_ROUNDS)
+        r2t = [rounds_to_tol(r["idx"], r["gns"], 1e-8) for r in (got, want)]
+        log(f"[mesh] {label} on {gspec} ({MESH_ROUNDS} rounds, plain "
+            f"SGD): rounds_to_tol mesh {r2t[0]} host {r2t[1]}, final "
+            f"metric {got['gns'][-1]:.6e} / {want['gns'][-1]:.6e}, wire "
+            f"bytes {got['wire_bytes']} / {want['wire_bytes']}, mesh "
+            f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+        if r2t[0] != r2t[1] or got["wire_bytes"] != want["wire_bytes"]:
+            raise AssertionError(f"mesh {label}: {r2t}, bytes differ")
+        if not np.array_equal(got["gns"], want["gns"]):
+            raise AssertionError(f"mesh {label}: the metric differs")
+        missing = [k for k in kernels if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"mesh {label}: never launched {missing}")
+        lo, hi = got["rows"]
+        for f, v in got["state"].items():
+            if not np.array_equal(v, want["state"][f][lo:hi]):
+                raise AssertionError(f"mesh {label}: state leaf {f} differs")
 
 
 def mesh_paper_rounds(mesh, dev, label, spec, gspec, rounds=20, turns=4):
@@ -5753,10 +5807,101 @@ def phase_mesh():
             f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
             f"{mesh.device_type}")
         mesh_paper(mesh, dev)
+        mesh_gossip(mesh, dev)
         mesh_collective_ms(mesh, dev)
         for label, per_round in MESH_WIDE:
             mesh_wide(mesh, dev, label, per_round)
     mesh_two_cards(dev)
+
+
+# the dry-run phase: qwen3-0.6b's four shapes cut to DRYRUN_LAYERS (the
+# train round at tau 1) in the 256-rank fake world; the served prefill's
+# predicted peak must lie within DRYRUN_PEAK_RTOL of the measured one
+DRYRUN_ARCH, DRYRUN_LAYERS, DRYRUN_PEAK_RTOL = "qwen3-0.6b", 1, 0.10
+
+
+def phase_dryrun():
+    """The dry-run tooling on the card's host: ``dryrun_one`` on the four
+    shapes (cut), then the served prefill (B 4 x T 2048, bf16, K10)
+    traced on ``meta`` against the same prefill run for real under the
+    same counter: live bytes, dot_flops, the measured ms beside the
+    roofline terms."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import roofline_terms, tree_bytes
+    from repro_torch.launch.steps import build_prefill, model_specs
+    from repro_torch.models.common import abstract_params
+
+    for shape in SHAPES:
+        variant = {"n_layers": DRYRUN_LAYERS}
+        if SHAPES[shape].kind == "train":
+            variant["recipe_tau"] = 1
+        rec = dryrun.dryrun_one(DRYRUN_ARCH, shape, False, verbose=False,
+                                variant=variant)
+        r, ops = rec["roofline"], rec["ops"]
+        log(f"[dryrun] {DRYRUN_ARCH} x {shape} x {rec['mesh']} (a "
+            f"{DRYRUN_LAYERS}-layer cut, {variant}): t_compute "
+            f"{r['t_compute_s']:.6e} s, t_memory {r['t_memory_s']:.6e} s, "
+            f"t_collective {r['t_collective_s']:.6e} s, {r['dominant']}; "
+            f"dot_flops {ops['dot_flops']:.6e} (flop_counter "
+            f"{rec['flop_counter_flops']:.6e}), memory v1 "
+            f"{ops['memory_bytes']:.6e} v2 {ops['memory_bytes_w2']:.6e}, "
+            f"collectives {ops['collective_counts']} "
+            f"{ops['collective_bytes']:.6e} B, kernels {rec['kernels']}, "
+            f"{rec['n_ops']} ops; useful {rec['useful_fraction']:.4f}; "
+            f"total_live {rec['bytes_per_device']['total_live'] / 1e9:.3f}"
+            f" GB; traced in {rec['compile_s']} s")
+    pb, pt = SERVE_MODELS[DRYRUN_ARCH][:2]
+    arch, cfg, params = serve_model(DRYRUN_ARCH)
+    prefill = build_prefill(arch, cfg)
+    tokens = jaxrand.randint(jaxrand.key(1, DEV), (pb, pt), 0, cfg.vocab)
+    meta = {"tokens": torch.empty(tokens.shape, dtype=tokens.dtype,
+                                  device="meta")}
+    with torch.no_grad():
+        pred = dryrun.analyze_step(prefill, (abstract_params(
+            model_specs(arch, cfg), cfg.dtype), meta))
+        inputs = list(params.parameters()) + list(params.buffers()) + [
+            tokens]
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        real = dryrun.analyze_step(prefill, (params, {"tokens": tokens}))
+        sync()
+        measured = torch.cuda.max_memory_allocated() - base + tree_bytes(
+            inputs)
+        del real.out
+        ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), iters=5,
+                     warmup=2)
+    want = pred.bytes_per_device["total_live"]
+    gap = want / measured - 1
+    log(f"[dryrun] {DRYRUN_ARCH} prefill B={pb} T={pt} ({CARD}): predicted "
+        f"total_live {want:,} B (args {pred.bytes_per_device['args']:,}, "
+        f"temp {pred.bytes_per_device['temp']:,}, out "
+        f"{pred.bytes_per_device['out']:,}), measured {measured:,} B "
+        f"(max_memory_allocated less {base:,} B before, plus the inputs' "
+        f"{tree_bytes(inputs):,}): gap {gap:+.4f}; the trackers' peaks: "
+        f"trace {pred.memory.peak:,} B, card {real.memory.peak:,} B")
+    terms = roofline_terms(pred.stats)
+    log(f"[dryrun] {DRYRUN_ARCH} prefill: dot_flops trace "
+        f"{pred.stats.dot_flops:.6e} real {real.stats.dot_flops:.6e} "
+        f"({dict(pred.counter.kernels)} / {dict(real.counter.kernels)}); "
+        f"measured {ms:.4f} ms (CUDA events, mean of 5) beside t_compute "
+        f"{terms['t_compute_s'] * 1e3:.4f} ms, t_memory "
+        f"{terms['t_memory_s'] * 1e3:.4f} ms ({terms['dominant']}); "
+        f"{pred.counter.n_ops} ops traced in {pred.seconds:.2f} s, "
+        f"{real.counter.n_ops} counted on the card in {real.seconds:.2f} s")
+    if abs(gap) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"the dry-run's peak {want} is {gap:+.3%} off "
+                             f"the card's {measured}")
+    if real.stats.dot_flops != pred.stats.dot_flops:
+        raise AssertionError(f"dot_flops: trace {pred.stats.dot_flops}, "
+                             f"card {real.stats.dot_flops}")
+    del params, real, pred
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -5773,7 +5918,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,paper,mesh,fig2,obs,"
-                    "dada,harness,wide,profile,serve,train,zoo",
+                    "dada,harness,wide,profile,serve,train,zoo,dryrun",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -5871,6 +6016,10 @@ def main(argv=None):
         with phase_clock("zoo", spent):
             torch.cuda.empty_cache()
             rows = (rows or []) + phase_zoo()
+    if "dryrun" in phases:
+        with phase_clock("dryrun", spent):
+            torch.cuda.empty_cache()
+            phase_dryrun()
     log(f"[time] host-clock seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f"; main {time.perf_counter() - t_main:.1f}")

@@ -30,6 +30,15 @@ round k mixes with the Metropolis weights of that surviving graph
 round stays doubly stochastic and a fault-isolated agent keeps its own
 value.  A crashed agent skips its step and holds its state.
 
+On a mesh exchange (``Exchange(topo, axis, mesh)``, passed by
+``make_solver``) a rank holds its agent rows ``exchange.rows``: the state,
+the data and the masks are ``[A/W, ...]``, every key is folded with the
+global agent id, and ``_mix`` all-gathers each leaf (or the packed plane)
+over the agent axis, one collective a leaf, multiplies by the whole W and
+keeps the rank's rows, so rank p's round equals rows ``exchange.rows`` of
+the one-process round bit for bit (the whole product, not the rank's
+``[A/W, A]`` rows of W, which a BLAS may reduce in another order).
+
 Telemetry: while a ``obs.telemetry.with_telemetry`` wrapper steps the
 solver, ``_emit_telemetry`` charges each iteration's messages with bytes
 measured from the wire compressor's payload, the participation mask of
@@ -70,24 +79,6 @@ def _metropolis_online(union, act):
     return w + np.diag(np.float32(1.0) - np.sum(w, axis=1, dtype=np.float32))
 
 
-def _compress_stacked(comp, key, x, like):
-    """Compress and decompress every agent's message (the EF-style
-    reconstruction); agent i's key is ``fold_in(key, i)``."""
-    keys = jaxrand.fold_in(key, torch.arange(first_leaf(x).shape[0]))
-    p = compression.compress_tree(comp, keys, x, nd=1)
-    return compression.decompress_tree(comp, keys, p, like, nd=1)
-
-
-def _sample_grads(est, x, data, key, batch_size):
-    """Every agent's stochastic gradient through the bound estimator."""
-    m = next(iter(data.values())).shape[1]
-    x0 = first_leaf(x)
-    keys = jaxrand.fold_in(key, torch.arange(x0.shape[0]))
-    idx = jaxrand.randint(keys, (batch_size,), 0, m).to(x0.device)
-    g, _ = est.estimate((), x, data, idx)
-    return g
-
-
 class GossipSolverMixin:
     """``Solver``-protocol behaviour shared by the gossip baselines.
     Subclasses declare ``state_fields`` (the parameter-shaped entries of
@@ -101,6 +92,47 @@ class GossipSolverMixin:
     @property
     def graph(self):
         return self.topo
+
+    @property
+    def _mesh(self):
+        """The mesh exchange the rank's rows run on, or None."""
+        ex = getattr(self, "exchange", None)
+        return None if ex is None or ex.mesh is None else ex
+
+    @property
+    def _rows(self) -> range | None:
+        """This rank's global agent rows on a mesh (None: all of them)."""
+        ex = self._mesh
+        return None if ex is None else ex.rows
+
+    def _my_rows(self, a):
+        """The rows of an ``[A, ...]`` array or tensor this process
+        holds."""
+        r = self._rows
+        return a if r is None else a[r.start:r.stop]
+
+    def _agents(self) -> torch.Tensor:
+        """The global ids of the agents this process holds (host int64)."""
+        return self._my_rows(torch.arange(self.topo.n_agents))
+
+    def _sample(self, est, x, data, key):
+        """Every agent's stochastic gradient through the bound
+        estimator; agent i's minibatch key is ``fold_in(key, i)``."""
+        m = next(iter(data.values())).shape[1]
+        keys = jaxrand.fold_in(key, self._agents())
+        idx = jaxrand.randint(keys, (self.batch_size,), 0, m).to(
+            first_leaf(x).device)
+        g, _ = est.estimate((), x, data, idx)
+        return g
+
+    def _compress(self, key, x):
+        """Compress and decompress every agent's message of ``x`` (the
+        EF-style reconstruction); agent i's key is ``fold_in(key, i)``."""
+        comp = self._wire_compressor()
+        keys = jaxrand.fold_in(key, self._agents())
+        p = compression.compress_tree(comp, keys, x, nd=1)
+        return compression.decompress_tree(
+            comp, keys, p, compression.like_per_message(x), nd=1)
 
     def _layout(self, state) -> packing.PackedLayout:
         lay = self._cache.get("layout")
@@ -138,20 +170,30 @@ class GossipSolverMixin:
         w = torch.from_numpy(_metropolis_online(union, act))
         if torch.device(device).type == "cpu":
             return w
+        if torch.device(device).type != "cuda":  # a meta trace
+            return w.to(device)
         return w.pin_memory().to(device, non_blocking=True)
 
     def _mix(self, x, k: int):
         """Gossip: ``W @ x`` over the agent axis of every ``[A, ...]``
         leaf.  A plain f32 product: PyTorch's default matmul precision
-        ("highest", no TF32) keeps it so on the card."""
+        ("highest", no TF32) keeps it so on the card.  On a mesh each leaf
+        is all-gathered first and the rank keeps its rows of the
+        product."""
         dev = first_leaf(x).device
         if self.faults is not None and self.faults.active:
             W = self._fault_weights(k, dev)
         else:
             W = self._weights(k, dev)
-        return tree_map(
+        ex = self._mesh
+        full = x if ex is None else ex.gather_rows(x)
+        out = tree_map(
             lambda t: torch.matmul(W, t.reshape(t.shape[0], -1))
-            .reshape(t.shape), x)
+            .reshape(t.shape), full)
+        if ex is None:
+            return out
+        lo, hi = ex.rows.start, ex.rows.stop
+        return tree_map(lambda t: t[lo:hi], out)
 
     def init(self, x0):
         """x0: stacked ``[A, ...]`` params (tensors or numpy arrays)."""
@@ -176,13 +218,15 @@ class GossipSolverMixin:
                         k, est)
         # an agent out of round k skips its step and holds its state
         x0 = first_leaf(state["x"])
-        nm = (self.topo.round_node_mask(k, x0.device)
+        rows = self._rows
+        nm = (self.topo.round_node_mask(k, x0.device, rows)
               if isinstance(self.topo, TopologySchedule) else None)
         fp = self.faults
         if fp is not None and fp.crash > 0:
             # crashed agents hold like non-participating ones; their edges
             # are already dark through the edge_ok oracle
-            alive = ~fp.crash_mask(k, x0.shape[0], x0.device)
+            alive = self._my_rows(~fp.crash_mask(k, self.topo.n_agents,
+                                                 x0.device))
             nm = alive if nm is None else nm & alive
         if nm is not None:
             st = {f: tree_select(nm, st[f], state[f])
@@ -201,14 +245,15 @@ class GossipSolverMixin:
         are a row of a stack kept on the device, the dark edges one
         pinned copy."""
         dev = first_leaf(state["x"]).device
-        topo = self.topo
+        topo, rows = self.topo, self._rows
         if isinstance(topo, TopologySchedule):
-            deg, union = topo.round_degrees_device(k, dev), topo.union
+            deg, union = topo.round_degrees_device(k, dev, rows), topo.union
         else:
             deg, union = self._cache.get(("degrees", dev)), topo
             if deg is None:
-                deg = torch.as_tensor(np.asarray(topo.slot_mask()).sum(1),
-                                      dtype=torch.int64, device=dev)
+                deg = torch.as_tensor(
+                    self._my_rows(np.asarray(topo.slot_mask()).sum(1)),
+                    dtype=torch.int64, device=dev)
                 self._cache[("degrees", dev)] = deg
         per_msg = telemetry.message_nbytes(
             self._wire_compressor(),
@@ -222,9 +267,9 @@ class GossipSolverMixin:
             grad_evals=evals if node_mask is None else (node_mask, evals))
         fp = self.faults
         if fp is not None and fp.active:
-            dark = fp.edge_dark(k, union, dev)  # real slots only
+            dark = self._my_rows(fp.edge_dark(k, union, dev))  # real slots
             if isinstance(topo, TopologySchedule):
-                dark = dark & topo.round_mask(k, dev)
+                dark = dark & topo.round_mask(k, dev, rows)
             counters["rx_dropped"] = dark.sum(dim=1)
         telemetry.emit(**counters)
 
@@ -302,6 +347,10 @@ class DSGD(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "dsgd"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -310,7 +359,7 @@ class DSGD(GossipSolverMixin):
         return {"x": x0}
 
     def _step(self, state, data, key, k, est):
-        g = _sample_grads(est, state["x"], data, key, self.batch_size)
+        g = self._sample(est, state["x"], data, key)
         x = self._mix(state["x"], k)
         return {"x": tree_map(lambda a, b: a - self.lr * b, x, g)}
 
@@ -328,6 +377,10 @@ class ChocoSGD(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "choco"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -339,10 +392,9 @@ class ChocoSGD(GossipSolverMixin):
 
     def _step(self, state, data, key, k, est):
         x, xhat = state["x"], state["xhat"]
-        g = _sample_grads(est, x, data, key, self.batch_size)
+        g = self._sample(est, x, data, key)
         x = tree_map(lambda a, b: a - self.lr * b, x, g)
-        q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              tree_sub(x, xhat), compression.like_per_message(x))
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(x, xhat))
         xhat = tree_add(xhat, q)
         mix = tree_sub(self._mix(xhat, k), xhat)
         x = tree_map(lambda a, b: a + self.gossip_lr * b, x, mix)
@@ -362,6 +414,10 @@ class LEAD(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "lead"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -373,10 +429,9 @@ class LEAD(GossipSolverMixin):
 
     def _step(self, state, data, key, k, est):
         x, h, d = state["x"], state["h"], state["d"]
-        g = _sample_grads(est, x, data, key, self.batch_size)
+        g = self._sample(est, x, data, key)
         y = tree_map(lambda a, b, c: a - self.lr * (b + c), x, g, d)
-        q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              tree_sub(y, h), compression.like_per_message(x))
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(y, h))
         yhat = tree_add(h, q)
         diff = tree_sub(yhat, self._mix(yhat, k))
         h = tree_map(lambda a, b: (1 - self.alpha) * a + self.alpha * b,
@@ -400,6 +455,10 @@ class COLD(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "cold"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -411,10 +470,9 @@ class COLD(GossipSolverMixin):
 
     def _step(self, state, data, key, k, est):
         x, h, d = state["x"], state["h"], state["d"]
-        g = _sample_grads(est, x, data, key, self.batch_size)
+        g = self._sample(est, x, data, key)
         y = tree_map(lambda a, b, c: a - self.lr * (b + c), x, g, d)
-        q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              tree_sub(y, h), compression.like_per_message(x))
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(y, h))
         yhat = tree_add(h, q)  # innovation state: h <- yhat
         diff = tree_sub(yhat, self._mix(yhat, k))
         d = tree_map(lambda a, b: a + self.gamma_mix / (2 * self.lr) * b,
@@ -436,6 +494,10 @@ class CEDAS(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "cedas"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -448,11 +510,10 @@ class CEDAS(GossipSolverMixin):
 
     def _step(self, state, data, key, k, est):
         x, psi_prev, xhat = state["x"], state["psi_prev"], state["xhat"]
-        g = _sample_grads(est, x, data, key, self.batch_size)
+        g = self._sample(est, x, data, key)
         psi = tree_map(lambda a, b: a - self.lr * b, x, g)
         mix_in = tree_map(lambda p, a, pp: p + a - pp, psi, x, psi_prev)
-        q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              tree_sub(mix_in, xhat), compression.like_per_message(x))
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(mix_in, xhat))
         xhat = tree_add(xhat, q)
         # (I + W) / 2 mixing applied through the tracked copies
         half_mix = tree_map(lambda a, b: 0.5 * (a + b), xhat,
@@ -476,6 +537,10 @@ class DPDC(GossipSolverMixin):
     grad_est: Any = None
     packed: bool = True
     faults: Any = None
+    # a mesh exchange (make_solver's): the rank's rows; None or a host
+    # exchange: every agent in this process
+    exchange: Any = dataclasses.field(default=None, compare=False,
+                                      repr=False)
     name: str = "dpdc"
     device: torch.device = torch.device("cpu")
     _cache: dict = _cache_field()
@@ -488,9 +553,8 @@ class DPDC(GossipSolverMixin):
 
     def _step(self, state, data, key, k, est):
         x, v, xhat = state["x"], state["v"], state["xhat"]
-        g = _sample_grads(est, x, data, key, self.batch_size)
-        q = _compress_stacked(self.compressor, jaxrand.fold_in(key, 1),
-                              tree_sub(x, xhat), compression.like_per_message(x))
+        g = self._sample(est, x, data, key)
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(x, xhat))
         xhat = tree_add(xhat, q)
         lap = tree_sub(xhat, self._mix(xhat, k))  # (I - W) x̂
         v_new = tree_map(lambda a, b: a + self.dual_lr * b, v, lap)

@@ -52,11 +52,12 @@ IMPLS = ("auto", "torch", "kernel")
 
 
 def resolve_impl(impl: str, device) -> str:
-    """``auto`` -> ``kernel`` on a CUDA device, ``torch`` otherwise;
-    explicit ``torch``/``kernel`` always win."""
+    """``auto`` -> ``torch`` on the CPU, ``kernel`` elsewhere (the card,
+    and a ``meta`` trace of the card's route); explicit ``torch``/
+    ``kernel`` always win."""
     _check_impl(impl)
     if impl == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "torch"
+        return "torch" if torch.device(device).type == "cpu" else "kernel"
     return impl
 
 

@@ -267,6 +267,8 @@ def _tensor(a, device=None):
     t = torch.from_numpy(np.array(a))
     if device is None or torch.device(device).type == "cpu":
         return t
+    if torch.device(device).type != "cuda":  # a meta trace
+        return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
 

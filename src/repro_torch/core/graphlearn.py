@@ -44,8 +44,15 @@ so does the stable descending sort here, on either device.
 Spec: ``dada:lambda_g=0.1,mu=0.5,graph_every=5,degree_cap=3`` (and
 ``lr, batch_size, compressor, packed, faults``) through ``make_solver``.
 A compressed round compresses through the per-message route
-(``baselines._compress_stacked``): with qbit on the card one K4 and one
+(``GossipSolverMixin._compress``): with qbit on the card one K4 and one
 K5 launch a round.
+
+On a mesh exchange a rank holds its agent rows (``exchange.rows``) of the
+state, the data and every mask, keys fold the global agent ids, the
+mirrors and the edge weights travel through the exchange's all-to-alls,
+and the views over all agents (``learned_weights``, ``live_degrees``,
+``personalized_grad_norm_sq``) gather the rows first: rank p's round
+equals rows ``exchange.rows`` of the one-process round bit for bit.
 """
 from __future__ import annotations
 
@@ -62,8 +69,7 @@ from repro_torch.common.trees import (first_leaf, meta_like, tree_add,
                                       tree_zeros_like)
 from repro_torch.core import compression, faults as faults_mod, jaxrand
 from repro_torch.core import packing
-from repro_torch.core.baselines import (GossipSolverMixin, _cache_field,
-                                        _compress_stacked, _sample_grads)
+from repro_torch.core.baselines import GossipSolverMixin, _cache_field
 from repro_torch.core.schedule import TopologySchedule, union_topology
 from repro_torch.core.topology import Exchange
 from repro_torch.obs import telemetry
@@ -166,7 +172,8 @@ def personalized_grad_norm_sq(solver, state, grad_fn, data):
     objective's gradient ``grad f_i(x_i) + mu sum_s c[i, s] (x_i - x_j)``
     at the current coupling: the stationarity measure of the joint
     objective.  ``grad_fn(x, data)`` is the batched full local gradient
-    (``[A, ...]``).  A 0-d tensor on the state's device (no sync)."""
+    (``[A, ...]``).  A 0-d tensor on the state's device (no sync); on a
+    mesh the mean over every rank's rows."""
     x = solver.consensus_params(state)
     g = grad_fn(x, data)
     pull = _pull(state["c"], x, solver.exchange.gather_batched(x))
@@ -174,7 +181,7 @@ def personalized_grad_norm_sq(solver, state, grad_fn, data):
     sq = functools.reduce(operator.add, [
         torch.sum(leaf * leaf, dim=tuple(range(1, leaf.dim())))
         for leaf in tree_flatten(total)[0]])
-    return torch.mean(sq)
+    return torch.mean(solver.exchange.gather_rows(sq))
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +238,9 @@ class DadaSolver(GossipSolverMixin):
         key = ("cand", torch.device(device))
         m = self._cache.get(key)
         if m is None:
-            m = torch.as_tensor(np.asarray(self._union.slot_mask()),
-                                device=device)
+            m = torch.as_tensor(
+                self._my_rows(np.asarray(self._union.slot_mask())),
+                device=device)
             self._cache[key] = m
         return m
 
@@ -245,9 +253,11 @@ class DadaSolver(GossipSolverMixin):
             masks = (self.topo.masks if isinstance(self.topo,
                                                    TopologySchedule)
                      else np.asarray(self._union.slot_mask())[None])
-            d = torch.as_tensor(np.minimum(masks.sum(axis=2),
-                                           self.degree_cap).astype(np.int64),
-                                device=device)
+            capped = np.minimum(masks.sum(axis=2), self.degree_cap)
+            r = self._rows
+            if r is not None:
+                capped = capped[:, r.start:r.stop]
+            d = torch.as_tensor(capped.astype(np.int64), device=device)
             self._cache[key] = d
         return d[k % d.shape[0]]
 
@@ -266,32 +276,33 @@ class DadaSolver(GossipSolverMixin):
         c0 = np.where(mask, 0.5 * (w0 + w0[nbr, rs[None, :]]), 0.0)
         dev = first_leaf(x0).device
         return {"x": x0, "xhat": tree_zeros_like(x0),
-                "w": torch.as_tensor(w0, dtype=torch.float32, device=dev),
-                "c": torch.as_tensor(c0, dtype=torch.float32, device=dev)}
+                "w": torch.as_tensor(self._my_rows(w0), dtype=torch.float32,
+                                     device=dev),
+                "c": torch.as_tensor(self._my_rows(c0), dtype=torch.float32,
+                                     device=dev)}
 
     def _step(self, state, data, key, k, est):
         x, xhat, w, c = state["x"], state["xhat"], state["w"], state["c"]
         dev = first_leaf(x).device
-        g = _sample_grads(est, x, data, key, self.batch_size)
+        g = self._sample(est, x, data, key)
 
         # broadcast: advance the mirrors by one compressed innovation,
         # then read every candidate's mirror (one slot-batched exchange)
-        q = _compress_stacked(self._wire_compressor(),
-                              jaxrand.fold_in(key, 1), tree_sub(x, xhat),
-                              compression.like_per_message(x))
+        q = self._compress(jaxrand.fold_in(key, 1), tree_sub(x, xhat))
         xhat = tree_add(xhat, q)
         xhat_nbr = self.exchange.gather_batched(xhat)
 
         # live candidate slots: a schedule masks its round's links
         am = self._cand_mask(dev)
+        rows = self._rows
         if isinstance(self.topo, TopologySchedule):
-            am = am & self.topo.round_mask(k, dev)
+            am = am & self.topo.round_mask(k, dev, rows)
         fp = self.faults
         if fp is not None and fp.active:
             # no per-edge payload wire: darkness comes from the oracle,
             # one pinned copy a round; crashed agents also hold all their
             # state (GossipSolverMixin.step)
-            am = am & fp.edge_ok(k, self._union, dev)
+            am = am & self._my_rows(fp.edge_ok(k, self._union, dev))
 
         if k % self.graph_every == 0:
             # graph round: the closed-form rows, then one scalar per edge
@@ -340,9 +351,10 @@ class DadaSolver(GossipSolverMixin):
             counters["graph_rounds"] = 1
         fp = self.faults
         if fp is not None and fp.active:
-            dark = fp.edge_dark(k, self._union, dev)  # candidates only
+            # candidates only
+            dark = self._my_rows(fp.edge_dark(k, self._union, dev))
             if isinstance(self.topo, TopologySchedule):
-                dark = dark & self.topo.round_mask(k, dev)
+                dark = dark & self.topo.round_mask(k, dev, self._rows)
             counters["rx_dropped"] = dark.sum(dim=1)
         telemetry.emit(**counters)
 
@@ -360,12 +372,16 @@ class DadaSolver(GossipSolverMixin):
     # ---- learned-graph views ----------------------------------------------
 
     def learned_weights(self, state) -> np.ndarray:
-        """``[A, A]`` dense symmetric coupling of ``state``."""
-        return dense_weights(self._union, state["c"])
+        """``[A, A]`` dense symmetric coupling of ``state`` (every rank's
+        rows on a mesh)."""
+        return dense_weights(self._union,
+                             self.exchange.gather_rows(state["c"]))
 
     def live_degrees(self, state) -> np.ndarray:
-        """``[A]`` learned degree per agent: the support of ``c``."""
-        return (_host(state["c"]) > 0).sum(axis=1)
+        """``[A]`` learned degree per agent: the support of ``c`` (every
+        rank's rows on a mesh)."""
+        return (_host(self.exchange.gather_rows(state["c"])) > 0).sum(
+            axis=1)
 
     # ---- accounting: dead edges are never charged ------------------------
 

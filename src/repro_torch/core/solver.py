@@ -19,11 +19,11 @@ parameters a pytree, compressed leaf by leaf.  ``make_solver`` takes
 ``,``) arms seeded fault injection on every solver; LT-ADMM then runs the
 packed time-varying round (a static graph becomes a period-1 schedule).
 
-An exchange on a mesh axis (``Exchange(topo, axis, mesh)``) runs
-LT-ADMM-CC with each rank holding its agent rows: ``init`` takes and the
-state holds ``[A/W, ...]`` rows.  The gossip baselines and dada mix
-through a dense ``[A, A]`` matrix and do not run on a mesh yet (ROADMAP
-Queue 1 item 15).
+An exchange on a mesh axis (``Exchange(topo, axis, mesh)``) runs every
+registered solver with each rank holding its agent rows: ``init`` takes
+and the state holds ``[A/W, ...]`` rows.  LT-ADMM-CC and dada route their
+messages through the exchange's all-to-alls; the gossip baselines
+all-gather each leaf and mix with the whole ``[A, A]`` matrix.
 
 The sharding hooks: ``abstract_state(x)`` maps stacked ``[A, ...]``
 ``meta`` tensors to the state's shapes and dtypes without allocating,
@@ -259,11 +259,6 @@ def make_solver(spec: str, graph, exchange=None, grad_est=None,
     merged.update(kw)
     if exchange is None:
         exchange = Exchange(union_topology(graph))
-    if exchange.mesh is not None and entry.name != "ltadmm":
-        raise NotImplementedError(
-            f"{entry.name!r} on a mesh exchange: the gossip baselines' and "
-            "dada's rounds over torch.distributed ranks are not ported yet "
-            "(ROADMAP Queue 1 item 15); LT-ADMM-CC runs there")
     return entry.factory(graph, exchange, grad_est, device=dev, **merged)
 
 
@@ -324,19 +319,21 @@ _BASELINE_DOCS = {
     "dpdc": "DPDC: primal-dual with compressed copies",
 }
 # dataclass fields that are not spec params: the reference's three, and
-# the port's device and per-instance cache
-_NOT_PARAMS = ("topo", "grad_est", "name", "device", "_cache")
+# the port's device, exchange and per-instance cache
+_NOT_PARAMS = ("topo", "grad_est", "name", "device", "exchange", "_cache")
 
 
 def _baseline_factory(cls):
     def factory(graph, exchange, grad_est, device, **kw):
-        del exchange  # baselines gossip through a dense mixing matrix
+        # the baselines gossip through a dense mixing matrix; a mesh
+        # exchange gives the rank's rows and the all-gather of each leaf
         if "compressor" in kw:
             kw["compressor"] = _as_compressor(kw["compressor"])
         if "faults" in kw:
             kw["faults"] = faults.get_faults(kw["faults"])
         kw = {k: compression.coerce_param(v) for k, v in kw.items()}
-        return cls(topo=graph, grad_est=grad_est, device=device, **kw)
+        return cls(topo=graph, grad_est=grad_est, device=device,
+                   exchange=exchange, **kw)
 
     return factory
 

@@ -19,7 +19,11 @@ padded copies), by the rule of ``route``:
 The rule is on the shape and the pointers, decided before the launch; a
 launch that the chosen kernel refuses raises.  On a CPU tensor the
 wrapper runs the plain version (``ref.py``), as the reference runs Pallas
-in interpret mode off the TPU.
+in interpret mode off the TPU.  On a ``meta`` or fake tensor (a dry-run's
+trace of the card's route) it returns an output of the kernel's shape and
+dtype and launches nothing.  Both routes report the call to the active
+``launch.op_analysis.OpCounter`` as one op "K10" with its products
+(``products``) in ``dot_flops``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.launch import op_analysis
 
 DEFAULT_Q_BLOCK = 128
 MAX_HEAD_DIM = 256
@@ -50,6 +55,25 @@ def route(q, k, v) -> str:
     return "tc" if q.dtype == torch.bfloat16 and tma else "cc"
 
 
+def products(q, k, v, *, causal=True, window=None) -> float:
+    """K10's multiply-adds times 2 over the (query, key) pairs its mask
+    admits (``ref._mask``: row i takes the keys j <= i when causal, i - j
+    < window with a window): QK^T and PV, as the reference counts two
+    dots.  Row i admits the keys [lo(i), hi(i)) with hi(i) = min(i + 1, S)
+    (S when not causal) and lo(i) = max(i - window + 1, 0); rows past
+    S + window - 2 admit none, and the sums of hi and lo over the rest
+    have closed forms."""
+    b, t, h, dh = q.shape
+    s, dv = k.shape[1], v.shape[-1]
+    n = t if window is None else min(t, s + window - 1)
+    if n <= 0:
+        return 0.0
+    his = (n * (n + 1) // 2 if n <= s else s * (s + 1) // 2 + (n - s) * s
+           ) if causal else n * s
+    m = 0 if window is None else max(n - window, 0)
+    return 2.0 * b * h * (his - m * (m + 1) // 2) * (dh + dv)
+
+
 def flash_attention(q, k, v, mask=None, *, causal=True, window=None):
     """q [B,T,H,Dh]; k,v [B,S,KH,Dh] -> [B,T,H,Dh] in q's dtype (f32 or
     bf16; the softmax and both products exact in f32, sums in f32)."""
@@ -57,6 +81,10 @@ def flash_attention(q, k, v, mask=None, *, causal=True, window=None):
     if q.device.type == "cpu":
         return ref.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
+    if op_analysis.is_abstract(q):
+        return op_analysis.kernel_op(
+            "K10", (q, k, v), torch.empty_like(q),
+            products(q, k, v, causal=causal, window=window), q.dtype)
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -81,7 +109,9 @@ def flash_attention(q, k, v, mask=None, *, causal=True, window=None):
                       int(q.dtype == torch.bfloat16))
         flash_attention.launches_cc += 1
     flash_attention.launches += 1
-    return out
+    return op_analysis.kernel_op(
+        "K10", (q, k, v), out,
+        lambda: products(q, k, v, causal=causal, window=window), q.dtype)
 
 
 # launches of each variant; ``launches`` is their sum

@@ -13,6 +13,11 @@ launch.  ``dequantize_plane``, a jnp expression in the reference
 card.  K5 walks its rows as one flat array in quads of 4 elements
 (``DQ_*`` mirror its sizes); a call of 2^31 - 2^11 elements or more goes
 in row groups, one launch each.
+
+On a ``meta`` or fake tensor (a dry-run's trace of the card's route) a
+wrapper takes its fake route: it returns outputs of the kernel's shapes
+and dtypes and launches nothing.  Both routes report the call to the
+active ``launch.op_analysis.OpCounter`` as one op under the kernel's id.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build, prng
 from repro_torch.kernels.quantize import ref
+from repro_torch.launch import op_analysis
 
 
 # K5's walk, as csrc/quantize_leaf.cu sizes it: the M * n elements of out
@@ -52,6 +58,25 @@ def _check_bits(bits):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
 
+def _q_dtype(bits):
+    return torch.int8 if bits == 8 else torch.uint8
+
+
+def _fake_quantize(kid, x, bits):
+    """The fake route of K1/K4: ``(q [..., wire_len], scale [...])``."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    return op_analysis.kernel_op(kid, (x,), (
+        torch.empty(lead + (wire_len(n, bits),), dtype=_q_dtype(bits),
+                    device=x.device),
+        torch.empty(lead, dtype=torch.float32, device=x.device)))
+
+
+def _fake_dequantize(q, scale, n):
+    """The fake route of K5: ``[..., n]`` f32."""
+    return op_analysis.kernel_op("K5", (q, scale), torch.empty(
+        tuple(q.shape[:-1]) + (n,), dtype=torch.float32, device=q.device))
+
+
 def quantize_plane(seed, sids, rids, x, *, bits=8):
     """Quantize every message of ``x [..., n]`` (f32) in one launch, the
     stochastic-rounding bits derived in the kernel from ``(seed, sender,
@@ -62,13 +87,14 @@ def quantize_plane(seed, sids, rids, x, *, bits=8):
     _check_bits(bits)
     if x.device.type == "cpu":
         return ref.quantize_plane_ref(seed, sids, rids, x, bits=bits)
+    if op_analysis.is_abstract(x):
+        return _fake_quantize("K1", x, bits)
     lead, n, xf = _build.rows(x, "x", torch.float32)
     m, wire = xf.shape[0], wire_len(n, bits)
     sid = _plane_ids(sids, lead)
     rid = _plane_ids(rids, lead)
     scale = torch.empty((m,), dtype=torch.float32, device=x.device)
-    q = torch.empty((m, wire), device=x.device,
-                    dtype=torch.int8 if bits == 8 else torch.uint8)
+    q = torch.empty((m, wire), device=x.device, dtype=_q_dtype(bits))
     _build.launch(
         "quantize_plane", xf.data_ptr(), m, n, bits, seed[0], seed[1],
         _build.id_ptr(sid, m, x.device), _build.id_ptr(rid, m, x.device),
@@ -76,7 +102,8 @@ def quantize_plane(seed, sids, rids, x, *, bits=8):
         scratch(m, x.device).data_ptr(),
     )
     quantize_plane.launches += 1
-    return q.reshape(lead + (wire,)), scale.reshape(lead)
+    return op_analysis.kernel_op("K1", (xf,), (q.reshape(lead + (wire,)),
+                                               scale.reshape(lead)))
 
 
 quantize_plane.launches = 0
@@ -104,17 +131,19 @@ def quantize_tensor(keys, x, *, bits=8):
     _check_bits(bits)
     if x.device.type == "cpu":
         return ref.quantize_tensor_ref(keys, x, bits=bits)
+    if op_analysis.is_abstract(x):
+        return _fake_quantize("K4", x, bits)
     lead, n, xf = _build.rows(x, "x", torch.float32)
     m, wire = xf.shape[0], wire_len(n, bits)
     kd = _key_words(keys, lead, x.device)
     scale = torch.empty((m,), dtype=torch.float32, device=x.device)
-    q = torch.empty((m, wire), device=x.device,
-                    dtype=torch.int8 if bits == 8 else torch.uint8)
+    q = torch.empty((m, wire), device=x.device, dtype=_q_dtype(bits))
     _build.launch("quantize_leaf", xf.data_ptr(), m, n, bits, kd.data_ptr(),
                   scale.data_ptr(), q.data_ptr(), wire,
                   scratch(m, x.device).data_ptr())
     quantize_tensor.launches += 1
-    return q.reshape(lead + (wire,)), scale.reshape(lead)
+    return op_analysis.kernel_op("K4", (xf,), (q.reshape(lead + (wire,)),
+                                               scale.reshape(lead)))
 
 
 quantize_tensor.launches = 0
@@ -174,9 +203,11 @@ def dequantize_tensor(q, scale, *, n, bits=8):
     _check_bits(bits)
     if q.device.type == "cpu":
         return ref.dequantize_tensor_ref(q, scale, n=n, bits=bits)
+    if op_analysis.is_abstract(q):
+        return _fake_dequantize(q, scale, n)
     out, launches = _dequantize(q, scale, n, bits, 0)
     dequantize_tensor.launches += launches
-    return out
+    return op_analysis.kernel_op("K5", (q, scale), out)
 
 
 dequantize_tensor.launches = 0
@@ -191,9 +222,11 @@ def dequantize_plane(q, scale, *, n, bits=8):
     _check_bits(bits)
     if q.device.type == "cpu":
         return ref.dequantize_plane_ref(q, scale, n=n, bits=bits)
+    if op_analysis.is_abstract(q):
+        return _fake_dequantize(q, scale, n)
     out, launches = _dequantize(q, scale, n, bits, 1)
     dequantize_plane.launches += launches
-    return out
+    return op_analysis.kernel_op("K5", (q, scale), out)
 
 
 dequantize_plane.launches = 0

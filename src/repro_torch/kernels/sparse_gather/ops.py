@@ -39,6 +39,11 @@ int64), in place: no conversion pass.
 A launch that the chosen kernel refuses raises; nothing gives way to the
 other variant or to the plain version.  ``launches_<variant>`` counts
 each variant, ``launches`` their sum.
+
+On a ``meta`` or fake tensor (a dry-run's trace of the card's route) a
+wrapper takes its fake route: outputs of the kernel's shapes and dtypes,
+no launch.  Both routes report the call to the active
+``launch.op_analysis.OpCounter`` as one op under the kernel's id.
 """
 from __future__ import annotations
 
@@ -50,6 +55,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.quantize.ops import _plane_ids
 from repro_torch.kernels.sparse_gather import ref
+from repro_torch.launch import op_analysis
+
+
+def _fake(kid, inputs, lead, w, like):
+    """A fake route's output ``[*lead, w]`` f32, reported as ``kid``."""
+    return op_analysis.kernel_op(kid, inputs, torch.empty(
+        tuple(lead) + (w,), dtype=torch.float32, device=like.device))
 
 
 def indices_unique(n: int, k: int, strides: tuple) -> bool:
@@ -90,6 +102,8 @@ def randk_gather_plane(seed, sids, rids, x, *, k, strides):
     if x.device.type == "cpu":
         return ref.randk_gather_plane_ref(seed, sids, rids, x, k=k,
                                           strides=strides)
+    if op_analysis.is_abstract(x):
+        return _fake("K2", (x,), x.shape[:-1], k, x)
     lead, n, xf = _build.rows(x, "x", torch.float32)
     m = xf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
@@ -102,7 +116,7 @@ def randk_gather_plane(seed, sids, rids, x, *, k, strides):
         _build.stride_table(strides), len(strides), out.data_ptr(),
     )
     _count(randk_gather_plane, kind)
-    return out.reshape(lead + (k,))
+    return op_analysis.kernel_op("K2", (xf,), out.reshape(lead + (k,)))
 
 
 # launches of each variant; ``launches`` is their sum
@@ -120,6 +134,8 @@ def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
     if v.device.type == "cpu":
         return ref.randk_scatter_plane_ref(seed, sids, rids, v, n=n,
                                            gain=gain, strides=strides)
+    if op_analysis.is_abstract(v):
+        return _fake("K3", (v,), v.shape[:-1], n, v)
     lead, k, vf = _build.rows(v, "v", torch.float32)
     m = vf.shape[0]
     sid, rid = _plane_ids(sids, lead), _plane_ids(rids, lead)
@@ -134,7 +150,7 @@ def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
             out.data_ptr(),
         )
         _count(randk_scatter_plane, "pull")
-        return out.reshape(lead + (n,))
+        return op_analysis.kernel_op("K3", (vf,), out.reshape(lead + (n,)))
     out = torch.zeros((m, n), dtype=torch.float32, device=v.device)
     winner = (None if indices_unique(n, k, strides) else
               torch.full((m, n), -1, dtype=torch.int32, device=v.device))
@@ -144,7 +160,7 @@ def randk_scatter_plane(seed, sids, rids, v, *, n, gain, strides):
         None if winner is None else winner.data_ptr(), out.data_ptr(),
     )
     _count(randk_scatter_plane, "push")
-    return out.reshape(lead + (n,))
+    return op_analysis.kernel_op("K3", (vf,), out.reshape(lead + (n,)))
 
 
 randk_scatter_plane.launches = 0
@@ -178,6 +194,8 @@ def sparse_gather(x, idx):
     or int64, read in place; returns ``[..., k]``."""
     if x.device.type == "cpu":
         return ref.sparse_gather_ref(x, idx)
+    if op_analysis.is_abstract(x):
+        return _fake("K6", (x, idx), idx.shape[:-1], idx.shape[-1], x)
     _, n, xf = _build.rows(x, "x", torch.float32)
     lead, k = tuple(idx.shape[:-1]), idx.shape[-1]
     if tuple(x.shape[:-1]) != lead:
@@ -189,7 +207,7 @@ def sparse_gather(x, idx):
     _build.launch("sparse_gather", xf.data_ptr(), m, n, ix.data_ptr(),
                   int(wide), ld, k, out.data_ptr())
     sparse_gather.launches += 1
-    return out.reshape(lead + (k,))
+    return op_analysis.kernel_op("K6", (xf, ix), out.reshape(lead + (k,)))
 
 
 sparse_gather.launches = 0
@@ -236,6 +254,8 @@ def sparse_scatter(v, idx, n: int, gain=1.0, *, unique: bool):
     index keeps the last j, as the reference's scatter does."""
     if v.device.type == "cpu":
         return ref.sparse_scatter_ref(v, idx, n, gain)
+    if op_analysis.is_abstract(v):
+        return _fake("K7", (v, idx), v.shape[:-1], n, v)
     lead, k, vf = _build.rows(v, "v", torch.float32)
     m = vf.shape[0]
     ix, wide, ld = _index_rows(idx, lead, k, v.device)
@@ -249,7 +269,7 @@ def sparse_scatter(v, idx, n: int, gain=1.0, *, unique: bool):
                   scratch.data_ptr(),
                   scratch.data_ptr() + 4 * pair_words, out.data_ptr())
     _count(sparse_scatter, kind)
-    return out.reshape(lead + (n,))
+    return op_analysis.kernel_op("K7", (vf, ix), out.reshape(lead + (n,)))
 
 
 # launches of each variant; ``launches`` is their sum
@@ -278,6 +298,8 @@ def cyclic_gather(x, off, k: int):
     ``[..., k]``."""
     if x.device.type == "cpu":
         return ref.cyclic_gather_ref(x, off, k)
+    if op_analysis.is_abstract(x):
+        return _fake("K8", (x, off), x.shape[:-1], k, x)
     lead, n, xf = _build.rows(x, "x", torch.float32)
     _check_window(n, k)
     m = xf.shape[0]
@@ -286,7 +308,7 @@ def cyclic_gather(x, off, k: int):
     _build.launch("cyclic_gather", xf.data_ptr(), o.data_ptr(), m, n, k,
                   out.data_ptr())
     cyclic_gather.launches += 1
-    return out.reshape(lead + (k,))
+    return op_analysis.kernel_op("K8", (xf, o), out.reshape(lead + (k,)))
 
 
 cyclic_gather.launches = 0
@@ -299,6 +321,8 @@ def cyclic_scatter(v, off, n: int, gain=1.0):
     kernel writes every element, so the plane is not zero-filled first."""
     if v.device.type == "cpu":
         return ref.cyclic_scatter_ref(v, off, n, gain)
+    if op_analysis.is_abstract(v):
+        return _fake("K9", (v, off), v.shape[:-1], n, v)
     lead, k, vf = _build.rows(v, "v", torch.float32)
     _check_window(n, k)
     m = vf.shape[0]
@@ -307,7 +331,7 @@ def cyclic_scatter(v, off, n: int, gain=1.0):
     _build.launch("cyclic_scatter", vf.data_ptr(), o.data_ptr(), m, n, k,
                   float(gain), out.data_ptr())
     cyclic_scatter.launches += 1
-    return out.reshape(lead + (n,))
+    return op_analysis.kernel_op("K9", (vf, o), out.reshape(lead + (n,)))
 
 
 cyclic_scatter.launches = 0

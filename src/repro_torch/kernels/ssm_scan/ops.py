@@ -20,7 +20,11 @@ variants, by the rule of ``route``:
 The rule is on the shape and the pointers, decided before the launch.
 ``variant`` forces one (the card tests and the timing do); a launch that
 the chosen kernel refuses raises, nothing falls back.  On a CPU tensor the
-plain version (``ref.py``) runs.
+plain version (``ref.py``) runs.  On a ``meta`` or fake tensor (a
+dry-run's trace of the card's route) the outputs come with the kernel's
+shapes and dtypes and nothing launches.  Both routes report the call to
+the active ``launch.op_analysis.OpCounter`` as one op "K11" with the
+chunked scan's products (``products``) in ``dot_flops``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import ref
+from repro_torch.launch import op_analysis
 
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use (H100)
 TC_CHUNKS = (32, 64, 128)
@@ -83,6 +88,16 @@ def route(x, bmat, cfg, cmat=None) -> str:
     return "tc" if tc else "cc"
 
 
+def products(b, t, nh, hd, ds, chunk) -> float:
+    """The chunked scan's multiply-adds times 2: per chunk of Q steps and
+    head, C Bᵀ (Q x Q x DS), its masked product with x (Q x Q x HD), the
+    chunk's state Bᵀ x (DS x HD x Q) and the outputs from the carried
+    state C h (Q x DS x HD)."""
+    q = min(chunk, t)
+    per = 2.0 * (q * q * ds + q * q * hd + 2 * q * ds * hd)
+    return per * b * nh * (t // q)
+
+
 def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None, *, variant=None):
     """Same contract as ``models.mamba.ssd_chunked`` (h0 must be None:
     the kernel owns the initial state; T a multiple of the chunk).
@@ -98,6 +113,13 @@ def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None, *, variant=None):
         raise ValueError(f"T={t} must be a multiple of the chunk {chunk}")
     if x.device.type == "cpu":
         return ref.ssd_scan_plain(x, alog, bmat, cmat, chunk=chunk)
+    flops = products(b, t, nh, hd, ds, chunk)
+    if op_analysis.is_abstract(x):
+        return op_analysis.kernel_op(
+            "K11", (x, alog, bmat, cmat), (
+                torch.empty_like(x),
+                torch.empty((b, nh, ds, hd), dtype=torch.float32,
+                            device=x.device)), flops, x.dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _build.check_tensor("x", x, x.dtype, x.device)
@@ -135,7 +157,8 @@ def ssd_chunked(cfg, x, bmat, cmat, alog, h0=None, *, variant=None):
                       b_stride, c_stride, int(x.dtype == torch.bfloat16))
         ssd_chunked.launches_cc += 1
     ssd_chunked.launches += 1
-    return y, h
+    return op_analysis.kernel_op("K11", (x, alog, bmat, cmat), (y, h), flops,
+                                 x.dtype)
 
 
 # launches of each variant; ``launches`` is their sum

@@ -8,7 +8,8 @@ rank's rows of the two agree bit for bit.  It returns the rank's rows
 (numpy) for a caller that holds them against something else, such as the
 reference's run.  ``tests/test_torch_mesh.py`` runs ``suite`` in a gloo
 world of 8 CPU ranks on a ``(4 data, 2 model)`` mesh; ``chip_smoke.py``
-runs the LT-ADMM-CC checks in a one-rank NCCL world on the card.  Run
+runs the LT-ADMM-CC, gossip and dada checks in a one-rank NCCL world on
+the card.  Run
 the gloo world with ``pytest tests/test_torch_mesh.py``.
 
 ``start_world`` starts a world of ``torch.multiprocessing`` processes
@@ -30,7 +31,7 @@ from repro_torch.core import schedule as sched_mod
 from repro_torch.core import topology as topo_mod
 from repro_torch.core import vr
 from repro_torch.core.schedule import union_topology
-from repro_torch.core.solver import make_solver
+from repro_torch.core.solver import make_solver, solver_entry
 from repro_torch.core.topology import Exchange
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import (axes_of, make_host_mesh, use_mesh,
@@ -58,6 +59,22 @@ TELEMETRY_CASES = ("faults",)
 EXCHANGE_GRAPHS = {"ring": ("ring",), "star": ("star",),
                    "complete": ("complete",), "erdos": ("erdos", 0.5, 0)}
 PROBLEM = dict(n=6, m=20)
+# the gossip baselines and dada (plain SGD, n = 6, m = 20): (graph spec,
+# agents, rounds, spec); every state leaf bit-equal to the host path's
+_Q8 = "compressor=qbit:bits=8,impl=kernel"
+GOSSIP_CASES = {
+    "dsgd": ("ring", 4, 3, "dsgd"),
+    "choco": ("ring", 4, 3, f"choco:{_Q8}"),
+    "lead": ("ring", 4, 3, f"lead:{_Q8}"),
+    "cold": ("ring", 4, 3, "cold:compressor=randk:fraction=0.5,impl=kernel"),
+    "cedas": ("ring", 4, 3, "cedas:compressor=qbit:bits=4,impl=kernel"),
+    "dpdc": ("ring", 4, 3, "dpdc:compressor=topk:fraction=0.5,impl=kernel"),
+    "choco-tree-drop": ("drop:p=0.3,base=complete", 4, 3,
+                        f"choco:packed=false,{_Q8}"),
+    "lead-faults": ("ring", 4, 3,
+                    f"lead:{_Q8},faults=faults:drop=0.2|crash=0.1|seed=0"),
+    "dada": ("complete", 4, 3, "dada:"),
+}
 # sequence-sharded attention cases: (T, window)
 ATTN_CASES = ((64, None), (64, 20), (66, None), (66, 20))
 ATTN_SHAPE = dict(b=2, h=4, kh=2, dh=8)
@@ -169,10 +186,19 @@ def admm_pair(spec, graph, mesh, device, axis="data", problem=None,
 
 
 def state_leaves(state) -> dict:
-    """``{field: tensor}`` of a solver state (None fields and the
-    counter left out)."""
-    return {f: v for f, v in zip(state._fields, state)
-            if isinstance(v, torch.Tensor)}
+    """``{field: tensor}`` of a solver state, a named tuple or a gossip
+    solver's dict (None fields and the counter left out; a pytree field's
+    leaves as ``field[i]``)."""
+    items = state.items() if isinstance(state, dict) else zip(
+        state._fields, state)
+    out = {}
+    for f, v in items:
+        if isinstance(v, torch.Tensor):
+            out[f] = v
+        elif isinstance(v, (dict, list, tuple)):
+            for i, t in enumerate(tree_flatten(v)[0]):
+                out[f"{f}[{i}]"] = t
+    return out
 
 
 def compare_telemetry(name, got, want, rows):
@@ -192,9 +218,10 @@ def compare_states(name, mesh_state, host_state, rows):
         compare_telemetry(name, mesh_state.telemetry, host_state.telemetry,
                           rows)
         mesh_state, host_state = mesh_state.inner, host_state.inner
-    if mesh_state.k != host_state.k:
-        raise AssertionError(f"{name}: round {mesh_state.k} against "
-                             f"{host_state.k}")
+    k_m, k_h = (st["k"] if isinstance(st, dict) else st.k
+                for st in (mesh_state, host_state))
+    if k_m != k_h:
+        raise AssertionError(f"{name}: round {k_m} against {k_h}")
     host = state_leaves(host_state)
     got = state_leaves(mesh_state)
     if got.keys() != host.keys():
@@ -244,16 +271,66 @@ def check_admm(mesh, device, case, data_np, x0_np, axis="data"):
             "wire_bytes": on_mesh.wire_bytes(params)}
 
 
+# ---------------------------------------------------------------------------
+# The gossip baselines and dada
+# ---------------------------------------------------------------------------
+
+
+def gossip_inputs(n_agents: int, seed: int = 1):
+    """The logistic problem's data ``{"a" [A, m, n], "b" [A, m]}`` (labels
+    +-1) and x0 ``[A, n]``, numpy, from seeds."""
+    n, m = PROBLEM["n"], PROBLEM["m"]
+    rng = np.random.RandomState(seed)
+    data = {"a": rng.normal(size=(n_agents, m, n)).astype(np.float32),
+            "b": np.where(rng.rand(n_agents, m) < 0.5, 1.0, -1.0).astype(
+                np.float32)}
+    x0 = np.random.RandomState(seed + 1).normal(
+        size=(n_agents, n)).astype(np.float32)
+    return data, x0
+
+
+def check_gossip(mesh, device, case, axis="data"):
+    """One ``GOSSIP_CASES`` case through ``mesh``'s axis and through the
+    host exchange from the same data and x0: every state leaf bit-equal
+    after its rounds.  Returns the rank's rows, its state rows and the
+    host state (numpy)."""
+    from repro_torch.core.schedule import build_graph
+
+    gspec, n_agents, rounds, spec = GOSSIP_CASES[case]
+    prob = LogisticProblem(n_agents=n_agents, **PROBLEM)
+    est = vr.PlainSgd(batch_grad=prob.batch_grad)
+    hg, hex_ = build_graph(gspec, n_agents)
+    mg, mex = build_graph(gspec, n_agents, axis=axis, mesh=mesh)
+    host = make_solver(spec, hg, hex_, est, device=device)
+    on_mesh = make_solver(spec, mg, mex, est, device=device)
+    rows = mex.rows
+    data_np, x0_np = gossip_inputs(n_agents)
+    data = {k: torch.from_numpy(v).to(device) for k, v in data_np.items()}
+    x0 = torch.from_numpy(x0_np).to(device)
+    st_h = run_rounds(host, host.init(x0), data, rounds)
+    st_m = run_rounds(
+        on_mesh, on_mesh.init(tree_map(lambda t: t[rows.start:rows.stop],
+                                       x0)),
+        {k: v[rows.start:rows.stop] for k, v in data.items()}, rounds)
+    compare_states(case, st_m, st_h, rows)
+    return {"rows": (rows.start, rows.stop),
+            **{name: {f: _numpy(v) for f, v in state_leaves(st).items()}
+               for name, st in (("state", st_m), ("host", st_h))}}
+
+
 def paper_solver(mesh, device, spec, gspec, axis="data"):
-    """The paper's problem (``LogisticProblem()``: N = 10, n = 5, m = 100,
-    SAGA) and ``spec``'s solver on the graph ``gspec``, through ``mesh``'s
-    axis (the host exchange when ``mesh`` is None)."""
+    """The paper's problem (``LogisticProblem()``: N = 10, n = 5, m = 100;
+    SAGA for LT-ADMM-CC, plain SGD for the solvers registered with the
+    "sgd" estimator) and ``spec``'s solver on the graph ``gspec``,
+    through ``mesh``'s axis (the host exchange when ``mesh`` is None)."""
     from repro_torch.core.schedule import build_graph
 
     prob = LogisticProblem()
     graph, ex = build_graph(gspec, prob.n_agents,
                             axis=None if mesh is None else axis, mesh=mesh)
-    est = vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+    est = (vr.SagaTable(sample_grads=prob.sample_grads, m=prob.m)
+           if solver_entry(spec).estimator == "vr"
+           else vr.PlainSgd(batch_grad=prob.batch_grad))
     return prob, make_solver(spec, graph, ex, est, device=device)
 
 
@@ -414,6 +491,8 @@ def suite(mesh, device, admm_inputs):
             "admm": timed("admm", lambda: {
                 c: check_admm(mesh, device, c, *admm_inputs[c])
                 for c in ADMM_CASES}),
+            "gossip": timed("gossip", lambda: {
+                c: check_gossip(mesh, device, c) for c in GOSSIP_CASES}),
             "shard_like": timed("shard_like",
                                 lambda: check_shard_like(mesh, device)),
             "attention": timed("attention",

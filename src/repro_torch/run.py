@@ -7,9 +7,10 @@ us_per_call blank for the convergence rows, whose cost is in simulated
     PYTHONPATH=src python -m repro_torch.run --device cpu
 
 The reference's ``--perf-smoke`` lane is ``repro_torch.perf_smoke``.
-The roofline rows of the reference (``benchmarks/roofline.py``, read from
-XLA's HLO) wait for ROADMAP item 17; in their place the CSV carries one
-comment line that says so.
+The roofline rows come from the port's dry-run records
+(``repro_torch.roofline`` reads ``results/torch_dryrun*.jsonl``, written
+by ``python -m repro_torch.launch.dryrun``); without records the CSV ends
+with one comment line that names that command.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ import argparse
 import sys
 import time
 
-ROOFLINE_NOTE = ("# roofline rows: not ported (the reference reads them "
-                 "from XLA's HLO; ROADMAP item 17)")
+from repro_torch.roofline import NO_RECORDS as ROOFLINE_NOTE
 
 
 def full_csv(device=None) -> None:
@@ -27,7 +27,7 @@ def full_csv(device=None) -> None:
     kernels, in the reference's order and formats."""
     from repro_torch import (fault_sweep, kernels_bench, paper_fig1,
                              paper_fig2, paper_table1, personalization_sweep,
-                             schedule_sweep, topology_sweep)
+                             roofline, schedule_sweep, topology_sweep)
 
     t0 = time.time()
     print("name,us_per_call,derived")
@@ -56,7 +56,11 @@ def full_csv(device=None) -> None:
     for name, us, derived in kernels_bench.run(print_rows=False,
                                                device=device):
         print(f"{name},{us:.0f},{derived}")
-    print(ROOFLINE_NOTE)
+    roof = roofline.run(print_rows=False)
+    for name, t_comp, dom in roof:
+        print(f"{name},,t_compute_s={t_comp:.4f};dominant={dom}")
+    if not roof:
+        print(ROOFLINE_NOTE)
     print(f"# total benchmark wall time: {time.time() - t0:.0f}s",
           file=sys.stderr)
 

@@ -12,8 +12,8 @@
   uniform);
 * topology tables, the device rule, the faulted specs that build and
   step and those refused as the reference refuses them, and the mesh
-  exchange in a one-rank gloo world (LT-ADMM-CC builds and steps there;
-  dada's round on a mesh is not ported yet, item 15).
+  exchange in a one-rank gloo world (LT-ADMM-CC and dada build and step
+  there, each round bit-equal to the host round).
 """
 import json
 import os
@@ -209,21 +209,20 @@ def test_make_solver_defaults_to_the_card():
         make_solver("ltadmm:compressor=qbit:bits=8", graph, ex, None)
 
 
-@pytest.mark.parametrize("spec,mesh,err", [
+@pytest.mark.parametrize("spec,mesh,item", [
     ("dada:lr=0.1", {"axis": "data"}, "item 15"),
     ("ltadmm:compressor=qbit:bits=8", {"axis": "data"}, None)])
-def test_unported_solver_paths_raise(spec, mesh, err, tmp_path):
+def test_unported_solver_paths_raise(spec, mesh, item, tmp_path):
     """A solver over the multi-process exchange (the "data" axis of a
-    one-rank gloo world): LT-ADMM-CC builds and its round equals the host
-    round bit for bit; dada's round there is not ported yet (item 15)."""
+    one-rank gloo world) builds, and its round equals the host round bit
+    for bit: LT-ADMM-CC, and dada (ROADMAP ``item``, whose gossip and
+    dada rounds over ranks ``make_solver`` once refused)."""
+    del item
     graph, host_ex = build_graph("ring", 10)
-    est = vr.SagaTable(sample_grads=PROB.sample_grads, m=PROB.m)
+    est = (vr.PlainSgd(batch_grad=PROB.batch_grad) if spec.startswith(
+        "dada") else vr.SagaTable(sample_grads=PROB.sample_grads, m=PROB.m))
     with world("gloo", str(tmp_path / "store")):
         ex = topology.Exchange(graph, mesh=make_host_mesh(), **mesh)
-        if err is not None:
-            with pytest.raises(NotImplementedError, match=err):
-                make_solver(spec, graph, ex, None, device="cpu")
-            return
         s = make_solver(spec, graph, ex, est, device="cpu")
         assert s.exchange is ex and ex.rows == range(10) and ex.world == 1
         data = data_from_numpy(DATA_NP, "cpu")
@@ -231,9 +230,14 @@ def test_unported_solver_paths_raise(spec, mesh, err, tmp_path):
         got = s.step(s.init(x0), data, jaxrand.key(3))
     h = make_solver(spec, graph, host_ex, est, device="cpu")
     want = h.step(h.init(x0), data, jaxrand.key(3))
-    for f, g in zip(got._fields, got):
+    if isinstance(got, dict):
+        got, want = (tuple(st.items()) for st in (got, want))
+    else:
+        got, want = (tuple(zip(st._fields, st)) for st in (got, want))
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (f, g), (_, w) in zip(got, want):
         if isinstance(g, torch.Tensor):
-            assert torch.equal(g, getattr(want, f)), f
+            assert torch.equal(g, w), f
 
 
 FAULTED_SPECS = [

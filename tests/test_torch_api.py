@@ -253,12 +253,12 @@ def _harness_rows():
 
 
 def test_full_csv_matches_reference(monkeypatch, capsys):
+    """Every row the reference's full CSV prints, the roofline rows (read
+    from the port's dry-run records) included, in its format."""
     rows = _harness_rows()
     for name, out in rows.items():
-        jmod = importlib.import_module(f"benchmarks.{name}")
-        monkeypatch.setattr(jmod, "run", lambda *a, _o=out, **kw: _o)
-        if name != "roofline":
-            mod = importlib.import_module(f"repro_torch.{name}")
+        for pkg in ("benchmarks", "repro_torch"):
+            mod = importlib.import_module(f"{pkg}.{name}")
             monkeypatch.setattr(mod, "run", lambda *a, _o=out, **kw: _o)
     from benchmarks import run as jrun
 
@@ -267,10 +267,29 @@ def test_full_csv_matches_reference(monkeypatch, capsys):
     run.full_csv(device="cpu")
     got = capsys.readouterr().out.splitlines()
     assert want[0] == got[0] == "name,us_per_call,derived"
-    assert [ln for ln in want if not ln.startswith("roofline/")] == [
-        ln for ln in got if ln != run.ROOFLINE_NOTE]
-    assert got[-1] == run.ROOFLINE_NOTE and "item 17" in got[-1]
+    assert got == want
+    assert got[-1] == "roofline/qwen3,,t_compute_s=0.0123;dominant=flops"
     assert len(got) == len(want) == 10
+
+
+def test_full_csv_without_dryrun_records(monkeypatch, capsys, tmp_path):
+    """No dry-run records: the CSV ends with the reference's "no dry-run
+    records yet" line, naming the port's command."""
+    from repro_torch import roofline
+
+    for name, out in _harness_rows().items():
+        if name != "roofline":
+            mod = importlib.import_module(f"repro_torch.{name}")
+            monkeypatch.setattr(mod, "run", lambda *a, _o=out, **kw: _o)
+    monkeypatch.setattr(roofline, "DEFAULT_PATH",
+                        str(tmp_path / "torch_dryrun*.jsonl"))
+    monkeypatch.setattr(roofline.run, "__defaults__",
+                        (True, roofline.DEFAULT_PATH))
+    run.full_csv(device="cpu")
+    got = capsys.readouterr().out.splitlines()
+    assert got[-1] == run.ROOFLINE_NOTE == roofline.NO_RECORDS
+    assert "repro_torch.launch.dryrun" in got[-1]
+    assert len(got) == 10
 
 
 def test_serve_lm_argv(monkeypatch):

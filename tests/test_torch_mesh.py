@@ -17,8 +17,11 @@ path and the reference.
   ``shard_like``'s placements (each rank's shard is its slice); the
   sequence-sharded blockwise attention (f32, causal, with and without a
   window, T divisible by the axis and not) within 1e-5 relative of the
-  unsharded ``sdpa_blockwise``.  Here the rows are assembled over the
-  data axis, the model replicas must be equal, and the results must lie
+  unsharded ``sdpa_blockwise``; the gossip baselines (DSGD, CHOCO qbit8,
+  LEAD qbit8, COLD RandK, CEDAS qbit4, DPDC TopK on Ring(4), CHOCO
+  ``packed=false`` on drop0.3, LEAD under faults) and dada on
+  Complete(4), 3 rounds each, every state leaf.  Here the rows are
+  assembled over the data axis, the model replicas must be equal, and the results must lie
   within 1e-5 of the live reference's host-sim run (the tolerance of the
   reference's own SPMD check); the causal no-window attention also
   against the reference's ``sdpa_blockwise``.  The reference runs while
@@ -177,6 +180,24 @@ def test_mesh_exchange_matches_reference(world_run, graph):
             ("exchange_batched", ex.exchange_batched(jnp.asarray(xe)))):
         got = _assemble(ranks, lambda r: r["exchange"][graph][name])
         np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(sc.GOSSIP_CASES))
+def test_mesh_gossip_matches_host(world_run, case):
+    """The gossip baselines and dada over the mesh: every rank holds its
+    rows bit-equal to its host run (the ranks assert it); here the rows
+    assembled over the data axis equal the host run's whole state, and
+    every rank's host run is the same."""
+    ranks, _ = world_run
+    res = [r["gossip"][case] for r in ranks]
+    assert res[0]["state"].keys() == res[0]["host"].keys()
+    for f, want in res[0]["host"].items():
+        for r in res:
+            np.testing.assert_array_equal(r["host"][f], want)
+        got = _assemble(ranks, lambda r: r["gossip"][case]["state"][f])
+        np.testing.assert_array_equal(got, want, err_msg=f"{case}.{f}")
+    n = sc.GOSSIP_CASES[case][1]
+    assert res[0]["rows"] == (0, n // 4)
 
 
 @pytest.mark.parametrize("case", list(sc.ADMM_CASES))
@@ -397,16 +418,10 @@ def test_build_train_and_ddp_specs_on_a_mesh_match_reference(spec,
     _, jpps, _ = jsteps.build_ddp_train(jarch, jcfg, jm)
     with world("gloo", str(tmp_path / "store")):
         m = make_host_mesh()
-        if spec == "dsgd":
-            # the gossip baselines' rounds over ranks are not ported yet
-            with pytest.raises(NotImplementedError, match="item 15"):
-                steps.build_train(arch, cfg, None, spec, mesh=m,
-                                  device="cpu")
-        else:
-            _, state_ps, _, s = steps.build_train(
-                arch, cfg, None, spec, mesh=m, device="cpu")
-            assert s.exchange.mesh is m and s.graph.n_agents == 1
-            assert _walk_specs(state_ps) == _walk_specs(jstate_ps)
+        _, state_ps, _, s = steps.build_train(
+            arch, cfg, None, spec, mesh=m, device="cpu")
+        assert s.exchange.mesh is m and s.graph.n_agents == 1
+        assert _walk_specs(state_ps) == _walk_specs(jstate_ps)
         _, pps, _ = steps.build_ddp_train(arch, cfg, mesh=m)
         _specs_equal(pps, jpps)
 
