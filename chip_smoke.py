@@ -218,6 +218,31 @@ Phases (any failure exits non-zero):
      (``max_memory_allocated`` less what was there before, plus the
      inputs), the real run's dot_flops (``OpCounter`` on the card) equal
      to the trace's, its measured ms beside the roofline terms.
+  tp. tensor-parallel serving (``build_prefill`` / ``build_serve`` with a
+     mesh) in a spawned world of two ranks, one ("data", "model") mesh of
+     (1, 2): with two cards an NCCL world, one card a rank; with one card
+     both ranks on it over gloo (NCCL refuses two ranks on one device),
+     the backend printed.  qwen3-0.6b at full width and depth and
+     zamba2-2.7b at full width cut to one unit (6 Mamba blocks and the
+     shared block), bf16, weights from init_params(key(0)) cut to each
+     rank's shard (``shard_params``): the prefill (B = 4 / 2, T = 2048)
+     with counters zeroed just before and read just after (28 / 1
+     tensor-core K10 launches a rank, at the rank's heads), every K10
+     call of rank 0 held against its plain version; zamba2's Mamba
+     blocks' inputs through ``mamba_forward(use_kernel=True)`` on each
+     rank (6 tensor-core K11 launches at the rank's 40 heads, each
+     held); the gathered last logits against rank 0's one-rank run of the
+     same weights, and both against the same prefill in f32
+     (``TP_DRIFT_FACTOR``; the rows whose argmax differs printed with
+     their f32 margins); the tensor-parallel prefill in f32 against the
+     one-rank f32 prefill within ``TP_F32_TOL`` of the logits' scale;
+     greedy tokens (8 / 4 steps) equal on both ranks and to the one-rank
+     run's; the prefill ms in turns with the one-rank run (CUDA events;
+     the tensor-parallel turn's time inside the collectives over its span
+     as the idle share), the decode ms a step and the peak memory, each
+     rank's; an all_reduce's host ms at a decode's and a prefill's sizes
+     (``TP_COLLECTIVES``); then K10 and K11 timed at the rank's shapes.  The phase must end within
+     ``TP_PHASE_S`` seconds.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports only the port, torch, numpy
 and the standard library.
@@ -2874,85 +2899,98 @@ def time_serve_kernels(counts):
     (the CUDA-core variant): wrapper, bare launch, plain version, bound
     and SDPA on the same tensors; then K11 (``time_k11``)."""
     import torch
+
+    bf = torch.bfloat16
+    rows = []
+    for case, arch_id in zip(K10_CASES, SERVE_MODELS):
+        time_k10(rows, case, bf, counts[arch_id]["flash_attention"],
+                 f"{arch_id} prefill B={case[1]} T={case[4]}")
+    time_k10(rows, ("qwen3 f32 prefill", 1, 16, 8, CONSISTENCY_T, 128),
+             torch.float32, counts["f32"],
+             f"qwen3-0.6b f32 prefill B=1 T={CONSISTENCY_T}")
+    rows += time_k11(counts["zamba2-2.7b"]["ssd_chunked"])
+    return rows
+
+
+def time_k10(rows, case, dt, launches, launches_of):
+    """K10 at one causal shape ``case`` (label, B, H, KH, T, Dh) in
+    ``dt``: bf16 through the tensor-core variant (the CUDA-core kernel's
+    bare time on the same inputs beside it), f32 through the CUDA-core
+    one; appends its row (``launches`` on the main path)."""
+    import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flops
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    rows = []
-    f32_case = (("qwen3 f32 prefill", 1, 16, 8, CONSISTENCY_T, 128),
-                "f32", torch.float32)
-    for (label, b, h, kh, t, dh), arch_id, dt in (
-            *((case, arch_id, bf) for case, arch_id in zip(K10_CASES,
-                                                           SERVE_MODELS)),
-            f32_case):
-        q = torch.randn((b, t, h, dh), device=dev, dtype=dt)
-        k = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
-        v = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
-        out = torch.empty_like(q)
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        pairs = b * h * t * (t + 1) // 2  # the unmasked causal half
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, t, t, h, kh, dh, 1, 0, 1.0 / math.sqrt(dh))
-        # the timed inputs held too (each row's max_abs_err has a reading
-        # even when the kernels phase did not run), and in bf16 the
-        # CUDA-core kernel's bare launches timed beside the tensor-core one
-        want = k10_plain(q, k, v, causal=True)
-        got, variant = k10_call(q, k, v, True, None,
-                                "tc" if dt == bf else "cc")
-        log(f"[time] K10 ({variant}) {label}: "
-            f"{hold_k10(got, want, label, variant)}")
-        cc_ms = cuda_ms(lambda: _build.launch(
-            "flash_attention", *ptrs, int(dt == bf)))
-        if dt == bf:
-            log(f"[time] K10 (cc, bare) {label}: "
-                f"{hold_k10(out, want, label + ' cc', 'cc')}")
-        del got, want
-        common = dict(
-            ms=cuda_ms(lambda: flops.flash_attention(q, k, v, causal=True)),
-            plain_ms=cuda_ms(lambda: k10_plain(q, k, v, causal=True),
-                             iters=3, warmup=1),
-            nbytes=2 * q.element_size() * (b * t * h * dh + b * t * kh * dh),
-            int_ops=0,
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            launches_of=(f"{arch_id} prefill B={b} T={t}" if dt == bf else
-                         f"qwen3-0.6b f32 prefill B={b} T={t}"))
-        if dt == bf:
-            # q.k^T, p_hi.v and p_lo.v: three products of bf16 operands on
-            # the tensor cores, one exp per pair on the SFUs
-            add_row(
-                rows, f"K10-tc flash_attention_tc {label} [{b}, {t}, {h}, "
-                f"{dh}] kv {kh} causal bf16",
-                "src/repro_torch/csrc/flash_attention_sm90.cu",
-                "src/repro/kernels/flash_attention/kernel.py:84",
-                counts[arch_id]["flash_attention"],
-                kernel_ms=cuda_ms(lambda: _build.launch(
-                    "flash_attention_tc", *ptrs)),
-                fp_ops=0, bf16_ops=3 * 2 * dh * pairs, sfu_ops=pairs,
-                cc_kernel_ms=cc_ms,
-                sass=K10_SASS.get(f"kD={dh} kBK={128 if dh <= 128 else 64}"),
-                **common)
-        else:
-            # both products with an f32 operand on the CUDA cores
-            add_row(
-                rows, f"K10 flash_attention {label} [{b}, {t}, {h}, {dh}] "
-                f"kv {kh} causal f32",
-                "src/repro_torch/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention/kernel.py:84",
-                counts["f32"], kernel_ms=cc_ms, fp_ops=2 * 2 * dh * pairs,
-                max_abs_err_bf16=ERRS.get("K10-cc"), **common)
-        del q, k, v, out, qt, kt, vt
-    rows += time_k11(counts)
-    return rows
+    label, b, h, kh, t, dh = case
+    q = torch.randn((b, t, h, dh), device=dev, dtype=dt)
+    k = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
+    v = torch.randn((b, t, kh, dh), device=dev, dtype=dt)
+    out = torch.empty_like(q)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    pairs = b * h * t * (t + 1) // 2  # the unmasked causal half
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, t, t, h, kh, dh, 1, 0, 1.0 / math.sqrt(dh))
+    # the timed inputs held too (each row's max_abs_err has a reading
+    # even when the kernels phase did not run), and in bf16 the
+    # CUDA-core kernel's bare launches timed beside the tensor-core one
+    want = k10_plain(q, k, v, causal=True)
+    got, variant = k10_call(q, k, v, True, None,
+                            "tc" if dt == bf else "cc")
+    log(f"[time] K10 ({variant}) {label}: "
+        f"{hold_k10(got, want, label, variant)}")
+    cc_ms = cuda_ms(lambda: _build.launch(
+        "flash_attention", *ptrs, int(dt == bf)))
+    if dt == bf:
+        log(f"[time] K10 (cc, bare) {label}: "
+            f"{hold_k10(out, want, label + ' cc', 'cc')}")
+    del got, want
+    common = dict(
+        ms=cuda_ms(lambda: flops.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: k10_plain(q, k, v, causal=True),
+                         iters=3, warmup=1),
+        nbytes=2 * q.element_size() * (b * t * h * dh + b * t * kh * dh),
+        int_ops=0,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        launches_of=launches_of)
+    if dt == bf:
+        # q.k^T, p_hi.v and p_lo.v: three products of bf16 operands on
+        # the tensor cores, one exp per pair on the SFUs
+        add_row(
+            rows, f"K10-tc flash_attention_tc {label} [{b}, {t}, {h}, "
+            f"{dh}] kv {kh} causal bf16",
+            "src/repro_torch/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention/kernel.py:84",
+            launches,
+            kernel_ms=cuda_ms(lambda: _build.launch(
+                "flash_attention_tc", *ptrs)),
+            fp_ops=0, bf16_ops=3 * 2 * dh * pairs, sfu_ops=pairs,
+            cc_kernel_ms=cc_ms,
+            sass=K10_SASS.get(f"kD={dh} kBK={128 if dh <= 128 else 64}"),
+            **common)
+    else:
+        # both products with an f32 operand on the CUDA cores
+        add_row(
+            rows, f"K10 flash_attention {label} [{b}, {t}, {h}, {dh}] "
+            f"kv {kh} causal f32",
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:84",
+            launches, kernel_ms=cc_ms, fp_ops=2 * 2 * dh * pairs,
+            max_abs_err_bf16=ERRS.get("K10-cc"), **common)
+    del q, k, v, out, qt, kt, vt
 
 
-def time_k11(counts):
-    """K11 at zamba2's SSD shape in bf16: the tensor-core variant's wrapper
-    and bare launch (the CUDA-core kernel's bare launch on the same inputs
-    in turns beside it), the plain version, and the bound of the work
-    each design does; then the CUDA-core variant's wrapper forced.  Also
+def time_k11(launches, case=K11_CASE, label="zamba2",
+             launches_of="zamba2-2.7b's 54 Mamba blocks"):
+    """K11 at an SSD shape ``case`` (B, T, NH, HD, NG, DS, chunk) in bf16:
+    the tensor-core variant's wrapper and bare launch (the CUDA-core
+    kernel's bare launch on the same inputs in turns beside it), the plain
+    version, and the bound of the work each design does; then the
+    CUDA-core variant's wrapper forced.  ``launches``: {variant: launches
+    on the main path}, ``launches_of`` the blocks they come from.  Also
     prints what the tensor-core launches look like to the runtime."""
     import torch
 
@@ -2962,15 +3000,15 @@ def time_k11(counts):
     from repro_torch.models.mamba import SSMConfig
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    b, t, nh, hd, ng, ds, chunk = K11_CASE
+    b, t, nh, hd, ng, ds, chunk = case
     cfg = SSMConfig(nh * hd // 2, d_state=ds, head_dim=hd, n_groups=ng,
                     chunk=chunk)
     x, bm, cm, alog = ssd_inputs(dev, b, t, nh, hd, ng, ds, bf)
     want = k11_plain(cfg, x, bm, cm, alog)
     for variant in ("tc", "cc"):
         got = k11_call(cfg, x, bm, cm, alog, variant, variant)
-        log(f"[time] K11 ({variant}) zamba2: "
-            f"{hold_k11(got, want, 'zamba2 timed', variant)}")
+        log(f"[time] K11 ({variant}) {label}: "
+            f"{hold_k11(got, want, f'{label} timed', variant)}")
     del got, want
     info = ssmops.tc_launch_info(b, t, nh, ng, hd, ds, chunk)
     log(f"[time] K11-tc launches as the runtime reports them (threads, "
@@ -3011,13 +3049,12 @@ def time_k11(counts):
     with_state, _ = bound_ms(nbytes + state_bytes, 0, tc_fp, tc_bf16, tc_sfu)
     common = dict(plain_ms=plain_ms, nbytes=nbytes, int_ops=0,
                   library_ms=None,
-                  launches_of="zamba2-2.7b's 54 Mamba blocks, kernel path")
+                  launches_of=f"{launches_of}, kernel path")
     rows = []
     add_row(
         rows, f"K11-tc ssd_scan_tc [{b}, {nh}, {t}, {hd}] DS {ds} chunk "
         f"{chunk} bf16", "src/repro_torch/csrc/ssd_scan_sm90.cu",
-        "src/repro/kernels/ssm_scan/kernel.py:81",
-        counts["zamba2-2.7b"]["ssd_chunked"]["tc"],
+        "src/repro/kernels/ssm_scan/kernel.py:81", launches["tc"],
         cuda_ms(lambda: ssmops.ssd_chunked(cfg, x, bm, cm, alog)), tc_ms,
         fp_ops=tc_fp, bf16_ops=tc_bf16, sfu_ops=tc_sfu, cc_kernel_ms=cc_ms,
         kernel_ms_turns=tc_turns, cc_kernel_ms_turns=cc_turns,
@@ -3034,12 +3071,12 @@ def time_k11(counts):
         rows, f"K11-cc ssd_scan [{b}, {nh}, {t}, {hd}] DS {ds} chunk {chunk}"
         " bf16", "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssm_scan/kernel.py:81",
-        counts["zamba2-2.7b"]["ssd_chunked"]["cc"], cc_wrapper_ms, cc_ms,
+        launches["cc"], cc_wrapper_ms, cc_ms,
         fp_ops=2 * heads * (tri * hd + 2 * chunk * ds * hd),
         bf16_ops=2 * heads * tri * ds,
         max_abs_err_f32=ERRS.get("K11-cc-f32"),
-        **{**common, "launches_of": "zamba2-2.7b's 54 Mamba blocks, "
-           "CUDA-core variant forced"})
+        **{**common, "launches_of": f"{launches_of}, CUDA-core variant "
+           "forced"})
     return rows
 
 
@@ -5904,6 +5941,516 @@ def phase_dryrun():
     torch.cuda.empty_cache()
 
 
+# the tp phase: tensor-parallel serving (``build_prefill`` / ``build_serve``
+# with a mesh) in a world of TP_RANKS ranks, one "model" axis over them.
+# arch -> (prefill B, T, greedy B, prompt, new tokens, n_layers cut or None)
+TP_RANKS = 2
+TP_MODELS = {"qwen3-0.6b": (4, 2048, 4, 1, 8, None),
+             "zamba2-2.7b": (2, 2048, 4, 1, 4, 6)}
+# K10 launches and Mamba blocks a rank: qwen3-0.6b's 28 layers; zamba2's
+# one unit, 6 Mamba blocks and the shared block once
+TP_EXPECT = {"qwen3-0.6b": (28, 0), "zamba2-2.7b": (1, 6)}
+# the gathered last bf16 logits' distance from an f32 evaluation of the
+# same weights, at most this many times the one-rank bf16 run's own: the
+# reassociated sums must not drift further than bf16 rounding already
+# does, plus TP_F32_RTOL of the logits' scale.  The bf16 SSD path drifts
+# by units (ROADMAP Queue 3, Serving 4; PERF.md §6), so for zamba2
+# this check is weak: the binding one is TP_F32_TOL, the tensor-parallel
+# prefill run in f32 against the one-rank f32 prefill of the same
+# weights, where no bf16 rounding hides a fault (the CPU tests hold the
+# same at 1e-5 against the reference)
+TP_DRIFT_FACTOR, TP_F32_RTOL = 2.0, 1e-5
+TP_F32_TOL = 1e-4  # of the f32 logits' scale
+# all_reduce sizes the phase times in its world after the models: a
+# decode step's [4, 1, 1024] bf16, a prefill's [4, 2048, 1024] in bf16
+# and in f32 (its row-parallel partials)
+TP_COLLECTIVES = (((4, 1, 1024), "bfloat16"), ((4, 2048, 1024), "bfloat16"),
+                  ((4, 2048, 1024), "float32"))
+TP_COLLECTIVE_CALLS = 10
+TP_PHASE_S = 60  # the phase's limit, host clock
+
+
+def memory_peak(fn):
+    """``(fn(), bytes allocated at the peak of the call above what was
+    allocated before it)``; 0 off the card."""
+    import torch
+
+    if DEV != "cuda":
+        return fn(), 0
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@contextlib.contextmanager
+def collective_events():
+    """Inside the block each of ``launch.tp``'s collectives records a CUDA
+    event just before and just after it (the layers call them through the
+    module, so the stand-ins are seen); yields the list of (before,
+    after) pairs."""
+    import torch
+
+    from repro_torch.launch import tp
+
+    pairs = []
+    saved = {n: getattr(tp, n)
+             for n in ("all_reduce", "all_reduce_exact", "all_gather")}
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            before = torch.cuda.Event(enable_timing=True)
+            before.record()
+            out = fn(*args, **kwargs)
+            after = torch.cuda.Event(enable_timing=True)
+            after.record()
+            pairs.append((before, after))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(tp, name, wrap(fn))
+    try:
+        yield pairs
+    finally:
+        for name, fn in saved.items():
+            setattr(tp, name, fn)
+
+
+def idle_in_collectives(fn):
+    """``(ms, ms inside the collectives)`` of ``fn()`` on the device's
+    clock (CUDA events): the span from before the call to after it, and
+    the part of it between each collective's two events (the stream's
+    wait for the host's exchange, gloo's copies included).  Their ratio
+    stands for the device's idle share: read without torch.profiler,
+    whose first session in a process starts CUPTI (seconds); it counts
+    gloo's copies as idle and the launch gaps between collectives as
+    busy."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with collective_events() as pairs:
+        start.record()
+        fn()
+        end.record()
+    end.synchronize()
+    return (start.elapsed_time(end),
+            sum(b.elapsed_time(a) for b, a in pairs))
+
+
+def argmax_flips(a, b, yard):
+    """The rows whose argmax differs between logits ``a`` and ``b`` ([B,
+    1, V]): (row, ``yard``'s logit of b's pick less a's, ``yard``'s own
+    top-2 margin), ``yard`` the f32 logits of the same weights."""
+    ia, ib = a.argmax(-1).flatten(), b.argmax(-1).flatten()
+    y = yard.reshape(ia.numel(), -1)
+    out = []
+    for r in (ia != ib).nonzero().flatten().tolist():
+        top = y[r].topk(2).values
+        out.append((r, float(y[r, ib[r]] - y[r, ia[r]]),
+                    float(top[0] - top[1])))
+    return out
+
+
+def tp_collective_ms(mesh, dev):
+    """Host ms of one ``all_reduce`` over the "model" group at each of
+    ``TP_COLLECTIVES`` (mean of ``TP_COLLECTIVE_CALLS`` after one warm
+    call, each synchronised), each sum checked."""
+    import torch
+    import torch.distributed as dist
+
+    group, out = mesh.get_group("model"), {}
+    for shape, dt in TP_COLLECTIVES:
+        t = torch.ones(shape, dtype=getattr(torch, dt), device=dev)
+        dist.all_reduce(t, group=group)
+        if not bool((t == TP_RANKS).all()):
+            raise AssertionError(f"all_reduce of {shape} {dt} is wrong")
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TP_COLLECTIVE_CALLS):
+            dist.all_reduce(t, group=group)
+        sync()
+        out[f"{list(shape)} {dt}"] = ((time.perf_counter() - t0) * 1e3
+                                      / TP_COLLECTIVE_CALLS)
+    return out
+
+
+def tp_model(arch_id, mesh, rank, dev):
+    """One model served tensor-parallel over ``mesh``'s "model" axis on
+    this rank, and on rank 0 also whole: the prefill under a
+    ``MainPathTap`` (counts zeroed just before, read just after; rank 0
+    holds every K10 call), the Mamba blocks' inputs through K11 on each
+    rank (every call held), the prefill in turns with the one-rank run,
+    one profiled, and the greedy server.  Returns the rank's readings."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.trees import tree_flatten, tree_map
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import serve, tp
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.steps import build_prefill, model_specs
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import init_params
+    from repro_torch.models.mamba import Mamba
+
+    pb, pt, gb, gp, gg, layers = TP_MODELS[arch_id]
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke() if SMOKE else arch.make(None)
+    if SMOKE:
+        pb, pt, gb, gp, gg = 2, 64, 2, 4, 4
+    elif layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = dataclasses.replace(cfg, use_flash=True)
+    specs = model_specs(arch, cfg)
+    marks, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        sync()
+        marks[name] = round(time.perf_counter() - t0, 2)
+
+    tree = init_params(jaxrand.key(0, dev), specs, dtype=cfg.dtype)
+    batch = {"tokens": jaxrand.randint(jaxrand.key(1, dev), (pb, pt), 0,
+                                       cfg.vocab)}
+    mark("weights")
+    prompt = jaxrand.randint(jaxrand.key(0, dev), (gb, gp), 0, cfg.vocab)
+    out = {"weights": sum(t.numel() for t in tree_flatten(tree)[0]),
+           "blocks": (cfg.n_units * (cfg.pattern.count("attn")
+                                     + int(cfg.shared_attn)),
+                      cfg.n_units * cfg.pattern.count("mamba"))}
+    whole = prefill1 = None
+    # the same weights in f32: the yardstick, whole on rank 0, and the
+    # tensor-parallel f32 prefill's shards on every rank
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    tree32 = tree_map(lambda t: t.float(), tree)
+    if rank == 0:
+        whole = tr.model_params(cfg, tree)  # shares the leaves
+        prefill1 = build_prefill(arch, cfg)
+        with torch.no_grad():
+            last1, peak1 = memory_peak(lambda: prefill1(whole, batch))
+            tok1, secs1 = serve.generate(arch, cfg, whole, prompt, gg)
+            w32 = tr.model_params(cfg32, tree32)  # shares the leaves
+            last32 = build_prefill(arch, cfg32)(w32, batch).float()
+            del w32
+        out["one"] = {"peak": peak1, "tokens": tok1.tolist(),
+                      "decode_ms": secs1 * 1e3 / gg,
+                      "weight_bytes": sum(p.numel() * p.element_size()
+                                          for p in whole.parameters())}
+    mark("one rank")
+    shard = tr.model_params(cfg, shd.shard_params(tree, mesh, "serve",
+                                                  specs))
+    del tree
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in shard.parameters())
+    prefill = build_prefill(arch, cfg, mesh)
+    mark("shard")
+
+    mamba_in = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, res: mamba_in.append((mod, args[0])))
+        for m in shard.modules() if isinstance(m, Mamba)]
+    tap = MainPathTap(SERVE_WRAPPERS)
+    tap.checking = rank == 0
+    tp.reset_stats()
+    try:
+        reset_counts()  # the tensor-parallel prefill starts here
+        with torch.no_grad():
+            last, peak = memory_peak(lambda: prefill(shard, batch))
+        sync()
+        after = read_counts()  # ... and ends here
+    finally:
+        tap.close()
+        for h in hooks:
+            h.remove()
+    out.update(peak=peak, collectives=dict(tp.stats),
+               k10={n: after[f"flash_attention{n}"]
+                    for n in ("", "_tc", "_cc")},
+               k10_shapes={_show(k[1]): c for k, c in tap.by_shape.items()},
+               k10_held=len(tap.readings.get("flash_attention", [])),
+               k10_readings=sorted(set(tap.readings.get("flash_attention",
+                                                        [])))[:3])
+    # the tensor-parallel prefill again, in f32 (after the main path's
+    # counts were read)
+    shard32 = tr.model_params(cfg32, shd.shard_params(tree32, mesh,
+                                                      "serve", specs))
+    del tree32
+    with torch.no_grad():
+        tp32 = build_prefill(arch, cfg32, mesh)(shard32, batch).float()
+    del shard32
+    for t in (last, tp32):
+        if tuple(t.shape) != (pb, 1, cfg.vocab) or not bool(
+                torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{arch_id}: tensor-parallel logits bad")
+    if rank == 0:
+        lf, wf = last.float(), last1.float()
+        d = float((lf - wf).abs().max())
+        scale = float(wf.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        out["logits"] = {"max_abs": d, "scale": scale, "ulps": d / ulp,
+                         "tp_f32": float((lf - last32).abs().max()),
+                         "one_f32": float((wf - last32).abs().max()),
+                         "f32": float((tp32 - last32).abs().max()),
+                         "scale32": float(last32.abs().max()),
+                         "argmax_equal": bool(torch.equal(
+                             lf.argmax(-1), wf.argmax(-1))),
+                         "argmax_equal_f32": bool(torch.equal(
+                             tp32.argmax(-1), last32.argmax(-1))),
+                         "flips": argmax_flips(lf, wf, last32)}
+        del last1, last32
+    del last, tp32
+    mark("main path")
+
+    if mamba_in:
+        tap = MainPathTap({"ssd_chunked": (
+            "K11", "ssm_scan", k11_plain,
+            functools.partial(hold_k11, variant="tc"))})
+        tap.checking = True
+        try:
+            reset_counts()  # the Mamba blocks' kernel path starts here
+            with use_mesh(mesh), torch.no_grad():
+                ys = [mod(x, use_kernel=True) for mod, x in mamba_in]
+            sync()
+            after = read_counts()  # ... and ends here
+        finally:
+            tap.close()
+        out["k11"] = {n: after[f"ssd_chunked{n}"] for n in ("", "_tc", "_cc")}
+        out["k11_shapes"] = {_show(k[1]): c for k, c in tap.by_shape.items()}
+        out["k11_readings"] = sorted(set(tap.readings.get("ssd_chunked",
+                                                          [])))[:3]
+        out["k11_held"] = len(tap.readings.get("ssd_chunked", []))
+        out["mamba_blocks"] = len(mamba_in)
+        del ys
+    del mamba_in
+    mark("K11")
+
+    with torch.no_grad():
+        if DEV == "cuda":
+            # turns one, tp, one; the tp turn's time inside the
+            # collectives over its span is the rank's idle share
+            # (``idle_in_collectives``)
+            times, held = {"one": [], "tp": []}, None
+            for turn in ("one", "tp", "one"):
+                dist.barrier()
+                if turn == "tp":
+                    ms, held = idle_in_collectives(
+                        lambda: prefill(shard, batch))
+                    times["tp"].append(ms)
+                elif rank == 0:
+                    times["one"].append(cuda_ms(
+                        lambda: prefill1(whole, batch), iters=2, warmup=1))
+            out.update(times=times, held=held, idle=held / times["tp"][0])
+            mark("turns")
+        del whole
+        tokens, secs = serve.generate(arch, cfg, shard, prompt, gg,
+                                      mesh=mesh)
+    out["tokens"] = tokens.tolist()
+    out["decode_ms"] = secs * 1e3 / gg
+    mark("greedy")
+    out["marks"] = marks
+    seen = [None] * TP_RANKS
+    dist.all_gather_object(seen, out["tokens"], group=mesh.get_group("model"))
+    out["ranks_agree"] = all(t == out["tokens"] for t in seen)
+    del shard
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in out.items()}
+
+
+def tp_rank(rank, backend, store_dir, dev_type, smoke, started):
+    """One rank of the tp phase's world (a spawned process): the world
+    from a ``FileStore``, a ``(1, TP_RANKS)`` ("data", "model") mesh,
+    ``tp_model`` of each of ``TP_MODELS``; the readings go to
+    ``store_dir/tp<rank>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, world
+
+    global DEV, SMOKE
+    DEV, SMOKE = dev_type, smoke
+    spawned = time.time() - started
+    dev = torch.device("cpu")
+    if dev_type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    with world(backend, os.path.join(store_dir, "store"), rank, TP_RANKS,
+               dev if backend == "nccl" else None):
+        mesh = make_host_mesh(TP_RANKS, model=TP_RANKS)
+        out = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(dev), "spawn_s": spawned,
+               "start_s": time.perf_counter() - t0}
+        for arch_id in TP_MODELS:
+            t1 = time.perf_counter()
+            out[arch_id] = tp_model(arch_id, mesh, rank, dev)
+            out[arch_id]["seconds"] = time.perf_counter() - t1
+        out["collective_ms"] = tp_collective_ms(mesh, dev)
+        dist.barrier()
+    with open(os.path.join(store_dir, f"tp{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_tp():
+    """Tensor-parallel serving over a 2-rank "model" world: with two or
+    more cards an NCCL world, one card a rank; with one card both ranks
+    on it in a gloo world (NCCL refuses two ranks on one device), chosen
+    by the device count and printed.  Each model's tensor-parallel
+    prefill and greedy tokens against its one-rank run, its K10 / K11
+    launches per variant on each rank, the prefill ms in turns with the
+    one-rank run, the decode ms a step, each rank's idle share and peak
+    memory.  Returns {arch: rank 0's readings} for the kernels line."""
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    backend = ("nccl" if DEV == "cuda" and torch.cuda.device_count()
+               >= TP_RANKS else "gloo")
+    where = ("one card a rank" if backend == "nccl" else
+             f"all {TP_RANKS} ranks on {DEV}"
+             + (" card 0" if DEV == "cuda" else ""))
+    log(f"[tp] a {TP_RANKS}-rank {backend} world ({where}; "
+        f"{torch.cuda.device_count() if DEV == 'cuda' else 0} cards), "
+        f"mesh (1 data, {TP_RANKS} model)")
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(tp_rank, args=(backend, d, DEV, SMOKE,
+                                                time.time()),
+                                 nprocs=TP_RANKS, join=False,
+                                 start_method="spawn")
+        while not ctx.join():
+            pass
+        ranks = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(d, f"tp{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    log(f"[tp] backend {ranks[0]['backend']} on {ranks[0]['device']} / "
+        f"{ranks[1]['device']}; the ranks ran their first line "
+        f"{max(r['spawn_s'] for r in ranks):.1f} s after the spawn, the "
+        f"world started in {max(r['start_s'] for r in ranks):.1f} s; "
+        f"host ms of one all_reduce a rank: "
+        f"{[r['collective_ms'] for r in ranks]}"
+        + ("" if CARD is None else f" [{CARD}]"))
+    for arch_id in TP_MODELS:
+        n_attn, n_mamba = ranks[0][arch_id]["blocks"]
+        if not SMOKE and (n_attn, n_mamba) != TP_EXPECT[arch_id]:
+            raise AssertionError(f"{arch_id}: {n_attn} attention and "
+                                 f"{n_mamba} Mamba blocks")
+        one = ranks[0][arch_id]["one"]
+        for r in ranks:
+            o = r[arch_id]
+            line = (f"[tp] {arch_id} rank {r['rank']}: {o['weights']} "
+                    f"weights, the rank's {o['weight_bytes']:,} B (one rank "
+                    f"{one['weight_bytes']:,} B); prefill peak above what "
+                    f"was there {o['peak']:,} B (one rank {one['peak']:,} "
+                    f"B); K10 launches {o['k10']} at {o['k10_shapes']}")
+            if "k11" in o:
+                line += (f"; K11 launches {o['k11']} at {o['k11_shapes']}, "
+                         f"{o['k11_held']} held: {o['k11_readings']}")
+            line += (f"; collectives a prefill {o['collectives']}; greedy "
+                     f"{o['decode_ms']:.3f} ms a step (one rank "
+                     f"{one['decode_ms']:.3f}); {o['seconds']:.1f} s, host "
+                     f"seconds at the end of each stage {o['marks']}")
+            if "times" in o:
+                line += (f"; prefill ms (CUDA events, turns one, tp, one) "
+                         f"tp {o['times']['tp']}"
+                         + (f", one rank {o['times']['one']}"
+                            if o["times"]["one"] else "")
+                         + f"; of the tp turn {o['held']:.3f} ms inside the "
+                         f"collectives: idle share {o['idle']:.4f}")
+            log(line + ("" if CARD is None else f" [{CARD}]"))
+            if DEV == "cuda" and o["k10"] != {"": n_attn, "_tc": n_attn,
+                                              "_cc": 0}:
+                raise AssertionError(f"{arch_id} rank {r['rank']}: K10 "
+                                     f"launches {o['k10']}, expected "
+                                     f"{n_attn} tensor-core")
+            if n_mamba and (o["k11_held"] != n_mamba or (
+                    DEV == "cuda" and o["k11"] != {
+                        "": n_mamba, "_tc": n_mamba, "_cc": 0})):
+                raise AssertionError(f"{arch_id} rank {r['rank']}: K11 "
+                                     f"{o['k11']}, {o['k11_held']} held, "
+                                     f"expected {n_mamba} tensor-core")
+            if not o["ranks_agree"] or o["tokens"] != one["tokens"]:
+                raise AssertionError(f"{arch_id} rank {r['rank']}: greedy "
+                                     f"tokens {o['tokens']} differ from the "
+                                     f"one-rank run's {one['tokens']}")
+        o = ranks[0][arch_id]
+        lg = o["logits"]
+        log(f"[tp] {arch_id}: gathered last logits vs the one-rank run's "
+            f"max |d| {lg['max_abs']:.4e} at scale {lg['scale']:.4f} = "
+            f"{lg['ulps']:.2f} bf16 ulps, argmax equal "
+            f"{lg['argmax_equal']}; from the f32 prefill of the same "
+            f"weights: tensor-parallel {lg['tp_f32']:.4e}, one rank "
+            f"{lg['one_f32']:.4e} (limit {TP_DRIFT_FACTOR}x that + "
+            f"{TP_F32_RTOL} of the scale); rows whose argmax differs "
+            f"(row, f32 logit of the one-rank pick less the tensor-"
+            f"parallel one's, f32 top-2 margin): {lg['flips']}; the "
+            f"prefill in f32: tensor-parallel vs one rank {lg['f32']:.4e} "
+            f"at scale {lg['scale32']:.4f} (limit {TP_F32_TOL} of it), "
+            f"argmax equal {lg['argmax_equal_f32']}; "
+            f"{o['k10_held']} K10 calls of rank 0 held: {o['k10_readings']}"
+            f"; greedy tokens equal on both ranks and to the one-rank "
+            f"run's: {o['tokens'][0]}")
+        if o["k10_held"] != n_attn:
+            raise AssertionError(f"{arch_id}: {o['k10_held']} K10 calls "
+                                 f"held, expected {n_attn}")
+        if lg["tp_f32"] > (TP_DRIFT_FACTOR * lg["one_f32"]
+                           + TP_F32_RTOL * lg["scale"]):
+            raise AssertionError(f"{arch_id}: the tensor-parallel logits "
+                                 f"lie {lg['tp_f32']:.4e} from the f32 "
+                                 f"prefill's, the one-rank run's "
+                                 f"{lg['one_f32']:.4e}")
+        if lg["f32"] > TP_F32_TOL * lg["scale32"]:
+            raise AssertionError(f"{arch_id}: the tensor-parallel f32 "
+                                 f"logits lie {lg['f32']:.4e} from the "
+                                 f"one-rank f32 run's, over {TP_F32_TOL} "
+                                 f"of {lg['scale32']:.4f}")
+    spent = time.perf_counter() - t0
+    log(f"[tp] phase {spent:.1f} s (limit {TP_PHASE_S} s)")
+    if spent > TP_PHASE_S:
+        raise AssertionError(f"the tp phase took {spent:.1f} s, over its "
+                             f"{TP_PHASE_S} s")
+    return {arch_id: ranks[0][arch_id] for arch_id in TP_MODELS}
+
+
+def time_tp_kernels(tp_counts):
+    """K10 and K11 at the shapes a rank of the tp phase gives them
+    (``time_k10``, ``time_k11``); the launches are rank 0's."""
+    import torch
+
+    rows = []
+    for arch_id, (label, h, kh, dh) in (
+            ("qwen3-0.6b", ("qwen3 tp2", 8, 4, 128)),
+            ("zamba2-2.7b", ("zamba2 tp2", 16, 16, 80))):
+        pb, pt = TP_MODELS[arch_id][:2]
+        time_k10(rows, (label, pb, h, kh, pt, dh), torch.bfloat16,
+                 tp_counts[arch_id]["k10"]["_tc"],
+                 f"rank 0 of {arch_id}'s tp-2 prefill B={pb} T={pt}")
+    b, t, nh, hd, ng, ds, chunk = K11_CASE
+    k11 = tp_counts["zamba2-2.7b"]["k11"]
+    rows += time_k11({"tc": k11["_tc"], "cc": k11["_cc"]},
+                     (b, t, nh // TP_RANKS, hd, ng, ds, chunk), "zamba2 tp2",
+                     "rank 0 of zamba2-2.7b's tp-2 unit, 6 Mamba blocks")
+    return rows
+
+
 @contextlib.contextmanager
 def phase_clock(name, spent):
     """Adds the host-clock seconds of the block to ``spent[name]``."""
@@ -5918,7 +6465,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,paper,mesh,fig2,obs,"
-                    "dada,harness,wide,profile,serve,train,zoo,dryrun",
+                    "dada,harness,wide,profile,serve,train,zoo,dryrun,tp",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -6020,6 +6567,12 @@ def main(argv=None):
         with phase_clock("dryrun", spent):
             torch.cuda.empty_cache()
             phase_dryrun()
+    if "tp" in phases:
+        with phase_clock("tp", spent):
+            torch.cuda.empty_cache()
+            tp_counts = phase_tp()
+        with phase_clock("tp timing", spent):
+            rows = (rows or []) + time_tp_kernels(tp_counts)
     log(f"[time] host-clock seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f"; main {time.perf_counter() - t_main:.1f}")

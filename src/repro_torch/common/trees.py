@@ -43,6 +43,16 @@ def tree_flatten(tree, is_leaf=None):
     return leaves, rebuild
 
 
+def dict_paths(tree, prefix: str = "") -> dict:
+    """``{"a.b.c": leaf}`` of a tree of nested dicts, keys sorted."""
+    if not isinstance(tree, Mapping):
+        return {prefix[:-1]: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(dict_paths(tree[k], f"{prefix}{k}."))
+    return out
+
+
 def is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 

@@ -29,17 +29,27 @@ What rank 0 runs:
   of ``abstract_train_state`` and of ``input_specs(..., n_agents)``:
   A / W agents, and its share of the local batch where
   ``shd.train_data_pspec`` shards it over "data" (the multi-pod mesh).
-* prefill and decode: ``build_prefill`` / ``build_serve``, the rank's
-  share of each input's batch dim as ``shd.batch_pspec`` and
-  ``shd.cache_pspec`` assign it; any other dim runs whole (the cache's
-  sequence dim included), unless the variant's ``attn_seq_shard`` asks
-  for sequence-sharded attention.
+* prefill and decode: ``build_prefill`` / ``build_serve`` with the mesh,
+  the parameters cut by the variant's ``serve_mode`` (default "serve";
+  ``shd.shard_params``, ``shd.param_pspec``), the rank's share of
+  each input's batch dim as ``shd.batch_pspec`` and ``shd.cache_pspec``
+  assign it; any other dim runs whole (the cache's sequence dim
+  included), unless the variant's ``attn_seq_shard`` asks for
+  sequence-sharded attention.  Where ``steps.tp_serving`` holds (the
+  GQA + FFN archs and zamba2) the step runs tensor-parallel over "model"
+  on the rank's shard of the parameters (``shd.shard_params``) and its
+  cache (the KV heads, the SSD heads and their conv channels).
 
-Parameters are replicated over "model": the port does not apply tensor
-parallelism (ROADMAP Queue 1), and every record says so
-(``"tp_applied": false``) beside the dims it sharded (``"sharded"``) and
-those the reference's specs shard that it ran whole (``"whole"``).  So
-per-device bytes and FLOPs exceed the reference's by design.
+A record says whether tensor parallelism ran (``"tp_applied"``: true for
+those archs' prefill and decode; false for training and for the MoE, MLA,
+xLSTM and encoder-decoder archs, whose parameters are replicated over
+"model", so their per-device bytes and FLOPs exceed the reference's by
+design) beside the dims it sharded (``"sharded"``), those the reference's
+specs shard that it ran whole (``"whole"``: the parameters' "data" dims,
+FSDP, always), and the leaves it holds in another layout than the
+reference's spec gives (``"tp_layout"``: a Mamba mixer's, cut by SSD
+head, and its decode state ``h``, whose heads dim takes "model" where
+``cache_pspec`` shards d_state).
 
 A record holds the reference's keys, with ``hlo`` renamed ``ops`` (an
 ``op_analysis.OpStats``), ``xla_cost_analysis_flops`` replaced by
@@ -70,7 +80,7 @@ import traceback
 import torch
 import torch.distributed as dist
 
-from repro_torch.common.trees import tree_flatten, tree_map
+from repro_torch.common.trees import dict_paths, tree_flatten, tree_map
 from repro_torch.configs import ARCHS, SHAPES, input_specs
 from repro_torch.launch import op_analysis
 from repro_torch.launch import sharding as shd
@@ -282,18 +292,52 @@ def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
     return n_agents, step_fn, (state, data, 0)
 
 
-def _prefill_case(arch_id, arch, cfg, shape_name, mesh, sharded, whole):
-    prefill = steps.build_prefill(arch, cfg)
-    params = abstract_params(steps.model_specs(arch, cfg), cfg.dtype)
+def _params_case(arch, cfg, mesh, mode, sharded, whole, layout):
+    """The rank's parameters (``meta``): its shard where tensor
+    parallelism runs (recorded per leaf), else the whole tree.  Returns
+    ``(params, tp_applied)``."""
+    specs = steps.model_specs(arch, cfg)
+    params = abstract_params(specs, cfg.dtype)
+    tp_on = steps.tp_serving(arch, cfg) and axes_of(mesh).shape.get(
+        shd.TP_AXIS, 1) > 1
+    plans = dict_paths(shd.tp_plan(mesh, mode, specs)) if tp_on else {}
+    for name, ps in dict_paths(shd.param_pspec(mesh, mode, specs)).items():
+        plan = plans.get(name)
+        for d, entry in enumerate(ps):
+            axes = [a for a in _axes(entry)
+                    if not (plan and plan.dim is not None
+                            and a == shd.TP_AXIS)]
+            if axes:
+                whole.setdefault(f"params.{name}", []).append([d, axes])
+        if plan and plan.dim is not None:
+            sharded.setdefault(f"params.{name}", []).append(
+                [plan.dim, [shd.TP_AXIS]])
+        if plan and plan.differs:
+            layout[f"params.{name}"] = (
+                "held whole" if plan.dim is None else
+                f"dim {plan.dim} by SSD head: pieces (length, cut) "
+                f"{[list(x) for x in plan.segments]}")
+    if tp_on:
+        params = shd.shard_params(params, mesh, mode, specs)
+    return params, tp_on
+
+
+def _prefill_case(arch_id, arch, cfg, shape_name, mesh, mode, sharded,
+                  whole, layout):
+    prefill = steps.build_prefill(arch, cfg, mesh)
+    params, tp_on = _params_case(arch, cfg, mesh, mode, sharded, whole,
+                                 layout)
     data = {k: _share(mesh, v, shd.batch_pspec(mesh, tuple(v.shape)), (0,),
                       k, sharded, whole)
             for k, v in input_specs(arch_id, shape_name).items()}
-    return prefill, (params, data)
+    return prefill, (params, data), tp_on
 
 
-def _decode_case(arch_id, arch, cfg, shape, mesh, sharded, whole):
-    serve, init_cache = steps.build_serve(arch, cfg)
-    params = abstract_params(steps.model_specs(arch, cfg), cfg.dtype)
+def _decode_case(arch_id, arch, cfg, shape, mesh, mode, sharded, whole,
+                 layout):
+    serve, init_cache = steps.build_serve(arch, cfg, mesh)
+    params, tp_on = _params_case(arch, cfg, mesh, mode, sharded, whole,
+                                 layout)
     specs = input_specs(arch_id, shape.name)
     data = {}
     for k, v in specs.items():
@@ -308,20 +352,41 @@ def _decode_case(arch_id, arch, cfg, shape, mesh, sharded, whole):
         else:
             cache = init_cache(data["token"].shape[0], shape.seq_len,
                                TRACE_DEVICE)
-    # the reference's cache specs on the whole batch: the rank holds its
-    # batch share (dim 0); a sequence or heads dim they shard runs whole
+    # the reference's cache specs on the whole cache: the rank holds its
+    # batch share (dim 0) and, under tensor parallelism, the heads it
+    # computes; another dim they shard runs whole
+    if tp_on:
+        with torch.no_grad():
+            ref_cache = steps.build_serve(arch, cfg)[1](
+                data["token"].shape[0], shape.seq_len, TRACE_DEVICE)
+    else:
+        ref_cache = cache
     full = tree_map(lambda t: torch.empty(
         (shape.global_batch,) + tuple(t.shape[1:]), dtype=t.dtype,
         device=TRACE_DEVICE) if isinstance(t, torch.Tensor) and t.dim()
-        else t, cache)
+        else t, ref_cache)
     leaves = tree_flatten(shd.cache_pspec(mesh, full),
                           is_leaf=shd.is_pspec)[0]
-    for i, spec in enumerate(leaves):
+    locals_ = tree_flatten(cache)[0]
+    refs = tree_flatten(ref_cache)[0]
+    for i, (spec, mine, ref) in enumerate(zip(leaves, locals_, refs)):
+        if mine is None:
+            continue
+        cut = [d for d in range(1, mine.dim())
+               if mine.shape[d] < ref.shape[d]]
         for d, entry in enumerate(spec or ()):
             if _axes(entry):
-                (sharded if d == 0 else whole).setdefault(
+                (sharded if d == 0 or d in cut else whole).setdefault(
                     f"cache[{i}]", []).append([d, list(_axes(entry))])
-    return serve, (params, cache, data)
+        for d in cut:
+            if shd.TP_AXIS not in _axes(spec[d]):
+                sharded.setdefault(f"cache[{i}]", []).append(
+                    [d, [shd.TP_AXIS]])
+                layout[f"cache[{i}]"] = (
+                    f"dim {d} cut over {shd.TP_AXIS!r} by SSD head; the "
+                    f"spec gives the axis to dims "
+                    f"{[j for j, e in enumerate(spec) if shd.TP_AXIS in _axes(e)]}")
+    return serve, (params, cache, data), tp_on
 
 
 def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
@@ -329,7 +394,7 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
     """One (arch x shape x mesh) record (module doc).  ``variant``: the
     perf-iteration overrides ``xent_chunks``, ``remat``,
     ``remat_policy``, ``n_layers`` (a depth cut), ``attn_seq_shard``,
-    ``serve_mode`` (recorded: the parameters are replicated either way),
+    ``serve_mode`` (the prefill's and decode's ``param_pspec`` mode),
     ``recipe_*`` and ``solver``."""
     variant = variant or {}
     recipe = recipe or steps.TrainRecipe()
@@ -341,7 +406,9 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
     shape = SHAPES[shape_name]
     cfg = _cfg_for(arch, shape_name, variant)
     world_size = 512 if multi_pod else 256
-    sharded, whole = {}, {}
+    mode = variant.get("serve_mode", "serve")
+    sharded, whole, layout = {}, {}, {}
+    tp_on = False
     with fake_world(world_size):
         mesh = make_production_mesh(multi_pod=multi_pod)
         aaxis = agent_axis_for(mesh)
@@ -352,11 +419,12 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
                 arch_id, arch, cfg, shape_name, mesh, recipe, variant,
                 sharded, whole)
         elif shape.kind == "prefill":
-            fn, args = _prefill_case(arch_id, arch, cfg, shape_name, mesh,
-                                     sharded, whole)
+            fn, args, tp_on = _prefill_case(arch_id, arch, cfg, shape_name,
+                                            mesh, mode, sharded, whole,
+                                            layout)
         else:
-            fn, args = _decode_case(arch_id, arch, cfg, shape, mesh,
-                                    sharded, whole)
+            fn, args, tp_on = _decode_case(arch_id, arch, cfg, shape, mesh,
+                                           mode, sharded, whole, layout)
         with use_mesh(mesh):
             res = analyze_step(fn, args)
         t_trace = time.time() - t0
@@ -383,9 +451,10 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
         "model_flops_per_chip": mf / chips,
         "useful_fraction": (mf / chips) / stats.dot_flops
         if stats.dot_flops else None,
-        "tp_applied": False,
+        "tp_applied": tp_on,
         "sharded": sharded,
         "whole": whole,
+        "tp_layout": layout,
         "variant": variant,
     }
     if verbose:

@@ -36,9 +36,13 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(arch, cfg, params, prompt, gen: int):
+def generate(arch, cfg, params, prompt, gen: int, mesh=None):
     """Greedy decoding.  Returns ``(tokens [B, gen], seconds of the
-    generation loop)``.
+    generation loop)``.  With a ``mesh`` the decoder-only models decode
+    tensor-parallel over its "model" axis (``steps.build_serve``):
+    ``params`` is then the rank's shard (``sharding.shard_params``), and
+    every rank takes the argmax of the gathered logits, so the ranks keep
+    the same tokens (ties to the first index, as the reference's).
 
     Decoder-only models: ``prompt [B, P]`` token ids are fed token by
     token through the decode step, then ``gen`` tokens are generated.
@@ -49,7 +53,7 @@ def generate(arch, cfg, params, prompt, gen: int):
     ``launch/serve.py`` encdec loop)."""
     if arch.kind == "encdec":
         return _generate_encdec(arch, cfg, params, prompt, gen)
-    serve, init_cache = build_serve(arch, cfg)
+    serve, init_cache = build_serve(arch, cfg, mesh)
     b, plen = prompt.shape
     dev = prompt.device
     cache = init_cache(b, plen + gen, dev)

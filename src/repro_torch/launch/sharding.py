@@ -20,13 +20,25 @@ reference's.  The rules read a mesh through ``mesh.axes_of``: a
 ``DeviceMesh``, or any stand-in with ``shape`` (``{name: size}``) and
 ``axis_names``.  ``shard_like`` turns specs into DTensor placements
 (``Shard``/``Replicate`` per mesh dim) for ``distribute_tensor``.
+
+Tensor parallelism: ``tp_plan`` says how a rank holds each parameter
+over the "model" axis, ``local_shard`` cuts a tensor to the rank's slice
+and ``shard_params`` cuts a whole parameter tree to the rank's shard.
+Only "model" is applied; the "data" entries that mode "serve" puts on
+``embed`` (FSDP) are held whole.  A Mamba mixer is cut by SSD head
+(``_mamba_plan``), not by the spec's contiguous slice of its
+concatenated projection.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+
+import torch
 
 from repro_torch.common.trees import tree_flatten
 from repro_torch.launch.mesh import agent_axis_for, axes_of
+from repro_torch.launch.tp import AXIS as TP_AXIS
 from repro_torch.models.common import is_spec
 
 
@@ -218,3 +230,145 @@ def cache_pspec(mesh, cache_tree):
         return P(*([None] * len(shape)))
 
     return _map(one, cache_tree, None)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the rank's shard of the parameters
+# ---------------------------------------------------------------------------
+
+# a Mamba mixer's leaves (``models.mamba.mamba_specs``)
+_MAMBA_KEYS = frozenset(("in_proj", "conv_w", "conv_b", "A_log", "D",
+                         "dt_bias", "norm", "out_proj"))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How a rank holds one parameter over the "model" axis: ``dim`` is
+    the dim the axis cuts (None: held whole), ``segments`` its pieces
+    ``((length, cut), ...)`` in order along that dim, each cut piece split
+    into the axis's size contiguous parts (the rank keeps its part) and
+    each other piece held whole; a plain shard is one cut piece.
+    ``differs``: the rank's slice is not the one the reference's spec
+    gives (``param_pspec``)."""
+
+    dim: int | None
+    segments: tuple = ()
+    differs: bool = False
+
+
+def _model_dim(spec):
+    """The dim whose entry names the "model" axis, or None."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if TP_AXIS in names:
+            if len(names) > 1:
+                raise ValueError(f"{spec}: the {TP_AXIS!r} axis shares dim "
+                                 f"{d} with {names}; only {TP_AXIS!r} alone "
+                                 "is applied")
+            return d
+    return None
+
+
+def local_shard(mesh, spec, tensor, segments=None, rank=None):
+    """The rank's slice of ``tensor`` for a sanitized ``spec``: the dim
+    whose entry names "model" cut into the axis's size contiguous parts
+    (by ``segments``, as ``LeafPlan`` says, where given), as a tensor of
+    its own, so that the whole one can be freed.  No other entry is
+    applied: a "data" dim stays whole.  A spec without "model" returns
+    ``tensor`` itself.  ``rank``: the rank's index on the axis (default
+    the mesh's ``get_local_rank``)."""
+    d = _model_dim(spec)
+    if d is None:
+        return tensor
+    n = axes_of(mesh).shape[TP_AXIS]
+    r = mesh.get_local_rank(TP_AXIS) if rank is None else rank
+    segments = segments or ((tensor.shape[d], True),)
+    if sum(length for length, _ in segments) != tensor.shape[d]:
+        raise ValueError(f"segments {segments} do not tile dim {d} of "
+                         f"{tuple(tensor.shape)}")
+    pieces, start = [], 0
+    for length, cut in segments:
+        if cut:
+            if length % n:
+                raise ValueError(f"a piece of {length} does not split over "
+                                 f"{n} ranks")
+            k = length // n
+            pieces.append(tensor.narrow(d, start + r * k, k))
+        else:
+            pieces.append(tensor.narrow(d, start, length))
+        start += length
+    if len(pieces) == 1:
+        return pieces[0].clone(memory_format=torch.contiguous_format)
+    return torch.cat(pieces, dim=d)
+
+
+def _mamba_plan(mesh, specs, pspecs):
+    """A Mamba mixer's plan, cut by SSD head: z, x, dt, ``A_log``, ``D``
+    and ``dt_bias`` take the rank's heads, B and C (and their conv
+    channels) are held whole, ``norm`` and ``out_proj`` take the rank's
+    heads' channels (the spec's own slice).  With heads not divisible by
+    the axis the mixer is held whole."""
+    n = axes_of(mesh).shape[TP_AXIS]
+    di, nh = specs["norm"].shape[-1], specs["A_log"].shape[-1]
+    groups = specs["conv_b"].shape[-1] - di  # B | C: 2 * n_groups * d_state
+    ref = {k: _model_dim(pspecs[k]) for k in _MAMBA_KEYS}
+    if nh % n:
+        return {k: LeafPlan(None, differs=ref[k] is not None)
+                for k in _MAMBA_KEYS}
+    heads = ((nh, True),)
+    last = {"in_proj": ((di, True), (di, True), (groups, False), (nh, True)),
+            "conv_w": ((di, True), (groups, False)),
+            "conv_b": ((di, True), (groups, False)),
+            "A_log": heads, "D": heads, "dt_bias": heads,
+            "norm": ((di, True),)}
+    plan = {}
+    for k, segs in last.items():
+        d = len(specs[k].shape) - 1
+        plan[k] = LeafPlan(d, segs, differs=ref[k] != d or len(segs) > 1)
+    d = len(specs["out_proj"].shape) - 2
+    plan["out_proj"] = LeafPlan(d, ((di, True),), differs=ref["out_proj"] != d)
+    return plan
+
+
+def tp_plan(mesh, mode: str, spec_tree):
+    """``LeafPlan`` per parameter of ``spec_tree`` (``ParamSpec`` leaves)
+    over ``mesh``'s "model" axis: the dim that ``param_pspec`` gives the
+    axis, cut contiguously, and a Mamba mixer by head
+    (``_mamba_plan``)."""
+    pspecs = param_pspec(mesh, mode, spec_tree)
+
+    def walk(specs, ps):
+        if is_spec(specs):
+            d = _model_dim(ps)
+            return LeafPlan(d, () if d is None else
+                            ((specs.shape[d], True),))
+        if _MAMBA_KEYS <= set(specs) and all(
+                is_spec(specs[k]) for k in _MAMBA_KEYS):
+            plan = _mamba_plan(mesh, specs, ps)
+            rest = {k: walk(specs[k], ps[k]) for k in specs
+                    if k not in _MAMBA_KEYS}
+            return {**plan, **rest}
+        return {k: walk(specs[k], ps[k]) for k in specs}
+
+    return walk(spec_tree, pspecs)
+
+
+def shard_params(tree, mesh, mode: str, spec_tree):
+    """The rank's shard of the whole parameter tree ``tree`` (nested
+    dicts of tensors laid out as ``spec_tree``; the reference's tree,
+    carried across) over ``mesh``'s "model" axis, by ``tp_plan``.  The
+    whole tree is emptied as its leaves are cut, so that a caller that
+    holds no other reference frees each whole leaf (a leaf held whole
+    moves to the new tree as it is)."""
+    plan = tp_plan(mesh, mode, spec_tree)
+
+    def walk(node, p):
+        if isinstance(p, LeafPlan):
+            if p.dim is None:
+                return node
+            spec = PartitionSpec(*[TP_AXIS if i == p.dim else None
+                                   for i in range(node.dim())])
+            return local_shard(mesh, spec, node, p.segments)
+        return {k: walk(node.pop(k), p[k]) for k in list(node)}
+
+    return walk(tree, plan)

@@ -12,6 +12,15 @@ runs the LT-ADMM-CC, gossip and dada checks in a one-rank NCCL world on
 the card.  Run
 the gloo world with ``pytest tests/test_torch_mesh.py``.
 
+``tp_suite`` (``CHECKS["tp"]``) serves the smoke configs of the archs
+that run tensor-parallel (``steps.tp_serving``) over the "model" axis of
+two meshes of the same world, ``(W / 2, 2)`` and ``(1, W)``: prefill and
+greedy decode on the rank's shard of numpy-seeded weights
+(``tp_weights``), returning the gathered logits, the tokens, the rank's
+parameter leaves and its cache shapes for the caller to hold against the
+reference; ``tests/test_torch_tp.py`` runs it in a gloo world of 4 CPU
+ranks.
+
 ``start_world`` starts a world of ``torch.multiprocessing`` processes
 that meet at a ``FileStore`` (no TCP port) and runs one named check on
 every rank; ``collect_world`` waits for them and returns each rank's
@@ -25,7 +34,7 @@ import pickle
 import numpy as np
 import torch
 
-from repro_torch.common.trees import tree_flatten, tree_map
+from repro_torch.common.trees import dict_paths, tree_flatten, tree_map
 from repro_torch.core import admm
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core import topology as topo_mod
@@ -75,6 +84,11 @@ GOSSIP_CASES = {
                     f"lead:{_Q8},faults=faults:drop=0.2|crash=0.1|seed=0"),
     "dada": ("complete", 4, 3, "dada:"),
 }
+# tensor-parallel serving: the archs (``steps.tp_serving``), the prompt
+# (batch, length) and the greedy steps
+TP_ARCHS = ("qwen3-0.6b", "qwen2-1.5b", "olmo-1b", "command-r-plus-104b",
+            "pixtral-12b", "zamba2-2.7b")
+TP_BATCH, TP_PROMPT, TP_STEPS = 2, 8, 4
 # sequence-sharded attention cases: (T, window)
 ATTN_CASES = ((64, None), (64, 20), (66, None), (66, 20))
 ATTN_SHAPE = dict(b=2, h=4, kh=2, dh=8)
@@ -501,7 +515,122 @@ def suite(mesh, device, admm_inputs):
             "seconds": seconds}
 
 
-CHECKS = {"suite": suite, "paper": paper_run}
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+
+def tp_weights(arch_id: str, seed: int = 0) -> dict:
+    """The smoke config's weights as a numpy tree (the reference's layout,
+    units stacked), f32 from a seeded ``RandomState``: fan-in scaled
+    normals, and the norms, biases and Mamba scalars perturbed around
+    their initial values, so every leaf is exercised."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models.common import _map_specs
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    rng = np.random.RandomState(seed)
+
+    def draw(spec):
+        dims = [d for d, a in zip(spec.shape, spec.axes) if a != "layers"]
+        fan_in = dims[0] if len(dims) > 1 else (dims[-1] if dims else 1)
+        z = rng.normal(size=spec.shape).astype(np.float32)
+        if spec.init == "ones":
+            return 1.0 + 0.1 * z
+        if spec.init == "zeros":
+            return 0.1 * z
+        scale = spec.scale if spec.init == "embed" else (
+            spec.scale / np.sqrt(max(fan_in, 1)))
+        return (z * np.float32(scale)).astype(np.float32)
+
+    return _map_specs(draw, steps.model_specs(arch, cfg))
+
+
+def tp_inputs(arch_id: str, seed: int = 1) -> dict:
+    """The prefill's ``tokens [B, P]`` (or ``embeds [B, P, d]`` where the
+    arch takes embeddings) and the first decoded token ``[B]``, numpy."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch_id].make_smoke()
+    rng = np.random.RandomState(seed)
+    out = {"first": rng.randint(0, cfg.vocab, (TP_BATCH,))}
+    if cfg.inputs_via_embeds:
+        out["embeds"] = rng.normal(size=(TP_BATCH, TP_PROMPT, cfg.d_model)
+                                   ).astype(np.float32)
+    else:
+        out["tokens"] = rng.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT))
+    return out
+
+
+def check_tp(mesh, device, arch_id: str):
+    """One arch's smoke config served tensor-parallel over ``mesh``'s
+    "model" axis in f32: the prefill's gathered last logits and
+    ``TP_STEPS`` greedy decode steps from ``tp_inputs``' first token, on
+    the rank's shard of ``tp_weights``.  Raises unless every rank of the
+    axis decodes the same tokens.  Returns the logits, tokens, the rank's
+    parameter leaves and cache shapes (numpy)."""
+    from repro_torch.checkpoint.reference import params_tree_from_reference
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    specs = steps.model_specs(arch, cfg)
+    shard = shd.shard_params(params_tree_from_reference(
+        tp_weights(arch_id), device), mesh, "serve", specs)
+    inp = tp_inputs(arch_id)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inp.items()
+             if k != "first"}
+    prefill = steps.build_prefill(arch, cfg, mesh)
+    serve, init_cache = steps.build_serve(arch, cfg, mesh)
+    with torch.no_grad():
+        last = prefill(shard, batch)
+        cache = init_cache(TP_BATCH, TP_STEPS, device)
+        tok = torch.from_numpy(inp["first"]).to(device)
+        logits, tokens = [], []
+        for pos in range(TP_STEPS):
+            lg, cache = serve(shard, cache, {"token": tok, "pos": pos})
+            tok = torch.argmax(lg[:, 0], dim=-1)
+            logits.append(_numpy(lg))
+            tokens.append(_numpy(tok))
+    tokens = np.stack(tokens, axis=1)
+    group = mesh.get_group("model")
+    seen = [None] * axes_of(mesh).shape["model"]
+    torch.distributed.all_gather_object(seen, tokens.tolist(), group=group)
+    if any(t != tokens.tolist() for t in seen):
+        raise AssertionError(f"{arch_id}: the ranks decode different tokens")
+    flat_cache = {}
+    for u, unit in enumerate(cache["units"]):
+        for name, c in unit.items():
+            for k, v in c.items():
+                flat_cache[f"units.{u}.{name}.{k}"] = tuple(v.shape)
+    for u, c in enumerate(cache["shared"] or []):
+        for k, v in c.items():
+            flat_cache[f"shared.{u}.{k}"] = tuple(v.shape)
+    return {"prefill": _numpy(last), "decode": np.stack(logits, axis=1),
+            "tokens": tokens,
+            "params": {k: _numpy(v) for k, v in dict_paths(shard).items()},
+            "cache": flat_cache}
+
+
+def tp_suite(mesh, device, archs=TP_ARCHS):
+    """``check_tp`` of each arch over ``mesh`` (``(W / 2, 2)``) and over
+    a ``(1, W)`` mesh of the same world.  Returns ``{model size: {arch:
+    result}}`` with the rank's coordinates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world_size = torch.distributed.get_world_size()
+    out = {"rank": torch.distributed.get_rank()}
+    for m in (mesh, make_host_mesh(world_size, model=world_size)):
+        n = axes_of(m).shape["model"]
+        out[n] = {"coords": tuple(m.get_coordinate()),
+                  "model_rank": m.get_local_rank("model"),
+                  **{a: check_tp(m, device, a) for a in archs}}
+    return out
+
+
+CHECKS = {"suite": suite, "paper": paper_run, "tp": tp_suite}
 
 
 def _rank_main(rank, check, world_size, model, backend, store_dir, kw):

@@ -2,7 +2,8 @@
 solver train step (LT-ADMM-CC or any registered baseline), the
 all-reduce DDP train step, ``build_prefill`` and ``build_serve`` for the
 decoder-only models and the encoder-decoder (``arch_def.kind ==
-"encdec"``), and the training loop's ``DivergenceWatchdog``.
+"encdec"``; tensor-parallel over a mesh's "model" axis where
+``tp_serving`` holds), and the training loop's ``DivergenceWatchdog``.
 
 The agents run in one process through the host-simulated ``Exchange``,
 or, given a ``DeviceMesh`` (``launch.mesh``), one rank's agent rows a
@@ -34,7 +35,7 @@ from repro_torch.core import jaxrand, vr
 from repro_torch.core.schedule import build_graph
 from repro_torch.core.solver import make_solver, solver_entry
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import agent_axis_for, axes_of
+from repro_torch.launch.mesh import agent_axis_for, axes_of, use_mesh
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tr
 from repro_torch.models.common import abstract_params
@@ -274,29 +275,61 @@ def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None):
 # ---------------------------------------------------------------------------
 
 
-def build_prefill(arch_def, cfg):
+# block kinds that run tensor-parallel over "model" (serving)
+TP_KINDS = frozenset(("attn", "mamba"))
+
+
+def tp_serving(arch_def, cfg) -> bool:
+    """Whether the arch serves tensor-parallel over a mesh's "model" axis:
+    the decoder-only models whose blocks are GQA + FFN or Mamba2 (with
+    zamba2's shared block).  The MoE, MLA and xLSTM blocks and the
+    encoder-decoder run whole on every rank (ROADMAP Queue 1)."""
+    return (arch_def.kind == "lm" and set(cfg.pattern) <= TP_KINDS
+            and not cfg.first_dense)
+
+
+def _tp_size(mesh) -> int:
+    return axes_of(mesh).shape.get(shd.TP_AXIS, 1)
+
+
+def build_prefill(arch_def, cfg, mesh=None):
     """``prefill(params, batch) -> logits [B, 1, vocab]`` of the last
     position.  ``batch`` holds ``tokens [B, T]`` or ``embeds [B, T, d]``;
     for the encoder-decoder ``src_embeds [B, S, d]`` and ``tgt_tokens
     [B, T]``.  With ``cfg.use_flash`` the self-attention runs the flash
-    kernel (K10)."""
+    kernel (K10).
+
+    With a ``mesh``, where ``tp_serving`` holds, ``prefill`` runs
+    tensor-parallel over the mesh's "model" axis on the rank's shard of
+    the parameters (``sharding.shard_params(tree, mesh, mode, specs)``)
+    and gathers the last position's vocab columns; otherwise it runs
+    whole on the whole parameters, as without a mesh.  The reference's
+    builder takes ``mode`` and returns ``(prefill, param_pspec(mesh,
+    mode, specs))`` for its jit; here the caller's ``shard_params`` is
+    what applies ``mode``, and ``sharding.param_pspec`` gives the specs."""
     if arch_def.kind == "encdec":
         def prefill(params, batch):
             logits = encdec.forward(params, cfg, batch["src_embeds"],
                                     batch["tgt_tokens"])
             return logits[:, -1:, :]
+    else:
+        def prefill(params, batch):
+            logits, _ = tr.forward(params, cfg, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"))
+            return tr.gather_vocab(cfg, logits[:, -1:, :])
 
+    if (mesh is None or not tp_serving(arch_def, cfg)
+            or _tp_size(mesh) == 1):
         return prefill
 
-    def prefill(params, batch):
-        logits, _ = tr.forward(params, cfg, tokens=batch.get("tokens"),
-                               embeds=batch.get("embeds"))
-        return logits[:, -1:, :]
+    def tp_prefill(params, batch):
+        with use_mesh(mesh):
+            return prefill(params, batch)
 
-    return prefill
+    return tp_prefill
 
 
-def build_serve(arch_def, cfg):
+def build_serve(arch_def, cfg, mesh=None):
     """``(serve, init_cache)``: ``serve(params, cache, batch) -> (logits
     [B, 1, vocab], cache)`` decodes one token (``batch["token"] [B]`` at
     the int ``batch["pos"]``), updating ``cache`` in place.
@@ -305,7 +338,12 @@ def build_serve(arch_def, cfg):
     model: ``init_cache(batch_size, max_len, device)`` for the
     decoder-only models, ``init_cache(params, memory, max_len)`` for the
     encoder-decoder, whose cache holds the cross-attention K/V projected
-    from the encoder's ``memory [B, S, d]`` (``encdec.encode``)."""
+    from the encoder's ``memory [B, S, d]`` (``encdec.encode``).
+
+    With a ``mesh``: tensor-parallel as ``build_prefill`` says (and, as
+    there, without the reference's ``mode`` and specs); ``init_cache``
+    then makes the rank's cache (the KV heads it holds, as
+    ``cache_pspec`` shards them, and its SSD heads and conv channels)."""
     if arch_def.kind == "encdec":
         def serve(params, cache, batch):
             return encdec.decode_step(params, cfg, cache, batch["token"],
@@ -316,14 +354,27 @@ def build_serve(arch_def, cfg):
 
         return serve, init_cache
 
+    tp_size = 1
+    if mesh is not None and tp_serving(arch_def, cfg):
+        tp_size = _tp_size(mesh)
+
     def serve(params, cache, batch):
-        return tr.decode_step(params, cfg, cache, token=batch["token"],
-                              pos=batch["pos"])
+        logits, cache = tr.decode_step(params, cfg, cache,
+                                       token=batch["token"],
+                                       pos=batch["pos"])
+        return tr.gather_vocab(cfg, logits), cache
 
     def init_cache(batch_size, max_len, device=None):
-        return tr.init_cache(cfg, batch_size, max_len, device)
+        return tr.init_cache(cfg, batch_size, max_len, device, tp_size)
 
-    return serve, init_cache
+    if tp_size == 1:
+        return serve, init_cache
+
+    def tp_serve(params, cache, batch):
+        with use_mesh(mesh):
+            return serve(params, cache, batch)
+
+    return tp_serve, init_cache
 
 
 def _snapshot(tree):

@@ -16,6 +16,15 @@ token).  ``gqa_forward(..., kv=memory)`` is the encoder-decoder's
 cross-attention.  With ``seq_shard_axis`` set, the blockwise path splits
 the query rows over that axis of the ambient mesh (``launch.mesh.use_mesh``)
 and gathers the output back (``_seq_sharded_blockwise``).
+
+Tensor parallelism (``launch.tp``): GQA reads from ``wq``'s shape whether
+it holds the rank's heads (``sharding.shard_params``).  wq, wk and wv are
+column-parallel over heads and kv_heads, wo row-parallel, its partials
+summed over the "model" axis (``reduce``; a parallel block sums them with
+its FFN's).  Where the axis divides the heads but not the KV heads (8 on
+16), every rank computes all KV heads and its query heads read their own
+groups' (``_rank_kv``); where it divides neither, attention runs whole on
+every rank.  The decode cache holds the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import math
 
 import torch
 
+from repro_torch.launch import tp
 from repro_torch.models.common import ParamSpec, apply_rope, rmsnorm
 
 _NEG_INF = -1e30
@@ -77,6 +87,41 @@ def _project_qkv(params, cfg: AttnConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def heads_sharded(params, cfg: AttnConfig) -> bool:
+    """Whether ``params`` hold the rank's query heads only."""
+    return tp.sharded(params["wq"].shape[-2], cfg.n_heads)
+
+
+def _rank_kv(cfg: AttnConfig, q_heads: int, k, v):
+    """The K/V heads that the rank's ``q_heads`` query heads read, where
+    the query heads are sharded and ``k``/``v`` hold every KV head: a
+    slice of whole groups (the rank's heads span whole groups, or lie in
+    one), else one KV head per query head (a gather).  Otherwise ``k``
+    and ``v`` as they are."""
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    if q_heads == h or k.shape[2] != kh:
+        return k, v
+    g = h // kh
+    h0 = tp.rank() * q_heads
+    if q_heads % g == 0 or g % q_heads == 0:
+        sl = slice(h0 // g, h0 // g + max(q_heads // g, 1))
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(h0, h0 + q_heads, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj(params, out, partial: bool, reduce: bool):
+    """``out [B,T,H,Dh]`` through wo.  With the rank's heads
+    (``partial``) the product is row-parallel: its partial
+    (``tp.partial_mm``), summed over the axis where ``reduce``."""
+    if not partial:
+        return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    wo = params["wo"]
+    y = tp.partial_mm(out.reshape(*out.shape[:2], -1),
+                      wo.reshape(-1, wo.shape[-1]))
+    return tp.all_reduce(y, out.dtype) if reduce else y
 
 
 def sdpa(q, k, v, mask):
@@ -202,7 +247,8 @@ def _seq_sharded_blockwise(q, k, v, *, causal, window, axis):
 
 
 def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
-                kv_positions=None, use_flash=False, impl="auto"):
+                kv_positions=None, use_flash=False, impl="auto",
+                reduce=True):
     """Full-sequence attention.  ``kv`` [B, S, d] makes it cross-attention
     (the encoder-decoder's): q from ``x``, k/v from ``kv``, the biases
     where ``qkv_bias`` is set, no RoPE, no qk-norm, never causal.
@@ -211,10 +257,16 @@ def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
     ``use_flash`` runs K10 on self-attention (``kv`` None) where
     ``flash_ops.supported`` admits the shapes, as the reference does.
     Otherwise ``impl``: "dense", "blockwise", or "auto" (blockwise when
-    max(T, S) > BLOCKWISE_THRESHOLD)."""
+    max(T, S) > BLOCKWISE_THRESHOLD).
+
+    With the rank's heads (tensor parallelism) the output is summed over
+    the "model" axis; ``reduce=False`` returns the rank's partial instead
+    (in f32 for 16-bit activations on the card)."""
     del kv_positions
+    partial = heads_sharded(params, cfg)
     if kv is None:
         q, k, v = _project_qkv(params, cfg, x, positions)
+        k, v = _rank_kv(cfg, q.shape[2], k, v)
         causal = cfg.causal
     else:
         q = torch.einsum("btd,dhk->bthk", x, params["wq"])
@@ -229,8 +281,9 @@ def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
 
         if flash_ops.supported(q, k, v, None):
             out = flash_ops.flash_attention(
-                q, k, v, causal=causal, window=cfg.sliding_window)
-            return torch.einsum("bthk,hkd->btd", out, params["wo"])
+                q, k.contiguous(), v.contiguous(), causal=causal,
+                window=cfg.sliding_window)
+            return _out_proj(params, out, partial, reduce)
     if impl not in ("dense", "blockwise", "auto"):
         raise ValueError(f"impl {impl!r}: dense | blockwise | auto")
     if impl == "blockwise" or (
@@ -248,7 +301,7 @@ def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
         mask = (causal_mask(q.shape[1], k.shape[1], cfg.sliding_window,
                             device=q.device) if causal else None)
         out = sdpa(q, k, v, mask)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return _out_proj(params, out, partial, reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -263,9 +316,10 @@ def gqa_cache_len(cfg: AttnConfig, max_len: int) -> int:
 
 
 def gqa_init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
-                   device=None):
+                   device=None, kv_heads=None):
+    """The zero cache; ``kv_heads``: the rank's KV heads (default all)."""
     s = gqa_cache_len(cfg, max_len)
-    kh, dh = cfg.n_kv_heads, cfg.head_dim
+    kh, dh = kv_heads or cfg.n_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, s, kh, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, s, kh, dh), dtype=dtype, device=device),
@@ -273,10 +327,10 @@ def gqa_init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
     }
 
 
-def gqa_decode(params, cfg: AttnConfig, cache, x, pos: int):
+def gqa_decode(params, cfg: AttnConfig, cache, x, pos: int, reduce=True):
     """One-token decode.  x [B,1,d]; pos the (int) position of x.  Writes
     the token's key and value into ``cache`` in place; returns
-    ``(y, cache)``."""
+    ``(y, cache)`` (``reduce`` as in ``gqa_forward``)."""
     positions = torch.full((1, 1), pos, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
     s = cache["k"].shape[1]
@@ -286,8 +340,9 @@ def gqa_decode(params, cfg: AttnConfig, cache, x, pos: int):
     cache["pos_ids"][slot] = pos
     pos_ids = cache["pos_ids"]
     valid = (pos_ids >= 0) & (pos_ids <= pos)
-    out = sdpa(q, cache["k"], cache["v"], valid[None, None, None, None, :])
-    return torch.einsum("bthk,hkd->btd", out, params["wo"]), cache
+    kc, vc = _rank_kv(cfg, q.shape[2], cache["k"], cache["v"])
+    out = sdpa(q, kc, vc, valid[None, None, None, None, :])
+    return _out_proj(params, out, heads_sharded(params, cfg), reduce), cache
 
 
 # ---------------------------------------------------------------------------

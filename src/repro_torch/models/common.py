@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import jaxrand
+from repro_torch.launch import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,11 +248,26 @@ def embedding_specs(vocab, d):
                                    init="embed", scale=0.02)}
 
 
-def embed(params, tokens):
-    return F.embedding(tokens, params["embedding"])
+def embed(params, tokens, vocab=None):
+    """Token embeddings.  Where the table holds fewer than ``vocab`` rows
+    it is the rank's vocab shard (tensor parallelism, ``launch.tp``):
+    tokens outside the rank's range read 0 and the ranks' rows are
+    summed, which is exact (one rank holds each token's row)."""
+    w = params["embedding"]
+    if vocab is None or not tp.sharded(w.shape[0], vocab):
+        return F.embedding(tokens, w)
+    lo, hi = tp.part(vocab)
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = F.embedding(local.clamp(0, hi - lo - 1), w)
+    return tp.all_reduce_exact(torch.where(inside[..., None], rows,
+                                           torch.zeros((), dtype=w.dtype,
+                                                       device=w.device)))
 
 
 def unembed(params, x):
+    """Logits from the tied table; a vocab shard's give the rank's
+    columns."""
     return torch.einsum("...d,vd->...v", x, params["embedding"])
 
 

@@ -9,6 +9,18 @@ kernel (K11, ``kernels.ssm_scan``); ``ssd_chunked`` here is the plain
 path, which keeps the reference's arithmetic in the input dtype (its
 cumulative log-decay and state included, so in bf16 it drifts from the
 f32 kernel exactly as the reference's jnp path does).
+
+Tensor parallelism (``launch.tp``): a mixer whose ``norm`` holds fewer
+than ``d_inner`` channels holds the rank's SSD heads
+(``launch.sharding._mamba_plan``): in_proj's columns are the rank's z, x
+and dt beside the whole B and C (n_groups is below the axis's size), the
+conv the rank's x channels beside B's and C's, ``A_log``, ``D`` and
+``dt_bias`` the rank's heads.  The scan runs on the rank's heads, the
+gated RMSNorm over the whole ``d_inner`` sums its squares over the
+"model" axis first, and out_proj is row-parallel (one sum).  The decode
+cache holds the rank's heads and conv channels.  (The reference's spec
+cuts in_proj's concatenated columns contiguously, which splits no
+quantity by head.)
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import tp
 from repro_torch.models.common import ParamSpec, Params, rmsnorm
 
 
@@ -71,20 +84,48 @@ class Mamba(Params):
         return mamba_forward(self, self.cfg, x, use_kernel=use_kernel)
 
 
-def _split_proj(cfg: SSMConfig, proj):
-    di = cfg.d_inner
+def _local(cfg: SSMConfig, params):
+    """(heads, d_inner) that ``params`` hold: the rank's under tensor
+    parallelism, else the config's."""
+    di = params["norm"].shape[-1]
+    if not tp.sharded(di, cfg.d_inner):
+        return cfg.n_heads, cfg.d_inner
+    return di // cfg.head_dim, di
+
+
+def _split_proj(cfg: SSMConfig, proj, di=None):
+    di = cfg.d_inner if di is None else di
+    conv_dim = di + 2 * cfg.n_groups * cfg.d_state
     z = proj[..., :di]
-    xbc = proj[..., di:di + cfg.conv_dim]
-    dt = proj[..., di + cfg.conv_dim:]
+    xbc = proj[..., di:di + conv_dim]
+    dt = proj[..., di + conv_dim:]
     return z, xbc, dt
 
 
-def _split_xbc(cfg: SSMConfig, xbc):
-    di, ds, ng = cfg.d_inner, cfg.d_state, cfg.n_groups
+def _split_xbc(cfg: SSMConfig, xbc, di=None):
+    di = cfg.d_inner if di is None else di
+    ds, ng = cfg.d_state, cfg.n_groups
     x = xbc[..., :di]
     bmat = xbc[..., di:di + ng * ds]
     cmat = xbc[..., di + ng * ds:]
     return x, bmat, cmat
+
+
+def _gated_norm(cfg: SSMConfig, params, y, z):
+    """``rmsnorm(y * silu(z))`` over the whole ``d_inner``: on the rank's
+    channels the sum of squares is summed over the "model" axis."""
+    g = y * F.silu(z)
+    if g.shape[-1] == cfg.d_inner:
+        return rmsnorm({"scale": params["norm"]}, g)
+    ss = torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
+    var = tp.all_reduce(ss) / cfg.d_inner
+    return ((g * torch.rsqrt(var + 1e-6)) * params["norm"]).to(g.dtype)
+
+
+def _out_proj(cfg: SSMConfig, params, y):
+    if y.shape[-1] == cfg.d_inner:
+        return torch.einsum("bti,id->btd", y, params["out_proj"])
+    return tp.all_reduce(tp.partial_mm(y, params["out_proj"]), y.dtype)
 
 
 def _causal_conv(cfg: SSMConfig, params, xbc):
@@ -165,12 +206,13 @@ def ssd_chunked(cfg: SSMConfig, x, bmat, cmat, dt, h0=None,
 
 def mamba_forward(params, cfg: SSMConfig, x, use_kernel=False):
     """x [B, T, d] -> y [B, T, d] (prefill)."""
+    nh, di = _local(cfg, params)
     proj = torch.einsum("btd,dp->btp", x, params["in_proj"])
-    z, xbc, dtr = _split_proj(cfg, proj)
+    z, xbc, dtr = _split_proj(cfg, proj, di)
     xbc = _causal_conv(cfg, params, xbc)
-    xi, bmat, cmat = _split_xbc(cfg, xbc)
+    xi, bmat, cmat = _split_xbc(cfg, xbc, di)
     b, t, _ = x.shape
-    nh, hd, ng, ds = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    hd, ng, ds = cfg.head_dim, cfg.n_groups, cfg.d_state
     dt = F.softplus(dtr + params["dt_bias"])  # [B,T,nh]
     a = -torch.exp(params["A_log"])  # [nh]
     xh = xi.reshape(b, t, nh, hd) * dt[..., None]  # dt-scaled input
@@ -179,9 +221,8 @@ def mamba_forward(params, cfg: SSMConfig, x, use_kernel=False):
                        cmat.reshape(b, t, ng, ds), alog,
                        use_kernel=use_kernel)
     y = y + xi.reshape(b, t, nh, hd) * params["D"][:, None]
-    y = y.reshape(b, t, cfg.d_inner)
-    y = rmsnorm({"scale": params["norm"]}, y * F.silu(z))
-    return torch.einsum("bti,id->btd", y, params["out_proj"])
+    y = y.reshape(b, t, di)
+    return _out_proj(cfg, params, _gated_norm(cfg, params, y, z))
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +230,16 @@ def mamba_forward(params, cfg: SSMConfig, x, use_kernel=False):
 # ---------------------------------------------------------------------------
 
 
-def mamba_init_cache(cfg: SSMConfig, batch: int, dtype, device=None):
+def mamba_init_cache(cfg: SSMConfig, batch: int, dtype, device=None,
+                     heads=None):
+    """The zero cache; ``heads``: the rank's SSD heads (default all), with
+    their conv channels beside B's and C's."""
+    nh = cfg.n_heads if heads is None else heads
+    conv_dim = cfg.conv_dim - (cfg.n_heads - nh) * cfg.head_dim
     return {
-        "h": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim),
+        "h": torch.zeros((batch, nh, cfg.d_state, cfg.head_dim),
                          dtype=dtype, device=device),
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.conv_dim),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, conv_dim),
                             dtype=dtype, device=device),
     }
 
@@ -203,15 +249,16 @@ def mamba_decode(params, cfg: SSMConfig, cache, x, pos):
     The new state and conv history replace the cache's entries."""
     del pos
     b = x.shape[0]
-    nh, hd, ng, ds = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    nh, di = _local(cfg, params)
+    hd, ng, ds = cfg.head_dim, cfg.n_groups, cfg.d_state
     proj = torch.einsum("btd,dp->btp", x, params["in_proj"])
-    z, xbc, dtr = _split_proj(cfg, proj)
+    z, xbc, dtr = _split_proj(cfg, proj, di)
     # conv over [cached history | current]
     hist = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, conv_dim]
     conv_out = torch.einsum("bkc,kc->bc", hist, params["conv_w"]) \
         + params["conv_b"]
     xbc1 = F.silu(conv_out)[:, None, :]
-    xi, bmat, cmat = _split_xbc(cfg, xbc1)
+    xi, bmat, cmat = _split_xbc(cfg, xbc1, di)
     dt = F.softplus(dtr + params["dt_bias"])[:, 0]  # [B, nh]
     a = -torch.exp(params["A_log"])
     decay = torch.exp(dt * a)  # [B, nh]
@@ -222,8 +269,7 @@ def mamba_decode(params, cfg: SSMConfig, cache, x, pos):
         "bhs,bhd->bhsd", bm, xh)
     y = torch.einsum("bhs,bhsd->bhd", cm, h)
     y = y + xi.reshape(b, nh, hd) * params["D"][:, None]
-    y = y.reshape(b, 1, cfg.d_inner)
-    y = rmsnorm({"scale": params["norm"]}, y * F.silu(z))
-    y = torch.einsum("bti,id->btd", y, params["out_proj"])
+    y = y.reshape(b, 1, di)
+    y = _out_proj(cfg, params, _gated_norm(cfg, params, y, z))
     cache["h"], cache["conv"] = h, hist[:, 1:, :]
     return y, cache

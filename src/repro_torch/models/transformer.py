@@ -32,6 +32,17 @@ Block kinds:
     mamba        pre-norm Mamba2 (SSD) block
     mlstm, slstm xLSTM blocks (no separate FFN)
 The encoder-decoder is ``models/encdec.py``.
+
+Tensor parallelism (``launch.tp``, serving): given the rank's shard of
+the parameters (``launch.sharding.shard_params``) under a mesh
+(``launch.mesh.use_mesh``), the blocks of kinds attn, shared_attn and
+mamba run over its "model" axis: the vocab-parallel embedding, GQA over
+the rank's heads (``attention``), the SwiGLU FFN column-parallel in wg/wu
+and row-parallel in wd (one sum over the axis; a parallel block sums its
+attention's and FFN's partials at once), the Mamba mixer by SSD head
+(``mamba``), and the logits of the rank's vocab columns.  Each layer
+reads from its weights' shapes whether it holds a shard, so the whole
+tree runs as before under any mesh.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
+from repro_torch.launch import tp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -117,10 +129,36 @@ def _ffn_specs(d, d_ff):
     }
 
 
-def _ffn(params, x):
+def _ffn_sharded(params, d_ff) -> bool:
+    return d_ff is not None and tp.sharded(params["wg"].shape[-1], d_ff)
+
+
+def _ffn(params, x, d_ff=None, reduce=True):
+    """SwiGLU.  With the rank's ``d_ff`` columns (``d_ff`` the config's
+    width) wd is row-parallel: its partial, summed over the "model" axis
+    where ``reduce``."""
     h = F.silu(torch.einsum("btd,df->btf", x, params["wg"]))
     h = h * torch.einsum("btd,df->btf", x, params["wu"])
-    return torch.einsum("btf,fd->btd", h, params["wd"])
+    if not _ffn_sharded(params, d_ff):
+        return torch.einsum("btf,fd->btd", h, params["wd"])
+    y = tp.partial_mm(h, params["wd"])
+    return tp.all_reduce(y, x.dtype) if reduce else y
+
+
+def _parallel_sum(x, params, cfg: ModelConfig, a, h):
+    """The parallel block's ``x + attention + FFN``; the attention's
+    partial ``a`` (``reduce=False``) and the FFN's are summed over the
+    "model" axis at once where both are partials."""
+    a_part = attn_lib.heads_sharded(params["attn"], cfg.attn)
+    f_part = _ffn_sharded(params["ffn"], cfg.d_ff)
+    if not (a_part or f_part):
+        return x + a + _ffn(params["ffn"], h)
+    f = _ffn(params["ffn"], h, cfg.d_ff, reduce=False)
+    if a_part and f_part:
+        return x + tp.all_reduce(a + f, x.dtype)
+    if a_part:
+        return x + tp.all_reduce(a, x.dtype) + f
+    return x + a + tp.all_reduce(f, x.dtype)
 
 
 _KINDS = ("attn", "shared_attn", "moe", "mla", "mla_dense", "mamba", "mlstm",
@@ -177,26 +215,37 @@ def block_forward(params, cfg: ModelConfig, kind: str, x, positions):
         h = norm(params.get("ln", {}), x)
         return x + fwd(params["cell"], cfg.lstm, h), aux
     h = norm(params.get("ln1", {}), x)
+    parallel = cfg.parallel_block and kind in ("attn", "shared_attn")
     if kind in _MLA_KINDS:
         a = attn_lib.mla_forward(params["attn"], cfg.mla, h, positions)
     else:
         a = attn_lib.gqa_forward(params["attn"], cfg.attn, h, positions,
-                                 use_flash=cfg.use_flash)
-    if cfg.parallel_block and kind in ("attn", "shared_attn"):
-        return x + a + _ffn(params["ffn"], h), aux
+                                 use_flash=cfg.use_flash,
+                                 reduce=not parallel)
+    if parallel:
+        return _parallel_sum(x, params, cfg, a, h), aux
     x = x + a
     h = norm(params.get("ln2", {}), x)
     if kind in _MOE_KINDS:
         y, aux = moe_lib.moe_forward(params["moe"], cfg.moe, h)
         return x + y, aux
-    return x + _ffn(params["ffn"], h), aux
+    return x + _ffn(params["ffn"], h, _d_ff(cfg, kind)), aux
+
+
+def _d_ff(cfg: ModelConfig, kind: str) -> int:
+    return cfg.d_ff_first if kind in _MLA_KINDS else cfg.d_ff
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device=None):
+                     device=None, tp_size: int = 1):
+    """The zero cache of one block; ``tp_size``: the "model" axis that
+    the block's weights are sharded over (attn, shared_attn and mamba
+    hold the rank's heads where it divides them)."""
     _check_kind(kind)
     if kind == "mamba":
-        return mamba_lib.mamba_init_cache(cfg.ssm, batch, cfg.dtype, device)
+        return mamba_lib.mamba_init_cache(
+            cfg.ssm, batch, cfg.dtype, device,
+            heads=tp.local_count(cfg.ssm.n_heads, tp_size))
     if kind == "mlstm":
         return xlstm_lib.mlstm_init_cache(cfg.lstm, batch, cfg.dtype, device)
     if kind == "slstm":
@@ -204,8 +253,10 @@ def block_init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind in _MLA_KINDS:
         return attn_lib.mla_init_cache(cfg.mla, batch, max_len, cfg.dtype,
                                        device)
+    kv = (tp.local_count(cfg.attn.n_kv_heads, tp_size)
+          if kind in ("attn", "shared_attn") else None)
     return attn_lib.gqa_init_cache(cfg.attn, batch, max_len, cfg.dtype,
-                                   device)
+                                   device, kv_heads=kv)
 
 
 def block_decode(params, cfg: ModelConfig, kind: str, cache, x, pos: int):
@@ -223,19 +274,20 @@ def block_decode(params, cfg: ModelConfig, kind: str, cache, x, pos: int):
         y, cache = decode(params["cell"], cfg.lstm, cache, h, pos)
         return x + y, cache
     h = norm(params.get("ln1", {}), x)
+    parallel = cfg.parallel_block and kind in ("attn", "shared_attn")
     if kind in _MLA_KINDS:
         a, cache = attn_lib.mla_decode(params["attn"], cfg.mla, cache, h,
                                        pos)
     else:
         a, cache = attn_lib.gqa_decode(params["attn"], cfg.attn, cache, h,
-                                       pos)
-    if cfg.parallel_block and kind in ("attn", "shared_attn"):
-        return x + a + _ffn(params["ffn"], h), cache
+                                       pos, reduce=not parallel)
+    if parallel:
+        return _parallel_sum(x, params, cfg, a, h), cache
     x = x + a
     h = norm(params.get("ln2", {}), x)
     if kind in _MOE_KINDS:
         return x + moe_lib.moe_forward(params["moe"], cfg.moe, h)[0], cache
-    return x + _ffn(params["ffn"], h), cache
+    return x + _ffn(params["ffn"], h, _d_ff(cfg, kind)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -357,18 +409,30 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _logits(params, cfg: ModelConfig, x):
+    """The logits, or the rank's vocab columns of them where the table
+    (or head) is the rank's vocab shard (``gather_vocab`` joins them)."""
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return unembed_head(params["unembed"], x)
+
+
+def gather_vocab(cfg: ModelConfig, logits):
+    """``logits [..., V]`` from the ranks' vocab columns (``_logits``
+    under tensor parallelism), gathered over the "model" axis; logits
+    that hold every column are returned as they are."""
+    if logits.shape[-1] == cfg.vocab:
+        return logits
+    return tp.all_gather(logits, -1)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, return_hidden=False):
     """Train / prefill forward.  Returns (logits [B, T, vocab] | hidden
     [B, T, d], aux_loss): aux is the f32 sum of the blocks' auxiliary
-    losses (the MoE blocks' load balance; 0 without them)."""
+    losses (the MoE blocks' load balance; 0 without them).  On a rank's
+    shard the logits are the rank's vocab columns (``gather_vocab``)."""
     if embeds is None:
-        x = embed(params["embed"], tokens).to(cfg.dtype)
+        x = embed(params["embed"], tokens, cfg.vocab).to(cfg.dtype)
     else:
         x = embeds.to(cfg.dtype)
     if positions is None:
@@ -416,18 +480,21 @@ def loss_fn(params, cfg: ModelConfig, batch):
     return loss + aux
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               tp_size: int = 1):
     """Zero decode caches: ``{"units": [per unit {block: cache}],
     "shared": [per unit shared-block cache] | None}``, and ``"first":
-    [per leading dense layer cache]`` where the config has them."""
+    [per leading dense layer cache]`` where the config has them.
+    ``tp_size``: a rank's caches under tensor parallelism over a "model"
+    axis of that size (``block_init_cache``)."""
     n = cfg.n_units
     cache = {
         "units": [{f"{i}_{kind}": block_init_cache(cfg, kind, batch, max_len,
-                                                   device)
+                                                   device, tp_size)
                    for i, kind in enumerate(cfg.pattern)}
                   for _ in range(n)],
         "shared": ([block_init_cache(cfg, "shared_attn", batch, max_len,
-                                     device) for _ in range(n)]
+                                     device, tp_size) for _ in range(n)]
                    if cfg.shared_attn else None),
     }
     if cfg.first_dense:
@@ -441,9 +508,10 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
                 pos: int = 0):
     """One-token decode.  token [B] int or embed_in [B,1,d]; pos the
     (int) position.  Updates ``cache`` in place; returns (logits
-    [B, 1, vocab], cache)."""
+    [B, 1, vocab], cache); on a rank's shard the rank's vocab columns
+    (``gather_vocab``)."""
     if embed_in is None:
-        x = embed(params["embed"], token[:, None]).to(cfg.dtype)
+        x = embed(params["embed"], token[:, None], cfg.vocab).to(cfg.dtype)
     else:
         x = embed_in.to(cfg.dtype)
     for i, layer_p in enumerate(_layers(params, "first", cfg.first_dense)):
