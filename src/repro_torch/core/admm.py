@@ -105,6 +105,12 @@ class LTADMMState(NamedTuple):
     k: int
 
 
+# the dims in front of each ``LTADMMState`` field's parameter shape: the
+# agent, and the neighbour slot of an edge's field
+STATE_LEAD = {"x": 1, "x_hat": 1, "u": 1, "z": 2, "s": 2, "s_tilde": 2,
+              "x_hat_nbr": 2, "u_nbr": 2}
+
+
 class LTADMMScheduleState(NamedTuple):
     """State of the time-varying round: x̂ and u are kept per edge
     (``x_hat_edge[:, s]`` is the sender-side estimate that the slot-s
@@ -340,8 +346,8 @@ def _step_static(cfg, exchange, vr_est, state, data, round_key, ids):
     if telemetry.active():
         # one x-message per sender to every neighbour, one z-message per
         # edge; masked union slots carry placeholders and are not charged
-        per_msg = (telemetry.payload_nbytes(m_x, nd=1)
-                   + telemetry.payload_nbytes(m_z, nd=2))
+        per_msg = (compression.message_nbytes(cx, m_x, nd=1)
+                   + compression.message_nbytes(cz, m_z, nd=2))
         _emit_round_telemetry(cfg, vr_est, data, ids.degrees_i64, per_msg,
                               None)
     del m_x, m_z
@@ -457,8 +463,8 @@ def step_schedule(cfg: LTADMMConfig, sched, exchange, vr_est,
         # charged on the schedule's active slots, before the faults
         # refine them (a dropped message was still sent), per edge for
         # both messages: the sealed planes' bytes on a faulted round
-        per_msg = (telemetry.payload_nbytes(m_x, nd=2)
-                   + telemetry.payload_nbytes(m_z, nd=2)
+        per_msg = (compression.message_nbytes(cx, m_x, nd=2)
+                   + compression.message_nbytes(cz, m_z, nd=2)
                    if verdicts is None else verdicts.sealed_nbytes)
         _emit_round_telemetry(
             cfg, vr_est, data,
@@ -586,15 +592,37 @@ def consensus_mean(state, exchange=None):
     return tree_map(lambda t: t / n, exchange.agent_sum(state.x))
 
 
-def consensus_error(state, exchange=None):
+def consensus_error(state, exchange=None, layouts=None):
     """Total squared deviation of the agents' x from their mean (over
-    every leaf); global over the mesh as ``consensus_mean`` is."""
-    if exchange is None or exchange.mesh is None:
-        return tree_consensus_error(state.x)
+    every leaf); global over the mesh as ``consensus_mean`` is.
+
+    ``layouts``: x's leaves are a rank's shards over the ambient mesh's
+    "model" axis (tensor parallelism), laid out as these
+    ``ShardLayout``s (flatten order): the sum also runs over the axis, a
+    piece held whole on every rank counted once (by the axis's rank
+    0)."""
+    if layouts is None:
+        if exchange is None or exchange.mesh is None:
+            return tree_consensus_error(state.x)
+        mean = consensus_mean(state, exchange)
+        sq = tree_map(lambda x, m: ((x - m) ** 2).reshape(x.shape[0], -1)
+                      .sum(dim=1), state.x, mean)
+        return sum(tree_flatten(exchange.agent_sum(sq))[0])
+    from repro_torch.launch import tp
+
     mean = consensus_mean(state, exchange)
-    sq = tree_map(lambda x, m: ((x - m) ** 2).reshape(x.shape[0], -1)
-                  .sum(dim=1), state.x, mean)
-    return sum(tree_flatten(exchange.agent_sum(sq))[0])
+    first = tp.rank() == 0
+    leaves, means = tree_flatten(state.x)[0], tree_flatten(mean)[0]
+    total = None
+    for x, m, lay in zip(leaves, means, layouts):
+        d = ((x - m) ** 2).reshape(x.shape[0], -1)
+        if not first:
+            d = d * ~lay.whole_mask(x.device)
+        s = d.sum()
+        total = s if total is None else total + s
+    if exchange is not None and exchange.mesh is not None:
+        total = exchange.agent_sum(total[None])
+    return tp.all_reduce(total.clone())
 
 
 def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:

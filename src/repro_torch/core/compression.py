@@ -31,12 +31,24 @@ interpret mode off the TPU.  The kernel route never runs the torch
 route instead of a kernel.  As in the
 reference, the torch and kernel qbit routes draw different rounding bits
 (``jax.random.uniform`` vs raw ``jax.random.bits`` or the counter cipher).
+
+Tensor parallelism: ``ShardedTree`` compresses a tree whose leaves are a
+rank's shards over the "model" axis (``launch.sharding.shard_layouts``)
+as the reference compresses the whole leaves: one message a leaf.  The
+identity sends the shard; qbit quantises it at the whole leaf's scale
+(the ranks' row max all-reduced with MAX over the axis) with each
+element's rounding bits drawn at its flat index in the whole leaf (the
+kernel route: K4's shard form; the torch route: ``jaxrand.bits_at``), so
+the ranks' payloads are the whole leaf's, cut.  The receiver
+dequantises its shard alone (K5 as it is).  RandK and TopK select over
+the whole leaf and raise on a shard (ROADMAP item 15).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from collections.abc import Mapping
+from typing import Any
 
 import torch
 
@@ -156,6 +168,28 @@ class BBitQuantizer:
         xf = x.to(torch.float32)
         scale = qref.row_scale(xf)
         kappa = jaxrand.uniform(keys.to(x.device), xf.shape[-1:])
+        q = qref.to_int8(qref.quantize_values(xf, scale[..., None], kappa,
+                                              self.levels))
+        if self.bits == 4:
+            q = qref.pack4(q)
+        return Payload(q=q, scale=scale)
+
+    def compress_shard(self, keys, x, layout) -> Payload:
+        """``compress`` of the whole leaves whose rank's shards ``x
+        [..., n_local]`` are laid out as ``layout``: the rank's part of
+        each whole leaf's payload (the ambient mesh's "model" axis
+        reduces the scale)."""
+        from repro_torch.launch import tp
+
+        xf = x.to(torch.float32)
+        if resolve_impl(self.impl, x.device) == "kernel":
+            words = tp.all_reduce_max(qops.row_absmax(xf))
+            q, scale = qops.quantize_shard(keys, xf, words, layout,
+                                           bits=self.bits)
+            return Payload(q=q, scale=scale)
+        scale = tp.all_reduce_max(qref.row_scale(xf))
+        kappa = jaxrand.unit(jaxrand.bits_at(keys.to(x.device),
+                                             layout.counters(x.device)))
         q = qref.to_int8(qref.quantize_values(xf, scale[..., None], kappa,
                                               self.levels))
         if self.bits == 4:
@@ -334,6 +368,80 @@ class TopK:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: a tree of a rank's shards over the "model" axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLeaf:
+    """``inner`` on a rank's shard of one leaf laid out as ``layout``
+    (``kernels.quantize.ref.ShardLayout``): the rank's part of the whole
+    leaf's message, decompressed alone."""
+
+    inner: Any
+    layout: Any
+
+    def compress(self, keys, x) -> Payload:
+        if isinstance(self.inner, Identity):
+            return self.inner.compress(keys, x)
+        if isinstance(self.inner, BBitQuantizer):
+            return self.inner.compress_shard(keys, x, self.layout)
+        raise NotImplementedError(
+            f"{self.inner.name} on a leaf cut over the 'model' axis: its "
+            "index set is drawn over the whole leaf (ROADMAP item 15); "
+            "tensor-parallel training takes identity or qbit")
+
+    def decompress(self, keys, payload, n: int):
+        return self.inner.decompress(keys, payload, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTree:
+    """``inner`` over a tree whose leaf i is a rank's shard laid out as
+    ``layouts[i]`` (flatten order): a cut leaf through ``ShardLeaf``, a
+    leaf held whole through ``inner`` itself (every rank sends the same
+    message).  Every other attribute is ``inner``'s; the wire bytes are
+    the whole leaves' (``tree_wire_bytes``)."""
+
+    inner: Any
+    layouts: tuple
+
+    def __getattr__(self, name):
+        if name in ("inner", "layouts") or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def leaf(self, i: int):
+        lay = self.layouts[i]
+        return ShardLeaf(self.inner, lay) if lay.cut else self.inner
+
+    def message_nbytes(self, dtypes) -> int:
+        """One message's wire bytes over every leaf, as the reference's
+        whole leaves give them (``dtypes``: each leaf's)."""
+        return sum(self.inner.wire_bytes(tuple(lay.shape), dt)
+                   for lay, dt in zip(self.layouts, dtypes))
+
+
+def _leaf_comp(comp, i: int):
+    return comp.leaf(i) if isinstance(comp, ShardedTree) else comp
+
+
+def message_nbytes(comp, payload, nd: int) -> int:
+    """Wire bytes of ONE message of a batched payload tree (leaves with
+    ``nd`` lead dims), as the reference counts them: measured on the
+    payload's leaves, and for a ``ShardedTree`` the whole leaves' (the
+    ranks' own bytes are what the exchange counts)."""
+    from repro_torch.obs import telemetry
+
+    if isinstance(comp, ShardedTree):
+        leaves = tree_flatten(payload,
+                              is_leaf=lambda t: isinstance(t, Payload))[0]
+        return comp.message_nbytes([p["v"].dtype if "v" in p
+                                    else torch.float32 for p in leaves])
+    return telemetry.payload_nbytes(payload, nd)
+
+
+# ---------------------------------------------------------------------------
 # Tree-level wrappers: every leaf with its own split key
 # ---------------------------------------------------------------------------
 
@@ -347,7 +455,8 @@ def compress_tree(comp, keys, tree, nd: int):
     out = []
     for i, x in enumerate(leaves):
         lead = tuple(x.shape[:nd])
-        out.append(comp.compress(lk[..., i, :], x.reshape(lead + (-1,))))
+        out.append(_leaf_comp(comp, i).compress(lk[..., i, :],
+                                                x.reshape(lead + (-1,))))
     return rebuild(out)
 
 
@@ -361,7 +470,7 @@ def decompress_tree(comp, keys, payload_tree, like_tree, nd: int):
     outs = []
     for i, (p, like) in enumerate(zip(payloads, likes)):
         n = math.prod(like.shape)
-        d = comp.decompress(lk[..., i, :], p, n)
+        d = _leaf_comp(comp, i).decompress(lk[..., i, :], p, n)
         outs.append(d.reshape(tuple(d.shape[:nd]) + tuple(like.shape))
                     .to(like.dtype))
     return rebuild(outs)
@@ -374,8 +483,12 @@ def like_per_message(stacked, nd: int = 1):
 
 
 def tree_wire_bytes(comp, tree) -> int:
-    return sum(comp.wire_bytes(tuple(x.shape), x.dtype)
-               for x in tree_flatten(tree)[0])
+    """One message's wire bytes over the leaves of ``tree``; for a
+    ``ShardedTree`` the whole leaves' (``tree`` may hold the shards)."""
+    leaves = tree_flatten(tree)[0]
+    if isinstance(comp, ShardedTree):
+        return comp.message_nbytes([x.dtype for x in leaves])
+    return sum(comp.wire_bytes(tuple(x.shape), x.dtype) for x in leaves)
 
 
 # ---------------------------------------------------------------------------

@@ -78,10 +78,28 @@ def bits(k, shape, start: int = 0):
     return y0 ^ y1
 
 
+def bits_at(k, counters):
+    """The elements at the flat positions ``counters`` (an int64 tensor of
+    any shape) of a ``jax.random.bits`` draw from ``k`` of a size past
+    them: ``[..., *counters.shape]``, each element's bits depending only
+    on its counter.  A shard of a larger draw reads its elements' global
+    positions."""
+    c = torch.as_tensor(counters, dtype=torch.int64, device=k.device)
+    pad = (None,) * c.dim()
+    y0, y1 = threefry2x32(k[..., 0][(...,) + pad], k[..., 1][(...,) + pad],
+                          c >> 32, c & MASK)
+    return y0 ^ y1
+
+
 def uniform(k, shape):
     """``jax.random.uniform`` in f32 on [0, 1): 23 random mantissa bits
     under exponent 0, minus one."""
-    b = bits(k, shape)
+    return unit(bits(k, shape))
+
+
+def unit(b):
+    """``jax.random.uniform``'s f32 on [0, 1) from its uint32 bits (in
+    int64)."""
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return f.clamp_min(0.0)
 

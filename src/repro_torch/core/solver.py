@@ -90,6 +90,9 @@ class LTADMMSolver:
     packed: bool = True
     device: torch.device = torch.device("cpu")
     name: str = "ltadmm"
+    # tensor parallelism (``steps.build_train`` with a mesh): the rank's
+    # ``ShardLayout`` of each leaf of the pytree state, flatten order
+    tp_layouts: tuple | None = None
     _cache: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 

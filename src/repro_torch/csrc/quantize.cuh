@@ -2,7 +2,9 @@
 // quantize_plane.cu) and the per-message kernel (K4, quantize_leaf.cu):
 // the per-element arithmetic and the fused row kernel that computes each
 // row's scale and its levels in one launch.  Only the source of kappa
-// differs between K1 and K4 (a Kappa policy: PlaneKappa, LeafKappa).
+// differs between K1 and K4 (a Kappa policy: PlaneKappa, LeafKappa, and
+// ShardKappa for K4's shard form, a rank's shard of a leaf cut over the
+// "model" axis, quantize_leaf.cu quantize_leaf_shard).
 //
 // Arithmetic.  q = sign(x) * floor(levels * |x| / scale + kappa), in the
 // reference's operation order (src/repro/kernels/quantize/kernel.py:43),
@@ -148,6 +150,42 @@ struct LeafKappa {
   }
   __device__ __forceinline__ uint32_t bits(Pair st, uint32_t j) const {
     return jax_bits(st.x0, st.x1, j);
+  }
+};
+
+// K4's shard form: the rank's element j of a leaf's shard draws
+// jax.random.bits(key[m], (n_pad,))[g], g its flat index in the whole
+// leaf.  The shard is the whole leaf but along one dim (the cut dim), where
+// it holds at most kMaxPieces pieces, each (local start, global start,
+// length): local element j = (outer * ldim + l) * inner + i lies at
+// g = (outer * gdim + l - ls[p] + gs[p]) * inner + i, p the piece holding l.
+// Two 32-bit divisions an element; the whole leaf has fewer than 2^32
+// elements (the C entry checks).
+constexpr int kMaxPieces = 4;
+
+struct ShardKappa {
+  const uint32_t* keys;
+  uint32_t inner, gdim, ldim;
+  int pieces;
+  uint32_t ls[kMaxPieces], gs[kMaxPieces], len[kMaxPieces];
+  __device__ __forceinline__ Pair state(int m) const {
+    return Pair{keys[2 * m], keys[2 * m + 1]};
+  }
+  __device__ __forceinline__ uint32_t global(uint32_t j) const {
+    const uint32_t block = ldim * inner;
+    const uint32_t outer = j / block;
+    const uint32_t rem = j - outer * block;
+    const uint32_t l = rem / inner;
+    const uint32_t i = rem - l * inner;
+    uint32_t g = l;
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p) {
+      if (p < pieces && l - ls[p] < len[p]) g = l - ls[p] + gs[p];
+    }
+    return (outer * gdim + g) * inner + i;
+  }
+  __device__ __forceinline__ uint32_t bits(Pair st, uint32_t j) const {
+    return jax_bits(st.x0, st.x1, global(j));
   }
 };
 
@@ -454,6 +492,59 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
   quantize_rows<kBits, Kappa><<<grid, kQThreads, 0, st>>>(
       x, M, n, wire, P, L, src, scale, q, scratch);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the shard form's two passes: each row's max |x| bits, and the levels at a
+// given scale (the row max all-reduced over the ranks in between)
+// ---------------------------------------------------------------------------
+
+// words[m] = max over row m of the bits of |x| (atomicMax; zeroed before)
+__global__ void __launch_bounds__(kQThreads)
+rows_absmax(const float* __restrict__ x, int M, int n, int P,
+            unsigned* __restrict__ words) {
+  __shared__ unsigned red[kQThreads / 32];
+  const long long items = static_cast<long long>(M) * P;
+  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
+    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
+    const TileSpan s =
+        tile_span<8>(t, n, aligned_start<8>(x, x, m, n, n));
+    const unsigned mx =
+        tile_max<8>(x + static_cast<long long>(m) * n, s, red);
+    if (threadIdx.x == 0) atomicMax(words + m, mx);
+    __syncthreads();  // red is reused by the next item
+  }
+}
+
+// q, scale of rows [M, n] at scale max(words[m], tiny): one tile an item
+template <int kBits, class Kappa>
+__global__ void __launch_bounds__(kQThreads)
+quantize_rows_at(const float* __restrict__ x, int M, int n, int wire, int P,
+                 Kappa src, const unsigned* __restrict__ words,
+                 float* __restrict__ scale, uint8_t* __restrict__ q) {
+  const long long items = static_cast<long long>(M) * P;
+  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
+    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
+    const TileSpan s =
+        tile_span<kBits>(t, n, aligned_start<kBits>(x, q, m, n, wire));
+    const float sc = __uint_as_float(max(__ldg(words + m), kTinyBits));
+    if (t == 0 && threadIdx.x == 0) scale[m] = sc;
+    quantize_tile<kBits>(src, src.state(m),
+                         x + static_cast<long long>(m) * n, n, sc,
+                         q + static_cast<long long>(m) * wire, s);
+  }
+}
+
+// a persistent 1-D grid over `items` tiles of `kernel`
+template <class K>
+int item_grid(K kernel, long long items) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads,
+                                                0);
+  return static_cast<int>(
+      max(1LL, min(items, 1LL * sms * max(per_sm, 1))));
 }
 
 }  // namespace repro

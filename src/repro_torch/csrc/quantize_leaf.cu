@@ -25,6 +25,19 @@
 // launch after one memset, .ftz arithmetic), with the LeafKappa source
 // (the keys in device memory).
 //
+// K4's shard form (quantize_leaf_shard, with leaf_absmax): a rank's shard
+// of a leaf that tensor parallelism cuts over the "model" axis, quantised
+// as its part of the whole leaf's message.  The scale is the whole leaf's,
+// so the rank's row max is its own pass (leaf_absmax: each row's max |x|
+// as uint32 bits, atomicMax into words zeroed by one memset), the caller
+// all-reduces the words with MAX over the axis (for a non-negative f32 the
+// bits order as the value, a NaN's above +inf's), and quantize_leaf_shard
+// takes them: scale = max(word, tiny), one tile an item of a persistent
+// grid, no scratch.  Each element's kappa is the whole leaf's bit at its
+// global flat index (quantize.cuh ShardKappa, from the leaf's shape and
+// the shard's at most four pieces along the cut dim); b=4 packs the
+// shard's own pairs.  Dequantising the rank's payload is K5 unchanged.
+//
 // K5: out[m, j] = (scale[m] * q[m, j]) * (1 / levels), two rounded .ftz
 // multiplies (a product below tiny becomes a zero of its sign, as XLA
 // gives), no FMA; b=4 unpacks the nibbles.  The reference writes
@@ -262,6 +275,71 @@ extern "C" int quantize_leaf(const void* x, int M, int n, int bits,
                                                     qs, scr, st)
                    : repro::launch_quantize_rows<4>(xs, M, n, wire, src, sc,
                                                     qs, scr, st);
+}
+
+// words[m] = the bits of max_j |x[m, j]| (K4's shard form, first pass)
+extern "C" int leaf_absmax(const void* x, int M, int n, void* words,
+                           void* stream) {
+  if (M <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int P = (n + repro::kQTile - 1) / repro::kQTile;
+  const cudaError_t e =
+      cudaMemsetAsync(words, 0, sizeof(unsigned) * static_cast<size_t>(M), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long items = 1LL * M * P;
+  repro::rows_absmax<<<repro::item_grid(repro::rows_absmax, items),
+                       repro::kQThreads, 0, st>>>(
+      static_cast<const float*>(x), M, n, P, static_cast<unsigned*>(words));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's shard form, second pass: rows [M, n] of a shard at the scales
+// max(words[m], tiny).  desc (host memory): inner, gdim, ldim, pieces, then
+// (local start, global start, length) for kMaxPieces pieces.
+extern "C" int quantize_leaf_shard(const void* x, int M, int n, int bits,
+                                   const void* keys, const void* words,
+                                   const void* desc, void* scale, void* q,
+                                   int wire, void* stream) {
+  if (bad_shape(M, n, bits, wire)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* d = static_cast<const int*>(desc);
+  repro::ShardKappa src{};
+  src.keys = static_cast<const uint32_t*>(keys);
+  src.inner = static_cast<uint32_t>(d[0]);
+  src.gdim = static_cast<uint32_t>(d[1]);
+  src.ldim = static_cast<uint32_t>(d[2]);
+  src.pieces = d[3];
+  long long local = 0;
+  for (int p = 0; p < repro::kMaxPieces; ++p) {
+    src.ls[p] = static_cast<uint32_t>(d[4 + 3 * p]);
+    src.gs[p] = static_cast<uint32_t>(d[5 + 3 * p]);
+    src.len[p] = static_cast<uint32_t>(d[6 + 3 * p]);
+    if (p < src.pieces) local += d[6 + 3 * p];
+  }
+  const long long outer =
+      d[0] > 0 && d[2] > 0 ? n / (1LL * d[0] * d[2]) : 0;
+  if (src.pieces < 1 || src.pieces > repro::kMaxPieces || local != d[2] ||
+      outer * d[0] * d[2] != n || outer * d[0] * d[1] >= (1LL << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int P = (n + repro::kQTile - 1) / repro::kQTile;
+  const long long items = 1LL * M * P;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const unsigned*>(words);
+  auto* sc = static_cast<float*>(scale);
+  auto* qs = static_cast<uint8_t*>(q);
+  if (bits == 8) {
+    auto k = repro::quantize_rows_at<8, repro::ShardKappa>;
+    k<<<repro::item_grid(k, items), repro::kQThreads, 0, st>>>(
+        xs, M, n, wire, P, src, w, sc, qs);
+  } else {
+    auto k = repro::quantize_rows_at<4, repro::ShardKappa>;
+    k<<<repro::item_grid(k, items), repro::kQThreads, 0, st>>>(
+        xs, M, n, wire, P, src, w, sc, qs);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // plane = 0: K5 (the per-message route); 1: the plane route's

@@ -53,6 +53,9 @@ ENTRIES = {
     "quantize_leaf": ("quantize_leaf",
                       (_P, _I, _I, _I, _P, _P, _P, _I, _P)),
     "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I, _I)),
+    "leaf_absmax": ("quantize_leaf", (_P, _I, _I, _P)),
+    "quantize_leaf_shard": ("quantize_leaf",
+                            (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I)),
     "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _L, _I, _P)),
     "sparse_scatter": ("gather_scatter",
                        (_P, _P, _I, _L, _I, _I, _I, _F, _I, _P, _P, _P)),

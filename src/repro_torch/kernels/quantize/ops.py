@@ -1,6 +1,7 @@
 """Wrappers of the fused plane quantizer (K1, ``csrc/quantize_plane.cu``)
 and of the per-message quantize/dequantize kernels (K4/K5,
-``csrc/quantize_leaf.cu``).
+``csrc/quantize_leaf.cu``), K4's shard form among them (``row_absmax``,
+``quantize_shard``: a rank's shard of a leaf cut over the "model" axis).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
 version (``ref.py``) on a CPU tensor, as the reference runs Pallas in
@@ -147,6 +148,71 @@ def quantize_tensor(keys, x, *, bits=8):
 
 
 quantize_tensor.launches = 0
+
+
+def row_absmax(x):
+    """The first pass of K4's shard form: each message's max |x| of ``x
+    [..., n]`` (f32) as the uint32 bits of the f32, int32 ``[...]`` (one
+    memset and one launch), for an all-reduce with MAX over the ranks
+    before ``quantize_shard``."""
+    if x.device.type == "cpu":
+        return ref.row_absmax_ref(x)
+    if op_analysis.is_abstract(x):
+        return op_analysis.kernel_op("K4", (x,), torch.empty(
+            tuple(x.shape[:-1]), dtype=torch.int32, device=x.device))
+    lead, n, xf = _build.rows(x, "x", torch.float32)
+    words = torch.empty((xf.shape[0],), dtype=torch.int32, device=x.device)
+    _build.launch("leaf_absmax", xf.data_ptr(), xf.shape[0], n,
+                  words.data_ptr())
+    row_absmax.launches += 1
+    return op_analysis.kernel_op("K4", (xf,), words.reshape(lead))
+
+
+row_absmax.launches = 0
+
+
+def quantize_shard(keys, x, words, layout, *, bits=8):
+    """K4's shard form: the rank's shard ``x [..., n_local]`` (f32) of
+    each message's leaf, laid out in the whole leaf as ``layout``
+    (``ref.ShardLayout``), quantised as its part of the whole leaf's
+    message: at the scales ``max(word, tiny)`` of ``words [...]`` (the
+    ranks' ``row_absmax`` all-reduced with MAX), kappa the whole leaf's
+    ``jax.random.bits(keys[m], (n_pad,))`` at each element's flat index
+    in the whole leaf.  One launch.  Returns ``(q [..., wire_len(n_local)],
+    scale [...])``."""
+    _check_bits(bits)
+    if x.device.type == "cpu":
+        return ref.quantize_shard_ref(keys, x, words, layout, bits=bits)
+    if op_analysis.is_abstract(x):
+        return _fake_quantize("K4", x, bits)
+    lead, n, xf = _build.rows(x, "x", torch.float32)
+    m, wire = xf.shape[0], wire_len(n, bits)
+    kd = _key_words(keys, lead, x.device)
+    w = words.reshape(-1).to(torch.int32).contiguous()
+    _build.check_tensor("words", w, torch.int32, x.device, (m,))
+    desc = _shard_desc(layout)
+    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
+    q = torch.empty((m, wire), device=x.device, dtype=_q_dtype(bits))
+    _build.launch("quantize_leaf_shard", xf.data_ptr(), m, n, bits,
+                  kd.data_ptr(), w.data_ptr(), desc, scale.data_ptr(),
+                  q.data_ptr(), wire)
+    quantize_shard.launches += 1
+    return op_analysis.kernel_op("K4", (xf,), (q.reshape(lead + (wire,)),
+                                               scale.reshape(lead)))
+
+
+quantize_shard.launches = 0
+
+
+def _shard_desc(layout):
+    """The shard's description for the C entry, a host int32 array (the
+    launcher copies it into the kernel's argument)."""
+    import ctypes
+
+    words = layout.words()
+    if max(words) >= 2 ** 31:
+        raise ValueError(f"a shard description past int32: {words}")
+    return (ctypes.c_int32 * len(words))(*words)
 
 
 def _key_words(keys, lead, device):

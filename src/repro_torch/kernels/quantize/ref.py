@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the fused plane quantizer (K1) and of the
-per-message quantize/dequantize kernels (K4, K5), and the quantizer
-arithmetic shared with the per-message torch route of
+"""Plain PyTorch versions of the fused plane quantizer (K1), of the
+per-message quantize/dequantize kernels (K4, K5) and of K4's shard form
+(``ShardLayout``, ``row_absmax_ref``, ``quantize_shard_ref``), and the
+quantizer arithmetic shared with the per-message torch route of
 ``core/compression.py``.
 
 The reference's f32 arithmetic runs under XLA, whose CPU backend (and the
@@ -9,6 +10,9 @@ sign and a subnormal result becomes one.  Eager PyTorch keeps them, so the
 quantiser's and dequantiser's steps go through ``ftz`` wherever a
 subnormal can arise."""
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -264,3 +268,140 @@ def dequantize_tensor_ref(q, scale, *, n, bits=8):
     p = ftz(scale.reshape(-1, 1).to(torch.float32)) * qf  # never below tiny
     out = round_ftz(p.double() * inv.to(q.device, torch.float64))
     return out[:, :n].reshape(lead + (n,))
+
+
+# ---------------------------------------------------------------------------
+# K4's shard form: a rank's shard of a leaf quantised as part of the whole
+# ---------------------------------------------------------------------------
+
+MAX_PIECES = 4  # the shard form's pieces along the cut dim (csrc: kMaxPieces)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Where a rank's shard of one leaf lies in the whole leaf: ``shape``
+    the whole leaf's, ``dim`` the dim cut over the "model" axis (None:
+    the rank holds the whole leaf), ``pieces`` the shard's parts along
+    ``dim`` in order, ``(local start, global start, length, cut)`` each
+    (``cut``: the rank's part of a piece the axis splits; otherwise a
+    piece every rank holds whole).  ``launch.sharding.shard_layouts``
+    builds them from the ``tp_plan``."""
+
+    shape: tuple
+    dim: int | None = None
+    pieces: tuple = ()
+
+    def __post_init__(self):
+        if self.dim is not None and not 1 <= len(self.pieces) <= MAX_PIECES:
+            raise ValueError(f"a shard of 1..{MAX_PIECES} pieces, got "
+                             f"{len(self.pieces)}")
+
+    @property
+    def cut(self) -> bool:
+        """Whether the rank holds a part of the leaf only."""
+        return any(p[3] for p in self.pieces)
+
+    @property
+    def local_shape(self) -> tuple:
+        if self.dim is None:
+            return tuple(self.shape)
+        s = list(self.shape)
+        s[self.dim] = sum(p[2] for p in self.pieces)
+        return tuple(s)
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def _along(self, device):
+        """The local index along ``dim`` -> (its global index, held whole)
+        as int64 / bool vectors."""
+        g = torch.empty(self.local_shape[self.dim], dtype=torch.int64,
+                        device=device)
+        whole = torch.empty_like(g, dtype=torch.bool)
+        for ls, gs, n, cut in self.pieces:
+            g[ls:ls + n] = torch.arange(gs, gs + n, device=device)
+            whole[ls:ls + n] = not cut
+        return g, whole
+
+    def _expand(self, along, device):
+        d = self.dim
+        view = [1] * len(self.shape)
+        view[d] = -1
+        return along.reshape(view).expand(self.local_shape).reshape(-1)
+
+    def counters(self, device) -> torch.Tensor:
+        """The whole leaf's flat index of each of the shard's elements
+        (int64 ``[n_local]``, in the shard's flat order)."""
+        if self.dim is None:
+            return torch.arange(self.numel, dtype=torch.int64, device=device)
+        loc = self.local_shape
+        d = self.dim
+        inner = math.prod(self.shape[d + 1:])
+        g, _ = self._along(device)
+        outer = torch.arange(math.prod(loc[:d]), dtype=torch.int64,
+                             device=device)
+        ii = torch.arange(inner, dtype=torch.int64, device=device)
+        idx = ((outer[:, None, None] * self.shape[d] + g[None, :, None])
+               * inner + ii[None, None, :])
+        return idx.reshape(-1)
+
+    def whole_mask(self, device) -> torch.Tensor:
+        """Which of the shard's elements lie in a piece held whole (bool
+        ``[n_local]``): all of them for a leaf held whole."""
+        if self.dim is None:
+            return torch.ones(self.numel, dtype=torch.bool, device=device)
+        return self._expand(self._along(device)[1], device)
+
+    def words(self) -> tuple:
+        """The kernel's description: inner, the whole and the local length
+        of ``dim``, the piece count, then ``(local start, global start,
+        length)`` for ``MAX_PIECES`` pieces (zeros past the last)."""
+        d = self.dim
+        out = [math.prod(self.shape[d + 1:]), self.shape[d],
+               self.local_shape[d], len(self.pieces)]
+        for i in range(MAX_PIECES):
+            out += (list(self.pieces[i][:3]) if i < len(self.pieces)
+                    else [0, 0, 0])
+        return tuple(out)
+
+
+def row_absmax_ref(x):
+    """The shard form's max pass: each message's max |x| of ``x [..., n]``
+    as the uint32 bits of the f32 (int32 ``[...]``; a NaN's bits exceed
+    +inf's, so a max over the bits propagates it as amax does)."""
+    bits_ = x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
+    return bits_.amax(dim=-1)
+
+
+def scale_of(words):
+    """The scale ``max(max |x|, tiny)`` from a row max's bits (int32)."""
+    return words.clamp_min(0x00800000).view(torch.float32)
+
+
+def quantize_shard_ref(keys, x, words, layout: ShardLayout, *, bits=8,
+                       window=None):
+    """K4's shard form, plain: the rank's elements ``x [..., n_local]`` of
+    a leaf laid out as ``layout`` quantised as the whole leaf's message
+    is (``quantize_tensor_ref``): at the scale ``scale_of(words)`` (the
+    all-reduced row max's bits, ``[...]``) and with kappa from the
+    ``jax.random.bits(key, (n_pad,))`` stream at each element's flat
+    index in the whole leaf.  The levels are packed in the shard's own
+    order (b=4: local pairs, an odd tail padded with nibble 8).
+    ``window``: that many columns at a time.  Returns ``(q [...,
+    wire_len(n_local)], scale [...])``."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    xf = x.reshape(-1, n).to(torch.float32)
+    scale = scale_of(words.reshape(-1).to(torch.int32))
+    ctr = layout.counters(x.device)
+    if ctr.numel() != n:
+        raise ValueError(f"a shard of {ctr.numel()} elements, rows of {n}")
+    kd = keys.to(x.device).reshape(-1, 2)
+    levels = 2 ** (bits - 1) - 1
+    parts = []
+    for j0, j1 in _windows(n, window):
+        kappa = prng.uniform01(jaxrand.bits_at(kd, ctr[j0:j1]))
+        q = quantize_values(xf[:, j0:j1], scale[:, None], kappa, levels)
+        parts.append(to_int8(q) if bits == 8 else pack4(q))
+    q = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return q.reshape(lead + (q.shape[-1],)), scale.reshape(lead)

@@ -29,6 +29,10 @@ What rank 0 runs:
   of ``abstract_train_state`` and of ``input_specs(..., n_agents)``:
   A / W agents, and its share of the local batch where
   ``shd.train_data_pspec`` shards it over "data" (the multi-pod mesh).
+  A per-leaf LT-ADMM-CC solver (``"ltadmm:packed=false"``) of the archs
+  that ``steps.tensor_parallel`` admits runs tensor-parallel: every
+  state leaf is the rank's shard over "model" (the ``tp_plan`` of mode
+  "admm", recorded as for serving).
 * prefill and decode: ``build_prefill`` / ``build_serve`` with the mesh,
   the parameters cut by the variant's ``serve_mode`` (default "serve";
   ``shd.shard_params``, ``shd.param_pspec``), the rank's share of
@@ -41,10 +45,11 @@ What rank 0 runs:
   cache (the KV heads, the SSD heads and their conv channels).
 
 A record says whether tensor parallelism ran (``"tp_applied"``: true for
-those archs' prefill and decode; false for training and for the MoE, MLA,
-xLSTM and encoder-decoder archs, whose parameters are replicated over
-"model", so their per-device bytes and FLOPs exceed the reference's by
-design) beside the dims it sharded (``"sharded"``), those the reference's
+those archs' prefill and decode and their per-leaf LT-ADMM-CC training;
+false for the packed training round, whose plane the reference too
+replicates over "model", and for the MoE, MLA, xLSTM and
+encoder-decoder archs, whose parameters are replicated over "model", so
+their per-device bytes and FLOPs exceed the reference's by design) beside the dims it sharded (``"sharded"``), those the reference's
 specs shard that it ran whole (``"whole"``: the parameters' "data" dims,
 FSDP, always), and the leaves it holds in another layout than the
 reference's spec gives (``"tp_layout"``: a Mamba mixer's, cut by SSD
@@ -271,7 +276,11 @@ def _cfg_for(arch, shape_name, variant):
 
 
 def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
-                sharded, whole):
+                sharded, whole, layout):
+    """Rank 0's train step and its inputs: the agent rows of the state
+    and data; the rank's shard of every state leaf where the solver runs
+    tensor-parallel (``solver.tp_layouts``: per-leaf LT-ADMM-CC,
+    ``packed=false``).  Returns ``(n_agents, step, args, tp_applied)``."""
     step_fn, _, _, solver = steps.build_train(
         arch, cfg, None, variant.get("solver", "ltadmm"), recipe,
         device=TRACE_DEVICE, mesh=mesh)
@@ -279,17 +288,22 @@ def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
     rows = solver.exchange.rows
     if len(rows) != n_agents:
         sharded["state"] = [[0, [agent_axis_for(mesh)]]]
+    tp_on = getattr(solver, "tp_layouts", None) is not None
+    if tp_on:
+        params, _ = _params_case(arch, cfg, mesh, "admm", sharded, whole,
+                                 layout)
+    else:
+        params = abstract_params(steps.model_specs(arch, cfg), cfg.dtype)
     x_sds = tree_map(
         lambda t: torch.empty((len(rows),) + tuple(t.shape), dtype=t.dtype,
-                              device=TRACE_DEVICE),
-        abstract_params(steps.model_specs(arch, cfg), cfg.dtype))
+                              device=TRACE_DEVICE), params)
     state = _concrete_counter(solver.abstract_state(x_sds))
     data_sds = input_specs(arch_id, shape_name, n_agents=n_agents)
     data_ps = shd.train_data_pspec(
         mesh, {k: v.dim() for k, v in data_sds.items()})
     data = {k: _share(mesh, v, data_ps[k], (0, 1), k, sharded, whole)
             for k, v in data_sds.items()}
-    return n_agents, step_fn, (state, data, 0)
+    return n_agents, step_fn, (state, data, 0), tp_on
 
 
 def _params_case(arch, cfg, mesh, mode, sharded, whole, layout):
@@ -415,9 +429,9 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
         n_agents = None
         t0 = time.time()
         if shape.kind == "train":
-            n_agents, fn, args = _train_case(
+            n_agents, fn, args, tp_on = _train_case(
                 arch_id, arch, cfg, shape_name, mesh, recipe, variant,
-                sharded, whole)
+                sharded, whole, layout)
         elif shape.kind == "prefill":
             fn, args, tp_on = _prefill_case(arch_id, arch, cfg, shape_name,
                                             mesh, mode, sharded, whole,

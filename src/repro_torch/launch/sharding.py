@@ -23,7 +23,10 @@ reference's.  The rules read a mesh through ``mesh.axes_of``: a
 
 Tensor parallelism: ``tp_plan`` says how a rank holds each parameter
 over the "model" axis, ``local_shard`` cuts a tensor to the rank's slice
-and ``shard_params`` cuts a whole parameter tree to the rank's shard.
+and ``shard_params`` cuts a whole parameter tree (or a stacked ``[A,
+...]`` one) to the rank's shard; ``gather_shards`` puts the shards back
+together and ``shard_layouts`` says where each shard lies in its whole
+leaf (the compressors' ``ShardLayout``).
 Only "model" is applied; the "data" entries that mode "serve" puts on
 ``embed`` (FSDP) are held whole.  A Mamba mixer is cut by SSD head
 (``_mamba_plan``), not by the spec's contiguous slice of its
@@ -269,34 +272,39 @@ def _model_dim(spec):
     return None
 
 
-def local_shard(mesh, spec, tensor, segments=None, rank=None):
+def _pieces(segments, rank: int, size: int) -> tuple:
+    """A rank's pieces of a dim that ``segments`` tile (``LeafPlan``)
+    over a "model" axis of ``size``: ``(local start, global start,
+    length, cut)`` each, a cut piece's part the rank's, a piece held
+    whole all of it."""
+    out, ls, start = [], 0, 0
+    for length, cut in segments:
+        if cut and length % size:
+            raise ValueError(f"a piece of {length} does not split over "
+                             f"{size} ranks")
+        k = length // size if cut else length
+        out.append((ls, start + (rank * k if cut else 0), k, bool(cut)))
+        ls += k
+        start += length
+    return tuple(out)
+
+
+def local_shard(mesh, spec, tensor, segments=None):
     """The rank's slice of ``tensor`` for a sanitized ``spec``: the dim
     whose entry names "model" cut into the axis's size contiguous parts
     (by ``segments``, as ``LeafPlan`` says, where given), as a tensor of
     its own, so that the whole one can be freed.  No other entry is
     applied: a "data" dim stays whole.  A spec without "model" returns
-    ``tensor`` itself.  ``rank``: the rank's index on the axis (default
-    the mesh's ``get_local_rank``)."""
+    ``tensor`` itself."""
     d = _model_dim(spec)
     if d is None:
         return tensor
-    n = axes_of(mesh).shape[TP_AXIS]
-    r = mesh.get_local_rank(TP_AXIS) if rank is None else rank
     segments = segments or ((tensor.shape[d], True),)
     if sum(length for length, _ in segments) != tensor.shape[d]:
         raise ValueError(f"segments {segments} do not tile dim {d} of "
                          f"{tuple(tensor.shape)}")
-    pieces, start = [], 0
-    for length, cut in segments:
-        if cut:
-            if length % n:
-                raise ValueError(f"a piece of {length} does not split over "
-                                 f"{n} ranks")
-            k = length // n
-            pieces.append(tensor.narrow(d, start + r * k, k))
-        else:
-            pieces.append(tensor.narrow(d, start, length))
-        start += length
+    pieces = [tensor.narrow(d, g, k) for _, g, k, _ in _pieces(
+        segments, mesh.get_local_rank(TP_AXIS), axes_of(mesh).shape[TP_AXIS])]
     if len(pieces) == 1:
         return pieces[0].clone(memory_format=torch.contiguous_format)
     return torch.cat(pieces, dim=d)
@@ -353,22 +361,75 @@ def tp_plan(mesh, mode: str, spec_tree):
     return walk(spec_tree, pspecs)
 
 
-def shard_params(tree, mesh, mode: str, spec_tree):
+def shard_params(tree, mesh, mode: str, spec_tree, lead: int = 0):
     """The rank's shard of the whole parameter tree ``tree`` (nested
     dicts of tensors laid out as ``spec_tree``; the reference's tree,
     carried across) over ``mesh``'s "model" axis, by ``tp_plan``.  The
     whole tree is emptied as its leaves are cut, so that a caller that
     holds no other reference frees each whole leaf (a leaf held whole
-    moves to the new tree as it is)."""
+    moves to the new tree as it is).  ``lead``: dims in front of each
+    leaf's spec shape (the agents of a stacked ``[A, ...]`` tree)."""
     plan = tp_plan(mesh, mode, spec_tree)
 
     def walk(node, p):
         if isinstance(p, LeafPlan):
             if p.dim is None:
                 return node
-            spec = PartitionSpec(*[TP_AXIS if i == p.dim else None
+            spec = PartitionSpec(*[TP_AXIS if i == p.dim + lead else None
                                    for i in range(node.dim())])
             return local_shard(mesh, spec, node, p.segments)
         return {k: walk(node.pop(k), p[k]) for k in list(node)}
+
+    return walk(tree, plan)
+
+
+def leaf_layout(plan: LeafPlan, shape, rank: int, size: int):
+    """A rank's ``ShardLayout`` of a leaf of ``shape`` that ``plan`` cuts
+    over a "model" axis of ``size``: each segment a piece (its local
+    start, global start, length, and whether the axis cuts it)."""
+    from repro_torch.kernels.quantize.ref import ShardLayout
+
+    if plan.dim is None:
+        return ShardLayout(tuple(shape))
+    return ShardLayout(tuple(shape), plan.dim,
+                       _pieces(plan.segments, rank, size))
+
+
+def shard_layouts(mesh, mode: str, spec_tree) -> list:
+    """The rank's ``ShardLayout`` of every parameter of ``spec_tree`` over
+    ``mesh``'s "model" axis (``tp_plan``), in flatten order."""
+    n = axes_of(mesh).shape[TP_AXIS]
+    r = mesh.get_local_rank(TP_AXIS)
+    plans = tree_flatten(tp_plan(mesh, mode, spec_tree),
+                         is_leaf=lambda x: isinstance(x, LeafPlan))[0]
+    specs = tree_flatten(spec_tree, is_leaf=is_spec)[0]
+    return [leaf_layout(p, s.shape, r, n) for p, s in zip(plans, specs)]
+
+
+def gather_shards(tree, mesh, mode: str, spec_tree, lead: int = 0):
+    """Inverse of ``shard_params`` on every rank: each leaf's shards
+    ``all_gather``ed over ``mesh``'s "model" axis and put back in the
+    whole leaf's layout (a piece held whole taken from the axis's rank
+    0).  For checks and checkpoints; ``lead`` as ``shard_params``."""
+    import torch.distributed as dist
+
+    n = axes_of(mesh).shape[TP_AXIS]
+    group = mesh.get_group(TP_AXIS)
+    plan = tp_plan(mesh, mode, spec_tree)
+
+    def walk(node, p):
+        if not isinstance(p, LeafPlan):
+            return {k: walk(node[k], p[k]) for k in node}
+        if p.dim is None:
+            return node
+        t = node.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        d = p.dim + lead
+        out = []
+        for ls, _, k, cut in _pieces(p.segments, 0, n):
+            out += ([q.narrow(d, ls, k) for q in parts] if cut
+                    else [parts[0].narrow(d, ls, k)])
+        return torch.cat(out, dim=d)
 
     return walk(tree, plan)

@@ -21,6 +21,16 @@ parameter leaves and its cache shapes for the caller to hold against the
 reference; ``tests/test_torch_tp.py`` runs it in a gloo world of 4 CPU
 ranks.
 
+``tp_train_suite`` (``CHECKS["tp_train"]``) trains the smoke configs of
+``TP_TRAIN_ARCHS`` tensor-parallel over the same two meshes (all of them
+on the ``(1, W)`` one, ``TP_TRAIN_ARCHS_2D`` on the other): each rank's
+gradients of ``loss_fn`` (gathered), the qbit8 / qbit4 payloads of every
+leaf cut over "model" (K4's shard form, plain on the CPU), one
+``ltadmm:packed=false`` round of ``build_train`` (the state gathered)
+and a ``build_ddp_train`` step (held against the one-rank step here);
+``tests/test_torch_tp_train.py`` holds the rest against the reference
+and the port's one-rank round.
+
 ``start_world`` starts a world of ``torch.multiprocessing`` processes
 that meet at a ``FileStore`` (no TCP port) and runs one named check on
 every rank; ``collect_world`` waits for them and returns each rank's
@@ -28,6 +38,7 @@ result.
 """
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 
@@ -524,7 +535,13 @@ def tp_weights(arch_id: str, seed: int = 0) -> dict:
     """The smoke config's weights as a numpy tree (the reference's layout,
     units stacked), f32 from a seeded ``RandomState``: fan-in scaled
     normals, and the norms, biases and Mamba scalars perturbed around
-    their initial values, so every leaf is exercised."""
+    their initial values, so every leaf is exercised.  A fresh copy of
+    each call (the draw is made once a process)."""
+    return tree_map(np.copy, _tp_weights(arch_id, seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_weights(arch_id: str, seed: int) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.launch import steps
     from repro_torch.models.common import _map_specs
@@ -630,7 +647,265 @@ def tp_suite(mesh, device, archs=TP_ARCHS):
     return out
 
 
-CHECKS = {"suite": suite, "paper": paper_run, "tp": tp_suite}
+# ---------------------------------------------------------------------------
+# Tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# qwen3 (its 2 KV heads whole on a 4-way axis), zamba2 (Mamba pieces),
+# command-r (the parallel block) and pixtral (untied head, embeds)
+TP_TRAIN_ARCHS = ("qwen3-0.6b", "zamba2-2.7b", "command-r-plus-104b",
+                  "pixtral-12b")
+# those of them on the (W / 2, 2) mesh: the agents' rows split over "data"
+# beside a 2-way "model" axis, through attention, Mamba and the untied
+# head (command-r's parallel block is held on the (1, W) mesh)
+TP_TRAIN_ARCHS_2D = ("qwen3-0.6b", "zamba2-2.7b", "pixtral-12b")
+# the batch of the gradient check (B, T), the round's agents, sequences an
+# agent, sequence length, and the round's spec
+TP_GRAD_BATCH, TP_GRAD_T = 2, 8
+TP_AGENTS, TP_M, TP_T = 2, 4, 8
+TP_ROUND = ("ltadmm:packed=false,tau=2,batch_size=2,"
+            "compressor=qbit:bits=8,impl=kernel")
+TP_RECIPE = dict(topology="complete", gamma=0.05)
+TP_PAYLOAD_KEY = 5  # leaf i's key: fold_in(key(5), i)
+TP_DDP_TOL = 1e-5
+
+
+def tp_batch(arch_id: str, b: int, t: int, seed: int, lead=()) -> dict:
+    """A training batch of ``b`` sequences of ``t`` tokens (numpy, with
+    ``lead`` dims in front): ``tokens [..., b, t + 1]``, or ``embeds
+    [..., b, t, d]`` and ``labels [..., b, t]`` where the arch takes
+    embeddings."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch_id].make_smoke()
+    rng = np.random.RandomState(seed)
+    lead = tuple(lead)
+    if cfg.inputs_via_embeds:
+        return {"embeds": rng.normal(size=lead + (b, t, cfg.d_model))
+                .astype(np.float32),
+                "labels": rng.randint(0, cfg.vocab, lead + (b, t))}
+    return {"tokens": rng.randint(0, cfg.vocab, lead + (b, t + 1))}
+
+
+def tp_round_inputs(arch_id: str):
+    """The round's x0 (``[A, ...]`` numpy tree: agent a's weights are
+    ``tp_weights(arch, a)``) and data (``[A, m, ...]``)."""
+    ws = [tp_weights(arch_id, a) for a in range(TP_AGENTS)]
+    x0 = tree_map(lambda *t: np.stack(t), *ws)
+    return x0, tp_batch(arch_id, TP_M, TP_T, 7, (TP_AGENTS,))
+
+
+def tp_recipe():
+    from repro_torch.launch import steps
+
+    return steps.TrainRecipe(**TP_RECIPE)
+
+
+def _tensors(tree, device):
+    return tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(device),
+                    tree)
+
+
+def check_tp_grads(mesh, device, arch_id, remat=False):
+    """``loss_fn``'s value and gradients on the rank's shard of
+    ``tp_weights`` under the mesh, the gradients gathered (numpy);
+    ``remat``: each unit under ``torch.utils.checkpoint``, whose backward
+    issues the unit's forward collectives again."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    cfg = dataclasses.replace(arch.make_smoke(), remat=remat)
+    specs = steps.model_specs(arch, cfg)
+    shard = shd.shard_params(_tensors(tp_weights(arch_id), device), mesh,
+                             "admm", specs)
+    batch = _tensors(tp_batch(arch_id, TP_GRAD_BATCH, TP_GRAD_T, 3), device)
+    with use_mesh(mesh):
+        val, grads = steps.value_and_grad(steps.model_loss(arch, cfg), shard,
+                                          batch)
+    whole = shd.gather_shards(grads, mesh, "admm", specs)
+    return {"loss": float(val),
+            "grads": {k: _numpy(v) for k, v in dict_paths(whole).items()}}
+
+
+def check_tp_payloads(mesh, device, arch_id):
+    """Every leaf cut over "model" through K4's shard form (qbit8 and
+    qbit4, the kernel route; and qbit8 on the torch route, ``"torch"``)
+    under the key ``fold_in(key(5), i)``: the rank's levels (unpacked)
+    and scale, and each level's flat index in the whole leaf.  A leaf
+    held whole is left out."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import compression, jaxrand
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    specs = steps.model_specs(arch, arch.make_smoke())
+    shard = shd.shard_params(_tensors(tp_weights(arch_id), device), mesh,
+                             "admm", specs)
+    leaves = tree_flatten(shard)[0]
+    names = list(dict_paths(shard))
+    layouts = shd.shard_layouts(mesh, "admm", specs)
+    out = {}
+    with use_mesh(mesh):
+        for i, (name, x, lay) in enumerate(zip(names, leaves, layouts)):
+            if not lay.cut:
+                continue
+            key = jaxrand.fold_in(jaxrand.key(TP_PAYLOAD_KEY), i)[None]
+            got = {"index": _numpy(lay.counters(x.device))}
+            for bits, impl in ((8, "kernel"), (4, "kernel"), (8, "torch")):
+                comp = compression.BBitQuantizer(bits=bits, impl=impl)
+                p = compression.ShardLeaf(comp, lay).compress(
+                    key, x.reshape(1, -1).float())
+                q = p["q"][0]
+                lv = q if bits == 8 else qref.unpack4(q, x.numel())
+                got[bits if impl == "kernel" else impl] = (
+                    _numpy(lv.to(torch.int8)), float(p["scale"][0]))
+            out[name] = got
+    return out
+
+
+def check_tp_round(mesh, device, arch_id):
+    """One ``TP_ROUND`` round of ``build_train`` with the mesh on the
+    rank's agent rows and shard of ``tp_round_inputs``: the state
+    gathered over "model" (numpy), the consensus error, the wire bytes
+    and the bytes the rank handed to the exchange."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import admm as admm_mod
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    specs = steps.model_specs(arch, cfg)
+    step, _, init, solver = steps.build_train(
+        arch, cfg, TP_AGENTS, TP_ROUND, tp_recipe(), device=device,
+        mesh=mesh)
+    rows = solver.exchange.rows
+    x0_np, data_np = tp_round_inputs(arch_id)
+    x0 = shd.shard_params(_tensors(tree_map(
+        lambda a: a[rows.start:rows.stop], x0_np), device), mesh, "admm",
+        specs, lead=1)
+    data = _tensors(tree_map(lambda a: a[rows.start:rows.stop], data_np),
+                    device)
+    st = step(init(x0), data, 11)
+    out = {"rows": (rows.start, rows.stop), "k": st.k}
+    for f in st._fields:
+        v = getattr(st, f)
+        if isinstance(v, dict):
+            whole = shd.gather_shards(v, mesh, "admm", specs,
+                                      lead=admm_mod.STATE_LEAD[f])
+            out[f] = {k: _numpy(t) for k, t in dict_paths(whole).items()}
+    with use_mesh(mesh):
+        out["consensus_error"] = float(admm_mod.consensus_error(
+            st, solver.exchange, solver.tp_layouts))
+    out["wire_bytes"] = solver.wire_bytes(x0)
+    out["exchange_bytes"] = solver.exchange.collectives["bytes"]
+    out["tp_layouts"] = solver.tp_layouts is not None
+    return out
+
+
+def check_tp_ddp(mesh, device, arch_id):
+    """A ``build_ddp_train`` step on the rank's shard (mode "serve") and
+    its share of the batch within ``TP_DDP_TOL`` of one process's step on
+    the whole weights and batch, cut to the rank's shard: the loss and
+    Adam's two moments (the averaged gradient and its square).  Returns
+    the largest gaps relative to each leaf's scale, and the new
+    parameters' (not held: Adam's first step is g / (|g| + eps), which
+    turns a reassociated gradient near eps into an update a good part of
+    lr apart)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    specs = steps.model_specs(arch, cfg)
+    w = axes_of(mesh).shape["data"]
+    p = mesh.get_local_rank("data")
+    batch = _tensors(tp_batch(arch_id, 2 * w, TP_GRAD_T, 4), device)
+    mine = tree_map(lambda t: t[2 * p:2 * p + 2], batch)
+    shard = shd.shard_params(_tensors(tp_weights(arch_id), device), mesh,
+                             "serve", specs)
+    step, _, opt = steps.build_ddp_train(arch, cfg, mesh=mesh)
+    params, st, loss = step(shard, opt.init(shard), mine, 0)
+    one_step, one_opt = steps.build_ddp_train(arch, cfg)
+    whole = _tensors(tp_weights(arch_id), device)
+    want_p, want, want_loss = one_step(whole, one_opt.init(whole), batch, 0)
+    gaps = {"loss": abs(float(loss) - float(want_loss))
+            / max(abs(float(want_loss)), 1e-30)}
+    for name, got_t, ref_t in (("m", st["m"], want["m"]),
+                               ("v", st["v"], want["v"]),
+                               ("params", params, want_p)):
+        # each leaf's scale is the whole leaf's
+        scales = [float(r.abs().max()) for r in tree_flatten(ref_t)[0]]
+        ref_t = shd.shard_params(ref_t, mesh, "serve", specs)
+        g_l, r_l = tree_flatten(got_t)[0], tree_flatten(ref_t)[0]
+        gaps[name] = max(float((g - r).abs().max()) / max(sc, 1e-30)
+                         for g, r, sc in zip(g_l, r_l, scales))
+    # v is the gradient squared: twice its relative gap
+    if max(gaps["loss"], gaps["m"], gaps["v"] / 2) > TP_DDP_TOL:
+        raise AssertionError(f"{arch_id}: the tensor-parallel DDP step "
+                             f"lies {gaps} from the one-rank step")
+    return gaps
+
+
+def check_tp_randk(mesh, device):
+    """RandK on a cut leaf raises ``NotImplementedError`` at the round."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+
+    arch = ARCHS["qwen3-0.6b"]
+    cfg = arch.make_smoke()
+    step, _, init, solver = steps.build_train(
+        arch, cfg, TP_AGENTS, "ltadmm:packed=false,tau=1,batch_size=2,"
+        "compressor=randk:fraction=0.5", tp_recipe(), device=device,
+        mesh=mesh)
+    rows = solver.exchange.rows
+    x0_np, data_np = tp_round_inputs("qwen3-0.6b")
+    x0 = shd.shard_params(_tensors(tree_map(
+        lambda a: a[rows.start:rows.stop], x0_np), device), mesh, "admm",
+        steps.model_specs(arch, cfg), lead=1)
+    data = _tensors(tree_map(lambda a: a[rows.start:rows.stop], data_np),
+                    device)
+    try:
+        step(init(x0), data, 11)
+    except NotImplementedError as e:
+        return str(e)
+    raise AssertionError("RandK on a leaf cut over 'model' did not raise")
+
+
+def tp_train_suite(mesh, device):
+    """The tensor-parallel training checks of ``TP_TRAIN_ARCHS_2D`` over
+    ``mesh`` (``(W / 2, 2)``) and of ``TP_TRAIN_ARCHS`` over a ``(1, W)``
+    mesh of the same world.  Returns ``{model size: {arch: {...}}}`` with
+    the rank's coordinates."""
+    import time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world_size = torch.distributed.get_world_size()
+    out = {"rank": torch.distributed.get_rank(), "seconds": {}}
+    for m, archs in ((mesh, TP_TRAIN_ARCHS_2D),
+                     (make_host_mesh(world_size, model=world_size),
+                      TP_TRAIN_ARCHS)):
+        n = axes_of(m).shape["model"]
+        res = {"coords": tuple(m.get_coordinate()),
+               "model_rank": m.get_local_rank("model"),
+               "remat": check_tp_grads(m, device, archs[0], remat=True)}
+        for a in archs:
+            t0 = time.perf_counter()
+            res[a] = {"grads": check_tp_grads(m, device, a),
+                      "payloads": check_tp_payloads(m, device, a),
+                      "round": check_tp_round(m, device, a),
+                      "ddp": check_tp_ddp(m, device, a)}
+            out["seconds"][f"{a} model{n}"] = time.perf_counter() - t0
+        res["randk"] = check_tp_randk(m, device)
+        out[n] = res
+    return out
+
+
+CHECKS = {"suite": suite, "paper": paper_run, "tp": tp_suite,
+          "tp_train": tp_train_suite}
 
 
 def _rank_main(rank, check, world_size, model, backend, store_dir, kw):

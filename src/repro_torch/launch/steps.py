@@ -9,7 +9,15 @@ The agents run in one process through the host-simulated ``Exchange``,
 or, given a ``DeviceMesh`` (``launch.mesh``), one rank's agent rows a
 process over the mesh's agent axis; ``build_train`` then also returns
 the reference's ``state_sharding`` tree and ``build_ddp_train`` its
-TP/FSDP specs and an all-reduce of the gradients over "data".
+TP/FSDP specs and an all-reduce of the gradients over "data".  Where
+``tensor_parallel`` holds (the archs of ``tp_serving`` on a mesh whose
+"model" axis has more than one rank), the per-leaf LT-ADMM-CC round
+(``packed=false``) and the DDP step run tensor-parallel over "model" on
+each rank's shard of the parameters and of every state leaf
+(``sharding.shard_params(tree, mesh, "admm", specs, lead=1)`` cuts the
+stacked x0; ``"serve"`` the DDP parameters), as the reference's GSPMD
+partitions its step; the compressors run on the shards
+(``compression.ShardedTree``).  FSDP over "data" is not applied.
 ``abstract_train_state`` gives the state's ``meta`` tree.
 
 The model is differentiated by autograd, as the reference differentiates
@@ -24,14 +32,16 @@ encoder-decoder trains through ``build_train`` as it is, on
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 import math
 
 import torch
 
 from repro_torch.common.trees import (is_namedtuple, meta_like,
                                       tree_children, tree_flatten, tree_map)
-from repro_torch.core import jaxrand, vr
+from repro_torch.core import compression, jaxrand, vr
 from repro_torch.core.schedule import build_graph
 from repro_torch.core.solver import make_solver, solver_entry
 from repro_torch.launch import sharding as shd
@@ -185,7 +195,16 @@ def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
     ``(step_fn, state_sharding, init_fn, solver)`` as the reference's:
     ``state_sharding`` the state's ``PartitionSpec`` tree (the packed
     plane on the agent axis and replicated elsewhere; per-leaf TP specs
-    on the pytree path).
+    on the pytree path).  LT-ADMM-CC on the pytree path
+    (``packed=false``) runs tensor-parallel over the mesh's "model" axis
+    where ``tensor_parallel`` holds: ``init_fn`` takes the rank's shard
+    of the stacked params (``sharding.shard_params(x0, mesh, "admm",
+    specs, lead=1)``), every state leaf is the rank's shard, the data
+    rows are the same on every rank of the axis, the gradients and the
+    compressors run on the shards and the exchange stays over the agent
+    axis at the rank's "model" coordinate; ``solver.tp_layouts`` says
+    where each shard lies (``admm.consensus_error`` takes them).  The
+    packed plane stays replicated over "model", as in the reference.
     """
     recipe = recipe or TrainRecipe()
     aaxis = None if mesh is None else agent_axis_for(mesh)
@@ -201,11 +220,29 @@ def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
                          defaults=recipe.solver_defaults(entry.name),
                          device=device)
 
-    def step_fn(state, data, seed):
-        return solver.step(state, data, jaxrand.key(seed))
-
     if mesh is None:
+        def step_fn(state, data, seed):
+            return solver.step(state, data, jaxrand.key(seed))
+
         return step_fn, solver.init, solver
+    if (entry.name == "ltadmm" and not solver.packed
+            and tensor_parallel(arch_def, cfg, mesh)):
+        layouts = tuple(shd.shard_layouts(mesh, "admm",
+                                          model_specs(arch_def, cfg)))
+        c = solver.cfg
+        solver = dataclasses.replace(
+            solver, tp_layouts=layouts, cfg=dataclasses.replace(
+                c, compressor_x=compression.ShardedTree(c.compressor_x,
+                                                        layouts),
+                compressor_z=compression.ShardedTree(c.compressor_z,
+                                                     layouts)))
+
+    def step_fn(state, data, seed):
+        # the estimator's tensor-parallel forward and the compressors
+        # read the ambient mesh
+        with use_mesh(mesh):
+            return solver.step(state, data, jaxrand.key(seed))
+
     if getattr(solver, "packed", False):
         # the packed plane [A, N]: the agent axis, replicated elsewhere
         x_ps = shd.P(aaxis)
@@ -232,22 +269,30 @@ def abstract_train_state(arch_def, cfg, solver):
 # ---------------------------------------------------------------------------
 
 
-def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None):
+def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None, eps=1e-8):
     """Standard data-parallel Adam training step:
     ``step_fn(params, opt_state, batch, seed) -> (params, opt_state,
-    loss)``; returns ``(step_fn, opt)``.
+    loss)``; returns ``(step_fn, opt)``.  ``lr`` and ``eps`` are Adam's
+    (the reference's ``optimizers.adam`` defaults).
 
     With a ``mesh`` each rank takes its equal share of the batch; the
     loss and the gradients are averaged over the "data" axis (an
     ``all_reduce`` sum, then a division), so every rank applies the
     update of the whole batch.  The return is then ``(step_fn, pspecs,
     opt)``, ``pspecs`` the reference's TP + FSDP parameter specs (mode
-    "serve"); the parameters themselves stay whole on every rank (tensor
-    parallelism over "model" is not in the port: ROADMAP Queue 1)."""
+    "serve").  Where ``tensor_parallel`` holds, ``params`` (and Adam's
+    state) are the rank's shard over "model"
+    (``sharding.shard_params(tree, mesh, "serve", specs)``): the forward
+    and backward run tensor-parallel, each rank's gradients are its
+    shard's, averaged over "data".  Otherwise, and always over "data"
+    (FSDP, ROADMAP Queue 1), the parameters are whole on every rank."""
     loss = model_loss(arch_def, cfg)
-    opt = optimizers.adam(lr)
+    opt = optimizers.adam(lr, eps=eps)
     group = None if mesh is None else mesh.get_group("data")
     world = 1 if mesh is None else axes_of(mesh).shape["data"]
+    ambient = (functools.partial(use_mesh, mesh)
+               if tensor_parallel(arch_def, cfg, mesh)
+               else contextlib.nullcontext)
 
     def mean_over_data(t):
         if group is not None:
@@ -257,7 +302,8 @@ def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None):
 
     def step_fn(params, opt_state, batch, seed):
         del seed
-        loss_val, grads = value_and_grad(loss, params, batch)
+        with ambient():
+            loss_val, grads = value_and_grad(loss, params, batch)
         grads = tree_map(mean_over_data, grads)
         loss_val = mean_over_data(loss_val)
         updates, opt_state = opt.update(grads, opt_state, params)
@@ -290,6 +336,13 @@ def tp_serving(arch_def, cfg) -> bool:
 
 def _tp_size(mesh) -> int:
     return axes_of(mesh).shape.get(shd.TP_AXIS, 1)
+
+
+def tensor_parallel(arch_def, cfg, mesh) -> bool:
+    """Whether the arch runs tensor-parallel over ``mesh``'s "model" axis
+    (``tp_serving``'s archs, an axis of more than one rank)."""
+    return (mesh is not None and tp_serving(arch_def, cfg)
+            and _tp_size(mesh) > 1)
 
 
 def build_prefill(arch_def, cfg, mesh=None):

@@ -24,7 +24,11 @@ summed over the "model" axis (``reduce``; a parallel block sums them with
 its FFN's).  Where the axis divides the heads but not the KV heads (8 on
 16), every rank computes all KV heads and its query heads read their own
 groups' (``_rank_kv``); where it divides neither, attention runs whole on
-every rank.  The decode cache holds the rank's KV heads.
+every rank.  The decode cache holds the rank's KV heads.  In training
+the block's input enters the region through ``tp.enter`` and the leaves
+held whole that each rank uses on its own heads (the qk-norm scales, and
+wk/wv and their biases where the KV heads are whole) sum their gradients
+over the axis (``tp.sum_grad``, ``_region_params``).
 """
 from __future__ import annotations
 
@@ -110,6 +114,23 @@ def _rank_kv(cfg: AttnConfig, q_heads: int, k, v):
         return k[:, :, sl], v[:, :, sl]
     idx = torch.arange(h0, h0 + q_heads, device=k.device) // g
     return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _region_params(params, cfg: AttnConfig):
+    """``params`` for a forward on the rank's query heads under autograd:
+    the leaves held whole whose gradient on a rank is a partial (the
+    qk-norm scales; wk, wv, bk, bv where every rank computes all KV
+    heads and reads only its groups') wrapped in ``tp.sum_grad``."""
+    if not torch.is_grad_enabled():
+        return params
+    whole_kv = params["wk"].shape[-2] == cfg.n_kv_heads
+    keys = ("q_norm", "k_norm") + (("wk", "wv", "bk", "bv") if whole_kv
+                                   else ())
+    out = {k: params[k] for k in params.keys()}
+    for k in keys:
+        if k in out:
+            out[k] = tp.sum_grad(out[k])
+    return out
 
 
 def _out_proj(params, out, partial: bool, reduce: bool):
@@ -261,9 +282,13 @@ def gqa_forward(params, cfg: AttnConfig, x, positions, *, kv=None,
 
     With the rank's heads (tensor parallelism) the output is summed over
     the "model" axis; ``reduce=False`` returns the rank's partial instead
-    (in f32 for 16-bit activations on the card)."""
+    (in f32 for 16-bit activations on the card).  ``x`` then enters the
+    region through ``tp.enter`` (a no-op outside autograd)."""
     del kv_positions
     partial = heads_sharded(params, cfg)
+    if partial:
+        x = tp.enter(x)
+        params = _region_params(params, cfg)
     if kv is None:
         q, k, v = _project_qkv(params, cfg, x, positions)
         k, v = _rank_kv(cfg, q.shape[2], k, v)

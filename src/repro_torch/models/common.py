@@ -299,7 +299,7 @@ def _chunk_step(xf, chunk, labels, off: int, m, s, gold):
     return m_new, s, torch.where(in_chunk, picked, gold)
 
 
-def softmax_xent_streamed(x, embedding, labels, n_chunks=8):
+def softmax_xent_streamed(x, embedding, labels, n_chunks=8, vocab=None):
     """Fused unembed + cross-entropy, streamed over vocab chunks.
 
     Never materializes the [B, T, V] logits tensor: loops over
@@ -309,13 +309,19 @@ def softmax_xent_streamed(x, embedding, labels, n_chunks=8):
     logits instead of storing them (the reference's ``jax.checkpoint``).
 
     x [B, T, d] final hidden states; embedding [V, d]; labels [B, T].
+    Where ``embedding`` holds fewer than ``vocab`` rows it is the rank's
+    vocab shard (tensor parallelism, ``launch.tp``): the shard is streamed
+    in ``n_chunks`` chunks and the ranks' (max, sumexp, gold logit) are
+    combined over the "model" axis (``_vocab_parallel_nll``).
     """
     v, d = embedding.shape
     if v % n_chunks:
         raise ValueError(f"vocab {v} is not a multiple of n_chunks "
                          f"{n_chunks}")
+    shard = vocab is not None and tp.sharded(v, vocab)
+    off = tp.part(vocab)[0] if shard else 0
     vc = v // n_chunks
-    xf = x.float()
+    xf = (tp.enter(x) if shard else x).float()
     labels = labels.long()
     b, t = labels.shape
     m = torch.full((b, t), -torch.inf, dtype=torch.float32, device=x.device)
@@ -323,18 +329,46 @@ def softmax_xent_streamed(x, embedding, labels, n_chunks=8):
     gold = torch.zeros((b, t), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
         m, s, gold = ckpt.checkpoint(
-            _chunk_step, xf, embedding[c * vc:(c + 1) * vc], labels, c * vc,
-            m, s, gold, use_reentrant=False)
+            _chunk_step, xf, embedding[c * vc:(c + 1) * vc], labels,
+            off + c * vc, m, s, gold, use_reentrant=False)
+    if shard:
+        return torch.mean(_vocab_parallel_nll(m, s, gold))
     nll = m + torch.log(s) - gold
     return torch.mean(nll)
 
 
-def softmax_xent(logits, labels, mask=None):
-    """Mean next-token cross entropy.  logits [..., V]; labels [...] int."""
+def _vocab_parallel_nll(m, s, gold):
+    """The nll from each rank's (max, sumexp at that max, gold logit or 0)
+    over its vocab columns: the max all-reduced over the "model" axis
+    (outside autograd: the logsumexp does not depend on it), the sums of
+    exponentials at that max and the gold logits (one rank holds each)
+    all-reduced as replicated sums."""
+    mx = tp.all_reduce_max(m)
+    total = tp.all_reduce(s * torch.exp(m - mx))
+    return mx + torch.log(total) - tp.all_reduce(gold)
+
+
+def softmax_xent(logits, labels, mask=None, vocab=None):
+    """Mean next-token cross entropy.  logits [..., V]; labels [...] int.
+    Logits of fewer than ``vocab`` columns are the rank's vocab columns
+    (tensor parallelism): the logsumexp and the gold logit are reduced
+    over the "model" axis, and the [..., V] logits are never gathered."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    labels = labels.long()
+    if vocab is not None and tp.sharded(logits.shape[-1], vocab):
+        lo, hi = tp.part(vocab)
+        local = labels - lo
+        inside = (local >= 0) & (local < hi - lo)
+        picked = torch.gather(logits, -1,
+                              local.clamp(0, hi - lo - 1)[..., None])[..., 0]
+        m = torch.amax(logits, dim=-1)
+        s = torch.sum(torch.exp(logits - m.detach()[..., None]), dim=-1)
+        nll = _vocab_parallel_nll(m.detach(), s,
+                                  torch.where(inside, picked, 0.0))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = logz - gold
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()

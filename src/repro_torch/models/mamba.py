@@ -18,7 +18,11 @@ conv the rank's x channels beside B's and C's, ``A_log``, ``D`` and
 ``dt_bias`` the rank's heads.  The scan runs on the rank's heads, the
 gated RMSNorm over the whole ``d_inner`` sums its squares over the
 "model" axis first, and out_proj is row-parallel (one sum).  The decode
-cache holds the rank's heads and conv channels.  (The reference's spec
+cache holds the rank's heads and conv channels.  In training the block's
+input enters the region through ``tp.enter``, the norm's sum of squares
+is summed over the axis backward too (it feeds each rank's own
+channels), and the B|C pieces of in_proj, conv_w and conv_b, held whole
+and used by each rank's heads, sum their gradients (``tp.sum_grad``).  (The reference's spec
 cuts in_proj's concatenated columns contiguously, which splits no
 quantity by head.)
 """
@@ -118,7 +122,7 @@ def _gated_norm(cfg: SSMConfig, params, y, z):
     if g.shape[-1] == cfg.d_inner:
         return rmsnorm({"scale": params["norm"]}, g)
     ss = torch.sum(torch.square(g.float()), dim=-1, keepdim=True)
-    var = tp.all_reduce(ss) / cfg.d_inner
+    var = tp.all_reduce_local(ss) / cfg.d_inner
     return ((g * torch.rsqrt(var + 1e-6)) * params["norm"]).to(g.dtype)
 
 
@@ -204,9 +208,26 @@ def ssd_chunked(cfg: SSMConfig, x, bmat, cmat, dt, h0=None,
     return y, h
 
 
+def _region_params(cfg: SSMConfig, params, di: int):
+    """The rank's mixer leaves under autograd: the B|C pieces (held
+    whole) of in_proj's columns and of the conv's channels sum their
+    gradients over the axis."""
+    if not torch.is_grad_enabled():
+        return params
+    gs = 2 * cfg.n_groups * cfg.d_state
+    out = {k: params[k] for k in params.keys()}
+    out["in_proj"] = tp.sum_grad(out["in_proj"], ((2 * di, 2 * di + gs),))
+    for k in ("conv_w", "conv_b"):
+        out[k] = tp.sum_grad(out[k], ((di, di + gs),))
+    return out
+
+
 def mamba_forward(params, cfg: SSMConfig, x, use_kernel=False):
     """x [B, T, d] -> y [B, T, d] (prefill)."""
     nh, di = _local(cfg, params)
+    if di != cfg.d_inner:
+        x = tp.enter(x)
+        params = _region_params(cfg, params, di)
     proj = torch.einsum("btd,dp->btp", x, params["in_proj"])
     z, xbc, dtr = _split_proj(cfg, proj, di)
     xbc = _causal_conv(cfg, params, xbc)

@@ -33,16 +33,20 @@ Block kinds:
     mlstm, slstm xLSTM blocks (no separate FFN)
 The encoder-decoder is ``models/encdec.py``.
 
-Tensor parallelism (``launch.tp``, serving): given the rank's shard of
+Tensor parallelism (``launch.tp``, serving and training): given the rank's shard of
 the parameters (``launch.sharding.shard_params``) under a mesh
 (``launch.mesh.use_mesh``), the blocks of kinds attn, shared_attn and
 mamba run over its "model" axis: the vocab-parallel embedding, GQA over
 the rank's heads (``attention``), the SwiGLU FFN column-parallel in wg/wu
 and row-parallel in wd (one sum over the axis; a parallel block sums its
 attention's and FFN's partials at once), the Mamba mixer by SSD head
-(``mamba``), and the logits of the rank's vocab columns.  Each layer
-reads from its weights' shapes whether it holds a shard, so the whole
-tree runs as before under any mesh.
+(``mamba``), and the logits of the rank's vocab columns, whose cross
+entropy ``loss_fn`` reduces over the axis without gathering them.  Each
+layer reads from its weights' shapes whether it holds a shard, so the
+whole tree runs as before under any mesh.  The collectives carry their
+backward (``launch.tp``), so ``torch.autograd.grad`` of the loss gives
+each rank the gradient of its shard; a remat'd unit recomputes under the
+mesh it ran under.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.launch import tp
+from repro_torch.launch.mesh import current_mesh, use_mesh
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -135,11 +140,15 @@ def _ffn_sharded(params, d_ff) -> bool:
 
 def _ffn(params, x, d_ff=None, reduce=True):
     """SwiGLU.  With the rank's ``d_ff`` columns (``d_ff`` the config's
-    width) wd is row-parallel: its partial, summed over the "model" axis
-    where ``reduce``."""
+    width) x enters the tensor-parallel region (``tp.enter``), wg and wu
+    are column-parallel and wd row-parallel: its partial, summed over the
+    "model" axis where ``reduce``."""
+    sharded = _ffn_sharded(params, d_ff)
+    if sharded:
+        x = tp.enter(x)
     h = F.silu(torch.einsum("btd,df->btf", x, params["wg"]))
     h = h * torch.einsum("btd,df->btf", x, params["wu"])
-    if not _ffn_sharded(params, d_ff):
+    if not sharded:
         return torch.einsum("btf,fd->btd", h, params["wd"])
     y = tp.partial_mm(h, params["wd"])
     return tp.all_reduce(y, x.dtype) if reduce else y
@@ -392,12 +401,22 @@ def _save_dots(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _under_mesh(mesh, fn, *args):
+    with use_mesh(mesh):
+        return fn(*args)
+
+
 def _remat(cfg: ModelConfig, fn):
     """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
     autograd records; ``fn`` itself otherwise.  A config without
     ``remat_policy`` (the encoder-decoder's) rematerialises in full."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
+    mesh = current_mesh()
+    if mesh is not None:
+        # the recomputation in backward re-enters the forward's mesh (the
+        # autograd engine may run it on another thread)
+        fn = functools.partial(_under_mesh, mesh, fn)
     kw = {}
     policy = getattr(cfg, "remat_policy", "full")
     if policy == "dots":
@@ -408,9 +427,19 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _vocab_sharded(params, cfg: ModelConfig) -> bool:
+    """Whether the tied table (or the head) is the rank's vocab shard."""
+    w = (params["embed"]["embedding"] if cfg.tie_embeddings
+         else params["unembed"]["w"])
+    return tp.sharded(w.shape[0 if cfg.tie_embeddings else -1], cfg.vocab)
+
+
 def _logits(params, cfg: ModelConfig, x):
     """The logits, or the rank's vocab columns of them where the table
-    (or head) is the rank's vocab shard (``gather_vocab`` joins them)."""
+    (or head) is the rank's vocab shard (``gather_vocab`` joins them;
+    ``softmax_xent`` takes them as they are), x entering the region."""
+    if _vocab_sharded(params, cfg):
+        x = tp.enter(x)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return unembed_head(params["unembed"], x)
@@ -457,7 +486,10 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """batch: {"tokens": [B, T+1]} or {"embeds": [B, T, d], "labels":
-    [B, T]}.  Mean next-token cross entropy plus the blocks' aux loss."""
+    [B, T]}.  Mean next-token cross entropy plus the blocks' aux loss.
+    On a rank's shard (tensor parallelism) the cross entropy runs over the
+    rank's vocab columns, reduced over the "model" axis: the loss is the
+    whole model's on every rank."""
     if cfg.xent_chunks and cfg.tie_embeddings:
         if "embeds" in batch:
             x, aux = forward(params, cfg, embeds=batch["embeds"],
@@ -468,15 +500,15 @@ def loss_fn(params, cfg: ModelConfig, batch):
                              return_hidden=True)
             labels = batch["tokens"][:, 1:]
         loss = softmax_xent_streamed(x, params["embed"]["embedding"], labels,
-                                     cfg.xent_chunks)
+                                     cfg.xent_chunks, cfg.vocab)
         return loss + aux
     if "embeds" in batch:
         logits, aux = forward(params, cfg, embeds=batch["embeds"])
-        loss = softmax_xent(logits, batch["labels"])
+        loss = softmax_xent(logits, batch["labels"], vocab=cfg.vocab)
     else:
         tokens = batch["tokens"]
         logits, aux = forward(params, cfg, tokens=tokens[:, :-1])
-        loss = softmax_xent(logits, tokens[:, 1:])
+        loss = softmax_xent(logits, tokens[:, 1:], vocab=cfg.vocab)
     return loss + aux
 
 

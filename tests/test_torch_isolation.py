@@ -140,11 +140,12 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert out.returncode == 3, out.stderr[-2000:]
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
-    # 53 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
-    # at its walk's edge shapes), and one line per wide spec (the faulted
-    # ring's and dada's included) holding its second round's kernel calls
-    # against the plain versions
-    assert out.stdout.count("bit-equal") == 53 + 12
+    # 57 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
+    # at its walk's edge shapes; K4's shard form on two leaves at b = 8
+    # and 4), and one line per wide spec (the faulted ring's and dada's
+    # included) holding its second round's kernel calls against the plain
+    # versions
+    assert out.stdout.count("bit-equal") == 57 + 12
     assert out.stdout.count("round 1's kernel calls bit-equal") == 12
     # the faulted paper rows: the reference's combined-fault row, the same
     # run on the CPU, a row per fault kind and LEAD under faults
