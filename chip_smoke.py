@@ -431,6 +431,56 @@ __device__ __forceinline__ void body(const float4* x, Kappa src, uint32_t s0,
 REPRO_BODY(k1_b8, 8, repro::PlaneKappa, 0u, 0u, nullptr, nullptr)
 REPRO_BODY(k1_b4, 4, repro::PlaneKappa, 0u, 0u, nullptr, nullptr)
 REPRO_BODY(k4_b8, 8, repro::LeafKappa, nullptr)
+
+// K4's shard form's quantise element body (quantize.cuh shard_tile): a
+// group's places in the whole leaf (ShardMap of index class kClass from a
+// table entry), then K4's levels and packing
+template <int kBits, int kClass, int kGroups>
+__device__ __forceinline__ void shard_body(const float4* x,
+                                           const uint32_t* entry, uint32_t s0,
+                                           uint32_t s1, float sc,
+                                           uint32_t* out, int n) {
+  const repro::Pair st{s0, s1};
+  const repro::ShardMap<kClass> map(entry);
+  constexpr int g = kBits == 8 ? 1 : 2;
+#pragma unroll 1
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      const int k = i + h * n;
+      uint32_t at[4 * g];
+      map.run(static_cast<uint32_t>(4 * g * k), at);
+      out[k] = repro::pack_group<kBits>(x + g * k, sc, [&](int e) {
+        return repro::jax_bits(st.x0, st.x1, at[e]);
+      });
+    }
+  }
+}
+
+#define REPRO_SHARD_BODY(name, bits, cls)                                    \
+  extern "C" __global__ void name##_one(const float4* x, const uint32_t* e,  \
+                                        uint32_t s0, uint32_t s1, float sc,  \
+                                        uint32_t* out, int n) {              \
+    shard_body<bits, cls, 1>(x, e, s0, s1, sc, out, n);                      \
+  }                                                                          \
+  extern "C" __global__ void name##_two(const float4* x, const uint32_t* e,  \
+                                        uint32_t s0, uint32_t s1, float sc,  \
+                                        uint32_t* out, int n) {              \
+    shard_body<bits, cls, 2>(x, e, s0, s1, sc, out, n);                      \
+  }
+REPRO_SHARD_BODY(k4s0_b8, 8, 0)
+REPRO_SHARD_BODY(k4s1_b8, 8, 1)
+REPRO_SHARD_BODY(k4s2_b8, 8, 2)
+REPRO_SHARD_BODY(k4s1_b4, 4, 1)
+
+// the division count's control: a loop that divides by a run-time value
+extern "C" __global__ void divides(uint32_t d, uint32_t* out, int n) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += gridDim.x * blockDim.x) {
+    out[j] = static_cast<uint32_t>(j) / d;
+  }
+}
 """
 
 WIDE_N = 2 ** 20
@@ -716,7 +766,8 @@ def ideal_block(ops, fewest, what):
 def phase_sass():
     """Count the SASS instructions of one Threefry block as K1 and as K4
     draw it, by pipe (sets TF_OPS and TF_LEAF_OPS), and of the whole
-    K1/K4 element body (sets BODY_SASS)."""
+    K1/K4 element body and K4's shard-form body by index class (sets
+    BODY_SASS; raises if the shard form's loop divides)."""
     global TF_OPS, TF_LEAF_OPS, TF_COMPILED, TF_LEAF_COMPILED
     from repro_torch.kernels import _build
 
@@ -727,6 +778,9 @@ def phase_sass():
                     "-cubin", f"-I{_build._CSRC}", "-o", str(cubin), str(src)],
                    check=True, capture_output=True, timeout=300)
     counts = sass_counts(cubin, suffixes=True)
+    divisions = ptx_divisions(src)
+    if not divisions["divides"]:
+        raise AssertionError("the PTX division count misses a division")
     TF_OPS, TF_COMPILED, iadd3 = sass_pipes(
         counts["one_block"], counts["two_blocks"],
         "one Threefry block as K1 draws it")
@@ -745,12 +799,45 @@ def phase_sass():
                 f"a Threefry block as {what} draws it has {adds} IADD3 and "
                 f"{fixed[0]} instructions on the ALU pipe as compiled (at "
                 f"most {most}): its adds are no longer all IMADs")
-    for key, name, group in (("K1 b=8", "k1_b8", 4), ("K1 b=4", "k1_b4", 8),
-                             ("K4 b=8", "k4_b8", 4)):
+    for key, name, group in (
+            ("K1 b=8", "k1_b8", 4), ("K1 b=4", "k1_b4", 8),
+            ("K4 b=8", "k4_b8", 4), ("K4 shard b=8 class 0", "k4s0_b8", 4),
+            ("K4 shard b=8 class 1", "k4s1_b8", 4),
+            ("K4 shard b=8 class 2", "k4s2_b8", 4),
+            ("K4 shard b=4 class 1", "k4s1_b4", 8)):
         BODY_SASS[key] = body_sass(counts[f"{name}_one"],
                                    counts[f"{name}_two"], key, group)
+        log(f"[sass] {key}: {divisions[f'{name}_two']} integer divisions "
+            "and remainders in its PTX")
+        if key.startswith("K4 shard") and divisions[f"{name}_two"]:
+            raise AssertionError(f"{key}: the element loop divides")
     k10_sass()
     k11_sass()
+
+
+def ptx_divisions(src):
+    """{kernel: integer div / rem instructions} of a source's PTX.  In
+    SASS a division by a loop-invariant value leaves the loop (its
+    reciprocal is hoisted) and the steps left in it are multiply-highs
+    like any other, so the count is taken where the division is still
+    one instruction."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    ptx = src.with_suffix(".ptx")
+    subprocess.run([_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-ptx", f"-I{_build._CSRC}", "-o", str(ptx), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    out, fn = {}, None
+    for line in ptx.read_text().splitlines():
+        head = re.match(r"\.visible \.entry (\w+)\(", line.strip())
+        if head:
+            fn = head.group(1)
+            out[fn] = 0
+        elif fn and re.search(r"\b(div|rem)\.(s|u)(32|64)\b", line):
+            out[fn] += 1
+    return out
 
 
 def k11_sass():
@@ -1190,11 +1277,12 @@ def check_k45(dev):
 
 
 def k4_shard_cases():
-    """K4's shard form's check shapes: ``(label, whole leaf shape, plan
-    (sharding.LeafPlan), messages)``: [2, 2^20] of [2, 2^21] (a 1024 x
-    2048 leaf cut on its columns), and zamba2-2.7b's in_proj of one layer
-    by SSD head (z, x and dt cut, B|C whole: four pieces); on the CPU
-    the same cuts of small leaves."""
+    """K4's shard form's check tree: ``(label, whole leaf shape, plan
+    (sharding.LeafPlan), messages)`` a leaf: [2, 2^20] of [2, 2^21] (a
+    1024 x 2048 leaf cut on its columns), zamba2-2.7b's in_proj of one
+    layer by SSD head (z, x and dt cut, B|C whole: four pieces), a leaf
+    cut on dim 0 (an embedding's rows) and one held whole (a norm's
+    scale); on the CPU the same cuts of small leaves."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.sharding import LeafPlan
 
@@ -1202,114 +1290,157 @@ def k4_shard_cases():
     if small:
         ssm = ARCHS["zamba2-2.7b"].make_smoke().ssm
         wide = ((32, 64), LeafPlan(1, ((64, True),)))
+        rows = ((96, 40), LeafPlan(0, ((96, True),)))
     else:
         ssm = ARCHS["zamba2-2.7b"].make(None).ssm
         wide = ((1024, 2048), LeafPlan(1, ((2048, True),)))
+        rows = ((2048, 1000), LeafPlan(0, ((2048, True),)))
     di, gs, nh = ssm.d_inner, 2 * ssm.n_groups * ssm.d_state, ssm.n_heads
     cols = 2 * di + gs + nh
     return (("wide" if small else "[2, 2^20] of [2, 2^21]",) + wide + (2,),
             (f"zamba2 in_proj [{ssm.d_model}, {cols}]", (ssm.d_model, cols),
              LeafPlan(1, ((di, True), (di, True), (gs, False), (nh, True))),
-             2))
+             2),
+            (f"rows {list(rows[0])} on dim 0",) + rows + (2,),
+            ("whole [4097]", (4097,), LeafPlan(None), 2))
 
 
-def k4_shard_pair(x, keys, plan, layouts, bits):
-    """The two ranks' shard-form payloads of whole messages ``x [M,
-    *shape]``: each rank's shard, its ``row_absmax`` (one launch each,
-    held against its plain version), the MAX of the two (the all-reduce),
-    then ``quantize_shard`` (one launch each, held bit for bit).  Returns
-    ``[(q, scale, shard)]`` by rank."""
+def hold_tree(got, want, label):
+    """``quantize_tree``'s payloads ``[(q, scale)]`` against its plain
+    version's, bit for bit; returns the leaves held."""
+    import torch
+
+    for i, ((q, sc), (qw, scw)) in enumerate(zip(got, want)):
+        note_err("K4-shard", q, qw)
+        if not (torch.equal(q, qw) and same_scale(sc, scw)):
+            raise AssertionError(f"K4 shard form {label}, leaf {i}: "
+                                 f"{int((q != qw).sum())} q mismatches, "
+                                 "or the scale, differ from the plain "
+                                 "version")
+    if len(got) != len(want):
+        raise AssertionError(f"K4 shard form {label}: {len(got)} leaves")
+    return len(got)
+
+
+def k4_shard_tree(xs, keys, plans, bits):
+    """The two ranks' shard-form payloads of a tree of whole messages
+    (``xs[i]`` ``[M, *shape_i]``, cut by ``plans[i]``): each rank's
+    shards, its ``tree_absmax`` (one launch, held against its plain
+    version), the MAX of the cut prefix over the two (the all-reduce),
+    then ``quantize_tree`` (one launch, held bit for bit).  Returns
+    ``[(layouts, shards, [(q, scale)])]`` by rank."""
     import torch
 
     from repro_torch.kernels.quantize import ops, ref
-    from repro_torch.launch.sharding import local_shard, P
+    from repro_torch.launch.sharding import P, leaf_layout, local_shard
 
-    m = x.shape[0]
-    shards, words = [], []
-    for r, lay in enumerate(layouts):
-        spec = P(*([None] * (1 + lay.dim) + ["model"]))
-        xs = local_shard(_StandIn(len(layouts), r), spec, x,
-                         plan.segments).reshape(m, -1)
-        before = ops.row_absmax.launches
-        w = ops.row_absmax(xs)
+    m = xs[0].shape[0]
+    ranks = []
+    for r in range(2):
+        lays, shards = [], []
+        for x, plan in zip(xs, plans):
+            lay = leaf_layout(plan, tuple(x.shape[1:]), r, 2)
+            if plan.dim is None:
+                xs_r = x.reshape(m, -1)
+            else:
+                spec = P(*([None] * (1 + lay.dim) + ["model"]))
+                xs_r = local_shard(_StandIn(2, r), spec, x,
+                                   plan.segments).reshape(m, -1)
+            lays.append(lay)
+            shards.append(xs_r.contiguous())
+        lays = tuple(lays)
+        before = ops.tree_absmax.launches
+        w = ops.tree_absmax(shards, lays)
         sync()
-        if DEV == "cuda" and ops.row_absmax.launches != before + 1:
-            raise AssertionError("K4 shard form: row_absmax not one launch")
-        if not torch.equal(w, ref.row_absmax_ref(xs)):
-            raise AssertionError("K4 shard form: row_absmax differs")
-        shards.append(xs)
-        words.append(w)
-    top = torch.maximum(*words)
+        if DEV == "cuda" and ops.tree_absmax.launches != before + 1:
+            raise AssertionError("K4 shard form: tree_absmax not one launch")
+        if not torch.equal(w, ref.tree_absmax_ref(shards, lays)):
+            raise AssertionError("K4 shard form: tree_absmax differs")
+        ranks.append((lays, shards, w))
+    cut = ops.cut_rows(ranks[0][0], m)
+    top = torch.maximum(ranks[0][2][:cut], ranks[1][2][:cut])
     out = []
-    for xs, lay in zip(shards, layouts):
-        before = ops.quantize_shard.launches
-        q, sc = ops.quantize_shard(keys, xs, top, lay, bits=bits)
+    for lays, shards, w in ranks:
+        before = ops.quantize_tree.launches
+        got = ops.quantize_tree(keys, shards, w, lays, bits=bits,
+                                reduced=top)
         sync()
-        if DEV == "cuda" and ops.quantize_shard.launches != before + 1:
+        if DEV == "cuda" and ops.quantize_tree.launches != before + 1:
             raise AssertionError("K4 shard form: not one launch")
-        qw, scw = ref.quantize_shard_ref(keys, xs, top, lay, bits=bits,
-                                         window=PLAIN_WINDOW)
-        note_err("K4-shard", q, qw)
-        if not (torch.equal(q, qw) and same_scale(sc, scw)):
-            raise AssertionError(f"K4 shard form b={bits}: "
-                                 f"{(q != qw).sum()} q mismatches")
-        out.append((q, sc, xs))
+        hold_tree(got, ref.quantize_tree_ref(keys, shards, w, lays,
+                                             bits=bits, reduced=top,
+                                             window=PLAIN_WINDOW),
+                  f"b={bits}")
+        out.append((lays, shards, got))
     return out
 
 
 class _StandIn:
-    """A mesh stand-in of one "model" axis for ``local_shard``."""
+    """A mesh stand-in of a "model" axis of n (and "data" of 1) for
+    ``local_shard`` and ``shard_layouts``."""
 
     def __init__(self, n, r):
-        self.shape, self.axis_names, self._r = {"model": n}, ("model",), r
+        self.shape = {"data": 1, "model": n}
+        self.axis_names, self._r = ("data", "model"), r
 
     def get_local_rank(self, axis):
         return self._r
 
 
 def check_k4_shard(dev):
-    """K4's shard form (``row_absmax`` + ``quantize_shard``) on two ranks'
-    shards of each of ``k4_shard_cases``, b = 8 and 4, the quantiser's
-    edge rows planted: each launch bit-equal to its plain version, and
-    the two shards' levels, put back at their elements' places in the
-    whole leaf, bit-equal to K4 (``quantize_tensor``) of the whole leaf,
-    and so are the scales."""
+    """K4's shard form (``tree_absmax`` + ``quantize_tree``) on two ranks'
+    shards of the tree of ``k4_shard_cases``, b = 8 and 4, the
+    quantiser's edge rows planted: each launch bit-equal to its plain
+    version, and the two shards' levels, put back at their elements'
+    places in the whole leaf, bit-equal to K4 (``quantize_tensor``) of
+    the whole leaf, and so are the scales (a leaf held whole: each rank's
+    payload is K4's)."""
     import torch
 
     from repro_torch.kernels.quantize import ops, ref
-    from repro_torch.launch.sharding import leaf_layout
 
     g = torch.Generator(device=dev).manual_seed(5)
-    for label, shape, plan, m in k4_shard_cases():
-        layouts = [leaf_layout(plan, shape, r, 2) for r in range(2)]
-        for bits in (8, 4):
+    cases = k4_shard_cases()
+    plans = [c[2] for c in cases]
+    m = cases[0][3]
+    for bits in (8, 4):
+        xs = []
+        for _, shape, _, _ in cases:
             x = torch.randn((m,) + shape, generator=g, device=dev)
-            flat = x.reshape(m, -1)
-            ref.edge_rows(flat[:, :4096])
-            keys = torch.randint(0, 2 ** 32, (m, 2), generator=g,
-                                 device=dev, dtype=torch.int64)
-            pair = k4_shard_pair(x, keys, plan, layouts, bits)
-            qw, scw = ops.quantize_tensor(keys, flat, bits=bits)
+            ref.edge_rows(x.reshape(m, -1)[:, :4096])
+            xs.append(x)
+        keys = torch.randint(0, 2 ** 32, (m, len(cases), 2), generator=g,
+                             device=dev, dtype=torch.int64)
+        pair = k4_shard_tree(xs, keys, plans, bits)
+        for i, (label, _, _, _) in enumerate(cases):
+            flat = xs[i].reshape(m, -1)
+            qw, scw = ops.quantize_tensor(keys[:, i], flat, bits=bits)
             sync()
             whole = (qw if bits == 8
                      else ref.unpack4(qw, flat.shape[-1]).to(torch.int8))
             got = torch.full_like(whole, -128 if bits == 8 else 99)
-            for (q, sc, xs), lay in zip(pair, layouts):
-                lv = q if bits == 8 else ref.unpack4(q, xs.shape[-1]).to(
-                    torch.int8)
-                got[:, lay.counters(dev)] = lv
+            for lays, shards, out in pair:
+                q, sc = out[i]
+                n = shards[i].shape[-1]
+                lv = q if bits == 8 else ref.unpack4(q, n).to(torch.int8)
+                got[:, lays[i].counters(dev) if lays[i].cut else
+                    slice(None)] = lv
                 if not same_scale(sc, scw):
                     raise AssertionError(f"K4 shard form {label}: scale")
             if not torch.equal(got, whole):
                 raise AssertionError(f"K4 shard form {label} b={bits}: "
                                      f"{(got != whole).sum()} levels differ "
                                      "from K4 of the whole leaf")
-            log(f"[kernels] K4 shard form {label} b={bits}, ranks' shards "
-                f"{[tuple(p[2].shape) for p in pair]} (pieces "
-                f"{[lay.pieces for lay in layouts]}): each row_absmax and "
-                "quantize_shard launch equal to its plain version bit for "
-                "bit; the ranks' levels at their places bit-equal to K4 of "
-                "the whole leaf, scales too")
+        log(f"[kernels] K4 shard form b={bits}, one tree of "
+            f"{[c[0] for c in cases]}, ranks' shards "
+            f"{[tuple(s.shape) for s in pair[0][1]]} / "
+            f"{[tuple(s.shape) for s in pair[1][1]]} (pieces "
+            f"{[lay.pieces for lay in pair[0][0]]}): each rank's "
+            "tree_absmax and quantize_tree one launch, bit-equal to its "
+            "plain version")
+        log(f"[kernels] K4 shard form b={bits}, every leaf of the tree: "
+            "the ranks' levels at their places bit-equal to K4 of the "
+            "whole leaf, scales too")
 
 
 def hold_k5(q, sc, n, bits, label):
@@ -1810,8 +1941,8 @@ def kernel_counters():
             "randk_gather_plane": sgops.randk_gather_plane,
             "randk_scatter_plane": sgops.randk_scatter_plane,
             "quantize_tensor": qops.quantize_tensor,
-            "row_absmax": qops.row_absmax,
-            "quantize_shard": qops.quantize_shard,
+            "tree_absmax": qops.tree_absmax,
+            "quantize_tree": qops.quantize_tree,
             "dequantize_tensor": qops.dequantize_tensor,
             "dequantize_plane": qops.dequantize_plane,
             "sparse_gather": sgops.sparse_gather,
@@ -3418,6 +3549,61 @@ def host_ms(fn, iters=20, warmup=3):
     t = time.perf_counter() - t
     torch.cuda.synchronize()
     return t / iters * 1e3
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device ms of ``fn()``: ``iters`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so that the host's
+    launch cost is not in it (a kernel a few microseconds long is
+    host-bound when launched back to back)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: caches, the occupancy query
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def graph_turns(a, b):
+    """``graph_ms`` of ``a`` and ``b`` in turns a, b, b, a: each one's
+    mean and its two readings."""
+    ta, tb = [graph_ms(a)], [graph_ms(b)]
+    tb.append(graph_ms(b))
+    ta.append(graph_ms(a))
+    return sum(ta) / 2, sum(tb) / 2, ta, tb
+
+
+def idle_host_ms(fn, iters=20, warmup=3):
+    """Mean host time of one ``fn()`` that starts on an idle card (a
+    synchronise before each call, not timed), as a call finds the card
+    after a collective that waited for it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t
+    torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def turns(a, b):
@@ -6130,6 +6316,7 @@ TP_TRAIN_TOL, TP_TRAIN_FLIP_SHARE, TP_TRAIN_LEVELS = 1e-5, 1e-4, 127
 # for the count of that effect (printed, and held to the losses only)
 TP_TRAIN_EPS, TP_TRAIN_ADAM_EPS = 1e-3, 1e-8
 TP_PHASE_S = 90  # the phase's limit, host clock
+TP_TREES_A_ROUND = 2  # the per-leaf round's message trees: x's and z's
 
 
 def memory_peak(fn):
@@ -6554,7 +6741,7 @@ def tp_train(mesh, rank, dev):
     from repro_torch.core.admm import STATE_LEAD
     from repro_torch.kernels.quantize import ops as qops
     from repro_torch.kernels.quantize import ref as qref
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import steps, tp, train
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.mesh import use_mesh
     from repro_torch.models.common import init_params, param_count
@@ -6650,11 +6837,19 @@ def tp_train(mesh, rank, dev):
     step, _, init, solver = steps.build_train(arch, cfg, a_n, spec, recipe,
                                               device=dev, mesh=mesh)
     tap = MainPathTap({
-        "quantize_shard": ("K4", "quantize", functools.partial(
-            qref.quantize_shard_ref, window=PLAIN_WINDOW)),
-        "row_absmax": ("K4", "quantize", "row_absmax_ref")})
+        "quantize_tree": ("K4", "quantize", functools.partial(
+            qref.quantize_tree_ref, window=PLAIN_WINDOW), hold_tree),
+        "tree_absmax": ("K4", "quantize", "tree_absmax_ref")})
     tap.checking = True
     losses = []
+    # K4's all-reduces: the int32 row-max words (the cross entropy's
+    # shift, the other all_reduce_max, is a float)
+    k4_reduces = [0]
+    all_reduce_max = tp.all_reduce_max
+
+    def counted(t):
+        k4_reduces[0] += t.dtype == torch.int32
+        return all_reduce_max(t)
 
     def tp_rounds():
         st = init(shd.shard_params(stacked(), mesh, "admm", specs, lead=1))
@@ -6666,12 +6861,15 @@ def tp_train(mesh, rank, dev):
         return st
 
     try:
+        tp.all_reduce_max = counted
         reset_counts()  # the tensor-parallel rounds start here
         st, peak = memory_peak(tp_rounds)
         counts = read_counts()  # ... and end here
     finally:
+        tp.all_reduce_max = all_reduce_max
         tap.close()
     held = sum(tap.checked.values())
+    tree_leaves = tap.readings.get("quantize_tree", [])
     mark("tp rounds")
     ddp = ddp_runs(shd.shard_params(tree_map(torch.clone, whole), mesh,
                                     "serve", specs),
@@ -6703,48 +6901,55 @@ def tp_train(mesh, rank, dev):
     gaps = _reduce_gaps(gaps, group, dev)
     mark("compare")
 
-    # ---- each cut leaf's payload, gathered, against K4 of the whole leaf
+    # ---- the rank's tree of shards compressed in one call (K4's shard
+    # form, grouped), each cut leaf's payload gathered against K4 of the
+    # whole leaf, a leaf held whole's against K4 itself
     names = list(dict_paths(whole))
-    leaves = tree_flatten(shd.shard_params(tree_map(torch.clone, whole),
-                                           mesh, "admm", specs))[0]
+    shards = shd.shard_params(tree_map(torch.clone, whole), mesh, "admm",
+                              specs)
+    leaves = tree_flatten(shards)[0]
     layouts = shd.shard_layouts(mesh, "admm", specs)
     plans = tree_flatten(shd.tp_plan(mesh, "admm", specs),
                          is_leaf=lambda t: isinstance(t, shd.LeafPlan))[0]
-    n_cut = 0
-    for i, (name, x, lay, plan) in enumerate(zip(names, leaves, layouts,
-                                                 plans)):
-        if not lay.cut:
-            continue
-        n_cut += 1
-        key = jaxrand.fold_in(jaxrand.key(5), i)[None]
-        full = dict_paths(whole)[name].reshape(1, -1)
-        for bits in (8, 4):
-            comp = compression.BBitQuantizer(bits=bits, impl="kernel")
-            with use_mesh(mesh):
-                pl = compression.ShardLeaf(comp, lay).compress(
-                    key, x.reshape(1, -1))
-            lv = (pl["q"][0] if bits == 8 else
-                  qref.unpack4(pl["q"][0], x.numel())).to(torch.int32)
-            parts = [torch.empty_like(lv) for _ in range(TP_RANKS)]
-            dist.all_gather(parts, lv, group=group)
-            qw, scw = qops.quantize_tensor(key, full, bits=bits)
+    keys = jaxrand.key(5)[None]
+    lk = jaxrand.split(keys, len(leaves))
+    n_cut = sum(lay.cut for lay in layouts)
+    for bits in (8, 4):
+        comp = compression.ShardedTree(
+            compression.BBitQuantizer(bits=bits, impl="kernel"),
+            tuple(layouts))
+        with use_mesh(mesh):
+            got = tree_flatten(compression.compress_tree(
+                comp, keys, tree_map(lambda t: t[None], shards), nd=1),
+                is_leaf=lambda t: isinstance(t, compression.Payload))[0]
+        for i, (name, x, lay, plan, pl) in enumerate(zip(
+                names, leaves, layouts, plans, got)):
+            full = dict_paths(whole)[name].reshape(1, -1)
+            qw, scw = qops.quantize_tensor(lk[:, i], full, bits=bits)
             want = (qw[0] if bits == 8 else
                     qref.unpack4(qw[0], full.shape[-1])).to(torch.int32)
-            got = torch.full_like(want, 99)
-            for r, part in enumerate(parts):
-                got[shd.leaf_layout(plan, lay.shape, r, TP_RANKS).counters(
-                    dev)] = part
-            if not (torch.equal(got, want)
+            lv = (pl["q"][0] if bits == 8 else
+                  qref.unpack4(pl["q"][0], x.numel())).to(torch.int32)
+            if lay.cut:
+                parts = [torch.empty_like(lv) for _ in range(TP_RANKS)]
+                dist.all_gather(parts, lv, group=group)
+                lv = torch.full_like(want, 99)
+                for r, part in enumerate(parts):
+                    lv[shd.leaf_layout(plan, lay.shape, r,
+                                       TP_RANKS).counters(dev)] = part
+            if not (torch.equal(lv, want)
                     and same_scale(pl["scale"], scw)):
                 raise AssertionError(
                     f"tp train: {name} b={bits}: the ranks' payload, "
                     f"gathered, differs from K4 of the whole leaf at "
-                    f"{int((got != want).sum())} levels")
+                    f"{int((lv != want).sum())} levels")
     mark("payloads")
     out.update(losses=losses, ddp=ddp_losses, peak=peak, gaps=gaps,
-               held=held, cut_leaves=n_cut, marks=marks, small=small_n,
-               k4_shard={k: counts[k] for k in ("quantize_shard",
-                                                "row_absmax")},
+               held=held, cut_leaves=n_cut, leaves=len(leaves),
+               marks=marks, small=small_n,
+               k4_shard={k: counts[k] for k in ("quantize_tree",
+                                                "tree_absmax")},
+               k4_reduces=k4_reduces[0], tree_leaves=tree_leaves,
                k5=counts["dequantize_tensor"],
                k4_whole=counts["quantize_tensor"])
     del whole, leaves
@@ -6925,9 +7130,14 @@ def phase_tp():
 def tp_train_report(ranks):
     """Print the tensor-parallel training readings of both ranks and hold
     them: the losses and DDP's against the one-rank run's, the state's and
-    the held Adam steps' gaps, the K4 shard-form launches (each held);
-    print Adam's default-eps gaps."""
+    the held Adam steps' gaps, the K4 shard-form launches (each held; one
+    a pass and one all-reduce a message tree); print Adam's default-eps
+    gaps."""
     one = ranks[0]["train"]["one"]
+
+    def per_round(o):
+        return {k: v / TP_TRAIN_ROUNDS for k, v in o["k4_shard"].items()}
+
     for r in ranks:
         o = r["train"]
         log(f"[tp] train rank {r['rank']}: {o['config']}, "
@@ -6935,10 +7145,14 @@ def tp_train_report(ranks):
             f"complete, {TP_TRAIN_SPEC}; losses a round {o['losses']} "
             f"(one rank {one['losses']}); DDP losses by Adam eps "
             f"{o['ddp']} (one rank {one['ddp']}); K4 shard-form launches "
-            f"{o['k4_shard']}, {o['held']} calls held against the plain "
-            f"versions; K5 {o['k5']}, whole-leaf K4 {o['k4_whole']}; "
-            f"{o['cut_leaves']} cut leaves' qbit8/qbit4 payloads, "
-            f"gathered, bit-equal to K4 of the whole leaf; peak above what "
+            f"{o['k4_shard']} ({per_round(o)} a round), leaves a launch "
+            f"{sorted(set(o['tree_leaves']))}, {o['held']} calls held "
+            f"against the plain versions; K4 all-reduces {o['k4_reduces']} "
+            f"({o['k4_reduces'] / TP_TRAIN_ROUNDS:g} a round); K5 "
+            f"{o['k5']}, whole-leaf K4 {o['k4_whole']}; the tree of "
+            f"{o['leaves']} leaves in one call, {o['cut_leaves']} cut "
+            f"leaves' qbit8/qbit4 payloads, gathered, bit-equal to K4 of "
+            f"the whole leaf, the others' to K4; peak above what "
             f"was there {o['peak']:,} B (one rank {one['peak']:,} B); "
             f"{o['seconds']:.1f} s, host seconds at the end of each stage "
             f"{o['marks']}" + ("" if CARD is None else f" [{CARD}]"))
@@ -6949,11 +7163,20 @@ def tp_train_report(ranks):
                     abs(x - y) > TP_TRAIN_TOL * abs(y) for x, y in zip(a, b)):
                 raise AssertionError(f"tp train rank {r['rank']}: losses "
                                      f"{a} against the one-rank {b}")
-        if DEV == "cuda" and not (o["k4_shard"]["quantize_shard"]
-                                  and o["k4_shard"]["row_absmax"]):
+        # one message tree a compressor (x and z) a round: one launch a
+        # pass and one all-reduce each, every leaf in the launch
+        trees = TP_TREES_A_ROUND * TP_TRAIN_ROUNDS
+        if DEV == "cuda" and o["k4_shard"] != {"quantize_tree": trees,
+                                               "tree_absmax": trees}:
             raise AssertionError(f"tp train rank {r['rank']}: K4's shard "
-                                 f"form never launched: {o['k4_shard']}")
-        if o["held"] < 2 * o["k4_shard"]["quantize_shard"]:
+                                 f"form launches {o['k4_shard']}, expected "
+                                 f"{trees} a pass")
+        if o["k4_reduces"] != trees or set(o["tree_leaves"]) != {
+                o["leaves"]}:
+            raise AssertionError(f"tp train rank {r['rank']}: "
+                                 f"{o['k4_reduces']} K4 all-reduces, "
+                                 f"leaves a call {o['tree_leaves']}")
+        if o["held"] < 2 * trees:
             raise AssertionError(f"tp train rank {r['rank']}: {o['held']} "
                                  "K4 shard-form calls held")
     gaps = ranks[0]["train"]["gaps"]
@@ -7007,65 +7230,235 @@ def time_tp_kernels(tp_counts):
     rows += time_k11({"tc": k11["_tc"], "cc": k11["_cc"]},
                      (b, t, nh // TP_RANKS, hd, ng, ds, chunk), "zamba2 tp2",
                      "rank 0 of zamba2-2.7b's tp-2 unit, 6 Mamba blocks")
-    time_k4_shard(rows, tp_counts["train"]["k4_shard"]["quantize_shard"])
+    time_k4_shard(rows, tp_counts["train"]["k4_shard"]["quantize_tree"])
     return rows
 
 
+K4_SHARD_TIMED = (
+    ("[2, 2^20] of [2, 2^21]", (1024, 2048), ((2048, True),), 1),
+    ("qwen3 embed [2, 75,968 x 1,024] of [2, 151,936 x 1,024]",
+     (151936, 1024), ((151936, True),), 0))
+L2_BYTES = 50 * 2 ** 20  # the H100's L2
+
+
 def time_k4_shard(rows, launches):
-    """K4's shard form (``row_absmax`` + ``quantize_shard``, b = 8) on
-    rank 0's shard [2, 2^20] of two [1024, 2048] leaves cut on their
-    columns, held once against its plain version: the wrappers, the bare
-    launches, the plain version, and K4's bound for the same work (x read
-    once, q, scales and keys; one Threefry block an element, at the
-    as-compiled K4 block's integer operations)."""
+    """K4's shard form, grouped (``tree_absmax`` + ``quantize_tree``, b =
+    8), on rank 0's shard of ``K4_SHARD_TIMED``'s leaves (2 messages,
+    2 ranks): held bit for bit against its plain version and against the
+    first design (PR 30's, ``tools/quantize_probe.py``), then timed in
+    turns beside the first design, whole-leaf K4 on the same elements,
+    each pass alone and ``torch.linalg.vector_norm(x, inf, -1)`` beside
+    the max pass.  Bounds: K4's operations, and the bytes with x read
+    once (the quantise pass finds x in L2) and twice (x past L2; the
+    all-reduce between the passes forces the second read).  Then the
+    host time of the wrappers for the tp phase's whole message tree
+    (rank 0's 13 leaves of qwen3-0.6b cut to one layer) against PR 30's
+    calls leaf by leaf."""
     import torch
 
     from repro_torch.core import jaxrand
     from repro_torch.kernels import _build
     from repro_torch.kernels.quantize import ops, ref
+    from repro_torch.launch.sharding import LeafPlan, leaf_layout
 
-    label, shape, plan, m = k4_shard_cases()[0]
-    from repro_torch.launch.sharding import leaf_layout
-
-    lay = leaf_layout(plan, shape, 0, 2)
+    qprobe = load_tool("quantize_probe")
+    call = QUANT_FIRST
     dev = torch.device("cuda")
-    x = torch.randn((m,) + lay.local_shape, device=dev).reshape(m, -1)
-    n = x.shape[-1]
-    keys = jaxrand.split(jaxrand.key(5), m)
-    words = ops.row_absmax(x)
-    q, sc = ops.quantize_shard(keys, x, words, lay, bits=8)
-    qw, scw = ref.quantize_shard_ref(keys, x, ref.row_absmax_ref(x), lay,
-                                     bits=8, window=PLAIN_WINDOW)
-    sync()
-    note_err("K4-shard", q, qw)
-    if not (torch.equal(q, qw) and same_scale(sc, scw)):
-        raise AssertionError("K4 shard form at its timing shape: mismatch")
-    kd = ops._key_words(keys, (m,), dev)
-    desc = ops._shard_desc(lay)
-    wd = torch.empty((m,), dtype=torch.int32, device=dev)
-    qb = torch.empty_like(q)
-    scb = torch.empty_like(sc)
+    m = 2
+    for label, shape, segments, dim in K4_SHARD_TIMED:
+        lay = leaf_layout(LeafPlan(dim, segments), shape, 0, 2)
+        lays = (lay,)
+        x = torch.randn((m,) + lay.local_shape, device=dev).reshape(m, -1)
+        n = x.shape[-1]
+        keys = jaxrand.split(jaxrand.key(5), m)[:, None]
 
-    def bare():
-        _build.launch("leaf_absmax", x.data_ptr(), m, n, wd.data_ptr())
-        _build.launch("quantize_leaf_shard", x.data_ptr(), m, n, 8,
-                      kd.data_ptr(), wd.data_ptr(), desc, scb.data_ptr(),
-                      qb.data_ptr(), n)
+        def new():
+            return ops.quantize_tree(keys, [x], ops.tree_absmax([x], lays),
+                                     lays, bits=8)
 
-    add_row(
-        rows, f"K4-shard row_absmax + quantize_shard b=8 {label}",
-        "src/repro_torch/csrc/quantize_leaf.cu",
-        "src/repro/kernels/quantize/kernel.py:73", launches,
-        cuda_ms(lambda: ops.quantize_shard(keys, x, ops.row_absmax(x), lay,
-                                           bits=8)),
-        cuda_ms(bare),
-        cuda_ms(lambda: ref.quantize_shard_ref(
-            keys, x, ref.row_absmax_ref(x), lay, bits=8,
-            window=PLAIN_WINDOW), iters=3, warmup=1),
-        m * n * 4 + m * n + 8 * m + 4 * m, TF_LEAF_OPS * m * n,
-        6 * m * n, None,
-        launches_of="rank 0's quantize_shard calls in the tp phase's "
-                    "tensor-parallel rounds (each with one row_absmax)")
+        (q, sc), = new()
+        (qw, scw), = ref.quantize_tree_ref(
+            keys, [x], ref.tree_absmax_ref([x], lays), lays, bits=8,
+            window=PLAIN_WINDOW)
+        sync()
+        note_err("K4-shard", q, qw)
+        if not (torch.equal(q, qw) and same_scale(sc, scw)):
+            raise AssertionError(f"K4 shard form at {label}: mismatch")
+        # the bare launches on prepared inputs
+        plan = ops.shard_plan(lays, m, x.device)
+        plan.fill_x([x])
+        ln, = plan.launches
+        kd = ops._key_words(keys, (m, 1), dev)
+        wd = torch.empty((plan.slots,), dtype=torch.int32, device=dev)
+        scb = torch.empty((plan.slots,), dtype=torch.float32, device=dev)
+        qb = torch.empty((plan.qbytes[8],), dtype=torch.int8, device=dev)
+        base = plan.scratch.data_ptr()
+
+        def absmax():
+            _build.launch("shard_tree_absmax", ln.table.data_ptr(), 1,
+                          ln.tiles, ln.xs, wd.data_ptr(), base,
+                          base + 4 * (plan.slots + ln.tile0))
+
+        def quant():
+            _build.launch("shard_tree_quantize", ln.table.data_ptr(), 1,
+                          ln.tiles, ln.xs, 8, kd.data_ptr(), None, m, 1,
+                          None, 0, wd.data_ptr(), scb.data_ptr(),
+                          qb.data_ptr())
+
+        def bare():
+            absmax()
+            quant()
+
+        # PR 30's design, the same call
+        desc = qprobe.shard_desc(lay)
+        kd1 = kd.reshape(m, 2)
+        wf = torch.empty((m,), dtype=torch.int32, device=dev)
+        qf, scf = qprobe.first_shard(call, kd1, x, wf, desc, 8)
+        sync()
+        if not (torch.equal(qf, q) and same_scale(scf, sc)):
+            raise AssertionError(f"K4 shard form's first design at {label}:"
+                                 " differs from the grouped form")
+        qfb, scfb = torch.empty_like(qf), torch.empty_like(scf)
+        f_abs = call("leaf_absmax_first", x.data_ptr(), m, n, wf.data_ptr())
+        f_q = call("quantize_leaf_shard_first", x.data_ptr(), m, n, 8,
+                   kd1.data_ptr(), wf.data_ptr(), desc, scfb.data_ptr(),
+                   qfb.data_ptr(), n)
+
+        def first_bare():
+            f_abs()
+            f_q()
+
+        # whole-leaf K4 on the same elements
+        scr = ops.scratch(m, dev)
+        qk = torch.empty((m, n), dtype=torch.int8, device=dev)
+        sck = torch.empty((m,), dtype=torch.float32, device=dev)
+
+        def k4_bare():
+            _build.launch("quantize_leaf", x.data_ptr(), m, n, 8,
+                          kd1.data_ptr(), sck.data_ptr(), qk.data_ptr(), n,
+                          scr.data_ptr())
+
+        def first():  # PR 30's wrappers: keys, words, description
+            return qprobe.first_shard(
+                call, ops._key_words(keys[:, 0], (m,), dev), x,
+                torch.empty((m,), dtype=torch.int32, device=dev),
+                qprobe.shard_desc(lay), 8)
+
+        ms, f_ms, ms_t, f_ms_t = turns(new, first)
+        ev_ms, f_ev_ms, ev_t, f_ev_t = turns(bare, first_bare)
+        # the card's own time: the launches captured in a CUDA graph
+        k_ms, fk_ms, k_t, fk_t = graph_turns(bare, first_bare)
+        _, k4_ms, _, k4_t = graph_turns(bare, k4_bare)
+        a_ms, norm_ms, a_t, norm_t = graph_turns(
+            absmax, lambda: torch.linalg.vector_norm(x, float("inf"), -1))
+        q_ms = graph_ms(quant)
+        plain_ms = cuda_ms(lambda: ref.quantize_tree_ref(
+            keys, [x], ref.tree_absmax_ref([x], lays), lays, bits=8,
+            window=PLAIN_WINDOW), iters=3, warmup=1)
+        once = m * n * 4 + m * n + 8 * m + 4 * m
+        twice = once + m * n * 4
+        ops_ = TF_LEAF_OPS * m * n
+        b_once, b_twice = bound_ms(once, ops_)[0], bound_ms(twice, ops_)[0]
+        x_reads = "once" if 4 * m * n <= L2_BYTES else "twice"
+        add_row(
+            rows, f"K4-shard tree_absmax + quantize_tree b=8 {label}",
+            "src/repro_torch/csrc/quantize_leaf.cu",
+            "src/repro/kernels/quantize/kernel.py:73", launches, ms, k_ms,
+            plain_ms, once if x_reads == "once" else twice, ops_, 0, None,
+            first_ms=f_ms, first_kernel_ms=fk_ms, ms_turns=ms_t,
+            first_ms_turns=f_ms_t, kernel_ms_turns=k_t,
+            first_kernel_ms_turns=fk_t, kernel_ms_by="cuda graph",
+            events_kernel_ms=ev_ms, first_events_kernel_ms=f_ev_ms,
+            whole_leaf_k4_ms=k4_ms,
+            whole_leaf_k4_turns=k4_t, absmax_ms=a_ms, absmax_turns=a_t,
+            vector_norm_ms=norm_ms, vector_norm_turns=norm_t,
+            quantize_ms=q_ms, bound_x_once_ms=b_once,
+            bound_x_twice_ms=b_twice, bound_x_reads=x_reads,
+            absmax_bytes_ms=bound_ms(m * n * 4 + 4 * m)[0],
+            launches_of="rank 0's quantize_tree calls in the tp phase's "
+                        "tensor-parallel rounds (each with one "
+                        "tree_absmax)")
+        log(f"[time] K4-shard at {label}: x {4 * m * n:,} B, read "
+            f"{x_reads} in the bound (L2 {L2_BYTES:,} B); device ms (CUDA "
+            f"graph): both passes {k_ms:.4f} (turns {k_t}), PR 30's design "
+            f"{fk_ms:.4f} (turns {fk_t}); whole-leaf K4 on the same "
+            f"elements {k4_ms:.4f} (turns {k4_t}); the max pass {a_ms:.4f} "
+            f"(turns {a_t}), vector_norm(x, inf, -1) {norm_ms:.4f} (turns "
+            f"{norm_t}), its bytes' bound "
+            f"{bound_ms(m * n * 4 + 4 * m)[0]:.4f}; the quantise pass "
+            f"{q_ms:.4f}; launched back to back (CUDA events) both passes "
+            f"{ev_ms:.4f} (turns {ev_t}), PR 30's {f_ev_ms:.4f} (turns "
+            f"{f_ev_t}); bound x once {b_once:.4f}, twice {b_twice:.4f}"
+            + ("" if CARD is None else f" [{CARD}]"))
+        del x, qk, qb, q, qw, qf, qfb
+        torch.cuda.empty_cache()
+    time_k4_tree_host()
+
+
+def time_k4_tree_host():
+    """Host and device ms of one message tree's K4 calls: the grouped
+    wrappers (``tree_absmax`` + ``quantize_tree``; no all-reduce) against
+    PR 30's calls leaf by leaf (each cut leaf its keys, description,
+    words and two launches of the first design; each leaf held whole a
+    ``quantize_tensor``), on rank 0's shards of the tp phase's tree
+    (qwen3-0.6b cut to one layer, 2 messages)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps, train
+
+    qprobe = load_tool("quantize_probe")
+    call = QUANT_FIRST
+    dev = torch.device("cuda")
+    arch = ARCHS[TP_TRAIN_ARCH]
+    cfg = dataclasses.replace(train.train_config(arch, smoke=False),
+                              n_layers=TP_TRAIN_LAYERS)
+    lays = tuple(shd.shard_layouts(_StandIn(2, 0), "admm",
+                                   steps.model_specs(arch, cfg)))
+    m = 2
+    xs = [torch.randn((m, math.prod(lay.local_shape)), device=dev)
+          for lay in lays]
+    keys = jaxrand.split(jaxrand.split(jaxrand.key(5), m), len(lays))
+
+    def grouped():
+        w = ops.tree_absmax(xs, lays)
+        return ops.quantize_tree(keys, xs, w, lays, bits=8)
+
+    def per_leaf():
+        out = []
+        for i, (x, lay) in enumerate(zip(xs, lays)):
+            if not lay.cut:
+                out.append(ops.quantize_tensor(keys[:, i], x, bits=8))
+                continue
+            kd = ops._key_words(keys[:, i], (m,), dev)
+            w = torch.empty((m,), dtype=torch.int32, device=dev)
+            out.append(qprobe.first_shard(call, kd, x, w,
+                                          qprobe.shard_desc(lay), 8))
+        return out
+
+    for (q, sc), (qf, scf) in zip(grouped(), per_leaf()):
+        if not (torch.equal(q, qf) and same_scale(sc, scf)):
+            raise AssertionError("K4 shard form: the grouped tree differs "
+                                 "from PR 30's calls leaf by leaf")
+    h, hf = idle_host_ms(grouped), idle_host_ms(per_leaf)
+    hb, hfb = host_ms(grouped), host_ms(per_leaf)
+    d, df, d_t, df_t = turns(grouped, per_leaf)
+    n_cut = sum(lay.cut for lay in lays)
+    log(f"[time] K4-shard, one message tree (rank 0's {len(lays)} leaves of "
+        f"{cfg.name} cut to {cfg.n_layers} layer, {sum(l.cut for l in lays)}"
+        f" cut, {sum(x.numel() for x in xs):,} elements): host ms a tree "
+        f"from an idle card grouped {h:.4f} (2 launches), PR 30's leaf by "
+        f"leaf {hf:.4f} "
+        f"({2 * n_cut} shard-form launches + {len(lays) - n_cut} K4); "
+        f"back to back behind a busy card {hb:.4f} against {hfb:.4f}; "
+        f"CUDA-event ms {d:.4f} (turns "
+        f"{d_t}) against {df:.4f} (turns {df_t})"
+        + ("" if CARD is None else f" [{CARD}]"))
 
 
 @contextlib.contextmanager

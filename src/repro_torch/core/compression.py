@@ -36,10 +36,11 @@ Tensor parallelism: ``ShardedTree`` compresses a tree whose leaves are a
 rank's shards over the "model" axis (``launch.sharding.shard_layouts``)
 as the reference compresses the whole leaves: one message a leaf.  The
 identity sends the shard; qbit quantises it at the whole leaf's scale
-(the ranks' row max all-reduced with MAX over the axis) with each
-element's rounding bits drawn at its flat index in the whole leaf (the
-kernel route: K4's shard form; the torch route: ``jaxrand.bits_at``), so
-the ranks' payloads are the whole leaf's, cut.  The receiver
+(the ranks' row max all-reduced with MAX over the axis, once for a
+whole message tree) with each element's rounding bits drawn at its flat
+index in the whole leaf (the kernel route: K4's shard form, one launch a
+pass for the whole tree; the torch route: ``jaxrand.bits_at``), so the
+ranks' payloads are the whole leaf's, cut.  The receiver
 dequantises its shard alone (K5 as it is).  RandK and TopK select over
 the whole leaf and raise on a shard (ROADMAP item 15).
 """
@@ -177,24 +178,49 @@ class BBitQuantizer:
     def compress_shard(self, keys, x, layout) -> Payload:
         """``compress`` of the whole leaves whose rank's shards ``x
         [..., n_local]`` are laid out as ``layout``: the rank's part of
-        each whole leaf's payload (the ambient mesh's "model" axis
-        reduces the scale)."""
+        each whole leaf's payload (``compress_shards`` of one leaf)."""
+        return self.compress_shards(keys[..., None, :], [x], (layout,))[0]
+
+    def compress_shards(self, keys, xs, layouts) -> list:
+        """``compress`` of the whole leaves of a message tree whose rank's
+        shards are ``xs`` (``[..., n_i]``, one lead shape), leaf i laid
+        out as ``layouts[i]`` and keyed by ``keys[..., i, :]`` (``keys
+        [..., L, 2]``): the rank's part of each whole leaf's payload.  The
+        cut leaves' scales take one all-reduce with MAX over the ambient
+        mesh's "model" axis for the whole tree; a leaf held whole keeps
+        its own (every rank holds it).  The kernel route is K4's shard
+        form, one launch a pass for every leaf; the torch route quantises
+        leaf by leaf.  Returns the payloads in the leaves' order."""
         from repro_torch.launch import tp
 
-        xf = x.to(torch.float32)
-        if resolve_impl(self.impl, x.device) == "kernel":
-            words = tp.all_reduce_max(qops.row_absmax(xf))
-            q, scale = qops.quantize_shard(keys, xf, words, layout,
-                                           bits=self.bits)
-            return Payload(q=q, scale=scale)
-        scale = tp.all_reduce_max(qref.row_scale(xf))
-        kappa = jaxrand.unit(jaxrand.bits_at(keys.to(x.device),
-                                             layout.counters(x.device)))
-        q = qref.to_int8(qref.quantize_values(xf, scale[..., None], kappa,
-                                              self.levels))
-        if self.bits == 4:
-            q = qref.pack4(q)
-        return Payload(q=q, scale=scale)
+        xs = [x.to(torch.float32) for x in xs]
+        layouts = tuple(layouts)
+        m = qref.tree_rows(xs)[1]
+        if resolve_impl(self.impl, xs[0].device) == "kernel":
+            words = qops.tree_absmax(xs, layouts)
+            cut = qops.cut_rows(layouts, m)
+            reduced = tp.all_reduce_max(words[:cut]) if cut else None
+            return [Payload(q=q, scale=sc) for q, sc in qops.quantize_tree(
+                keys, xs, words, layouts, bits=self.bits, reduced=reduced)]
+        cut = [i for i, lay in enumerate(layouts) if lay.cut]
+        scales = {}
+        if cut:
+            top = tp.all_reduce_max(torch.stack([qref.row_scale(xs[i])
+                                                 for i in cut]))
+            scales = dict(zip(cut, top))
+        out = []
+        for i, (x, lay) in enumerate(zip(xs, layouts)):
+            k = keys[..., i, :]
+            if not lay.cut:
+                out.append(self.compress(k, x))
+                continue
+            kappa = jaxrand.unit(jaxrand.bits_at(k.to(x.device),
+                                                 lay.counters(x.device)))
+            q = qref.to_int8(qref.quantize_values(
+                x, scales[i][..., None], kappa, self.levels))
+            out.append(Payload(q=qref.pack4(q) if self.bits == 4 else q,
+                               scale=scales[i]))
+        return out
 
     def decompress(self, keys, payload, n: int):
         if resolve_impl(self.impl, payload["q"].device) == "kernel":
@@ -449,15 +475,17 @@ def message_nbytes(comp, payload, nd: int) -> int:
 def compress_tree(comp, keys, tree, nd: int):
     """Compress every leaf of a tree whose leaves carry ``nd`` lead
     (message) dims; ``keys`` is ``[*lead, 2]``.  Leaf i uses
-    ``split(key, n_leaves)[i]``, as the reference does."""
+    ``split(key, n_leaves)[i]``, as the reference does.  A
+    ``ShardedTree`` of qbit compresses all of its leaves in one call
+    (``BBitQuantizer.compress_shards``)."""
     leaves, rebuild = tree_flatten(tree)
     lk = jaxrand.split(keys, len(leaves))
-    out = []
-    for i, x in enumerate(leaves):
-        lead = tuple(x.shape[:nd])
-        out.append(_leaf_comp(comp, i).compress(lk[..., i, :],
-                                                x.reshape(lead + (-1,))))
-    return rebuild(out)
+    flat = [x.reshape(tuple(x.shape[:nd]) + (-1,)) for x in leaves]
+    if isinstance(comp, ShardedTree) and isinstance(comp.inner,
+                                                    BBitQuantizer):
+        return rebuild(comp.inner.compress_shards(lk, flat, comp.layouts))
+    return rebuild([_leaf_comp(comp, i).compress(lk[..., i, :], x)
+                    for i, x in enumerate(flat)])
 
 
 def decompress_tree(comp, keys, payload_tree, like_tree, nd: int):

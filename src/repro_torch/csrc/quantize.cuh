@@ -2,9 +2,10 @@
 // quantize_plane.cu) and the per-message kernel (K4, quantize_leaf.cu):
 // the per-element arithmetic and the fused row kernel that computes each
 // row's scale and its levels in one launch.  Only the source of kappa
-// differs between K1 and K4 (a Kappa policy: PlaneKappa, LeafKappa, and
-// ShardKappa for K4's shard form, a rank's shard of a leaf cut over the
-// "model" axis, quantize_leaf.cu quantize_leaf_shard).
+// differs between K1 and K4 (a Kappa policy: PlaneKappa, LeafKappa).  K4's
+// shard form (a rank's shards of a tree's leaves cut over the "model" axis,
+// quantize_leaf.cu shard_tree_absmax / shard_tree_quantize) reuses the
+// element body with each element's place in the whole leaf (ShardMap).
 //
 // Arithmetic.  q = sign(x) * floor(levels * |x| / scale + kappa), in the
 // reference's operation order (src/repro/kernels/quantize/kernel.py:43),
@@ -62,6 +63,7 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "threefry.cuh"
@@ -153,42 +155,6 @@ struct LeafKappa {
   }
 };
 
-// K4's shard form: the rank's element j of a leaf's shard draws
-// jax.random.bits(key[m], (n_pad,))[g], g its flat index in the whole
-// leaf.  The shard is the whole leaf but along one dim (the cut dim), where
-// it holds at most kMaxPieces pieces, each (local start, global start,
-// length): local element j = (outer * ldim + l) * inner + i lies at
-// g = (outer * gdim + l - ls[p] + gs[p]) * inner + i, p the piece holding l.
-// Two 32-bit divisions an element; the whole leaf has fewer than 2^32
-// elements (the C entry checks).
-constexpr int kMaxPieces = 4;
-
-struct ShardKappa {
-  const uint32_t* keys;
-  uint32_t inner, gdim, ldim;
-  int pieces;
-  uint32_t ls[kMaxPieces], gs[kMaxPieces], len[kMaxPieces];
-  __device__ __forceinline__ Pair state(int m) const {
-    return Pair{keys[2 * m], keys[2 * m + 1]};
-  }
-  __device__ __forceinline__ uint32_t global(uint32_t j) const {
-    const uint32_t block = ldim * inner;
-    const uint32_t outer = j / block;
-    const uint32_t rem = j - outer * block;
-    const uint32_t l = rem / inner;
-    const uint32_t i = rem - l * inner;
-    uint32_t g = l;
-#pragma unroll
-    for (int p = 0; p < kMaxPieces; ++p) {
-      if (p < pieces && l - ls[p] < len[p]) g = l - ls[p] + gs[p];
-    }
-    return (outer * gdim + g) * inner + i;
-  }
-  __device__ __forceinline__ uint32_t bits(Pair st, uint32_t j) const {
-    return jax_bits(st.x0, st.x1, global(j));
-  }
-};
-
 // ---------------------------------------------------------------------------
 // the fused row kernel
 // ---------------------------------------------------------------------------
@@ -211,17 +177,22 @@ __device__ __forceinline__ uint32_t pair_byte(int hi, int lo) {
 }
 
 // Four int8 levels (x at element j..j+3) or eight b=4 levels (j..j+7) as
-// one little-endian word, the bytes as the reference stores them.
-template <int kBits, class Kappa>
-__device__ __forceinline__ uint32_t quantize_group(const Kappa& src, Pair st,
-                                                   const float4* v,
-                                                   float scale, uint32_t j) {
+// one little-endian word, the bytes as the reference stores them; element
+// k of the group draws its kappa's bits as bits(k).
+template <int kBits, class Bits>
+__device__ __forceinline__ uint32_t pack_group(const float4* v, float scale,
+                                               Bits bits) {
+  constexpr float levels = kBits == 8 ? 127.f : 7.f;
   if (kBits == 8) {
     const float4 a = v[0];
-    const uint32_t l0 = level8(level_at<kBits>(src, st, a.x, scale, j));
-    const uint32_t l1 = level8(level_at<kBits>(src, st, a.y, scale, j + 1));
-    const uint32_t l2 = level8(level_at<kBits>(src, st, a.z, scale, j + 2));
-    const uint32_t l3 = level8(level_at<kBits>(src, st, a.w, scale, j + 3));
+    const uint32_t l0 =
+        level8(signed_y(a.x, levels, scale, __uint2float_rn(bits(0))));
+    const uint32_t l1 =
+        level8(signed_y(a.y, levels, scale, __uint2float_rn(bits(1))));
+    const uint32_t l2 =
+        level8(signed_y(a.z, levels, scale, __uint2float_rn(bits(2))));
+    const uint32_t l3 =
+        level8(signed_y(a.w, levels, scale, __uint2float_rn(bits(3))));
     return __byte_perm(__byte_perm(l0, l1, 0x0040),
                        __byte_perm(l2, l3, 0x0040), 0x5410);
   }
@@ -231,11 +202,22 @@ __device__ __forceinline__ uint32_t quantize_group(const Kappa& src, Pair st,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     p[i] = pair_byte(
-        nibble4(level_at<kBits>(src, st, e[2 * i], scale, j + 2 * i)),
-        nibble4(level_at<kBits>(src, st, e[2 * i + 1], scale, j + 2 * i + 1)));
+        nibble4(signed_y(e[2 * i], levels, scale,
+                         __uint2float_rn(bits(2 * i)))),
+        nibble4(signed_y(e[2 * i + 1], levels, scale,
+                         __uint2float_rn(bits(2 * i + 1)))));
   }
   return __byte_perm(__byte_perm(p[0], p[1], 0x0040),
                      __byte_perm(p[2], p[3], 0x0040), 0x5410);
+}
+
+// the group at element j of a row, kappa from the source's bits(st, j + k)
+template <int kBits, class Kappa>
+__device__ __forceinline__ uint32_t quantize_group(const Kappa& src, Pair st,
+                                                   const float4* v,
+                                                   float scale, uint32_t j) {
+  return pack_group<kBits>(v, scale,
+                           [&](int k) { return src.bits(st, j + k); });
 }
 
 // The first element j0 (< 8) of row m from which x (16 bytes) and q (4
@@ -495,56 +477,363 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
 }
 
 // ---------------------------------------------------------------------------
-// the shard form's two passes: each row's max |x| bits, and the levels at a
-// given scale (the row max all-reduced over the ranks in between)
+// K4's shard form, grouped: the leaves of one message tree whose rank's
+// shards tensor parallelism cut over the "model" axis, one launch a pass
 // ---------------------------------------------------------------------------
+//
+// The scale of a cut leaf is the whole leaf's, so the rank's row max is a
+// pass of its own (shard_tree_absmax), the caller all-reduces the cut
+// leaves' words with MAX over the axis, and the quantise pass
+// (shard_tree_quantize) takes them.  Each pass walks the tiles (kQTile
+// elements of a row) of every leaf of the tree, a leaf's M rows one after
+// another, on one persistent grid; a block finds its tile's leaf by a
+// binary search over the leaves' first tiles, per tile.  A leaf is an
+// entry of a device table of kShardWords words (ShardWord), built by the
+// host once per (layouts, rows) and cached (kernels/quantize/ops.py
+// shard_plan); the x pointers travel in the launch's parameter block
+// (ShardTreeArgs), kMaxLeaves leaves a launch, and so do the keys of a
+// tree of at most kParamKeys rows (leaves times messages) whose keys lie
+// on the host (a larger tree's, or device keys, from device memory).  A
+// leaf's rows own consecutive word (and scale) slots, the cut leaves'
+// first, so that the all-reduce covers one prefix of the words.  A leaf held whole takes the
+// identity layout and keeps its own rank's scale (every rank holds the
+// same leaf): its levels are K4's.
+//
+// Absmax pass: a tile reduces max |x| of its part of the row as uint32
+// bits (tile_max).  A row of one tile writes its word; a row of P > 1
+// tiles writes the tile's partial, then, after a __threadfence (release),
+// adds one to the row's arrival counter, and the block that arrives last
+// reduces the row's P partials (read past L1), writes the word and puts
+// the counter back to 0.  The counters are zero when the plan allocates
+// them and after every launch, so no call zeroes anything.
+//
+// Quantise pass: scale = max(word, tiny) (the all-reduced word for a cut
+// leaf); element j of a shard row draws jax.random.bits(key, (n_pad,))[g],
+// g its flat index in the whole leaf.  The host classifies each layout:
+//   class 0: the shard is one run of the whole leaf (cut on its first
+//            dim, or every dim before the cut is 1), or a leaf held whole:
+//            g = j + base;
+//   class 1: one piece along the cut dim: a run of block = ldim * inner
+//            elements an outer index, g = j + outer * delta + base;
+//   class 2: up to kMaxPieces pieces (local start, global start, length)
+//            along the cut dim: j = (outer * ldim + l) * inner + i lies at
+//            g = (outer * gdim + l - ls[p] + gs[p]) * inner + i.
+// The quantise loop is instantiated per class.  A group of 4 (b=8) or 8
+// (b=4) elements works out its first element's place once, by a
+// multiply-high by constants the host computed (fast_div), and steps to
+// the others; the elements outside the groups map one at a time by the
+// same multiply-highs.  No element divides.  The host checks that the
+// whole leaf has fewer than 2^32 elements, at most kMaxPieces pieces that
+// cover the local dim, and each leaf's x against its entry.
 
-// words[m] = max over row m of the bits of |x| (atomicMax; zeroed before)
-__global__ void __launch_bounds__(kQThreads)
-rows_absmax(const float* __restrict__ x, int M, int n, int P,
-            unsigned* __restrict__ words) {
+constexpr int kMaxPieces = 4;
+constexpr int kMaxLeaves = 128;  // a launch's leaves (ShardTreeArgs)
+constexpr int kParamKeys = 128;  // keys that travel in ShardTreeArgs
+
+// a table entry's words (kernels/quantize/ops.py mirrors them)
+enum ShardWord {
+  kSwN = 0,   // the shard's elements a row
+  kSwTiles,   // tiles a row
+  kSwFirst,   // the leaf's first tile in the launch
+  kSwSlot,    // its first row's word and scale slot
+  kSwKey,     // its index in the tree: row m's key is m * leaves + this
+  kSwQ8,      // its q's byte offset at b=8
+  kSwQ4,      // ... and at b=4
+  kSwClass,   // 0, 1, 2 (see above)
+  kSwBase,    // class 0 and 1: g of local element 0
+  kSwDelta,   // class 1: (gdim - ldim) * inner
+  kSwBlock,   // ldim * inner
+  kSwBlockM,  // its fast_div constants
+  kSwBlockS,
+  kSwInner,   // the elements past the cut dim
+  kSwInnerM,  // its fast_div constants
+  kSwInnerS,
+  kSwGdim,    // the whole leaf's cut dim
+  kSwLdim,    // the shard's
+  kSwPieces,
+  kSwLs,                     // pieces' local starts
+  kSwGs = kSwLs + kMaxPieces,  // global starts
+  kSwLen = kSwGs + kMaxPieces,  // lengths
+  kShardWords = 32
+};
+static_assert(kSwLen + kMaxPieces <= kShardWords, "table entry");
+
+// n / d for every 32-bit n by a multiply-high, with the host's constants
+// m and s = s1 | s2 << 8 of d (Granlund and Montgomery 1994, fig. 4.1: l =
+// ceil(log2 d), m = floor(2^32 (2^l - d) / d) + 1, s1 = min(l, 1), s2 =
+// max(l - 1, 0))
+__device__ __forceinline__ uint32_t fast_div(uint32_t n, uint32_t m,
+                                             uint32_t s) {
+  const uint32_t t = __umulhi(n, m);
+  return (t + ((n - t) >> (s & 0xFFu))) >> (s >> 8);
+}
+
+// where a shard's local element j lies in the whole leaf, for class kClass
+template <int kClass>
+struct ShardMap {
+  uint32_t base, delta, block, bm, bs, inner, im, is, gdim, ldim;
+  int pieces;
+  uint32_t ls[kMaxPieces], gs[kMaxPieces], len[kMaxPieces];
+
+  __device__ __forceinline__ explicit ShardMap(const uint32_t* e) {
+    base = __ldg(e + kSwBase);
+    delta = __ldg(e + kSwDelta);
+    block = __ldg(e + kSwBlock);
+    bm = __ldg(e + kSwBlockM);
+    bs = __ldg(e + kSwBlockS);
+    inner = __ldg(e + kSwInner);
+    im = __ldg(e + kSwInnerM);
+    is = __ldg(e + kSwInnerS);
+    gdim = __ldg(e + kSwGdim);
+    ldim = __ldg(e + kSwLdim);
+    pieces = static_cast<int>(__ldg(e + kSwPieces));
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p) {
+      ls[p] = __ldg(e + kSwLs + p);
+      gs[p] = __ldg(e + kSwGs + p);
+      len[p] = __ldg(e + kSwLen + p);
+    }
+  }
+
+  // the whole leaf's index along the cut dim of local index l (class 2)
+  __device__ __forceinline__ uint32_t along(uint32_t l) const {
+    uint32_t g = l;
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p) {
+      if (p < pieces && l - ls[p] < len[p]) g = l - ls[p] + gs[p];
+    }
+    return g;
+  }
+
+  // g of one element
+  __device__ __forceinline__ uint32_t one(uint32_t j) const {
+    if (kClass == 0) return j + base;
+    const uint32_t outer = fast_div(j, bm, bs);
+    if (kClass == 1) return j + outer * delta + base;
+    const uint32_t rem = j - outer * block;
+    const uint32_t l = fast_div(rem, im, is);
+    return (outer * gdim + along(l)) * inner + (rem - l * inner);
+  }
+
+  // g of elements j .. j + G - 1: the first's place once, then steps
+  template <int G>
+  __device__ __forceinline__ void run(uint32_t j, uint32_t (&g)[G]) const {
+    if (kClass == 0) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) g[k] = j + base + k;
+      return;
+    }
+    uint32_t outer = fast_div(j, bm, bs);
+    uint32_t r = j - outer * block;  // the place in the run
+    if (kClass == 1) {
+      uint32_t v = j + outer * delta + base;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        g[k] = v;
+        ++v;
+        if (++r == block) {
+          r = 0;
+          v += delta;
+        }
+      }
+      return;
+    }
+    uint32_t l = fast_div(r, im, is);
+    uint32_t i = r - l * inner;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      g[k] = (outer * gdim + along(l)) * inner + i;
+      if (++i == inner) {
+        i = 0;
+        if (++l == ldim) {
+          l = 0;
+          ++outer;
+        }
+      }
+    }
+  }
+};
+
+// the elements outside the groups draw through a Kappa of their own
+template <int kClass>
+struct MapKappa {
+  ShardMap<kClass> map;
+  __device__ __forceinline__ uint32_t bits(Pair st, uint32_t j) const {
+    return jax_bits(st.x0, st.x1, map.one(j));
+  }
+};
+
+// a tile of a shard row at the row's scale (quantize_tile's walk)
+template <int kBits, int kClass>
+__device__ __forceinline__ void shard_tile(const uint32_t* entry, Pair st,
+                                           const float* __restrict__ xr,
+                                           int n, float scale,
+                                           uint8_t* __restrict__ qr,
+                                           TileSpan s) {
+  const ShardMap<kClass> map(entry);
+  constexpr int g = kBits == 8 ? 4 : 8;
+  const int ng = (s.b - s.a) / g;
+  const float4* v = reinterpret_cast<const float4*>(xr + s.a);
+  uint32_t* w = reinterpret_cast<uint32_t*>(qr + (kBits == 8 ? s.a : s.a / 2));
+#pragma unroll(4)
+  for (int k = 0; k < kQTile / g / kQThreads; ++k) {
+    const int i = threadIdx.x + k * kQThreads;
+    if (i < ng) {
+      float4 f[g / 4];
+#pragma unroll
+      for (int h = 0; h < g / 4; ++h) f[h] = __ldg(v + (g / 4) * i + h);
+      uint32_t at[g];
+      map.run(static_cast<uint32_t>(s.a + g * i), at);
+      w[i] = pack_group<kBits>(
+          f, scale, [&](int e) { return jax_bits(st.x0, st.x1, at[e]); });
+    }
+  }
+  const MapKappa<kClass> src{map};
+  quantize_scalar<kBits>(src, st, xr, n, scale, qr, s.lo, s.a);
+  quantize_scalar<kBits>(src, st, xr, n, scale, qr, s.b, s.hi);
+}
+
+// one launch of a pass over the leaves of a tree (at most kMaxLeaves)
+struct ShardTreeArgs {
+  const uint32_t* table;   // kShardWords a leaf
+  int leaves;              // this launch's
+  unsigned tiles;          // this launch's
+  int key_stride;          // the tree's leaves
+  const uint32_t* keys;    // (k0, k1) by row m and leaf: m * leaves + key,
+                           // or null: they are key_words
+  const unsigned* reduced;  // the all-reduced words of slots < cut
+  unsigned cut;
+  unsigned* words;         // absmax: written; quantise: slots >= cut
+  unsigned* counters;      // absmax: an arrival counter a slot (zero)
+  unsigned* partials;      // absmax: a partial a tile of the launch
+  float* scale;            // quantise: by slot
+  uint8_t* q;              // quantise: the leaves' q at their offsets
+  const float* x[kMaxLeaves];
+  uint32_t key_words[2 * kParamKeys];  // a tree of few rows' keys
+};
+
+// the leaf of tile b: the last entry whose first tile is at most b
+__device__ __forceinline__ int tile_leaf(const ShardTreeArgs& a, unsigned b) {
+  int lo = 0, hi = a.leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(a.table + mid * kShardWords + kSwFirst) <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+__global__ __launch_bounds__(kQThreads) void shard_tree_absmax(
+    const ShardTreeArgs a) {
   __shared__ unsigned red[kQThreads / 32];
-  const long long items = static_cast<long long>(M) * P;
-  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
-    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
-    const TileSpan s =
-        tile_span<8>(t, n, aligned_start<8>(x, x, m, n, n));
+  __shared__ bool last;
+  for (unsigned b = blockIdx.x; b < a.tiles; b += gridDim.x) {
+    const int e = tile_leaf(a, b);
+    const uint32_t* en = a.table + e * kShardWords;
+    const int n = static_cast<int>(__ldg(en + kSwN));
+    const int P = static_cast<int>(__ldg(en + kSwTiles));
+    const unsigned u = b - __ldg(en + kSwFirst);
+    const int m = static_cast<int>(u / P), t = static_cast<int>(u % P);
+    const unsigned slot = __ldg(en + kSwSlot) + m;
+    const float* x = a.x[e];
+    const TileSpan s = tile_span<8>(t, n, aligned_start<8>(x, x, m, n, n));
     const unsigned mx =
         tile_max<8>(x + static_cast<long long>(m) * n, s, red);
-    if (threadIdx.x == 0) atomicMax(words + m, mx);
-    __syncthreads();  // red is reused by the next item
+    if (P == 1) {
+      if (threadIdx.x == 0) a.words[slot] = mx;
+    } else {
+      if (threadIdx.x == 0) {
+        a.partials[b] = mx;
+        __threadfence();
+        last = atomicAdd(a.counters + slot, 1u) ==
+               static_cast<unsigned>(P - 1);
+      }
+      __syncthreads();
+      if (last) {  // the row's other tiles have written their partials
+        __threadfence();
+        const unsigned* row = a.partials + (b - t);
+        unsigned v = 0;
+        for (int k = threadIdx.x; k < P; k += kQThreads) {
+          v = max(v, __ldcg(row + k));
+        }
+        v = __reduce_max_sync(0xFFFFFFFFu, v);
+        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+#pragma unroll
+          for (int w = 0; w < kQThreads / 32; ++w) v = max(v, red[w]);
+          a.words[slot] = v;
+          a.counters[slot] = 0u;
+        }
+      }
+    }
+    __syncthreads();  // red and last are reused by the next tile
   }
 }
 
-// q, scale of rows [M, n] at scale max(words[m], tiny): one tile an item
-template <int kBits, class Kappa>
-__global__ void __launch_bounds__(kQThreads)
-quantize_rows_at(const float* __restrict__ x, int M, int n, int wire, int P,
-                 Kappa src, const unsigned* __restrict__ words,
-                 float* __restrict__ scale, uint8_t* __restrict__ q) {
-  const long long items = static_cast<long long>(M) * P;
-  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
-    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
+template <int kBits>
+__global__ __launch_bounds__(kQThreads) void shard_tree_quantize(
+    const ShardTreeArgs a) {
+  for (unsigned b = blockIdx.x; b < a.tiles; b += gridDim.x) {
+    const int e = tile_leaf(a, b);
+    const uint32_t* en = a.table + e * kShardWords;
+    const int n = static_cast<int>(__ldg(en + kSwN));
+    const int wire = kBits == 8 ? n : (n + 1) / 2;
+    const int P = static_cast<int>(__ldg(en + kSwTiles));
+    const unsigned u = b - __ldg(en + kSwFirst);
+    const int m = static_cast<int>(u / P), t = static_cast<int>(u % P);
+    const unsigned slot = __ldg(en + kSwSlot) + m;
+    const unsigned word =
+        slot < a.cut ? __ldg(a.reduced + slot) : __ldg(a.words + slot);
+    const float sc = __uint_as_float(max(word, kTinyBits));
+    if (t == 0 && threadIdx.x == 0) a.scale[slot] = sc;
+    const unsigned key =
+        static_cast<unsigned>(m) * a.key_stride + __ldg(en + kSwKey);
+    const Pair st =
+        a.keys ? Pair{__ldg(a.keys + 2 * key), __ldg(a.keys + 2 * key + 1)}
+               : Pair{a.key_words[2 * key], a.key_words[2 * key + 1]};
+    const float* x = a.x[e];
+    uint8_t* q = a.q + __ldg(en + (kBits == 8 ? kSwQ8 : kSwQ4));
     const TileSpan s =
         tile_span<kBits>(t, n, aligned_start<kBits>(x, q, m, n, wire));
-    const float sc = __uint_as_float(max(__ldg(words + m), kTinyBits));
-    if (t == 0 && threadIdx.x == 0) scale[m] = sc;
-    quantize_tile<kBits>(src, src.state(m),
-                         x + static_cast<long long>(m) * n, n, sc,
-                         q + static_cast<long long>(m) * wire, s);
+    const float* xr = x + static_cast<long long>(m) * n;
+    uint8_t* qr = q + static_cast<long long>(m) * wire;
+    switch (__ldg(en + kSwClass)) {
+      case 0:
+        shard_tile<kBits, 0>(en, st, xr, n, sc, qr, s);
+        break;
+      case 1:
+        shard_tile<kBits, 1>(en, st, xr, n, sc, qr, s);
+        break;
+      default:
+        shard_tile<kBits, 2>(en, st, xr, n, sc, qr, s);
+    }
   }
 }
 
-// a persistent 1-D grid over `items` tiles of `kernel`
+// Blocks of a persistent grid over `items` tiles of `kernel` (slot `id`
+// of the cache): the SM count times the kernel's occupancy, asked of the
+// driver once per kernel and device.
+constexpr int kGridKernels = 4, kGridDevices = 16;
+
 template <class K>
-int item_grid(K kernel, long long items) {
-  int dev = 0, sms = 0, per_sm = 0;
+int persistent_grid(K kernel, int id, long long items) {
+  static std::atomic<int> cache[kGridKernels][kGridDevices];
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads,
-                                                0);
-  return static_cast<int>(
-      max(1LL, min(items, 1LL * sms * max(per_sm, 1))));
+  int full = dev < kGridDevices ? cache[id][dev].load() : 0;
+  if (full == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads,
+                                                  0);
+    full = max(1, sms * max(per_sm, 1));
+    if (dev < kGridDevices) cache[id][dev].store(full);
+  }
+  return static_cast<int>(max(1LL, min(items, static_cast<long long>(full))));
 }
 
 }  // namespace repro

@@ -25,18 +25,18 @@
 // launch after one memset, .ftz arithmetic), with the LeafKappa source
 // (the keys in device memory).
 //
-// K4's shard form (quantize_leaf_shard, with leaf_absmax): a rank's shard
-// of a leaf that tensor parallelism cuts over the "model" axis, quantised
-// as its part of the whole leaf's message.  The scale is the whole leaf's,
-// so the rank's row max is its own pass (leaf_absmax: each row's max |x|
-// as uint32 bits, atomicMax into words zeroed by one memset), the caller
-// all-reduces the words with MAX over the axis (for a non-negative f32 the
-// bits order as the value, a NaN's above +inf's), and quantize_leaf_shard
-// takes them: scale = max(word, tiny), one tile an item of a persistent
-// grid, no scratch.  Each element's kappa is the whole leaf's bit at its
-// global flat index (quantize.cuh ShardKappa, from the leaf's shape and
-// the shard's at most four pieces along the cut dim); b=4 packs the
-// shard's own pairs.  Dequantising the rank's payload is K5 unchanged.
+// K4's shard form (shard_tree_absmax, shard_tree_quantize): a rank's
+// shards of the leaves of one message tree that tensor parallelism cuts
+// over the "model" axis, each quantised as its part of the whole leaf's
+// message, one launch a pass for the whole tree (up to kMaxLeaves leaves a
+// launch).  The scale is the whole leaf's, so the rank's row max is its own
+// pass (each row's max |x| as uint32 bits: for a non-negative f32 the bits
+// order as the value, a NaN's above +inf's), the caller all-reduces the
+// cut leaves' words (a prefix) with MAX over the axis, and the quantise
+// pass takes them; each element's kappa is the whole leaf's bit at its
+// global flat index.  Design and index classes: quantize.cuh, "K4's shard
+// form, grouped".  b=4 packs the shard's own pairs.  Dequantising the
+// rank's payload is K5 unchanged.
 //
 // K5: out[m, j] = (scale[m] * q[m, j]) * (1 / levels), two rounded .ftz
 // multiplies (a product below tiny becomes a zero of its sign, as XLA
@@ -277,67 +277,86 @@ extern "C" int quantize_leaf(const void* x, int M, int n, int bits,
                                                     qs, scr, st);
 }
 
-// words[m] = the bits of max_j |x[m, j]| (K4's shard form, first pass)
-extern "C" int leaf_absmax(const void* x, int M, int n, void* words,
-                           void* stream) {
-  if (M <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int P = (n + repro::kQTile - 1) / repro::kQTile;
-  const cudaError_t e =
-      cudaMemsetAsync(words, 0, sizeof(unsigned) * static_cast<size_t>(M), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long items = 1LL * M * P;
-  repro::rows_absmax<<<repro::item_grid(repro::rows_absmax, items),
-                       repro::kQThreads, 0, st>>>(
-      static_cast<const float*>(x), M, n, P, static_cast<unsigned*>(words));
+namespace {
+
+// ShardTreeArgs of one launch: the x pointers from the host array xs
+bool tree_args(repro::ShardTreeArgs* a, const void* table, int leaves,
+               unsigned tiles, const void* xs) {
+  if (leaves < 1 || leaves > repro::kMaxLeaves || tiles < 1) return false;
+  *a = repro::ShardTreeArgs{};
+  a->table = static_cast<const uint32_t*>(table);
+  a->leaves = leaves;
+  a->tiles = tiles;
+  const auto* x = static_cast<const float* const*>(xs);
+  for (int i = 0; i < leaves; ++i) a->x[i] = x[i];
+  return true;
+}
+
+}  // namespace
+
+// K4's shard form, first pass: the words (max |x| bits) of every row of a
+// launch's leaves.  table: the plan's device entries; xs: a host array of
+// the leaves' x pointers; counters: an arrival counter a word slot (zero
+// before, zero after); partials: a word a tile of the launch.
+extern "C" int shard_tree_absmax(const void* table, int leaves,
+                                 unsigned tiles, const void* xs, void* words,
+                                 void* counters, void* partials,
+                                 void* stream) {
+  repro::ShardTreeArgs a;
+  if (!tree_args(&a, table, leaves, tiles, xs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.words = static_cast<unsigned*>(words);
+  a.counters = static_cast<unsigned*>(counters);
+  a.partials = static_cast<unsigned*>(partials);
+  repro::shard_tree_absmax<<<
+      repro::persistent_grid(repro::shard_tree_absmax, 0, tiles),
+      repro::kQThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4's shard form, second pass: rows [M, n] of a shard at the scales
-// max(words[m], tiny).  desc (host memory): inner, gdim, ldim, pieces, then
-// (local start, global start, length) for kMaxPieces pieces.
-extern "C" int quantize_leaf_shard(const void* x, int M, int n, int bits,
-                                   const void* keys, const void* words,
-                                   const void* desc, void* scale, void* q,
-                                   int wire, void* stream) {
-  if (bad_shape(M, n, bits, wire)) {
+// K4's shard form, second pass: q and scale of every row of a launch's
+// leaves at max(word, tiny), the word of a slot below cut from reduced
+// (the all-reduced prefix) and the others' from words.  keys: (k0, k1) of
+// row m of the tree's leaf k at m * key_stride + k, in device memory, or
+// host_keys (key_rows of them, at most kParamKeys) copied into the launch's
+// parameters; q: the tree's q buffer (each leaf at its entry's offset);
+// scale: a float a slot.
+extern "C" int shard_tree_quantize(const void* table, int leaves,
+                                   unsigned tiles, const void* xs, int bits,
+                                   const void* keys, const void* host_keys,
+                                   int key_rows, int key_stride,
+                                   const void* reduced, unsigned cut,
+                                   const void* words, void* scale, void* q,
+                                   void* stream) {
+  repro::ShardTreeArgs a;
+  if (!tree_args(&a, table, leaves, tiles, xs) || key_stride < 1 ||
+      (bits != 8 && bits != 4) || (cut > 0 && reduced == nullptr) ||
+      (keys == nullptr) == (host_keys == nullptr) ||
+      (host_keys != nullptr &&
+       (key_rows < 1 || key_rows > repro::kParamKeys))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* d = static_cast<const int*>(desc);
-  repro::ShardKappa src{};
-  src.keys = static_cast<const uint32_t*>(keys);
-  src.inner = static_cast<uint32_t>(d[0]);
-  src.gdim = static_cast<uint32_t>(d[1]);
-  src.ldim = static_cast<uint32_t>(d[2]);
-  src.pieces = d[3];
-  long long local = 0;
-  for (int p = 0; p < repro::kMaxPieces; ++p) {
-    src.ls[p] = static_cast<uint32_t>(d[4 + 3 * p]);
-    src.gs[p] = static_cast<uint32_t>(d[5 + 3 * p]);
-    src.len[p] = static_cast<uint32_t>(d[6 + 3 * p]);
-    if (p < src.pieces) local += d[6 + 3 * p];
+  a.key_stride = key_stride;
+  a.keys = static_cast<const uint32_t*>(keys);
+  if (host_keys != nullptr) {
+    const auto* k = static_cast<const uint32_t*>(host_keys);
+    for (int i = 0; i < 2 * key_rows; ++i) a.key_words[i] = k[i];
   }
-  const long long outer =
-      d[0] > 0 && d[2] > 0 ? n / (1LL * d[0] * d[2]) : 0;
-  if (src.pieces < 1 || src.pieces > repro::kMaxPieces || local != d[2] ||
-      outer * d[0] * d[2] != n || outer * d[0] * d[1] >= (1LL << 32)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  a.reduced = static_cast<const unsigned*>(reduced);
+  a.cut = cut;
+  a.words = const_cast<unsigned*>(static_cast<const unsigned*>(words));
+  a.scale = static_cast<float*>(scale);
+  a.q = static_cast<uint8_t*>(q);
   const auto st = static_cast<cudaStream_t>(stream);
-  const int P = (n + repro::kQTile - 1) / repro::kQTile;
-  const long long items = 1LL * M * P;
-  const auto* xs = static_cast<const float*>(x);
-  const auto* w = static_cast<const unsigned*>(words);
-  auto* sc = static_cast<float*>(scale);
-  auto* qs = static_cast<uint8_t*>(q);
   if (bits == 8) {
-    auto k = repro::quantize_rows_at<8, repro::ShardKappa>;
-    k<<<repro::item_grid(k, items), repro::kQThreads, 0, st>>>(
-        xs, M, n, wire, P, src, w, sc, qs);
+    repro::shard_tree_quantize<8><<<
+        repro::persistent_grid(repro::shard_tree_quantize<8>, 1, tiles),
+        repro::kQThreads, 0, st>>>(a);
   } else {
-    auto k = repro::quantize_rows_at<4, repro::ShardKappa>;
-    k<<<repro::item_grid(k, items), repro::kQThreads, 0, st>>>(
-        xs, M, n, wire, P, src, w, sc, qs);
+    repro::shard_tree_quantize<4><<<
+        repro::persistent_grid(repro::shard_tree_quantize<4>, 2, tiles),
+        repro::kQThreads, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

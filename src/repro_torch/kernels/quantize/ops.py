@@ -1,7 +1,8 @@
 """Wrappers of the fused plane quantizer (K1, ``csrc/quantize_plane.cu``)
 and of the per-message quantize/dequantize kernels (K4/K5,
-``csrc/quantize_leaf.cu``), K4's shard form among them (``row_absmax``,
-``quantize_shard``: a rank's shard of a leaf cut over the "model" axis).
+``csrc/quantize_leaf.cu``), K4's shard form among them (``tree_absmax``,
+``quantize_tree``: a rank's shards of a message tree's leaves cut over
+the "model" axis, one launch a pass for the whole tree).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs the plain
 version (``ref.py``) on a CPU tensor, as the reference runs Pallas in
@@ -21,6 +22,11 @@ and dtypes and launches nothing.  Both routes report the call to the
 active ``launch.op_analysis.OpCounter`` as one op under the kernel's id.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -150,69 +156,307 @@ def quantize_tensor(keys, x, *, bits=8):
 quantize_tensor.launches = 0
 
 
-def row_absmax(x):
-    """The first pass of K4's shard form: each message's max |x| of ``x
-    [..., n]`` (f32) as the uint32 bits of the f32, int32 ``[...]`` (one
-    memset and one launch), for an all-reduce with MAX over the ranks
-    before ``quantize_shard``."""
-    if x.device.type == "cpu":
-        return ref.row_absmax_ref(x)
-    if op_analysis.is_abstract(x):
-        return op_analysis.kernel_op("K4", (x,), torch.empty(
-            tuple(x.shape[:-1]), dtype=torch.int32, device=x.device))
-    lead, n, xf = _build.rows(x, "x", torch.float32)
-    words = torch.empty((xf.shape[0],), dtype=torch.int32, device=x.device)
-    _build.launch("leaf_absmax", xf.data_ptr(), xf.shape[0], n,
-                  words.data_ptr())
-    row_absmax.launches += 1
-    return op_analysis.kernel_op("K4", (xf,), words.reshape(lead))
+# ---------------------------------------------------------------------------
+# K4's shard form over a message tree (csrc/quantize.cuh "K4's shard form,
+# grouped"): one launch a pass for all of the tree's leaves
+# ---------------------------------------------------------------------------
+
+Q_TILE = 8192  # elements of a row a tile (csrc: kQTile)
+MAX_LEAVES = 128  # leaves a launch (csrc: kMaxLeaves)
+PARAM_KEYS = 128  # host keys that travel in a launch's parameters
+# a table entry's words (csrc: ShardWord)
+SHARD_WORDS = 32
+SW = {name: i for i, name in enumerate((
+    "n", "tiles", "first", "slot", "key", "q8", "q4", "cls", "base",
+    "delta", "block", "block_m", "block_s", "inner", "inner_m", "inner_s",
+    "gdim", "ldim", "pieces"))}
+SW.update(ls=19, gs=19 + ref.MAX_PIECES, len=19 + 2 * ref.MAX_PIECES)
+Q_ALIGN = 16  # bytes between a leaf's q and the next's, rounded up
 
 
-row_absmax.launches = 0
+def fast_divmod(d: int) -> tuple:
+    """The constants of ``n // d`` for every 32-bit n by a multiply-high
+    (csrc ``fast_div``; Granlund and Montgomery 1994, fig. 4.1): ``(m,
+    s1 | s2 << 8)`` with l = ceil(log2 d), m = floor(2^32 (2^l - d) / d)
+    + 1 (below 2^32), s1 = min(l, 1), s2 = max(l - 1, 0)."""
+    if not 1 <= d < 2 ** 32:
+        raise ValueError(f"a divisor of 1..2^32 - 1, got {d}")
+    ln = (d - 1).bit_length()
+    m = ((1 << 32) * ((1 << ln) - d)) // d + 1
+    return m, min(ln, 1) | max(ln - 1, 0) << 8
 
 
-def quantize_shard(keys, x, words, layout, *, bits=8):
-    """K4's shard form: the rank's shard ``x [..., n_local]`` (f32) of
-    each message's leaf, laid out in the whole leaf as ``layout``
-    (``ref.ShardLayout``), quantised as its part of the whole leaf's
-    message: at the scales ``max(word, tiny)`` of ``words [...]`` (the
-    ranks' ``row_absmax`` all-reduced with MAX), kappa the whole leaf's
-    ``jax.random.bits(keys[m], (n_pad,))`` at each element's flat index
-    in the whole leaf.  One launch.  Returns ``(q [..., wire_len(n_local)],
-    scale [...])``."""
+def shard_entry(lay) -> dict:
+    """A leaf's index class and constants for the quantise pass (the
+    table's words from ``cls`` on): class 0 where the shard is one run of
+    the whole leaf (a leaf held whole: the identity), 1 for one piece
+    along the cut dim (a run an outer index), 2 for more.  Raises unless
+    the whole leaf has fewer than 2^32 elements and the pieces (at most
+    ``MAX_PIECES``) cover the local cut dim in order."""
+    if lay.numel >= 2 ** 32:
+        raise ValueError(f"a leaf of {lay.numel} elements: the kernel's "
+                         "counters are 32-bit")
+    e = dict.fromkeys(("delta", "gdim", "ldim", "pieces"), 0)
+    e.update(block=1, inner=1)
+    if not lay.cut:
+        return {**e, "cls": 0, "base": 0, "n": lay.numel}
+    inner, gdim, ldim, pieces = lay.words()[:4]
+    d = lay.dim
+    outer = math.prod(lay.shape[:d])
+    at = 0
+    for ls, _, ln, _ in lay.pieces:
+        if ls != at or ln < 1:
+            raise ValueError(f"pieces {lay.pieces} do not cover the local "
+                             f"dim of {ldim} in order")
+        at += ln
+    if at != ldim:
+        raise ValueError(f"pieces {lay.pieces} cover {at} of {ldim}")
+    e.update(n=outer * ldim * inner, inner=inner, gdim=gdim, ldim=ldim,
+             pieces=pieces, block=ldim * inner,
+             base=lay.pieces[0][1] * inner,
+             **{k: [pc[c] for pc in lay.pieces]
+                for c, k in enumerate(("ls", "gs", "len"))})
+    if pieces > 1:
+        e["cls"] = 2
+    elif outer == 1:
+        e["cls"] = 0
+    else:
+        e.update(cls=1, delta=(gdim - ldim) * inner)
+    return e
+
+
+class ShardPlan:
+    """What the grouped passes need of a tree's layouts and rows, built
+    once per ``(layouts, rows, device)`` (``shard_plan``): the leaves in
+    ``ref.tree_order``, each's word slots, tiles and q offsets, the
+    device table of each launch (``MAX_LEAVES`` leaves a launch), the max
+    pass's counters (zero) and partials, and a host array of x pointers a
+    launch.  The counters are one set a plan: two passes of one plan do
+    not run at once on two streams."""
+
+    def __init__(self, layouts, m: int, device):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.m, self.device = m, device
+        self.index = -1 if device.type == "cpu" else device.index
+        self.order = ref.tree_order(layouts)
+        self.slots = len(layouts) * m
+        entries, self.n = [], [0] * len(layouts)
+        off = {8: 0, 4: 0}
+        # q's parts in the plan's order, a leaf's bytes then its padding
+        self.q_parts = {8: [], 4: []}
+        for p, i in enumerate(self.order):
+            e = shard_entry(layouts[i])
+            self.n[i] = e["n"]
+            e.update(slot=p * m, key=i,
+                     tiles=-(-e["n"] // Q_TILE))
+            for bits in (8, 4):
+                e[f"q{bits}"] = off[bits]
+                nb = m * wire_len(e["n"], bits)
+                padded = -(-nb // Q_ALIGN) * Q_ALIGN
+                self.q_parts[bits] += [nb, padded - nb]
+                off[bits] += padded
+            e["block_m"], e["block_s"] = fast_divmod(e["block"])
+            e["inner_m"], e["inner_s"] = fast_divmod(e["inner"])
+            entries.append((i, e))
+        if max(off.values()) >= 2 ** 32:
+            raise ValueError(f"a tree of {off[8]} q bytes: the offsets are "
+                             "32-bit")
+        self.qbytes = off
+        self.entries = dict(entries)
+        tiles = 0
+        self.launches = []
+        for c0 in range(0, len(entries), MAX_LEAVES):
+            chunk = entries[c0:c0 + MAX_LEAVES]
+            words, first = [], 0
+            for _, e in chunk:
+                e["first"] = first
+                first += m * e["tiles"]
+                words += _entry_words(e)
+            if tiles + first >= 2 ** 32:
+                raise ValueError("a tree of 2^32 tiles or more")
+            table = torch.tensor([w - 2 ** 32 if w >= 2 ** 31 else w
+                                  for w in words], dtype=torch.int32)
+            self.launches.append(_Launch(
+                [i for i, _ in chunk], table.to(device), first, tiles,
+                (ctypes.c_void_p * len(chunk))()))
+            tiles += first
+        # the keys of a tree of at most PARAM_KEYS rows, for the launch's
+        # parameters
+        self.host_keys = (ctypes.c_uint32 * (2 * self.slots))() if (
+            self.slots <= PARAM_KEYS) else None
+        # an arrival counter a slot, then a partial a tile
+        self.scratch = torch.zeros((self.slots + tiles,), dtype=torch.int32,
+                                   device=device)
+
+    def fill_x(self, xs):
+        """Check ``xs`` ([M, n_i] rows, contiguous f32 on the plan's
+        device) against the entries and write their pointers into each
+        launch's host array."""
+        for i, x in enumerate(xs):
+            if (x.dtype != torch.float32 or x.get_device() != self.index
+                    or not x.is_contiguous()
+                    or x.shape[-1] != self.n[i] or x.numel() != self.m
+                    * self.n[i]):
+                raise ValueError(
+                    f"leaf {i}: x {tuple(x.shape)} {x.dtype} on {x.device}"
+                    f" (contiguous {x.is_contiguous()}), the plan's rows of "
+                    f"{self.n[i]} f32 on {self.device}")
+        for ln in self.launches:
+            ln.xs[:] = [xs[i].data_ptr() for i in ln.leaves]
+
+
+@dataclasses.dataclass
+class _Launch:
+    leaves: list  # the tree's leaf indices, in the table's order
+    table: torch.Tensor
+    tiles: int
+    tile0: int  # its first tile among the plan's
+    xs: object  # host array of the leaves' x pointers
+
+
+def _entry_words(e) -> list:
+    w = [0] * SHARD_WORDS
+    for k, i in SW.items():
+        if k in ("ls", "gs", "len"):
+            w[i:i + len(e.get(k, ()))] = e.get(k, ())
+        else:
+            w[i] = e[k]
+    return w
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(layouts: tuple, m: int, device) -> ShardPlan:
+    return ShardPlan(layouts, m, device)
+
+
+_PLANS: dict = {}  # (id(layouts), m, device) -> (layouts, plan)
+
+
+def shard_plan(layouts: tuple, m: int, device) -> ShardPlan:
+    """The cached ``ShardPlan`` of a tree's layouts (a tuple of
+    ``ref.ShardLayout``) at ``m`` rows a leaf on a CUDA ``device``: found
+    by the tuple's identity (a ``ShardedTree`` keeps its own), else by
+    its value."""
+    key = (id(layouts), m, device)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is layouts:
+        return hit[1]
+    plan = _plan(layouts, m, device)
+    if len(_PLANS) >= 64:
+        _PLANS.clear()
+    _PLANS[key] = (layouts, plan)
+    return plan
+
+
+def _fake_tree(xs, layouts, bits):
+    """The fake route of the quantise pass: ``[(q, scale)]``."""
+    lead = tuple(xs[0].shape[:-1])
+    return [(torch.empty(lead + (wire_len(x.shape[-1], bits),),
+                         dtype=_q_dtype(bits), device=x.device),
+             torch.empty(lead, dtype=torch.float32, device=x.device))
+            for x in xs]
+
+
+def tree_absmax(xs, layouts):
+    """The first pass of K4's shard form over a message tree: the rank's
+    shards ``xs`` (``[..., n_i]`` f32, one lead shape, leaf i laid out as
+    ``layouts[i]``), each message's max |x| as the uint32 bits of the f32,
+    int32 ``[leaves * M]`` in ``ref.tree_order`` (the cut leaves' rows
+    first: all-reduce the first ``cut_rows`` with MAX over the ranks
+    before ``quantize_tree``).  One launch (one a ``MAX_LEAVES`` leaves),
+    no memset."""
+    x0 = xs[0]
+    if x0.device.type == "cpu":
+        return ref.tree_absmax_ref(xs, layouts)
+    if op_analysis.is_abstract(x0):
+        m = ref.tree_rows(xs)[1]
+        return op_analysis.kernel_op("K4", tuple(xs), torch.empty(
+            (len(xs) * m,), dtype=torch.int32, device=x0.device))
+    # the rows of the first leaf; fill_x holds every leaf to them
+    plan = shard_plan(tuple(layouts), x0.numel() // x0.shape[-1], x0.device)
+    plan.fill_x(xs)
+    words = torch.empty((plan.slots,), dtype=torch.int32, device=x0.device)
+    base = plan.scratch.data_ptr()
+    for ln in plan.launches:
+        _build.launch("shard_tree_absmax", ln.table.data_ptr(),
+                      len(ln.leaves), ln.tiles, ln.xs, words.data_ptr(),
+                      base, base + 4 * (plan.slots + ln.tile0))
+        tree_absmax.launches += 1
+    return op_analysis.kernel_op("K4", tuple(xs), words)
+
+
+tree_absmax.launches = 0
+
+
+def cut_rows(layouts, m: int) -> int:
+    """The words of ``tree_absmax`` that the all-reduce covers: the cut
+    leaves' rows."""
+    return sum(lay.cut for lay in layouts) * m
+
+
+def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
+    """K4's shard form over a message tree: each rank's shard ``xs[i]``
+    (``[..., n_i]`` f32) quantised as its part of the whole leaf's
+    message, at the scales ``max(word, tiny)`` of ``words``
+    (``tree_absmax``'s, ``reduced`` standing for its first
+    ``reduced.numel()``: the cut leaves' rows all-reduced with MAX; a
+    leaf held whole keeps its own),
+    kappa the whole leaf's ``jax.random.bits(keys[..., i, :], (n_pad,))``
+    at each element's flat index in the whole leaf (``keys [..., L, 2]``,
+    converted once: host keys of at most ``PARAM_KEYS`` rows travel in
+    the launch's parameters, others go to the card through pinned
+    memory).  One launch (one a ``MAX_LEAVES`` leaves).  Returns
+    ``[(q [..., wire_len(n_i)], scale [...])]`` in the leaves' order:
+    views of one q and one scale buffer."""
     _check_bits(bits)
-    if x.device.type == "cpu":
-        return ref.quantize_shard_ref(keys, x, words, layout, bits=bits)
-    if op_analysis.is_abstract(x):
-        return _fake_quantize("K4", x, bits)
-    lead, n, xf = _build.rows(x, "x", torch.float32)
-    m, wire = xf.shape[0], wire_len(n, bits)
-    kd = _key_words(keys, lead, x.device)
-    w = words.reshape(-1).to(torch.int32).contiguous()
-    _build.check_tensor("words", w, torch.int32, x.device, (m,))
-    desc = _shard_desc(layout)
-    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
-    q = torch.empty((m, wire), device=x.device, dtype=_q_dtype(bits))
-    _build.launch("quantize_leaf_shard", xf.data_ptr(), m, n, bits,
-                  kd.data_ptr(), w.data_ptr(), desc, scale.data_ptr(),
-                  q.data_ptr(), wire)
-    quantize_shard.launches += 1
-    return op_analysis.kernel_op("K4", (xf,), (q.reshape(lead + (wire,)),
-                                               scale.reshape(lead)))
+    x0 = xs[0]
+    if x0.device.type == "cpu":
+        return ref.quantize_tree_ref(keys, xs, words, layouts, bits=bits,
+                                     reduced=reduced)
+    if op_analysis.is_abstract(x0):
+        return op_analysis.kernel_op("K4", tuple(xs),
+                                     _fake_tree(xs, layouts, bits))
+    dev, lead = x0.device, tuple(x0.shape[:-1])
+    plan = shard_plan(tuple(layouts), x0.numel() // x0.shape[-1], dev)
+    plan.fill_x(xs)
+    if tuple(keys.shape) != lead + (len(xs), 2):
+        raise ValueError(f"keys of shape {tuple(keys.shape)} do not match "
+                         f"the tree's {lead + (len(xs), 2)}")
+    kd, host = None, None
+    if plan.host_keys is not None and keys.device.type == "cpu":
+        # a few host keys: their low words into the launch's parameters
+        k32 = keys.to(torch.int32).contiguous()
+        ctypes.memmove(plan.host_keys, k32.data_ptr(), 8 * plan.slots)
+        host = plan.host_keys
+    else:
+        kd = _key_words(keys, lead + (len(xs),), dev)
+    _build.check_tensor("words", words, torch.int32, dev, (plan.slots,))
+    cut = 0
+    if reduced is not None:
+        cut = reduced.numel()
+        _build.check_tensor("reduced", reduced, torch.int32, dev, (cut,))
+    scale = torch.empty((plan.slots,), dtype=torch.float32, device=dev)
+    q = torch.empty((plan.qbytes[bits],), dtype=_q_dtype(bits), device=dev)
+    for ln in plan.launches:
+        _build.launch("shard_tree_quantize", ln.table.data_ptr(),
+                      len(ln.leaves), ln.tiles, ln.xs, bits,
+                      None if kd is None else kd.data_ptr(), host,
+                      plan.slots, len(xs), None if reduced is None else
+                      reduced.data_ptr(), cut, words.data_ptr(),
+                      scale.data_ptr(), q.data_ptr())
+        quantize_tree.launches += 1
+    parts = q.split(plan.q_parts[bits])
+    scales = scale.split(plan.m)
+    out = [None] * len(xs)
+    for p, i in enumerate(plan.order):
+        sc = scales[p] if len(lead) == 1 else scales[p].view(lead)
+        out[i] = (parts[2 * p].view(lead + (wire_len(plan.n[i], bits),)), sc)
+    return op_analysis.kernel_op("K4", tuple(xs), out)
 
 
-quantize_shard.launches = 0
-
-
-def _shard_desc(layout):
-    """The shard's description for the C entry, a host int32 array (the
-    launcher copies it into the kernel's argument)."""
-    import ctypes
-
-    words = layout.words()
-    if max(words) >= 2 ** 31:
-        raise ValueError(f"a shard description past int32: {words}")
-    return (ctypes.c_int32 * len(words))(*words)
+quantize_tree.launches = 0
 
 
 def _key_words(keys, lead, device):

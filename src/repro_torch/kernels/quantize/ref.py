@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the fused plane quantizer (K1), of the
 per-message quantize/dequantize kernels (K4, K5) and of K4's shard form
-(``ShardLayout``, ``row_absmax_ref``, ``quantize_shard_ref``), and the
+(``ShardLayout``, ``row_absmax_ref``, ``quantize_shard_ref``, grouped over
+a message tree by ``tree_absmax_ref`` / ``quantize_tree_ref``), and the
 quantizer arithmetic shared with the per-message torch route of
 ``core/compression.py``.
 
@@ -354,9 +355,10 @@ class ShardLayout:
         return self._expand(self._along(device)[1], device)
 
     def words(self) -> tuple:
-        """The kernel's description: inner, the whole and the local length
-        of ``dim``, the piece count, then ``(local start, global start,
-        length)`` for ``MAX_PIECES`` pieces (zeros past the last)."""
+        """The cut's description: inner, the whole and the local length of
+        ``dim``, the piece count, then ``(local start, global start,
+        length)`` for ``MAX_PIECES`` pieces (zeros past the last); the
+        kernel's table entry is built from it (``ops.shard_entry``)."""
         d = self.dim
         out = [math.prod(self.shape[d + 1:]), self.shape[d],
                self.local_shape[d], len(self.pieces)]
@@ -405,3 +407,56 @@ def quantize_shard_ref(keys, x, words, layout: ShardLayout, *, bits=8,
         parts.append(to_int8(q) if bits == 8 else pack4(q))
     q = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return q.reshape(lead + (q.shape[-1],)), scale.reshape(lead)
+
+
+# ---------------------------------------------------------------------------
+# K4's shard form over a message tree: one pass each for all of its leaves
+# ---------------------------------------------------------------------------
+
+
+def tree_order(layouts) -> tuple:
+    """The order of a tree's leaves in the grouped passes' words: the cut
+    leaves first (flatten order), then the leaves held whole, so that the
+    all-reduce covers one prefix."""
+    return (tuple(i for i, lay in enumerate(layouts) if lay.cut)
+            + tuple(i for i, lay in enumerate(layouts) if not lay.cut))
+
+
+def tree_rows(xs) -> tuple:
+    """``(lead shape, rows)`` of a tree's shards ``xs`` (one lead shape,
+    ``[..., n_i]`` each)."""
+    lead = tuple(xs[0].shape[:-1])
+    if any(tuple(x.shape[:-1]) != lead for x in xs):
+        raise ValueError(f"the leaves' lead shapes differ: "
+                         f"{[tuple(x.shape[:-1]) for x in xs]}")
+    return lead, math.prod(lead)
+
+
+def tree_absmax_ref(xs, layouts):
+    """The grouped max pass, plain: ``row_absmax_ref`` of each leaf's rows,
+    in ``tree_order`` (int32 ``[leaves * M]``)."""
+    return torch.cat([row_absmax_ref(xs[i]).reshape(-1)
+                      for i in tree_order(layouts)])
+
+
+def quantize_tree_ref(keys, xs, words, layouts, *, bits=8, reduced=None,
+                      window=None):
+    """The grouped quantise pass, plain: ``quantize_shard_ref`` of each
+    leaf, a leaf held whole under the identity layout, at the words of
+    its rows in ``tree_order`` (``reduced``, where given, replaces the
+    first ``reduced.numel()``: the all-reduced cut leaves').  ``keys
+    [..., L, 2]``: leaf i's ``keys[..., i, :]``.  Returns ``[(q [...,
+    wire_len(n_i)], scale [...])]`` in the leaves' order."""
+    lead, m = tree_rows(xs)
+    w = words.reshape(-1).to(torch.int32)
+    if reduced is not None:
+        r = reduced.reshape(-1).to(w)
+        w = torch.cat([r, w[r.numel():]])
+    out = [None] * len(xs)
+    for p, i in enumerate(tree_order(layouts)):
+        lay = layouts[i] if layouts[i].cut else ShardLayout(
+            tuple(layouts[i].shape))
+        out[i] = quantize_shard_ref(keys[..., i, :], xs[i],
+                                    w[p * m:(p + 1) * m].reshape(lead), lay,
+                                    bits=bits, window=window)
+    return out

@@ -166,6 +166,58 @@ def test_quantize_tensor_host_keys(h100, m):
     assert torch.equal(q, qw) and torch.equal(sc, scw)
 
 
+def _shard_tree_layouts(n_leaves):
+    """Rank 1 of 2's layouts of a tree of ``n_leaves`` leaves cycling over
+    every index class of K4's shard form and a leaf held whole."""
+    from repro_torch.launch import sharding as shd
+
+    plans = (((6, 10), shd.LeafPlan(0, ((6, True),))),
+             ((7,), shd.LeafPlan(None)),
+             ((5, 12), shd.LeafPlan(1, ((12, True),))),
+             ((4, 6, 3), shd.LeafPlan(1, ((6, True),))),
+             ((3, 552), shd.LeafPlan(1, ((256, True), (256, True),
+                                         (32, False), (8, True)))),
+             ((3, 14), shd.LeafPlan(1, ((14, True),))),
+             ((2, 9000), shd.LeafPlan(1, ((9000, True),))))
+    return tuple(shd.leaf_layout(plans[i % len(plans)][1],
+                                 plans[i % len(plans)][0], 1, 2)
+                 for i in range(n_leaves))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n_leaves,where", [(7, "cpu"), (7, "cuda"),
+                                            (140, "cpu")])
+def test_quantize_tree(h100, bits, n_leaves, where):
+    """K4's shard form over a tree of every index class (host keys in the
+    launch's parameters, device keys, and a tree past one launch's
+    leaves and the parameters' keys): each pass bit-equal to its plain
+    version, one launch a pass for each ``MAX_LEAVES`` leaves, the cut
+    leaves' words from ``reduced``."""
+    lays = _shard_tree_layouts(n_leaves)
+    m = 3
+    g = torch.Generator(device=h100).manual_seed(n_leaves)
+    xs = [torch.randn((m, math.prod(lay.local_shape)), generator=g,
+                      device=h100) for lay in lays]
+    keys = torch.randint(0, 2 ** 32, (m, n_leaves, 2), dtype=torch.int64,
+                         generator=g, device=h100).to(where)
+    launches = -(-n_leaves // q_ops.MAX_LEAVES)
+    before = q_ops.tree_absmax.launches, q_ops.quantize_tree.launches
+    words = q_ops.tree_absmax(xs, lays)
+    assert torch.equal(words, q_ref.tree_absmax_ref(xs, lays))
+    cut = q_ops.cut_rows(lays, m)
+    reduced = torch.maximum(words[:cut], words[:cut].flip(0))
+    got = q_ops.quantize_tree(keys, xs, words, lays, bits=bits,
+                              reduced=reduced)
+    want = q_ref.quantize_tree_ref(keys, xs, words, lays, bits=bits,
+                                   reduced=reduced)
+    torch.cuda.synchronize()
+    assert (q_ops.tree_absmax.launches - before[0],
+            q_ops.quantize_tree.launches - before[1]) == (launches, launches)
+    for (q, sc), (qw, scw) in zip(got, want, strict=True):
+        assert torch.equal(q, qw)
+        assert torch.equal(sc.view(torch.int32), scw.view(torch.int32))
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantizers_misaligned_and_strided_rows(h100, bits):
     """A contiguous row view one float past a 16-byte boundary is read

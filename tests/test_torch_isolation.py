@@ -141,8 +141,8 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert '"ok"' not in out.stdout
     assert "[rehearse] done" in out.stdout
     # 57 kernel checks (K6/K7: four index sets at k = n / 4 and k = 1; K5
-    # at its walk's edge shapes; K4's shard form on two leaves at b = 8
-    # and 4), and one line per wide spec (the faulted ring's and dada's
+    # at its walk's edge shapes; K4's shard form on one tree at b = 8
+    # and 4, two lines each), and one line per wide spec (the faulted ring's and dada's
     # included) holding its second round's kernel calls against the plain
     # versions
     assert out.stdout.count("bit-equal") == 57 + 12

@@ -37,6 +37,14 @@ entries ``probe_plane`` / ``probe_leaf`` (the package's
 streaming loads; K0's entry with more counters a thread or more threads
 a block), each its own library.
 
+The first design of K4's shard form (PR 30; C entries
+``leaf_absmax_first`` and ``quantize_leaf_shard_first``, ``first_shard``)
+took one leaf a call in two launches: a memset and an atomicMax pass for
+the row max, then the levels, each element mapping its local index to
+the whole leaf's by two 32-bit divisions (``ShardKappa``), the grid sized
+by an occupancy query every launch.  ``chip_smoke.py``'s tp timing holds
+it bit for bit and times it in turns beside the grouped form.
+
 The first K5 (C entry ``dequantize_leaf_first``) gave each thread one
 element a step, a 1-byte load and a 4-byte store, on a 2-D grid
 (``grid.y`` = the row); the first K0 entry (``threefry_bits_first``)
@@ -408,6 +416,89 @@ cipher_rate_kernel(uint32_t s0, uint32_t s1, int iters, uint32_t* out,
   if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
 }
 
+// K4's shard form, first design (PR 30): two launches a leaf.  Each
+// element maps its local index to the whole leaf's by two 32-bit
+// divisions (ShardKappa: the shard is the whole leaf but along the cut
+// dim, where it holds at most kShardPieces pieces, each (local start,
+// global start, length)); the max pass atomicMax-es into words that a
+// memset zeroed; the grid asks the driver for the occupancy every launch.
+constexpr int kShardPieces = 4;
+
+struct ShardKappa {
+  const uint32_t* keys;
+  uint32_t inner, gdim, ldim;
+  int pieces;
+  uint32_t ls[kShardPieces], gs[kShardPieces], len[kShardPieces];
+  __device__ __forceinline__ repro::Pair state(int m) const {
+    return repro::Pair{keys[2 * m], keys[2 * m + 1]};
+  }
+  __device__ __forceinline__ uint32_t global(uint32_t j) const {
+    const uint32_t block = ldim * inner;
+    const uint32_t outer = j / block;
+    const uint32_t rem = j - outer * block;
+    const uint32_t l = rem / inner;
+    const uint32_t i = rem - l * inner;
+    uint32_t g = l;
+#pragma unroll
+    for (int p = 0; p < kShardPieces; ++p) {
+      if (p < pieces && l - ls[p] < len[p]) g = l - ls[p] + gs[p];
+    }
+    return (outer * gdim + g) * inner + i;
+  }
+  __device__ __forceinline__ uint32_t bits(repro::Pair st, uint32_t j) const {
+    return repro::jax_bits(st.x0, st.x1, global(j));
+  }
+};
+
+// words[m] = max over row m of the bits of |x| (atomicMax; zeroed before)
+__global__ void __launch_bounds__(repro::kQThreads)
+rows_absmax_first(const float* __restrict__ x, int M, int n, int P,
+                  unsigned* __restrict__ words) {
+  __shared__ unsigned red[repro::kQThreads / 32];
+  const long long items = static_cast<long long>(M) * P;
+  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
+    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
+    const repro::TileSpan s = repro::tile_span<8>(
+        t, n, repro::aligned_start<8>(x, x, m, n, n));
+    const unsigned mx =
+        repro::tile_max<8>(x + static_cast<long long>(m) * n, s, red);
+    if (threadIdx.x == 0) atomicMax(words + m, mx);
+    __syncthreads();  // red is reused by the next item
+  }
+}
+
+// q, scale of rows [M, n] at scale max(words[m], tiny): one tile an item
+template <int kBits>
+__global__ void __launch_bounds__(repro::kQThreads)
+quantize_rows_at_first(const float* __restrict__ x, int M, int n, int wire,
+                       int P, ShardKappa src,
+                       const unsigned* __restrict__ words,
+                       float* __restrict__ scale, uint8_t* __restrict__ q) {
+  const long long items = static_cast<long long>(M) * P;
+  for (long long b = blockIdx.x; b < items; b += gridDim.x) {
+    const int m = static_cast<int>(b / P), t = static_cast<int>(b % P);
+    const repro::TileSpan s = repro::tile_span<kBits>(
+        t, n, repro::aligned_start<kBits>(x, q, m, n, wire));
+    const float sc =
+        __uint_as_float(max(__ldg(words + m), repro::kTinyBits));
+    if (t == 0 && threadIdx.x == 0) scale[m] = sc;
+    repro::quantize_tile<kBits>(src, src.state(m),
+                                x + static_cast<long long>(m) * n, n, sc,
+                                q + static_cast<long long>(m) * wire, s);
+  }
+}
+
+template <class K>
+int item_grid_first(K kernel, long long items) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                repro::kQThreads, 0);
+  return static_cast<int>(
+      max(1LL, min(items, 1LL * sms * max(per_sm, 1))));
+}
+
 }  // namespace
 
 extern "C" int probe_cipher_rate(int leaf, int chains, int blocks, int iters,
@@ -521,6 +612,72 @@ extern "C" int quantize_leaf_first(const void* x, int M, int n, int bits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's shard form, first design: words[m] = the bits of max_j |x[m, j]|
+extern "C" int leaf_absmax_first(const void* x, int M, int n, void* words,
+                                 void* stream) {
+  if (M <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int P = (n + repro::kQTile - 1) / repro::kQTile;
+  const cudaError_t e =
+      cudaMemsetAsync(words, 0, sizeof(unsigned) * static_cast<size_t>(M), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long items = 1LL * M * P;
+  rows_absmax_first<<<item_grid_first(rows_absmax_first, items),
+                      repro::kQThreads, 0, st>>>(
+      static_cast<const float*>(x), M, n, P, static_cast<unsigned*>(words));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ... and its second pass: rows [M, n] of a shard at the scales
+// max(words[m], tiny).  desc (host memory): inner, gdim, ldim, pieces,
+// then (local start, global start, length) for kShardPieces pieces.
+extern "C" int quantize_leaf_shard_first(const void* x, int M, int n,
+                                         int bits, const void* keys,
+                                         const void* words, const void* desc,
+                                         void* scale, void* q, int wire,
+                                         void* stream) {
+  if (bad_shape(M, n, bits, wire)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* d = static_cast<const int*>(desc);
+  ShardKappa src{};
+  src.keys = static_cast<const uint32_t*>(keys);
+  src.inner = static_cast<uint32_t>(d[0]);
+  src.gdim = static_cast<uint32_t>(d[1]);
+  src.ldim = static_cast<uint32_t>(d[2]);
+  src.pieces = d[3];
+  long long local = 0;
+  for (int p = 0; p < kShardPieces; ++p) {
+    src.ls[p] = static_cast<uint32_t>(d[4 + 3 * p]);
+    src.gs[p] = static_cast<uint32_t>(d[5 + 3 * p]);
+    src.len[p] = static_cast<uint32_t>(d[6 + 3 * p]);
+    if (p < src.pieces) local += d[6 + 3 * p];
+  }
+  const long long outer =
+      d[0] > 0 && d[2] > 0 ? n / (1LL * d[0] * d[2]) : 0;
+  if (src.pieces < 1 || src.pieces > kShardPieces || local != d[2] ||
+      outer * d[0] * d[2] != n || outer * d[0] * d[1] >= (1LL << 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int P = (n + repro::kQTile - 1) / repro::kQTile;
+  const long long items = 1LL * M * P;
+  const auto* xs = static_cast<const float*>(x);
+  const auto* w = static_cast<const unsigned*>(words);
+  auto* sc = static_cast<float*>(scale);
+  auto* qs = static_cast<uint8_t*>(q);
+  if (bits == 8) {
+    auto k = quantize_rows_at_first<8>;
+    k<<<item_grid_first(k, items), repro::kQThreads, 0, st>>>(
+        xs, M, n, wire, P, src, w, sc, qs);
+  } else {
+    auto k = quantize_rows_at_first<4>;
+    k<<<item_grid_first(k, items), repro::kQThreads, 0, st>>>(
+        xs, M, n, wire, P, src, w, sc, qs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the fused kernel of this build's quantize.cuh (the package's entries)
 extern "C" int probe_plane(const void* x, int M, int n, int bits,
                            uint32_t s0, uint32_t s1, const void* sids,
@@ -624,6 +781,8 @@ def build(out_dir, variants=tuple(VARIANTS), trees=(), package=()):
         "dequantize_leaf_first": [P, I, I, I, P, P, I, I, P],
         "threefry_bits_first": [U, U, P, P, P, I, I, I, I, P, P, P, P],
         "probe_cipher_rate": [I, I, I, I, P, P, P],
+        "leaf_absmax_first": [P, I, I, P, P],
+        "quantize_leaf_shard_first": [P, I, I, I, P, P, P, P, P, I, P],
     }
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -697,6 +856,37 @@ def first_leaf(call, kd, x, bits):
                     dtype=torch.int8 if bits == 8 else torch.uint8)
     call("quantize_leaf_first", x.data_ptr(), m, n, bits, kd.data_ptr(),
          scale.data_ptr(), q.data_ptr(), wire)()
+    return q, scale
+
+
+def shard_desc(layout):
+    """The first shard-form design's description of a cut (a host int32
+    array, copied by its C entry into the kernel's argument):
+    ``layout.words()``."""
+    words = layout.words()
+    if max(words) >= 2 ** 31:
+        raise ValueError(f"a shard description past int32: {words}")
+    return (ctypes.c_int32 * len(words))(*words)
+
+
+def first_shard(call, kd, x, words, desc, bits):
+    """The first shard-form design's two launches on ``x [M, n]`` (the
+    first fills ``words``; the caller all-reduces them in between where
+    ranks share a leaf), ``kd`` int32 [M, 2] key words; returns ``(q,
+    scale)``."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops
+
+    m, n = x.shape
+    wire = ops.wire_len(n, bits)
+    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
+    q = torch.empty((m, wire), device=x.device,
+                    dtype=torch.int8 if bits == 8 else torch.uint8)
+    call("leaf_absmax_first", x.data_ptr(), m, n, words.data_ptr())()
+    call("quantize_leaf_shard_first", x.data_ptr(), m, n, bits,
+         kd.data_ptr(), words.data_ptr(), desc, scale.data_ptr(),
+         q.data_ptr(), wire)()
     return q, scale
 
 
