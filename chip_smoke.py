@@ -7301,9 +7301,8 @@ def time_k4_shard(rows, launches):
 
         def quant():
             _build.launch("shard_tree_quantize", ln.table.data_ptr(), 1,
-                          ln.tiles, ln.xs, 8, kd.data_ptr(), None, m, 1,
-                          None, 0, wd.data_ptr(), scb.data_ptr(),
-                          qb.data_ptr())
+                          ln.tiles, ln.xs, 8, kd.data_ptr(), 1, None, 0,
+                          wd.data_ptr(), scb.data_ptr(), qb.data_ptr())
 
         def bare():
             absmax()

@@ -491,13 +491,11 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
 // entry of a device table of kShardWords words (ShardWord), built by the
 // host once per (layouts, rows) and cached (kernels/quantize/ops.py
 // shard_plan); the x pointers travel in the launch's parameter block
-// (ShardTreeArgs), kMaxLeaves leaves a launch, and so do the keys of a
-// tree of at most kParamKeys rows (leaves times messages) whose keys lie
-// on the host (a larger tree's, or device keys, from device memory).  A
-// leaf's rows own consecutive word (and scale) slots, the cut leaves'
-// first, so that the all-reduce covers one prefix of the words.  A leaf held whole takes the
-// identity layout and keeps its own rank's scale (every rank holds the
-// same leaf): its levels are K4's.
+// (ShardTreeArgs), kMaxLeaves leaves a launch; the keys lie in device
+// memory.  A leaf's rows own consecutive word (and scale) slots, the cut
+// leaves' first, so that the all-reduce covers one prefix of the words.
+// A leaf held whole takes the identity layout and keeps its own rank's
+// scale (every rank holds the same leaf): its levels are K4's.
 //
 // Absmax pass: a tile reduces max |x| of its part of the row as uint32
 // bits (tile_max).  A row of one tile writes its word; a row of P > 1
@@ -528,7 +526,6 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
 
 constexpr int kMaxPieces = 4;
 constexpr int kMaxLeaves = 128;  // a launch's leaves (ShardTreeArgs)
-constexpr int kParamKeys = 128;  // keys that travel in ShardTreeArgs
 
 // a table entry's words (kernels/quantize/ops.py mirrors them)
 enum ShardWord {
@@ -699,8 +696,7 @@ struct ShardTreeArgs {
   int leaves;              // this launch's
   unsigned tiles;          // this launch's
   int key_stride;          // the tree's leaves
-  const uint32_t* keys;    // (k0, k1) by row m and leaf: m * leaves + key,
-                           // or null: they are key_words
+  const uint32_t* keys;    // (k0, k1) by row m and leaf: m * leaves + key
   const unsigned* reduced;  // the all-reduced words of slots < cut
   unsigned cut;
   unsigned* words;         // absmax: written; quantise: slots >= cut
@@ -709,7 +705,6 @@ struct ShardTreeArgs {
   float* scale;            // quantise: by slot
   uint8_t* q;              // quantise: the leaves' q at their offsets
   const float* x[kMaxLeaves];
-  uint32_t key_words[2 * kParamKeys];  // a tree of few rows' keys
 };
 
 // the leaf of tile b: the last entry whose first tile is at most b
@@ -792,9 +787,7 @@ __global__ __launch_bounds__(kQThreads) void shard_tree_quantize(
     if (t == 0 && threadIdx.x == 0) a.scale[slot] = sc;
     const unsigned key =
         static_cast<unsigned>(m) * a.key_stride + __ldg(en + kSwKey);
-    const Pair st =
-        a.keys ? Pair{__ldg(a.keys + 2 * key), __ldg(a.keys + 2 * key + 1)}
-               : Pair{a.key_words[2 * key], a.key_words[2 * key + 1]};
+    const Pair st{__ldg(a.keys + 2 * key), __ldg(a.keys + 2 * key + 1)};
     const float* x = a.x[e];
     uint8_t* q = a.q + __ldg(en + (kBits == 8 ? kSwQ8 : kSwQ4));
     const TileSpan s =

@@ -318,31 +318,23 @@ extern "C" int shard_tree_absmax(const void* table, int leaves,
 // K4's shard form, second pass: q and scale of every row of a launch's
 // leaves at max(word, tiny), the word of a slot below cut from reduced
 // (the all-reduced prefix) and the others' from words.  keys: (k0, k1) of
-// row m of the tree's leaf k at m * key_stride + k, in device memory, or
-// host_keys (key_rows of them, at most kParamKeys) copied into the launch's
-// parameters; q: the tree's q buffer (each leaf at its entry's offset);
-// scale: a float a slot.
+// row m of the tree's leaf k at m * key_stride + k, in device memory; q:
+// the tree's q buffer (each leaf at its entry's offset); scale: a float a
+// slot.
 extern "C" int shard_tree_quantize(const void* table, int leaves,
                                    unsigned tiles, const void* xs, int bits,
-                                   const void* keys, const void* host_keys,
-                                   int key_rows, int key_stride,
+                                   const void* keys, int key_stride,
                                    const void* reduced, unsigned cut,
                                    const void* words, void* scale, void* q,
                                    void* stream) {
   repro::ShardTreeArgs a;
   if (!tree_args(&a, table, leaves, tiles, xs) || key_stride < 1 ||
       (bits != 8 && bits != 4) || (cut > 0 && reduced == nullptr) ||
-      (keys == nullptr) == (host_keys == nullptr) ||
-      (host_keys != nullptr &&
-       (key_rows < 1 || key_rows > repro::kParamKeys))) {
+      keys == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.key_stride = key_stride;
   a.keys = static_cast<const uint32_t*>(keys);
-  if (host_keys != nullptr) {
-    const auto* k = static_cast<const uint32_t*>(host_keys);
-    for (int i = 0; i < 2 * key_rows; ++i) a.key_words[i] = k[i];
-  }
   a.reduced = static_cast<const unsigned*>(reduced);
   a.cut = cut;
   a.words = const_cast<unsigned*>(static_cast<const unsigned*>(words));

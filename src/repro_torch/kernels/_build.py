@@ -55,8 +55,8 @@ ENTRIES = {
     "dequantize_leaf": ("quantize_leaf", (_P, _I, _I, _I, _P, _P, _I, _I)),
     "shard_tree_absmax": ("quantize_leaf", (_P, _I, _U, _P, _P, _P, _P)),
     "shard_tree_quantize": ("quantize_leaf",
-                            (_P, _I, _U, _P, _I, _P, _P, _I, _I, _P, _U,
-                             _P, _P, _P)),
+                            (_P, _I, _U, _P, _I, _P, _I, _P, _U, _P, _P,
+                             _P)),
     "sparse_gather": ("gather_scatter", (_P, _I, _I, _P, _I, _L, _I, _P)),
     "sparse_scatter": ("gather_scatter",
                        (_P, _P, _I, _L, _I, _I, _I, _F, _I, _P, _P, _P)),

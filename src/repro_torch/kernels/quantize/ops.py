@@ -163,7 +163,6 @@ quantize_tensor.launches = 0
 
 Q_TILE = 8192  # elements of a row a tile (csrc: kQTile)
 MAX_LEAVES = 128  # leaves a launch (csrc: kMaxLeaves)
-PARAM_KEYS = 128  # host keys that travel in a launch's parameters
 # a table entry's words (csrc: ShardWord)
 SHARD_WORDS = 32
 SW = {name: i for i, name in enumerate((
@@ -282,10 +281,6 @@ class ShardPlan:
                 [i for i, _ in chunk], table.to(device), first, tiles,
                 (ctypes.c_void_p * len(chunk))()))
             tiles += first
-        # the keys of a tree of at most PARAM_KEYS rows, for the launch's
-        # parameters
-        self.host_keys = (ctypes.c_uint32 * (2 * self.slots))() if (
-            self.slots <= PARAM_KEYS) else None
         # an arrival counter a slot, then a partial a tile
         self.scratch = torch.zeros((self.slots + tiles,), dtype=torch.int32,
                                    device=device)
@@ -327,27 +322,10 @@ def _entry_words(e) -> list:
 
 
 @functools.lru_cache(maxsize=32)
-def _plan(layouts: tuple, m: int, device) -> ShardPlan:
-    return ShardPlan(layouts, m, device)
-
-
-_PLANS: dict = {}  # (id(layouts), m, device) -> (layouts, plan)
-
-
 def shard_plan(layouts: tuple, m: int, device) -> ShardPlan:
     """The cached ``ShardPlan`` of a tree's layouts (a tuple of
-    ``ref.ShardLayout``) at ``m`` rows a leaf on a CUDA ``device``: found
-    by the tuple's identity (a ``ShardedTree`` keeps its own), else by
-    its value."""
-    key = (id(layouts), m, device)
-    hit = _PLANS.get(key)
-    if hit is not None and hit[0] is layouts:
-        return hit[1]
-    plan = _plan(layouts, m, device)
-    if len(_PLANS) >= 64:
-        _PLANS.clear()
-    _PLANS[key] = (layouts, plan)
-    return plan
+    ``ref.ShardLayout``) at ``m`` rows a leaf on a CUDA ``device``."""
+    return ShardPlan(layouts, m, device)
 
 
 def _fake_tree(xs, layouts, bits):
@@ -402,12 +380,10 @@ def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
     message, at the scales ``max(word, tiny)`` of ``words``
     (``tree_absmax``'s, ``reduced`` standing for its first
     ``reduced.numel()``: the cut leaves' rows all-reduced with MAX; a
-    leaf held whole keeps its own),
-    kappa the whole leaf's ``jax.random.bits(keys[..., i, :], (n_pad,))``
-    at each element's flat index in the whole leaf (``keys [..., L, 2]``,
-    converted once: host keys of at most ``PARAM_KEYS`` rows travel in
-    the launch's parameters, others go to the card through pinned
-    memory).  One launch (one a ``MAX_LEAVES`` leaves).  Returns
+    leaf held whole keeps its own), kappa the whole leaf's
+    ``jax.random.bits(keys[..., i, :], (n_pad,))`` at each element's flat
+    index in the whole leaf (``keys [..., L, 2]``, converted once by
+    ``_key_words``).  One launch (one a ``MAX_LEAVES`` leaves).  Returns
     ``[(q [..., wire_len(n_i)], scale [...])]`` in the leaves' order:
     views of one q and one scale buffer."""
     _check_bits(bits)
@@ -421,17 +397,7 @@ def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
     dev, lead = x0.device, tuple(x0.shape[:-1])
     plan = shard_plan(tuple(layouts), x0.numel() // x0.shape[-1], dev)
     plan.fill_x(xs)
-    if tuple(keys.shape) != lead + (len(xs), 2):
-        raise ValueError(f"keys of shape {tuple(keys.shape)} do not match "
-                         f"the tree's {lead + (len(xs), 2)}")
-    kd, host = None, None
-    if plan.host_keys is not None and keys.device.type == "cpu":
-        # a few host keys: their low words into the launch's parameters
-        k32 = keys.to(torch.int32).contiguous()
-        ctypes.memmove(plan.host_keys, k32.data_ptr(), 8 * plan.slots)
-        host = plan.host_keys
-    else:
-        kd = _key_words(keys, lead + (len(xs),), dev)
+    kd = _key_words(keys, lead + (len(xs),), dev)
     _build.check_tensor("words", words, torch.int32, dev, (plan.slots,))
     cut = 0
     if reduced is not None:
@@ -441,9 +407,8 @@ def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
     q = torch.empty((plan.qbytes[bits],), dtype=_q_dtype(bits), device=dev)
     for ln in plan.launches:
         _build.launch("shard_tree_quantize", ln.table.data_ptr(),
-                      len(ln.leaves), ln.tiles, ln.xs, bits,
-                      None if kd is None else kd.data_ptr(), host,
-                      plan.slots, len(xs), None if reduced is None else
+                      len(ln.leaves), ln.tiles, ln.xs, bits, kd.data_ptr(),
+                      len(xs), None if reduced is None else
                       reduced.data_ptr(), cut, words.data_ptr(),
                       scale.data_ptr(), q.data_ptr())
         quantize_tree.launches += 1

@@ -188,11 +188,10 @@ def _shard_tree_layouts(n_leaves):
 @pytest.mark.parametrize("n_leaves,where", [(7, "cpu"), (7, "cuda"),
                                             (140, "cpu")])
 def test_quantize_tree(h100, bits, n_leaves, where):
-    """K4's shard form over a tree of every index class (host keys in the
-    launch's parameters, device keys, and a tree past one launch's
-    leaves and the parameters' keys): each pass bit-equal to its plain
-    version, one launch a pass for each ``MAX_LEAVES`` leaves, the cut
-    leaves' words from ``reduced``."""
+    """K4's shard form over a tree of every index class (host keys, device
+    keys, and a tree past one launch's leaves): each pass bit-equal to
+    its plain version, one launch a pass for each ``MAX_LEAVES`` leaves,
+    the cut leaves' words from ``reduced``."""
     lays = _shard_tree_layouts(n_leaves)
     m = 3
     g = torch.Generator(device=h100).manual_seed(n_leaves)
