@@ -472,7 +472,9 @@ __device__ __forceinline__ void shard_body(const float4* x,
 REPRO_SHARD_BODY(k4s0_b8, 8, 0)
 REPRO_SHARD_BODY(k4s1_b8, 8, 1)
 REPRO_SHARD_BODY(k4s2_b8, 8, 2)
+REPRO_SHARD_BODY(k4s3_b8, 8, 3)
 REPRO_SHARD_BODY(k4s1_b4, 4, 1)
+REPRO_SHARD_BODY(k4s3_b4, 4, 3)
 
 // the division count's control: a loop that divides by a run-time value
 extern "C" __global__ void divides(uint32_t d, uint32_t* out, int n) {
@@ -804,7 +806,9 @@ def phase_sass():
             ("K4 b=8", "k4_b8", 4), ("K4 shard b=8 class 0", "k4s0_b8", 4),
             ("K4 shard b=8 class 1", "k4s1_b8", 4),
             ("K4 shard b=8 class 2", "k4s2_b8", 4),
-            ("K4 shard b=4 class 1", "k4s1_b4", 8)):
+            ("K4 shard b=8 class 3", "k4s3_b8", 4),
+            ("K4 shard b=4 class 1", "k4s1_b4", 8),
+            ("K4 shard b=4 class 3", "k4s3_b4", 8)):
         BODY_SASS[key] = body_sass(counts[f"{name}_one"],
                                    counts[f"{name}_two"], key, group)
         log(f"[sass] {key}: {divisions[f'{name}_two']} integer divisions "
@@ -1322,13 +1326,15 @@ def hold_tree(got, want, label):
     return len(got)
 
 
-def k4_shard_tree(xs, keys, plans, bits):
-    """The two ranks' shard-form payloads of a tree of whole messages
-    (``xs[i]`` ``[M, *shape_i]``, cut by ``plans[i]``): each rank's
-    shards, its ``tree_absmax`` (one launch, held against its plain
-    version), the MAX of the cut prefix over the two (the all-reduce),
-    then ``quantize_tree`` (one launch, held bit for bit).  Returns
-    ``[(layouts, shards, [(q, scale)])]`` by rank."""
+def k4_shard_tree(xs, keys, plans, bits, data=1):
+    """The ranks' shard-form payloads of a tree of whole messages
+    (``xs[i]`` ``[M, *shape_i]``, cut by ``plans[i]`` over a "model" axis
+    of 2 and, where a plan has a ``data_dim``, a "data" axis of
+    ``data``): each rank's shards, its ``tree_absmax`` (one launch, held
+    against its plain version), the MAX of the cut prefix over all of
+    them (the all-reduce over the agent's group), then ``quantize_tree``
+    (one launch, held bit for bit).  Returns ``[(layouts, shards, [(q,
+    scale)])]`` by rank, (data, model) coordinates in order."""
     import torch
 
     from repro_torch.kernels.quantize import ops, ref
@@ -1336,16 +1342,20 @@ def k4_shard_tree(xs, keys, plans, bits):
 
     m = xs[0].shape[0]
     ranks = []
-    for r in range(2):
+    for d, r in [(d, r) for d in range(data) for r in range(2)]:
         lays, shards = [], []
         for x, plan in zip(xs, plans):
-            lay = leaf_layout(plan, tuple(x.shape[1:]), r, 2)
-            if plan.dim is None:
+            lay = leaf_layout(plan, tuple(x.shape[1:]), r, 2, d, data)
+            if plan.dim is None and (plan.data_dim is None or data == 1):
                 xs_r = x.reshape(m, -1)
             else:
-                spec = P(*([None] * (1 + lay.dim) + ["model"]))
-                xs_r = local_shard(_StandIn(2, r), spec, x,
-                                   plan.segments).reshape(m, -1)
+                spec = [None] * x.dim()
+                if plan.dim is not None:
+                    spec[1 + plan.dim] = "model"
+                if plan.data_dim is not None:
+                    spec[1 + plan.data_dim] = "data"
+                xs_r = local_shard(_StandIn(2, r, data, d), P(*spec), x,
+                                   plan.segments or None).reshape(m, -1)
             lays.append(lay)
             shards.append(xs_r.contiguous())
         lays = tuple(lays)
@@ -1358,7 +1368,7 @@ def k4_shard_tree(xs, keys, plans, bits):
             raise AssertionError("K4 shard form: tree_absmax differs")
         ranks.append((lays, shards, w))
     cut = ops.cut_rows(ranks[0][0], m)
-    top = torch.maximum(ranks[0][2][:cut], ranks[1][2][:cut])
+    top = torch.stack([w[:cut] for _, _, w in ranks]).amax(0)
     out = []
     for lays, shards, w in ranks:
         before = ops.quantize_tree.launches
@@ -1376,15 +1386,15 @@ def k4_shard_tree(xs, keys, plans, bits):
 
 
 class _StandIn:
-    """A mesh stand-in of a "model" axis of n (and "data" of 1) for
-    ``local_shard`` and ``shard_layouts``."""
+    """A mesh stand-in of a "model" axis of n (and "data" of ``data``)
+    for ``local_shard`` and ``shard_layouts``, at coordinates (d, r)."""
 
-    def __init__(self, n, r):
-        self.shape = {"data": 1, "model": n}
-        self.axis_names, self._r = ("data", "model"), r
+    def __init__(self, n, r, data=1, d=0):
+        self.shape = {"data": data, "model": n}
+        self.axis_names, self._c = ("data", "model"), {"model": r, "data": d}
 
     def get_local_rank(self, axis):
-        return self._r
+        return self._c[axis]
 
 
 def check_k4_shard(dev):
@@ -1960,7 +1970,8 @@ def kernel_counters():
 # (``launches_unique``, ``launches_claim``); ``launches`` is the sum of a
 # wrapper's variants
 LAUNCH_ATTRS = ("launches", "launches_tc", "launches_cc", "launches_pull",
-                "launches_push", "launches_unique", "launches_claim")
+                "launches_push", "launches_unique", "launches_claim",
+                "launches_two_axis")
 
 
 def _attrs(fn):
@@ -6673,17 +6684,19 @@ def _tp_state_bounds(levels, rrho):
     return {f: [b[f] for b in out] for f in out[0]}
 
 
-def _shard_gaps(got, want, bound=None, small=None):
+def _shard_gaps(got, want, bound=None, small=None, scales=None):
     """A rank's shards ``got`` against the one-rank run's ``want`` (both
     flat lists, on the rank), each leaf's scale its whole leaf's (the
-    max over "model"): ``[max |d| / scale, elements past TP_TRAIN_TOL of
-    it, elements, elements past it and past their ``bound`` (by leaf,
-    per agent), elements past it where ``small`` (by leaf, a mask)]``."""
+    max over "model", or ``scales`` where given): ``[max |d| / scale,
+    elements past TP_TRAIN_TOL of it, elements, elements past it and
+    past their ``bound`` (by leaf, per agent), elements past it where
+    ``small`` (by leaf, a mask)]``."""
     from repro_torch.launch import tp
 
     worst, off, n, beyond, off_small = 0.0, 0, 0, 0, 0
     for i, (g, w) in enumerate(zip(got, want)):
-        scale = float(tp.all_reduce_max(w.abs().max()[None]))
+        scale = (float(tp.all_reduce_max(w.abs().max()[None]))
+                 if scales is None else scales[i])
         tol = TP_TRAIN_TOL * max(scale, 1e-30)
         d = (g - w).abs()
         worst = max(worst, float(d.max()) / max(scale, 1e-30))
@@ -6847,9 +6860,9 @@ def tp_train(mesh, rank, dev):
     k4_reduces = [0]
     all_reduce_max = tp.all_reduce_max
 
-    def counted(t):
+    def counted(t, group=None):
         k4_reduces[0] += t.dtype == torch.int32
-        return all_reduce_max(t)
+        return all_reduce_max(t, group)
 
     def tp_rounds():
         st = init(shd.shard_params(stacked(), mesh, "admm", specs, lead=1))
@@ -7460,6 +7473,829 @@ def time_k4_tree_host():
         + ("" if CARD is None else f" [{CARD}]"))
 
 
+# ---------------------------------------------------------------------------
+# The fsdp phase: FSDP over "data" in a 4-rank world
+# ---------------------------------------------------------------------------
+
+FSDP_RANKS = 4
+FSDP_MESH = (2, 2)  # ("data", "model") for serving and DDP
+# the multi-pod rounds' mesh ("pod", "data", "model"), a world of its own:
+# every cut leaf of qwen3's tree but its norms is cut on both axes, so
+# each K4 shard-form quantise launch runs index class 3
+FSDP_ADMM_MESH = (2, 2, 2)
+FSDP_ADMM_RANKS = math.prod(FSDP_ADMM_MESH)
+# serving: qwen3-0.6b at full width and depth, bf16: prefill B x T, then
+# greedy from a prompt of GP tokens for GG steps on GB rows
+FSDP_SERVE = (4, 2048, 4, 1, 8)
+FSDP_EXPECT_K10 = 28  # a rank's launches a prefill: one a layer
+FSDP_PHASE_S = 120  # the phase's limit, host clock
+
+
+def k4_two_axis_cases():
+    """The two-axis check tree: ``(label, whole leaf shape, plan)`` a leaf,
+    cut over a "data" axis of 2 (``data_dim``) and a "model" axis of 2:
+    wq-like [1024, 2048] (data 0, model 1), an embedding [2048, 1000]
+    (model 0, data 1), wo-like [16, 64, 1024] (model 0, data 2, a dim
+    between), zamba2-2.7b's in_proj of one layer (data 0, four pieces on
+    dim 1), a norm [2560] cut over "data" alone and one held whole; on
+    the CPU the same cuts of small leaves."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.sharding import LeafPlan
+
+    small = SMOKE or DEV != "cuda"
+    ssm = (ARCHS["zamba2-2.7b"].make_smoke() if small
+           else ARCHS["zamba2-2.7b"].make(None)).ssm
+    di, gs, nh = ssm.d_inner, 2 * ssm.n_groups * ssm.d_state, ssm.n_heads
+    cols = 2 * di + gs + nh
+    wq, emb, wo = (((32, 64), (96, 40), (4, 6, 32)) if small else
+                   ((1024, 2048), (2048, 1000), (16, 64, 1024)))
+    return (
+        (f"wq {list(wq)}: data 0, model 1", wq,
+         LeafPlan(1, ((wq[1], True),), data_dim=0)),
+        (f"embedding {list(emb)}: model 0, data 1", emb,
+         LeafPlan(0, ((emb[0], True),), data_dim=1)),
+        (f"wo {list(wo)}: model 0, data 2", wo,
+         LeafPlan(0, ((wo[0], True),), data_dim=2)),
+        (f"zamba2 in_proj [{ssm.d_model}, {cols}]: data 0, pieces on 1",
+         (ssm.d_model, cols),
+         LeafPlan(1, ((di, True), (di, True), (gs, False), (nh, True)),
+                  data_dim=0)),
+        (f"norm [{ssm.d_model}]: data only", (ssm.d_model,),
+         LeafPlan(None, data_dim=0)),
+        ("whole [4097]", (4097,), LeafPlan(None)))
+
+
+def check_k4_shard2(dev):
+    """K4's shard form's two-axis class (3) in one process: all four
+    (data, model) shards of ``k4_two_axis_cases``' tree, b = 8 and 4, the
+    quantiser's edge rows planted; each rank's ``tree_absmax`` and
+    ``quantize_tree`` one launch, bit-equal to its plain version, and the
+    four shards' levels, put back at their places, bit-equal to K4
+    (``quantize_tensor``) of the whole leaf, scales too."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = k4_two_axis_cases()
+    plans = [c[2] for c in cases]
+    m = 2
+    for bits in (8, 4):
+        xs = []
+        for _, shape, _ in cases:
+            x = torch.randn((m,) + shape, generator=g, device=dev)
+            ref.edge_rows(x.reshape(m, -1)[:, :4096])
+            xs.append(x)
+        keys = torch.randint(0, 2 ** 32, (m, len(cases), 2), generator=g,
+                             device=dev, dtype=torch.int64)
+        quad = k4_shard_tree(xs, keys, plans, bits, data=2)
+        classes = sorted({ops.shard_entry(lay)["cls"] for lays, _, _ in quad
+                          for lay in lays if lay.cut})
+        if 3 not in classes:
+            raise AssertionError(f"K4 two-axis: classes {classes}")
+        for i, (label, _, _) in enumerate(cases):
+            flat = xs[i].reshape(m, -1)
+            qw, scw = ops.quantize_tensor(keys[:, i], flat, bits=bits)
+            sync()
+            whole = (qw if bits == 8
+                     else ref.unpack4(qw, flat.shape[-1]).to(torch.int8))
+            got = torch.full_like(whole, -128 if bits == 8 else 99)
+            for lays, shards, out in quad:
+                q, sc = out[i]
+                n = shards[i].shape[-1]
+                lv = q if bits == 8 else ref.unpack4(q, n).to(torch.int8)
+                got[:, lays[i].counters(dev) if lays[i].cut else
+                    slice(None)] = lv
+                if not same_scale(sc, scw):
+                    raise AssertionError(f"K4 two-axis {label}: scale")
+            if not torch.equal(got, whole):
+                raise AssertionError(f"K4 two-axis {label} b={bits}: "
+                                     f"{(got != whole).sum()} levels differ "
+                                     "from K4 of the whole leaf")
+        log(f"[kernels] K4 shard form b={bits}, two-axis class: one tree "
+            f"of {[c[0] for c in cases]} on 4 (data, model) shards "
+            f"{[tuple(s.shape) for s in quad[0][1]]} (rank (0, 0)), index "
+            f"classes {classes}: each rank's tree_absmax and "
+            "quantize_tree one launch, bit-equal to its plain version; the "
+            "four ranks' levels at their places bit-equal to K4 of the "
+            "whole leaf, scales too")
+
+
+def time_k4_shard2(rows, launches):
+    """The two-axis class (3) beside class 2 on the same elements: rank
+    (0, 0)'s shard [2, 1024, 2048] of a [2, 2048, 4096] leaf cut over
+    "data" on dim 0 and over "model" on dim 1 in two pieces, and the same
+    elements as a [2, 1024, 4096] leaf's class-2 shard (the same two
+    pieces, no data cut).  Both passes and the quantise pass alone,
+    device time from CUDA graphs, in turns; each held against its plain
+    version first."""
+    import torch
+
+    from repro_torch.core import jaxrand
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import ops, ref
+    from repro_torch.launch.sharding import LeafPlan, leaf_layout
+
+    dev, m = torch.device("cuda"), 2
+    segs = ((2048, True), (2048, True))
+    lay3 = leaf_layout(LeafPlan(1, segs, data_dim=0), (2048, 4096), 0, 2,
+                       0, 2)
+    lay2 = leaf_layout(LeafPlan(1, segs), (1024, 4096), 0, 2)
+    if (ops.shard_entry(lay3)["cls"], ops.shard_entry(lay2)["cls"]) != (3, 2):
+        raise AssertionError("time_k4_shard2: the layouts' classes")
+    x = torch.randn((m,) + lay3.local_shape, device=dev).reshape(m, -1)
+    n = x.shape[-1]
+    keys = jaxrand.split(jaxrand.key(5), m)[:, None]
+    runs = {}
+    for cls, lay in ((3, lay3), (2, lay2)):
+        lays = (lay,)
+        (q, sc), = ops.quantize_tree(keys, [x], ops.tree_absmax([x], lays),
+                                     lays, bits=8)
+        (qw, scw), = ref.quantize_tree_ref(
+            keys, [x], ref.tree_absmax_ref([x], lays), lays, bits=8,
+            window=PLAIN_WINDOW)
+        sync()
+        note_err("K4-shard", q, qw)
+        if not (torch.equal(q, qw) and same_scale(sc, scw)):
+            raise AssertionError(f"K4 shard form class {cls}: mismatch")
+        plan = ops.shard_plan(lays, m, dev)
+        plan.fill_x([x])
+        ln, = plan.launches
+        kd = ops._key_words(keys, (m, 1), dev)
+        wd = torch.empty((plan.slots,), dtype=torch.int32, device=dev)
+        scb = torch.empty((plan.slots,), dtype=torch.float32, device=dev)
+        qb = torch.empty((plan.qbytes[8],), dtype=torch.int8, device=dev)
+        base = plan.scratch.data_ptr()
+
+        def absmax(ln=ln, wd=wd, base=base, plan=plan):
+            _build.launch("shard_tree_absmax", ln.table.data_ptr(), 1,
+                          ln.tiles, ln.xs, wd.data_ptr(), base,
+                          base + 4 * (plan.slots + ln.tile0))
+
+        def quant(ln=ln, kd=kd, wd=wd, scb=scb, qb=qb):
+            _build.launch("shard_tree_quantize", ln.table.data_ptr(), 1,
+                          ln.tiles, ln.xs, 8, kd.data_ptr(), 1, None, 0,
+                          wd.data_ptr(), scb.data_ptr(), qb.data_ptr())
+
+        def both(absmax=absmax, quant=quant):
+            absmax()
+            quant()
+
+        absmax()
+        runs[cls] = (both, quant, lays, plan)
+    ms3, ms2, t3, t2 = graph_turns(runs[3][0], runs[2][0])
+    q3, q2, qt3, qt2 = graph_turns(runs[3][1], runs[2][1])
+    lays = runs[3][2]
+
+    def wrapper():
+        return ops.quantize_tree(keys, [x], ops.tree_absmax([x], lays),
+                                 lays, bits=8)
+
+    w_ms = cuda_ms(wrapper)
+    plain_ms = cuda_ms(lambda: ref.quantize_tree_ref(
+        keys, [x], ref.tree_absmax_ref([x], lays), lays, bits=8,
+        window=PLAIN_WINDOW), iters=3, warmup=1)
+    once = m * n * 4 + m * n + 8 * m + 4 * m
+    ops_ = TF_LEAF_OPS * m * n
+    add_row(
+        rows, "K4-shard two-axis class 3 tree_absmax + quantize_tree b=8 "
+        "[2, 1024 x 2048] of [2, 2048 x 4096]",
+        "src/repro_torch/csrc/quantize_leaf.cu",
+        "src/repro/kernels/quantize/kernel.py:73", launches, w_ms, ms3,
+        plain_ms, once, ops_, 0, None, kernel_ms_by="cuda graph",
+        kernel_ms_turns=t3, class2_kernel_ms=ms2, class2_kernel_ms_turns=t2,
+        quantize_ms=q3, quantize_turns=qt3, class2_quantize_ms=q2,
+        class2_quantize_turns=qt2,
+        launches_of="rank 0's quantize_tree launches with class-3 leaves "
+                    "in the fsdp phase's multi-pod rounds on (pod, data, "
+                    f"model) = {FSDP_ADMM_MESH} (each with one "
+                    "tree_absmax)")
+    log(f"[time] K4-shard two-axis class 3 vs class 2 on the same "
+        f"{m * n:,} elements, device ms (CUDA graph): both passes "
+        f"{ms3:.4f} vs {ms2:.4f} (turns {t3} / {t2}), the quantise pass "
+        f"{q3:.4f} vs {q2:.4f} (turns {qt3} / {qt2})"
+        + ("" if CARD is None else f" [{CARD}]"))
+
+
+def _gather_rows(t, mesh):
+    """``t``'s rows (dim 0) gathered over ``mesh``'s "data" axis."""
+    import torch
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(mesh.size(0))]
+    dist.all_gather(parts, t.contiguous(), group=mesh.get_group("data"))
+    return torch.cat(parts, dim=0)
+
+
+def fsdp_serve(mesh, rank, dev):
+    """qwen3-0.6b served FSDP+TP over the (2, 2) mesh on this rank's batch
+    rows, and on rank 0 also whole: the prefill under a ``MainPathTap``
+    (counts zeroed just before, read just after; rank 0 holds every K10
+    call), its last logits gathered over "data", the same in f32, and
+    the greedy server.  Returns the rank's readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.trees import tree_map
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import fsdp, serve, steps, tp
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.common import init_params
+
+    pb, pt, gb, gp, gg = (4, 64, 4, 1, 4) if SMOKE else FSDP_SERVE
+    arch = ARCHS["qwen3-0.6b"]
+    cfg = dataclasses.replace(arch.make_smoke() if SMOKE else arch.make(None),
+                              use_flash=True)
+    specs = steps.model_specs(arch, cfg)
+    marks, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        sync()
+        marks[name] = round(time.perf_counter() - t0, 2)
+
+    tree = init_params(jaxrand.key(0, dev), specs, dtype=cfg.dtype)
+    batch = {"tokens": jaxrand.randint(jaxrand.key(1, dev), (pb, pt), 0,
+                                       cfg.vocab)}
+    prompt = jaxrand.randint(jaxrand.key(0, dev), (gb, gp), 0, cfg.vocab)
+    lo, hi = steps.batch_rows(arch, cfg, mesh, pb)
+    glo, ghi = steps.batch_rows(arch, cfg, mesh, gb)
+    rows = {"tokens": batch["tokens"][lo:hi]}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    tree32 = tree_map(lambda t: t.float(), tree)
+    out = {"rows": (lo, hi), "layers": cfg.n_layers}
+    if rank == 0:
+        whole = tr.model_params(cfg, tree)
+        with torch.no_grad():
+            last1, peak1 = memory_peak(
+                lambda: steps.build_prefill(arch, cfg)(whole, batch))
+            tok1, _ = serve.generate(arch, cfg, whole, prompt, gg)
+            last32 = steps.build_prefill(arch, cfg32)(
+                tr.model_params(cfg32, tree32), batch).float()
+        out["one"] = {"peak": peak1, "tokens": tok1.tolist(),
+                      "weight_bytes": sum(p.numel() * p.element_size()
+                                          for p in whole.parameters())}
+        del whole
+    mark("one rank")
+    shard = tr.model_params(cfg, steps.serve_shard(arch, cfg, tree, mesh))
+    del tree
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in shard.parameters())
+    prefill = steps.build_prefill(arch, cfg, mesh)
+    tap = MainPathTap(SERVE_WRAPPERS)
+    tap.checking = rank == 0
+    fsdp.reset_stats()
+    tp.reset_stats()
+    try:
+        reset_counts()  # the FSDP+TP prefill starts here
+        with torch.no_grad():
+            last, peak = memory_peak(lambda: prefill(shard, rows))
+        sync()
+        after = read_counts()  # ... and ends here
+    finally:
+        tap.close()
+    out.update(peak=peak, gathers=dict(fsdp.stats),
+               collectives=dict(tp.stats),
+               k10={k: after[f"flash_attention{k}"]
+                    for k in ("", "_tc", "_cc")},
+               k10_shapes={_show(k[1]): c for k, c in tap.by_shape.items()},
+               k10_held=len(tap.readings.get("flash_attention", [])),
+               k10_readings=sorted(set(tap.readings.get("flash_attention",
+                                                        [])))[:3])
+    mark("main path")
+    last = _gather_rows(last, mesh)
+    shard32 = tr.model_params(cfg32, steps.serve_shard(arch, cfg32, tree32,
+                                                       mesh))
+    del tree32
+    with torch.no_grad():
+        f32 = _gather_rows(steps.build_prefill(arch, cfg32, mesh)(
+            shard32, rows).float(), mesh)
+    del shard32
+    for t in (last, f32):
+        if tuple(t.shape) != (pb, 1, cfg.vocab) or not bool(
+                torch.isfinite(t.float()).all()):
+            raise AssertionError("fsdp serve: the gathered logits are bad")
+    if rank == 0:
+        lf, wf = last.float(), last1.float()
+        scale = float(wf.abs().max())
+        out["logits"] = {
+            "max_abs": float((lf - wf).abs().max()), "scale": scale,
+            "fsdp_f32": float((lf - last32).abs().max()),
+            "one_f32": float((wf - last32).abs().max()),
+            "f32": float((f32 - last32).abs().max()),
+            "scale32": float(last32.abs().max()),
+            "argmax_equal": bool(torch.equal(lf.argmax(-1), wf.argmax(-1))),
+            "flips": argmax_flips(lf, wf, last32)}
+        del last1, last32
+    del last, f32
+    mark("f32")
+    with torch.no_grad():
+        tokens, secs = serve.generate(arch, cfg, shard, prompt[glo:ghi], gg,
+                                      mesh=mesh)
+    out["tokens"] = _gather_rows(tokens, mesh).tolist()
+    out["decode_ms"] = secs * 1e3 / gg
+    mark("greedy")
+    out["marks"] = marks
+    del shard
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_ddp(mesh, rank, dev):
+    """``build_ddp_train`` on the (2, 2) mesh's FSDP+TP shards (mode
+    "serve"), each "data" rank its share of the batch, against one
+    process's steps on the whole weights and batch (run on every rank):
+    qwen3-0.6b at full width cut to one layer, f32, TP_TRAIN_DDP Adam
+    steps at eps TP_TRAIN_EPS.  Returns the losses and, by step, the gaps
+    of m, v and the parameters (each leaf's scale its whole leaf's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.common.trees import tree_flatten, tree_map
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import steps, train
+    from repro_torch.models.common import init_params
+
+    arch = ARCHS[TP_TRAIN_ARCH]
+    cfg = (arch.make_smoke() if SMOKE else dataclasses.replace(
+        train.train_config(arch, smoke=False), n_layers=TP_TRAIN_LAYERS))
+    specs = steps.model_specs(arch, cfg)
+    whole = init_params(jaxrand.key(1, dev), specs)
+    tokens = jaxrand.randint(jaxrand.key(2, dev), (2, TP_TRAIN_SEQ + 1), 0,
+                             cfg.vocab)
+    lo, hi = steps.batch_rows(arch, cfg, mesh, 2)
+
+    def shard(tree):
+        return tree_flatten(steps.serve_shard(arch, cfg, tree_map(
+            torch.clone, tree), mesh))[0]
+
+    def runs(params, batch, mesh_, keep):
+        built = steps.build_ddp_train(arch, cfg, lr=1e-3, mesh=mesh_,
+                                      eps=TP_TRAIN_EPS)
+        stepd, opt = built[0], built[-1]
+        p = tree_map(torch.clone, params)
+        o, ls, kept = opt.init(p), [], []
+        for i in range(TP_TRAIN_DDP):
+            p, o, lv = stepd(p, o, batch, i)
+            ls.append(float(lv))
+            kept.append({"m": keep(o["m"]), "v": keep(o["v"]),
+                         "params": keep(p)})
+        return ls, kept
+
+    def scaled(tree):
+        return shard(tree), [float(t.abs().max())
+                             for t in tree_flatten(tree)[0]]
+
+    one_losses, one = runs(whole, {"tokens": tokens}, None, scaled)
+    mine = steps.serve_shard(arch, cfg, tree_map(torch.clone, whole), mesh)
+    losses, got = runs(mine, {"tokens": tokens[lo:hi]}, mesh,
+                       lambda t: tree_flatten(t)[0])
+    del mine
+    gaps = {}
+    for i in range(TP_TRAIN_DDP):
+        for k in ("m", "v", "params"):
+            want, scales = one[i][k]
+            gaps[f"ddp_{k}{i + 1}"] = _shard_gaps(got[i][k], want,
+                                                  scales=scales)
+    del whole, one, got
+    return {"losses": losses, "one_losses": one_losses, "gaps": gaps,
+            "rows": (lo, hi)}
+
+
+def _fsdp_admm_case(dev):
+    """``fsdp_admm``'s run: ``(arch, cfg, specs, solver spec, recipe,
+    whole weights, tokens [A, m, T + 1])``, the weights and tokens from
+    fixed keys on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import jaxrand
+    from repro_torch.launch import steps, train
+    from repro_torch.models.common import init_params
+
+    arch = ARCHS[TP_TRAIN_ARCH]
+    cfg = (arch.make_smoke() if SMOKE else dataclasses.replace(
+        train.train_config(arch, smoke=False), n_layers=TP_TRAIN_LAYERS))
+    specs = steps.model_specs(arch, cfg)
+    spec = TP_TRAIN_SPEC + (",impl=kernel" if DEV == "cpu" else "")
+    recipe = steps.TrainRecipe(topology="complete")
+    whole = init_params(jaxrand.key(1, dev), specs)
+    tokens = jaxrand.randint(jaxrand.key(2, dev),
+                             (TP_TRAIN_AGENTS, TP_TRAIN_M, TP_TRAIN_SEQ + 1),
+                             0, cfg.vocab)
+    return arch, cfg, specs, spec, recipe, whole, tokens
+
+
+def fsdp_admm_one(dev):
+    """One process's run of ``fsdp_admm``'s rounds on both agents' whole
+    weights and rows, the reference the ranks hold theirs against:
+    ``{"state": the final state's tree fields, "bounds": each field's
+    flip bounds by leaf (``_tp_state_bounds``, numpy), "losses": the mean
+    loss after each round}``."""
+    from repro_torch.common.trees import tree_map
+    from repro_torch.launch import steps, train
+
+    arch, cfg, _, spec, recipe, whole, tokens = _fsdp_admm_case(dev)
+    a_n = TP_TRAIN_AGENTS
+    loss = steps.model_loss(arch, cfg)
+    step, init, solver = steps.build_train(arch, cfg, a_n, spec, recipe,
+                                           device=dev)
+    st = init(tree_map(lambda t: t[None].expand((a_n,) + t.shape).clone(),
+                       whole))
+    del whole
+    losses, levels = [], []
+    for i in range(TP_TRAIN_ROUNDS):
+        before, st = st, step(st, {"tokens": tokens}, 100 + i)
+        levels.append(_round_levels(before, st))
+        del before
+        losses.append(train.mean_loss(solver, loss, st, tokens))
+    bounds = _tp_state_bounds(levels, solver.cfg.r * solver.cfg.rho)
+    return {"state": _tp_state_fields(st), "losses": losses,
+            "bounds": {f: [b.numpy() for b in bs]
+                       for f, bs in bounds.items()}}
+
+
+def fsdp_admm(mesh, rank, dev, reference):
+    """Per-leaf LT-ADMM-CC on the multi-pod (2, 2, 2) mesh: one agent a
+    pod, FSDP+TP over its 2 x 2 ("data", "model") ranks (parameters and
+    state on both axes, its m rows over "data"), qwen3-0.6b at full
+    width cut to one layer, f32, TP_TRAIN_ROUNDS rounds of TP_TRAIN_SPEC
+    on complete(2), against the one-rank run of both agents that
+    ``reference()`` returns after the rounds (``fsdp_admm_one``, run once
+    by the parent process; its state reaches the ranks through the
+    card's memory, each rank keeping its shard).  The counts zeroed just before the rounds and
+    read just after, every K4 shard-form call held against its plain
+    version, the K4 all-reduces counted.  Returns the rank's readings."""
+    import functools
+
+    import torch
+
+    from repro_torch.common.trees import tree_flatten, tree_map
+    from repro_torch.core import admm, compression
+    from repro_torch.core.admm import STATE_LEAD
+    from repro_torch.kernels.quantize import ref as qref
+    from repro_torch.launch import steps, tp
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import group_of, use_mesh
+
+    arch, cfg, specs, spec, recipe, whole, tokens = _fsdp_admm_case(dev)
+    a_n, rounds = TP_TRAIN_AGENTS, TP_TRAIN_ROUNDS
+    marks, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        sync()
+        marks[name] = round(time.perf_counter() - t0, 2)
+
+    loss = steps.model_loss(arch, cfg)
+    pod = mesh.get_local_rank("pod")
+    d, nd = mesh.get_local_rank("data"), mesh.size(1)
+    k = TP_TRAIN_M // nd
+    agent = slice(pod, pod + 1)
+    scale_group = group_of(mesh, ("data", "model"))
+
+    # ---- the FSDP run: the agent's row of the stacked weights, cut
+    x0 = shd.shard_params(tree_map(lambda t: t[None].clone(), whole), mesh,
+                          "admm", specs, lead=1)
+    del whole
+    step, _, init, solver = steps.build_train(arch, cfg, None, spec, recipe,
+                                              device=dev, mesh=mesh)
+    if (solver.exchange.rows.start, solver.exchange.rows.stop) != (
+            pod, pod + 1):
+        raise AssertionError(f"fsdp admm: rows {solver.exchange.rows}")
+    data = {"tokens": tokens[agent, d * k:(d + 1) * k].contiguous()}
+    tap = MainPathTap({
+        "quantize_tree": ("K4", "quantize", functools.partial(
+            qref.quantize_tree_ref, window=PLAIN_WINDOW), hold_tree),
+        "tree_absmax": ("K4", "quantize", "tree_absmax_ref")})
+    tap.checking = True
+    losses, k4_reduces = [], [0]
+    all_reduce_max = tp.all_reduce_max
+
+    def counted(t, group=None):
+        k4_reduces[0] += t.dtype == torch.int32
+        return all_reduce_max(t, group)
+
+    def mean_loss(st):
+        """``train.mean_loss`` over the mesh: each agent's loss at the
+        agents' mean x̄ (``consensus_mean`` sums over "pod")."""
+        pbar = admm.consensus_mean(st, solver.exchange)
+        with torch.no_grad(), use_mesh(mesh):
+            return float(torch.stack([loss(pbar, {"tokens": tokens[a]})
+                                      for a in range(a_n)]).mean())
+
+    def fsdp_rounds():
+        st = init(x0)
+        for i in range(rounds):
+            st = step(st, data, 100 + i)
+            losses.append(mean_loss(st))
+            mark(f"fsdp round {i}")
+        return st
+
+    try:
+        tp.all_reduce_max = counted
+        reset_counts()  # the FSDP rounds start here
+        st, peak = memory_peak(fsdp_rounds)
+        counts = read_counts()  # ... and end here
+    finally:
+        tp.all_reduce_max = all_reduce_max
+        tap.close()
+    held = sum(tap.checked.values())
+    mark("fsdp rounds")
+    # ---- the one-rank run's state, this rank's shard of its agent's
+    one = reference()
+    losses1 = one["losses"]
+    bounds = {f: [torch.from_numpy(b) for b in bs]
+              for f, bs in one["bounds"].items()}
+    one = {f: tree_flatten(shd.shard_params(
+        tree_map(lambda t: t[agent].clone(), tree), mesh, "admm", specs,
+        lead=STATE_LEAD[f]))[0] for f, tree in one["state"].items()}
+    mark("one-rank shards")
+    gaps = {}
+    for f, tree in _tp_state_fields(st).items():
+        scales = [float(tp.all_reduce_max(w.abs().max()[None],
+                                          scale_group)) for w in one[f]]
+        gaps[f] = _shard_gaps(
+            tree_flatten(tree)[0], one[f],
+            [b[agent] for b in bounds[f]] if f in bounds else None,
+            scales=scales)
+    del st, one
+    return {"losses": losses, "one_losses": losses1, "peak": peak,
+            "gaps": gaps, "held": held, "k4_reduces": k4_reduces[0],
+            "k4_shard": {c: counts[c] for c in (
+                "quantize_tree", "quantize_tree_two_axis", "tree_absmax")},
+            "k5": counts["dequantize_tensor"], "marks": marks,
+            "axes": compression.cut_axes(solver.tp_layouts, mesh),
+            "row_shards": solver.grad_est.row_shards}
+
+
+def fsdp_rank(rank, backend, store_dir, dev_type, smoke, started, part,
+              queue):
+    """One rank of a world of the fsdp phase (a spawned process): the
+    world from a ``FileStore``; ``part`` "serve": ``fsdp_serve`` and
+    ``fsdp_ddp`` on a (2, 2) ("data", "model") mesh of FSDP_RANKS;
+    "admm": ``fsdp_admm`` on the FSDP_ADMM_MESH ("pod", "data", "model")
+    of FSDP_ADMM_RANKS, against the one-rank run that ``queue`` brings.
+    The readings go to ``store_dir/fsdp_<part><rank>.pkl``."""
+    import functools
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, world
+
+    global DEV, SMOKE
+    DEV, SMOKE = dev_type, smoke
+    spawned = time.time() - started
+    n = FSDP_RANKS if part == "serve" else FSDP_ADMM_RANKS
+    dev = torch.device("cpu")
+    if dev_type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    with world(backend, os.path.join(store_dir, f"store_{part}"), rank, n,
+               dev if backend == "nccl" else None):
+        if part == "serve":
+            mesh = make_host_mesh(n, model=FSDP_MESH[1])
+            runs = (("serve", fsdp_serve), ("ddp", fsdp_ddp))
+        else:
+            mesh = make_host_mesh(n, model=FSDP_ADMM_MESH[2],
+                                  pods=FSDP_ADMM_MESH[0])
+            runs = (("admm", functools.partial(fsdp_admm,
+                                               reference=queue.get)),)
+        out = {"rank": rank, "backend": dist.get_backend(),
+               "device": str(dev), "spawn_s": spawned,
+               "start_s": time.perf_counter() - t0,
+               "coords": tuple(mesh.get_coordinate())}
+        for name, fn in runs:
+            t1 = time.perf_counter()
+            out[name] = fn(mesh, rank, dev)
+            out[name]["seconds"] = time.perf_counter() - t1
+        dist.barrier()
+    with open(os.path.join(store_dir, f"fsdp_{part}{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def fsdp_spawn(part, store_dir, queue=None):
+    """Starts ``fsdp_rank``'s world for ``part`` (not joined): with a card
+    a rank an NCCL world, else all ranks on one card (or the CPU) in a
+    gloo world (NCCL refuses two ranks on one device).  Returns the
+    processes' context."""
+    import torch
+    import torch.multiprocessing as mp
+
+    n = FSDP_RANKS if part == "serve" else FSDP_ADMM_RANKS
+    backend = ("nccl" if DEV == "cuda" and torch.cuda.device_count() >= n
+               else "gloo")
+    where = ("one card a rank" if backend == "nccl" else
+             f"all {n} ranks on {DEV}" + (" card 0" if DEV == "cuda"
+                                          else ""))
+    mesh = (f"(data, model) = {FSDP_MESH}" if part == "serve" else
+            f"(pod, data, model) = {FSDP_ADMM_MESH}")
+    log(f"[fsdp] {part}: a {n}-rank {backend} world ({where}), {mesh}")
+    return mp.start_processes(fsdp_rank, args=(backend, store_dir, DEV,
+                                               SMOKE, time.time(), part,
+                                               queue),
+                              nprocs=n, join=False, start_method="spawn")
+
+
+def fsdp_readings(store_dir, part):
+    """The readings of ``part``'s ranks, in rank order."""
+    import pickle
+
+    ranks = []
+    for r in range(FSDP_RANKS if part == "serve" else FSDP_ADMM_RANKS):
+        with open(os.path.join(store_dir, f"fsdp_{part}{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    log(f"[fsdp] {part}: the ranks ran their first line "
+        f"{max(r['spawn_s'] for r in ranks):.1f} s after the spawn, the "
+        f"world started in {max(r['start_s'] for r in ranks):.1f} s")
+    return ranks
+
+
+def phase_fsdp():
+    """FSDP over "data": K4's two-axis class first (``check_k4_shard2``,
+    in this process), then a world of FSDP_RANKS for serving (qwen3-0.6b
+    at full width, bf16, (2, 2) mesh: the prefill's K10 launches on every
+    rank, rank 0's calls held, the gathered logits against the one-rank
+    run's, the greedy tokens equal) and DDP on FSDP+TP shards, and a
+    world of FSDP_ADMM_RANKS for the multi-pod per-leaf LT-ADMM-CC
+    rounds, each against one process's run of the same.  The worlds run
+    side by side; once the first has ended, this process runs
+    ``fsdp_admm_one`` and hands its result to each rank of the second
+    through a queue (the state's tensors shared, not copied; they live
+    here until the ranks have ended), which they read after their
+    rounds.  Returns rank 0's readings of both worlds for the kernels
+    line."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    check_k4_shard2(torch.device(DEV))
+    if DEV == "cuda":
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    queue = mp.get_context("spawn").Queue()
+    worlds, one = [], None
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            worlds.append(fsdp_spawn("serve", d))
+            worlds.append(fsdp_spawn("admm", d, queue))
+            while not worlds[0].join():
+                pass
+            t1 = time.perf_counter()
+            one = fsdp_admm_one(torch.device(DEV))
+            sync()
+            if DEV == "cuda":
+                torch.cuda.empty_cache()  # the ranks still run beside it
+            log(f"[fsdp] admm: the one-rank run took "
+                f"{time.perf_counter() - t1:.1f} s in this process, after "
+                f"the serving world, {t1 - t0:.1f} s into the phase")
+            for _ in range(FSDP_ADMM_RANKS):
+                queue.put(one)
+            while not worlds[1].join():
+                pass
+        except BaseException:
+            for ctx in worlds:
+                for p in ctx.processes:
+                    p.terminate()
+            queue.cancel_join_thread()
+            raise
+        del one
+        ranks = fsdp_readings(d, "serve")
+        admm_ranks = fsdp_readings(d, "admm")
+    card = "" if CARD is None else f" [{CARD}]"
+    one = ranks[0]["serve"]["one"]
+    for r in ranks:
+        o = r["serve"]
+        log(f"[fsdp] serve rank {r['rank']} {r['coords']}: rows {o['rows']},"
+            f" the rank's weights {o['weight_bytes']:,} B (one rank "
+            f"{one['weight_bytes']:,} B); prefill peak above what was there "
+            f"{o['peak']:,} B (one rank {one['peak']:,} B); FSDP a prefill "
+            f"{o['gathers']}; tp {o['collectives']}; K10 {o['k10']} at "
+            f"{o['k10_shapes']}; greedy {o['decode_ms']:.3f} ms a step; "
+            f"{o['seconds']:.1f} s, marks {o['marks']}" + card)
+        n_attn = FSDP_EXPECT_K10 if not SMOKE else o["layers"]
+        if DEV == "cuda" and o["k10"] != {"": n_attn, "_tc": n_attn,
+                                          "_cc": 0}:
+            raise AssertionError(f"fsdp serve rank {r['rank']}: K10 "
+                                 f"{o['k10']}, expected {n_attn} "
+                                 "tensor-core")
+        if o["tokens"] != one["tokens"]:
+            raise AssertionError(f"fsdp serve rank {r['rank']}: tokens "
+                                 f"{o['tokens']} vs one rank's "
+                                 f"{one['tokens']}")
+    o = ranks[0]["serve"]
+    lg = o["logits"]
+    log(f"[fsdp] serve: gathered last logits vs the one-rank run's max |d| "
+        f"{lg['max_abs']:.4e} at scale {lg['scale']:.4f}, argmax equal "
+        f"{lg['argmax_equal']}; from the f32 prefill: FSDP+TP "
+        f"{lg['fsdp_f32']:.4e}, one rank {lg['one_f32']:.4e} (limit "
+        f"{TP_DRIFT_FACTOR}x + {TP_F32_RTOL} of scale); flips "
+        f"{lg['flips']}; FSDP+TP f32 vs one-rank f32 {lg['f32']:.4e} at "
+        f"scale {lg['scale32']:.4f} (limit {TP_F32_TOL} of it); "
+        f"{o['k10_held']} K10 calls of rank 0 held: {o['k10_readings']}; "
+        f"greedy tokens equal: {o['tokens'][0]}")
+    if o["k10_held"] != (o["layers"] if SMOKE else FSDP_EXPECT_K10):
+        raise AssertionError(f"fsdp serve: {o['k10_held']} K10 calls held")
+    if lg["fsdp_f32"] > TP_DRIFT_FACTOR * lg["one_f32"] + \
+            TP_F32_RTOL * lg["scale"]:
+        raise AssertionError(f"fsdp serve: logits drift {lg['fsdp_f32']}")
+    if lg["f32"] > TP_F32_TOL * lg["scale32"]:
+        raise AssertionError(f"fsdp serve: f32 logits {lg['f32']}")
+    for r in ranks:
+        o = r["ddp"]
+        log(f"[fsdp] ddp rank {r['rank']}: rows {o['rows']}, losses "
+            f"{o['losses']} (one rank {o['one_losses']}); {o['seconds']:.1f}"
+            " s" + card)
+        if any(abs(a - b) > TP_TRAIN_TOL * abs(b) for a, b in zip(
+                o["losses"], o["one_losses"])):
+            raise AssertionError(f"fsdp ddp rank {r['rank']}: losses")
+        for f, g in o["gaps"].items():
+            limit = 2 * TP_TRAIN_TOL if f.startswith("ddp_v") else \
+                TP_TRAIN_TOL
+            if g[0] > limit:
+                raise AssertionError(f"fsdp ddp rank {r['rank']}: {f} lies "
+                                     f"{g[0]:.3e} of its scale off")
+    log("[fsdp] ddp gaps (max |d| of scale) by rank: "
+        + "; ".join(f"{r['rank']}: " + ", ".join(
+            f"{f} {g[0]:.3e}" for f, g in r["ddp"]["gaps"].items())
+            for r in ranks))
+    trees = TP_TREES_A_ROUND * TP_TRAIN_ROUNDS
+    for r in admm_ranks:
+        o = r["admm"]
+        log(f"[fsdp] admm rank {r['rank']}: losses {o['losses']} (one rank "
+            f"{o['one_losses']}) at {r['coords']}; K4 shard-form launches "
+            f"{o['k4_shard']} "
+            f"({ {c: v / TP_TRAIN_ROUNDS for c, v in o['k4_shard'].items()} }"
+            f" a round), {o['held']} calls held; K4 all-reduces "
+            f"{o['k4_reduces']} ({o['k4_reduces'] / TP_TRAIN_ROUNDS:g} a "
+            f"round) over {o['axes']}; K5 {o['k5']}; rows cut in "
+            f"{o['row_shards']}; peak {o['peak']:,} B; gaps (max |d| of "
+            f"scale, off, n, past the flip bound) "
+            + ", ".join(f"{f} {g[0]:.3e}/{g[1]}/{g[2]}/{g[3]}"
+                        for f, g in o["gaps"].items())
+            + f"; {o['seconds']:.1f} s, marks {o['marks']}" + card)
+        if any(abs(a - b) > TP_TRAIN_TOL * abs(b) for a, b in zip(
+                o["losses"], o["one_losses"])):
+            raise AssertionError(f"fsdp admm rank {r['rank']}: losses")
+        # every quantise launch holds class-3 leaves (the two-axis form)
+        if DEV == "cuda" and o["k4_shard"] != {
+                "quantize_tree": trees, "quantize_tree_two_axis": trees,
+                "tree_absmax": trees}:
+            raise AssertionError(f"fsdp admm rank {r['rank']}: K4 shard "
+                                 f"launches {o['k4_shard']}")
+        if o["axes"] != ("data", "model"):
+            raise AssertionError(f"fsdp admm rank {r['rank']}: K4's scales "
+                                 f"all-reduced over {o['axes']}")
+        if o["k4_reduces"] != trees or o["held"] < 2 * trees:
+            raise AssertionError(f"fsdp admm rank {r['rank']}: "
+                                 f"{o['k4_reduces']} K4 all-reduces, "
+                                 f"{o['held']} held")
+        for f, g in o["gaps"].items():
+            if f == "x" and g[0] > TP_TRAIN_TOL:
+                raise AssertionError(f"fsdp admm: x lies {g[0]:.3e} off")
+            if g[3]:
+                raise AssertionError(f"fsdp admm: {g[3]} of {f}'s elements "
+                                     "past their flip bound")
+            if g[1] > TP_TRAIN_FLIP_SHARE * g[2]:
+                raise AssertionError(f"fsdp admm: {g[1]} of {f}'s {g[2]} "
+                                     "elements off the one-rank run's")
+    spent = time.perf_counter() - t0
+    log(f"[fsdp] phase {spent:.1f} s (limit {FSDP_PHASE_S} s)")
+    if spent > FSDP_PHASE_S:
+        raise AssertionError(f"the fsdp phase took {spent:.1f} s, over its "
+                             f"{FSDP_PHASE_S} s")
+    return {**ranks[0], "admm": admm_ranks[0]["admm"]}
+
+
+def time_fsdp_kernels(r0):
+    """K10 at the FSDP+TP rank's prefill shape, and the two-axis class of
+    K4's shard form beside class 2; the launches are rank 0's (K4's: its
+    quantise launches with class-3 leaves in the multi-pod rounds)."""
+    import torch
+
+    rows = []
+    pb, pt = FSDP_SERVE[:2]
+    b = pb // FSDP_MESH[0]
+    time_k10(rows, ("qwen3 fsdp2 tp2", b, 16 // FSDP_MESH[1],
+                    8 // FSDP_MESH[1], pt, 128), torch.bfloat16,
+             r0["serve"]["k10"]["_tc"],
+             f"rank 0 of qwen3-0.6b's FSDP+TP prefill B={pb} T={pt} on "
+             f"(data, model) = {FSDP_MESH}")
+    time_k4_shard2(rows, r0["admm"]["k4_shard"]["quantize_tree_two_axis"])
+    return rows
+
+
 @contextlib.contextmanager
 def phase_clock(name, spent):
     """Adds the host-clock seconds of the block to ``spent[name]``."""
@@ -7474,7 +8310,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,paper,mesh,fig2,obs,"
-                    "dada,harness,wide,profile,serve,train,zoo,dryrun,tp",
+                    "dada,harness,wide,profile,serve,train,zoo,dryrun,tp,"
+                    "fsdp",
                     help="comma-separated subset of the phases, for bring-up")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size (exits 3)")
@@ -7582,6 +8419,12 @@ def main(argv=None):
             tp_counts = phase_tp()
         with phase_clock("tp timing", spent):
             rows = (rows or []) + time_tp_kernels(tp_counts)
+    if "fsdp" in phases:
+        with phase_clock("fsdp", spent):
+            torch.cuda.empty_cache()
+            fsdp_r0 = phase_fsdp()
+        with phase_clock("fsdp timing", spent):
+            rows = (rows or []) + time_fsdp_kernels(fsdp_r0)
     log(f"[time] host-clock seconds by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
         + f"; main {time.perf_counter() - t_main:.1f}")

@@ -267,11 +267,19 @@ def batch_indices(cfg: LTADMMConfig, round_key, agents, m: int):
     return jaxrand.randint(keys, (cfg.batch_size,), 0, m)
 
 
+def agent_rows(vr_est, data) -> int:
+    """An agent's m_local: the rank's rows of ``data`` times the parts an
+    estimator over rows cut over ranks says they are (``row_shards``,
+    FSDP), so the batch is drawn over the agent's whole rows."""
+    return (next(iter(data.values())).shape[1]
+            * getattr(getattr(vr_est, "est", vr_est), "row_shards", 1))
+
+
 def local_phase(cfg: LTADMMConfig, ids: RoundIds, vr_est, x, z, data,
                 round_key):
     """Lines 2-8: tau variance-reduced steps per agent -> x_{k+1}.  The
     degrees are the (union) topology's; ``z`` is zero on masked slots."""
-    m = next(iter(data.values())).shape[1]
+    m = agent_rows(vr_est, data)
     x0 = first_leaf(x)
     corr = tree_map(
         lambda xs, zs: cfg.beta * (cfg.r ** 2 * cfg.rho
@@ -556,7 +564,7 @@ def _emit_round_telemetry(cfg, vr_est, data, deg, per_msg: int, node_k,
     ``[A]`` int64 on the device, ``node_k`` ``[A]`` bool or None (every
     agent participates).  Terms only: the wrapper folds them, one add
     each, and nothing is read back to the host."""
-    m = next(iter(data.values())).shape[1]
+    m = agent_rows(vr_est, data)
     evals = telemetry.local_phase_evals(vr_est, m, cfg.tau, cfg.batch_size)
     telemetry.emit(
         tx_bytes=(deg, per_msg), tx_msgs=(deg, 2),
@@ -597,10 +605,11 @@ def consensus_error(state, exchange=None, layouts=None):
     every leaf); global over the mesh as ``consensus_mean`` is.
 
     ``layouts``: x's leaves are a rank's shards over the ambient mesh's
-    "model" axis (tensor parallelism), laid out as these
-    ``ShardLayout``s (flatten order): the sum also runs over the axis, a
-    piece held whole on every rank counted once (by the axis's rank
-    0)."""
+    "model" axis (tensor parallelism) and "data" axis (FSDP), laid out as
+    these ``ShardLayout``s (flatten order): the sum also runs over both
+    axes, each element counted once (a piece held whole over "model" by
+    the axis's rank 0, a leaf that "data" does not cut by that axis's
+    rank 0)."""
     if layouts is None:
         if exchange is None or exchange.mesh is None:
             return tree_consensus_error(state.x)
@@ -608,21 +617,37 @@ def consensus_error(state, exchange=None, layouts=None):
         sq = tree_map(lambda x, m: ((x - m) ** 2).reshape(x.shape[0], -1)
                       .sum(dim=1), state.x, mean)
         return sum(tree_flatten(exchange.agent_sum(sq))[0])
-    from repro_torch.launch import tp
+    import torch.distributed as dist
+
+    from repro_torch.launch import fsdp, tp
+    from repro_torch.launch.mesh import (agent_axis_for, axes_of,
+                                         current_mesh, group_of)
 
     mean = consensus_mean(state, exchange)
-    first = tp.rank() == 0
+    mesh = current_mesh()
+    agents = agent_axis_for(mesh)
+    # "data" cuts the leaves where it is not the agent axis (multi-pod)
+    first_m = tp.rank() == 0
+    first_d = agents == fsdp.AXIS or fsdp.rank() == 0
     leaves, means = tree_flatten(state.x)[0], tree_flatten(mean)[0]
     total = None
     for x, m, lay in zip(leaves, means, layouts):
         d = ((x - m) ** 2).reshape(x.shape[0], -1)
-        if not first:
-            d = d * ~lay.whole_mask(x.device)
+        if not first_d and not lay.cut_over(fsdp.AXIS):
+            d = d * 0
+        if not first_m:
+            d = (d * ~lay.whole_mask(x.device) if lay.cut_over(tp.AXIS)
+                 else d * 0)
         s = d.sum()
         total = s if total is None else total + s
     if exchange is not None and exchange.mesh is not None:
         total = exchange.agent_sum(total[None])
-    return tp.all_reduce(total.clone())
+    ax = axes_of(mesh)
+    axes = tuple(a for a in ax.axis_names if a != agents and ax.shape[a] > 1)
+    total = total.clone()
+    if axes:
+        dist.all_reduce(total, group=group_of(mesh, axes))
+    return total
 
 
 def _edge_payload_bytes(cfg: LTADMMConfig, params) -> int:

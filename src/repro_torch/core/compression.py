@@ -32,11 +32,12 @@ route instead of a kernel.  As in the
 reference, the torch and kernel qbit routes draw different rounding bits
 (``jax.random.uniform`` vs raw ``jax.random.bits`` or the counter cipher).
 
-Tensor parallelism: ``ShardedTree`` compresses a tree whose leaves are a
-rank's shards over the "model" axis (``launch.sharding.shard_layouts``)
+Tensor parallelism and FSDP: ``ShardedTree`` compresses a tree whose
+leaves are a rank's shards over the "model" axis, or over "data" and
+"model" (``launch.sharding.shard_layouts``)
 as the reference compresses the whole leaves: one message a leaf.  The
 identity sends the shard; qbit quantises it at the whole leaf's scale
-(the ranks' row max all-reduced with MAX over the axis, once for a
+(the ranks' row max all-reduced with MAX over the axes, once for a
 whole message tree) with each element's rounding bits drawn at its flat
 index in the whole leaf (the kernel route: K4's shard form, one launch a
 pass for the whole tree; the torch route: ``jaxrand.bits_at``), so the
@@ -186,27 +187,38 @@ class BBitQuantizer:
         shards are ``xs`` (``[..., n_i]``, one lead shape), leaf i laid
         out as ``layouts[i]`` and keyed by ``keys[..., i, :]`` (``keys
         [..., L, 2]``): the rank's part of each whole leaf's payload.  The
-        cut leaves' scales take one all-reduce with MAX over the ambient
-        mesh's "model" axis for the whole tree; a leaf held whole keeps
-        its own (every rank holds it).  The kernel route is K4's shard
-        form, one launch a pass for every leaf; the torch route quantises
-        leaf by leaf.  Returns the payloads in the leaves' order."""
+        cut leaves' scales take one all-reduce with MAX for the whole
+        tree, over the ambient mesh's axes that cut any leaf (the
+        layouts' ``axes``, in mesh order: ``("data", "model")`` for
+        FSDP+TP, the agent's whole group, where a leaf cut over one of
+        them is replicated over the other); a leaf held whole keeps its
+        own (every rank holds it).  The kernel route is K4's
+        shard form, one launch a pass for every leaf; the torch route
+        quantises leaf by leaf.  Returns the payloads in the leaves'
+        order."""
         from repro_torch.launch import tp
+        from repro_torch.launch.mesh import current_mesh, group_of
 
         xs = [x.to(torch.float32) for x in xs]
         layouts = tuple(layouts)
         m = qref.tree_rows(xs)[1]
+
+        def reduce_max(t):
+            mesh = current_mesh()
+            return tp.all_reduce_max(t, group_of(mesh,
+                                                 cut_axes(layouts, mesh)))
+
         if resolve_impl(self.impl, xs[0].device) == "kernel":
             words = qops.tree_absmax(xs, layouts)
             cut = qops.cut_rows(layouts, m)
-            reduced = tp.all_reduce_max(words[:cut]) if cut else None
+            reduced = reduce_max(words[:cut]) if cut else None
             return [Payload(q=q, scale=sc) for q, sc in qops.quantize_tree(
                 keys, xs, words, layouts, bits=self.bits, reduced=reduced)]
         cut = [i for i, lay in enumerate(layouts) if lay.cut]
         scales = {}
         if cut:
-            top = tp.all_reduce_max(torch.stack([qref.row_scale(xs[i])
-                                                 for i in cut]))
+            top = reduce_max(torch.stack([qref.row_scale(xs[i])
+                                          for i in cut]))
             scales = dict(zip(cut, top))
         out = []
         for i, (x, lay) in enumerate(zip(xs, layouts)):
@@ -396,6 +408,15 @@ class TopK:
 # ---------------------------------------------------------------------------
 # Tensor parallelism: a tree of a rank's shards over the "model" axis
 # ---------------------------------------------------------------------------
+
+
+def cut_axes(layouts, mesh) -> tuple:
+    """The axes of ``mesh`` that cut any of ``layouts``' leaves, in mesh
+    order: the group over which a tree's cut scales are all-reduced."""
+    from repro_torch.launch.mesh import axes_of
+
+    cut = {a for lay in layouts if lay.cut for a in lay.axes}
+    return tuple(a for a in axes_of(mesh).axis_names if a in cut)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,17 +76,24 @@ class SagaTable:
 @dataclasses.dataclass(frozen=True)
 class SvrgAnchor:
     """Anchor (loopless-SVRG style) estimator:
-    g = grad_B(phi) - grad_B(anchor) + grad(anchor)."""
+    g = grad_B(phi) - grad_B(anchor) + grad(anchor).
+
+    ``take``: how a minibatch is read from the data (``take_rows``; the
+    FSDP rows' gather where an agent's rows are cut over ranks), and
+    ``row_shards`` the parts the agent's rows are cut into (``m`` is the
+    rank's rows times it)."""
 
     batch_grad: Callable
     full_grad: Callable
+    take: Callable = take_rows
+    row_shards: int = 1
 
     def reset(self, params, data) -> SvrgState:
         return SvrgState(anchor=params,
                          anchor_grad=self.full_grad(params, data))
 
     def estimate(self, state: SvrgState, phi, data, idx):
-        batch = take_rows(data, idx)
+        batch = self.take(data, idx)
         g_phi = self.batch_grad(phi, batch)
         g_anc = self.batch_grad(state.anchor, batch)
         return tree_map(lambda a, b, c: a - b + c, g_phi, g_anc,
@@ -108,12 +115,15 @@ class FullGrad:
 
 @dataclasses.dataclass(frozen=True)
 class PlainSgd:
-    """Plain minibatch gradient (no variance reduction)."""
+    """Plain minibatch gradient (no variance reduction); ``take`` and
+    ``row_shards`` as ``SvrgAnchor``'s."""
 
     batch_grad: Callable
+    take: Callable = take_rows
+    row_shards: int = 1
 
     def reset(self, params, data):
         return ()
 
     def estimate(self, state, phi, data, idx):
-        return self.batch_grad(phi, take_rows(data, idx)), state
+        return self.batch_grad(phi, self.take(data, idx)), state

@@ -478,12 +478,13 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
 
 // ---------------------------------------------------------------------------
 // K4's shard form, grouped: the leaves of one message tree whose rank's
-// shards tensor parallelism cut over the "model" axis, one launch a pass
+// shards tensor parallelism cut over the "model" axis (and FSDP over
+// "data"), one launch a pass
 // ---------------------------------------------------------------------------
 //
 // The scale of a cut leaf is the whole leaf's, so the rank's row max is a
 // pass of its own (shard_tree_absmax), the caller all-reduces the cut
-// leaves' words with MAX over the axis, and the quantise pass
+// leaves' words with MAX over the agent's ranks, and the quantise pass
 // (shard_tree_quantize) takes them.  Each pass walks the tiles (kQTile
 // elements of a row) of every leaf of the tree, a leaf's M rows one after
 // another, on one persistent grid; a block finds its tile's leaf by a
@@ -515,7 +516,13 @@ int launch_quantize_rows(const float* x, int M, int n, int wire, Kappa src,
 //            elements an outer index, g = j + outer * delta + base;
 //   class 2: up to kMaxPieces pieces (local start, global start, length)
 //            along the cut dim: j = (outer * ldim + l) * inner + i lies at
-//            g = (outer * gdim + l - ls[p] + gs[p]) * inner + i.
+//            g = (outer * gdim + l - ls[p] + gs[p]) * inner + i;
+//   class 3: two cut dims (FSDP's "data" dim, one piece, and the "model"
+//            dim's pieces, either first): class 2 on the inner cut dim,
+//            whose outer index is itself cut: outer = (o * ldim2 + a) *
+//            mid + c lies at (o * gdim2 + along2(a)) * mid + c, mid the
+//            elements between the two cut dims, along2 the outer cut
+//            dim's pieces.
 // The quantise loop is instantiated per class.  A group of 4 (b=8) or 8
 // (b=4) elements works out its first element's place once, by a
 // multiply-high by constants the host computed (fast_div), and steps to
@@ -551,9 +558,20 @@ enum ShardWord {
   kSwLs,                     // pieces' local starts
   kSwGs = kSwLs + kMaxPieces,  // global starts
   kSwLen = kSwGs + kMaxPieces,  // lengths
-  kShardWords = 32
+  kSwMid = kSwLen + kMaxPieces,  // class 3: the elements between the cuts
+  kSwMidM,                    // its fast_div constants
+  kSwMidS,
+  kSwLdim2,                   // the outer cut dim's local length
+  kSwLdim2M,                  // its fast_div constants
+  kSwLdim2S,
+  kSwGdim2,                   // its whole length
+  kSwPieces2,
+  kSwLs2,                       // its pieces' local starts
+  kSwGs2 = kSwLs2 + kMaxPieces,  // global starts
+  kSwLen2 = kSwGs2 + kMaxPieces,  // lengths
+  kShardWords = 64
 };
-static_assert(kSwLen + kMaxPieces <= kShardWords, "table entry");
+static_assert(kSwLen2 + kMaxPieces <= kShardWords, "table entry");
 
 // n / d for every 32-bit n by a multiply-high, with the host's constants
 // m and s = s1 | s2 << 8 of d (Granlund and Montgomery 1994, fig. 4.1: l =
@@ -571,6 +589,10 @@ struct ShardMap {
   uint32_t base, delta, block, bm, bs, inner, im, is, gdim, ldim;
   int pieces;
   uint32_t ls[kMaxPieces], gs[kMaxPieces], len[kMaxPieces];
+  // class 3: the outer cut dim
+  uint32_t mid, mm, ms, ldim2, l2m, l2s, gdim2;
+  int pieces2;
+  uint32_t ls2[kMaxPieces], gs2[kMaxPieces], len2[kMaxPieces];
 
   __device__ __forceinline__ explicit ShardMap(const uint32_t* e) {
     base = __ldg(e + kSwBase);
@@ -590,6 +612,22 @@ struct ShardMap {
       gs[p] = __ldg(e + kSwGs + p);
       len[p] = __ldg(e + kSwLen + p);
     }
+    if (kClass == 3) {
+      mid = __ldg(e + kSwMid);
+      mm = __ldg(e + kSwMidM);
+      ms = __ldg(e + kSwMidS);
+      ldim2 = __ldg(e + kSwLdim2);
+      l2m = __ldg(e + kSwLdim2M);
+      l2s = __ldg(e + kSwLdim2S);
+      gdim2 = __ldg(e + kSwGdim2);
+      pieces2 = static_cast<int>(__ldg(e + kSwPieces2));
+#pragma unroll
+      for (int p = 0; p < kMaxPieces; ++p) {
+        ls2[p] = __ldg(e + kSwLs2 + p);
+        gs2[p] = __ldg(e + kSwGs2 + p);
+        len2[p] = __ldg(e + kSwLen2 + p);
+      }
+    }
   }
 
   // the whole leaf's index along the cut dim of local index l (class 2)
@@ -602,6 +640,22 @@ struct ShardMap {
     return g;
   }
 
+  // ... and along the outer cut dim (class 3)
+  __device__ __forceinline__ uint32_t along2(uint32_t a) const {
+    uint32_t g = a;
+#pragma unroll
+    for (int p = 0; p < kMaxPieces; ++p) {
+      if (p < pieces2 && a - ls2[p] < len2[p]) g = a - ls2[p] + gs2[p];
+    }
+    return g;
+  }
+
+  // class 3: the local outer index (o, a, c) -> the whole leaf's
+  __device__ __forceinline__ uint32_t outer_at(uint32_t o, uint32_t a,
+                                               uint32_t c) const {
+    return (o * gdim2 + along2(a)) * mid + c;
+  }
+
   // g of one element
   __device__ __forceinline__ uint32_t one(uint32_t j) const {
     if (kClass == 0) return j + base;
@@ -609,7 +663,13 @@ struct ShardMap {
     if (kClass == 1) return j + outer * delta + base;
     const uint32_t rem = j - outer * block;
     const uint32_t l = fast_div(rem, im, is);
-    return (outer * gdim + along(l)) * inner + (rem - l * inner);
+    uint32_t go = outer;
+    if (kClass == 3) {
+      const uint32_t t = fast_div(outer, mm, ms);
+      const uint32_t o = fast_div(t, l2m, l2s);
+      go = outer_at(o, t - o * ldim2, outer - t * mid);
+    }
+    return (go * gdim + along(l)) * inner + (rem - l * inner);
   }
 
   // g of elements j .. j + G - 1: the first's place once, then steps
@@ -637,14 +697,38 @@ struct ShardMap {
     }
     uint32_t l = fast_div(r, im, is);
     uint32_t i = r - l * inner;
+    if (kClass == 2) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        g[k] = (outer * gdim + along(l)) * inner + i;
+        if (++i == inner) {
+          i = 0;
+          if (++l == ldim) {
+            l = 0;
+            ++outer;
+          }
+        }
+      }
+      return;
+    }
+    // class 3: the outer index as (o, a, c), stepped with the rest
+    const uint32_t t = fast_div(outer, mm, ms);
+    uint32_t o = fast_div(t, l2m, l2s);
+    uint32_t a = t - o * ldim2, c = outer - t * mid;
 #pragma unroll
     for (int k = 0; k < G; ++k) {
-      g[k] = (outer * gdim + along(l)) * inner + i;
+      g[k] = (outer_at(o, a, c) * gdim + along(l)) * inner + i;
       if (++i == inner) {
         i = 0;
         if (++l == ldim) {
           l = 0;
-          ++outer;
+          if (++c == mid) {
+            c = 0;
+            if (++a == ldim2) {
+              a = 0;
+              ++o;
+            }
+          }
         }
       }
     }
@@ -801,8 +885,11 @@ __global__ __launch_bounds__(kQThreads) void shard_tree_quantize(
       case 1:
         shard_tile<kBits, 1>(en, st, xr, n, sc, qr, s);
         break;
-      default:
+      case 2:
         shard_tile<kBits, 2>(en, st, xr, n, sc, qr, s);
+        break;
+      default:
+        shard_tile<kBits, 3>(en, st, xr, n, sc, qr, s);
     }
   }
 }

@@ -27,12 +27,13 @@
 //
 // K4's shard form (shard_tree_absmax, shard_tree_quantize): a rank's
 // shards of the leaves of one message tree that tensor parallelism cuts
-// over the "model" axis, each quantised as its part of the whole leaf's
+// over the "model" axis, and FSDP over "data" (a leaf cut on one dim of
+// each: index class 3), each quantised as its part of the whole leaf's
 // message, one launch a pass for the whole tree (up to kMaxLeaves leaves a
 // launch).  The scale is the whole leaf's, so the rank's row max is its own
 // pass (each row's max |x| as uint32 bits: for a non-negative f32 the bits
 // order as the value, a NaN's above +inf's), the caller all-reduces the
-// cut leaves' words (a prefix) with MAX over the axis, and the quantise
+// cut leaves' words (a prefix) with MAX over the axes, and the quantise
 // pass takes them; each element's kappa is the whole leaf's bit at its
 // global flat index.  Design and index classes: quantize.cuh, "K4's shard
 // form, grouped".  b=4 packs the shard's own pairs.  Dequantising the

@@ -164,12 +164,19 @@ quantize_tensor.launches = 0
 Q_TILE = 8192  # elements of a row a tile (csrc: kQTile)
 MAX_LEAVES = 128  # leaves a launch (csrc: kMaxLeaves)
 # a table entry's words (csrc: ShardWord)
-SHARD_WORDS = 32
+SHARD_WORDS = 64
 SW = {name: i for i, name in enumerate((
     "n", "tiles", "first", "slot", "key", "q8", "q4", "cls", "base",
     "delta", "block", "block_m", "block_s", "inner", "inner_m", "inner_s",
     "gdim", "ldim", "pieces"))}
 SW.update(ls=19, gs=19 + ref.MAX_PIECES, len=19 + 2 * ref.MAX_PIECES)
+_W2 = 19 + 3 * ref.MAX_PIECES  # class 3's words: the outer cut dim's
+SW.update({name: _W2 + i for i, name in enumerate((
+    "mid", "mid_m", "mid_s", "ldim2", "ldim2_m", "ldim2_s", "gdim2",
+    "pieces2"))})
+SW.update(ls2=_W2 + 8, gs2=_W2 + 8 + ref.MAX_PIECES,
+          len2=_W2 + 8 + 2 * ref.MAX_PIECES)
+_PIECE_WORDS = ("ls", "gs", "len", "ls2", "gs2", "len2")
 Q_ALIGN = 16  # bytes between a leaf's q and the next's, rounded up
 
 
@@ -185,36 +192,61 @@ def fast_divmod(d: int) -> tuple:
     return m, min(ln, 1) | max(ln - 1, 0) << 8
 
 
+def _covered(pieces, ldim):
+    """Raise unless ``pieces`` cover a local dim of ``ldim`` in order."""
+    at = 0
+    for ls, _, ln, _ in pieces:
+        if ls != at or ln < 1:
+            raise ValueError(f"pieces {pieces} do not cover the local "
+                             f"dim of {ldim} in order")
+        at += ln
+    if at != ldim:
+        raise ValueError(f"pieces {pieces} cover {at} of {ldim}")
+
+
+def _piece_words(pieces, suffix=""):
+    return {k + suffix: [pc[c] for pc in pieces]
+            for c, k in enumerate(("ls", "gs", "len"))}
+
+
 def shard_entry(lay) -> dict:
     """A leaf's index class and constants for the quantise pass (the
     table's words from ``cls`` on): class 0 where the shard is one run of
     the whole leaf (a leaf held whole: the identity), 1 for one piece
-    along the cut dim (a run an outer index), 2 for more.  Raises unless
+    along the cut dim (a run an outer index), 2 for more, 3 for a shard
+    cut on two dims (FSDP's "data" dim beside the "model" dim, either
+    first): the inner cut dim's pieces as class 2's, the outer one's in
+    the ``*2`` words, ``mid`` the elements between them.  Raises unless
     the whole leaf has fewer than 2^32 elements and the pieces (at most
-    ``MAX_PIECES``) cover the local cut dim in order."""
+    ``MAX_PIECES`` a dim) cover each local cut dim in order."""
     if lay.numel >= 2 ** 32:
         raise ValueError(f"a leaf of {lay.numel} elements: the kernel's "
                          "counters are 32-bit")
-    e = dict.fromkeys(("delta", "gdim", "ldim", "pieces"), 0)
-    e.update(block=1, inner=1)
+    e = dict.fromkeys(("delta", "gdim", "ldim", "pieces", "gdim2",
+                       "pieces2"), 0)
+    e.update(block=1, inner=1, mid=1, ldim2=1)
     if not lay.cut:
         return {**e, "cls": 0, "base": 0, "n": lay.numel}
+    loc = lay.local_shape
+    if lay.dim2 is not None:
+        (lo, plo), (hi, phi) = sorted(((lay.dim, lay.pieces),
+                                       (lay.dim2, lay.pieces2)))
+        _covered(plo, loc[lo])
+        _covered(phi, loc[hi])
+        inner = math.prod(lay.shape[hi + 1:])
+        e.update(cls=3, n=math.prod(loc), inner=inner, gdim=lay.shape[hi],
+                 ldim=loc[hi], pieces=len(phi), block=loc[hi] * inner,
+                 base=0, mid=math.prod(lay.shape[lo + 1:hi]),
+                 ldim2=loc[lo], gdim2=lay.shape[lo], pieces2=len(plo),
+                 **_piece_words(phi), **_piece_words(plo, "2"))
+        return e
     inner, gdim, ldim, pieces = lay.words()[:4]
     d = lay.dim
     outer = math.prod(lay.shape[:d])
-    at = 0
-    for ls, _, ln, _ in lay.pieces:
-        if ls != at or ln < 1:
-            raise ValueError(f"pieces {lay.pieces} do not cover the local "
-                             f"dim of {ldim} in order")
-        at += ln
-    if at != ldim:
-        raise ValueError(f"pieces {lay.pieces} cover {at} of {ldim}")
+    _covered(lay.pieces, ldim)
     e.update(n=outer * ldim * inner, inner=inner, gdim=gdim, ldim=ldim,
              pieces=pieces, block=ldim * inner,
-             base=lay.pieces[0][1] * inner,
-             **{k: [pc[c] for pc in lay.pieces]
-                for c, k in enumerate(("ls", "gs", "len"))})
+             base=lay.pieces[0][1] * inner, **_piece_words(lay.pieces))
     if pieces > 1:
         e["cls"] = 2
     elif outer == 1:
@@ -256,8 +288,8 @@ class ShardPlan:
                 padded = -(-nb // Q_ALIGN) * Q_ALIGN
                 self.q_parts[bits] += [nb, padded - nb]
                 off[bits] += padded
-            e["block_m"], e["block_s"] = fast_divmod(e["block"])
-            e["inner_m"], e["inner_s"] = fast_divmod(e["inner"])
+            for k in ("block", "inner", "mid", "ldim2"):
+                e[f"{k}_m"], e[f"{k}_s"] = fast_divmod(e[k])
             entries.append((i, e))
         if max(off.values()) >= 2 ** 32:
             raise ValueError(f"a tree of {off[8]} q bytes: the offsets are "
@@ -279,7 +311,8 @@ class ShardPlan:
                                   for w in words], dtype=torch.int32)
             self.launches.append(_Launch(
                 [i for i, _ in chunk], table.to(device), first, tiles,
-                (ctypes.c_void_p * len(chunk))()))
+                (ctypes.c_void_p * len(chunk))(),
+                any(e["cls"] == 3 for _, e in chunk)))
             tiles += first
         # an arrival counter a slot, then a partial a tile
         self.scratch = torch.zeros((self.slots + tiles,), dtype=torch.int32,
@@ -309,12 +342,13 @@ class _Launch:
     tiles: int
     tile0: int  # its first tile among the plan's
     xs: object  # host array of the leaves' x pointers
+    two_axis: bool  # a leaf of class 3 among its leaves
 
 
 def _entry_words(e) -> list:
     w = [0] * SHARD_WORDS
     for k, i in SW.items():
-        if k in ("ls", "gs", "len"):
+        if k in _PIECE_WORDS:
             w[i:i + len(e.get(k, ()))] = e.get(k, ())
         else:
             w[i] = e[k]
@@ -412,6 +446,7 @@ def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
                       reduced.data_ptr(), cut, words.data_ptr(),
                       scale.data_ptr(), q.data_ptr())
         quantize_tree.launches += 1
+        quantize_tree.launches_two_axis += ln.two_axis
     parts = q.split(plan.q_parts[bits])
     scales = scale.split(plan.m)
     out = [None] * len(xs)
@@ -422,6 +457,7 @@ def quantize_tree(keys, xs, words, layouts, *, bits=8, reduced=None):
 
 
 quantize_tree.launches = 0
+quantize_tree.launches_two_axis = 0  # those of them with a class-3 leaf
 
 
 def _key_words(keys, lead, device):

@@ -281,52 +281,74 @@ MAX_PIECES = 4  # the shard form's pieces along the cut dim (csrc: kMaxPieces)
 @dataclasses.dataclass(frozen=True)
 class ShardLayout:
     """Where a rank's shard of one leaf lies in the whole leaf: ``shape``
-    the whole leaf's, ``dim`` the dim cut over the "model" axis (None:
-    the rank holds the whole leaf), ``pieces`` the shard's parts along
-    ``dim`` in order, ``(local start, global start, length, cut)`` each
-    (``cut``: the rank's part of a piece the axis splits; otherwise a
-    piece every rank holds whole).  ``launch.sharding.shard_layouts``
-    builds them from the ``tp_plan``."""
+    the whole leaf's, ``dim`` a cut dim (None: the rank holds the whole
+    leaf), ``pieces`` the shard's parts along ``dim`` in order, ``(local
+    start, global start, length, cut)`` each (``cut``: the rank's part of
+    a piece the axis splits; otherwise a piece every rank holds whole).
+    ``dim2`` and ``pieces2``: a second cut dim and its pieces, for a leaf
+    cut over two axes (FSDP's "data" dim, one piece, beside the "model"
+    dim's pieces, either first).  ``axes``: the mesh axis that cuts
+    ``dim`` (and the one that cuts ``dim2``), none for a whole leaf.
+    ``launch.sharding.shard_layouts`` builds them from the ``tp_plan``."""
 
     shape: tuple
     dim: int | None = None
     pieces: tuple = ()
+    dim2: int | None = None
+    pieces2: tuple = ()
+    axes: tuple = ()
+
+    def cut_over(self, axis: str) -> bool:
+        """Whether ``axis`` cuts one of the shard's dims."""
+        return axis in self.axes
 
     def __post_init__(self):
-        if self.dim is not None and not 1 <= len(self.pieces) <= MAX_PIECES:
-            raise ValueError(f"a shard of 1..{MAX_PIECES} pieces, got "
-                             f"{len(self.pieces)}")
+        if len(self.axes) != len(self._cuts()):
+            raise ValueError(f"cut dims {self.dim}, {self.dim2} over axes "
+                             f"{self.axes}")
+        for d, ps in ((self.dim, self.pieces), (self.dim2, self.pieces2)):
+            if d is not None and not 1 <= len(ps) <= MAX_PIECES:
+                raise ValueError(f"a shard of 1..{MAX_PIECES} pieces, got "
+                                 f"{len(ps)}")
+        if self.dim2 is not None and (self.dim is None
+                                      or self.dim2 == self.dim):
+            raise ValueError(f"a second cut dim {self.dim2} beside "
+                             f"{self.dim}")
+
+    def _cuts(self) -> tuple:
+        """``((dim, pieces), ...)`` of the cut dims."""
+        return tuple((d, ps) for d, ps in ((self.dim, self.pieces),
+                                           (self.dim2, self.pieces2))
+                     if d is not None)
 
     @property
     def cut(self) -> bool:
         """Whether the rank holds a part of the leaf only."""
-        return any(p[3] for p in self.pieces)
+        return any(p[3] for _, ps in self._cuts() for p in ps)
 
     @property
     def local_shape(self) -> tuple:
-        if self.dim is None:
-            return tuple(self.shape)
         s = list(self.shape)
-        s[self.dim] = sum(p[2] for p in self.pieces)
+        for d, ps in self._cuts():
+            s[d] = sum(p[2] for p in ps)
         return tuple(s)
 
     @property
     def numel(self) -> int:
         return math.prod(self.shape)
 
-    def _along(self, device):
-        """The local index along ``dim`` -> (its global index, held whole)
+    def _along(self, d, pieces, device):
+        """The local index along ``d`` -> (its global index, held whole)
         as int64 / bool vectors."""
-        g = torch.empty(self.local_shape[self.dim], dtype=torch.int64,
+        g = torch.empty(self.local_shape[d], dtype=torch.int64,
                         device=device)
         whole = torch.empty_like(g, dtype=torch.bool)
-        for ls, gs, n, cut in self.pieces:
+        for ls, gs, n, cut in pieces:
             g[ls:ls + n] = torch.arange(gs, gs + n, device=device)
             whole[ls:ls + n] = not cut
         return g, whole
 
-    def _expand(self, along, device):
-        d = self.dim
+    def _expand(self, d, along):
         view = [1] * len(self.shape)
         view[d] = -1
         return along.reshape(view).expand(self.local_shape).reshape(-1)
@@ -336,35 +358,43 @@ class ShardLayout:
         (int64 ``[n_local]``, in the shard's flat order)."""
         if self.dim is None:
             return torch.arange(self.numel, dtype=torch.int64, device=device)
-        loc = self.local_shape
-        d = self.dim
-        inner = math.prod(self.shape[d + 1:])
-        g, _ = self._along(device)
-        outer = torch.arange(math.prod(loc[:d]), dtype=torch.int64,
-                             device=device)
-        ii = torch.arange(inner, dtype=torch.int64, device=device)
-        idx = ((outer[:, None, None] * self.shape[d] + g[None, :, None])
-               * inner + ii[None, None, :])
-        return idx.reshape(-1)
+        cuts = dict(self._cuts())
+        idx = torch.zeros((), dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(len(self.shape))):
+            g = (self._along(d, cuts[d], device)[0] if d in cuts else
+                 torch.arange(self.shape[d], dtype=torch.int64,
+                              device=device))
+            view = [1] * len(self.shape)
+            view[d] = -1
+            idx = idx + g.reshape(view) * stride
+            stride *= self.shape[d]
+        return idx.expand(self.local_shape).reshape(-1)
 
     def whole_mask(self, device) -> torch.Tensor:
-        """Which of the shard's elements lie in a piece held whole (bool
-        ``[n_local]``): all of them for a leaf held whole."""
+        """Which of the shard's elements lie in a piece held whole on
+        ``dim`` (bool ``[n_local]``): all of them for a leaf held whole."""
         if self.dim is None:
             return torch.ones(self.numel, dtype=torch.bool, device=device)
-        return self._expand(self._along(device)[1], device)
+        return self._expand(self.dim, self._along(self.dim, self.pieces,
+                                                  device)[1])
 
     def words(self) -> tuple:
         """The cut's description: inner, the whole and the local length of
         ``dim``, the piece count, then ``(local start, global start,
         length)`` for ``MAX_PIECES`` pieces (zeros past the last); the
-        kernel's table entry is built from it (``ops.shard_entry``)."""
-        d = self.dim
-        out = [math.prod(self.shape[d + 1:]), self.shape[d],
-               self.local_shape[d], len(self.pieces)]
-        for i in range(MAX_PIECES):
-            out += (list(self.pieces[i][:3]) if i < len(self.pieces)
-                    else [0, 0, 0])
+        kernel's table entry is built from it (``ops.shard_entry``).  A
+        second cut dim adds the same of ``dim2``, and then ``mid``: the
+        elements between the two cut dims."""
+        out = []
+        for d, ps in self._cuts():
+            out += [math.prod(self.shape[d + 1:]), self.shape[d],
+                    self.local_shape[d], len(ps)]
+            for i in range(MAX_PIECES):
+                out += list(ps[i][:3]) if i < len(ps) else [0, 0, 0]
+        if self.dim2 is not None:
+            lo, hi = sorted((self.dim, self.dim2))
+            out.append(math.prod(self.shape[lo + 1:hi]))
         return tuple(out)
 
 

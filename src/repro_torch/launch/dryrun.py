@@ -32,7 +32,9 @@ What rank 0 runs:
   A per-leaf LT-ADMM-CC solver (``"ltadmm:packed=false"``) of the archs
   that ``steps.tensor_parallel`` admits runs tensor-parallel: every
   state leaf is the rank's shard over "model" (the ``tp_plan`` of mode
-  "admm", recorded as for serving).
+  "admm", recorded as for serving), and on the multi-pod mesh also over
+  "data" (FSDP, ``steps.fsdp_training``: the reference's rules give the
+  embed dims "data" there).
 * prefill and decode: ``build_prefill`` / ``build_serve`` with the mesh,
   the parameters cut by the variant's ``serve_mode`` (default "serve";
   ``shd.shard_params``, ``shd.param_pspec``), the rank's share of
@@ -42,16 +44,24 @@ What rank 0 runs:
   sequence-sharded attention.  Where ``steps.tp_serving`` holds (the
   GQA + FFN archs and zamba2) the step runs tensor-parallel over "model"
   on the rank's shard of the parameters (``shd.shard_params``) and its
-  cache (the KV heads, the SSD heads and their conv channels).
+  cache (the KV heads, the SSD heads and their conv channels).  In mode
+  "serve" every decoder-only arch's parameters are also cut over "data"
+  (FSDP: the embed dims, gathered where they are used).
 
-A record says whether tensor parallelism ran (``"tp_applied"``: true for
-those archs' prefill and decode and their per-leaf LT-ADMM-CC training;
-false for the packed training round, whose plane the reference too
-replicates over "model", and for the MoE, MLA, xLSTM and
-encoder-decoder archs, whose parameters are replicated over "model", so
-their per-device bytes and FLOPs exceed the reference's by design) beside the dims it sharded (``"sharded"``), those the reference's
-specs shard that it ran whole (``"whole"``: the parameters' "data" dims,
-FSDP, always), and the leaves it holds in another layout than the
+A record says whether tensor parallelism ran (``"tp_applied"``: the
+rank held a shard of the parameters over "model"; true for
+``tp_serving``'s archs' prefill and decode and their per-leaf
+LT-ADMM-CC training; false for the packed training round, whose plane
+the reference too replicates over "model", and for the MoE, MLA, xLSTM
+and encoder-decoder archs, whose parameters are replicated over
+"model", so their per-device bytes and FLOPs exceed the reference's by
+design) and whether FSDP ran (``"fsdp_applied"``: a shard over "data";
+true for every decoder-only arch's prefill and decode in mode "serve"
+and for the per-leaf training on the multi-pod mesh) beside the dims it
+sharded (``"sharded"``),
+those the reference's specs shard that it ran whole (``"whole"``: the
+MoE, MLA and xLSTM archs' "model" dims, the encoder-decoder's "data"
+dims), and the leaves it holds in another layout than the
 reference's spec gives (``"tp_layout"``: a Mamba mixer's, cut by SSD
 head, and its decode state ``h``, whose heads dim takes "model" where
 ``cache_pspec`` shards d_state).
@@ -64,9 +74,10 @@ formulas over the same ops, a cross-check of ``dot_flops``) and
 hand-written kernels' launches.  ``bytes_per_device``: args (the rank's
 inputs), out, temp (the ``MemoryTracker``'s peak above args, outputs
 left out), alias (outputs that are inputs updated in place) and
-total_live = args + out + temp - alias.  The records go to
-``results/torch_dryrun.jsonl`` by default, never to the reference's
-``results/dryrun*.jsonl``.
+total_live = args + out + temp - alias; ``peak_by_op`` the bytes live at
+the tracker's peak by the op that made them (its largest 12).  The
+records go to ``results/torch_dryrun.jsonl`` by default, never to the
+reference's ``results/dryrun*.jsonl``.
 """
 from __future__ import annotations
 
@@ -280,7 +291,8 @@ def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
     """Rank 0's train step and its inputs: the agent rows of the state
     and data; the rank's shard of every state leaf where the solver runs
     tensor-parallel (``solver.tp_layouts``: per-leaf LT-ADMM-CC,
-    ``packed=false``).  Returns ``(n_agents, step, args, tp_applied)``."""
+    ``packed=false``).  Returns ``(n_agents, step, args, applied)``
+    (``_params_case``)."""
     step_fn, _, _, solver = steps.build_train(
         arch, cfg, None, variant.get("solver", "ltadmm"), recipe,
         device=TRACE_DEVICE, mesh=mesh)
@@ -288,10 +300,10 @@ def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
     rows = solver.exchange.rows
     if len(rows) != n_agents:
         sharded["state"] = [[0, [agent_axis_for(mesh)]]]
-    tp_on = getattr(solver, "tp_layouts", None) is not None
-    if tp_on:
-        params, _ = _params_case(arch, cfg, mesh, "admm", sharded, whole,
-                                 layout)
+    applied = NOT_APPLIED
+    if getattr(solver, "tp_layouts", None) is not None:
+        params, applied = _params_case(arch, cfg, mesh, "admm", sharded,
+                                       whole, layout)
     else:
         params = abstract_params(steps.model_specs(arch, cfg), cfg.dtype)
     x_sds = tree_map(
@@ -303,55 +315,67 @@ def _train_case(arch_id, arch, cfg, shape_name, mesh, recipe, variant,
         mesh, {k: v.dim() for k, v in data_sds.items()})
     data = {k: _share(mesh, v, data_ps[k], (0, 1), k, sharded, whole)
             for k, v in data_sds.items()}
-    return n_agents, step_fn, (state, data, 0), tp_on
+    return n_agents, step_fn, (state, data, 0), applied
+
+
+NOT_APPLIED = {"tp_applied": False, "fsdp_applied": False}
 
 
 def _params_case(arch, cfg, mesh, mode, sharded, whole, layout):
     """The rank's parameters (``meta``): its shard where tensor
-    parallelism runs (recorded per leaf), else the whole tree.  Returns
-    ``(params, tp_applied)``."""
+    parallelism or FSDP runs (recorded per leaf), else the whole tree.
+    Returns ``(params, applied)``: ``applied`` the record's
+    ``"tp_applied"`` and ``"fsdp_applied"``."""
     specs = steps.model_specs(arch, cfg)
     params = abstract_params(specs, cfg.dtype)
     tp_on = steps.tp_serving(arch, cfg) and axes_of(mesh).shape.get(
         shd.TP_AXIS, 1) > 1
-    plans = dict_paths(shd.tp_plan(mesh, mode, specs)) if tp_on else {}
+    plans = {}
+    if arch.kind != "encdec":
+        plans = dict_paths(shd.tp_plan(mesh, mode, specs, model=tp_on))
+    cut_over = set()
     for name, ps in dict_paths(shd.param_pspec(mesh, mode, specs)).items():
         plan = plans.get(name)
+        cuts = {}
+        if plan is not None:
+            if plan.dim is not None:
+                cuts[plan.dim] = shd.TP_AXIS
+            if plan.data_dim is not None:
+                cuts[plan.data_dim] = shd.DATA_AXIS
+        cut_over.update(cuts.values())
         for d, entry in enumerate(ps):
-            axes = [a for a in _axes(entry)
-                    if not (plan and plan.dim is not None
-                            and a == shd.TP_AXIS)]
+            axes = [a for a in _axes(entry) if cuts.get(d) != a]
             if axes:
                 whole.setdefault(f"params.{name}", []).append([d, axes])
-        if plan and plan.dim is not None:
-            sharded.setdefault(f"params.{name}", []).append(
-                [plan.dim, [shd.TP_AXIS]])
+        for d in sorted(cuts):
+            sharded.setdefault(f"params.{name}", []).append([d, [cuts[d]]])
         if plan and plan.differs:
             layout[f"params.{name}"] = (
                 "held whole" if plan.dim is None else
                 f"dim {plan.dim} by SSD head: pieces (length, cut) "
                 f"{[list(x) for x in plan.segments]}")
-    if tp_on:
-        params = shd.shard_params(params, mesh, mode, specs)
-    return params, tp_on
+    if cut_over:
+        params = shd.shard_params(params, mesh, mode, specs, model=tp_on)
+    return params, {"tp_applied": shd.TP_AXIS in cut_over,
+                    "fsdp_applied": shd.DATA_AXIS in cut_over}
 
 
 def _prefill_case(arch_id, arch, cfg, shape_name, mesh, mode, sharded,
                   whole, layout):
     prefill = steps.build_prefill(arch, cfg, mesh)
-    params, tp_on = _params_case(arch, cfg, mesh, mode, sharded, whole,
-                                 layout)
+    params, applied = _params_case(arch, cfg, mesh, mode, sharded, whole,
+                                   layout)
     data = {k: _share(mesh, v, shd.batch_pspec(mesh, tuple(v.shape)), (0,),
                       k, sharded, whole)
             for k, v in input_specs(arch_id, shape_name).items()}
-    return prefill, (params, data), tp_on
+    return prefill, (params, data), applied
 
 
 def _decode_case(arch_id, arch, cfg, shape, mesh, mode, sharded, whole,
                  layout):
     serve, init_cache = steps.build_serve(arch, cfg, mesh)
-    params, tp_on = _params_case(arch, cfg, mesh, mode, sharded, whole,
-                                 layout)
+    params, applied = _params_case(arch, cfg, mesh, mode, sharded, whole,
+                                   layout)
     specs = input_specs(arch_id, shape.name)
     data = {}
     for k, v in specs.items():
@@ -369,7 +393,7 @@ def _decode_case(arch_id, arch, cfg, shape, mesh, mode, sharded, whole,
     # the reference's cache specs on the whole cache: the rank holds its
     # batch share (dim 0) and, under tensor parallelism, the heads it
     # computes; another dim they shard runs whole
-    if tp_on:
+    if applied["tp_applied"]:
         with torch.no_grad():
             ref_cache = steps.build_serve(arch, cfg)[1](
                 data["token"].shape[0], shape.seq_len, TRACE_DEVICE)
@@ -400,7 +424,7 @@ def _decode_case(arch_id, arch, cfg, shape, mesh, mode, sharded, whole,
                     f"dim {d} cut over {shd.TP_AXIS!r} by SSD head; the "
                     f"spec gives the axis to dims "
                     f"{[j for j, e in enumerate(spec) if shd.TP_AXIS in _axes(e)]}")
-    return serve, (params, cache, data), tp_on
+    return serve, (params, cache, data), applied
 
 
 def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
@@ -422,23 +446,24 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
     world_size = 512 if multi_pod else 256
     mode = variant.get("serve_mode", "serve")
     sharded, whole, layout = {}, {}, {}
-    tp_on = False
+    applied = NOT_APPLIED
     with fake_world(world_size):
         mesh = make_production_mesh(multi_pod=multi_pod)
         aaxis = agent_axis_for(mesh)
         n_agents = None
         t0 = time.time()
         if shape.kind == "train":
-            n_agents, fn, args, tp_on = _train_case(
+            n_agents, fn, args, applied = _train_case(
                 arch_id, arch, cfg, shape_name, mesh, recipe, variant,
                 sharded, whole, layout)
         elif shape.kind == "prefill":
-            fn, args, tp_on = _prefill_case(arch_id, arch, cfg, shape_name,
-                                            mesh, mode, sharded, whole,
-                                            layout)
+            fn, args, applied = _prefill_case(
+                arch_id, arch, cfg, shape_name, mesh, mode, sharded, whole,
+                layout)
         else:
-            fn, args, tp_on = _decode_case(arch_id, arch, cfg, shape, mesh,
-                                           mode, sharded, whole, layout)
+            fn, args, applied = _decode_case(
+                arch_id, arch, cfg, shape, mesh, mode, sharded, whole,
+                layout)
         with use_mesh(mesh):
             res = analyze_step(fn, args)
         t_trace = time.time() - t0
@@ -456,6 +481,7 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
         "chips": chips,
         "compile_s": round(t_trace, 1),
         "bytes_per_device": res.bytes_per_device,
+        "peak_by_op": res.memory.peak_by_op,
         "flop_counter_flops": res.counter.flop_counter_flops,
         "ops": stats.as_dict(),
         "kernels": dict(res.counter.kernels),
@@ -465,7 +491,7 @@ def dryrun_one(arch_id, shape_name, multi_pod, recipe=None, verbose=True,
         "model_flops_per_chip": mf / chips,
         "useful_fraction": (mf / chips) / stats.dot_flops
         if stats.dot_flops else None,
-        "tp_applied": tp_on,
+        **applied,
         "sharded": sharded,
         "whole": whole,
         "tp_layout": layout,

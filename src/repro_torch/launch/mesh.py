@@ -83,21 +83,53 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _make_mesh(shape, axes)
 
 
-def make_host_mesh(n_devices=None, model=1):
+def make_host_mesh(n_devices=None, model=1, pods=1):
     """A ``("data", "model")`` mesh of ``(n / model, model)`` over the
-    initialised world (``n`` defaults to, and must equal, its size)."""
+    initialised world (``n`` defaults to, and must equal, its size); with
+    ``pods`` > 1 the multi-pod layout ``("pod", "data", "model")`` of
+    ``(pods, n / (pods * model), model)``."""
     world = dist.get_world_size() if dist.is_initialized() else 0
     n = n_devices or world
-    if n != world or n % model:
-        raise ValueError(f"a ({n} / {model}, {model}) mesh needs a world of "
-                         f"{n} ranks with {model} dividing it; this world "
-                         f"has {world}")
+    if n != world or n % (model * pods):
+        raise ValueError(f"a ({pods}, {n} / {model * pods}, {model}) mesh "
+                         f"needs a world of {n} ranks with {model * pods} "
+                         f"dividing it; this world has {world}")
+    if pods > 1:
+        return _make_mesh((pods, n // (pods * model), model),
+                          ("pod", "data", "model"))
     return _make_mesh((n // model, model), ("data", "model"))
 
 
 def agent_axis_for(mesh) -> str:
     """The mesh axis that carries the LT-ADMM-CC agent graph."""
     return "pod" if "pod" in axes_of(mesh).axis_names else "data"
+
+
+_GROUPS = {}
+
+
+def group_of(mesh, axes: tuple):
+    """The process group of the ranks that share this rank's coordinates
+    on every axis of ``mesh`` but ``axes``: ``mesh.get_group`` of one
+    axis, else one ``new_group`` a block of the mesh, made at the first
+    call on every rank at once (each rank makes every block's, in the
+    same order) and cached."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        ranks = mesh.mesh.permute(
+            [i for i, n in enumerate(names) if n not in axes]
+            + [names.index(a) for a in axes])
+        blocks = ranks.reshape(-1, math.prod(ranks.shape[-len(axes):]))
+        me = dist.get_rank()
+        for block in blocks.tolist():
+            g = dist.new_group(block)
+            if me in block:
+                _GROUPS[key] = (mesh, g)
+    return _GROUPS[key][1]
 
 
 @contextlib.contextmanager

@@ -44,7 +44,8 @@ ops return their operand.  The counts are the same either way.
 ``MemoryTracker`` is the counterpart of ``compiled.memory_analysis()``:
 the bytes of every storage the step creates, live from the op that made
 it until its last tensor is released (``weakref.finalize``; autograd's
-saved tensors keep theirs alive), and their peak.
+saved tensors keep theirs alive), their peak, and the ops whose results
+hold it (``peak_by_op``).
 
 ``roofline_terms`` prices the counts with the H100's spec figures (not
 measured): ``t_compute`` sums ``dot_flops_by_dtype[dt] / peak[dt]``.
@@ -442,13 +443,13 @@ class OpCounter(TorchDispatchMode):
         c.v2 = 2.0 * rbytes
         return c
 
-    def _track(self, out):
+    def _track(self, out, func):
         if self.memory is not None:
             if isinstance(out, _Tensor):
-                self.memory.track(out)
+                self.memory.track(out, func)
             else:
                 for t in _tensors(out):
-                    self.memory.track(t)
+                    self.memory.track(t, func)
 
     # ---- dispatch ----------------------------------------------------------
 
@@ -476,7 +477,7 @@ class OpCounter(TorchDispatchMode):
                 if inf.inplace is not None:
                     return args[inf.inplace]
                 out = _make(spec)
-                self._track(out)
+                self._track(out, func)
                 return out
         shape_fn = _META_SHAPES.get(inf.name) if dev == "meta" else None
         out = (func(*args, **kwargs) if shape_fn is None
@@ -489,7 +490,7 @@ class OpCounter(TorchDispatchMode):
             if spec is not None:
                 self._cache[key] = (spec, cost)
         if inf.inplace is None and not inf.other:
-            self._track(out)
+            self._track(out, func)
         return out
 
     # ---- the hand-written kernels ------------------------------------------
@@ -528,23 +529,35 @@ class MemoryTracker:
     dry-run's ``compiled.memory_analysis()``).  A storage is live from
     the op that made it until the last tensor made over it is released
     (a view keeps its base alive); inputs created outside are not
-    counted."""
+    counted.  ``peak_by_op``: the live bytes at the peak by the op that
+    made them (the largest ``TOP_OPS``), read again each time the peak
+    has grown by ``1 / 64`` of itself."""
+
+    TOP_OPS = 12
 
     def __init__(self):
         self.live = 0
         self.peak = 0
+        self.peak_by_op = {}
+        self._read_at = 0
         self._refs = {}
 
-    def track(self, t):
-        """Count the storage of ``t``, an op's result, until ``t`` and
-        every other result over it are released."""
+    def track(self, t, op=None):
+        """Count the storage of ``t``, the result of ``op``, until ``t``
+        and every other result over it are released."""
         st = t.untyped_storage()
         sid = st._cdata
         ref = self._refs.get(sid)
         if ref is None:
-            ref = self._refs[sid] = [st.nbytes(), 0]
+            ref = self._refs[sid] = [st.nbytes(), 0, str(op)]
             self.live += ref[0]
             self.peak = max(self.peak, self.live)
+            if self.peak > self._read_at * (1 + 1 / 64):
+                self._read_at = self.peak
+                by = collections.Counter()
+                for nbytes, _, label in self._refs.values():
+                    by[label] += nbytes
+                self.peak_by_op = dict(by.most_common(self.TOP_OPS))
         ref[1] += 1
         weakref.finalize(t, self._release, sid)
 

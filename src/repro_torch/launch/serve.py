@@ -39,10 +39,12 @@ def sync(device):
 def generate(arch, cfg, params, prompt, gen: int, mesh=None):
     """Greedy decoding.  Returns ``(tokens [B, gen], seconds of the
     generation loop)``.  With a ``mesh`` the decoder-only models decode
-    tensor-parallel over its "model" axis (``steps.build_serve``):
-    ``params`` is then the rank's shard (``sharding.shard_params``), and
-    every rank takes the argmax of the gathered logits, so the ranks keep
-    the same tokens (ties to the first index, as the reference's).
+    tensor-parallel over its "model" axis and FSDP over its "data" axis
+    (``steps.build_serve``): ``params`` is then the rank's shard
+    (``steps.serve_shard``) and ``prompt`` the rank's rows
+    (``steps.batch_rows``); every rank of the "model" axis takes the
+    argmax of the gathered logits, so they keep the same tokens (ties to
+    the first index, as the reference's).
 
     Decoder-only models: ``prompt [B, P]`` token ids are fed token by
     token through the decode step, then ``gen`` tokens are generated.

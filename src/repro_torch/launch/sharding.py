@@ -27,10 +27,13 @@ and ``shard_params`` cuts a whole parameter tree (or a stacked ``[A,
 ...]`` one) to the rank's shard; ``gather_shards`` puts the shards back
 together and ``shard_layouts`` says where each shard lies in its whole
 leaf (the compressors' ``ShardLayout``).
-Only "model" is applied; the "data" entries that mode "serve" puts on
-``embed`` (FSDP) are held whole.  A Mamba mixer is cut by SSD head
-(``_mamba_plan``), not by the spec's contiguous slice of its
-concatenated projection.
+Both axes are applied: the "model" dim by pieces, and the "data" dim
+that mode "serve" and the multi-pod mesh give ``embed`` (FSDP,
+``launch.fsdp``) in one contiguous part a rank; mode
+"serve_replicated" and single-pod mode "admm" put no "data" entry on a
+parameter, as the reference's rules say.  A Mamba mixer is cut over
+"model" by SSD head (``_mamba_plan``), not by the spec's contiguous
+slice of its concatenated projection.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.common.trees import tree_flatten
 from repro_torch.launch.mesh import agent_axis_for, axes_of
+from repro_torch.launch.fsdp import AXIS as DATA_AXIS
 from repro_torch.launch.tp import AXIS as TP_AXIS
 from repro_torch.models.common import is_spec
 
@@ -246,30 +250,37 @@ _MAMBA_KEYS = frozenset(("in_proj", "conv_w", "conv_b", "A_log", "D",
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
-    """How a rank holds one parameter over the "model" axis: ``dim`` is
-    the dim the axis cuts (None: held whole), ``segments`` its pieces
+    """How a rank holds one parameter: ``dim`` is the dim the "model"
+    axis cuts (None: held whole over it), ``segments`` its pieces
     ``((length, cut), ...)`` in order along that dim, each cut piece split
     into the axis's size contiguous parts (the rank keeps its part) and
     each other piece held whole; a plain shard is one cut piece.
-    ``differs``: the rank's slice is not the one the reference's spec
-    gives (``param_pspec``)."""
+    ``data_dim``: the dim the "data" axis cuts into its size contiguous
+    parts (FSDP), or None.  ``differs``: the rank's slice over "model" is
+    not the one the reference's spec gives (``param_pspec``)."""
 
     dim: int | None
     segments: tuple = ()
     differs: bool = False
+    data_dim: int | None = None
+
+
+def _axis_dim(spec, axis):
+    """The dim whose entry names ``axis``, or None."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if axis in names:
+            if len(names) > 1:
+                raise ValueError(f"{spec}: the {axis!r} axis shares dim "
+                                 f"{d} with {names}; only {axis!r} alone "
+                                 "is applied")
+            return d
+    return None
 
 
 def _model_dim(spec):
     """The dim whose entry names the "model" axis, or None."""
-    for d, entry in enumerate(spec):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if TP_AXIS in names:
-            if len(names) > 1:
-                raise ValueError(f"{spec}: the {TP_AXIS!r} axis shares dim "
-                                 f"{d} with {names}; only {TP_AXIS!r} alone "
-                                 "is applied")
-            return d
-    return None
+    return _axis_dim(spec, TP_AXIS)
 
 
 def _pieces(segments, rank: int, size: int) -> tuple:
@@ -289,25 +300,47 @@ def _pieces(segments, rank: int, size: int) -> tuple:
     return tuple(out)
 
 
+def _coord(mesh, axis) -> tuple:
+    """``(rank, size)`` of the mesh's ``axis`` (``(0, 1)`` where the mesh
+    lacks it or it has one rank)."""
+    n = axes_of(mesh).shape.get(axis, 1)
+    return (0, 1) if n == 1 else (mesh.get_local_rank(axis), n)
+
+
 def local_shard(mesh, spec, tensor, segments=None):
     """The rank's slice of ``tensor`` for a sanitized ``spec``: the dim
     whose entry names "model" cut into the axis's size contiguous parts
-    (by ``segments``, as ``LeafPlan`` says, where given), as a tensor of
-    its own, so that the whole one can be freed.  No other entry is
-    applied: a "data" dim stays whole.  A spec without "model" returns
-    ``tensor`` itself."""
-    d = _model_dim(spec)
-    if d is None:
+    (by ``segments``, as ``LeafPlan`` says, where given), and the dim
+    whose entry names "data" cut into that axis's size contiguous parts,
+    as a tensor of its own, so that the whole one can be freed.  No other
+    entry is applied.  A spec that cuts nothing returns ``tensor``
+    itself."""
+    d, dd = _model_dim(spec), _axis_dim(spec, DATA_AXIS)
+    r, n = _coord(mesh, TP_AXIS)
+    rd, nd = _coord(mesh, DATA_AXIS)
+    if dd is not None and nd == 1:
+        dd = None
+    if d is None and dd is None:
         return tensor
-    segments = segments or ((tensor.shape[d], True),)
-    if sum(length for length, _ in segments) != tensor.shape[d]:
-        raise ValueError(f"segments {segments} do not tile dim {d} of "
-                         f"{tuple(tensor.shape)}")
-    pieces = [tensor.narrow(d, g, k) for _, g, k, _ in _pieces(
-        segments, mesh.get_local_rank(TP_AXIS), axes_of(mesh).shape[TP_AXIS])]
-    if len(pieces) == 1:
-        return pieces[0].clone(memory_format=torch.contiguous_format)
-    return torch.cat(pieces, dim=d)
+    out, fresh = tensor, False
+    if d is not None:
+        segments = segments or ((tensor.shape[d], True),)
+        if sum(length for length, _ in segments) != tensor.shape[d]:
+            raise ValueError(f"segments {segments} do not tile dim {d} of "
+                             f"{tuple(tensor.shape)}")
+        pieces = [tensor.narrow(d, g, k)
+                  for _, g, k, _ in _pieces(segments, r, n)]
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=d)
+        fresh = len(pieces) > 1
+    if dd is not None:
+        if out.shape[dd] % nd:
+            raise ValueError(f"dim {dd} of {tuple(tensor.shape)} does not "
+                             f"split over {nd} ranks")
+        k = out.shape[dd] // nd
+        out, fresh = out.narrow(dd, rd * k, k), False
+    if not fresh:
+        out = out.clone(memory_format=torch.contiguous_format)
+    return out
 
 
 def _mamba_plan(mesh, specs, pspecs):
@@ -315,14 +348,16 @@ def _mamba_plan(mesh, specs, pspecs):
     and ``dt_bias`` take the rank's heads, B and C (and their conv
     channels) are held whole, ``norm`` and ``out_proj`` take the rank's
     heads' channels (the spec's own slice).  With heads not divisible by
-    the axis the mixer is held whole."""
+    the axis the mixer is held whole over "model".  The "data" dims are
+    the spec's."""
     n = axes_of(mesh).shape[TP_AXIS]
     di, nh = specs["norm"].shape[-1], specs["A_log"].shape[-1]
     groups = specs["conv_b"].shape[-1] - di  # B | C: 2 * n_groups * d_state
     ref = {k: _model_dim(pspecs[k]) for k in _MAMBA_KEYS}
+    data = {k: _axis_dim(pspecs[k], DATA_AXIS) for k in _MAMBA_KEYS}
     if nh % n:
-        return {k: LeafPlan(None, differs=ref[k] is not None)
-                for k in _MAMBA_KEYS}
+        return {k: LeafPlan(None, differs=ref[k] is not None,
+                            data_dim=data[k]) for k in _MAMBA_KEYS}
     heads = ((nh, True),)
     last = {"in_proj": ((di, True), (di, True), (groups, False), (nh, True)),
             "conv_w": ((di, True), (groups, False)),
@@ -332,25 +367,30 @@ def _mamba_plan(mesh, specs, pspecs):
     plan = {}
     for k, segs in last.items():
         d = len(specs[k].shape) - 1
-        plan[k] = LeafPlan(d, segs, differs=ref[k] != d or len(segs) > 1)
+        plan[k] = LeafPlan(d, segs, differs=ref[k] != d or len(segs) > 1,
+                           data_dim=data[k])
     d = len(specs["out_proj"].shape) - 2
-    plan["out_proj"] = LeafPlan(d, ((di, True),), differs=ref["out_proj"] != d)
+    plan["out_proj"] = LeafPlan(d, ((di, True),), differs=ref["out_proj"] != d,
+                                data_dim=data["out_proj"])
     return plan
 
 
-def tp_plan(mesh, mode: str, spec_tree):
+def tp_plan(mesh, mode: str, spec_tree, model: bool = True):
     """``LeafPlan`` per parameter of ``spec_tree`` (``ParamSpec`` leaves)
-    over ``mesh``'s "model" axis: the dim that ``param_pspec`` gives the
-    axis, cut contiguously, and a Mamba mixer by head
-    (``_mamba_plan``)."""
+    over ``mesh``: the dim that ``param_pspec`` gives the "model" axis,
+    cut contiguously, and a Mamba mixer by head (``_mamba_plan``); the
+    dim it gives "data" (FSDP).  ``model=False``: every leaf held whole
+    over "model" (the archs whose blocks do not run tensor-parallel)."""
     pspecs = param_pspec(mesh, mode, spec_tree)
+    model = model and axes_of(mesh).shape.get(TP_AXIS, 1) > 1
 
     def walk(specs, ps):
         if is_spec(specs):
-            d = _model_dim(ps)
+            d = _model_dim(ps) if model else None
             return LeafPlan(d, () if d is None else
-                            ((specs.shape[d], True),))
-        if _MAMBA_KEYS <= set(specs) and all(
+                            ((specs.shape[d], True),),
+                            data_dim=_axis_dim(ps, DATA_AXIS))
+        if model and _MAMBA_KEYS <= set(specs) and all(
                 is_spec(specs[k]) for k in _MAMBA_KEYS):
             plan = _mamba_plan(mesh, specs, ps)
             rest = {k: walk(specs[k], ps[k]) for k in specs
@@ -361,71 +401,107 @@ def tp_plan(mesh, mode: str, spec_tree):
     return walk(spec_tree, pspecs)
 
 
-def shard_params(tree, mesh, mode: str, spec_tree, lead: int = 0):
+def _leaf_spec(p: LeafPlan, ndim: int, lead: int):
+    return PartitionSpec(*[
+        TP_AXIS if p.dim is not None and i == p.dim + lead else
+        DATA_AXIS if p.data_dim is not None and i == p.data_dim + lead
+        else None for i in range(ndim)])
+
+
+def shard_params(tree, mesh, mode: str, spec_tree, lead: int = 0,
+                 model: bool = True):
     """The rank's shard of the whole parameter tree ``tree`` (nested
     dicts of tensors laid out as ``spec_tree``; the reference's tree,
-    carried across) over ``mesh``'s "model" axis, by ``tp_plan``.  The
-    whole tree is emptied as its leaves are cut, so that a caller that
-    holds no other reference frees each whole leaf (a leaf held whole
-    moves to the new tree as it is).  ``lead``: dims in front of each
-    leaf's spec shape (the agents of a stacked ``[A, ...]`` tree)."""
-    plan = tp_plan(mesh, mode, spec_tree)
+    carried across) over ``mesh``'s "model" and "data" axes, by
+    ``tp_plan``.  The whole tree is emptied as its leaves are cut, so
+    that a caller that holds no other reference frees each whole leaf (a
+    leaf held whole moves to the new tree as it is).  ``lead``: dims in
+    front of each leaf's spec shape (the agents of a stacked ``[A, ...]``
+    tree); ``model`` as ``tp_plan``."""
+    plan = tp_plan(mesh, mode, spec_tree, model)
 
     def walk(node, p):
         if isinstance(p, LeafPlan):
-            if p.dim is None:
+            if p.dim is None and p.data_dim is None:
                 return node
-            spec = PartitionSpec(*[TP_AXIS if i == p.dim + lead else None
-                                   for i in range(node.dim())])
-            return local_shard(mesh, spec, node, p.segments)
+            return local_shard(mesh, _leaf_spec(p, node.dim(), lead), node,
+                               p.segments or None)
         return {k: walk(node.pop(k), p[k]) for k in list(node)}
 
     return walk(tree, plan)
 
 
-def leaf_layout(plan: LeafPlan, shape, rank: int, size: int):
+def leaf_layout(plan: LeafPlan, shape, rank: int, size: int,
+                data_rank: int = 0, data_size: int = 1):
     """A rank's ``ShardLayout`` of a leaf of ``shape`` that ``plan`` cuts
-    over a "model" axis of ``size``: each segment a piece (its local
-    start, global start, length, and whether the axis cuts it)."""
+    over a "model" axis of ``size`` (each segment a piece: its local
+    start, global start, length, and whether the axis cuts it) and over a
+    "data" axis of ``data_size`` (one cut piece, the rank's part).  A
+    leaf cut over one axis takes the one-dim layout of its cut; over both,
+    the "model" dim's pieces and the "data" dim's part."""
     from repro_torch.kernels.quantize.ref import ShardLayout
 
+    shape = tuple(shape)
+    dd = plan.data_dim if data_size > 1 else None
+    data = None
+    if dd is not None:
+        k = shape[dd] // data_size
+        data = ((0, data_rank * k, k, True),)
     if plan.dim is None:
-        return ShardLayout(tuple(shape))
-    return ShardLayout(tuple(shape), plan.dim,
-                       _pieces(plan.segments, rank, size))
+        return (ShardLayout(shape) if dd is None
+                else ShardLayout(shape, dd, data, axes=(DATA_AXIS,)))
+    pieces = _pieces(plan.segments, rank, size)
+    if dd is None:
+        return ShardLayout(shape, plan.dim, pieces, axes=(TP_AXIS,))
+    return ShardLayout(shape, plan.dim, pieces, dd, data,
+                       axes=(TP_AXIS, DATA_AXIS))
 
 
-def shard_layouts(mesh, mode: str, spec_tree) -> list:
+def shard_layouts(mesh, mode: str, spec_tree, model: bool = True) -> list:
     """The rank's ``ShardLayout`` of every parameter of ``spec_tree`` over
-    ``mesh``'s "model" axis (``tp_plan``), in flatten order."""
-    n = axes_of(mesh).shape[TP_AXIS]
-    r = mesh.get_local_rank(TP_AXIS)
-    plans = tree_flatten(tp_plan(mesh, mode, spec_tree),
+    ``mesh``'s "model" and "data" axes (``tp_plan``), in flatten order."""
+    r, n = _coord(mesh, TP_AXIS)
+    rd, nd = _coord(mesh, DATA_AXIS)
+    plans = tree_flatten(tp_plan(mesh, mode, spec_tree, model),
                          is_leaf=lambda x: isinstance(x, LeafPlan))[0]
     specs = tree_flatten(spec_tree, is_leaf=is_spec)[0]
-    return [leaf_layout(p, s.shape, r, n) for p, s in zip(plans, specs)]
+    return [leaf_layout(p, s.shape, r, n, rd, nd)
+            for p, s in zip(plans, specs)]
 
 
-def gather_shards(tree, mesh, mode: str, spec_tree, lead: int = 0):
-    """Inverse of ``shard_params`` on every rank: each leaf's shards
-    ``all_gather``ed over ``mesh``'s "model" axis and put back in the
-    whole leaf's layout (a piece held whole taken from the axis's rank
-    0).  For checks and checkpoints; ``lead`` as ``shard_params``."""
+def _gather_axis(t, mesh, axis):
     import torch.distributed as dist
 
-    n = axes_of(mesh).shape[TP_AXIS]
-    group = mesh.get_group(TP_AXIS)
-    plan = tp_plan(mesh, mode, spec_tree)
+    n = axes_of(mesh).shape[axis]
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=mesh.get_group(axis))
+    return parts
+
+
+def gather_shards(tree, mesh, mode: str, spec_tree, lead: int = 0,
+                  model: bool = True):
+    """Inverse of ``shard_params`` on every rank: each leaf's parts
+    ``all_gather``ed over ``mesh``'s "data" axis and joined along its
+    "data" dim, then its shards over the "model" axis put back in the
+    whole leaf's layout (a piece held whole taken from the axis's rank
+    0).  For checks and checkpoints; ``lead`` and ``model`` as
+    ``shard_params``."""
+    n = axes_of(mesh).shape.get(TP_AXIS, 1)
+    nd = axes_of(mesh).shape.get(DATA_AXIS, 1)
+    plan = tp_plan(mesh, mode, spec_tree, model)
 
     def walk(node, p):
         if not isinstance(p, LeafPlan):
             return {k: walk(node[k], p[k]) for k in node}
+        t = node
+        if p.data_dim is not None and nd > 1:
+            dd = p.data_dim + lead
+            t = torch.cat(_gather_axis(t, mesh, DATA_AXIS), dim=dd)
         if p.dim is None:
-            return node
-        t = node.contiguous()
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=group)
+            return t
         d = p.dim + lead
+        parts = _gather_axis(t, mesh, TP_AXIS)
         out = []
         for ls, _, k, cut in _pieces(p.segments, 0, n):
             out += ([q.narrow(d, ls, k) for q in parts] if cut

@@ -31,6 +31,16 @@ and a ``build_ddp_train`` step (held against the one-rank step here);
 ``tests/test_torch_tp_train.py`` holds the rest against the reference
 and the port's one-rank round.
 
+``fsdp_suite`` (``CHECKS["fsdp"]``) serves ``FSDP_SERVE_ARCHS`` FSDP
+over "data" (and TP over "model" where ``tp_serving`` holds) on the
+``(W / 2, 2)`` and ``(W, 1)`` meshes, each rank on its batch rows, runs
+the mode "serve" DDP step and counts the gathers;
+``fsdp_train_suite`` (``CHECKS["fsdp_train"]``) takes a ``("pod",
+"data", "model")`` mesh (``start_world(..., pods=2)``): the
+``FsdpRows`` gradients, the two-axis payloads and one multi-pod round.
+``tests/test_torch_fsdp.py`` and ``tests/test_torch_fsdp_train.py`` hold
+them against the reference.
+
 ``start_world`` starts a world of ``torch.multiprocessing`` processes
 that meet at a ``FileStore`` (no TCP port) and runs one named check on
 every rank; ``collect_world`` waits for them and returns each rank's
@@ -54,8 +64,7 @@ from repro_torch.core.schedule import union_topology
 from repro_torch.core.solver import make_solver, solver_entry
 from repro_torch.core.topology import Exchange
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import (axes_of, make_host_mesh, use_mesh,
-                                    world)
+from repro_torch.launch.mesh import axes_of, make_host_mesh, use_mesh, world
 from repro_torch.models import attention
 from repro_torch.problems.logistic import LogisticProblem
 
@@ -769,28 +778,50 @@ def check_tp_payloads(mesh, device, arch_id):
 
 def check_tp_round(mesh, device, arch_id):
     """One ``TP_ROUND`` round of ``build_train`` with the mesh on the
-    rank's agent rows and shard of ``tp_round_inputs``: the state
-    gathered over "model" (numpy), the consensus error, the wire bytes
+    rank's agent rows and shard of ``tp_round_inputs`` (on the multi-pod
+    mesh an agent a pod, FSDP+TP, its m rows cut over "data": each rank
+    its contiguous m / D): the state gathered (numpy), the minibatch
+    indices each local step drew, the consensus error, the wire bytes
     and the bytes the rank handed to the exchange."""
+    import dataclasses
+
     from repro_torch.configs import ARCHS
     from repro_torch.core import admm as admm_mod
+    from repro_torch.core import compression, jaxrand
     from repro_torch.launch import steps
 
     arch = ARCHS[arch_id]
     cfg = arch.make_smoke()
     specs = steps.model_specs(arch, cfg)
-    step, _, init, solver = steps.build_train(
+    _, _, init, solver = steps.build_train(
         arch, cfg, TP_AGENTS, TP_ROUND, tp_recipe(), device=device,
         mesh=mesh)
+    drawn, est = [], solver.grad_est
+
+    def take(data, idx):
+        drawn.append(_numpy(idx))
+        return est.take(data, idx)
+
+    solver = dataclasses.replace(
+        solver, grad_est=dataclasses.replace(est, take=take))
     rows = solver.exchange.rows
     x0_np, data_np = tp_round_inputs(arch_id)
     x0 = shd.shard_params(_tensors(tree_map(
         lambda a: a[rows.start:rows.stop], x0_np), device), mesh, "admm",
         specs, lead=1)
-    data = _tensors(tree_map(lambda a: a[rows.start:rows.stop], data_np),
-                    device)
-    st = step(init(x0), data, 11)
-    out = {"rows": (rows.start, rows.stop), "k": st.k}
+    mine = slice(None)
+    if steps.fsdp_training(arch, cfg, mesh):
+        k = TP_M // axes_of(mesh).shape["data"]
+        r = mesh.get_local_rank("data")
+        mine = slice(r * k, (r + 1) * k)
+    data = _tensors(tree_map(lambda a: a[rows.start:rows.stop, mine],
+                             data_np), device)
+    with use_mesh(mesh):
+        st = solver.step(init(x0), data, jaxrand.key(11))
+    out = {"rows": (rows.start, rows.stop), "k": st.k, "drawn": drawn,
+           "row_shards": est.row_shards,
+           "axes": solver.tp_layouts and compression.cut_axes(
+               solver.tp_layouts, mesh)}
     for f in st._fields:
         v = getattr(st, f)
         if isinstance(v, dict):
@@ -904,11 +935,186 @@ def tp_train_suite(mesh, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# FSDP over "data"
+# ---------------------------------------------------------------------------
+
+# the archs served FSDP: the six tensor-parallel ones (FSDP+TP) and the
+# MoE, MLA and xLSTM ones, whose blocks run whole over "model"
+FSDP_SERVE_ARCHS = TP_ARCHS + ("granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+                               "xlstm-125m")
+# the served batch (every data axis of the 4-rank world divides it)
+FSDP_BATCH = 4
+# the multi-pod round's mesh (pod, data, model) and its gradient batches:
+# 4 rows (split over "data") and 3 (every rank the whole batch)
+FSDP_PODS = 2
+FSDP_GRAD_ROWS = (4, 3)
+
+
+def fsdp_inputs(arch_id: str, seed: int = 1) -> dict:
+    """``tp_inputs`` at ``FSDP_BATCH`` rows."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[arch_id].make_smoke()
+    rng = np.random.RandomState(seed)
+    out = {"first": rng.randint(0, cfg.vocab, (FSDP_BATCH,))}
+    if cfg.inputs_via_embeds:
+        out["embeds"] = rng.normal(
+            size=(FSDP_BATCH, TP_PROMPT, cfg.d_model)).astype(np.float32)
+    else:
+        out["tokens"] = rng.randint(0, cfg.vocab, (FSDP_BATCH, TP_PROMPT))
+    return out
+
+
+def check_fsdp_serve(mesh, device, arch_id: str):
+    """One arch's smoke config served FSDP over ``mesh``'s "data" axis
+    (and tensor-parallel over "model" where ``tp_serving`` holds), mode
+    "serve", in f32, on the rank's batch rows of ``fsdp_inputs``
+    (``steps.batch_rows``): the
+    prefill's last logits and ``TP_STEPS`` greedy decode steps.  Returns
+    them with the rank's rows, its parameter leaves, whether
+    ``gather_shards`` gives the whole weights back, and the prefill's
+    gathers (``fsdp.stats``)."""
+    from repro_torch.checkpoint.reference import params_tree_from_reference
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import fsdp, steps
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    specs = steps.model_specs(arch, cfg)
+    shard = steps.serve_shard(arch, cfg, params_tree_from_reference(
+        tp_weights(arch_id), device), mesh)
+    back = shd.gather_shards(shard, mesh, "serve", specs,
+                             model=steps.tp_serving(arch, cfg))
+    inverse = all(torch.equal(a, torch.from_numpy(b).to(device))
+                  for a, b in zip(tree_flatten(back)[0],
+                                  tree_flatten(tp_weights(arch_id))[0]))
+    inp = fsdp_inputs(arch_id)
+    lo, hi = steps.batch_rows(arch, cfg, mesh, FSDP_BATCH)
+    batch = {k: torch.from_numpy(v[lo:hi]).to(device)
+             for k, v in inp.items() if k != "first"}
+    prefill = steps.build_prefill(arch, cfg, mesh)
+    serve, init_cache = steps.build_serve(arch, cfg, mesh)
+    with torch.no_grad():
+        fsdp.reset_stats()
+        last = prefill(shard, batch)
+        gathers = fsdp.stats["gather"]
+        cache = init_cache(hi - lo, TP_STEPS, device)
+        tok = torch.from_numpy(inp["first"][lo:hi]).to(device)
+        logits, tokens = [], []
+        for pos in range(TP_STEPS):
+            lg, cache = serve(shard, cache, {"token": tok, "pos": pos})
+            tok = torch.argmax(lg[:, 0], dim=-1)
+            logits.append(_numpy(lg))
+            tokens.append(_numpy(tok))
+    return {"rows": (lo, hi), "prefill": _numpy(last),
+            "decode": np.stack(logits, axis=1),
+            "tokens": np.stack(tokens, axis=1), "inverse": inverse,
+            "gathers": gathers,
+            "params": {k: _numpy(v) for k, v in dict_paths(shard).items()}}
+
+
+def check_fsdp_gathers(mesh, device, arch_id="qwen3-0.6b"):
+    """The gathers of one forward and backward of ``loss_fn`` on the
+    rank's mode "serve" shard, without remat and with every unit under
+    ``torch.utils.checkpoint`` (whose backward gathers the unit again),
+    beside the gathers a unit's and the whole tree's cut leaves make."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import fsdp, steps
+    from repro_torch.models import transformer as tr
+
+    arch = ARCHS[arch_id]
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(arch.make_smoke(), remat=remat)
+        shard = steps.serve_shard(arch, cfg, _tensors(tp_weights(arch_id),
+                                                      device), mesh)
+        batch = _tensors(tp_batch(arch_id, 2, TP_GRAD_T, 3), device)
+        fsdp.reset_stats()
+        with use_mesh(mesh):
+            steps.value_and_grad(steps.model_loss(arch, cfg), shard, batch)
+        out[remat] = dict(fsdp.stats)
+    cfg = arch.make_smoke()
+    size = axes_of(mesh).shape["data"]
+    out["unit"] = fsdp.gathers(tr._part_specs(cfg)["unit"], size)
+    out["tree"] = fsdp.gathers(steps.model_specs(arch, cfg), size)
+    out["units"] = cfg.n_units
+    return out
+
+
+def fsdp_suite(mesh, device, archs=FSDP_SERVE_ARCHS):
+    """FSDP over the "data" axis of ``mesh`` (``(W / 2, 2)``) and of a
+    ``(W, 1)`` mesh of the same world: ``check_fsdp_serve`` of every arch
+    of ``archs``, the mode "serve" DDP step (``check_tp_ddp``) of
+    ``TP_TRAIN_ARCHS``, and ``check_fsdp_gathers``.  Returns ``{model
+    size: {...}}`` with the rank's coordinates."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world_size = torch.distributed.get_world_size()
+    out = {"rank": torch.distributed.get_rank()}
+    for m in (mesh, make_host_mesh(world_size, model=1)):
+        n = axes_of(m).shape["model"]
+        out[n] = {"coords": tuple(m.get_coordinate()),
+                  "data_rank": m.get_local_rank("data"),
+                  "model_rank": m.get_local_rank("model"),
+                  "serve": {a: check_fsdp_serve(m, device, a)
+                            for a in archs},
+                  "ddp": {a: check_tp_ddp(m, device, a)
+                          for a in TP_TRAIN_ARCHS},
+                  "gathers": check_fsdp_gathers(m, device)}
+    return out
+
+
+def check_fsdp_grads(mesh, device, arch_id, rows: int):
+    """``steps.FsdpRows.batch_grad`` of one agent (the rank's pod) on its
+    mode "admm" FSDP+TP shard of ``tp_weights`` and a batch of ``rows``
+    sequences (each rank its share where "data" divides them, else the
+    whole batch), the gradients gathered (numpy)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+
+    arch = ARCHS[arch_id]
+    cfg = arch.make_smoke()
+    specs = steps.model_specs(arch, cfg)
+    shard = shd.shard_params(_tensors(tree_map(
+        lambda a: a[None], tp_weights(arch_id)), device), mesh, "admm",
+        specs, lead=1)
+    batch = _tensors(tp_batch(arch_id, rows, TP_GRAD_T, 3, (1,)), device)
+    g = steps.FsdpRows(arch, cfg, mesh).batch_grad(shard, batch)
+    whole = shd.gather_shards(g, mesh, "admm", specs, lead=1)
+    return {k: _numpy(v[0]) for k, v in dict_paths(whole).items()}
+
+
+def fsdp_train_suite(mesh, device, archs=("qwen3-0.6b", "zamba2-2.7b")):
+    """Multi-pod training over ``mesh`` (``("pod", "data", "model")``):
+    for each arch of ``archs`` the gathered gradients of both
+    ``FSDP_GRAD_ROWS`` batches, the qbit8 / qbit4 payloads of every leaf
+    cut over "data" or "model" (``check_tp_payloads``) and one
+    ``TP_ROUND`` round (``check_tp_round``)."""
+    import time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": torch.distributed.get_rank(),
+           "coords": tuple(mesh.get_coordinate()), "seconds": {}}
+    for a in archs:
+        t0 = time.perf_counter()
+        out[a] = {"grads": {n: check_fsdp_grads(mesh, device, a, n)
+                            for n in FSDP_GRAD_ROWS},
+                  "payloads": check_tp_payloads(mesh, device, a),
+                  "round": check_tp_round(mesh, device, a)}
+        out["seconds"][a] = time.perf_counter() - t0
+    return out
+
+
 CHECKS = {"suite": suite, "paper": paper_run, "tp": tp_suite,
-          "tp_train": tp_train_suite}
+          "tp_train": tp_train_suite, "fsdp": fsdp_suite,
+          "fsdp_train": fsdp_train_suite}
 
 
-def _rank_main(rank, check, world_size, model, backend, store_dir, kw):
+
+def _rank_main(rank, check, world_size, model, backend, store_dir, kw,
+               pods=1):
     torch.set_num_threads(1)
     device = torch.device("cpu")
     if backend == "nccl":
@@ -916,7 +1122,7 @@ def _rank_main(rank, check, world_size, model, backend, store_dir, kw):
         torch.cuda.set_device(device)
     with world(backend, os.path.join(store_dir, "store"), rank, world_size,
                device if backend == "nccl" else None):
-        mesh = make_host_mesh(world_size, model=model)
+        mesh = make_host_mesh(world_size, model=model, pods=pods)
         res = CHECKS[check](mesh, device, **kw)
         torch.distributed.barrier()
     with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -924,15 +1130,18 @@ def _rank_main(rank, check, world_size, model, backend, store_dir, kw):
 
 
 def start_world(check: str, world_size: int, store_dir: str,
-                model: int = 1, backend: str = "gloo", **kw):
+                model: int = 1, backend: str = "gloo", pods: int = 1,
+                **kw):
     """Start ``CHECKS[check](mesh, device, **kw)`` on every rank of a new
     world of ``world_size`` processes on a ``(world_size / model,
-    model)`` mesh (one card a rank with NCCL); returns the processes'
-    context for ``collect_world``."""
+    model)`` mesh, or with ``pods`` > 1 a ``(pods, world_size / (pods *
+    model), model)`` one (one card a rank with NCCL); returns the
+    processes' context for ``collect_world``."""
     import torch.multiprocessing as mp
 
     return mp.start_processes(
-        _rank_main, args=(check, world_size, model, backend, store_dir, kw),
+        _rank_main, args=(check, world_size, model, backend, store_dir, kw,
+                          pods),
         nprocs=world_size, join=False, start_method="spawn")
 
 

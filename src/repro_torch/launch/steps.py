@@ -17,8 +17,13 @@ each rank's shard of the parameters and of every state leaf
 (``sharding.shard_params(tree, mesh, "admm", specs, lead=1)`` cuts the
 stacked x0; ``"serve"`` the DDP parameters), as the reference's GSPMD
 partitions its step; the compressors run on the shards
-(``compression.ShardedTree``).  FSDP over "data" is not applied.
-``abstract_train_state`` gives the state's ``meta`` tree.
+(``compression.ShardedTree``).  FSDP over "data" (``launch.fsdp``)
+applies where the reference's rules put "data" on the parameters: the
+DDP step's mode "serve" shards, the served weights in mode "serve", and
+the per-leaf LT-ADMM-CC round on the multi-pod mesh, where each agent
+(a "pod") is FSDP+TP over its "data" x "model" ranks and holds its m/D
+rows a rank (``FsdpRows``).  ``abstract_train_state`` gives the state's
+``meta`` tree.
 
 The model is differentiated by autograd, as the reference differentiates
 through jnp: no kernel lies on the gradient path.  The solvers take
@@ -43,12 +48,14 @@ from repro_torch.common.trees import (is_namedtuple, meta_like,
                                       tree_children, tree_flatten, tree_map)
 from repro_torch.core import compression, jaxrand, vr
 from repro_torch.core.schedule import build_graph
-from repro_torch.core.solver import make_solver, solver_entry
+from repro_torch.core.solver import (make_solver, parse_solver_spec,
+                                     solver_entry)
+from repro_torch.launch import fsdp
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import agent_axis_for, axes_of, use_mesh
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tr
-from repro_torch.models.common import abstract_params
+from repro_torch.models.common import abstract_params, is_spec
 from repro_torch.optim import optimizers
 
 
@@ -79,17 +86,22 @@ def value_and_grad(loss, params, batch):
     return val.detach(), rebuild(grads)
 
 
-def batched_grad(loss):
+def batched_grad(loss, one=None):
     """The per-agent gradient of ``loss`` as ``core.vr`` calls it:
     ``grad(params [A, ...], data [A, b, ...]) -> grads [A, ...]``, agent
-    a's gradient of its own ``loss(params[a], data[a])``, written into
-    one ``[A, ...]`` tensor per leaf."""
+    a's gradient of its own ``loss(params[a], data[a])`` (or ``one(params
+    [a], data[a])``'s gradient tree), written into one ``[A, ...]`` tensor
+    per leaf."""
+    if one is None:
+        def one(p, b):
+            return value_and_grad(loss, p, b)[1]
+
     def grad(params, data):
         leaves, rebuild = tree_flatten(params)
         out = [torch.empty_like(leaf) for leaf in leaves]
         for a in range(leaves[0].shape[0]):
-            _, g = value_and_grad(loss, rebuild([leaf[a] for leaf in leaves]),
-                                  tree_map(lambda d: d[a], data))
+            g = one(rebuild([leaf[a] for leaf in leaves]),
+                    tree_map(lambda d: d[a], data))
             for o, ga in zip(out, tree_flatten(g)[0]):
                 o[a].copy_(ga)
         return rebuild(out)
@@ -150,12 +162,21 @@ class TrainRecipe:
         }
 
 
-def build_estimator(arch_def, cfg, recipe: TrainRecipe, kind: str):
+def build_estimator(arch_def, cfg, recipe: TrainRecipe, kind: str,
+                    rows=None):
     """Gradient estimator over the model loss: ``"vr"`` -> SVRG anchor
     (its full gradient optionally in microbatches over m_local, the mean
     of the chunk means as the reference's ``lax.map`` gives it),
-    ``"sgd"`` -> plain minibatch gradients."""
-    grad_fn = batched_grad(model_loss(arch_def, cfg))
+    ``"sgd"`` -> plain minibatch gradients.  ``rows``: an ``FsdpRows``
+    where each agent's rows are cut over the mesh's "data" axis (the
+    minibatch gathered, the gradients reduced over the axis)."""
+    if rows is not None:
+        grad_fn, batch_fn = rows.grad(split=True), rows.batch_grad
+        if kind != "vr":
+            return vr.PlainSgd(batch_grad=batch_fn, take=rows.take,
+                               row_shards=rows.size)
+    else:
+        grad_fn = batch_fn = batched_grad(model_loss(arch_def, cfg))
     if kind != "vr":
         return vr.PlainSgd(batch_grad=grad_fn)
     if recipe.anchor_microbatches > 1:
@@ -174,7 +195,83 @@ def build_estimator(arch_def, cfg, recipe: TrainRecipe, kind: str):
                             *grads)
     else:
         full_grad = grad_fn
+    if rows is not None:
+        return vr.SvrgAnchor(batch_grad=batch_fn, full_grad=full_grad,
+                             take=rows.take, row_shards=rows.size)
     return vr.SvrgAnchor(batch_grad=grad_fn, full_grad=full_grad)
+
+
+def data_grads(loss, params, batch, specs, size: int, split: bool):
+    """``(loss value, grads)`` of a rank's ``loss(params, batch)`` under
+    FSDP over the ambient mesh's "data" axis of ``size`` ranks
+    (``specs``: the flat ``ParamSpec`` list of ``params``).  ``split``:
+    the ranks' rows are disjoint equal shares of one batch, so the rank
+    differentiates its mean over ``size`` (its rows' part of the batch's
+    mean), a cut leaf's gradient is summed by its gather's
+    reduce-scatter and a leaf that "data" does not cut is summed here;
+    otherwise every rank runs the same rows and keeps its part of its
+    own gradient (``fsdp.same_rows``)."""
+    def scaled(p, b):
+        val = loss(p, b)
+        return val / size if split else val
+
+    with fsdp.same_rows(not split):
+        val, g = value_and_grad(scaled, params, batch)
+    if split:
+        leaves, rebuild = tree_flatten(g)
+        g = rebuild([gl if fsdp.cut_dim(gl, sp) is not None
+                     else fsdp.all_reduce(gl) for gl, sp in zip(leaves,
+                                                               specs)])
+    return val, g
+
+
+class FsdpRows:
+    """The gradients of an agent whose rows are cut over the mesh's
+    "data" axis (``train_data_pspec`` on the multi-pod mesh: the rank's
+    contiguous m/D of the agent's m_local) and whose parameters are its
+    FSDP(+TP) shard.
+
+    ``take`` gathers a minibatch drawn over the whole m_local
+    (``fsdp.take_rows``).  ``batch_grad`` splits the minibatch's b rows:
+    where "data" divides them each rank takes its contiguous share and
+    differentiates its rows' token sum over the whole batch's count (its
+    mean over D), the gathers' reduce-scatters and a sum over the axis of
+    each leaf that "data" does not cut giving every rank the batch's
+    gradient of its shard; where it does not (``sanitize_spec``'s rule),
+    every rank computes the whole batch and keeps its part of it
+    (``fsdp.same_rows``).  The anchor's full gradient runs on the rank's
+    own rows, split.  Every rank runs every forward, rows of its own or
+    not: the gathers are collectives."""
+
+    def __init__(self, arch_def, cfg, mesh):
+        self.mesh = mesh
+        self.size = axes_of(mesh).shape[fsdp.AXIS]
+        self.loss = model_loss(arch_def, cfg)
+        self.specs = tree_flatten(model_specs(arch_def, cfg),
+                                  is_leaf=is_spec)[0]
+
+    def take(self, data, idx):
+        with use_mesh(self.mesh):
+            return fsdp.take_rows(data, idx)
+
+    def grad(self, split: bool):
+        """``grad(params [A, ...], rows [A, b', ...])``: each agent's
+        gradient, its rows the rank's share (``split``) or the batch."""
+        def one(params, data):
+            with use_mesh(self.mesh):
+                return data_grads(self.loss, params, data, self.specs,
+                                  self.size, split)[1]
+
+        return batched_grad(self.loss, one)
+
+    def batch_grad(self, params, batch):
+        b = tree_flatten(batch)[0][0].shape[1]
+        if b % self.size:
+            return self.grad(split=False)(params, batch)
+        k = b // self.size
+        r = self.mesh.get_local_rank(fsdp.AXIS)
+        return self.grad(split=True)(params, tree_map(
+            lambda t: t[:, r * k:(r + 1) * k], batch))
 
 
 def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
@@ -215,7 +312,14 @@ def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
     graph, exchange = build_graph(recipe.topology, n_agents, axis=aaxis,
                                   mesh=mesh)
     entry = solver_entry(solver_spec)
-    est = build_estimator(arch_def, cfg, recipe, entry.estimator)
+    # the per-leaf LT-ADMM-CC round (packed=false) runs on the shards
+    sharded_leaves = (mesh is not None and entry.name == "ltadmm"
+                      and not compression.coerce_param(
+                          parse_solver_spec(solver_spec)[1].get("packed",
+                                                                True)))
+    fsdp_on = sharded_leaves and fsdp_training(arch_def, cfg, mesh)
+    est = build_estimator(arch_def, cfg, recipe, entry.estimator,
+                          FsdpRows(arch_def, cfg, mesh) if fsdp_on else None)
     solver = make_solver(solver_spec, graph, exchange, est,
                          defaults=recipe.solver_defaults(entry.name),
                          device=device)
@@ -225,10 +329,11 @@ def build_train(arch_def, cfg, n_agents: int | None, solver_spec: str,
             return solver.step(state, data, jaxrand.key(seed))
 
         return step_fn, solver.init, solver
-    if (entry.name == "ltadmm" and not solver.packed
-            and tensor_parallel(arch_def, cfg, mesh)):
+    tp_on = tensor_parallel(arch_def, cfg, mesh)
+    if sharded_leaves and (tp_on or fsdp_on):
         layouts = tuple(shd.shard_layouts(mesh, "admm",
-                                          model_specs(arch_def, cfg)))
+                                          model_specs(arch_def, cfg),
+                                          model=tp_on))
         c = solver.cfg
         solver = dataclasses.replace(
             solver, tp_layouts=layouts, cfg=dataclasses.replace(
@@ -275,37 +380,32 @@ def build_ddp_train(arch_def, cfg, lr=1e-3, mesh=None, eps=1e-8):
     loss)``; returns ``(step_fn, opt)``.  ``lr`` and ``eps`` are Adam's
     (the reference's ``optimizers.adam`` defaults).
 
-    With a ``mesh`` each rank takes its equal share of the batch; the
-    loss and the gradients are averaged over the "data" axis (an
-    ``all_reduce`` sum, then a division), so every rank applies the
-    update of the whole batch.  The return is then ``(step_fn, pspecs,
-    opt)``, ``pspecs`` the reference's TP + FSDP parameter specs (mode
-    "serve").  Where ``tensor_parallel`` holds, ``params`` (and Adam's
-    state) are the rank's shard over "model"
-    (``sharding.shard_params(tree, mesh, "serve", specs)``): the forward
-    and backward run tensor-parallel, each rank's gradients are its
-    shard's, averaged over "data".  Otherwise, and always over "data"
-    (FSDP, ROADMAP Queue 1), the parameters are whole on every rank."""
+    With a ``mesh`` each rank takes its equal share of the batch, and
+    every rank applies the update of the whole batch.  The return is then
+    ``(step_fn, pspecs, opt)``, ``pspecs`` the reference's TP + FSDP
+    parameter specs (mode "serve").  ``params`` (and Adam's state) are
+    the rank's shard, ``serve_shard(arch_def, cfg, tree, mesh)``: cut
+    over "model" where ``tensor_parallel`` holds (the forward and
+    backward run tensor-parallel) and over "data" (FSDP: the model
+    gathers its weights where it uses them).  Each rank differentiates
+    its rows' mean over the "data" size; a cut leaf's gradient reaches
+    the rank summed by its gather's reduce-scatter, a leaf that "data"
+    does not cut and the loss are summed over "data" (``data_grads``).
+    Whole parameters train as before (each leaf's cut is read from its
+    shape)."""
     loss = model_loss(arch_def, cfg)
     opt = optimizers.adam(lr, eps=eps)
-    group = None if mesh is None else mesh.get_group("data")
     world = 1 if mesh is None else axes_of(mesh).shape["data"]
-    ambient = (functools.partial(use_mesh, mesh)
-               if tensor_parallel(arch_def, cfg, mesh)
-               else contextlib.nullcontext)
-
-    def mean_over_data(t):
-        if group is not None:
-            torch.distributed.all_reduce(t, group=group)
-            t.div_(world)
-        return t
+    specs = tree_flatten(model_specs(arch_def, cfg), is_leaf=is_spec)[0]
+    ambient = (contextlib.nullcontext if mesh is None
+               else functools.partial(use_mesh, mesh))
 
     def step_fn(params, opt_state, batch, seed):
         del seed
         with ambient():
-            loss_val, grads = value_and_grad(loss, params, batch)
-        grads = tree_map(mean_over_data, grads)
-        loss_val = mean_over_data(loss_val)
+            loss_val, grads = data_grads(loss, params, batch, specs, world,
+                                         split=True)
+            loss_val = fsdp.all_reduce(loss_val)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optimizers.apply_updates(params, updates)
         return params, opt_state, loss_val
@@ -345,6 +445,56 @@ def tensor_parallel(arch_def, cfg, mesh) -> bool:
             and _tp_size(mesh) > 1)
 
 
+def _data_size(mesh) -> int:
+    return axes_of(mesh).shape.get(fsdp.AXIS, 1)
+
+
+def fsdp_training(arch_def, cfg, mesh) -> bool:
+    """Whether the per-leaf LT-ADMM-CC round runs FSDP over ``mesh``'s
+    "data" axis: the multi-pod mesh (the agents on "pod", each agent's
+    parameters and rows cut over its "data" ranks, as the reference's
+    rules give them), ``tp_serving``'s archs, an axis of more than one
+    rank.  The MoE, MLA and xLSTM archs train whole over "data" (ROADMAP
+    Queue 1: their aux loss is not a mean over rows)."""
+    return (mesh is not None and tp_serving(arch_def, cfg)
+            and agent_axis_for(mesh) == "pod" and _data_size(mesh) > 1)
+
+
+def _ambient(arch_def, cfg, mesh) -> bool:
+    """Whether serving runs under ``mesh`` (``use_mesh``): a decoder-only
+    model on a mesh whose "model" axis it runs tensor-parallel over or
+    whose "data" axis may cut its weights (FSDP)."""
+    return mesh is not None and arch_def.kind != "encdec" and (
+        tensor_parallel(arch_def, cfg, mesh) or _data_size(mesh) > 1)
+
+
+def serve_shard(arch_def, cfg, tree, mesh, mode: str = "serve"):
+    """The rank's shard of the whole weights ``tree`` for serving in
+    ``mode``: cut over "model" where ``tp_serving`` holds, and over
+    "data" where ``mode``'s rules put it (FSDP; mode "serve" does,
+    "serve_replicated" does not).  The encoder-decoder is held whole
+    (its FSDP is ROADMAP Queue 1's)."""
+    if arch_def.kind == "encdec":
+        return tree
+    return shd.shard_params(tree, mesh, mode, model_specs(arch_def, cfg),
+                            model=tp_serving(arch_def, cfg))
+
+
+def batch_rows(arch_def, cfg, mesh, n: int) -> tuple:
+    """The rank's ``[lo, hi)`` of a served batch of ``n`` rows: its
+    ``batch_pspec`` share over "data" where the axis divides ``n``, else
+    every row.  An arch with MoE blocks serves every row on each rank:
+    the experts' capacity, and so which tokens drop, is a function of the
+    whole batch (the reference's GSPMD routes the global batch), so
+    splitting the rows would change the outputs."""
+    spec = shd.batch_pspec(mesh, (n, 1))
+    if spec[0] is None or cfg.moe is not None:
+        return 0, n
+    k = n // _data_size(mesh)
+    r = mesh.get_local_rank(fsdp.AXIS)
+    return r * k, (r + 1) * k
+
+
 def build_prefill(arch_def, cfg, mesh=None):
     """``prefill(params, batch) -> logits [B, 1, vocab]`` of the last
     position.  ``batch`` holds ``tokens [B, T]`` or ``embeds [B, T, d]``;
@@ -354,12 +504,15 @@ def build_prefill(arch_def, cfg, mesh=None):
 
     With a ``mesh``, where ``tp_serving`` holds, ``prefill`` runs
     tensor-parallel over the mesh's "model" axis on the rank's shard of
-    the parameters (``sharding.shard_params(tree, mesh, mode, specs)``)
-    and gathers the last position's vocab columns; otherwise it runs
-    whole on the whole parameters, as without a mesh.  The reference's
-    builder takes ``mode`` and returns ``(prefill, param_pspec(mesh,
-    mode, specs))`` for its jit; here the caller's ``shard_params`` is
-    what applies ``mode``, and ``sharding.param_pspec`` gives the specs."""
+    the parameters (``serve_shard(arch_def, cfg, tree, mesh, mode)``)
+    and gathers the last position's vocab columns; a decoder-only model
+    on a mesh with a "data" axis runs FSDP, gathering its weights over
+    the axis where the shard cuts them (mode "serve"), on the rank's
+    batch rows (``batch_pspec``); otherwise it runs whole on the whole
+    parameters, as without a mesh.  The reference's builder takes
+    ``mode`` and returns ``(prefill, param_pspec(mesh, mode, specs))``
+    for its jit; here the caller's shard is what applies ``mode``, and
+    ``sharding.param_pspec`` gives the specs."""
     if arch_def.kind == "encdec":
         def prefill(params, batch):
             logits = encdec.forward(params, cfg, batch["src_embeds"],
@@ -371,8 +524,7 @@ def build_prefill(arch_def, cfg, mesh=None):
                                    embeds=batch.get("embeds"))
             return tr.gather_vocab(cfg, logits[:, -1:, :])
 
-    if (mesh is None or not tp_serving(arch_def, cfg)
-            or _tp_size(mesh) == 1):
+    if not _ambient(arch_def, cfg, mesh):
         return prefill
 
     def tp_prefill(params, batch):
@@ -420,7 +572,7 @@ def build_serve(arch_def, cfg, mesh=None):
     def init_cache(batch_size, max_len, device=None):
         return tr.init_cache(cfg, batch_size, max_len, device, tp_size)
 
-    if tp_size == 1:
+    if not _ambient(arch_def, cfg, mesh):
         return serve, init_cache
 
     def tp_serve(params, cache, batch):

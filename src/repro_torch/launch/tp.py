@@ -274,12 +274,14 @@ def all_reduce_exact(t):
     return _Reduce.apply(t, _group(), t.dtype, False)
 
 
-def all_reduce_max(t):
-    """The elementwise max of ``t`` over the axis (no gradient)."""
+def all_reduce_max(t, group=None):
+    """The elementwise max of ``t`` over the axis, or over ``group`` where
+    given (no gradient)."""
     out = t.detach().contiguous().clone()
     stats["all_reduce"] += 1
     stats["bytes"] += out.numel() * out.element_size()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group())
+    dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                    group=_group() if group is None else group)
     return out
 
 

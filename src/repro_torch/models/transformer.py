@@ -47,6 +47,17 @@ whole tree runs as before under any mesh.  The collectives carry their
 backward (``launch.tp``), so ``torch.autograd.grad`` of the loss gives
 each rank the gradient of its shard; a remat'd unit recomputes under the
 mesh it ran under.
+
+FSDP (``launch.fsdp``): where the rank holds its part of a parameter's
+"embed" dim over the mesh's "data" axis (``sharding.shard_params`` in
+mode "serve" or on the multi-pod mesh), the parameters are gathered at
+their point of use and freed after: a unit's inside ``_unit_forward``
+(so a remat'd unit gathers again in its backward and the whole unit is
+never kept), each leading dense layer's, the shared block's a call, and
+the embedding, ``final_norm`` and the head (or the tied table) once a
+forward or decode step (``_outer_gathered``: one gather and one
+reduce-scatter of the tied table).  The blocks see weights that are
+whole over "data".
 """
 from __future__ import annotations
 
@@ -59,7 +70,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
-from repro_torch.launch import tp
+from repro_torch.launch import fsdp, tp
 from repro_torch.launch.mesh import current_mesh, use_mesh
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -378,15 +389,54 @@ def _layers(params, name: str, n: int):
     return [_index(layers, u) for u in range(n)]
 
 
+@functools.lru_cache(maxsize=64)
+def _part_specs(cfg: ModelConfig) -> dict:
+    """The specs ``fsdp.gather_tree`` reads: a unit's, a leading dense
+    layer's, the shared block's, and the top-level leaves'."""
+    specs = model_specs(cfg)
+    return {"unit": {f"{i}_{kind}": block_specs(cfg, kind)
+                     for i, kind in enumerate(cfg.pattern)},
+            "first": (block_specs(cfg, cfg.first_kind)
+                      if cfg.first_dense else None),
+            **{k: v for k, v in specs.items() if k not in ("units", "first")}}
+
+
+def _gathered(cfg: ModelConfig, params, name: str, part=None):
+    """``params[name]`` (or ``part``, laid out as ``name``'s specs) with
+    its leaves cut over "data" gathered (``fsdp.gather_tree``); as it is
+    without an ambient "data" axis."""
+    node = params[name] if part is None else part
+    if node is None or fsdp.mesh() is None:
+        return node
+    return fsdp.gather_tree(node, _part_specs(cfg)[name])
+
+
+def _outer_gathered(cfg: ModelConfig, params):
+    """``params`` with the leaves outside the layers (the embedding, the
+    head and ``final_norm``) gathered over "data", once a forward or
+    decode step: a tied table serves the lookup and the logits from one
+    gather, and its gradient takes one reduce-scatter.  A gathered leaf
+    is whole, so a later ``_gathered`` of it gathers nothing."""
+    if fsdp.mesh() is None:
+        return params
+    out = {k: params[k] for k in params.keys()}
+    for k in ("embed", "unembed", "final_norm"):
+        if k in out:
+            out[k] = _gathered(cfg, params, k)
+    return out
+
+
 def _unit_forward(cfg: ModelConfig, unit_params, shared_params, x,
                   positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    unit_params = _gathered(cfg, None, "unit", unit_params)
     for i, kind in enumerate(cfg.pattern):
         x, a = block_forward(unit_params[f"{i}_{kind}"], cfg, kind, x,
                              positions)
         aux = aux + a
     if cfg.shared_attn:
-        x, a = block_forward(shared_params, cfg, "shared_attn", x, positions)
+        x, a = block_forward(_gathered(cfg, None, "shared", shared_params),
+                             cfg, "shared_attn", x, positions)
         aux = aux + a
     return x, aux
 
@@ -401,8 +451,8 @@ def _save_dots(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _under_mesh(mesh, fn, *args):
-    with use_mesh(mesh):
+def _under_mesh(mesh, rows, fn, *args):
+    with use_mesh(mesh), fsdp.same_rows(rows):
         return fn(*args)
 
 
@@ -414,9 +464,9 @@ def _remat(cfg: ModelConfig, fn):
         return fn
     mesh = current_mesh()
     if mesh is not None:
-        # the recomputation in backward re-enters the forward's mesh (the
-        # autograd engine may run it on another thread)
-        fn = functools.partial(_under_mesh, mesh, fn)
+        # the recomputation in backward re-enters the forward's mesh and
+        # FSDP rows mode (the autograd engine may run it on another thread)
+        fn = functools.partial(_under_mesh, mesh, fsdp.rows_shared(), fn)
     kw = {}
     policy = getattr(cfg, "remat_policy", "full")
     if policy == "dots":
@@ -427,22 +477,20 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
-def _vocab_sharded(params, cfg: ModelConfig) -> bool:
-    """Whether the tied table (or the head) is the rank's vocab shard."""
-    w = (params["embed"]["embedding"] if cfg.tie_embeddings
-         else params["unembed"]["w"])
-    return tp.sharded(w.shape[0 if cfg.tie_embeddings else -1], cfg.vocab)
-
-
 def _logits(params, cfg: ModelConfig, x):
     """The logits, or the rank's vocab columns of them where the table
     (or head) is the rank's vocab shard (``gather_vocab`` joins them;
-    ``softmax_xent`` takes them as they are), x entering the region."""
-    if _vocab_sharded(params, cfg):
+    ``softmax_xent`` takes them as they are), x entering the region.
+    The table (or head) is gathered over "data" here (FSDP) unless the
+    caller's ``_outer_gathered`` already did."""
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    head = _gathered(cfg, params, name)
+    w = head["embedding"] if cfg.tie_embeddings else head["w"]
+    if tp.sharded(w.shape[0 if cfg.tie_embeddings else -1], cfg.vocab):
         x = tp.enter(x)
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return unembed_head(params["unembed"], x)
+        return unembed(head, x)
+    return unembed_head(head, x)
 
 
 def gather_vocab(cfg: ModelConfig, logits):
@@ -460,8 +508,10 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     [B, T, d], aux_loss): aux is the f32 sum of the blocks' auxiliary
     losses (the MoE blocks' load balance; 0 without them).  On a rank's
     shard the logits are the rank's vocab columns (``gather_vocab``)."""
+    params = _outer_gathered(cfg, params)
     if embeds is None:
-        x = embed(params["embed"], tokens, cfg.vocab).to(cfg.dtype)
+        x = embed(_gathered(cfg, params, "embed"), tokens,
+                  cfg.vocab).to(cfg.dtype)
     else:
         x = embeds.to(cfg.dtype)
     if positions is None:
@@ -469,7 +519,8 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     # the leading dense layers run without remat, as the reference's do
     for layer_p in _layers(params, "first", cfg.first_dense):
-        x, aux = block_forward(layer_p, cfg, cfg.first_kind, x, positions)
+        x, aux = block_forward(_gathered(cfg, None, "first", layer_p), cfg,
+                               cfg.first_kind, x, positions)
         aux_total = aux_total + aux
     shared = params.get("shared")
     for unit_p in _layers(params, "units", cfg.n_units):
@@ -478,7 +529,7 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None,
         x, aux = body(x, positions)
         aux_total = aux_total + aux
     _, norm = make_norm(cfg.norm, cfg.d_model)
-    x = norm(params["final_norm"], x)
+    x = norm(_gathered(cfg, params, "final_norm"), x)
     if return_hidden:
         return x, aux_total
     return _logits(params, cfg, x), aux_total
@@ -490,6 +541,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
     On a rank's shard (tensor parallelism) the cross entropy runs over the
     rank's vocab columns, reduced over the "model" axis: the loss is the
     whole model's on every rank."""
+    params = _outer_gathered(cfg, params)
     if cfg.xent_chunks and cfg.tie_embeddings:
         if "embeds" in batch:
             x, aux = forward(params, cfg, embeds=batch["embeds"],
@@ -499,8 +551,9 @@ def loss_fn(params, cfg: ModelConfig, batch):
             x, aux = forward(params, cfg, tokens=batch["tokens"][:, :-1],
                              return_hidden=True)
             labels = batch["tokens"][:, 1:]
-        loss = softmax_xent_streamed(x, params["embed"]["embedding"], labels,
-                                     cfg.xent_chunks, cfg.vocab)
+        table = _gathered(cfg, params, "embed")["embedding"]
+        loss = softmax_xent_streamed(x, table, labels, cfg.xent_chunks,
+                                     cfg.vocab)
         return loss + aux
     if "embeds" in batch:
         logits, aux = forward(params, cfg, embeds=batch["embeds"])
@@ -542,15 +595,21 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
     (int) position.  Updates ``cache`` in place; returns (logits
     [B, 1, vocab], cache); on a rank's shard the rank's vocab columns
     (``gather_vocab``)."""
+    params = _outer_gathered(cfg, params)
     if embed_in is None:
-        x = embed(params["embed"], token[:, None], cfg.vocab).to(cfg.dtype)
+        x = embed(_gathered(cfg, params, "embed"), token[:, None],
+                  cfg.vocab).to(cfg.dtype)
     else:
         x = embed_in.to(cfg.dtype)
     for i, layer_p in enumerate(_layers(params, "first", cfg.first_dense)):
-        x, cache["first"][i] = block_decode(layer_p, cfg, cfg.first_kind,
-                                            cache["first"][i], x, pos)
+        x, cache["first"][i] = block_decode(
+            _gathered(cfg, None, "first", layer_p), cfg, cfg.first_kind,
+            cache["first"][i], x, pos)
     shared = params.get("shared")
+    if shared is not None:
+        shared = _gathered(cfg, params, "shared")
     for u, unit_p in enumerate(_layers(params, "units", cfg.n_units)):
+        unit_p = _gathered(cfg, None, "unit", unit_p)
         c = cache["units"][u]
         for i, kind in enumerate(cfg.pattern):
             key = f"{i}_{kind}"
@@ -559,4 +618,5 @@ def decode_step(params, cfg: ModelConfig, cache, token=None, embed_in=None,
             x, cache["shared"][u] = block_decode(
                 shared, cfg, "shared_attn", cache["shared"][u], x, pos)
     _, norm = make_norm(cfg.norm, cfg.d_model)
-    return _logits(params, cfg, norm(params["final_norm"], x)), cache
+    return _logits(params, cfg, norm(_gathered(cfg, params, "final_norm"),
+                                     x)), cache

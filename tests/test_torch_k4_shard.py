@@ -22,6 +22,14 @@
   ``all_reduce_max`` a tree (``tp.stats``) on the kernel route (its plain
   version here) and on the torch route, with the payloads of the
   per-leaf route.
+* The two-axis class (class 3: a shard cut on a "data" dim, one part,
+  and a "model" dim, by pieces, in either order; FSDP+TP) on all four
+  shards of a (2 data, 2 model) layout of a tree that mixes it with
+  leaves cut over one axis and leaves held whole: the grouped plain
+  version bit-equal to the per-leaf one and, put back at their places,
+  to the live reference's ``quantize_tensor`` of each whole leaf; the
+  plan's table walked as the kernel walks class 3 gives every element's
+  whole-leaf index.
 """
 import math
 import multiprocessing
@@ -158,7 +166,7 @@ def _walk(words, j, group):
     group whose place is stepped from j's."""
     sw = qops.SW
     e = {k: int(words[i]) & 0xFFFFFFFF for k, i in sw.items()
-         if k not in ("ls", "gs", "len")}
+         if k not in qops._PIECE_WORDS}
     pieces = [tuple(int(words[sw[k] + p]) for k in ("ls", "gs", "len"))
               for p in range(e["pieces"])]
 
@@ -166,8 +174,11 @@ def _walk(words, j, group):
         t = (n * m) >> 32
         return (t + ((n - t) >> (s & 0xFF))) >> (s >> 8)
 
-    def along(lv):
-        for ls, gs, ln in pieces:
+    pieces2 = [tuple(int(words[sw[k] + p]) for k in ("ls2", "gs2", "len2"))
+               for p in range(e["pieces2"])]
+
+    def along(lv, ps=pieces):
+        for ls, gs, ln in ps:
             if 0 <= lv - ls < ln:
                 return lv - ls + gs
         return lv
@@ -188,13 +199,31 @@ def _walk(words, j, group):
         return out
     lv = div(r, e["inner_m"], e["inner_s"])
     i = r - lv * e["inner"]
+    if e["cls"] == 2:
+        for _ in range(group):
+            out.append((outer * e["gdim"] + along(lv)) * e["inner"] + i)
+            i += 1
+            if i == e["inner"]:
+                i, lv = 0, lv + 1
+                if lv == e["ldim"]:
+                    lv, outer = 0, outer + 1
+        return out
+    # class 3: the outer index as (o, a, c), stepped with the rest
+    t = div(outer, e["mid_m"], e["mid_s"])
+    o = div(t, e["ldim2_m"], e["ldim2_s"])
+    a, c = t - o * e["ldim2"], outer - t * e["mid"]
     for _ in range(group):
-        out.append((outer * e["gdim"] + along(lv)) * e["inner"] + i)
+        go = (o * e["gdim2"] + along(a, pieces2)) * e["mid"] + c
+        out.append((go * e["gdim"] + along(lv)) * e["inner"] + i)
         i += 1
         if i == e["inner"]:
             i, lv = 0, lv + 1
             if lv == e["ldim"]:
-                lv, outer = 0, outer + 1
+                lv, c = 0, c + 1
+                if c == e["mid"]:
+                    c, a = 0, a + 1
+                    if a == e["ldim2"]:
+                        a, o = 0, o + 1
     return out
 
 
@@ -347,3 +376,175 @@ def test_one_all_reduce_a_tree_in_a_gloo_world(tree):
             assert tree_reduces == 1, key
             assert leaf_reduces == n_cut, key
             assert same, key
+
+
+# ---------------------------------------------------------------------------
+# The two-axis class: FSDP's "data" dim beside the "model" dim
+# ---------------------------------------------------------------------------
+
+DATA = 2  # the "data" axis of the two-axis layouts (beside RANKS "model")
+# (name, whole shape, LeafPlan with its data_dim): class 3 in both orders,
+# with dims before, between and after the cuts, zamba2's four-piece
+# in_proj under a data cut, and leaves cut over one axis or held whole
+TREE2 = (
+    ("embedding: model 0, data 1", (6, 10),
+     shd.LeafPlan(0, ((6, True),), data_dim=1)),
+    ("wq: data 0, model 1, inner", (4, 6, 3),
+     shd.LeafPlan(1, ((6, True),), data_dim=0)),
+    ("wo: model 0, mid, data 2", (4, 3, 10),
+     shd.LeafPlan(0, ((4, True),), data_dim=2)),
+    ("stacked wd: outer, model 1, data 2", (3, 8, 6),
+     shd.LeafPlan(1, ((8, True),), data_dim=2)),
+    ("in_proj: data 0, four pieces", (4, 2 * _DI + _GS + _NH),
+     shd.LeafPlan(1, ((_DI, True), (_DI, True), (_GS, False),
+                      (_NH, True)), data_dim=0)),
+    ("norm: data only", (10,), shd.LeafPlan(None, data_dim=0)),
+    ("wk: data 1 only", (3, 8, 5), shd.LeafPlan(None, data_dim=1)),
+    ("head norm, whole", (7,), shd.LeafPlan(None)),
+    ("wu: model only", (5, 12), shd.LeafPlan(1, ((12, True),))),
+)
+COORDS = [(d, r) for d in range(DATA) for r in range(RANKS)]
+
+
+def _layouts2(d, r):
+    return tuple(shd.leaf_layout(p, s, r, RANKS, d, DATA)
+                 for _, s, p in TREE2)
+
+
+@pytest.fixture(scope="module")
+def tree2():
+    rng = np.random.default_rng(SEED + 1)
+    whole = [rng.standard_normal((M,) + s).astype(np.float32)
+             for _, s, _ in TREE2]
+    whole[0][1, 5, 9] = 7.0  # a max at the last rank's last element
+    return whole
+
+
+def _keys2():
+    port = torch.stack([torch.stack([
+        jaxrand.fold_in(jaxrand.fold_in(jaxrand.key(SEED), i), m)
+        for i in range(len(TREE2))]) for m in range(M)])
+    ref = [[jax.random.fold_in(jax.random.fold_in(jax.random.key(SEED), i),
+                               m) for m in range(M)]
+           for i in range(len(TREE2))]
+    return port, ref
+
+
+def test_two_axis_layouts_take_class_3():
+    classes = {}
+    for d, r in COORDS:
+        for (name, _, _), lay in zip(TREE2, _layouts2(d, r)):
+            classes.setdefault(name, set()).add(qops.shard_entry(lay)["cls"])
+    for name, cls in classes.items():
+        if ": data 0, model" in name or "model 0, data" in name or (
+                "model 1, data" in name or "four pieces" in name):
+            assert cls == {3}, name
+    assert classes["norm: data only"] == {0}  # one run of the leaf
+    assert classes["wk: data 1 only"] == {1}
+    assert classes["head norm, whole"] == {0}
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+def test_two_axis_grouped_plain_is_the_whole_leaf_payload(tree2, bits):
+    keys, jkeys = _keys2()
+    per = {}
+    for c in COORDS:
+        lays = _layouts2(*c)
+        xs = _shards(tree2, lays)
+        per[c] = (lays, xs, qops.tree_absmax(xs, lays))
+    cut = qops.cut_rows(per[COORDS[0]][0], M)
+    assert all(qops.cut_rows(p[0], M) == cut for p in per.values())
+    # one max over the agent's whole (data x model) group
+    reduced = torch.stack([p[2][:cut] for p in per.values()]).amax(0)
+    got = {}
+    for c, (lays, xs, words) in per.items():
+        out = qops.quantize_tree(keys, xs, words, lays, bits=bits,
+                                 reduced=reduced)
+        order = qref.tree_order(lays)
+        for i, (x, lay) in enumerate(zip(xs, lays)):
+            p = order.index(i)
+            w = (reduced[p * M:(p + 1) * M] if lay.cut
+                 else words[p * M:(p + 1) * M])
+            one = lay if lay.cut else qref.ShardLayout(lay.shape)
+            q1, s1 = qref.quantize_shard_ref(keys[:, i], x, w, one,
+                                             bits=bits)
+            assert torch.equal(out[i][0], q1), TREE2[i][0]
+            assert torch.equal(out[i][1].view(torch.int32),
+                               s1.view(torch.int32)), TREE2[i][0]
+        got[c] = out
+    quantize = jax.jit(lambda k, x: jq.quantize_tensor(k, x, bits=bits,
+                                                       interpret=True))
+    for i, (name, shape, _) in enumerate(TREE2):
+        n = math.prod(shape)
+        for m in range(M):
+            levels = torch.full((n,), 99, dtype=torch.int32)
+            for c in COORDS:
+                q, _ = got[c][i]
+                lay = per[c][0][i]
+                nl = per[c][1][i].shape[-1]
+                lv = q[m] if bits == 8 else qref.unpack4(q[m], nl)
+                idx = lay.counters("cpu")
+                held = levels[idx] != 99
+                assert torch.equal(levels[idx][held],
+                                   lv.to(torch.int32)[held]), name
+                levels[idx] = lv.to(torch.int32)
+            x = np.pad(tree2[i][m].reshape(-1), (0, -n % qref.BLOCK))
+            want = quantize(jkeys[i][m], jnp.asarray(x))
+            wq = np.asarray(want["q"])
+            wl = (wq.astype(np.int32)[:n] if bits == 8 else
+                  qref.unpack4(torch.from_numpy(wq.view(np.uint8).copy()), n)
+                  .numpy())
+            np.testing.assert_array_equal(levels.numpy(), wl[:n],
+                                          err_msg=f"{name} message {m}")
+            for c in COORDS:
+                assert float(got[c][i][1][m]) == float(want["scale"]), name
+
+
+@pytest.mark.parametrize("coord", COORDS, ids=lambda c: f"data{c[0]}-model{c[1]}")
+def test_two_axis_plan_table_maps_every_element(coord):
+    lays = _layouts2(*coord)
+    plan = qops.ShardPlan(lays, M, torch.device("cpu"))
+    (launch,) = plan.launches
+    table = launch.table.reshape(len(lays), qops.SHARD_WORDS)
+    classes = set()
+    for row, i in zip(table.tolist(), launch.leaves):
+        lay = lays[i]
+        n = plan.n[i]
+        classes.add(plan.entries[i]["cls"])
+        want = (lay.counters("cpu") if lay.cut
+                else torch.arange(lay.numel)).tolist()
+        assert n == len(want), TREE2[i][0]
+        assert [_walk(row, j, 1)[0] for j in range(n)] == want, TREE2[i][0]
+        for g in (4, 8):
+            for j in range(0, n - g + 1):
+                assert _walk(row, j, g) == want[j:j + g], (TREE2[i][0], j)
+    assert 3 in classes
+
+
+def test_two_axis_layouts_of_every_arch_are_refused_or_mapped():
+    """Every arch's mode "admm" layouts on a multi-pod (2, 4, 4) stand-in
+    mesh (FSDP+TP): each cut leaf's entry validates, and a two-axis cut
+    takes class 3."""
+    from repro_torch.launch import steps
+
+    class Axis:
+        def __init__(self, d, r):
+            self.shape = {"pod": 2, "data": 4, "model": 4}
+            self.axis_names = ("pod", "data", "model")
+            self._c = {"data": d, "model": r}
+
+        def get_local_rank(self, axis):
+            return self._c[axis]
+
+    n3 = 0
+    for arch in ARCHS.values():
+        if not steps.tp_serving(arch, arch.make_smoke()):
+            continue
+        specs = steps.model_specs(arch, arch.make_smoke())
+        for d, r in ((0, 0), (3, 3)):
+            for lay in shd.shard_layouts(Axis(d, r), "admm", specs):
+                if lay.cut:
+                    e = qops.shard_entry(lay)
+                    n3 += e["cls"] == 3
+                    assert (e["cls"] == 3) == (lay.dim2 is not None)
+    assert n3

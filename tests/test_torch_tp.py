@@ -18,11 +18,12 @@ whole, and zamba2-smoke's 8 SSD heads split.
   off on the ranks): the all-reduces sum the row-parallel partials in
   another order than one product accumulates them.  Greedy tokens equal.
 * Each rank's parameter leaves equal, bit for bit, the slice that the
-  reference's own ``param_pspec`` gives the rank over "model" (its
-  "data" entries are not applied: FSDP is a later slice), except a
-  Mamba mixer's, which is cut by SSD head: in_proj's columns are the
-  rank's z, x and dt beside the whole B and C, the conv's the rank's x
-  channels beside B's and C's, A_log, D and dt_bias the rank's heads.
+  reference's own ``param_pspec`` gives the rank over "model" and
+  "data" (mode "serve" puts "data" on the embed dims: FSDP, applied on
+  the (2, 2) mesh), except a Mamba mixer's "model" cut, which is by SSD
+  head: in_proj's columns are the rank's z, x and dt beside the whole B
+  and C, the conv's the rank's x channels beside B's and C's, A_log, D
+  and dt_bias the rank's heads.
 * Each rank's KV caches are the whole cache with the dims that
   ``cache_pspec`` gives "model" cut (the KV heads where the axis divides
   them); a Mamba cache holds the rank's heads (``h [B, nh / tp, ds,
@@ -177,8 +178,11 @@ def test_tp_shards_are_the_reference_spec_slices(ranks, arch, model):
     pspecs = _flat(jshd.param_pspec(_stand_in(model), "serve",
                                     jtr.model_specs(cfg)))
     mamba_split = cfg.ssm is not None and cfg.ssm.n_heads % model == 0
+    data = WORLD // model
     n_cut = 0
     for r, res in _rank_results(ranks, arch, model):
+        rd = [x[model]["coords"][0] for x in ranks
+              if x[model][arch] is res][0]
         assert set(res["params"]) == set(whole)
         for name, got in res["params"].items():
             w = whole[name]
@@ -190,6 +194,11 @@ def test_tp_shards_are_the_reference_spec_slices(ranks, arch, model):
                     if entry == "model":
                         k = w.shape[d] // model
                         want = np.take(w, range(r * k, (r + 1) * k), axis=d)
+            for d, entry in enumerate(pspecs[name]):
+                if entry == "data":
+                    k = w.shape[d] // data
+                    want = np.take(want, range(rd * k, (rd + 1) * k),
+                                   axis=d)
             n_cut += got.shape != w.shape
             assert got.dtype == w.dtype and got.shape == want.shape, name
             np.testing.assert_array_equal(got, want, err_msg=name)

@@ -51,7 +51,8 @@ runs here overlap the world.
 * (e) RandK on a leaf cut over "model" raises ``NotImplementedError``
   (on the ranks and here for TopK).
 * The dry-run's train record with ``"solver": "ltadmm:packed=false"``
-  applies the TP plan (``tp_applied`` true, the shards in ``sharded``).
+  applies the TP plan (``tp_applied`` true, ``fsdp_applied`` false on the
+  single pod, the shards in ``sharded``).
 """
 import concurrent.futures
 import functools
@@ -385,7 +386,7 @@ def test_tp_ddp_step_matches_one_rank_step(ranks, arch, model):
 def test_randk_on_a_cut_leaf_raises(ranks, model):
     for r in ranks:
         assert "ROADMAP item 15" in r[model]["randk"]
-    lay = qref.ShardLayout((4, 8), 1, ((0, 2, 2, True),))
+    lay = qref.ShardLayout((4, 8), 1, ((0, 2, 2, True),), axes=("model",))
     leaf = compression.ShardLeaf(compression.TopK(fraction=0.5), lay)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         leaf.compress(jaxrand.key(0)[None], torch.zeros(1, 8))
@@ -413,7 +414,7 @@ def test_dryrun_train_applies_the_tp_plan_per_leaf(ranks):
     """qwen3-0.6b's train_4k cut to one layer on the 16 x 16 mesh (the
     packed round's record, false, is ``tests/test_torch_tp_dryrun.py``'s)."""
     rec = _dryrun_tp()
-    assert rec["tp_applied"]
+    assert rec["tp_applied"] and not rec["fsdp_applied"]
     assert rec["sharded"]["params.units.0_attn.attn.wq"] == [[2, ["model"]]]
     assert rec["sharded"]["params.embed.embedding"] == [[0, ["model"]]]
     # K4's two passes and K5 on the shards
